@@ -1,0 +1,35 @@
+"""Carry the reference's host structures across as the port's device views.
+
+The reference and the port build the same graph and UBODT bytes (the
+tests assert it); these helpers take those bytes as numpy arrays, however
+they were built, and wrap them in the port's ``DeviceGraph`` and
+``DeviceUBODT`` on the CPU (``to_device`` moves them to the card).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .tiles.arrays import DeviceGraph
+from .tiles.ubodt import BUCKET, ROW_W, DeviceUBODT
+
+
+def graph_from_numpy(edge_rows, cell_rows, grid_origin, grid_dims,
+                     cell_size) -> DeviceGraph:
+    """``edge_rows`` [E, 8] f32, ``cell_rows`` [n_cells, 8*cap] f32,
+    ``grid_origin`` (x0, y0), ``grid_dims`` (nx, ny), ``cell_size``."""
+    x0, y0 = (float(v) for v in np.asarray(grid_origin, np.float32))
+    nx, ny = (int(v) for v in np.asarray(grid_dims))
+    return DeviceGraph(
+        torch.from_numpy(np.ascontiguousarray(edge_rows, np.float32)),
+        torch.from_numpy(np.ascontiguousarray(cell_rows, np.float32)),
+        x0, y0, nx, ny, float(np.float32(cell_size)))
+
+
+def ubodt_from_numpy(packed, bmask) -> DeviceUBODT:
+    """``packed`` cuckoo table ([n_buckets, 128] or [n_buckets, 16, 8]
+    int32) and its bucket mask."""
+    packed = np.ascontiguousarray(packed, np.int32)
+    return DeviceUBODT(
+        torch.from_numpy(packed.reshape(-1, BUCKET * ROW_W)), int(bmask))

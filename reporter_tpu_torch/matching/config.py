@@ -1,0 +1,67 @@
+"""Matcher configuration: the dense-model fields of the reference's
+MatcherConfig.
+
+Honours the tunables the reference bakes into its meili config: sigma_z,
+beta, search_radius, breakage_distance, max_route_distance_factor,
+max_route_time_factor, turn_penalty_factor.  Adds the device shape knobs
+(beam width K, UBODT delta, length buckets, device-batch caps).  Keys of
+the reference's config that belong to paths this port does not carry yet
+(sparse model, sessions, tiering, meshes) are ignored by ``from_dict``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import List
+
+
+@dataclass
+class MatcherConfig:
+    # HMM parameters (reference defaults)
+    sigma_z: float = 4.07
+    beta: float = 3.0
+    search_radius: float = 50.0
+    breakage_distance: float = 2000.0
+    max_route_distance_factor: float = 5.0
+    max_route_time_factor: float = 2.0
+    turn_penalty_factor: float = 0.0
+    # distance (m) from a segment's end within which trace speeds below
+    # queue_speed_threshold_kph count as queueing
+    queue_speed_threshold_kph: float = 20.0
+    # device shape knobs
+    beam_k: int = 8
+    ubodt_delta: float = 3000.0
+    # per-trace confidence diagnostics: match results carry a "_quality"
+    # block (per-point edges, winner-vs-runner-up margins, pool
+    # exhaustion) that the service pops before rendering; the serve
+    # entrypoint turns it on unless $REPORTER_QUALITY_AUX=0
+    quality_aux: bool = False
+    # padded trace-length buckets for batched matching; longer traces need
+    # the long-trace carry chain, which this port does not carry yet
+    length_buckets: List[int] = field(default_factory=lambda: [16, 32, 64, 128, 256])
+    # device-batch caps: the program materialises [B, T, K, K] transition
+    # arrays, so the binding bound is on points (B*T), with a row cap on top
+    max_device_batch: int = 2048
+    max_device_points: int = 2048 * 64
+    # report() business-logic default
+    threshold_sec: int = 15
+    mode: str = "auto"
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "MatcherConfig":
+        known = set(cls.__dataclass_fields__)
+        return cls(**{k: v for k, v in d.items() if k in known})
+
+    @classmethod
+    def from_meili(cls, meili: dict) -> "MatcherConfig":
+        """Accept a valhalla-style config json ({'meili': {'default': {...}}})."""
+        d = meili.get("meili", meili).get("default", meili.get("default", meili))
+        c = cls()
+        for key in (
+            "sigma_z", "beta", "search_radius", "breakage_distance",
+            "max_route_distance_factor", "max_route_time_factor",
+            "turn_penalty_factor",
+        ):
+            if key in d:
+                setattr(c, key, type(getattr(c, key))(d[key]))
+        return c

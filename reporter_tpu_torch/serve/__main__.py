@@ -1,0 +1,70 @@
+"""CLI: python -m reporter_tpu_torch.serve [--device cuda|cpu] <config.json> [host:port]
+
+Serves /report and /health from the PyTorch/CUDA port.  The config has the
+shape of the reference service's (deploy/config.service.json): "network"
+(grid or file), "matcher" (MatcherConfig fields or meili keys) and "batch"
+(max_batch, max_wait_ms).  The device defaults to cuda and the command
+fails when CUDA is absent unless --device cpu is given.
+
+Not in this slice of the port: the sparse-gap model (the reference's
+serve entrypoint turns it on; here every trace runs the dense model) and
+traces longer than the largest length bucket (answered 422).
+Per-trace confidence diagnostics are on, as in the reference's serve
+entrypoint ($REPORTER_QUALITY_AUX=0 turns them off).
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import sys
+
+from .service import ReporterService, build_matcher, parse_service_config
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="python -m reporter_tpu_torch.serve",
+        description="Serve /report from the PyTorch/CUDA port.  Not in this "
+        "slice: the sparse-gap model (every trace runs the dense model) and "
+        "traces longer than the largest length bucket (answered 422).")
+    ap.add_argument("config", help="service config JSON (network, matcher, batch)")
+    ap.add_argument("address", nargs="?", default=None,
+                    help="host:port (default $MATCHER_BIND_ADDR:$MATCHER_LISTEN_PORT "
+                         "or 0.0.0.0:8002)")
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+    logging.basicConfig(level=os.environ.get("REPORTER_LOG_LEVEL", "INFO"))
+    try:
+        cfg, conf = parse_service_config(args.config)
+    except Exception as e:  # noqa: BLE001 - reported, exit 1
+        sys.stderr.write("Problem with config file: %s\n" % (e,))
+        return 1
+    if os.environ.get("REPORTER_QUALITY_AUX", "").strip().lower() not in (
+            "0", "false", "off", "no"):
+        cfg.quality_aux = True
+    if args.address:
+        host, _, port = args.address.rpartition(":")
+        host = host or "0.0.0.0"
+    else:
+        host = os.environ.get("MATCHER_BIND_ADDR", "0.0.0.0")
+        port = os.environ.get("MATCHER_LISTEN_PORT", "8002")
+    matcher = build_matcher(cfg, conf, device=args.device)
+    batch = conf.get("batch", {})
+    service = ReporterService(matcher, max_batch=int(batch.get("max_batch", 64)),
+                              max_wait_ms=float(batch.get("max_wait_ms", 10.0)))
+    server = service.make_server(host, int(port))
+    logging.info("serving /report on %s:%s (device %s)", host, port, matcher.device)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.server_close()
+        service.close()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

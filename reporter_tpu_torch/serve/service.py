@@ -1,0 +1,336 @@
+"""HTTP matching service (lean first slice).
+
+Wire-compatible with the reference's reporter service on its main route:
+
+  GET  /report?json={...}   and   POST /report
+      -> {"datastore": ..., "segment_matcher": ..., "shape_used": ...,
+          "stats": ...}
+      with the same validation errors (uuid required, >= 2 points,
+      report_levels / transition_levels required).
+  GET  /health -> {"status": "ok", ...}
+
+A single shared matcher owns the device, and a MicroBatcher aggregates
+concurrent requests into padded [B, T] batches for one device program.
+Traces longer than the matcher's largest length bucket are answered 422:
+the long-trace carry chain is a later slice of the port.  Fault domains,
+SLO accounting, quality sampling, sessions, the binary wire and the router
+are not part of this slice.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import queue
+import threading
+import time as _time
+from concurrent.futures import Future
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Optional, Set, Tuple
+from urllib.parse import parse_qs, urlsplit
+
+from ..matching import LongTraceNotSupported, SegmentMatcher
+from ..report import report as report_fn
+
+log = logging.getLogger(__name__)
+
+ACTIONS = {"report", "health"}
+# dispatched batches allowed to wait for the finisher: bounds the
+# device-pinned inputs and outputs of batches not yet associated
+MAX_INFLIGHT = 2
+
+
+class MicroBatcher:
+    """Aggregates traces from concurrent requests into one device batch.
+
+    Traces are enqueued with a Future; a dispatch thread drains the queue,
+    waits up to ``max_wait_ms`` to fill ``max_batch`` slots and queues the
+    device work (``matcher.match_many_async``); a finisher thread blocks on
+    the device, runs host association and resolves the futures, so
+    association of batch N overlaps device work of batch N+1.  The hand-off
+    queue is bounded (MAX_INFLIGHT) to bound device-pinned memory.
+    """
+
+    def __init__(self, matcher: SegmentMatcher, max_batch: int = 64,
+                 max_wait_ms: float = 10.0):
+        self.matcher = matcher
+        self.max_batch = max(1, int(max_batch))
+        self.max_wait = max_wait_ms / 1000.0
+        self._q: "queue.Queue" = queue.Queue()
+        self._finish_q: "queue.Queue" = queue.Queue(maxsize=MAX_INFLIGHT)
+        self._closed = threading.Event()
+        self._thread = threading.Thread(target=self._worker, daemon=True,
+                                        name="batch-dispatch")
+        self._finisher = threading.Thread(target=self._finish_worker,
+                                          daemon=True, name="batch-finish")
+        self._thread.start()
+        self._finisher.start()
+
+    def submit(self, trace: dict) -> Future:
+        if self._closed.is_set():
+            raise RuntimeError("batcher closed")
+        f: Future = Future()
+        self._q.put((trace, f))
+        return f
+
+    def match(self, trace: dict) -> dict:
+        return self.submit(trace).result()
+
+    def close(self, timeout: float = 5.0) -> None:
+        """Stop both threads after the work already queued."""
+        self._closed.set()
+        self._q.put(None)
+        self._thread.join(timeout)
+        self._finisher.join(timeout)
+
+    @staticmethod
+    def _fail(batch, e: BaseException) -> None:
+        for _t, f in batch:
+            if not f.done():
+                f.set_exception(e)
+
+    def _worker(self):
+        while True:
+            entry = self._q.get()
+            if entry is None:
+                self._finish_q.put(None)
+                return
+            batch = [entry]
+            deadline = _time.monotonic() + self.max_wait
+            stop = False
+            while len(batch) < self.max_batch:
+                remaining = deadline - _time.monotonic()
+                if remaining <= 0:
+                    break
+                try:
+                    nxt = self._q.get(timeout=remaining)
+                except queue.Empty:
+                    break
+                if nxt is None:
+                    stop = True
+                    break
+                batch.append(nxt)
+            try:
+                finish = self.matcher.match_many_async([t for t, _f in batch])
+            except Exception as e:  # noqa: BLE001 - answered per request
+                log.exception("batch dispatch failed")
+                self._fail(batch, e)
+            else:
+                self._finish_q.put((batch, finish))
+            if stop:
+                self._finish_q.put(None)
+                return
+
+    def _finish_worker(self):
+        while True:
+            item = self._finish_q.get()
+            if item is None:
+                return
+            batch, finish = item
+            try:
+                results = finish()
+            except Exception as e:  # noqa: BLE001 - answered per request
+                log.exception("batch match failed")
+                self._fail(batch, e)
+                continue
+            for (_t, f), r in zip(batch, results):
+                f.set_result(r)
+
+
+class ReporterService:
+    """Owns the matcher and the batcher and implements /report."""
+
+    def __init__(self, matcher: SegmentMatcher, threshold_sec: Optional[int] = None,
+                 max_batch: int = 64, max_wait_ms: float = 10.0):
+        if threshold_sec is None:
+            threshold_sec = int(os.environ.get("THRESHOLD_SEC",
+                                               matcher.cfg.threshold_sec))
+        self.threshold_sec = int(threshold_sec)
+        self.matcher = matcher
+        self.batcher = MicroBatcher(matcher, max_batch=max_batch,
+                                    max_wait_ms=max_wait_ms)
+        self._t_boot = _time.time()
+
+    def close(self) -> None:
+        self.batcher.close()
+
+    @staticmethod
+    def validate(trace: dict) -> Tuple[Optional[str], Optional[Set], Optional[Set]]:
+        """Returns (error, report_levels, transition_levels)."""
+        if trace.get("uuid") is None:
+            return "uuid is required", None, None
+        try:
+            trace["trace"][1]
+        except Exception:  # noqa: BLE001 - any malformed shape is a 400
+            return (
+                "trace must be a non zero length array of object each of which must "
+                "have at least lat, lon and time"
+            ), None, None
+        try:
+            rl = set(trace["match_options"]["report_levels"])
+        except Exception:  # noqa: BLE001
+            return "match_options must include report_levels array", None, None
+        try:
+            tl = set(trace["match_options"]["transition_levels"])
+        except Exception:  # noqa: BLE001
+            return "match_options must include transition_levels array", None, None
+        mo = trace["match_options"]
+        if isinstance(mo, dict):
+            for key in ("sigma_z", "beta", "search_radius", "gps_accuracy"):
+                if key not in mo:
+                    continue
+                try:
+                    v = float(mo[key])
+                except (TypeError, ValueError):
+                    v = float("nan")
+                if not (v > 0 and v == v and v != float("inf")):
+                    return ("match_options.%s must be a positive finite "
+                            "number" % key), None, None
+            sm = mo.get("shape_match")
+            if sm is not None and sm != "map_snap":
+                return ("match_options.shape_match %r is not supported "
+                        "(this matcher map-snaps; use \"map_snap\" or omit "
+                        "the key)" % (sm,)), None, None
+        return None, rl, tl
+
+    def handle_report(self, trace: dict) -> Tuple[int, dict]:
+        err, rl, tl = self.validate(trace)
+        if err:
+            return 400, {"error": err}
+        try:
+            self.matcher.check_supported(trace)
+        except LongTraceNotSupported as e:
+            return 422, {"error": str(e)}
+        try:
+            match = self.batcher.match(trace)
+        except Exception as e:  # noqa: BLE001 - the request gets the error
+            log.exception("match failed")
+            return 500, {"error": str(e)}
+        match.pop("_quality", None)  # diagnostics never reach the wire
+        data = report_fn(match, trace, self.threshold_sec, rl, tl,
+                         mode=(trace.get("match_options") or {}).get("mode", "auto"))
+        return 200, data
+
+    def handle_health(self) -> Tuple[int, dict]:
+        m = self.matcher
+        return 200, {
+            "status": "ok",
+            "device": str(m.device),
+            "max_trace_points": m.max_trace_points,
+            "uptime_s": round(_time.time() - self._t_boot, 1),
+        }
+
+    def make_server(self, host: str = "0.0.0.0", port: int = 8002) -> ThreadingHTTPServer:
+        service = self
+
+        class Handler(BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+            timeout = 30  # idle keep-alive connections time out
+
+            def _answer(self, code: int, payload: dict):
+                body = json.dumps(payload, separators=(",", ":")).encode("utf-8")
+                self.send_response(code)
+                self.send_header("Access-Control-Allow-Origin", "*")
+                self.send_header("Content-Type", "application/json;charset=utf-8")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def _route(self, post: bool):
+                n = 0
+                if post:
+                    try:
+                        n = int(self.headers.get("Content-Length", "0"))
+                    except ValueError:
+                        n = -1
+                    if n < 0:  # body extent unknown: answer, then close
+                        self.close_connection = True
+                        return self._answer(400, {"error": "invalid Content-Length"})
+                try:
+                    raw = self.rfile.read(n) if n else b""
+                    split = urlsplit(self.path)
+                    action = split.path.split("/")[-1]
+                    query = parse_qs(split.query)
+                    if action not in ACTIONS:
+                        return self._answer(
+                            400, {"error": "Try a valid action: %s" % sorted(ACTIONS)})
+                    if action == "health":
+                        return self._answer(*service.handle_health())
+                    if post:
+                        payload = json.loads(raw.decode("utf-8"))
+                    else:
+                        if "json" not in query:
+                            return self._answer(400, {"error": "No json provided"})
+                        payload = json.loads(query["json"][0])
+                except OSError as e:
+                    self.close_connection = True
+                    try:
+                        return self._answer(400, {"error": str(e)})
+                    except OSError:
+                        return None
+                except Exception as e:  # noqa: BLE001 - parse errors are 400s
+                    return self._answer(400, {"error": str(e)})
+                if not isinstance(payload, dict):
+                    return self._answer(400, {"error": "request body must be a json object"})
+                try:
+                    code, out = service.handle_report(payload)
+                except Exception as e:  # noqa: BLE001 - never drop the socket
+                    log.exception("unhandled request error")
+                    code, out = 500, {"error": str(e)}
+                self._answer(code, out)
+
+            def do_GET(self):
+                self._route(post=False)
+
+            def do_POST(self):
+                self._route(post=True)
+
+            def log_message(self, fmt, *args):
+                log.debug("http: " + fmt, *args)
+
+        class Server(ThreadingHTTPServer):
+            request_queue_size = 128
+            daemon_threads = True
+
+        return Server((host, port), Handler)
+
+
+def parse_service_config(path: str):
+    """(MatcherConfig, conf dict) from a service config JSON of the
+    reference's shape: {"network": {...}, "matcher": {...}, "batch": {...}}.
+    Network types: "grid" (rows, cols, spacing_m, origin) and "file" (a
+    RoadNetwork JSON); the native tile codec ("tiles") is not ported yet."""
+    from ..matching import MatcherConfig
+
+    with open(path) as f:
+        conf = json.load(f)
+    mconf = conf.get("matcher", {})
+    if "meili" in mconf or "default" in mconf:
+        cfg = MatcherConfig.from_meili(mconf)
+    else:
+        cfg = MatcherConfig.from_dict(mconf)
+    kind = conf.get("network", {"type": "grid"}).get("type", "grid")
+    if kind not in ("grid", "file"):
+        raise ValueError("network type %r is not supported by this port "
+                         "(grid or file)" % (kind,))
+    return cfg, conf
+
+
+def build_matcher(cfg, conf: dict, device="cuda") -> SegmentMatcher:
+    """Load or build the network, build the UBODT and move both to
+    ``device``."""
+    from ..tiles.network import RoadNetwork, grid_city
+
+    netspec = conf.get("network", {"type": "grid"})
+    if netspec.get("type", "grid") == "grid":
+        net = grid_city(
+            rows=netspec.get("rows", 8),
+            cols=netspec.get("cols", 8),
+            spacing_m=netspec.get("spacing_m", 200.0),
+            origin=tuple(netspec.get("origin", (37.75, -122.45))),
+        )
+    else:
+        with open(netspec["path"]) as f:
+            net = RoadNetwork.from_dict(json.load(f))
+    return SegmentMatcher(network=net, config=cfg, device=device)

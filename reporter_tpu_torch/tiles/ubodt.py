@@ -1,0 +1,325 @@
+"""UBODT: upper-bounded origin-destination table of route distances.
+
+A copy of the reference's cuckoo-layout table.  A bounded-radius Dijkstra
+from every node yields all node pairs within ``delta`` metres; the rows go
+into a 2-choice bucketed cuckoo hash table, ``packed[n_buckets, BUCKET,
+ROW_W]`` int32, one entry = (src, dst, dist-bits, time-bits, first_edge,
+0, 0, 0), BUCKET=16 entries per bucket, so a bucket is one 512-byte row
+and a probe reads exactly two rows (ops/hashtable.py).
+
+The native packer (rn_cuckoo_pack) and the Python loop below produce
+bit-identical tables; both are bit-identical to the reference's builders.
+The wide32 layout, tiering and sharding are not part of this port yet.
+"""
+
+from __future__ import annotations
+
+import heapq
+import logging
+from dataclasses import dataclass
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+
+log = logging.getLogger(__name__)
+
+# uint32 multiplicative mixing constants; two independent mixes give the
+# two cuckoo bucket choices
+_H1A = np.uint32(0x9E3779B1)
+_H1B = np.uint32(0x85EBCA6B)
+_H2A = np.uint32(0x85EBCA77)
+_H2B = np.uint32(0xC2B2AE3D)
+
+EMPTY = -1
+BUCKET = 16  # entries per bucket: 16 x ROW_W = one 128-lane int32 row
+ROW_W = 8  # int32 lanes per entry
+F_SRC, F_DST, F_DIST, F_TIME, F_FE = 0, 1, 2, 3, 4
+LOAD_TARGET = 0.75
+MAX_KICKS = 500
+
+
+def pair_hash(src, dst, mask):
+    """Bucket choice 1 (numpy uint32 arithmetic)."""
+    s = src.astype(np.uint32) if hasattr(src, "astype") else np.uint32(src)
+    d = dst.astype(np.uint32) if hasattr(dst, "astype") else np.uint32(dst)
+    with np.errstate(over="ignore"):
+        h = s * _H1A + d * _H1B
+        h ^= h >> np.uint32(15)
+        h = h * np.uint32(0x2C1B3C6D)
+        h ^= h >> np.uint32(12)
+    return (h & np.uint32(mask)).astype(np.int64) if hasattr(h, "astype") else int(h) & mask
+
+
+def pair_hash2(src, dst, mask):
+    """Bucket choice 2 (independent mix constants)."""
+    s = src.astype(np.uint32) if hasattr(src, "astype") else np.uint32(src)
+    d = dst.astype(np.uint32) if hasattr(dst, "astype") else np.uint32(dst)
+    with np.errstate(over="ignore"):
+        h = s * _H2A + d * _H2B
+        h ^= h >> np.uint32(13)
+        h = h * np.uint32(0x27D4EB2F)
+        h ^= h >> np.uint32(16)
+    return (h & np.uint32(mask)).astype(np.int64) if hasattr(h, "astype") else int(h) & mask
+
+
+class DeviceUBODT:
+    """The table as the probe kernel reads it: ``packed`` [n_buckets, 128]
+    int32 (one bucket per row) and the bucket mask."""
+
+    def __init__(self, packed: torch.Tensor, bmask: int):
+        if packed.dtype != torch.int32 or packed.dim() != 2 \
+                or packed.shape[1] != BUCKET * ROW_W:
+            raise ValueError("packed must be [n_buckets, %d] int32"
+                             % (BUCKET * ROW_W,))
+        if packed.shape[0] != int(bmask) + 1:
+            raise ValueError("packed has %d buckets, bmask %d"
+                             % (packed.shape[0], bmask))
+        self.packed = packed.contiguous()
+        self.bmask = int(bmask)
+
+    def to_device(self, device="cuda") -> "DeviceUBODT":
+        return DeviceUBODT(self.packed.to(resolve_device(device)), self.bmask)
+
+
+@dataclass
+class UBODT:
+    delta: float
+    packed: np.ndarray  # [n_buckets, BUCKET, ROW_W] int32
+    bmask: int  # n_buckets - 1
+    num_rows: int
+    max_kicks: int  # longest displacement chain
+    # the graph's edge_to, attached after construction (path reconstruction)
+    _edge_to: Optional[np.ndarray] = None
+
+    bucket_entries = BUCKET
+
+    @property
+    def n_buckets(self) -> int:
+        return self.bmask + 1
+
+    def attach_graph(self, edge_to: np.ndarray) -> "UBODT":
+        self._edge_to = edge_to
+        return self
+
+    def _find(self, src: int, dst: int) -> int:
+        """Flat entry index of the (src, dst) row, or -1."""
+        for h in (int(pair_hash(np.int64(src), np.int64(dst), self.bmask)),
+                  int(pair_hash2(np.int64(src), np.int64(dst), self.bmask))):
+            for s in range(BUCKET):
+                e = self.packed[h, s]
+                if e[F_SRC] == src and e[F_DST] == dst:
+                    return h * BUCKET + s
+        return -1
+
+    def lookup(self, src: int, dst: int) -> Tuple[float, int]:
+        """Host-side probe: (dist, first_edge), or (inf, -1) on a miss."""
+        i = self._find(src, dst)
+        if i < 0:
+            return float("inf"), -1
+        e = self.packed.reshape(-1, ROW_W)[i]
+        return float(np.int32(e[F_DIST]).view(np.float32)), int(e[F_FE])
+
+    def path_edges(self, src: int, dst: int) -> Optional[List[int]]:
+        """Edge sequence of the shortest path src -> dst by chaining
+        first-edge hops; None if unreachable within delta."""
+        if src == dst:
+            return []
+        edges: List[int] = []
+        node = src
+        for _ in range(self.num_rows + 1):  # bounded against corruption
+            _dist, fe = self.lookup(node, dst)
+            if fe < 0:
+                return None
+            edges.append(fe)
+            node = int(self._edge_to[fe]) if self._edge_to is not None else None
+            if node is None:
+                return None
+            if node == dst:
+                return edges
+        return None
+
+    def device_ubodt(self) -> DeviceUBODT:
+        """The probe kernel's view of this table, on the CPU (``to_device``
+        moves it)."""
+        return DeviceUBODT(
+            torch.from_numpy(self.packed.reshape(self.n_buckets, BUCKET * ROW_W)),
+            self.bmask)
+
+    def to_device(self, device="cuda") -> DeviceUBODT:
+        return self.device_ubodt().to_device(device)
+
+
+def _bounded_dijkstra(src, delta, out_start, out_edges, edge_to, edge_len,
+                      edge_speed) -> List[Tuple[int, float, float, int]]:
+    """All (dst, dist, time, first_edge) with dist <= delta from src,
+    shortest by distance; includes the trivial (src, 0, 0, -1) row."""
+    dist = {src: 0.0}
+    tim = {src: 0.0}
+    first = {src: -1}
+    heap = [(0.0, src)]
+    out: List[Tuple[int, float, float, int]] = []
+    done = set()
+    while heap:
+        d, n = heapq.heappop(heap)
+        if n in done:
+            continue
+        done.add(n)
+        out.append((n, d, tim[n], first[n]))
+        for k in range(out_start[n], out_start[n + 1]):
+            e = int(out_edges[k])
+            m = int(edge_to[e])
+            nd = d + float(edge_len[e])
+            if nd <= delta and nd < dist.get(m, float("inf")):
+                dist[m] = nd
+                tim[m] = tim[n] + float(edge_len[e]) / max(float(edge_speed[e]), 0.1)
+                first[m] = e if n == src else first[n]
+                heapq.heappush(heap, (nd, m))
+    return out
+
+
+def build_ubodt(arrays, delta: float = 3000.0,
+                load_factor: Optional[float] = None, num_threads: int = 0,
+                use_native: bool = True, lib=None) -> UBODT:
+    """Build the table from GraphArrays: the native parallel Dijkstra and
+    packer when available (or ``lib`` is given), else the Python loops."""
+    if use_native and lib is None:
+        from ..native import get_lib
+
+        lib = get_lib()
+    if use_native and lib is not None:
+        src, dst, dist, tm, fe = _native_build_rows(lib, arrays, delta,
+                                                    num_threads)
+        return ubodt_from_columns(src, dst, dist, tm, fe, delta, load_factor,
+                                  lib=lib).attach_graph(arrays.edge_to)
+    rows = []
+    for src in range(arrays.num_nodes):
+        for dst, d, tm, fe in _bounded_dijkstra(
+                src, delta, arrays.out_start, arrays.out_edges,
+                arrays.edge_to, arrays.edge_len, arrays.edge_speed):
+            rows.append((src, dst, d, tm, fe))
+    cols = list(zip(*rows)) if rows else [(), (), (), (), ()]
+    return ubodt_from_columns(
+        np.asarray(cols[0], np.int32), np.asarray(cols[1], np.int32),
+        np.asarray(cols[2], np.float32), np.asarray(cols[3], np.float32),
+        np.asarray(cols[4], np.int32), delta, load_factor, lib=None,
+    ).attach_graph(arrays.edge_to)
+
+
+def _native_build_rows(lib, arrays, delta: float, num_threads: int):
+    """(src, dst, dist, time, first_edge) columns from the C++ builder."""
+    import ctypes
+
+    n_rows = ctypes.c_int64(0)
+    handle = lib.rn_ubodt_build(
+        arrays.num_nodes,
+        np.ascontiguousarray(arrays.out_start, np.int32),
+        np.ascontiguousarray(arrays.out_edges, np.int32),
+        np.ascontiguousarray(arrays.edge_to, np.int32),
+        np.ascontiguousarray(arrays.edge_len, np.float32),
+        np.ascontiguousarray(arrays.edge_speed, np.float32),
+        float(delta), int(num_threads), ctypes.byref(n_rows),
+    )
+    if not handle:
+        raise MemoryError("rn_ubodt_build failed")
+    n = n_rows.value
+    src = np.empty(n, np.int32)
+    dst = np.empty(n, np.int32)
+    dist = np.empty(n, np.float32)
+    tm = np.empty(n, np.float32)
+    fe = np.empty(n, np.int32)
+    lib.rn_ubodt_fetch(handle, src, dst, dist, tm, fe)
+    return src, dst, dist, tm, fe
+
+
+def _pack_python(src, dst, dist, time, first_edge, n_buckets, packed) -> int:
+    """Python twin of rn_cuckoo_pack: deterministic 2-choice cuckoo insert
+    into ``packed`` (pre-filled with src = EMPTY).  Returns the longest
+    displacement chain, or -1 when an insert exceeds MAX_KICKS."""
+    bmask = n_buckets - 1
+    dist_bits = np.asarray(dist, np.float32).view(np.int32)
+    time_bits = np.asarray(time, np.float32).view(np.int32)
+
+    def h1(s, d):
+        return int(pair_hash(np.int64(s), np.int64(d), bmask))
+
+    def h2(s, d):
+        return int(pair_hash2(np.int64(s), np.int64(d), bmask))
+
+    def put(b, s, e):
+        packed[b, s] = 0
+        packed[b, s, :5] = e
+
+    def try_place(b, e) -> bool:
+        for s in range(BUCKET):
+            if packed[b, s, F_SRC] == EMPTY:
+                put(b, s, e)
+                return True
+        return False
+
+    max_chain = 0
+    for r in range(len(src)):
+        cur = (int(src[r]), int(dst[r]), int(dist_bits[r]), int(time_bits[r]),
+               int(first_edge[r]))
+        b1 = h1(cur[0], cur[1])
+        b2 = h2(cur[0], cur[1])
+        if try_place(b1, cur) or try_place(b2, cur):
+            continue
+        b = b2
+        placed = False
+        for kick in range(MAX_KICKS):
+            s = kick % BUCKET
+            victim = tuple(int(v) for v in packed[b, s, :5])
+            packed[b, s, :5] = cur
+            cur = victim
+            nb = h1(cur[0], cur[1])  # the victim's other bucket
+            if nb == b:
+                nb = h2(cur[0], cur[1])
+            b = nb
+            if try_place(b, cur):
+                max_chain = max(max_chain, kick + 1)
+                placed = True
+                break
+        if not placed:
+            return -1
+    return max_chain
+
+
+def ubodt_from_columns(src, dst, dist, time, first_edge, delta: float,
+                       load_factor: Optional[float] = None, lib=None) -> UBODT:
+    """Pack row columns into the cuckoo table, doubling the bucket count
+    until every insert succeeds; the insert loop runs in C++ when ``lib``
+    is given, else in _pack_python (bit-identical tables)."""
+    if load_factor is None:
+        load_factor = LOAD_TARGET
+    n = int(len(src))
+    src = np.ascontiguousarray(src, np.int32)
+    dst = np.ascontiguousarray(dst, np.int32)
+    dist = np.ascontiguousarray(dist, np.float32)
+    time = np.ascontiguousarray(time, np.float32)
+    first_edge = np.ascontiguousarray(first_edge, np.int32)
+    n_buckets = 1
+    while n_buckets * BUCKET * load_factor < max(n, 1):
+        n_buckets <<= 1
+    n_buckets = max(n_buckets, 4)
+    while True:
+        packed = np.zeros((n_buckets, BUCKET, ROW_W), np.int32)
+        packed[:, :, F_SRC] = EMPTY
+        if lib is not None:
+            max_chain = lib.rn_cuckoo_pack(n, src, dst, dist, time, first_edge,
+                                           n_buckets, packed.reshape(-1))
+        else:
+            max_chain = _pack_python(src, dst, dist, time, first_edge,
+                                     n_buckets, packed)
+        if max_chain >= 0:
+            break
+        n_buckets <<= 1
+        log.info("ubodt: cuckoo chain exceeded %d kicks, growing table to "
+                 "%d buckets", MAX_KICKS, n_buckets)
+    log.info("ubodt: %d rows, %d x %d-entry buckets (load %.2f), max kick "
+             "chain %d", n, n_buckets, BUCKET, n / max(n_buckets * BUCKET, 1),
+             max_chain)
+    return UBODT(delta=delta, packed=packed, bmask=n_buckets - 1, num_rows=n,
+                 max_kicks=int(max_chain))
