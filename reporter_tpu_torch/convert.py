@@ -3,7 +3,9 @@
 The reference and the port build the same graph and UBODT bytes (the
 tests assert it); these helpers take those bytes as numpy arrays, however
 they were built, and wrap them in the port's ``DeviceGraph`` and
-``DeviceUBODT`` on the CPU (``to_device`` moves them to the card).
+``DeviceUBODT`` on the CPU (``to_device`` moves them to the card), and
+turn a carried Viterbi state (a ``TraceCarry`` of numpy leaves, or the
+session store's host carry dict) into the port's carry tensors.
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .ops.viterbi import CARRY_DTYPES, TraceCarry
 from .tiles.arrays import DeviceGraph
 from .tiles.ubodt import BUCKET, ROW_W, DeviceUBODT
 
@@ -33,3 +36,21 @@ def ubodt_from_numpy(packed, bmask) -> DeviceUBODT:
     packed = np.ascontiguousarray(packed, np.int32)
     return DeviceUBODT(
         torch.from_numpy(packed.reshape(-1, BUCKET * ROW_W)), int(bmask))
+
+
+_NP_DTYPES = {torch.float32: np.float32, torch.int32: np.int32,
+              torch.bool: np.bool_}
+
+
+def carry_from_numpy(carry) -> TraceCarry:
+    """A carried Viterbi state as the port's ``TraceCarry`` on the CPU, bit
+    for bit: anything with the eight leaves ``scores, edge, offset, x, y,
+    t, active, committed`` as attributes (the reference's ``TraceCarry``,
+    leaves as numpy or anything ``np.asarray`` reads) or as keys (a host
+    carry dict).  Leaf shapes are kept: [B, K] / [B] for a batch, [K] / ()
+    for one row."""
+    get = carry.get if isinstance(carry, dict) else (
+        lambda name: getattr(carry, name))
+    return TraceCarry(*(
+        torch.from_numpy(np.array(np.asarray(get(name)), _NP_DTYPES[dt]))
+        for name, dt in zip(TraceCarry._fields, CARRY_DTYPES)))

@@ -15,36 +15,22 @@
 // the packed path; the arithmetic is far below the float32 rate.
 //
 // Design: one thread per (b, t, i, j), in the reference's operation order
-// with each rounding explicit; the (i, j) = (0, 0) thread of a step also
-// writes gc.  route may be null (the packed match path never reads it): it
-// is then not written.
+// with each rounding explicit (transition.cuh, shared with the chain
+// kernel's seam); the (i, j) = (0, 0) thread of a step also writes gc.
+// route may be null (the packed match path never reads it): it is then
+// not written.
 
-#include "common.cuh"
+#include "transition.cuh"
 
 namespace {
-
-using rtt::kNegInf;
-using rtt::kPi;
-using rtt::kTwoPi;
-
-// jnp.mod(d + pi, 2 pi) - pi with jnp.mod's floored remainder: fmod
-// (exact), plus the divisor where the signs differ
-__device__ __forceinline__ float angle_diff(float a, float b) {
-  const float d = __fadd_rn(__fsub_rn(b, a), kPi);
-  float r = fmodf(d, kTwoPi);
-  if (r != 0.f && ((r < 0.f) != (kTwoPi < 0.f))) r = __fadd_rn(r, kTwoPi);
-  return __fsub_rn(r, kPi);
-}
 
 __global__ void transition_build_kernel(
     const int32_t* __restrict__ edge, const float* __restrict__ offset,
     const float* __restrict__ px, const float* __restrict__ py,
     const float* __restrict__ times, const float* __restrict__ edge_rows,
     const float* __restrict__ sp_dist, const float* __restrict__ sp_time,
-    int64_t B, int T, int K, float sigma, float beta, float radius,
-    float max_route_factor, float max_time_factor, float turn_factor,
-    float* __restrict__ logp, float* __restrict__ route,
-    float* __restrict__ gc_out) {
+    int64_t B, int T, int K, rtt::TransParams tp, float* __restrict__ logp,
+    float* __restrict__ route, float* __restrict__ gc_out) {
   const int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int64_t total = B * (int64_t)(T - 1) * K * K;
   if (n >= total) return;
@@ -57,47 +43,16 @@ __global__ void transition_build_kernel(
   const int64_t pa = pt * K + i, pb = (pt + 1) * K + j;
 
   const int32_t ea = edge[pa], eb = edge[pb];
-  const float oa = offset[pa], ob = offset[pb];
   const float* era = edge_rows + (int64_t)(ea >= 0 ? ea : 0) * 8;
   const float* erb = edge_rows + (int64_t)(eb >= 0 ? eb : 0) * 8;
   const float gc = rtt::hypot_like_jax(__fsub_rn(px[pt + 1], px[pt]),
                                        __fsub_rn(py[pt + 1], py[pt]));
   const float dt = __fsub_rn(times[pt + 1], times[pt]);
   if (i == 0 && j == 0) gc_out[r] = gc;
-
-  const float remain = __fsub_rn(era[2], oa);
-  float rt = __fadd_rn(__fadd_rn(remain, sp_dist[n]), ob);
-  // same 0.1 m/s floor as the UBODT builder
-  const float speed_a = fmaxf(era[3], 0.1f), speed_b = fmaxf(erb[3], 0.1f);
-  float rtime = __fadd_rn(__fadd_rn(__fdiv_rn(remain, speed_a), sp_time[n]),
-                          __fdiv_rn(ob, speed_b));
-
-  // same-edge handling: forward progress is the offset delta; a small
-  // backward delta (GPS jitter) is lightly penalised; a large one routes
-  // the loop, which the formula above already expresses
-  const bool same = ea == eb && ea >= 0;
-  const float delta = __fsub_rn(ob, oa);
-  const float back_tol = __fadd_rn(__fmul_rn(2.0f, sigma), 5.0f);
-  const bool same_fwd = same && delta >= 0.f;
-  const bool same_jitter = same && delta < 0.f && -delta <= back_tol;
-  if (same_fwd) rt = delta;
-  if (same_jitter) rt = __fmaf_rn(-delta, 1.05f, 1.0f);
-  const bool same_known = same_fwd || same_jitter;
-  if (same_known) rtime = __fdiv_rn(fabsf(delta), speed_a);
-
-  const bool ok = ea >= 0 && eb >= 0;
-  const float max_route = __fmul_rn(max_route_factor, __fadd_rn(gc, radius));
-  bool feasible = ok && isfinite(rt) && rt <= max_route;
-  feasible = feasible &&
-      (dt <= 0.f || rtime <= __fmul_rn(max_time_factor, fmaxf(dt, 1.0f)));
-
-  float lp = __fdiv_rn(-fabsf(__fsub_rn(rt, gc)), beta);
-  const float turn = fabsf(angle_diff(era[5], erb[4]));
-  const float pen = same_known
-      ? 0.f : __fdiv_rn(__fmul_rn(turn_factor, turn), __fmul_rn(kPi, beta));
-  lp = __fsub_rn(lp, pen);
-  logp[n] = feasible ? lp : kNegInf;
-  if (route) route[n] = feasible ? rt : INFINITY;
+  float rt;
+  logp[n] = rtt::transition_logp(ea, eb, offset[pa], offset[pb], era, erb,
+                                 sp_dist[n], sp_time[n], gc, dt, tp, &rt);
+  if (route) route[n] = rt;
 }
 
 }  // namespace
@@ -114,10 +69,11 @@ extern "C" int transition_build_launch(
   const int threads = 256;
   const int64_t blocks = (total + threads - 1) / threads;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const rtt::TransParams tp = {sigma, beta, radius, max_route_factor,
+                               max_time_factor, turn_factor};
   transition_build_kernel<<<(unsigned)blocks, threads, 0,
                             (cudaStream_t)stream>>>(
-      edge, offset, px, py, times, edge_rows, sp_dist, sp_time, B, T, K,
-      sigma, beta, radius, max_route_factor, max_time_factor, turn_factor,
+      edge, offset, px, py, times, edge_rows, sp_dist, sp_time, B, T, K, tp,
       logp, route, gc);
   return (int)cudaGetLastError();
 }

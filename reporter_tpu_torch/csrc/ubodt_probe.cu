@@ -21,31 +21,18 @@
 // never materialised.  out_first may be null (the match path reads only
 // dist and time): it is then not written.
 
-#include "common.cuh"
+#include "ubodt.cuh"
 
 namespace {
+
+using rtt::pair_hash1;
+using rtt::pair_hash2;
 
 struct Grid4 {
   int64_t dim[4];
   int64_t src_stride[4];
   int64_t dst_stride[4];
 };
-
-__device__ __forceinline__ uint32_t pair_hash1(uint32_t s, uint32_t d) {
-  uint32_t h = s * 0x9E3779B1u + d * 0x85EBCA6Bu;
-  h ^= h >> 15;
-  h *= 0x2C1B3C6Du;
-  h ^= h >> 12;
-  return h;
-}
-
-__device__ __forceinline__ uint32_t pair_hash2(uint32_t s, uint32_t d) {
-  uint32_t h = s * 0x85EBCA77u + d * 0xC2B2AE3Du;
-  h ^= h >> 13;
-  h *= 0x27D4EB2Fu;
-  h ^= h >> 16;
-  return h;
-}
 
 __global__ void ubodt_probe_kernel(const int32_t* __restrict__ src,
                                    const int32_t* __restrict__ dst,

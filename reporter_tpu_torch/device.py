@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -17,3 +18,14 @@ def resolve_device(device="cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError("unsupported device %r (cuda or cpu)" % (str(dev),))
     return dev
+
+
+def upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array as a tensor on ``device``.  For CUDA the copy goes
+    through pinned memory and is queued on the current stream without
+    blocking the host (a copy from pageable memory would wait for the
+    stream)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type == "cuda":
+        t = t.pin_memory().to(device, non_blocking=True)
+    return t

@@ -1,4 +1,5 @@
 from .config import MatcherConfig
-from .matcher import LongTraceNotSupported, SegmentMatcher
+from .matcher import SegmentMatcher
+from .session import SessionEngine, SessionStore
 
-__all__ = ["LongTraceNotSupported", "MatcherConfig", "SegmentMatcher"]
+__all__ = ["MatcherConfig", "SegmentMatcher", "SessionEngine", "SessionStore"]

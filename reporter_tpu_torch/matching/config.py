@@ -4,9 +4,10 @@ MatcherConfig.
 Honours the tunables the reference bakes into its meili config: sigma_z,
 beta, search_radius, breakage_distance, max_route_distance_factor,
 max_route_time_factor, turn_penalty_factor.  Adds the device shape knobs
-(beam width K, UBODT delta, length buckets, device-batch caps).  Keys of
-the reference's config that belong to paths this port does not carry yet
-(sparse model, sessions, tiering, meshes) are ignored by ``from_dict``.
+(beam width K, UBODT delta, length buckets, device-batch caps) and the
+session knobs.  Keys of the reference's config that belong to paths this
+port does not carry yet (sparse model, the session arena's budget and cold
+tier, tiering, meshes) are ignored by ``from_dict``.
 """
 
 from __future__ import annotations
@@ -36,13 +37,26 @@ class MatcherConfig:
     # exhaustion) that the service pops before rendering; the serve
     # entrypoint turns it on unless $REPORTER_QUALITY_AUX=0
     quality_aux: bool = False
-    # padded trace-length buckets for batched matching; longer traces need
-    # the long-trace carry chain, which this port does not carry yet
+    # padded trace-length buckets for batched matching; longer traces
+    # stream through windows of the largest with carried Viterbi state
     length_buckets: List[int] = field(default_factory=lambda: [16, 32, 64, 128, 256])
     # device-batch caps: the program materialises [B, T, K, K] transition
     # arrays, so the binding bound is on points (B*T), with a row cap on top
     max_device_batch: int = 2048
     max_device_points: int = 2048 * 64
+    # per-vehicle sessions: a streaming submit of n new points snaps to the
+    # smallest session window bucket >= n (beyond the largest it chains
+    # through windows of the largest); the session store is bounded
+    # (max_sessions, LRU) and TTL-evicted; session_tail_points bounds the
+    # rolling association tail and replay buffer per vehicle
+    session_buckets: List[int] = field(default_factory=lambda: [4, 16])
+    session_tail_points: int = 64
+    max_sessions: int = 65536
+    session_ttl_s: float = 3600.0
+    # carried session beams in a device slab of max_sessions slots updated
+    # in place by the step (matching/arena.py); off by default, the serve
+    # entry point turns it on
+    session_arena: bool = False
     # report() business-logic default
     threshold_sec: int = 15
     mode: str = "auto"

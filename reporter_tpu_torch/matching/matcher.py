@@ -6,13 +6,20 @@ dense path: ``Match(json) -> json``, ``match(trace)``, ``match_many`` and
 (``length_buckets``), grouped by effective per-request parameters
 (``match_options`` sigma_z / beta / search_radius / gps_accuracy), padded
 to a batch-ladder rung, packed into one [4, B, T] float32 array and matched
-on ``device`` by the four-kernel program of ops/viterbi.py; host
+on ``device`` by the match program of ops/viterbi.py; host
 association (native core, or its Python twin) turns the [3, B, T] result
 into wire-format segments.
 
-Not in this port yet: traces longer than the largest bucket (the
-long-trace carry chain; ``match_many`` raises NotImplementedError for
-them), the sparse-gap model, sessions, probe dedup, tiering and meshes.
+Traces longer than the largest bucket stream through fixed windows of that
+length with carried Viterbi state (``_dispatch_long``): kernels 1-3 run
+once over all of a group's windows, then kernel 5 chains the beam window
+to window.  ``match_sessions[_async]`` folds the newly arrived points of
+many per-vehicle sessions into fixed [B, W] session steps, the carried
+beams on the host or, with ``session_arena``, in a device slab updated in
+place (``matching/arena.py``).
+
+Not in this port yet: the sparse-gap model, probe dedup, tiering and
+meshes.
 """
 
 from __future__ import annotations
@@ -26,13 +33,18 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..convert import carry_from_numpy
+from ..device import resolve_device, upload
 from ..ops.viterbi import (
-    MatchParams, match_batch_compact_packed_aux, pack_inputs, unpack_compact,
+    NEG_INF, MatchParams, TraceCarry, chain_batch_carry_packed_aux,
+    initial_carry_batch, match_batch_compact_packed_aux, pack_inputs,
+    precompute_batch_packed, session_step_arena, session_step_packed,
+    slice_pre, unpack_compact,
 )
 from ..tiles.arrays import GraphArrays, build_graph_arrays
 from ..tiles.network import RoadNetwork
 from ..tiles.ubodt import UBODT, build_ubodt
+from .arena import SessionArena, carry_host
 from .assoc_native import associate_segments_batch
 from .config import MatcherConfig
 
@@ -42,10 +54,15 @@ log = logging.getLogger(__name__)
 # earlier ones; each pins its packed input and output
 PIPELINE_DEPTH = 8
 
+# long traces: window outputs allowed to wait on the device before one
+# concatenated fetch; each pins its packed output (12*B_pad*W bytes)
+MAX_DEFERRED_CHUNKS = 64
 
-class LongTraceNotSupported(NotImplementedError):
-    """A trace longer than the largest length bucket: it needs the
-    long-trace carry chain, a later slice of the port."""
+
+def _pad_rows(pad: int, *arrays):
+    """Append ``pad`` all-zero (= all-invalid) rows to each [B, ...] array."""
+    return tuple(np.concatenate([a, np.zeros((pad,) + a.shape[1:], a.dtype)])
+                 for a in arrays)
 
 
 def clamp_radius(radius: float, cell_size: float) -> float:
@@ -90,6 +107,12 @@ class SegmentMatcher:
         self._du = ubodt.to_device(self.device)
         self._params = MatchParams.from_config(self.cfg)
         self._params_cache: Dict[tuple, MatchParams] = {}
+        # carried session beams in a device slab (matching/arena.py); off
+        # by default, the serve entry point turns it on
+        self.session_arena = None
+        if self.cfg.session_arena:
+            self.session_arena = SessionArena(
+                self.cfg.beam_k, int(self.cfg.max_sessions), self.device)
 
     # -- per-request match parameters (reference wire contract) -----------
 
@@ -181,23 +204,14 @@ class SegmentMatcher:
         return rung
 
     def _bucket_len(self, n: int) -> int:
-        for b in self.cfg.length_buckets:
-            if n <= b:
-                return b
-        raise LongTraceNotSupported(
-            "trace of %d points exceeds the largest length bucket (%d); "
-            "long traces need the long-trace carry chain, a later slice of "
-            "the port" % (n, self.max_trace_points))
+        """Smallest length bucket >= n (n <= max_trace_points)."""
+        return next(b for b in self.cfg.length_buckets if n <= b)
 
     @property
     def max_trace_points(self) -> int:
+        """The longest trace matched in one window; longer ones stream
+        through windows of this length with carried state."""
         return int(self.cfg.length_buckets[-1])
-
-    def check_supported(self, trace: dict) -> None:
-        """Raise LongTraceNotSupported for a trace this port cannot match."""
-        n = len(trace["trace"])
-        if n > self.max_trace_points:
-            self._bucket_len(n)
 
     def _fill_rows(self, traces, idxs, T):
         """Pack traces[idxs] into padded [B, T] arrays + per-row times (the
@@ -226,11 +240,10 @@ class SegmentMatcher:
     def _dispatch_batch(self, px, py, times, valid, pkey: tuple = ()):
         """Queue one padded [B, T] batch on the device without blocking;
         returns (packed [3, B, T], aux [B, 4]) device tensors."""
-        xin = torch.from_numpy(pack_inputs(px, py, times, valid))
-        if self.device.type == "cuda":
-            xin = xin.pin_memory().to(self.device, non_blocking=True)
         return match_batch_compact_packed_aux(
-            self._dg, self._du, xin, self._params_for(pkey), self.cfg.beam_k)
+            self._dg, self._du,
+            upload(pack_inputs(px, py, times, valid), self.device),
+            self._params_for(pkey), self.cfg.beam_k)
 
     @staticmethod
     def _collect_batch(handle):
@@ -252,13 +265,17 @@ class SegmentMatcher:
         excess chunks are drained inline during dispatch."""
         results: List[Optional[dict]] = [None] * len(traces)
         buckets: Dict[tuple, List[int]] = {}
+        long_map: Dict[tuple, List[int]] = {}
         for i, tr in enumerate(traces):
             n = len(tr["trace"])
             if n == 0:
                 results[i] = {"segments": []}
                 continue
-            buckets.setdefault((self._params_key(tr), self._bucket_len(n)),
-                               []).append(i)
+            pkey = self._params_key(tr)
+            if n > self.max_trace_points:
+                long_map.setdefault(pkey, []).append(i)
+                continue
+            buckets.setdefault((pkey, self._bucket_len(n)), []).append(i)
         chunks = []
         for (pkey, blen), idxs in sorted(buckets.items()):
             cap = self._device_cap(blen)
@@ -274,23 +291,121 @@ class SegmentMatcher:
 
         for pkey, blen, idxs in chunks:
             px, py, tm, valid, times = self._fill_rows(traces, idxs, blen)
-            B_pad = self._ladder_rung(len(idxs))
-            if B_pad != len(idxs):  # all-zero pad rows = all invalid
-                pad = B_pad - len(idxs)
-                px, py, tm, valid = (
-                    np.concatenate([a, np.zeros((pad,) + a.shape[1:], a.dtype)])
-                    for a in (px, py, tm, valid))
+            px, py, tm, valid = _pad_rows(
+                self._ladder_rung(len(idxs)) - len(idxs), px, py, tm, valid)
             pending.append((idxs, self._dispatch_batch(px, py, tm, valid, pkey),
                             times))
             if len(pending) >= PIPELINE_DEPTH:
                 drain_one()
 
+        # long traces queue their whole carry chains too, so every device
+        # program of the call is queued before the host associates
+        long_handles = []
+        for pkey, lidx in sorted(long_map.items()):
+            long_handles.extend(self._dispatch_long(traces, lidx, pkey))
+
         def finish() -> List[dict]:
             while pending:
                 drain_one()
+            for h in long_handles:
+                idxs_, res, times_, aux = self._fetch_long_aux(h)
+                self._associate_and_store(idxs_, *res, times_, results,
+                                          aux=aux)
             return results  # type: ignore[return-value]
 
         return finish
+
+    # -- long traces: fixed windows with carried Viterbi state ---------------
+
+    def _dispatch_long(self, traces, idxs, pkey: tuple = ()):
+        """Queue the carry chains of traces longer than the largest bucket,
+        in groups of up to ``_device_cap(W)`` traces (longest first, so a
+        group's rows need similar window counts), and return one handle per
+        group for ``_fetch_long_aux``.  Nothing blocks except the bound on
+        what waits on the device: before group k is queued, group k-2's
+        deferred outputs are fetched."""
+        W = self.max_trace_points
+        cap = self._device_cap(W)
+        order = sorted(idxs, key=lambda i: -len(traces[i]["trace"]))
+        handles = []
+        for g in range(0, len(order), cap):
+            if len(handles) >= 2:
+                grp, parts, tail, tms, aux = handles[-2]
+                if tail is not None:
+                    parts.append(unpack_compact(tail.cpu().numpy()))
+                    handles[-2] = (grp, parts, None, tms, aux)
+            group = order[g: g + cap]
+            n_chunks = -(-max(len(traces[i]["trace"]) for i in group) // W)
+            px, py, tm, valid, times = self._fill_rows(traces, group,
+                                                       n_chunks * W)
+            px, py, tm, valid = _pad_rows(
+                self._ladder_rung(len(group)) - len(group), px, py, tm, valid)
+            host_parts, outs, aux = self._dispatch_long_group(
+                pack_inputs(px, py, tm, valid), n_chunks, W,
+                self._params_for(pkey))
+            tail = (None if not outs else outs[0] if len(outs) == 1
+                    else torch.cat(outs, 2))
+            handles.append((group, host_parts, tail, times, aux))
+        return handles
+
+    def _dispatch_long_group(self, xin: np.ndarray, n_chunks: int, W: int,
+                             p: MatchParams):
+        """Queue every device program of one padded long-trace group (xin
+        [4, B_pad, n_chunks*W] host f32).  The carry-independent stages run
+        batched across windows: the windows fold into the batch axis as
+        chunk-major rows (row c*B_pad + b is window c of trace b), cut into
+        "pre" dispatches of at most ``_device_cap(W)`` rows snapped to the
+        batch ladder; then one chain dispatch per window carries the beam.
+        Returns (host_parts, outs, aux): outputs already fetched (waves of
+        MAX_DEFERRED_CHUNKS windows), the packed outputs still on the
+        device in window order, and the group's [B_pad, 4] aux folded
+        across seams (min / + / + / +)."""
+        B_pad = xin.shape[1]
+        k = self.cfg.beam_k
+        carry = initial_carry_batch(B_pad, k, self.device)
+        outs: list = []
+        host_parts: list = []
+        aux = None
+        rows_all = np.ascontiguousarray(
+            xin.reshape(4, B_pad, n_chunks, W).transpose(0, 2, 1, 3)
+            .reshape(4, n_chunks * B_pad, W))
+        cpw = max(1, self._device_cap(W) // B_pad)  # windows per pre dispatch
+        for c0 in range(0, n_chunks, cpw):
+            m = min(cpw, n_chunks - c0)
+            rows = m * B_pad
+            seg = rows_all[:, c0 * B_pad: c0 * B_pad + rows]
+            rung = self._ladder_rung(rows)
+            if rung != rows:  # all-invalid rows that no chain reads
+                seg = np.concatenate(
+                    [seg, np.zeros((4, rung - rows, W), np.float32)], 1)
+            seg = upload(seg, self.device)
+            pre = precompute_batch_packed(self._dg, self._du, seg, p, k)
+            for i in range(m):
+                lo, hi = i * B_pad, (i + 1) * B_pad
+                packed, aux_c, carry = chain_batch_carry_packed_aux(
+                    self._dg, self._du, slice_pre(pre, lo, hi),
+                    seg[:, lo:hi], p, k, carry)
+                aux = aux_c if aux is None else torch.cat(
+                    [torch.minimum(aux[:, :1], aux_c[:, :1]),
+                     aux[:, 1:] + aux_c[:, 1:]], 1)
+                outs.append(packed)
+                if len(outs) >= MAX_DEFERRED_CHUNKS:
+                    host_parts.append(unpack_compact(
+                        torch.cat(outs, 2).cpu().numpy()))
+                    outs.clear()
+        return host_parts, outs, aux
+
+    @staticmethod
+    def _fetch_long_aux(handle):
+        """Block on one long group -> (group, (edge, offset, breaks) numpy
+        [B_pad, n_chunks*W], times, aux [len(group), 4] numpy)."""
+        group, host_parts, tail, times, aux = handle
+        parts = list(host_parts)
+        if tail is not None:
+            parts.append(unpack_compact(tail.cpu().numpy()))
+        res = tuple(np.concatenate([p[f] for p in parts], axis=1)
+                    for f in range(3))
+        return group, res, times, aux.cpu().numpy()[: len(group)]
 
     def _associate_and_store(self, idxs, edge, offset, breaks, times, results,
                              aux=None):
@@ -330,6 +445,210 @@ class SegmentMatcher:
 
     def match(self, trace: dict) -> dict:
         return self.match_many([trace])[0]
+
+    # -- per-vehicle session steps: the carried beam as serving state -------
+
+    def _session_bucket(self, n: int) -> int:
+        """Smallest session window bucket >= n (n <= the largest)."""
+        return next(b for b in self.cfg.session_buckets if n <= b)
+
+    def _fill_session_rows(self, items, idxs, W):
+        """Pack items[idxs]' points into padded [B, W] arrays.  Times rebase
+        against each session's own t0 (not the step's first point), so the
+        carried beam's float32 time frame stays coherent across the
+        session."""
+        B = len(idxs)
+        px, py, tm = (np.zeros((B, W), np.float32) for _ in range(3))
+        valid = np.zeros((B, W), bool)
+        ns = []
+        for row, i in enumerate(idxs):
+            pts = items[i]["points"]
+            n = len(pts)
+            x, y = self.arrays.proj.to_xy(
+                np.array([p["lat"] for p in pts], np.float64),
+                np.array([p["lon"] for p in pts], np.float64))
+            px[row, :n] = x
+            py[row, :n] = y
+            tm[row, :n] = (np.array([float(p["time"]) for p in pts], np.float64)
+                           - float(items[i]["t0"]))
+            valid[row, :n] = True
+            ns.append(n)
+        return px, py, tm, valid, ns
+
+    def _carry_batch(self, carries, b_pad: int) -> TraceCarry:
+        """Host carry dicts (None = inactive) -> one TraceCarry with leading
+        [b_pad] on the device, bit for bit."""
+        k = self.cfg.beam_k
+        c = {"scores": np.full((b_pad, k), NEG_INF, np.float32),
+             "edge": np.full((b_pad, k), -1, np.int32),
+             "offset": np.zeros((b_pad, k), np.float32),
+             "x": np.zeros(b_pad, np.float32), "y": np.zeros(b_pad, np.float32),
+             "t": np.zeros(b_pad, np.float32), "active": np.zeros(b_pad, bool),
+             "committed": np.full(b_pad, -1, np.int32)}
+        for i, row in enumerate(carries):
+            if row is not None:
+                for name, leaf in c.items():
+                    leaf[i] = row[name]
+        return TraceCarry(*(upload(t.numpy(), self.device)
+                            for t in carry_from_numpy(c)))
+
+    @staticmethod
+    def _carry_rows(carry: TraceCarry, b: int) -> List[dict]:
+        """A TraceCarry with leading [B_pad] -> host carry dicts of its first
+        b rows."""
+        leaves = {n: t[:b].cpu().numpy() for n, t in zip(TraceCarry._fields, carry)}
+        return [{"scores": leaves["scores"][i], "edge": leaves["edge"][i],
+                 "offset": leaves["offset"][i], "x": leaves["x"][i],
+                 "y": leaves["y"][i], "t": leaves["t"][i],
+                 "active": bool(leaves["active"][i]),
+                 "committed": leaves["committed"][i]} for i in range(b)]
+
+    def match_sessions(self, items):
+        """Synchronous ``match_sessions_async``."""
+        return self.match_sessions_async(items)()
+
+    def match_sessions_async(self, items):
+        """Queue incremental session steps for ``items`` and return a
+        zero-arg ``finish()`` resolving to one result per item:
+        ``((edge[n], offset[n], breaks[n]) numpy, aux [4], carry)``, where
+        carry is the successor beam as a host dict, or with the arena the
+        session's ``ArenaRef`` (the beam stayed on the device).
+
+        items: [{"points": [{"lat","lon","time"}...] (1..n, the arriving
+        delta), "carry": host carry dict, ArenaRef or None (fresh), "t0":
+        rebase epoch, "pkey": effective-params key, "uuid": session key
+        (the arena's slot key)}].
+
+        Items group by (pkey, session window bucket) into [B_rung, W]
+        steps; a step over the largest bucket chains through windows of
+        that size, as the long-trace path does."""
+        w_max = int(self.cfg.session_buckets[-1])
+        groups: Dict[tuple, List[int]] = {}
+        handles = []
+        for i, it in enumerate(items):
+            n = max(1, len(it["points"]))
+            if n > w_max:
+                handles.append(self._dispatch_session_chain(it, i, w_max))
+                continue
+            groups.setdefault((it["pkey"], self._session_bucket(n)),
+                              []).append(i)
+        k = self.cfg.beam_k
+        arena = self.session_arena
+        for (pkey, W), idxs in sorted(groups.items()):
+            cap = self._device_cap(W)
+            p = self._params_for(pkey)
+            for g in range(0, len(idxs), cap):
+                sub = idxs[g: g + cap]
+                px, py, tm, valid, ns = self._fill_session_rows(items, sub, W)
+                px, py, tm, valid = _pad_rows(
+                    self._ladder_rung(len(sub)) - len(sub), px, py, tm, valid)
+                b_pad = px.shape[0]
+                xin = upload(pack_inputs(px, py, tm, valid), self.device)
+                h = None
+                if arena is not None and all("uuid" in items[i] for i in sub):
+                    h = self._dispatch_session_arena(items, sub, ns, xin, p)
+                if h is None:
+                    # host-carry path: arena off, items without uuids, or
+                    # a group the slab cannot hold at once (same answers)
+                    carry = self._carry_batch(
+                        [carry_host(items[i]["carry"]) for i in sub]
+                        + [None] * (b_pad - len(sub)), b_pad)
+                    h = ("host", sub, ns, *session_step_packed(
+                        self._dg, self._du, xin, p, k, carry))
+                handles.append(h)
+
+        def finish():
+            out = [None] * len(items)
+            for h in handles:
+                if h[0] in ("chain", "chain_arena"):
+                    _kind, i, chunk_outs, carry = h
+                    E, O, B, aux_rows = [], [], [], []
+                    for packed, aux_dev, nc in chunk_outs:
+                        e_, o_, b_ = unpack_compact(packed.cpu().numpy())
+                        E.append(e_[0, :nc])
+                        O.append(o_[0, :nc])
+                        B.append(b_[0, :nc])
+                        aux_rows.append(aux_dev.cpu().numpy()[0])
+                    # aux components combine across seams as min / + / + / +
+                    aux = np.concatenate([[min(r[0] for r in aux_rows)],
+                                          np.sum([r[1:] for r in aux_rows], 0)])
+                    if h[0] == "chain":
+                        carry = self._carry_rows(carry, 1)[0]
+                    out[i] = ((np.concatenate(E), np.concatenate(O),
+                               np.concatenate(B)), aux, carry)
+                    continue
+                kind, sub, ns, packed, aux, carry = h
+                edge, offset, breaks = unpack_compact(packed.cpu().numpy())
+                aux_np = aux.cpu().numpy()
+                rows = (carry if kind == "arena"
+                        else self._carry_rows(carry, len(sub)))
+                for row, i in enumerate(sub):
+                    n = ns[row]
+                    out[i] = ((edge[row, :n], offset[row, :n], breaks[row, :n]),
+                              aux_np[row], rows[row])
+            return out
+
+        return finish
+
+    def _dispatch_session_arena(self, items, sub, ns, xin, p: MatchParams):
+        """One step group against the session slab: resolve each session to
+        a slot, then one step that reads and writes the slab in place.
+        None when the slab cannot hold the group at once."""
+        arena = self.session_arena
+        b_pad = xin.shape[1]
+        with arena.lock:
+            acq = arena.acquire_batch(
+                [(str(items[i]["uuid"]), items[i].get("carry")) for i in sub])
+            if acq is None:
+                return None
+            slot_l, use_l, refs = acq
+            # padding rows name slot S: they read and write nothing
+            slots = np.full(b_pad, arena.hot_slots, np.int32)
+            slots[: len(sub)] = slot_l
+            use = np.zeros(b_pad, bool)
+            use[: len(sub)] = use_l
+            packed, aux, _slab = session_step_arena(
+                self._dg, self._du, xin, p, self.cfg.beam_k, arena.hot, slots,
+                use)
+        return ("arena", sub, ns, packed, aux, refs)
+
+    def _dispatch_session_chain(self, item, idx: int, W: int):
+        """One step over the largest session bucket as a chain of [1, W]
+        session steps (the carry seams at W boundaries, as the long-trace
+        path's): through one slab row with the arena, else through a host
+        carry batch of one row."""
+        pts = item["points"]
+        p = self._params_for(item["pkey"])
+        k = self.cfg.beam_k
+        arena = self.session_arena
+        chunk_outs = []
+
+        def rows(c0):
+            chunk = dict(item, points=pts[c0: c0 + W])
+            px, py, tm, valid, ns = self._fill_session_rows([chunk], [0], W)
+            return upload(pack_inputs(px, py, tm, valid), self.device), ns[0]
+
+        if arena is not None and "uuid" in item:
+            with arena.lock:
+                acq = arena.acquire_batch(
+                    [(str(item["uuid"]), item.get("carry"))])
+                if acq is not None:
+                    (slot,), (use,), (ref,) = acq
+                    for c0 in range(0, len(pts), W):
+                        xin, nc = rows(c0)
+                        packed, aux, _slab = session_step_arena(
+                            self._dg, self._du, xin, p, k, arena.hot,
+                            np.array([slot], np.int32), np.array([use]))
+                        use = True
+                        chunk_outs.append((packed, aux, nc))
+                    return ("chain_arena", idx, chunk_outs, ref)
+        carry = self._carry_batch([carry_host(item["carry"])], 1)
+        for c0 in range(0, len(pts), W):
+            xin, nc = rows(c0)
+            packed, aux, carry = session_step_packed(self._dg, self._du, xin, p,
+                                                     k, carry)
+            chunk_outs.append((packed, aux, nc))
+        return ("chain", idx, chunk_outs, carry)
 
     def Match(self, trace_json: str) -> str:
         """Wire-compatible single-trace entry (valhalla SegmentMatcher.Match)."""

@@ -82,6 +82,9 @@ KERNELS: Dict[str, Kernel] = {
         _F, _F, _F, _F, _F, _F, _P, _P, _P]),
     "viterbi_scan": Kernel("viterbi_scan", [
         _P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _F, _P, _P]),
+    "viterbi_chain": Kernel("viterbi_chain", [
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I32, _I64, _I32, _I32,
+        _F, _F, _F, _F, _F, _F, _F] + [_P] * 16 + [_P, _P, _I64, _P, _P]),
 }
 
 _build_lock = threading.Lock()

@@ -1,7 +1,8 @@
-"""Batched HMM map matching: emission, transition, Viterbi (kernels 3, 4).
+"""Batched HMM map matching: emission, transition, Viterbi (kernels 3-5).
 
-The port of the dense, carry-free scan path of
-``reporter_tpu/ops/viterbi.py``.  Shapes, per [B, T] padded batch:
+The port of the dense path of ``reporter_tpu/ops/viterbi.py``, a window
+that starts fresh and a window that continues a carried beam.  Shapes,
+per [B, T] padded batch:
 
     candidates   [B, T, K]        kernel 1 (ops/candidates.py), emission fused
     UBODT probe  [B, T-1, K, K]   kernel 2 (ops/hashtable.py)
@@ -15,16 +16,28 @@ The port of the dense, carry-free scan path of
                                   break / restart / padding-freeze,
                                   backtrace, compact gather and the [4]
                                   confidence aux
+    chain        [B, T]           kernel 5, ``viterbi_chain``: the scan
+                                  continuing a ``TraceCarry`` (the seam
+                                  transition from the carried beam, the
+                                  seam check, the renormalised carry-out),
+                                  its carry in [B]-leading tensors or in a
+                                  session slab read and written in place
 
 Discontinuities follow the reference (and Meili): consecutive points
 further apart than ``breakage_distance``, or a step that no feasible route
 connects, restart the HMM at that point and record a break.
 
+Long traces run in fixed windows: ``precompute_batch_packed`` (kernels
+1-3) over all of a group's windows at once, then one
+``chain_batch_carry_packed_aux`` (kernel 5) per window, the carry chaining
+them.  A session step runs both over one small window, the carry in
+[B]-leading tensors (``session_step_packed``) or in the device slab
+(``session_step_arena``).
+
 Each kernel wrapper launches its CUDA kernel for CUDA tensors and runs its
-plain PyTorch version for CPU tensors.  ``match_batch_compact_packed_aux``
-composes the four wrappers; ``match_batch_compact_packed_aux_plain``
-composes the four plain versions (the reference a chip run holds the
-kernels against on the card).
+plain PyTorch version for CPU tensors.  Every packed entry point composes
+the wrappers; its ``_plain`` twin composes the plain versions (the
+reference a chip run holds the kernels against on the card).
 """
 
 from __future__ import annotations
@@ -35,6 +48,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..device import upload
 from ..tiles.arrays import DeviceGraph
 from ..tiles.ubodt import DeviceUBODT
 from ._kernels import KERNELS, check, ptr
@@ -85,6 +99,47 @@ class TracePre(NamedTuple):
     logp: torch.Tensor  # [B, T-1, K, K] transition log-probs per step
     route: Optional[torch.Tensor]  # [B, T-1, K, K] route distances per step (None on the packed path)
     gc: torch.Tensor  # [B, T-1] straight-line metres between consecutive points
+
+
+class TraceCarry(NamedTuple):
+    """Viterbi state carried from one window of a trace to the next (the
+    reference's ``TraceCarry``, vmapped), SoA with leading [B] (or [S] for
+    the session slab).  The next window's first transition runs from
+    these candidates instead of restarting the HMM."""
+
+    scores: torch.Tensor  # [B, K] f32 beam at the last valid point, max-renormalised
+    edge: torch.Tensor  # [B, K] i32 candidate edges there
+    offset: torch.Tensor  # [B, K] f32 offsets along them
+    x: torch.Tensor  # [B] f32 last valid point
+    y: torch.Tensor  # [B] f32
+    t: torch.Tensor  # [B] f32 its time
+    active: torch.Tensor  # [B] bool, False = no live state
+    committed: torch.Tensor  # [B] i32 slot the backtrace chose there, -1 none
+
+
+CARRY_DTYPES = (torch.float32, torch.int32, torch.float32, torch.float32,
+                 torch.float32, torch.float32, torch.bool, torch.int32)
+
+
+def initial_carry_batch(b: int, k: int, device="cpu") -> TraceCarry:
+    """The inactive carry for ``b`` rows: a fresh trace or session."""
+    def full(shape, v, dt):
+        return torch.full(shape, v, dtype=dt, device=device)
+    return TraceCarry(
+        scores=full((b, k), NEG_INF, torch.float32),
+        edge=full((b, k), -1, torch.int32),
+        offset=full((b, k), 0.0, torch.float32),
+        x=full((b,), 0.0, torch.float32), y=full((b,), 0.0, torch.float32),
+        t=full((b,), 0.0, torch.float32),
+        active=full((b,), False, torch.bool),
+        committed=full((b,), -1, torch.int32))
+
+
+def slice_pre(pre: TracePre, lo: int, hi: int) -> TracePre:
+    """Rows [lo, hi) of every leaf of a TracePre (None leaves stay None)."""
+    cut = lambda a: None if a is None else a[lo:hi]  # noqa: E731
+    return TracePre(Candidates(*(cut(a) for a in pre.cand)), cut(pre.emis),
+                    cut(pre.logp), cut(pre.route), cut(pre.gc))
 
 
 # -- kernel 3: transition build ---------------------------------------------
@@ -188,21 +243,15 @@ def transition_build(dg: DeviceGraph, cand: Candidates, px, py, times,
 
 # -- kernel 4: scan recursion, backtrace, compact gather, confidence -----------
 
-def viterbi_scan_plain(emis, logp, gc, valid, cand_edge, cand_offset,
-                       breakage_distance):
-    """Plain PyTorch version of the carry-free scan ``chain_trace`` +
-    ``backtrace`` + ``_compact`` + the confidence block + ``pack_compact``.
-    emis [B, T, K]; logp [B, T-1, K, K]; gc [B, T-1]; valid [B, T] float
-    0/1; cand_edge/cand_offset [B, T, K].  Returns (packed [3, B, T] i32,
-    aux [B, 4] f32)."""
+def _forward_plain(init, first_break, emis, logp, gc, vb, brk):
+    """The score recursion from ``init`` [B, K] (the scores at t = 0) with
+    break/restart/padding-freeze.  Returns scores [B, T, K], backpointers
+    [B, T, K] (-1 restart, -2 padded) and breaks [B, T] bool."""
     B, T, K = emis.shape
-    dev = emis.device
-    vb = valid != 0
-    brk = _scalar(breakage_distance, emis)
-    scores = emis[:, 0]
+    scores = init
     scores_mat = [scores]
-    backptr = [torch.full((B, K), -1, dtype=torch.int64, device=dev)]
-    breaks = [vb[:, 0]]
+    backptr = [torch.full((B, K), -1, dtype=torch.int64, device=emis.device)]
+    breaks = [first_break & vb[:, 0]]
     for t in range(1, T):
         total = scores[:, :, None] + logp[:, t - 1]  # [B, K src, K dst]
         best_src = torch.argmax(total, dim=1)  # first maximum
@@ -218,10 +267,14 @@ def viterbi_scan_plain(emis, logp, gc, valid, cand_edge, cand_offset,
         scores_mat.append(scores)
         backptr.append(bp)
         breaks.append(broke & vb[:, t])
-    S = torch.stack(scores_mat, 1)  # [B, T, K]
-    BP = torch.stack(backptr, 1)
-    BR = torch.stack(breaks, 1)
+    return (torch.stack(scores_mat, 1), torch.stack(backptr, 1),
+            torch.stack(breaks, 1))
 
+
+def _backtrace_plain(S, BP, vb):
+    """Chosen slot per point [B, T] (-1 unmatched): a padded or dead
+    successor restarts the walk at the local argmax."""
+    T = S.shape[1]
     local = torch.argmax(S, dim=2)  # [B, T]
     top1 = torch.gather(S, 2, local[..., None])[..., 0]
     local = torch.where(top1 > NEG_INF / 2, local, -1)
@@ -236,17 +289,24 @@ def viterbi_scan_plain(emis, logp, gc, valid, cand_edge, cand_offset,
         it = torch.where(vb[:, t], it, -1)
         idx[t] = it
         nxt = it
-    idx = torch.stack(idx, 1)  # [B, T]
+    return torch.stack(idx, 1)
 
+
+def _pack_plain(idx, BR, cand_edge, cand_offset):
+    """The packed [3, B, T] i32 output: chosen edge, offset bits, break."""
     sel = idx.clamp(min=0)[..., None]
     edge = torch.gather(cand_edge, 2, sel)[..., 0]
     edge = torch.where(idx >= 0, edge, torch.full_like(edge, -1))
     offset = torch.gather(cand_offset, 2, sel)[..., 0]
-    packed = torch.stack([edge.to(torch.int32),
-                          offset.contiguous().view(torch.int32),
-                          BR.to(torch.int32)])
+    return torch.stack([edge.to(torch.int32),
+                        offset.contiguous().view(torch.int32),
+                        BR.to(torch.int32)])
 
-    # confidence: winner-vs-runner-up margin per point, pool exhaustion
+
+def _aux_plain(S, vb, cand_edge):
+    """The [B, 4] confidence aux: winner-vs-runner-up margin per point
+    (min, sum, count) and pool exhaustion count."""
+    K = S.shape[2]
     am = torch.argmax(S, dim=2, keepdim=True)
     masked = S.scatter(2, am, NEG_INF)
     top2 = masked.amax(2)
@@ -255,13 +315,26 @@ def viterbi_scan_plain(emis, logp, gc, valid, cand_edge, cand_offset,
     marg = top1 - top2
     exhausted = (cand_edge[:, :, K - 1] >= 0) & vb
     inf = torch.full_like(marg, float("inf"))
-    aux = torch.stack([
+    return torch.stack([
         torch.where(two_alive, marg, inf).amin(1),
         torch.where(two_alive, marg, torch.zeros_like(marg)).sum(1),
         two_alive.sum(1).to(torch.float32),
         exhausted.sum(1).to(torch.float32),
     ], 1)
-    return packed, aux
+
+
+def viterbi_scan_plain(emis, logp, gc, valid, cand_edge, cand_offset,
+                       breakage_distance):
+    """Plain PyTorch version of the carry-free scan ``chain_trace`` +
+    ``backtrace`` + ``_compact`` + the confidence block + ``pack_compact``.
+    emis [B, T, K]; logp [B, T-1, K, K]; gc [B, T-1]; valid [B, T] float
+    0/1; cand_edge/cand_offset [B, T, K].  Returns (packed [3, B, T] i32,
+    aux [B, 4] f32)."""
+    vb = valid != 0
+    S, BP, BR = _forward_plain(emis[:, 0], torch.ones_like(vb[:, 0]), emis,
+                               logp, gc, vb, _scalar(breakage_distance, emis))
+    idx = _backtrace_plain(S, BP, vb)
+    return _pack_plain(idx, BR, cand_edge, cand_offset), _aux_plain(S, vb, cand_edge)
 
 
 def viterbi_scan(emis, logp, gc, valid, cand_edge, cand_offset,
@@ -292,18 +365,211 @@ def viterbi_scan(emis, logp, gc, valid, cand_edge, cand_offset,
     return packed, aux
 
 
+# -- kernel 5: the chain, a window continuing a carried beam -------------------
+
+def _slab_rows(slots, use_carry, S: int, device):
+    """Validate a step's slot map against an [S]-row slab and move it to
+    ``device``: ``slots`` [B] (S = padding row: it reads nothing and writes
+    nothing), ``use_carry`` [B] bool (False = start from the inactive
+    carry).  Host numpy in.  Raises when two rows name the same slot: one
+    launch reads and writes the slab, which is safe only with distinct
+    rows."""
+    slots = np.asarray(slots)
+    use = np.asarray(use_carry, bool)
+    if slots.ndim != 1 or use.shape != slots.shape:
+        raise ValueError("slots and use_carry must be [B], got %s and %s"
+                         % (slots.shape, use.shape))
+    if slots.size and (slots.min() < 0 or slots.max() > S):
+        raise ValueError("slots must lie in [0, %d]" % S)
+    live = slots[slots < S]
+    if np.unique(live).size != live.size:
+        raise ValueError("a slab row may appear at most once per step")
+    if (use & (slots >= S)).any():
+        raise ValueError("a padding row (slot == S) cannot use a carry")
+    return upload(slots.astype(np.int32), device), upload(use, device)
+
+
+def _seam_plain(dg, du, carry: TraceCarry, cand_edge, cand_offset, px, py,
+                times, p: MatchParams):
+    """The seam transition from the carried beam to each row's first point:
+    (logp0 [B, K src, K dst], gc0 [B]).  The probe and the transition
+    build run over the two-point window (carried point, first point)."""
+    two = lambda c, w: torch.stack([c, w[:, 0]], 1)  # noqa: E731
+    edge2 = two(carry.edge, cand_edge)  # [B, 2, K]
+    rows = dg.edge_rows[torch.where(edge2 >= 0, edge2, 0).long()]
+    to_a = rows[:, :1, :, 0].contiguous().view(torch.int32)  # [B, 1, K]
+    from_b = rows[:, 1:, :, 1].contiguous().view(torch.int32)
+    sp_dist, sp_time, _ = ubodt_lookup_plain(du, to_a[..., :, None],
+                                             from_b[..., None, :], False)
+    cand = Candidates(edge2, two(carry.offset, cand_offset), None, None, None)
+    logp0, _, gc0 = transition_build_plain(
+        dg, cand, two(carry.x, px), two(carry.y, py), two(carry.t, times),
+        sp_dist, sp_time, p, with_route=False)
+    return logp0[:, 0], gc0[:, 0]
+
+
+def _carry_out_plain(S, idx, vb, cand_edge, cand_offset, px, py, times):
+    """The beam at each row's last valid point (padded steps froze the
+    scores, so S[:, T-1] is that beam), renormalised by its max."""
+    B, T, K = S.shape
+    any_valid = vb.any(1)
+    last = (T - 1) - torch.argmax(vb.flip(1).to(torch.int32), 1)
+    at = torch.where(any_valid, last, torch.zeros_like(last))
+    s = S[:, T - 1]
+    smax = s.amax(1, keepdim=True)
+    scores = torch.where((s > NEG_INF / 2) & (smax > NEG_INF / 2), s - smax,
+                         torch.full_like(s, NEG_INF))
+    pick = lambda a: torch.gather(a, 1, at[:, None])[:, 0]  # noqa: E731
+    gk = at[:, None, None].expand(B, 1, K)
+    return TraceCarry(
+        scores=scores, edge=torch.gather(cand_edge, 1, gk)[:, 0],
+        offset=torch.gather(cand_offset, 1, gk)[:, 0],
+        x=pick(px), y=pick(py), t=pick(times), active=any_valid,
+        committed=torch.where(any_valid, pick(idx), -1).to(torch.int32))
+
+
+def viterbi_chain_plain(dg: DeviceGraph, du: DeviceUBODT, emis, logp, gc,
+                        px, py, times, valid, cand_edge, cand_offset,
+                        p: MatchParams, carry: TraceCarry, slots=None,
+                        use_carry=None):
+    """Plain PyTorch version of the carry branch of ``chain_trace`` (the
+    seam transition from the carried beam, the recursion, the seam check
+    and the carry-out) + ``backtrace`` + ``_compact`` + the confidence
+    block + ``pack_compact``.  Shapes as ``viterbi_scan_plain`` plus
+    px/py/times [B, T] and ``carry`` with leading [B].  Returns (packed,
+    aux, carry').
+
+    With ``slots`` (host [B] ints) and ``use_carry`` (host [B] bools),
+    ``carry`` is the session slab with leading [S]: row b starts from
+    slab[slots[b]] where use_carry[b] (else the inactive carry), and its
+    successor is written back to slab[slots[b]] in place unless
+    slots[b] == S; the slab itself is returned as carry'."""
+    B, T, K = emis.shape
+    dev = emis.device
+    vb = valid != 0
+    slab = None
+    if slots is not None:
+        slab = carry
+        S = slab.scores.shape[0]
+        sl, use = _slab_rows(slots, use_carry, S, dev)
+        rows = sl.clamp(max=S - 1).long()
+        inact = initial_carry_batch(B, K, dev)
+        carry = TraceCarry(*(
+            torch.where(use.view((B,) + (1,) * (g.dim() - 1)), g[rows], i)
+            for g, i in zip(slab, inact)))
+    logp0, gc0 = _seam_plain(dg, du, carry, cand_edge, cand_offset, px, py,
+                             times, p)
+    total0 = carry.scores[:, :, None] + logp0  # [B, K src, K dst]
+    best0 = total0.amax(1)
+    broke0 = ((gc0 > _scalar(p.breakage_distance, emis))
+              | ~(best0 > NEG_INF / 2).any(1) | ~carry.active)
+    init = torch.where(broke0[:, None], emis[:, 0], best0 + emis[:, 0])
+    S_, BP, BR = _forward_plain(init, broke0, emis, logp, gc, vb,
+                                _scalar(p.breakage_distance, emis))
+    idx = _backtrace_plain(S_, BP, vb)
+    # seam check: the committed slot must reach the window's first choice
+    c = carry.committed.long()
+    i0 = idx[:, 0]
+    lp_c = logp0[torch.arange(B, device=dev), c.clamp(min=0), i0.clamp(min=0)]
+    BR[:, 0] |= ((c >= 0) & (i0 >= 0) & ~BR[:, 0] & ~(lp_c > NEG_INF / 2)
+                 & vb[:, 0])
+    packed = _pack_plain(idx, BR, cand_edge, cand_offset)
+    aux = _aux_plain(S_, vb, cand_edge)
+    out = _carry_out_plain(S_, idx, vb, cand_edge, cand_offset, px, py, times)
+    if slab is None:
+        return packed, aux, out
+    keep = sl < slab.scores.shape[0]
+    for leaf, new in zip(slab, out):
+        leaf.index_copy_(0, sl[keep].long(), new[keep])
+    return packed, aux, slab
+
+
+def _check_carry(c: TraceCarry, n: int, k: int, dev) -> None:
+    for name, t, dt in zip(TraceCarry._fields, c, CARRY_DTYPES):
+        check(t, "carry." + name, dt, dev,
+              (n, k) if name in ("scores", "edge", "offset") else (n,))
+
+
+def viterbi_chain(dg: DeviceGraph, du: DeviceUBODT, emis, logp, gc, px, py,
+                  times, valid, cand_edge, cand_offset, p: MatchParams,
+                  carry: TraceCarry, slots=None, use_carry=None):
+    """A window continuing a carried beam: the CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors.  Arguments and results as
+    ``viterbi_chain_plain``; with ``slots`` the kernel gathers, selects
+    and scatters the slab rows itself, in place."""
+    if emis.device.type == "cpu":
+        return viterbi_chain_plain(dg, du, emis, logp, gc, px, py, times,
+                                   valid, cand_edge, cand_offset, p, carry,
+                                   slots, use_carry)
+    dev = emis.device
+    B, T, K = emis.shape
+    if K not in (1, 2, 4, 8, 16, 32):
+        raise ValueError("viterbi_chain: K=%d must be a power of two <= 32" % K)
+    check(emis, "emis", torch.float32, dev, (B, T, K))
+    check(logp, "logp", torch.float32, dev, (B, T - 1, K, K))
+    check(gc, "gc", torch.float32, dev, (B, T - 1))
+    for name, t in (("px", px), ("py", py), ("times", times),
+                    ("valid", valid)):
+        check(t, name, torch.float32, dev, (B, T))
+    check(cand_edge, "cand_edge", torch.int32, dev, (B, T, K))
+    check(cand_offset, "cand_offset", torch.float32, dev, (B, T, K))
+    check(dg.edge_rows, "edge_rows", torch.float32, dev)
+    check(du.packed, "packed", torch.int32, dev)
+    if du.packed.data_ptr() % 16:
+        raise ValueError("packed table must be 16-byte aligned")
+    if slots is None:
+        _check_carry(carry, B, K, dev)
+        out = TraceCarry(*(torch.empty_like(t) for t in carry))
+        sl = use = None
+        S = 0
+    else:
+        S = carry.scores.shape[0]
+        _check_carry(carry, S, K, dev)
+        if len(slots) != B:
+            raise ValueError("slots must be [%d], got %d" % (B, len(slots)))
+        sl, use = _slab_rows(slots, use_carry, S, dev)
+        out = carry  # updated in place
+    packed = torch.empty((3, B, T), dtype=torch.int32, device=dev)
+    aux = torch.empty((B, 4), dtype=torch.float32, device=dev)
+    if B and T:
+        KERNELS["viterbi_chain"].launch(
+            dev, ptr(emis), ptr(logp), ptr(gc), ptr(valid), ptr(cand_edge),
+            ptr(cand_offset), ptr(px), ptr(py), ptr(times), ptr(dg.edge_rows),
+            ptr(du.packed), du.bmask, B, T, K, float(p.breakage_distance),
+            float(p.sigma_z), float(p.beta), float(p.search_radius),
+            float(p.max_route_distance_factor),
+            float(p.max_route_time_factor), float(p.turn_penalty_factor),
+            *(ptr(t) for t in carry), *(ptr(t) for t in out), ptr(sl),
+            ptr(use), S, ptr(packed), ptr(aux))
+    return packed, aux, out
+
+
 # -- composition ---------------------------------------------------------------
 
-def _precompute(sweep, probe, build, dg, du, px, py, times, valid, p, k,
-                full=True):
+class _Stages(NamedTuple):
+    sweep: object
+    probe: object
+    build: object
+    scan: object
+    chain: object
+
+
+_KERNELS = _Stages(candidate_sweep, ubodt_lookup, transition_build,
+                   viterbi_scan, viterbi_chain)
+_PLAIN = _Stages(candidate_sweep_plain, ubodt_lookup_plain,
+                 transition_build_plain, viterbi_scan_plain,
+                 viterbi_chain_plain)
+
+
+def _precompute(st: _Stages, dg, du, px, py, times, valid, p, k, full=True):
     """The first three stages.  ``full=False`` (the packed path) leaves
     out what the scan never reads: the candidates' dist, cx, cy and the
     route.  The probe's first edge is never needed here."""
-    sw = sweep(dg, px, py, valid, k, p.search_radius, p.sigma_z, full)
-    sp_dist, sp_time, _ = probe(du, sw.to_node[:, :-1, :, None],
-                                sw.from_node[:, 1:, None, :], False)
-    logp, route, gc = build(dg, sw.cand, px, py, times, sp_dist, sp_time, p,
-                            full)
+    sw = st.sweep(dg, px, py, valid, k, p.search_radius, p.sigma_z, full)
+    sp_dist, sp_time, _ = st.probe(du, sw.to_node[:, :-1, :, None],
+                                   sw.from_node[:, 1:, None, :], False)
+    logp, route, gc = st.build(dg, sw.cand, px, py, times, sp_dist, sp_time,
+                               p, full)
     return TracePre(cand=sw.cand, emis=sw.emis, logp=logp, route=route, gc=gc)
 
 
@@ -312,8 +578,7 @@ def precompute_batch(dg: DeviceGraph, du: DeviceUBODT, px, py, times, valid,
     """Candidates, emissions and the [B, T-1, K, K] transition build over a
     [B, T] batch (``valid`` float 0/1).  The reference's ``precompute_batch``
     with probe dedup off and the dense model."""
-    return _precompute(candidate_sweep, ubodt_lookup, transition_build,
-                       dg, du, px, py, times, valid, p, k)
+    return _precompute(_KERNELS, dg, du, px, py, times, valid, p, k)
 
 
 def pack_inputs(px, py, times, valid) -> np.ndarray:
@@ -337,28 +602,99 @@ def unpack_compact(out):
     return out[0], out[1].view(np.float32), out[2] != 0
 
 
-def _match(stages, dg, du, xin, p, k):
-    sweep, probe, build, scan = stages
+def _match(st: _Stages, dg, du, xin, p, k):
+    pre = _pre_packed(st, dg, du, xin, p, k)
     px, py, times, valid = unpack_inputs(xin)
-    pre = _precompute(sweep, probe, build, dg, du, px, py, times, valid, p, k,
-                      full=False)
-    return scan(pre.emis, pre.logp, pre.gc, valid, pre.cand.edge,
-                pre.cand.offset, p.breakage_distance)
+    return st.scan(pre.emis, pre.logp, pre.gc, valid, pre.cand.edge,
+                   pre.cand.offset, p.breakage_distance)
+
+
+def _pre_packed(st: _Stages, dg, du, xin, p, k) -> TracePre:
+    px, py, times, valid = unpack_inputs(xin)
+    return _precompute(st, dg, du, px, py, times, valid, p, k, full=False)
+
+
+def _chain(st: _Stages, dg, du, pre: TracePre, xin, p, carry, slots=None,
+           use_carry=None):
+    px, py, times, valid = unpack_inputs(xin)
+    return st.chain(dg, du, pre.emis, pre.logp, pre.gc, px, py, times, valid,
+                    pre.cand.edge, pre.cand.offset, p, carry, slots,
+                    use_carry)
 
 
 def match_batch_compact_packed_aux(dg: DeviceGraph, du: DeviceUBODT,
                                    xin: torch.Tensor, p: MatchParams, k: int):
     """The match program over a packed [4, B, T] f32 input: (packed
     [3, B, T] i32 = edge, offset bits, break; aux [B, 4] f32)."""
-    return _match((candidate_sweep, ubodt_lookup, transition_build,
-                   viterbi_scan), dg, du, xin, p, k)
+    return _match(_KERNELS, dg, du, xin, p, k)
 
 
 def match_batch_compact_packed_aux_plain(dg: DeviceGraph, du: DeviceUBODT,
                                          xin: torch.Tensor, p: MatchParams,
                                          k: int):
-    """``match_batch_compact_packed_aux`` through the four plain versions,
-    on whatever device the inputs are."""
-    return _match((candidate_sweep_plain, ubodt_lookup_plain,
-                   transition_build_plain, viterbi_scan_plain),
-                  dg, du, xin, p, k)
+    """``match_batch_compact_packed_aux`` through the plain versions, on
+    whatever device the inputs are."""
+    return _match(_PLAIN, dg, du, xin, p, k)
+
+
+def precompute_batch_packed(dg: DeviceGraph, du: DeviceUBODT, xin,
+                            p: MatchParams, k: int) -> TracePre:
+    """The carry-independent stages (kernels 1-3) over a packed [4, B, W]
+    input.  For long traces B is the chunk-major rows of many windows of a
+    trace group, so one dispatch precomputes them all; the result feeds
+    ``chain_batch_carry_packed_aux`` window by window (``slice_pre``).
+    Leaves the scan never reads (dist, cx, cy, route) are None."""
+    return _pre_packed(_KERNELS, dg, du, xin, p, k)
+
+
+def precompute_batch_packed_plain(dg, du, xin, p: MatchParams, k: int):
+    return _pre_packed(_PLAIN, dg, du, xin, p, k)
+
+
+def chain_batch_carry_packed_aux(dg: DeviceGraph, du: DeviceUBODT,
+                                 pre: TracePre, xin, p: MatchParams, k: int,
+                                 carry: TraceCarry):
+    """The carry-dependent rest of a window (kernel 5) over a precomputed
+    ``pre`` (leading [B]) and the window's packed [4, B, W] input:
+    (packed [3, B, W], aux [B, 4], carry').  Aux components combine across
+    seams as min / + / + / +."""
+    return _chain(_KERNELS, dg, du, pre, xin, p, carry)
+
+
+def chain_batch_carry_packed_aux_plain(dg, du, pre: TracePre, xin,
+                                       p: MatchParams, k: int,
+                                       carry: TraceCarry):
+    return _chain(_PLAIN, dg, du, pre, xin, p, carry)
+
+
+def session_step_packed(dg: DeviceGraph, du: DeviceUBODT, xin,
+                        p: MatchParams, k: int, carry: TraceCarry):
+    """One incremental session step: each row of the packed [4, B, W] input
+    is one session's newly arrived points (a valid prefix), continued from
+    its carried beam (leading [B]).  Returns (packed, aux, carry')."""
+    return _chain(_KERNELS, dg, du, _pre_packed(_KERNELS, dg, du, xin, p, k),
+                  xin, p, carry)
+
+
+def session_step_packed_plain(dg, du, xin, p: MatchParams, k: int,
+                              carry: TraceCarry):
+    return _chain(_PLAIN, dg, du, _pre_packed(_PLAIN, dg, du, xin, p, k),
+                  xin, p, carry)
+
+
+def session_step_arena(dg: DeviceGraph, du: DeviceUBODT, xin, p: MatchParams,
+                       k: int, slab: TraceCarry, slots, use_carry):
+    """``session_step_packed`` against the device-resident session slab
+    (leading [S]): row b continues slab[slots[b]] where use_carry[b] (else
+    the inactive carry) and its successor is written back to that row in
+    place; padding rows carry slot == S and write nothing.  ``slots`` and
+    ``use_carry`` are host [B] arrays, live slots distinct.  Returns
+    (packed, aux, slab)."""
+    return _chain(_KERNELS, dg, du, _pre_packed(_KERNELS, dg, du, xin, p, k),
+                  xin, p, slab, slots, use_carry)
+
+
+def session_step_arena_plain(dg, du, xin, p: MatchParams, k: int,
+                             slab: TraceCarry, slots, use_carry):
+    return _chain(_PLAIN, dg, du, _pre_packed(_PLAIN, dg, du, xin, p, k),
+                  xin, p, slab, slots, use_carry)

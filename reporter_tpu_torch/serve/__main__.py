@@ -7,10 +7,12 @@ shape of the reference service's (deploy/config.service.json): "network"
 fails when CUDA is absent unless --device cpu is given.
 
 Not in this slice of the port: the sparse-gap model (the reference's
-serve entrypoint turns it on; here every trace runs the dense model) and
-traces longer than the largest length bucket (answered 422).
+serve entrypoint turns it on; here every trace runs the dense model).
 Per-trace confidence diagnostics are on, as in the reference's serve
-entrypoint ($REPORTER_QUALITY_AUX=0 turns them off).
+entrypoint ($REPORTER_QUALITY_AUX=0 turns them off), and so is the
+device-resident session arena: streaming sessions keep their carried
+beams in a device slab between submits ($REPORTER_SESSION_ARENA=0 keeps
+them on the host, with the same answers).
 """
 
 from __future__ import annotations
@@ -27,8 +29,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m reporter_tpu_torch.serve",
         description="Serve /report from the PyTorch/CUDA port.  Not in this "
-        "slice: the sparse-gap model (every trace runs the dense model) and "
-        "traces longer than the largest length bucket (answered 422).")
+        "slice: the sparse-gap model (every trace runs the dense model).")
     ap.add_argument("config", help="service config JSON (network, matcher, batch)")
     ap.add_argument("address", nargs="?", default=None,
                     help="host:port (default $MATCHER_BIND_ADDR:$MATCHER_LISTEN_PORT "
@@ -41,9 +42,11 @@ def main(argv=None) -> int:
     except Exception as e:  # noqa: BLE001 - reported, exit 1
         sys.stderr.write("Problem with config file: %s\n" % (e,))
         return 1
-    if os.environ.get("REPORTER_QUALITY_AUX", "").strip().lower() not in (
-            "0", "false", "off", "no"):
+    off = ("0", "false", "off", "no")
+    if os.environ.get("REPORTER_QUALITY_AUX", "").strip().lower() not in off:
         cfg.quality_aux = True
+    if os.environ.get("REPORTER_SESSION_ARENA", "").strip().lower() not in off:
+        cfg.session_arena = True
     if args.address:
         host, _, port = args.address.rpartition(":")
         host = host or "0.0.0.0"

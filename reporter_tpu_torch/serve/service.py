@@ -1,4 +1,4 @@
-"""HTTP matching service (lean first slice).
+"""HTTP matching service (lean slice).
 
 Wire-compatible with the reference's reporter service on its main route:
 
@@ -6,15 +6,21 @@ Wire-compatible with the reference's reporter service on its main route:
       -> {"datastore": ..., "segment_matcher": ..., "shape_used": ...,
           "stats": ...}
       with the same validation errors (uuid required, >= 2 points,
-      report_levels / transition_levels required).
+      report_levels / transition_levels required).  A trace of any length
+      is matched; those over the largest length bucket stream through
+      windows with carried state.
+  POST /report with "stream": true
+      -> the same report over the vehicle's session window (its rolling
+      tail plus the new points), plus a "session" block; one point is
+      enough.
   GET  /health -> {"status": "ok", ...}
 
-A single shared matcher owns the device, and a MicroBatcher aggregates
-concurrent requests into padded [B, T] batches for one device program.
-Traces longer than the matcher's largest length bucket are answered 422:
-the long-trace carry chain is a later slice of the port.  Fault domains,
-SLO accounting, quality sampling, sessions, the binary wire and the router
-are not part of this slice.
+A single shared matcher owns the device.  One MicroBatcher aggregates
+concurrent windowed requests into padded [B, T] batches; a second one, with
+a much shorter fill window, aggregates streaming submits into session
+steps (matching/session.py).  Fault domains, SLO accounting, quality
+sampling, the /sessions export, the binary wire and the router are not
+part of this slice.
 """
 
 from __future__ import annotations
@@ -30,7 +36,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional, Set, Tuple
 from urllib.parse import parse_qs, urlsplit
 
-from ..matching import LongTraceNotSupported, SegmentMatcher
+from ..matching import SegmentMatcher, SessionEngine, SessionStore
 from ..report import report as report_fn
 
 log = logging.getLogger(__name__)
@@ -46,13 +52,14 @@ class MicroBatcher:
 
     Traces are enqueued with a Future; a dispatch thread drains the queue,
     waits up to ``max_wait_ms`` to fill ``max_batch`` slots and queues the
-    device work (``matcher.match_many_async``); a finisher thread blocks on
+    device work (``matcher.match_many_async``: a SegmentMatcher's, or a
+    SessionEngine's for streaming submits); a finisher thread blocks on
     the device, runs host association and resolves the futures, so
     association of batch N overlaps device work of batch N+1.  The hand-off
     queue is bounded (MAX_INFLIGHT) to bound device-pinned memory.
     """
 
-    def __init__(self, matcher: SegmentMatcher, max_batch: int = 64,
+    def __init__(self, matcher, max_batch: int = 64,
                  max_wait_ms: float = 10.0):
         self.matcher = matcher
         self.max_batch = max(1, int(max_batch))
@@ -142,7 +149,8 @@ class ReporterService:
     """Owns the matcher and the batcher and implements /report."""
 
     def __init__(self, matcher: SegmentMatcher, threshold_sec: Optional[int] = None,
-                 max_batch: int = 64, max_wait_ms: float = 10.0):
+                 max_batch: int = 64, max_wait_ms: float = 10.0,
+                 session_max_batch: int = 256, session_wait_ms: float = 2.0):
         if threshold_sec is None:
             threshold_sec = int(os.environ.get("THRESHOLD_SEC",
                                                matcher.cfg.threshold_sec))
@@ -150,18 +158,30 @@ class ReporterService:
         self.matcher = matcher
         self.batcher = MicroBatcher(matcher, max_batch=max_batch,
                                     max_wait_ms=max_wait_ms)
+        cfg = matcher.cfg
+        self.session_store = SessionStore(cfg.max_sessions, cfg.session_ttl_s)
+        self.session_engine = SessionEngine(matcher, self.session_store,
+                                            tail_points=cfg.session_tail_points)
+        # streaming submits batch on their own MicroBatcher with a short
+        # fill window: a session's point is answered at point latency
+        self.session_batcher = MicroBatcher(
+            self.session_engine, max_batch=session_max_batch,
+            max_wait_ms=session_wait_ms)
         self._t_boot = _time.time()
 
     def close(self) -> None:
         self.batcher.close()
+        self.session_batcher.close()
 
     @staticmethod
     def validate(trace: dict) -> Tuple[Optional[str], Optional[Set], Optional[Set]]:
-        """Returns (error, report_levels, transition_levels)."""
+        """Returns (error, report_levels, transition_levels).  A streaming
+        submit ("stream": true) may carry a single point; windowed
+        requests need at least two."""
         if trace.get("uuid") is None:
             return "uuid is required", None, None
         try:
-            trace["trace"][1]
+            trace["trace"][0 if trace.get("stream") else 1]
         except Exception:  # noqa: BLE001 - any malformed shape is a 400
             return (
                 "trace must be a non zero length array of object each of which must "
@@ -198,28 +218,37 @@ class ReporterService:
         err, rl, tl = self.validate(trace)
         if err:
             return 400, {"error": err}
+        batcher = self.session_batcher if trace.get("stream") else self.batcher
         try:
-            self.matcher.check_supported(trace)
-        except LongTraceNotSupported as e:
-            return 422, {"error": str(e)}
-        try:
-            match = self.batcher.match(trace)
+            match = batcher.match(trace)
         except Exception as e:  # noqa: BLE001 - the request gets the error
             log.exception("match failed")
             return 500, {"error": str(e)}
         match.pop("_quality", None)  # diagnostics never reach the wire
-        data = report_fn(match, trace, self.threshold_sec, rl, tl,
+        # a streaming answer renders over the session window: the rolling
+        # tail + this submit's points
+        st = match.pop("_stream", None)
+        render = trace if st is None else {
+            "uuid": trace.get("uuid"), "trace": st["trace"],
+            "match_options": trace.get("match_options") or {}}
+        data = report_fn(match, render, self.threshold_sec, rl, tl,
                          mode=(trace.get("match_options") or {}).get("mode", "auto"))
+        if st is not None:
+            data["session"] = st["session"]
         return 200, data
 
     def handle_health(self) -> Tuple[int, dict]:
         m = self.matcher
-        return 200, {
+        out = {
             "status": "ok",
             "device": str(m.device),
             "max_trace_points": m.max_trace_points,
+            "sessions": self.session_store.summary(),
             "uptime_s": round(_time.time() - self._t_boot, 1),
         }
+        if m.session_arena is not None:
+            out["session_arena"] = m.session_arena.summary()
+        return 200, out
 
     def make_server(self, host: str = "0.0.0.0", port: int = 8002) -> ThreadingHTTPServer:
         service = self

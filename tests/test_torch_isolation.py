@@ -30,17 +30,27 @@ class Block(importlib.abc.MetaPathFinder):
 sys.meta_path.insert(0, Block())
 
 import reporter_tpu_torch
+import reporter_tpu_torch.convert
+import reporter_tpu_torch.matching.arena
+import reporter_tpu_torch.matching.session
 import reporter_tpu_torch.serve.__main__
-from reporter_tpu_torch.matching import MatcherConfig, SegmentMatcher
+from reporter_tpu_torch.matching import MatcherConfig, SegmentMatcher, SessionEngine, SessionStore
 from reporter_tpu_torch.synth import TraceSynthesizer
 from reporter_tpu_torch.tiles.arrays import build_graph_arrays
 from reporter_tpu_torch.tiles.network import grid_city
 
 arrays = build_graph_arrays(grid_city(5, 5, 150.0))
-m = SegmentMatcher(arrays=arrays, config=MatcherConfig(ubodt_delta=1500.0), device="cpu")
+m = SegmentMatcher(arrays=arrays, device="cpu",
+                   config=MatcherConfig(ubodt_delta=1500.0, length_buckets=[16],
+                                        session_arena=True))
 traces = [s.trace for s in TraceSynthesizer(arrays, seed=1).batch(3, 20, dt=5.0)]
-out = m.match_many(traces)
+out = m.match_many(traces)  # 20 points: two windows of 16 with carried state
 assert len(out) == 3 and all(r["segments"] for r in out)
+eng = SessionEngine(m, SessionStore())
+for j in range(0, 20, 4):
+    res = eng.match_many([dict(t, trace=t["trace"][j:j + 4]) for t in traces])
+assert all(r["_stream"]["session"]["points_total"] == 20 for r in res)
+assert m.session_arena.summary()["hot_used"] == 3
 assert not [m for m in sys.modules if blocked(m)]
 print("ISOLATED-OK")
 '''

@@ -17,7 +17,8 @@ from reporter_tpu.matching import SegmentMatcher as RefMatcher
 from reporter_tpu.tiles.arrays import build_graph_arrays as ref_build_graph_arrays
 from reporter_tpu.tiles.network import grid_city as ref_grid_city
 from reporter_tpu.tiles.ubodt import build_ubodt as ref_build_ubodt
-from reporter_tpu_torch.matching import LongTraceNotSupported, MatcherConfig, SegmentMatcher
+from reporter_tpu.report import report as ref_report_fn
+from reporter_tpu_torch.matching import MatcherConfig, SegmentMatcher
 from reporter_tpu_torch.report import report as report_fn
 from reporter_tpu_torch.serve import ReporterService
 from reporter_tpu_torch.synth import TraceSynthesizer
@@ -115,13 +116,6 @@ def test_fixture_replay_matches_recorded(recorded, fixture_matcher):
         _check_report(got, fx["response"], req["uuid"])
 
 
-def test_long_trace_is_refused(fixture_matcher):
-    pts = [{"lat": 37.75, "lon": -122.45, "time": 1000 + i} for i in range(300)]
-    with pytest.raises(NotImplementedError, match="long-trace"):
-        fixture_matcher.match({"uuid": "long", "trace": pts})
-    assert issubclass(LongTraceNotSupported, NotImplementedError)
-
-
 def _http(port, path, body=None):
     req = urllib.request.Request("http://127.0.0.1:%d%s" % (port, path),
                                  data=None if body is None else json.dumps(body).encode())
@@ -130,6 +124,26 @@ def _http(port, path, body=None):
             return r.status, json.loads(r.read())
     except urllib.error.HTTPError as e:
         return e.code, json.loads(e.read())
+
+
+def _long_request(arrays):
+    tr = TraceSynthesizer(arrays, seed=3).synthesize(300, dt=5.0, sigma=5.0,
+                                                     uuid="long", max_tries=400).trace
+    tr["match_options"] = {"mode": "auto", "report_levels": [0, 1],
+                           "transition_levels": [0, 1]}
+    return tr
+
+
+def _ref_report(recorded, req):
+    net = recorded["network"]
+    ra = ref_build_graph_arrays(ref_grid_city(net["rows"], net["cols"], net["spacing_m"]),
+                                cell_size=100.0)
+    ref = RefMatcher(arrays=ra, ubodt=ref_build_ubodt(ra, delta=3000.0), config=RefConfig(),
+                     backend="jax")
+    mo = req["match_options"]
+    return ref_report_fn(ref.match(req), req, recorded["threshold_sec"],
+                         set(mo["report_levels"]), set(mo["transition_levels"]),
+                         mode=mo["mode"])
 
 
 def test_http_server_answers_report(recorded, fixture_matcher):
@@ -151,9 +165,12 @@ def test_http_server_answers_report(recorded, fixture_matcher):
         _check_report(out, fx1["response"], fx1["request"]["uuid"])
         code, out = _http(port, "/report", {"trace": []})
         assert (code, out["error"]) == (400, "uuid is required")
-        long_req = dict(fx1["request"], trace=fx1["request"]["trace"] * 40)
+        # a street-following trace longer than the largest bucket (256):
+        # matched in windows with carried state, as the reference does
+        long_req = _long_request(fixture_matcher.arrays)
         code, out = _http(port, "/report", long_req)
-        assert code == 422 and "long-trace" in out["error"]
+        assert code == 200
+        _check_report(out, _ref_report(recorded, long_req), "long")
     finally:
         server.shutdown()
         server.server_close()
