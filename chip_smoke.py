@@ -3,9 +3,10 @@
     python3 chip_smoke.py
 
 Builds the five CUDA kernels of the match program (one nvcc per source,
-sm_90a, all started together) and the native host core, builds the
-metro-scale grid city (120 x 120 blocks of 150 m, UBODT delta 3000 m,
-cuckoo layout) and moves it to the card, then:
+sm_90a, all started together; kernels 3-5 with their sparse
+instantiations, counted apart as ``<name>[sparse]``) and the native host
+core, builds the metro-scale grid city (120 x 120 blocks of 150 m, UBODT
+delta 3000 m, cuckoo layout) and moves it to the card, then:
 
   1. holds each of kernels 1-4 against its plain PyTorch version on the
      card at both of the bucketed path's shapes (B=512, T=64 from
@@ -28,8 +29,25 @@ cuckoo layout) and moves it to the card, then:
      path of a matcher with 4-point windows;
   4. serves 8 /report requests, one 2,048-point /report and 8 vehicles'
      streaming submits on the metro city, then replays the 6 recorded
-     /report fixtures on the 8 x 8 fixture grid and diffs them against
-     the recorded responses.
+     /report fixtures on the 8 x 8 fixture grid under the serving
+     defaults (the sparse model on) and diffs them against the recorded
+     responses;
+  5. the sparse-gap model, on cohorts A (every 9th point of the 512 x 64
+     cohort: 512 x 8 at 45 s), B (every 12th of the 64 x 2,048 one: 64 x
+     171 at 60 s) and L (16 x 512 at 60 s, seed 12): kernels 1-4 at
+     K = 16 on A and B with the sparse instantiations of kernels 3 and 4,
+     kernel 5's sparse instantiation at L's 16 x 256 (K = 16) and on the
+     slab at 512 x 4 (K = 8), each against its plain version and the
+     first of each timed; then, each through the launch counters, a
+     sparse-on matcher's ``match_many`` over A and B (uncalibrated, K =
+     16, and with $REPORTER_CALIBRATION = CALIBRATION.json, K = 8) held
+     against the plain composition; the long path over L held window by
+     window; A streamed as 512 sessions in 2 steps of 4 on host carries
+     (every step sparse, equal to the sparse long path with 4-point
+     windows) and on the slab (step 1 sparse, step 2 dense, as the
+     reference labels a slab-carried step; equal to the plain steps); and
+     8 /report of A on the serving defaults, equal to the plain
+     composition.
 
 Prints the card's name and power limit, one line per phase, a
 ``{"kernels": [...]}`` line, and as its last line
@@ -186,14 +204,22 @@ def metro_city(rows, device):
     return matcher, info
 
 
-def cohort(matcher, seed, n, T):
+def cohort(matcher, seed, n, T, dt=5.0):
     from reporter_tpu_torch.synth import TraceSynthesizer
 
     t0 = time.perf_counter()
     traces = [s.trace for s in TraceSynthesizer(matcher.arrays, seed=seed).batch(
-        n, T, dt=5.0, sigma=5.0, max_tries=100)]
-    print("cohort %dx%d synthesized in %.1f s" % (n, T, time.perf_counter() - t0))
+        n, T, dt=dt, sigma=5.0, max_tries=100)]
+    print("cohort %dx%d at %g s synthesized in %.1f s"
+          % (n, T, dt, time.perf_counter() - t0))
     return traces
+
+
+def subsample(traces, every):
+    """Every ``every``-th point of each trace: the same drives sampled
+    sparsely (uuids kept apart from the dense cohort's)."""
+    return [dict(tr, uuid="%s/%d" % (tr["uuid"], every), trace=tr["trace"][::every])
+            for tr in traces]
 
 
 def bucket_rows(matcher, traces, T):
@@ -222,13 +248,15 @@ def session_rows(matcher, traces, j, Wn=4, pad=16):
         [a, np.zeros((pad, Wn), a.dtype)]) for a in (px, py, tm, valid)))).to(matcher.device)
 
 
-def kernel_phases(matcher, xin, timed):
+def kernel_phases(matcher, xin, timed, p=None, K=None, sp=None):
     """Each kernel against its plain version at one of the main path's
     shapes (the packed [4, B, T] input ``xin``): the full call's every
     output, and the main path's call (which skips the outputs the scan
     never reads) equal to the full call on what it returns.  ``timed``:
     also time the main path's call of each kernel and of its plain
-    version, beside the bound of that call's work."""
+    version, beside the bound of that call's work.  ``p`` and ``K``
+    default to the matcher's; with ``sp`` (a sparse cohort's parameters)
+    kernels 3 and 4 run their sparse instantiations."""
     import numpy as np
     import torch
 
@@ -240,10 +268,12 @@ def kernel_phases(matcher, xin, timed):
 
     dev = matcher.device
     B, T = xin.shape[1], xin.shape[2]
-    K = matcher.cfg.beam_k
+    K = K or matcher.cfg.beam_k
+    p = p or matcher._params
+    tag = "" if sp is None else "[sparse]"
     x, y, t, v = V.unpack_inputs(xin)
     px, py = x.cpu().numpy(), y.cpu().numpy()
-    dg, du, p = matcher._dg, matcher._du, matcher._params
+    dg, du = matcher._dg, matcher._du
     rows = []
 
     def same(got, full, what):
@@ -323,41 +353,43 @@ def kernel_phases(matcher, xin, timed):
 
     # kernel 3: transition build
     args3 = (dg, s1.cand, x, y, t, r1[0], r1[1], p)
-    l1 = V.transition_build(*args3)
-    l0 = V.transition_build_plain(*args3)
+    l1 = V.transition_build(*args3, sp=sp)
+    l0 = V.transition_build_plain(*args3, sp=sp)
     for name, u, w in zip(("logp", "route", "gc"), l1, l0):
-        check(torch.allclose(u, w, rtol=1e-6, atol=0), "transition_build " + name)
+        check(torch.allclose(u, w, rtol=1e-6, atol=0), "transition_build%s %s" % (tag, name))
     err3 = max_abs_err(zip(l1, l0))
-    lean3 = V.transition_build(*args3, with_route=False)
-    same([lean3[0], lean3[2]], [l1[0], l1[2]], "transition_build")
+    lean3 = V.transition_build(*args3, with_route=False, sp=sp)
+    same([lean3[0], lean3[2]], [l1[0], l1[2]], "transition_build" + tag)
     # reads: candidate edge + offset, px/py/times, probe dist + time, the
     # distinct candidate edges' rows; writes: logp and gc (the main path
-    # skips route).  ~45 float operations per (t, i, j).
+    # skips route).  ~45 float operations per (t, i, j), ~55 with the
+    # sparse model's beta(dt) and plausibility terms.
     b3, by3 = bound(8 * P * K + 12 * P + 8 * N + 32 * n_edges + 4 * N + 4 * B * (T - 1),
-                    45 * N)
-    rows.append(dict(name="transition_build", route="cuda",
+                    (45 if sp is None else 55) * N)
+    rows.append(dict(name="transition_build" + tag, route="cuda",
                      source="reporter_tpu_torch/csrc/transition_build.cu",
-                     replaces="reporter_tpu/ops/viterbi.py:196",
+                     replaces="reporter_tpu/ops/viterbi.py:%d" % (196 if sp is None else 247),
                      tolerance="rtol 1e-6",
-                     fn=lambda: V.transition_build(*args3, with_route=False),
-                     plain=lambda: V.transition_build_plain(*args3, with_route=False),
+                     fn=lambda: V.transition_build(*args3, with_route=False, sp=sp),
+                     plain=lambda: V.transition_build_plain(*args3, with_route=False, sp=sp),
                      cold_l2=False, max_abs_err=err3, bound_ms=b3, bound_by=by3))
 
     # kernel 4: scan recursion, backtrace, compact gather, confidence
-    args4 = (s1.emis, l1[0], l1[2], v, s1.cand.edge, s1.cand.offset, p.breakage_distance)
+    args4 = (s1.emis, l1[0], l1[2], v, s1.cand.edge, s1.cand.offset, p.breakage_distance, t,
+             sp)
     k4 = V.viterbi_scan(*args4)
     k0 = V.viterbi_scan_plain(*args4)
-    check(torch.equal(k4[0], k0[0]), "viterbi_scan packed")
-    check(torch.allclose(k4[1], k0[1], rtol=1e-4, atol=0), "viterbi_scan aux")
+    check(torch.equal(k4[0], k0[0]), "viterbi_scan%s packed" % tag)
+    check(torch.allclose(k4[1], k0[1], rtol=1e-4, atol=0), "viterbi_scan%s aux" % tag)
     err4 = max_abs_err([(k4[0], k0[0])])
-    # reads: emis, logp, gc, valid, the chosen slot's edge + offset and the
-    # last slot's edge per point; writes: packed + aux.  2 K^2 float
-    # operations (add, compare) per step.
-    b4, by4 = bound(4 * P * K + 4 * N + 4 * B * (T - 1) + 4 * P + 12 * P + 12 * P + 16 * B,
-                    2 * N)
-    rows.append(dict(name="viterbi_scan", route="cuda",
+    # reads: emis, logp, gc, valid (and times for the sparse breakage), the
+    # chosen slot's edge + offset and the last slot's edge per point;
+    # writes: packed + aux.  2 K^2 float operations (add, compare) per step.
+    b4, by4 = bound(4 * P * K + 4 * N + 4 * B * (T - 1) + 4 * P + 12 * P + 12 * P + 16 * B
+                    + (0 if sp is None else 4 * P), 2 * N)
+    rows.append(dict(name="viterbi_scan" + tag, route="cuda",
                      source="reporter_tpu_torch/csrc/viterbi_scan.cu",
-                     replaces="reporter_tpu/ops/viterbi.py:447",
+                     replaces="reporter_tpu/ops/viterbi.py:%d" % (447 if sp is None else 458),
                      tolerance="packed exact; aux rtol 1e-4",
                      fn=lambda: V.viterbi_scan(*args4),
                      plain=lambda: V.viterbi_scan_plain(*args4), cold_l2=False,
@@ -369,9 +401,9 @@ def kernel_phases(matcher, xin, timed):
             r["ms"] = time_ms(r["fn"], cold_l2=r["cold_l2"])
             r["plain_ms"] = time_ms(r["plain"], cold_l2=r["cold_l2"], queued=False)
     for r in rows:
-        print("kernel %-17s %dx%d max_abs_err=%-9.3g kernel_ms=%s plain_ms=%s "
+        print("kernel %-25s %dx%d K=%d max_abs_err=%-9.3g kernel_ms=%s plain_ms=%s "
               "bound_ms=%.4f (%s) within tolerance: %s"
-              % (r["name"], B, T, r["max_abs_err"],
+              % (r["name"], B, T, K, r["max_abs_err"],
                  "%.4f" % r["ms"] if "ms" in r else "-",
                  "%.4f" % r["plain_ms"] if "plain_ms" in r else "-", r["bound_ms"],
                  r["bound_by"], r["tolerance"]))
@@ -402,18 +434,31 @@ def _seam_rows(dg, du, carry_edge, first_edge):
     return int(buckets.numel()), int(edges.numel())
 
 
-def chain_phases(matcher, long_traces, traces64, timed):
+def _pre(dg, du, xin, p, K, sp):
+    """Kernels 1-3 over a packed window: the dense or the sparse program."""
+    from reporter_tpu_torch.ops import viterbi as V
+
+    if sp is None:
+        return V.precompute_batch_packed(dg, du, xin, p, K)
+    return V.precompute_batch_packed_sparse(dg, du, xin, p, sp, K)
+
+
+def chain_phases(matcher, long_traces, traces64, timed, sp=None, long_pk=None,
+                 sess_pk=None):
     """Kernel 5 against its plain version at its two main-path shapes: the
     long path's window (64 x 256, continuing live carries) and the
-    session step against the serving slab (512 x 4, 65,536 slots)."""
+    session step against the serving slab (512 x 4, 65,536 slots).  With
+    ``sp`` its sparse instantiation, at the (p, K) of ``long_pk`` for the
+    long window and of ``sess_pk`` for the slab step (default: the
+    matcher's parameters and K)."""
     import numpy as np
     import torch
 
     from reporter_tpu_torch.ops import viterbi as V
 
     dev = matcher.device
-    K = matcher.cfg.beam_k
-    dg, du, p = matcher._dg, matcher._du, matcher._params
+    dg, du = matcher._dg, matcher._du
+    p, K = long_pk or (matcher._params, matcher.cfg.beam_k)
     out = {}
 
     # long path: window 1 of the long cohort, from window 0's carries
@@ -423,14 +468,15 @@ def chain_phases(matcher, long_traces, traces64, timed):
     px, py, tm, valid, _t = matcher._fill_rows(two, list(range(B)), 2 * W)
     xin = torch.from_numpy(V.pack_inputs(px, py, tm, valid)).to(dev)
     x0, x1 = xin[:, :, :W].contiguous(), xin[:, :, W:].contiguous()
-    pre0 = V.precompute_batch_packed(dg, du, x0, p, K)
-    carry = V.chain_batch_carry_packed_aux(dg, du, pre0, x0, p, K,
-                                           V.initial_carry_batch(B, K, dev))[2]
+    pre0 = _pre(dg, du, x0, p, K, sp)
+    carry = V.viterbi_chain(dg, du, pre0.emis, pre0.logp, pre0.gc, *V.unpack_inputs(x0),
+                            pre0.cand.edge, pre0.cand.offset, p,
+                            V.initial_carry_batch(B, K, dev), sp=sp)[2]
     check(bool(carry.active.all()), "live carries after window 0")
-    pre = V.precompute_batch_packed(dg, du, x1, p, K)
+    pre = _pre(dg, du, x1, p, K, sp)
     args = (dg, du, pre.emis, pre.logp, pre.gc, *V.unpack_inputs(x1), pre.cand.edge,
             pre.cand.offset, p, carry)
-    k5, p5 = V.viterbi_chain(*args), V.viterbi_chain_plain(*args)
+    k5, p5 = V.viterbi_chain(*args, sp=sp), V.viterbi_chain_plain(*args, sp=sp)
     check(torch.equal(k5[0], p5[0]), "viterbi_chain packed (long)")
     check(_carry_same(k5[2], p5[2]), "viterbi_chain carry-out (long)")
     check(torch.allclose(k5[1], p5[1], rtol=1e-4, atol=0), "viterbi_chain aux (long)")
@@ -444,8 +490,9 @@ def chain_phases(matcher, long_traces, traces64, timed):
               + 8 * B * T * K + 2 * slot_b * B + 512 * n_rows + 32 * n_edges
               + 12 * B * T + 16 * B)
     bl, byl = bound(nbytes, 2 * K * K * (T - 1) * B + 80 * K * K * B)
-    out["long"] = dict(shape="%dx%d" % (B, T), fn=lambda: V.viterbi_chain(*args),
-                       plain=lambda: V.viterbi_chain_plain(*args), bound_ms=bl,
+    out["long"] = dict(shape="%dx%d K=%d" % (B, T, K),
+                       fn=lambda: V.viterbi_chain(*args, sp=sp),
+                       plain=lambda: V.viterbi_chain_plain(*args, sp=sp), bound_ms=bl,
                        bound_by=byl, max_abs_err=max_abs_err([(k5[0], p5[0])]),
                        aux_max_abs_err=max_abs_err([(k5[1], p5[1])]),
                        seam_bucket_rows=n_rows)
@@ -453,6 +500,8 @@ def chain_phases(matcher, long_traces, traces64, timed):
     # session step against the serving slab: 480 rows continue their
     # beams, 16 start fresh on slots that hold old beams, 16 are padding
     S, B, Wn = matcher.cfg.max_sessions, len(traces64), 4
+    p, K = sess_pk or (matcher._params, matcher.cfg.beam_k)
+    slot_b = 12 * K + 17
     rng = np.random.default_rng(5)
     slots = np.full(B, S, np.int32)
     slots[:B - 16] = rng.choice(S, B - 16, replace=False)
@@ -461,16 +510,19 @@ def chain_phases(matcher, long_traces, traces64, timed):
     # xs1 is the input main() holds kernels 1-4 at (kernel_phases), so the
     # pre both sides share below was itself checked against its plain version
     xs0, xs1 = (session_rows(matcher, traces64[:B - 16], j, Wn) for j in (0, Wn))
-    V.session_step_arena(dg, du, xs0, p, K, slab, slots, np.zeros(B, bool))
+    pre0 = _pre(dg, du, xs0, p, K, sp)
+    V.viterbi_chain(dg, du, pre0.emis, pre0.logp, pre0.gc, *V.unpack_inputs(xs0),
+                    pre0.cand.edge, pre0.cand.offset, p, slab, slots, np.zeros(B, bool),
+                    sp=sp)
     use = np.zeros(B, bool)
     use[:B - 32] = True
-    pre = V.precompute_batch_packed(dg, du, xs1, p, K)
+    pre = _pre(dg, du, xs1, p, K, sp)
     slab_k = V.TraceCarry(*(t.clone() for t in slab))
     slab_p = V.TraceCarry(*(t.clone() for t in slab))
     sargs = (dg, du, pre.emis, pre.logp, pre.gc, *V.unpack_inputs(xs1), pre.cand.edge,
              pre.cand.offset, p)
-    ka = V.viterbi_chain(*sargs, slab_k, slots, use)
-    pa = V.viterbi_chain_plain(*sargs, slab_p, slots, use)
+    ka = V.viterbi_chain(*sargs, slab_k, slots, use, sp=sp)
+    pa = V.viterbi_chain_plain(*sargs, slab_p, slots, use, sp=sp)
     check(torch.equal(ka[0], pa[0]), "viterbi_chain packed (arena)")
     check(_carry_same(slab_k, slab_p), "viterbi_chain slab (arena)")
     check(not _carry_same(slab_k, slab), "the arena step wrote the slab")
@@ -483,9 +535,10 @@ def chain_phases(matcher, long_traces, traces64, timed):
               + 8 * B * T * K + 5 * B + slot_b * ((B - 32) + (B - 16))
               + 512 * n_rows + 32 * n_edges + 12 * B * T + 16 * B)
     ba, bya = bound(nbytes, 2 * K * K * (T - 1) * B + 80 * K * K * B)
-    out["arena"] = dict(shape="%dx%d slab %d" % (B, T, S),
-                        fn=lambda: V.viterbi_chain(*sargs, slab_k, slots, use),
-                        plain=lambda: V.viterbi_chain_plain(*sargs, slab_p, slots, use),
+    out["arena"] = dict(shape="%dx%d K=%d slab %d" % (B, T, K, S),
+                        fn=lambda: V.viterbi_chain(*sargs, slab_k, slots, use, sp=sp),
+                        plain=lambda: V.viterbi_chain_plain(*sargs, slab_p, slots, use,
+                                                            sp=sp),
                         bound_ms=ba, bound_by=bya,
                         max_abs_err=max_abs_err([(ka[0], pa[0])]),
                         aux_max_abs_err=max_abs_err([(ka[1], pa[1])]),
@@ -494,9 +547,10 @@ def chain_phases(matcher, long_traces, traces64, timed):
         if timed and dev.type == "cuda":
             r["ms"] = time_ms(r["fn"], cold_l2=False)
             r["plain_ms"] = time_ms(r["plain"], cold_l2=False, queued=False)
-        print("kernel viterbi_chain     %-17s max_abs_err=%-9.3g kernel_ms=%s plain_ms=%s "
+        print("kernel %-25s %-22s max_abs_err=%-9.3g kernel_ms=%s plain_ms=%s "
               "bound_ms=%.4f (%s) within tolerance: packed, carry/slab exact; aux rtol 1e-4"
-              % (r["shape"], r["max_abs_err"],
+              % ("viterbi_chain" + ("" if sp is None else "[sparse]"), r["shape"],
+                 r["max_abs_err"],
                  "%.4f" % r["ms"] if "ms" in r else "-",
                  "%.4f" % r["plain_ms"] if "plain_ms" in r else "-", r["bound_ms"],
                  r["bound_by"]))
@@ -525,13 +579,18 @@ def _counted(path_kernels, drive):
 
 BUCKETED = ("candidate_sweep", "ubodt_probe", "transition_build", "viterbi_scan")
 CARRIED = ("candidate_sweep", "ubodt_probe", "transition_build", "viterbi_chain")
+SPARSE_BUCKETED = ("candidate_sweep", "ubodt_probe", "transition_build[sparse]",
+                   "viterbi_scan[sparse]")
+SPARSE_CARRIED = ("candidate_sweep", "ubodt_probe", "transition_build[sparse]",
+                  "viterbi_chain[sparse]")
 
 
-def long_path(matcher, traces):
+def long_path(matcher, traces, slabel=""):
     """The long path: ``match_many`` over 64 traces of 2,048 points (8
     windows of 256) through the launch counters, then the group's
     per-point output held against the plain composition window by window
-    on the card."""
+    on the card.  With ``slabel`` the traces are that sparse cohort's and
+    ``matcher`` has the model on: the sparse programs at the cohort's K."""
     import numpy as np
     import torch
 
@@ -539,41 +598,53 @@ def long_path(matcher, traces):
 
     dev = matcher.device
     matcher.match_many(traces[:1])  # first-call set-up outside the count
-    res, dt, launches = _counted(CARRIED, lambda: matcher.match_many(traces))
+    res, dt, launches = _counted(SPARSE_CARRIED if slabel else CARRIED,
+                                 lambda: matcher.match_many(traces))
     check(len(res) == len(traces) and all(r["segments"] for r in res), "long path results")
     n_pts = sum(len(tr["trace"]) for tr in traces)
     rate = {"traces": len(traces), "T": len(traces[0]["trace"]), "s": dt,
             "traces_per_s": len(traces) / dt, "points_per_s": n_pts / dt}
-    print("long path %dx%d: %.3f s, %.1f traces/s, %.0f points/s, launches %s"
-          % (len(traces), rate["T"], dt, rate["traces_per_s"], rate["points_per_s"],
-             json.dumps(launches)))
+    print("long path %s%dx%d: %.3f s, %.1f traces/s, %.0f points/s, launches %s"
+          % ("(sparse %s) " % slabel if slabel else "", len(traces), rate["T"], dt,
+             rate["traces_per_s"], rate["points_per_s"], json.dumps(launches)))
     W = matcher.max_trace_points
     n_chunks = -(-rate["T"] // W)
+    chain = "viterbi_chain[sparse]" if slabel else "viterbi_chain"
     if dev.type == "cuda":
-        check(launches["candidate_sweep"] == 1 and launches["viterbi_chain"] == n_chunks,
+        check(launches["candidate_sweep"] == 1 and launches[chain] == n_chunks,
               "one pre dispatch and one chain dispatch per window")
+    if slabel:
+        check(matcher.sparse.dispatch.get(slabel, 0) >= len(traces),
+              "the long traces dispatched as cohort %s" % slabel)
 
-    handles = matcher._dispatch_long(traces, list(range(len(traces))))
+    handles = matcher._dispatch_long(traces, list(range(len(traces))), (), slabel)
     check(len(handles) == 1, "one long group")
     group, (edge, offset, breaks), _times, _aux = matcher._fetch_long_aux(handles[0])
     px, py, tm, valid, _t = matcher._fill_rows(traces, group, n_chunks * W)
     xin = torch.from_numpy(V.pack_inputs(px, py, tm, valid)).to(dev)
-    p, K = matcher._params, matcher.cfg.beam_k
+    p, sp, K = (matcher.sparse.params_for(slabel) if slabel
+                else (matcher._params, None, matcher.cfg.beam_k))
     carry = V.initial_carry_batch(len(group), K, dev)
     parts = []
     for c in range(n_chunks):
         xc = xin[:, :, c * W:(c + 1) * W].contiguous()
-        pre = V.precompute_batch_packed_plain(matcher._dg, matcher._du, xc, p, K)
-        packed, _a, carry = V.chain_batch_carry_packed_aux_plain(
-            matcher._dg, matcher._du, pre, xc, p, K, carry)
+        if sp is None:
+            pre = V.precompute_batch_packed_plain(matcher._dg, matcher._du, xc, p, K)
+            packed, _a, carry = V.chain_batch_carry_packed_aux_plain(
+                matcher._dg, matcher._du, pre, xc, p, K, carry)
+        else:
+            pre = V.precompute_batch_packed_sparse_plain(matcher._dg, matcher._du, xc, p,
+                                                         sp, K)
+            packed, _a, carry = V.chain_batch_carry_packed_sparse_plain(
+                matcher._dg, matcher._du, pre, xc, p, sp, K, carry)
         parts.append(V.unpack_compact(packed.cpu().numpy()))
     want = [np.concatenate([q[f] for q in parts], 1) for f in range(3)]
     B = len(group)
     check(np.array_equal(edge[:B], want[0]) and offset[:B].tobytes() == want[1].tobytes()
           and np.array_equal(breaks[:B], want[2]),
           "long path output equals the plain composition")
-    print("long path [%d, %d x %d] equals the plain composition window by window"
-          % (B, n_chunks, W))
+    print("long path [%d, %d x %d] K=%d equals the plain composition window by window"
+          % (B, n_chunks, W, K))
     return launches, rate
 
 
@@ -841,6 +912,7 @@ def serve_phase(matcher, traces, long_trace, device):
     """Windowed, long and streaming /report on the metro city through the
     launch counters, then the recorded fixtures."""
     from reporter_tpu_torch.matching import MatcherConfig, SegmentMatcher
+    from reporter_tpu_torch.serve.__main__ import serving_defaults
     from reporter_tpu_torch.tiles.arrays import build_graph_arrays
     from reporter_tpu_torch.tiles.network import grid_city
     from reporter_tpu_torch.tiles.ubodt import build_ubodt
@@ -878,8 +950,10 @@ def serve_phase(matcher, traces, long_trace, device):
     net = recorded["network"]
     arrays = build_graph_arrays(grid_city(net["rows"], net["cols"], net["spacing_m"]),
                                 cell_size=100.0)
+    # the serving defaults: the sparse model on, which leaves these dense
+    # traces (median gaps 10-30 s) on the dense programs
     fixture_matcher = SegmentMatcher(arrays=arrays, ubodt=build_ubodt(arrays, delta=3000.0),
-                                     config=MatcherConfig(), device=device)
+                                     config=serving_defaults(MatcherConfig()), device=device)
     (answers,) = _serve(fixture_matcher, recorded["threshold_sec"],
                         [fx["request"] for fx in recorded["fixtures"]])
     for fx, (code, body) in zip(recorded["fixtures"], answers):
@@ -888,6 +962,200 @@ def serve_phase(matcher, traces, long_trace, device):
     print("serve fixtures: %d recorded /report responses replayed equal"
           % len(recorded["fixtures"]))
     return n_reports, launches
+
+
+def sparse_matcher(matcher, calibration=None, **cfg_kw):
+    """A matcher over ``matcher``'s city with the sparse-gap model on
+    (``cfg.sparse``), and with ``calibration`` read through
+    $REPORTER_CALIBRATION when the model is built."""
+    from dataclasses import replace
+
+    from reporter_tpu_torch.matching import SegmentMatcher
+
+    saved = os.environ.pop("REPORTER_CALIBRATION", None)
+    if calibration:
+        os.environ["REPORTER_CALIBRATION"] = calibration
+    try:
+        sm = SegmentMatcher(arrays=matcher.arrays, ubodt=matcher.ubodt,
+                            config=replace(matcher.cfg, sparse=True, **cfg_kw),
+                            device=matcher.device)
+    finally:
+        os.environ.pop("REPORTER_CALIBRATION", None)
+        if saved is not None:
+            os.environ["REPORTER_CALIBRATION"] = saved
+    check(sm.sparse.enabled and bool(sm.sparse.calibration) == bool(calibration),
+          "sparse model on, calibrated: %s" % bool(calibration))
+    return sm
+
+
+def sparse_main_path(sm, cohorts, xins, what):
+    """The bucketed path of a sparse-on matcher over the sparse cohorts
+    through the launch counters (each cohort's traces dispatched as its
+    gap cohort), then each cohort's packed program held against the plain
+    composition at the cohort's parameters and K."""
+    import torch
+
+    from reporter_tpu_torch.ops import viterbi as V
+
+    dev = sm.device
+    sm.match_many(cohorts[0][:4])  # first-call set-up outside the count
+    sm.sparse.dispatch.clear()
+    rates = []
+
+    def drive():
+        for traces in cohorts:
+            t0 = time.perf_counter()
+            res = sm.match_many(traces)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            dt = time.perf_counter() - t0
+            check(len(res) == len(traces) and all(r["segments"] for r in res),
+                  "sparse path results")
+            label = sm.sparse.label_for_trace(traces[0])
+            _p, sp, k = sm.sparse.params_for(label)
+            n_pts = sum(len(tr["trace"]) for tr in traces)
+            rates.append({"cohort": label, "K": k, "vmax": float(sp.vmax),
+                          "traces": len(traces), "T": len(traces[0]["trace"]), "s": dt,
+                          "traces_per_s": len(traces) / dt, "points_per_s": n_pts / dt})
+            print("sparse path (%s) %dx%d, cohort %s, K=%d, vmax %g: %.3f s, %.1f traces/s, "
+                  "%.0f points/s" % (what, len(traces), len(traces[0]["trace"]), label, k,
+                                     float(sp.vmax), dt, len(traces) / dt, n_pts / dt))
+
+    _r, _dt, launches = _counted(SPARSE_BUCKETED, drive)
+    want = {r["cohort"]: r["traces"] for r in rates}
+    check(sm.sparse.dispatch == want, "sparse dispatch counts %s == %s"
+          % (sm.sparse.dispatch, want))
+    print("sparse path (%s) dispatch per cohort %s, launches %s"
+          % (what, json.dumps(sm.sparse.dispatch), json.dumps(launches)))
+    for r, xin in zip(rates, xins):
+        p, sp, k = sm.sparse.params_for(r["cohort"])
+        got = V.match_batch_compact_packed_sparse(sm._dg, sm._du, xin, p, sp, k)
+        want = V.match_batch_compact_packed_sparse_plain(sm._dg, sm._du, xin, p, sp, k)
+        check(torch.equal(got[0], want[0]), "sparse packed output equals the plain versions'")
+        check(torch.allclose(got[1], want[1], rtol=1e-4, atol=0), "sparse aux")
+        print("sparse path (%s) packed [3,%d,%d] K=%d equals the plain composition, aux "
+              "within rtol 1e-4" % (what, xin.shape[1], xin.shape[2], k))
+    return launches, rates
+
+
+def sparse_session_path(matcher, traces, label):
+    """Cohort ``traces`` (one gap cohort, 8 points each) streamed as
+    sessions in 2 steps of 4 points through ``SessionEngine``, the sparse
+    model on, through the launch counters.  With host carries every step
+    is sparse, and equals the sparse long path with 4-point windows bit
+    for bit (``sparse_beam_k`` = 8 there, the sessions' K).  On the slab a
+    later step's carry is an ``ArenaRef``, which labels dense, as in the
+    reference: step 1 is sparse and step 2 dense, held bit for bit against
+    the plain composition of those two steps."""
+    import numpy as np
+
+    from reporter_tpu_torch.matching import SessionEngine, SessionStore
+    from reporter_tpu_torch.matching.arena import carry_host
+    from reporter_tpu_torch.ops import viterbi as V
+
+    cfg = matcher.cfg
+    dev = matcher.device
+    n, Wn = len(traces), 4
+    hm = sparse_matcher(matcher, sparse_beam_k=8, session_arena=False)
+    am = sparse_matcher(matcher, sparse_beam_k=8, session_arena=True)
+
+    def stream(m, trs):
+        eng = SessionEngine(m, SessionStore(cfg.max_sessions, cfg.session_ttl_s),
+                            tail_points=cfg.session_tail_points)
+        for j in (0, Wn):
+            eng.match_many([dict(tr, trace=tr["trace"][j:j + Wn]) for tr in trs])
+        return eng
+
+    out = {}
+    for name, m, kernels, per_session in (
+            ("host-carry", hm, SPARSE_CARRIED, 2),
+            ("slab", am, SPARSE_CARRIED + ("transition_build", "viterbi_chain"), 1)):
+        stream(m, [dict(traces[0], uuid="warm")]).store.drop("warm")  # set-up
+        m.sparse.dispatch.clear()
+        eng, dt, launches = _counted(kernels, lambda: stream(m, traces))
+        check(m.sparse.dispatch == {label: per_session * n},
+              "%s sessions: sparse steps per cohort %s" % (name, m.sparse.dispatch))
+        out[name] = (eng, {"s": dt, "steps_per_s": 2 / dt, "points_per_s": 2 * Wn * n / dt,
+                           "dispatch": dict(m.sparse.dispatch), "launches": launches})
+        print("sparse session path (%s) %d sessions x 2 steps of %d: %.3f s, sparse steps "
+              "%s, launches %s" % (name, n, Wn, dt, json.dumps(m.sparse.dispatch),
+                                   json.dumps(launches)))
+
+    host = out["host-carry"][0]
+    oracle = sparse_matcher(matcher, sparse_beam_k=8, length_buckets=[Wn])
+    (h,) = oracle._dispatch_long(traces, list(range(n)), (), label)
+    group, (edge, offset, breaks), _t, _a = oracle._fetch_long_aux(h)
+    for row, i in enumerate(group):
+        recs = host.store.peek(traces[i]["uuid"]).records
+        rec = np.array([(r[0], r[2]) for r in recs])
+        off = np.array([r[1] for r in recs], np.float32)
+        check(np.array_equal(rec[:, 0], edge[row]) and np.array_equal(rec[:, 1], breaks[row])
+              and off.tobytes() == offset[row].tobytes(),
+              "sparse host-carry sessions equal the 4-point-window sparse long path")
+
+    slab = out["slab"][0]
+    dg, du, K = am._dg, am._du, cfg.beam_k
+    p_sp, sp, _k = am.sparse.params_for(label)
+    xs = [session_rows(am, traces, j, Wn, pad=0) for j in (0, Wn)]
+    pk0, _a0, c1 = V.session_step_packed_sparse_plain(dg, du, xs[0], p_sp, sp, K,
+                                                      V.initial_carry_batch(n, K, dev))
+    pk1, _a1, c2 = V.session_step_packed_plain(dg, du, xs[1], am._params, K, c1)
+    steps = [V.unpack_compact(pk.cpu().numpy()) for pk in (pk0, pk1)]
+    leaves = {f: t.cpu().numpy() for f, t in zip(V.TraceCarry._fields, c2)}
+    for row, tr in enumerate(traces):
+        s = slab.store.peek(tr["uuid"])
+        rec = np.array([(r[0], r[2]) for r in s.records])
+        off = np.array([r[1] for r in s.records], np.float32)
+        e = np.concatenate([st[0][row] for st in steps])
+        o = np.concatenate([st[1][row] for st in steps])
+        b = np.concatenate([st[2][row] for st in steps])
+        check(np.array_equal(rec[:, 0], e) and np.array_equal(rec[:, 1], b)
+              and off.tobytes() == o.tobytes(),
+              "slab sessions equal the plain sparse step then the plain dense step")
+        beam = carry_host(s.carry)
+        check(all(np.asarray(beam[f]).tobytes() == leaves[f][row].tobytes()
+                  for f in leaves), "slab beam equals the plain composition's")
+    print("sparse session path: %d sessions' records equal the 4-point-window sparse long "
+          "path (host carries) and the plain sparse-then-dense steps (slab, beams too)" % n)
+    return ({k: v[1] for k, v in out.items()},
+            {k: v[1]["launches"] for k, v in out.items()})
+
+
+def sparse_serve_phase(matcher, traces):
+    """8 /report requests of a sparse cohort on the serving matcher built
+    as serve/__main__.py builds it (the sparse model on by default),
+    through the launch counters; each answer's segments equal those the
+    plain composition gives through the same association."""
+    from reporter_tpu_torch.device import upload
+    from reporter_tpu_torch.matching import MatcherConfig, SegmentMatcher
+    from reporter_tpu_torch.ops import viterbi as V
+    from reporter_tpu_torch.serve.__main__ import serving_defaults
+
+    sv = SegmentMatcher(arrays=matcher.arrays, ubodt=matcher.ubodt,
+                        config=serving_defaults(MatcherConfig()), device=matcher.device)
+    check(sv.sparse.enabled and sv.session_arena is not None, "serving defaults")
+    requests = traces[:8]
+    (answers,), dt, launches = _counted(SPARSE_BUCKETED, lambda: _serve(sv, 15, requests))
+    label = sv.sparse.label_for_trace(requests[0])
+    check(sv.sparse.dispatch == {label: len(requests)},
+          "served traces dispatched sparse: %s" % sv.sparse.dispatch)
+    idxs = list(range(len(requests)))
+    T = sv._bucket_len(len(requests[0]["trace"]))
+    px, py, tm, valid, times = sv._fill_rows(requests, idxs, T)
+    p, sp, k = sv.sparse.params_for(label)
+    packed, aux = V.match_batch_compact_packed_sparse_plain(
+        sv._dg, sv._du, upload(V.pack_inputs(px, py, tm, valid), sv.device), p, sp, k)
+    results = [None] * len(requests)
+    sv._associate_and_store(idxs, *V.unpack_compact(packed.cpu().numpy()), times, results,
+                            aux=aux.cpu().numpy())
+    for (code, body), r in zip(answers, results):
+        check(code == 200, "sparse /report status %s" % code)
+        check(body["segment_matcher"]["segments"] == json.loads(json.dumps(r["segments"])),
+              "sparse /report segments equal the plain composition's")
+    print("serve sparse: 8 /report of cohort %s answered 200 in %.2f s, K=%d, equal to the "
+          "plain composition, dispatch %s, launches %s"
+          % (label, dt, k, json.dumps(sv.sparse.dispatch), json.dumps(launches)))
+    return launches
 
 
 def main():
@@ -924,18 +1192,49 @@ def main():
     split.append(long_breakdown(matcher, traces2048))
     n_reports, serve_launches = serve_phase(arena_matcher, traces64, traces2048[0], device)
 
-    # launches over the counted runs of the bucketed, long and session
-    # paths; kernels 1-4's times and bounds at 512 x 64, max_abs_err over
-    # both bucketed shapes and the session step's; kernel 5's at the long
-    # path's 64 x 256
-    total = {k: launches[k] + long_launches[k] + sess_launches[k] for k in launches}
+    # the sparse-gap model: cohorts A (every 9th point of the 512 x 64
+    # cohort: 512 x 8 at 45 s, "45-60", bucket 16) and B (every 12th of the
+    # 64 x 2,048 one: 64 x 171 at 60 s, "ge60", bucket 256), uncalibrated
+    # at K = 16; L, 16 x 512 at 60 s (two windows of 256)
+    tr_a, tr_b = subsample(traces64, 9), subsample(traces2048, 12)
+    tr_l = cohort(matcher, 12, 16, 512, dt=60.0)
+    sm = sparse_matcher(matcher)
+    xin_a, xin_b = bucket_rows(sm, tr_a, 16), bucket_rows(sm, tr_b, 256)
+    pa_, spa, ka = sm.sparse.params_for("45-60")
+    pb_, spb, kb = sm.sparse.params_for("ge60")
+    check(ka == kb == 16, "uncalibrated sparse cohorts at K = 16")
+    rows_a = kernel_phases(sm, xin_a, timed=True, p=pa_, K=ka, sp=spa)
+    rows_b = kernel_phases(sm, xin_b, timed=False, p=pb_, K=kb, sp=spb)
+    chain_sp = chain_phases(sm, tr_l, tr_a, timed=True, sp=spb, long_pk=(pb_, kb),
+                            sess_pk=(pa_, matcher.cfg.beam_k))
+    sp_launches, sp_rates = sparse_main_path(sm, [tr_a, tr_b], [xin_a, xin_b],
+                                             "uncalibrated")
+    cm = sparse_matcher(matcher, calibration=os.path.join(REPO, "CALIBRATION.json"))
+    check([cm.sparse.params_for(c)[2] for c in ("45-60", "ge60")] == [8, 8],
+          "calibrated cohorts at K = 8")
+    cal_launches, cal_rates = sparse_main_path(
+        cm, [tr_a, tr_b], [bucket_rows(cm, tr_a, 16), bucket_rows(cm, tr_b, 256)],
+        "calibrated")
+    sp_long_launches, sp_long_rate = long_path(sm, tr_l, "ge60")
+    sp_sess_rate, sp_sess_launches = sparse_session_path(matcher, tr_a, "45-60")
+    sp_serve_launches = sparse_serve_phase(matcher, tr_a)
+
+    # launches over the counted runs of every path but serve's; kernels
+    # 1-4's times and bounds at 512 x 64, max_abs_err over both bucketed
+    # shapes, the session step's and the sparse cohorts A and B (K = 16);
+    # kernel 5's at the long path's 64 x 256; the sparse instantiations'
+    # at cohort A's 512 x 16 (kernels 3, 4) and cohort L's 16 x 256 (5)
+    runs = [launches, long_launches, sess_launches, sp_launches, cal_launches,
+            sp_long_launches, *sp_sess_launches.values()]
+    total = {k: sum(r[k] for r in runs) for k in launches}
     kernels = [{
         "name": r["name"], "route": r["route"], "source": r["source"],
         "replaces": r["replaces"], "launches": total[r["name"]],
-        "max_abs_err": max(r["max_abs_err"], r2["max_abs_err"], r4["max_abs_err"]),
+        "max_abs_err": max(x["max_abs_err"] for x in (r, r2, r4, ra, rb)),
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": None,
-    } for r, r2, r4 in zip(rows, rows256, rows4)]
+    } for r, r2, r4, ra, rb in zip(rows, rows256, rows4, rows_a[:2] + rows[2:],
+                                   rows_b[:2] + rows[2:])]
     cl = chain["long"]
     kernels.append({
         "name": "viterbi_chain", "route": "cuda",
@@ -944,12 +1243,39 @@ def main():
         "max_abs_err": max(c["max_abs_err"] for c in chain.values()), "ms": cl["ms"],
         "plain_ms": cl["plain_ms"], "bound_ms": cl["bound_ms"], "bound_by": cl["bound_by"],
         "library_ms": None})
+    kernels.extend({
+        "name": r["name"], "route": r["route"], "source": r["source"],
+        "replaces": r["replaces"], "launches": total[r["name"]],
+        "max_abs_err": max(r["max_abs_err"], rb["max_abs_err"]), "ms": r["ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+        "library_ms": None} for r, rb in zip(rows_a[2:], rows_b[2:]))
+    cs = chain_sp["long"]
+    kernels.append({
+        "name": "viterbi_chain[sparse]", "route": "cuda",
+        "source": "reporter_tpu_torch/csrc/viterbi_chain.cu",
+        "replaces": "reporter_tpu/ops/viterbi.py:498",
+        "launches": total["viterbi_chain[sparse]"],
+        "max_abs_err": max(c["max_abs_err"] for c in chain_sp.values()), "ms": cs["ms"],
+        "plain_ms": cs["plain_ms"], "bound_ms": cs["bound_ms"], "bound_by": cs["bound_by"],
+        "library_ms": None})
     report = {
         "card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
         "build_s": build_s, "city": city, "main_path": rates, "breakdown": split,
         "long_path": long_rate, "session_path": sess_rate,
         "launches": {"bucketed": launches, "long": long_launches, "session": sess_launches,
-                     "serve": serve_launches},
+                     "serve": serve_launches, "sparse_bucketed": sp_launches,
+                     "sparse_bucketed_calibrated": cal_launches,
+                     "sparse_long": sp_long_launches, "sparse_session": sp_sess_launches,
+                     "sparse_serve": sp_serve_launches},
+        "sparse": {"bucketed": sp_rates, "calibrated": cal_rates, "long": sp_long_rate,
+                   "session": sp_sess_rate,
+                   "kernels_k16": {"%s_%s" % (r["name"], shape): {
+                       k: v for k, v in r.items() if k in (
+                           "ms", "plain_ms", "bound_ms", "max_abs_err", "aux_max_abs_err",
+                           "probes", "distinct_rows", "hit_rate")}
+                       for shape, rs in (("512x16", rows_a), ("64x256", rows_b)) for r in rs},
+                   "chain": {name: {k: v for k, v in c.items() if k not in ("fn", "plain")}
+                             for name, c in chain_sp.items()}},
         "metro_reports": n_reports, "peak_memory_mb": torch.cuda.max_memory_allocated() / 1e6,
         "kernels": kernels,
         "extra": dict({"%s_%d" % (r["name"], T): {k: v for k, v in r.items() if k in (

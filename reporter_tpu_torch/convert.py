@@ -3,9 +3,10 @@
 The reference and the port build the same graph and UBODT bytes (the
 tests assert it); these helpers take those bytes as numpy arrays, however
 they were built, and wrap them in the port's ``DeviceGraph`` and
-``DeviceUBODT`` on the CPU (``to_device`` moves them to the card), and
-turn a carried Viterbi state (a ``TraceCarry`` of numpy leaves, or the
-session store's host carry dict) into the port's carry tensors.
+``DeviceUBODT`` on the CPU (``to_device`` moves them to the card), turn
+a carried Viterbi state (a ``TraceCarry`` of numpy leaves, or the session
+store's host carry dict) into the port's carry tensors, and the sparse
+model's six scalars into the port's ``SparseParams``.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .ops.viterbi import CARRY_DTYPES, TraceCarry
+from .ops.viterbi import CARRY_DTYPES, SparseParams, TraceCarry
 from .tiles.arrays import DeviceGraph
 from .tiles.ubodt import BUCKET, ROW_W, DeviceUBODT
 
@@ -54,3 +55,13 @@ def carry_from_numpy(carry) -> TraceCarry:
     return TraceCarry(*(
         torch.from_numpy(np.array(np.asarray(get(name)), _NP_DTYPES[dt]))
         for name, dt in zip(TraceCarry._fields, CARRY_DTYPES)))
+
+
+def sparse_params_from_numpy(sp) -> SparseParams:
+    """The sparse model's scalars as the port's ``SparseParams``, bit for
+    bit: anything with the six fields ``beta_ref, beta_scale, beta_max,
+    break_speed, vmax, plaus_weight`` as attributes (the reference's
+    ``SparseParams``, leaves as numpy or anything ``np.asarray`` reads)."""
+    return SparseParams(*(
+        torch.from_numpy(np.array(np.asarray(getattr(sp, name)), np.float32))
+        for name in SparseParams._fields))

@@ -1,9 +1,12 @@
-// One entry of the dense transition matrix, shared by the transition
-// build (transition_build.cu, every step of a window) and the seam
-// transition of the chain kernel (viterbi_chain.cu, from the carried beam
-// to a window's first point): reporter_tpu/ops/viterbi.py:196
-// _transition_matrix, dense branch, in the reference's operation order
-// with each rounding explicit (common.cuh).
+// One entry of the transition matrix, shared by the transition build
+// (transition_build.cu, every step of a window) and the seam transition of
+// the chain kernel (viterbi_chain.cu, from the carried beam to a window's
+// first point): reporter_tpu/ops/viterbi.py:196 _transition_matrix, in the
+// reference's operation order with each rounding explicit (common.cuh).
+// SPARSE (a template parameter: the reference's static ``sp`` presence)
+// adds the sparse-gap model of :146 sparse_beta and :247-265, and :154
+// sparse_breakage is here for the recursion and the seam; the dense
+// instantiation compiles to the dense code alone.
 #pragma once
 
 #include "common.cuh"
@@ -18,6 +21,34 @@ struct TransParams {
   float max_time_factor;   // max_route_time_factor
   float turn_factor;       // turn_penalty_factor
 };
+
+// The sparse-gap model's six scalars (reference SparseParams).
+struct SparseArgs {
+  float beta_ref;     // s; gaps at or below leave beta unchanged
+  float beta_scale;   // growth rate of the beta multiplier
+  float beta_max;     // cap on the multiplier
+  float break_speed;  // m/s; breakage = max(base, break_speed * dt)
+  float vmax;         // m/s drivable-speed knee
+  float plaus_weight; // log-prob units per vmax of excess speed
+};
+
+// beta * min(1 + beta_scale * max(dt - beta_ref, 0) / max(beta_ref, 1),
+// beta_max): the division sits between the product and the sum, so
+// nothing fuses
+__device__ __forceinline__ float sparse_beta(float beta, const SparseArgs& s,
+                                             float dt) {
+  const float grow = __fdiv_rn(
+      __fmul_rn(s.beta_scale, fmaxf(__fsub_rn(dt, s.beta_ref), 0.f)),
+      fmaxf(s.beta_ref, 1.f));
+  return __fmul_rn(beta, fminf(__fadd_rn(1.f, grow), s.beta_max));
+}
+
+// gap-conditioned breakage: max(breakage_distance, break_speed * max(dt, 0))
+__device__ __forceinline__ float sparse_breakage(float brk,
+                                                 const SparseArgs& s,
+                                                 float dt) {
+  return fmaxf(brk, __fmul_rn(s.break_speed, fmaxf(dt, 0.f)));
+}
 
 // jnp.mod(d + pi, 2 pi) - pi with jnp.mod's floored remainder: fmod
 // (exact), plus the divisor where the signs differ
@@ -34,11 +65,17 @@ __device__ __forceinline__ float angle_diff(float a, float b) {
 // -|route - gc| / beta.  era/erb are the two candidates' [8] edge rows,
 // (sp_dist, sp_time) the probe of (to(ea), from(eb)), gc the straight-line
 // metres and dt the seconds between the two points.  Writes the route
-// (+inf when infeasible) to *route when route is not null.
+// (+inf when infeasible) to *route when route is not null.  With SPARSE,
+// beta becomes sparse_beta(dt) in both the |route - gc| term and the turn
+// penalty, and where dt > 0 the plausibility term plaus_weight *
+// max(route / max(dt, 1) - vmax, 0) / max(vmax, 1) is subtracted, on the
+// route before the feasibility cut; an infeasible pair returns kNegInf
+// whatever that term gave (0 * inf is NaN when plaus_weight is 0).
+template <bool SPARSE>
 __device__ __forceinline__ float transition_logp(
     int32_t ea, int32_t eb, float oa, float ob, const float* era,
     const float* erb, float sp_dist, float sp_time, float gc, float dt,
-    const TransParams& p, float* route) {
+    const TransParams& p, const SparseArgs& sa, float* route) {
   const float remain = __fsub_rn(era[2], oa);
   float rt = __fadd_rn(__fadd_rn(remain, sp_dist), ob);
   // same 0.1 m/s floor as the UBODT builder
@@ -65,11 +102,19 @@ __device__ __forceinline__ float transition_logp(
   feasible = feasible &&
       (dt <= 0.f || rtime <= __fmul_rn(p.max_time_factor, fmaxf(dt, 1.0f)));
 
-  float lp = __fdiv_rn(-fabsf(__fsub_rn(rt, gc)), p.beta);
+  const float beta = SPARSE ? sparse_beta(p.beta, sa, dt) : p.beta;
+  float lp = __fdiv_rn(-fabsf(__fsub_rn(rt, gc)), beta);
   const float turn = fabsf(angle_diff(era[5], erb[4]));
   const float pen = same_known
-      ? 0.f : __fdiv_rn(__fmul_rn(p.turn_factor, turn), __fmul_rn(kPi, p.beta));
+      ? 0.f : __fdiv_rn(__fmul_rn(p.turn_factor, turn), __fmul_rn(kPi, beta));
   lp = __fsub_rn(lp, pen);
+  if (SPARSE && dt > 0.f) {
+    const float implied = __fdiv_rn(rt, fmaxf(dt, 1.f));
+    const float excess = __fdiv_rn(fmaxf(__fsub_rn(implied, sa.vmax), 0.f),
+                                   fmaxf(sa.vmax, 1.f));
+    // not fused: the compiled reference rounds the product on its own
+    lp = __fsub_rn(lp, __fmul_rn(sa.plaus_weight, excess));
+  }
   if (route) *route = feasible ? rt : INFINITY;
   return feasible ? lp : kNegInf;
 }

@@ -8,6 +8,12 @@
 // :610 backtrace, :814 _compact, the confidence block at :553 and :865
 // pack_compact.
 //
+// SPARSE (the reference's static ``sp``, :458-470 and :498-499): step t
+// breaks when gc exceeds max(breakage_distance, break_speed * max(times[t]
+// - times[t-1], 0)) instead of the fixed distance, the seam's threshold
+// uses the gap from the carried time, and the seam transition is the
+// sparse one (transition.cuh).  The dense instantiation is unchanged.
+//
 // Work per trace: T-1 max-plus [K] x [K, K] steps (K*K adds and compares
 // each), then a reverse walk over the backpointers; with CARRY also one
 // [K, K] seam transition (K*K serial UBODT probes of two 512-byte rows
@@ -87,11 +93,12 @@ struct ViterbiArgs {
   // CARRY only
   const float* px;           // [B, T]
   const float* py;
-  const float* times;
+  const float* times;        // also read by SPARSE without CARRY
   const float* edge_rows;    // [E, 8]
   const int4* ubodt;         // [n_buckets, 32] int4
   uint32_t bmask;
   rtt::TransParams tp;
+  rtt::SparseArgs sa;        // SPARSE only
   CarryPtrs in;
   CarryOutPtrs out;
   const int32_t* slots;      // [B] slab rows, or null: row b is carry row b
@@ -99,7 +106,7 @@ struct ViterbiArgs {
   int64_t S;                 // slab rows
 };
 
-template <int K, bool CARRY>
+template <int K, bool CARRY, bool SPARSE>
 __global__ void viterbi_kernel(const ViterbiArgs a) {
   extern __shared__ int8_t smem[];
   const int T = a.T;
@@ -162,16 +169,18 @@ __global__ void viterbi_kernel(const ViterbiArgs a) {
       float sp_dist, sp_time;
       rtt::probe_serial(a.ubodt, a.bmask, __float_as_int(era[0]), from_b,
                         &sp_dist, &sp_time);
-      const float lp = rtt::transition_logp(ea, eb, oa, ob, era, erb, sp_dist,
-                                            sp_time, gc0, dt0, a.tp, nullptr);
+      const float lp = rtt::transition_logp<SPARSE>(
+          ea, eb, oa, ob, era, erb, sp_dist, sp_time, gc0, dt0, a.tp, a.sa,
+          nullptr);
       if (i == c) lp_committed = lp;
       const float tot = __fadd_rn(sc, lp);
       if (i == 0 || tot > best) best = tot;
     }
     const bool connected = best > kNegInf / 2;
     const bool any = (__ballot_sync(0xffffffffu, connected) & gmask) != 0u;
+    const float brk0 = SPARSE ? rtt::sparse_breakage(a.brk, a.sa, dt0) : a.brk;
     // breakage: too far apart, nothing connects, or no live carry
-    first_break = gc0 > a.brk || !any || !active;
+    first_break = gc0 > brk0 || !any || !active;
     score = first_break ? em[j] : __fadd_rn(best, em[j]);
   }
 
@@ -215,8 +224,13 @@ __global__ void viterbi_kernel(const ViterbiArgs a) {
     }
     const bool connected = best > kNegInf / 2;
     const bool any = (__ballot_sync(0xffffffffu, connected) & gmask) != 0u;
+    float brk = a.brk;
+    if constexpr (SPARSE) {
+      const float* tm = a.times + bb * T;
+      brk = rtt::sparse_breakage(a.brk, a.sa, __fsub_rn(tm[t], tm[t - 1]));
+    }
     // breakage: too far apart, or nothing connects
-    const bool broke = a.gc[bb * (T - 1) + (t - 1)] > a.brk || !any;
+    const bool broke = a.gc[bb * (T - 1) + (t - 1)] > brk || !any;
     const float e = em[(int64_t)t * K + j];
     const bool vt = vd[t] != 0.f;
     float ns = broke ? e : __fadd_rn(best, e);
@@ -300,7 +314,7 @@ __global__ void viterbi_kernel(const ViterbiArgs a) {
   }
 }
 
-template <int K, bool CARRY>
+template <int K, bool CARRY, bool SPARSE>
 int launch(const ViterbiArgs& a, cudaStream_t stream) {
   // shared memory per trace: T*K backpointers + 3*T step bytes; shrink the
   // block (down to one warp) before asking for more than the default 48 KB
@@ -312,26 +326,28 @@ int launch(const ViterbiArgs& a, cudaStream_t stream) {
   if (smem > 48 * 1024) {
     if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
     const cudaError_t e = cudaFuncSetAttribute(
-        viterbi_kernel<K, CARRY>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        viterbi_kernel<K, CARRY, SPARSE>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const int64_t traces_per_block = threads / K;
   const int64_t blocks = (a.B + traces_per_block - 1) / traces_per_block;
-  viterbi_kernel<K, CARRY><<<(unsigned)blocks, threads, smem, stream>>>(a);
+  viterbi_kernel<K, CARRY, SPARSE><<<(unsigned)blocks, threads, smem,
+                                     stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <bool CARRY>
+template <bool CARRY, bool SPARSE>
 int launch_k(int K, const ViterbiArgs& a, cudaStream_t s) {
   if (a.B <= 0 || a.T <= 0) return 0;
   switch (K) {
-    case 1: return launch<1, CARRY>(a, s);
-    case 2: return launch<2, CARRY>(a, s);
-    case 4: return launch<4, CARRY>(a, s);
-    case 8: return launch<8, CARRY>(a, s);
-    case 16: return launch<16, CARRY>(a, s);
-    case 32: return launch<32, CARRY>(a, s);
+    case 1: return launch<1, CARRY, SPARSE>(a, s);
+    case 2: return launch<2, CARRY, SPARSE>(a, s);
+    case 4: return launch<4, CARRY, SPARSE>(a, s);
+    case 8: return launch<8, CARRY, SPARSE>(a, s);
+    case 16: return launch<16, CARRY, SPARSE>(a, s);
+    case 32: return launch<32, CARRY, SPARSE>(a, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,13 +1,17 @@
-"""Matcher configuration: the dense-model fields of the reference's
-MatcherConfig.
+"""Matcher configuration: the reference's MatcherConfig fields for the
+paths the port carries.
 
 Honours the tunables the reference bakes into its meili config: sigma_z,
 beta, search_radius, breakage_distance, max_route_distance_factor,
 max_route_time_factor, turn_penalty_factor.  Adds the device shape knobs
-(beam width K, UBODT delta, length buckets, device-batch caps) and the
-session knobs.  Keys of the reference's config that belong to paths this
-port does not carry yet (sparse model, the session arena's budget and cold
-tier, tiering, meshes) are ignored by ``from_dict``.
+(beam width K, UBODT delta, length buckets, device-batch caps), the
+session knobs and the sparse-gap model's knobs (off by default; the serve
+entry point turns the model on, ``$REPORTER_SPARSE`` and
+``$REPORTER_CALIBRATION`` act at matcher construction, see
+``matching/sparse.py``).  Keys of the reference's config that belong to
+paths this port does not carry yet (route-consistent interpolation, the
+session arena's budget and cold tier, tiering, meshes) are ignored by
+``from_dict``.
 """
 
 from __future__ import annotations
@@ -57,6 +61,25 @@ class MatcherConfig:
     # in place by the step (matching/arena.py); off by default, the serve
     # entry point turns it on
     session_arena: bool = False
+    # sparse-gap model (matching/sparse.py): a trace whose median gap is at
+    # or above sparse_gap_s decodes with the time-adaptive transitions and
+    # gap-conditioned breakage, at sparse_beam_k candidates on windowed and
+    # long traffic (sessions keep beam_k), with the cohort's
+    # CALIBRATION.json row when ``calibration`` (or $REPORTER_CALIBRATION)
+    # names one, else the family below.  Off by default; the serve entry
+    # point turns it on ($REPORTER_SPARSE=0 reverts).
+    sparse: bool = False
+    sparse_gap_s: float = 40.0
+    sparse_beam_k: int = 16
+    # 0 = inherit search_radius; any value clamps to cell_size/2
+    sparse_search_radius: float = 0.0
+    sparse_beta_ref_s: float = 15.0
+    sparse_beta_scale: float = 1.0
+    sparse_beta_max: float = 8.0
+    sparse_break_speed_mps: float = 34.0
+    sparse_vmax_mps: float = 45.0
+    sparse_plaus_weight: float = 3.0
+    calibration: str = ""
     # report() business-logic default
     threshold_sec: int = 15
     mode: str = "auto"

@@ -18,15 +18,23 @@ many per-vehicle sessions into fixed [B, W] session steps, the carried
 beams on the host or, with ``session_arena``, in a device slab updated in
 place (``matching/arena.py``).
 
-Not in this port yet: the sparse-gap model, probe dedup, tiering and
-meshes.
+The sparse-gap model (``matching/sparse.py``; off by default, on in the
+serve entry point, ``$REPORTER_SPARSE`` and ``$REPORTER_CALIBRATION`` read
+at construction): a trace whose median gap is at or above
+``sparse_gap_s`` is bucketed by (params, cohort label, length) and decodes
+through the ``*_packed_sparse`` programs, the kernels' SPARSE
+instantiations, with its cohort's parameters and candidate budget K
+(windowed and long traffic; session steps keep ``beam_k``).  Dense traces
+take the dense programs unchanged.
+
+Not in this port yet: route-consistent interpolation, probe dedup,
+tiering and meshes.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
-import logging
 from collections import deque
 from typing import Dict, List, Optional, Sequence
 
@@ -37,9 +45,11 @@ from ..convert import carry_from_numpy
 from ..device import resolve_device, upload
 from ..ops.viterbi import (
     NEG_INF, MatchParams, TraceCarry, chain_batch_carry_packed_aux,
-    initial_carry_batch, match_batch_compact_packed_aux, pack_inputs,
-    precompute_batch_packed, session_step_arena, session_step_packed,
-    slice_pre, unpack_compact,
+    chain_batch_carry_packed_sparse, initial_carry_batch,
+    match_batch_compact_packed_aux, match_batch_compact_packed_sparse,
+    pack_inputs, precompute_batch_packed, precompute_batch_packed_sparse,
+    session_step_arena, session_step_arena_sparse, session_step_packed,
+    session_step_packed_sparse, slice_pre, unpack_compact,
 )
 from ..tiles.arrays import GraphArrays, build_graph_arrays
 from ..tiles.network import RoadNetwork
@@ -47,8 +57,7 @@ from ..tiles.ubodt import UBODT, build_ubodt
 from .arena import SessionArena, carry_host
 from .assoc_native import associate_segments_batch
 from .config import MatcherConfig
-
-log = logging.getLogger(__name__)
+from .sparse import SparseModel, clamp_radius
 
 # chunks allowed in flight on the device while the host associates
 # earlier ones; each pins its packed input and output
@@ -63,17 +72,6 @@ def _pad_rows(pad: int, *arrays):
     """Append ``pad`` all-zero (= all-invalid) rows to each [B, ...] array."""
     return tuple(np.concatenate([a, np.zeros((pad,) + a.shape[1:], a.dtype)])
                  for a in arrays)
-
-
-def clamp_radius(radius: float, cell_size: float) -> float:
-    """min(radius, cell_size/2): the bound that keeps the 2x2 quadrant
-    candidate sweep exhaustive; a clamp is logged."""
-    max_radius = float(cell_size) / 2.0
-    if radius <= max_radius:
-        return float(radius)
-    log.warning("search_radius %.3f clamped to %.3f (the 2x2 quadrant sweep "
-                "requires radius <= cell_size/2)", radius, max_radius)
-    return max_radius
 
 
 class SegmentMatcher:
@@ -107,6 +105,8 @@ class SegmentMatcher:
         self._du = ubodt.to_device(self.device)
         self._params = MatchParams.from_config(self.cfg)
         self._params_cache: Dict[tuple, MatchParams] = {}
+        # the sparse-gap model: off unless cfg.sparse or $REPORTER_SPARSE
+        self.sparse = SparseModel(self.cfg, arrays.cell_size)
         # carried session beams in a device slab (matching/arena.py); off
         # by default, the serve entry point turns it on
         self.session_arena = None
@@ -237,13 +237,29 @@ class SegmentMatcher:
             times.append(ts)
         return px, py, tm, valid, times
 
-    def _dispatch_batch(self, px, py, times, valid, pkey: tuple = ()):
+    def _sparse_row_factor(self, slabel: str, pkey: tuple = ()) -> int:
+        """How many dense rows one row of a sparse cohort costs in the B*T
+        device budget: the transition tensor is [B, T, K, K], so the
+        cohort's K inflates it by (K_sp/K)^2."""
+        if not slabel:
+            return 1
+        _p, _sp, k_sp = self.sparse.params_for(slabel, pkey)
+        k0 = max(1, int(self.cfg.beam_k))
+        return max(1, (k_sp * k_sp) // (k0 * k0))
+
+    def _dispatch_batch(self, px, py, times, valid, pkey: tuple = (),
+                        slabel: str = ""):
         """Queue one padded [B, T] batch on the device without blocking;
-        returns (packed [3, B, T], aux [B, 4]) device tensors."""
+        returns (packed [3, B, T], aux [B, 4]) device tensors.  ``slabel``
+        (a sparse cohort) dispatches the sparse program with the cohort's
+        parameters and K."""
+        xin = upload(pack_inputs(px, py, times, valid), self.device)
+        if slabel:
+            p, sp, k = self.sparse.params_for(slabel, pkey)
+            return match_batch_compact_packed_sparse(self._dg, self._du, xin,
+                                                     p, sp, k)
         return match_batch_compact_packed_aux(
-            self._dg, self._du,
-            upload(pack_inputs(px, py, times, valid), self.device),
-            self._params_for(pkey), self.cfg.beam_k)
+            self._dg, self._du, xin, self._params_for(pkey), self.cfg.beam_k)
 
     @staticmethod
     def _collect_batch(handle):
@@ -264,6 +280,8 @@ class SegmentMatcher:
         returns the results.  At most PIPELINE_DEPTH chunks stay in flight;
         excess chunks are drained inline during dispatch."""
         results: List[Optional[dict]] = [None] * len(traces)
+        # buckets by (params group, sparse cohort label, padded length);
+        # the label is "" for dense traces and whenever the model is off
         buckets: Dict[tuple, List[int]] = {}
         long_map: Dict[tuple, List[int]] = {}
         for i, tr in enumerate(traces):
@@ -272,14 +290,20 @@ class SegmentMatcher:
                 results[i] = {"segments": []}
                 continue
             pkey = self._params_key(tr)
+            slabel = self.sparse.label_for_trace(tr) or ""
             if n > self.max_trace_points:
-                long_map.setdefault(pkey, []).append(i)
+                long_map.setdefault((pkey, slabel), []).append(i)
                 continue
-            buckets.setdefault((pkey, self._bucket_len(n)), []).append(i)
+            buckets.setdefault((pkey, slabel, self._bucket_len(n)),
+                               []).append(i)
         chunks = []
-        for (pkey, blen), idxs in sorted(buckets.items()):
-            cap = self._device_cap(blen)
-            chunks.extend((pkey, blen, idxs[i: i + cap])
+        for (pkey, slabel, blen), idxs in sorted(buckets.items()):
+            # a sparse cohort's wider K shrinks the cap by (K_sp/K)^2
+            cap = self._device_cap(blen * self._sparse_row_factor(slabel,
+                                                                  pkey))
+            if slabel:
+                self.sparse.count(slabel, len(idxs))
+            chunks.extend((pkey, slabel, blen, idxs[i: i + cap])
                           for i in range(0, len(idxs), cap))
 
         pending: deque = deque()
@@ -289,20 +313,23 @@ class SegmentMatcher:
             res, aux = self._collect_batch(handle_)
             self._associate_and_store(idxs_, *res, times_, results, aux=aux)
 
-        for pkey, blen, idxs in chunks:
+        for pkey, slabel, blen, idxs in chunks:
             px, py, tm, valid, times = self._fill_rows(traces, idxs, blen)
             px, py, tm, valid = _pad_rows(
                 self._ladder_rung(len(idxs)) - len(idxs), px, py, tm, valid)
-            pending.append((idxs, self._dispatch_batch(px, py, tm, valid, pkey),
-                            times))
+            pending.append((idxs, self._dispatch_batch(px, py, tm, valid, pkey,
+                                                       slabel), times))
             if len(pending) >= PIPELINE_DEPTH:
                 drain_one()
 
         # long traces queue their whole carry chains too, so every device
         # program of the call is queued before the host associates
         long_handles = []
-        for pkey, lidx in sorted(long_map.items()):
-            long_handles.extend(self._dispatch_long(traces, lidx, pkey))
+        for (pkey, slabel), lidx in sorted(long_map.items()):
+            if slabel:
+                self.sparse.count(slabel, len(lidx))
+            long_handles.extend(self._dispatch_long(traces, lidx, pkey,
+                                                    slabel))
 
         def finish() -> List[dict]:
             while pending:
@@ -317,15 +344,16 @@ class SegmentMatcher:
 
     # -- long traces: fixed windows with carried Viterbi state ---------------
 
-    def _dispatch_long(self, traces, idxs, pkey: tuple = ()):
+    def _dispatch_long(self, traces, idxs, pkey: tuple = (), slabel: str = ""):
         """Queue the carry chains of traces longer than the largest bucket,
         in groups of up to ``_device_cap(W)`` traces (longest first, so a
-        group's rows need similar window counts), and return one handle per
-        group for ``_fetch_long_aux``.  Nothing blocks except the bound on
-        what waits on the device: before group k is queued, group k-2's
-        deferred outputs are fetched."""
+        group's rows need similar window counts; a sparse cohort's cap
+        shrinks by its K), and return one handle per group for
+        ``_fetch_long_aux``.  Nothing blocks except the bound on what waits
+        on the device: before group k is queued, group k-2's deferred
+        outputs are fetched."""
         W = self.max_trace_points
-        cap = self._device_cap(W)
+        cap = self._device_cap(W * self._sparse_row_factor(slabel, pkey))
         order = sorted(idxs, key=lambda i: -len(traces[i]["trace"]))
         handles = []
         for g in range(0, len(order), cap):
@@ -342,14 +370,15 @@ class SegmentMatcher:
                 self._ladder_rung(len(group)) - len(group), px, py, tm, valid)
             host_parts, outs, aux = self._dispatch_long_group(
                 pack_inputs(px, py, tm, valid), n_chunks, W,
-                self._params_for(pkey))
+                self._params_for(pkey), pkey, slabel)
             tail = (None if not outs else outs[0] if len(outs) == 1
                     else torch.cat(outs, 2))
             handles.append((group, host_parts, tail, times, aux))
         return handles
 
     def _dispatch_long_group(self, xin: np.ndarray, n_chunks: int, W: int,
-                             p: MatchParams):
+                             p: MatchParams, pkey: tuple = (),
+                             slabel: str = ""):
         """Queue every device program of one padded long-trace group (xin
         [4, B_pad, n_chunks*W] host f32).  The carry-independent stages run
         batched across windows: the windows fold into the batch axis as
@@ -359,9 +388,14 @@ class SegmentMatcher:
         Returns (host_parts, outs, aux): outputs already fetched (waves of
         MAX_DEFERRED_CHUNKS windows), the packed outputs still on the
         device in window order, and the group's [B_pad, 4] aux folded
-        across seams (min / + / + / +)."""
+        across seams (min / + / + / +).  A sparse cohort (``slabel``) runs
+        the sparse pre and chain programs with its own parameters and K
+        in place of ``p``."""
         B_pad = xin.shape[1]
         k = self.cfg.beam_k
+        sp = None
+        if slabel:
+            p, sp, k = self.sparse.params_for(slabel, pkey)
         carry = initial_carry_batch(B_pad, k, self.device)
         outs: list = []
         host_parts: list = []
@@ -369,7 +403,8 @@ class SegmentMatcher:
         rows_all = np.ascontiguousarray(
             xin.reshape(4, B_pad, n_chunks, W).transpose(0, 2, 1, 3)
             .reshape(4, n_chunks * B_pad, W))
-        cpw = max(1, self._device_cap(W) // B_pad)  # windows per pre dispatch
+        cpw = max(1, self._device_cap(  # windows per pre dispatch
+            W * self._sparse_row_factor(slabel, pkey)) // B_pad)
         for c0 in range(0, n_chunks, cpw):
             m = min(cpw, n_chunks - c0)
             rows = m * B_pad
@@ -379,12 +414,21 @@ class SegmentMatcher:
                 seg = np.concatenate(
                     [seg, np.zeros((4, rung - rows, W), np.float32)], 1)
             seg = upload(seg, self.device)
-            pre = precompute_batch_packed(self._dg, self._du, seg, p, k)
+            if sp is None:
+                pre = precompute_batch_packed(self._dg, self._du, seg, p, k)
+            else:
+                pre = precompute_batch_packed_sparse(self._dg, self._du, seg,
+                                                     p, sp, k)
             for i in range(m):
                 lo, hi = i * B_pad, (i + 1) * B_pad
-                packed, aux_c, carry = chain_batch_carry_packed_aux(
-                    self._dg, self._du, slice_pre(pre, lo, hi),
-                    seg[:, lo:hi], p, k, carry)
+                win = (self._dg, self._du, slice_pre(pre, lo, hi),
+                       seg[:, lo:hi])
+                if sp is None:
+                    packed, aux_c, carry = chain_batch_carry_packed_aux(
+                        *win, p, k, carry)
+                else:
+                    packed, aux_c, carry = chain_batch_carry_packed_sparse(
+                        *win, p, sp, k, carry)
                 aux = aux_c if aux is None else torch.cat(
                     [torch.minimum(aux[:, :1], aux_c[:, :1]),
                      aux[:, 1:] + aux_c[:, 1:]], 1)
@@ -519,24 +563,26 @@ class SegmentMatcher:
         rebase epoch, "pkey": effective-params key, "uuid": session key
         (the arena's slot key)}].
 
-        Items group by (pkey, session window bucket) into [B_rung, W]
-        steps; a step over the largest bucket chains through windows of
-        that size, as the long-trace path does."""
+        Items group by (pkey, sparse cohort label, session window bucket)
+        into [B_rung, W] steps; a step over the largest bucket chains
+        through windows of that size, as the long-trace path does.  A
+        sparse step keeps K = ``beam_k`` (``_session_label``)."""
         w_max = int(self.cfg.session_buckets[-1])
         groups: Dict[tuple, List[int]] = {}
         handles = []
         for i, it in enumerate(items):
             n = max(1, len(it["points"]))
+            slabel = self._session_label(it)
             if n > w_max:
-                handles.append(self._dispatch_session_chain(it, i, w_max))
+                handles.append(self._dispatch_session_chain(it, i, w_max,
+                                                            slabel))
                 continue
-            groups.setdefault((it["pkey"], self._session_bucket(n)),
+            groups.setdefault((it["pkey"], slabel, self._session_bucket(n)),
                               []).append(i)
-        k = self.cfg.beam_k
         arena = self.session_arena
-        for (pkey, W), idxs in sorted(groups.items()):
+        for (pkey, slabel, W), idxs in sorted(groups.items()):
             cap = self._device_cap(W)
-            p = self._params_for(pkey)
+            p, sp = self._session_params(pkey, slabel)
             for g in range(0, len(idxs), cap):
                 sub = idxs[g: g + cap]
                 px, py, tm, valid, ns = self._fill_session_rows(items, sub, W)
@@ -546,15 +592,18 @@ class SegmentMatcher:
                 xin = upload(pack_inputs(px, py, tm, valid), self.device)
                 h = None
                 if arena is not None and all("uuid" in items[i] for i in sub):
-                    h = self._dispatch_session_arena(items, sub, ns, xin, p)
+                    h = self._dispatch_session_arena(items, sub, ns, xin, p,
+                                                     sp, slabel)
                 if h is None:
                     # host-carry path: arena off, items without uuids, or
                     # a group the slab cannot hold at once (same answers)
                     carry = self._carry_batch(
                         [carry_host(items[i]["carry"]) for i in sub]
                         + [None] * (b_pad - len(sub)), b_pad)
-                    h = ("host", sub, ns, *session_step_packed(
-                        self._dg, self._du, xin, p, k, carry))
+                    if slabel:
+                        self.sparse.count(slabel, len(sub))
+                    h = ("host", sub, ns, *self._session_step(xin, p, sp,
+                                                              carry))
                 handles.append(h)
 
         def finish():
@@ -590,7 +639,54 @@ class SegmentMatcher:
 
         return finish
 
-    def _dispatch_session_arena(self, items, sub, ns, xin, p: MatchParams):
+    def _session_label(self, item) -> str:
+        """The sparse cohort of one session step ("" = dense).  The seam's
+        gap counts: a stream of one point a minute has one-point deltas,
+        and its gap lies between the carried last point and the new one.
+
+        A carry that is neither None nor a host dict (an ``ArenaRef``: the
+        beam lives in the slab) gives "", as in the reference, whose label
+        reads the carried time as ``carry["t"]``, which an ``ArenaRef``
+        refuses, and falls back to dense.  So with the slab only a
+        session's first step (two points or more) can be sparse; the port
+        copies that rule (ROADMAP.md section 3)."""
+        if not self.sparse.enabled:
+            return ""
+        try:
+            times = [float(p["time"]) for p in item["points"]]
+            c = item.get("carry")
+            if c is not None:
+                if not isinstance(c, dict):
+                    return ""
+                times = [float(item["t0"]) + float(c["t"])] + times
+        except (KeyError, TypeError, ValueError):
+            return ""
+        return self.sparse.label_for_times(times) or ""
+
+    def _session_params(self, pkey: tuple, slabel: str):
+        """(MatchParams, SparseParams or None) of a session step group; a
+        sparse cohort's K is not used (the beam keeps ``beam_k``)."""
+        if not slabel:
+            return self._params_for(pkey), None
+        p, sp, _k = self.sparse.params_for(slabel, pkey)
+        return p, sp
+
+    def _session_step(self, xin, p: MatchParams, sp, carry, slots=None,
+                      use=None):
+        """One session step program: the host-carry or (with ``slots``)
+        the slab variant, dense or (with ``sp``) sparse."""
+        k = self.cfg.beam_k
+        a = (self._dg, self._du, xin, p)
+        if slots is None:
+            if sp is None:
+                return session_step_packed(*a, k, carry)
+            return session_step_packed_sparse(*a, sp, k, carry)
+        if sp is None:
+            return session_step_arena(*a, k, carry, slots, use)
+        return session_step_arena_sparse(*a, sp, k, carry, slots, use)
+
+    def _dispatch_session_arena(self, items, sub, ns, xin, p: MatchParams,
+                                sp=None, slabel: str = ""):
         """One step group against the session slab: resolve each session to
         a slot, then one step that reads and writes the slab in place.
         None when the slab cannot hold the group at once."""
@@ -607,19 +703,22 @@ class SegmentMatcher:
             slots[: len(sub)] = slot_l
             use = np.zeros(b_pad, bool)
             use[: len(sub)] = use_l
-            packed, aux, _slab = session_step_arena(
-                self._dg, self._du, xin, p, self.cfg.beam_k, arena.hot, slots,
-                use)
+            if slabel:
+                self.sparse.count(slabel, len(sub))
+            packed, aux, _slab = self._session_step(xin, p, sp, arena.hot,
+                                                    slots, use)
         return ("arena", sub, ns, packed, aux, refs)
 
-    def _dispatch_session_chain(self, item, idx: int, W: int):
+    def _dispatch_session_chain(self, item, idx: int, W: int,
+                                slabel: str = ""):
         """One step over the largest session bucket as a chain of [1, W]
         session steps (the carry seams at W boundaries, as the long-trace
         path's): through one slab row with the arena, else through a host
-        carry batch of one row."""
+        carry batch of one row; every window sparse for a sparse step."""
         pts = item["points"]
-        p = self._params_for(item["pkey"])
-        k = self.cfg.beam_k
+        p, sp = self._session_params(item["pkey"], slabel)
+        if slabel:
+            self.sparse.count(slabel)
         arena = self.session_arena
         chunk_outs = []
 
@@ -636,17 +735,16 @@ class SegmentMatcher:
                     (slot,), (use,), (ref,) = acq
                     for c0 in range(0, len(pts), W):
                         xin, nc = rows(c0)
-                        packed, aux, _slab = session_step_arena(
-                            self._dg, self._du, xin, p, k, arena.hot,
-                            np.array([slot], np.int32), np.array([use]))
+                        packed, aux, _slab = self._session_step(
+                            xin, p, sp, arena.hot, np.array([slot], np.int32),
+                            np.array([use]))
                         use = True
                         chunk_outs.append((packed, aux, nc))
                     return ("chain_arena", idx, chunk_outs, ref)
         carry = self._carry_batch([carry_host(item["carry"])], 1)
         for c0 in range(0, len(pts), W):
             xin, nc = rows(c0)
-            packed, aux, carry = session_step_packed(self._dg, self._du, xin, p,
-                                                     k, carry)
+            packed, aux, carry = self._session_step(xin, p, sp, carry)
             chunk_outs.append((packed, aux, nc))
         return ("chain", idx, chunk_outs, carry)
 

@@ -10,7 +10,9 @@ module is imported: the first launch (or ``build_kernels()``) builds every
 kernel, one ``nvcc`` per source, all started together.
 
 Every kernel has a ``launches`` counter that its wrapper bumps once per
-launch; ``reset_launches()`` zeroes them all.
+launch; ``reset_launches()`` zeroes them all.  The SPARSE instantiations
+of kernels 3-5 (the sparse-gap model) are entry points of the same
+libraries, counted apart under ``<name>[sparse]``.
 """
 
 from __future__ import annotations
@@ -37,12 +39,18 @@ _F = ctypes.c_float
 
 
 class Kernel:
-    """One CUDA kernel: its source, its C entry point and its launch count."""
+    """One CUDA kernel entry point: its source, its C function
+    ``<entry>_launch`` and its launch count.  ``source`` defaults to
+    ``name`` and ``entry`` to the source's name."""
 
-    def __init__(self, name: str, argtypes: List[type]):
+    def __init__(self, name: str, argtypes: List[type],
+                 source: Optional[str] = None, entry: Optional[str] = None):
         self.name = name
-        self.source = os.path.join(CSRC, name + ".cu")
-        self.library = os.path.join(BUILD_DIR, "lib%s.so" % name)
+        base = source or name
+        self.base = base
+        self.entry = entry or base
+        self.source = os.path.join(CSRC, base + ".cu")
+        self.library = os.path.join(BUILD_DIR, "lib%s.so" % base)
         self.argtypes = argtypes
         self.launches = 0
         self._fn = None
@@ -50,10 +58,10 @@ class Kernel:
 
     def _bind(self) -> None:
         lib = ctypes.CDLL(self.library)
-        fn = getattr(lib, self.name + "_launch")
+        fn = getattr(lib, self.entry + "_launch")
         fn.restype = ctypes.c_int
         fn.argtypes = self.argtypes + [_P]  # + stream
-        err = getattr(lib, self.name + "_error_string")
+        err = getattr(lib, self.base + "_error_string")
         err.restype = ctypes.c_char_p
         err.argtypes = [ctypes.c_int]
         self._fn, self._err = fn, err
@@ -71,21 +79,28 @@ class Kernel:
         self.launches += 1
 
 
-KERNELS: Dict[str, Kernel] = {
-    "candidate_sweep": Kernel("candidate_sweep", [
+_SPARSE = [_F] * 6  # the sparse model's scalars, after the dense arguments
+_BUILD = [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I32,
+          _F, _F, _F, _F, _F, _F, _P, _P, _P]
+_SCAN = [_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _F, _P, _P]
+_CHAIN = ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I32, _I64, _I32, _I32,
+           _F, _F, _F, _F, _F, _F, _F] + [_P] * 16 + [_P, _P, _I64, _P, _P])
+
+KERNELS: Dict[str, Kernel] = {k.name: k for k in (
+    Kernel("candidate_sweep", [
         _P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _F, _F, _F, _I32, _F, _F,
         _P, _P, _P, _P, _P, _P, _P, _P]),
-    "ubodt_probe": Kernel("ubodt_probe", [
-        _P, _P, _P, _P, _P, _P, _I32, _P, _P, _P]),
-    "transition_build": Kernel("transition_build", [
-        _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I32,
-        _F, _F, _F, _F, _F, _F, _P, _P, _P]),
-    "viterbi_scan": Kernel("viterbi_scan", [
-        _P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _F, _P, _P]),
-    "viterbi_chain": Kernel("viterbi_chain", [
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I32, _I64, _I32, _I32,
-        _F, _F, _F, _F, _F, _F, _F] + [_P] * 16 + [_P, _P, _I64, _P, _P]),
-}
+    Kernel("ubodt_probe", [_P, _P, _P, _P, _P, _P, _I32, _P, _P, _P]),
+    Kernel("transition_build", _BUILD),
+    Kernel("viterbi_scan", _SCAN),
+    Kernel("viterbi_chain", _CHAIN),
+    Kernel("transition_build[sparse]", _BUILD + _SPARSE,
+           "transition_build", "transition_build_sparse"),
+    Kernel("viterbi_scan[sparse]", _SCAN + [_P] + _SPARSE,  # + times
+           "viterbi_scan", "viterbi_scan_sparse"),
+    Kernel("viterbi_chain[sparse]", _CHAIN + _SPARSE,
+           "viterbi_chain", "viterbi_chain_sparse"),
+)}
 
 _build_lock = threading.Lock()
 
@@ -105,7 +120,7 @@ def build_jobs() -> Dict[str, tuple]:
     headers = [os.path.join(CSRC, n) for n in sorted(os.listdir(CSRC))
                if n.endswith(".cuh")]
     return {k.library: ([nvcc] + NVCC_FLAGS + [k.source], [k.source] + headers)
-            for k in KERNELS.values()}
+            for k in KERNELS.values()}  # one job per source
 
 
 def build_kernels() -> Dict[str, str]:

@@ -77,10 +77,20 @@ def fma(a: torch.Tensor, b: torch.Tensor, c) -> torch.Tensor:
 
 
 def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
-    """Correctly rounded float32 square root.  PyTorch's CPU float32 sqrt
-    is not (it can be an ulp off); the float64 root of a float32 value
-    rounds to the correct float32."""
-    return torch.sqrt(x.double()).float()
+    """Correctly rounded float32 square root.  PyTorch's CPU sqrt is not
+    correctly rounded, in float32 or float64, and which elements it gets
+    wrong can change from call to call (with how the work is split across
+    threads).  So the float64 root, rounded to float32, is moved to the
+    neighbour whose rounding interval holds the true root: the midpoints
+    between neighbouring float32 values square exactly in float64."""
+    y = torch.sqrt(x.double()).float()
+    inf = torch.full_like(y, float("inf"))
+    dn, up = torch.nextafter(y, -inf), torch.nextafter(y, inf)
+    xd, yd = x.double(), y.double()
+    lo, hi = (dn.double() + yd) * 0.5, (yd + up.double()) * 0.5
+    fix = (y > 0) & torch.isfinite(y)  # 0, inf and NaN are exact already
+    y = torch.where(fix & (xd < lo * lo), dn, y)
+    return torch.where(fix & (xd > hi * hi), up, y)
 
 
 def hypot_like_jax(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -91,6 +91,69 @@ class MatchParams(NamedTuple):
         )
 
 
+class SparseParams(NamedTuple):
+    """The sparse-gap model's six scalars (the reference's ``SparseParams``,
+    docs/match-quality.md "Sparse gaps"): float32 0-d host tensors, like
+    MatchParams.  Per point pair with measurement gap dt seconds:
+
+      * time-adaptive beta: beta * min(1 + beta_scale * max(dt - beta_ref,
+        0) / max(beta_ref, 1), beta_max) (``sparse_beta``);
+      * drivable-speed plausibility: a pair whose route implies a speed
+        above vmax pays plaus_weight * (route / max(dt, 1) - vmax) /
+        max(vmax, 1) log-prob units, where dt > 0;
+      * gap-conditioned breakage: max(breakage_distance, break_speed *
+        max(dt, 0)) (``sparse_breakage``).
+
+    Presence is static, as in the reference: every entry point takes
+    ``sp=None`` for the dense model, and the kernels run their SPARSE
+    instantiation only when ``sp`` is given."""
+
+    beta_ref: torch.Tensor  # s; gaps at or below leave beta unchanged
+    beta_scale: torch.Tensor  # growth rate of the beta multiplier
+    beta_max: torch.Tensor  # cap on the multiplier
+    break_speed: torch.Tensor  # m/s; breakage = max(base, break_speed * dt)
+    vmax: torch.Tensor  # m/s drivable-speed knee
+    plaus_weight: torch.Tensor  # log-prob units per vmax of excess speed
+
+    @classmethod
+    def from_values(cls, beta_ref, beta_scale, beta_max, break_speed, vmax,
+                    plaus_weight) -> "SparseParams":
+        return cls(_f32(beta_ref), _f32(beta_scale), _f32(beta_max),
+                   _f32(break_speed), _f32(vmax), _f32(plaus_weight))
+
+    @classmethod
+    def from_config(cls, cfg) -> "SparseParams":
+        return cls.from_values(
+            cfg.sparse_beta_ref_s, cfg.sparse_beta_scale, cfg.sparse_beta_max,
+            cfg.sparse_break_speed_mps, cfg.sparse_vmax_mps,
+            cfg.sparse_plaus_weight)
+
+    def floats(self):
+        """The six values as Python floats, in the kernels' argument order."""
+        return [float(v) for v in self]
+
+
+def sparse_beta(beta, sp: SparseParams, dt: torch.Tensor) -> torch.Tensor:
+    """The time-adaptive beta(dt) of the sparse model (float32, on
+    ``dt``'s device)."""
+    f = lambda v: _scalar(v, dt)  # noqa: E731
+    grow = (f(sp.beta_scale) * torch.clamp(dt - f(sp.beta_ref), min=0.0)
+            / torch.clamp(f(sp.beta_ref), min=1.0))
+    return f(beta) * torch.minimum(1.0 + grow, f(sp.beta_max))
+
+
+def sparse_breakage(breakage_distance, sp: Optional[SparseParams],
+                    dt: torch.Tensor) -> torch.Tensor:
+    """The breakage threshold of a step with gap ``dt``: the fixed
+    ``breakage_distance`` for the dense model (``sp`` None), else
+    max(breakage_distance, break_speed * max(dt, 0))."""
+    brk = _scalar(breakage_distance, dt)
+    if sp is None:
+        return brk
+    return torch.maximum(
+        brk, _scalar(sp.break_speed, dt) * torch.clamp(dt, min=0.0))
+
+
 class TracePre(NamedTuple):
     """Everything the Viterbi forward consumes, [B, ...] leaves."""
 
@@ -157,11 +220,13 @@ def angle_diff(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def transition_build_plain(dg: DeviceGraph, cand: Candidates, px, py, times,
                            sp_dist, sp_time, p: MatchParams,
-                           with_route: bool = True):
-    """Plain PyTorch version of the dense ``_transition_matrix`` over a
-    batch.  cand leaves [B, T, K]; px/py/times [B, T]; sp_dist/sp_time
-    [B, T-1, K, K].  Returns (logp, route [B, T-1, K, K], gc [B, T-1]);
-    route is None unless ``with_route``."""
+                           with_route: bool = True,
+                           sp: Optional[SparseParams] = None):
+    """Plain PyTorch version of ``_transition_matrix`` over a batch, the
+    dense model or, with ``sp``, the sparse-gap one.  cand leaves [B, T, K];
+    px/py/times [B, T]; sp_dist/sp_time [B, T-1, K, K].  Returns (logp,
+    route [B, T-1, K, K], gc [B, T-1]); route is None unless
+    ``with_route``."""
     f = lambda v: _scalar(v, px)  # noqa: E731 - device-local float32 scalar
     gc = hypot_like_jax(px[:, 1:] - px[:, :-1], py[:, 1:] - py[:, :-1])
     dt = times[:, 1:] - times[:, :-1]
@@ -199,25 +264,36 @@ def transition_build_plain(dg: DeviceGraph, cand: Candidates, px, py, times,
     feasible = ok & torch.isfinite(route) & (route <= max_route)
     feasible &= (dt4 <= 0) | (rtime <= p.max_route_time_factor.to(px.device)
                               * torch.clamp(dt4, min=1.0))
-    beta = f(p.beta)
+    beta = f(p.beta) if sp is None else sparse_beta(p.beta, sp, dt4)
     logp = -(route - gc4).abs() / beta
     turn = angle_diff(era[..., 5], erb[..., 4]).abs()
     pen = p.turn_penalty_factor.to(px.device) * turn / (_PI * beta)
     logp = logp - torch.where(same_known, torch.zeros_like(pen), pen)
+    if sp is not None:
+        # drivable-speed plausibility on the route before the feasibility
+        # cut; an infeasible pair's NaN (0 * inf) is masked just below.
+        # The compiled reference does not fuse this product into the
+        # subtraction (measured in all three of its fusions, PERF.md)
+        implied = route / torch.clamp(dt4, min=1.0)
+        excess = (torch.clamp(implied - f(sp.vmax), min=0.0)
+                  / torch.clamp(f(sp.vmax), min=1.0))
+        pen = f(sp.plaus_weight) * excess
+        logp = logp - torch.where(dt4 > 0, pen, torch.zeros_like(pen))
     logp = torch.where(feasible, logp, torch.full_like(logp, NEG_INF))
     route = torch.where(feasible, route, torch.full_like(route, float("inf")))
     return logp, route if with_route else None, gc
 
 
 def transition_build(dg: DeviceGraph, cand: Candidates, px, py, times,
-                     sp_dist, sp_time, p: MatchParams, with_route: bool = True):
+                     sp_dist, sp_time, p: MatchParams, with_route: bool = True,
+                     sp: Optional[SparseParams] = None):
     """Transition log-probs and routes for every step of a batch: the CUDA
-    kernel for CUDA tensors, the plain version for CPU tensors.  With
-    ``with_route=False`` the route is neither written nor returned (None):
-    the Viterbi scan never reads it."""
+    kernel (its sparse instantiation with ``sp``) for CUDA tensors, the
+    plain version for CPU tensors.  With ``with_route=False`` the route is
+    neither written nor returned (None): the Viterbi scan never reads it."""
     if px.device.type == "cpu":
         return transition_build_plain(dg, cand, px, py, times, sp_dist,
-                                      sp_time, p, with_route)
+                                      sp_time, p, with_route, sp)
     dev = px.device
     B, T, K = cand.edge.shape
     check(cand.edge, "edge", torch.int32, dev, (B, T, K))
@@ -231,13 +307,17 @@ def transition_build(dg: DeviceGraph, cand: Candidates, px, py, times,
     route = torch.empty_like(logp) if with_route else None
     gc = torch.empty((B, T - 1), dtype=torch.float32, device=dev)
     if logp.numel():
-        KERNELS["transition_build"].launch(
-            dev, ptr(cand.edge), ptr(cand.offset), ptr(px), ptr(py),
-            ptr(times), ptr(dg.edge_rows), ptr(sp_dist), ptr(sp_time), B, T,
-            K, float(p.sigma_z), float(p.beta), float(p.search_radius),
-            float(p.max_route_distance_factor),
-            float(p.max_route_time_factor), float(p.turn_penalty_factor),
-            ptr(logp), ptr(route), ptr(gc))
+        args = [ptr(cand.edge), ptr(cand.offset), ptr(px), ptr(py),
+                ptr(times), ptr(dg.edge_rows), ptr(sp_dist), ptr(sp_time), B,
+                T, K, float(p.sigma_z), float(p.beta), float(p.search_radius),
+                float(p.max_route_distance_factor),
+                float(p.max_route_time_factor), float(p.turn_penalty_factor),
+                ptr(logp), ptr(route), ptr(gc)]
+        if sp is None:
+            KERNELS["transition_build"].launch(dev, *args)
+        else:
+            KERNELS["transition_build[sparse]"].launch(dev, *args,
+                                                       *sp.floats())
     return logp, route, gc
 
 
@@ -245,7 +325,8 @@ def transition_build(dg: DeviceGraph, cand: Candidates, px, py, times,
 
 def _forward_plain(init, first_break, emis, logp, gc, vb, brk):
     """The score recursion from ``init`` [B, K] (the scores at t = 0) with
-    break/restart/padding-freeze.  Returns scores [B, T, K], backpointers
+    break/restart/padding-freeze; ``brk`` is the breakage threshold, 0-d
+    or per step [B, T-1].  Returns scores [B, T, K], backpointers
     [B, T, K] (-1 restart, -2 padded) and breaks [B, T] bool."""
     B, T, K = emis.shape
     scores = init
@@ -257,7 +338,8 @@ def _forward_plain(init, first_break, emis, logp, gc, vb, brk):
         best_src = torch.argmax(total, dim=1)  # first maximum
         best_val = torch.gather(total, 1, best_src[:, None, :])[:, 0]
         connected = best_val > NEG_INF / 2
-        broke = (gc[:, t - 1] > brk) | ~connected.any(1)
+        brk_t = brk if brk.dim() == 0 else brk[:, t - 1]
+        broke = (gc[:, t - 1] > brk_t) | ~connected.any(1)
         new = torch.where(broke[:, None], emis[:, t], best_val + emis[:, t])
         vt = vb[:, t, None]
         new = torch.where(vt, new, scores)  # padding: freeze
@@ -323,28 +405,38 @@ def _aux_plain(S, vb, cand_edge):
     ], 1)
 
 
+def _step_dt(times):
+    return times[:, 1:] - times[:, :-1]
+
+
 def viterbi_scan_plain(emis, logp, gc, valid, cand_edge, cand_offset,
-                       breakage_distance):
+                       breakage_distance, times=None,
+                       sp: Optional[SparseParams] = None):
     """Plain PyTorch version of the carry-free scan ``chain_trace`` +
     ``backtrace`` + ``_compact`` + the confidence block + ``pack_compact``.
     emis [B, T, K]; logp [B, T-1, K, K]; gc [B, T-1]; valid [B, T] float
-    0/1; cand_edge/cand_offset [B, T, K].  Returns (packed [3, B, T] i32,
-    aux [B, 4] f32)."""
+    0/1; cand_edge/cand_offset [B, T, K]; with ``sp`` (the sparse model's
+    gap-conditioned breakage) also times [B, T].  Returns (packed
+    [3, B, T] i32, aux [B, 4] f32)."""
     vb = valid != 0
+    brk = (_scalar(breakage_distance, emis) if sp is None
+           else sparse_breakage(breakage_distance, sp, _step_dt(times)))
     S, BP, BR = _forward_plain(emis[:, 0], torch.ones_like(vb[:, 0]), emis,
-                               logp, gc, vb, _scalar(breakage_distance, emis))
+                               logp, gc, vb, brk)
     idx = _backtrace_plain(S, BP, vb)
     return _pack_plain(idx, BR, cand_edge, cand_offset), _aux_plain(S, vb, cand_edge)
 
 
 def viterbi_scan(emis, logp, gc, valid, cand_edge, cand_offset,
-                 breakage_distance):
-    """Per-trace Viterbi over a batch: the CUDA kernel for CUDA tensors,
-    the plain version for CPU tensors.  Returns (packed [3, B, T] i32,
-    aux [B, 4] f32)."""
+                 breakage_distance, times=None,
+                 sp: Optional[SparseParams] = None):
+    """Per-trace Viterbi over a batch: the CUDA kernel (its sparse
+    instantiation with ``sp``, which reads ``times``) for CUDA tensors, the
+    plain version for CPU tensors.  Returns (packed [3, B, T] i32, aux
+    [B, 4] f32)."""
     if emis.device.type == "cpu":
         return viterbi_scan_plain(emis, logp, gc, valid, cand_edge,
-                                  cand_offset, breakage_distance)
+                                  cand_offset, breakage_distance, times, sp)
     dev = emis.device
     B, T, K = emis.shape
     if K not in (1, 2, 4, 8, 16, 32):
@@ -357,11 +449,17 @@ def viterbi_scan(emis, logp, gc, valid, cand_edge, cand_offset,
     check(cand_offset, "cand_offset", torch.float32, dev, (B, T, K))
     packed = torch.empty((3, B, T), dtype=torch.int32, device=dev)
     aux = torch.empty((B, 4), dtype=torch.float32, device=dev)
+    if sp is not None:
+        check(times, "times", torch.float32, dev, (B, T))
     if B and T:
-        KERNELS["viterbi_scan"].launch(
-            dev, ptr(emis), ptr(logp), ptr(gc), ptr(valid), ptr(cand_edge),
-            ptr(cand_offset), B, T, K, float(breakage_distance), ptr(packed),
-            ptr(aux))
+        args = [ptr(emis), ptr(logp), ptr(gc), ptr(valid), ptr(cand_edge),
+                ptr(cand_offset), B, T, K, float(breakage_distance),
+                ptr(packed), ptr(aux)]
+        if sp is None:
+            KERNELS["viterbi_scan"].launch(dev, *args)
+        else:
+            KERNELS["viterbi_scan[sparse]"].launch(dev, *args, ptr(times),
+                                                   *sp.floats())
     return packed, aux
 
 
@@ -390,7 +488,7 @@ def _slab_rows(slots, use_carry, S: int, device):
 
 
 def _seam_plain(dg, du, carry: TraceCarry, cand_edge, cand_offset, px, py,
-                times, p: MatchParams):
+                times, p: MatchParams, sp: Optional[SparseParams] = None):
     """The seam transition from the carried beam to each row's first point:
     (logp0 [B, K src, K dst], gc0 [B]).  The probe and the transition
     build run over the two-point window (carried point, first point)."""
@@ -404,7 +502,7 @@ def _seam_plain(dg, du, carry: TraceCarry, cand_edge, cand_offset, px, py,
     cand = Candidates(edge2, two(carry.offset, cand_offset), None, None, None)
     logp0, _, gc0 = transition_build_plain(
         dg, cand, two(carry.x, px), two(carry.y, py), two(carry.t, times),
-        sp_dist, sp_time, p, with_route=False)
+        sp_dist, sp_time, p, with_route=False, sp=sp)
     return logp0[:, 0], gc0[:, 0]
 
 
@@ -431,13 +529,15 @@ def _carry_out_plain(S, idx, vb, cand_edge, cand_offset, px, py, times):
 def viterbi_chain_plain(dg: DeviceGraph, du: DeviceUBODT, emis, logp, gc,
                         px, py, times, valid, cand_edge, cand_offset,
                         p: MatchParams, carry: TraceCarry, slots=None,
-                        use_carry=None):
+                        use_carry=None, sp: Optional[SparseParams] = None):
     """Plain PyTorch version of the carry branch of ``chain_trace`` (the
     seam transition from the carried beam, the recursion, the seam check
     and the carry-out) + ``backtrace`` + ``_compact`` + the confidence
     block + ``pack_compact``.  Shapes as ``viterbi_scan_plain`` plus
     px/py/times [B, T] and ``carry`` with leading [B].  Returns (packed,
-    aux, carry').
+    aux, carry').  With ``sp`` the seam transition and every step's
+    breakage follow the sparse model (the seam's gap is times[:, 0] minus
+    the carried time).
 
     With ``slots`` (host [B] ints) and ``use_carry`` (host [B] bools),
     ``carry`` is the session slab with leading [S]: row b starts from
@@ -458,14 +558,15 @@ def viterbi_chain_plain(dg: DeviceGraph, du: DeviceUBODT, emis, logp, gc,
             torch.where(use.view((B,) + (1,) * (g.dim() - 1)), g[rows], i)
             for g, i in zip(slab, inact)))
     logp0, gc0 = _seam_plain(dg, du, carry, cand_edge, cand_offset, px, py,
-                             times, p)
+                             times, p, sp)
     total0 = carry.scores[:, :, None] + logp0  # [B, K src, K dst]
     best0 = total0.amax(1)
-    broke0 = ((gc0 > _scalar(p.breakage_distance, emis))
-              | ~(best0 > NEG_INF / 2).any(1) | ~carry.active)
+    brk0 = sparse_breakage(p.breakage_distance, sp, times[:, 0] - carry.t)
+    broke0 = ((gc0 > brk0) | ~(best0 > NEG_INF / 2).any(1) | ~carry.active)
     init = torch.where(broke0[:, None], emis[:, 0], best0 + emis[:, 0])
-    S_, BP, BR = _forward_plain(init, broke0, emis, logp, gc, vb,
-                                _scalar(p.breakage_distance, emis))
+    S_, BP, BR = _forward_plain(
+        init, broke0, emis, logp, gc, vb,
+        sparse_breakage(p.breakage_distance, sp, _step_dt(times)))
     idx = _backtrace_plain(S_, BP, vb)
     # seam check: the committed slot must reach the window's first choice
     c = carry.committed.long()
@@ -492,15 +593,17 @@ def _check_carry(c: TraceCarry, n: int, k: int, dev) -> None:
 
 def viterbi_chain(dg: DeviceGraph, du: DeviceUBODT, emis, logp, gc, px, py,
                   times, valid, cand_edge, cand_offset, p: MatchParams,
-                  carry: TraceCarry, slots=None, use_carry=None):
-    """A window continuing a carried beam: the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors.  Arguments and results as
-    ``viterbi_chain_plain``; with ``slots`` the kernel gathers, selects
-    and scatters the slab rows itself, in place."""
+                  carry: TraceCarry, slots=None, use_carry=None,
+                  sp: Optional[SparseParams] = None):
+    """A window continuing a carried beam: the CUDA kernel (its sparse
+    instantiation with ``sp``) for CUDA tensors, the plain version for CPU
+    tensors.  Arguments and results as ``viterbi_chain_plain``; with
+    ``slots`` the kernel gathers, selects and scatters the slab rows
+    itself, in place."""
     if emis.device.type == "cpu":
         return viterbi_chain_plain(dg, du, emis, logp, gc, px, py, times,
                                    valid, cand_edge, cand_offset, p, carry,
-                                   slots, use_carry)
+                                   slots, use_carry, sp)
     dev = emis.device
     B, T, K = emis.shape
     if K not in (1, 2, 4, 8, 16, 32):
@@ -532,15 +635,18 @@ def viterbi_chain(dg: DeviceGraph, du: DeviceUBODT, emis, logp, gc, px, py,
     packed = torch.empty((3, B, T), dtype=torch.int32, device=dev)
     aux = torch.empty((B, 4), dtype=torch.float32, device=dev)
     if B and T:
-        KERNELS["viterbi_chain"].launch(
-            dev, ptr(emis), ptr(logp), ptr(gc), ptr(valid), ptr(cand_edge),
-            ptr(cand_offset), ptr(px), ptr(py), ptr(times), ptr(dg.edge_rows),
-            ptr(du.packed), du.bmask, B, T, K, float(p.breakage_distance),
-            float(p.sigma_z), float(p.beta), float(p.search_radius),
-            float(p.max_route_distance_factor),
-            float(p.max_route_time_factor), float(p.turn_penalty_factor),
-            *(ptr(t) for t in carry), *(ptr(t) for t in out), ptr(sl),
-            ptr(use), S, ptr(packed), ptr(aux))
+        args = [ptr(emis), ptr(logp), ptr(gc), ptr(valid), ptr(cand_edge),
+                ptr(cand_offset), ptr(px), ptr(py), ptr(times),
+                ptr(dg.edge_rows), ptr(du.packed), du.bmask, B, T, K,
+                float(p.breakage_distance), float(p.sigma_z), float(p.beta),
+                float(p.search_radius), float(p.max_route_distance_factor),
+                float(p.max_route_time_factor), float(p.turn_penalty_factor),
+                *(ptr(t) for t in carry), *(ptr(t) for t in out), ptr(sl),
+                ptr(use), S, ptr(packed), ptr(aux)]
+        if sp is None:
+            KERNELS["viterbi_chain"].launch(dev, *args)
+        else:
+            KERNELS["viterbi_chain[sparse]"].launch(dev, *args, *sp.floats())
     return packed, aux, out
 
 
@@ -561,7 +667,8 @@ _PLAIN = _Stages(candidate_sweep_plain, ubodt_lookup_plain,
                  viterbi_chain_plain)
 
 
-def _precompute(st: _Stages, dg, du, px, py, times, valid, p, k, full=True):
+def _precompute(st: _Stages, dg, du, px, py, times, valid, p, k, full=True,
+                sp=None):
     """The first three stages.  ``full=False`` (the packed path) leaves
     out what the scan never reads: the candidates' dist, cx, cy and the
     route.  The probe's first edge is never needed here."""
@@ -569,16 +676,17 @@ def _precompute(st: _Stages, dg, du, px, py, times, valid, p, k, full=True):
     sp_dist, sp_time, _ = st.probe(du, sw.to_node[:, :-1, :, None],
                                    sw.from_node[:, 1:, None, :], False)
     logp, route, gc = st.build(dg, sw.cand, px, py, times, sp_dist, sp_time,
-                               p, full)
+                               p, full, sp)
     return TracePre(cand=sw.cand, emis=sw.emis, logp=logp, route=route, gc=gc)
 
 
 def precompute_batch(dg: DeviceGraph, du: DeviceUBODT, px, py, times, valid,
-                     p: MatchParams, k: int) -> TracePre:
+                     p: MatchParams, k: int,
+                     sp: Optional[SparseParams] = None) -> TracePre:
     """Candidates, emissions and the [B, T-1, K, K] transition build over a
     [B, T] batch (``valid`` float 0/1).  The reference's ``precompute_batch``
-    with probe dedup off and the dense model."""
-    return _precompute(_KERNELS, dg, du, px, py, times, valid, p, k)
+    with probe dedup off, the dense model or, with ``sp``, the sparse one."""
+    return _precompute(_KERNELS, dg, du, px, py, times, valid, p, k, sp=sp)
 
 
 def pack_inputs(px, py, times, valid) -> np.ndarray:
@@ -602,24 +710,30 @@ def unpack_compact(out):
     return out[0], out[1].view(np.float32), out[2] != 0
 
 
-def _match(st: _Stages, dg, du, xin, p, k):
-    pre = _pre_packed(st, dg, du, xin, p, k)
+def _match(st: _Stages, dg, du, xin, p, k, sp=None):
+    pre = _pre_packed(st, dg, du, xin, p, k, sp)
     px, py, times, valid = unpack_inputs(xin)
     return st.scan(pre.emis, pre.logp, pre.gc, valid, pre.cand.edge,
-                   pre.cand.offset, p.breakage_distance)
+                   pre.cand.offset, p.breakage_distance, times, sp)
 
 
-def _pre_packed(st: _Stages, dg, du, xin, p, k) -> TracePre:
+def _pre_packed(st: _Stages, dg, du, xin, p, k, sp=None) -> TracePre:
     px, py, times, valid = unpack_inputs(xin)
-    return _precompute(st, dg, du, px, py, times, valid, p, k, full=False)
+    return _precompute(st, dg, du, px, py, times, valid, p, k, False, sp)
 
 
 def _chain(st: _Stages, dg, du, pre: TracePre, xin, p, carry, slots=None,
-           use_carry=None):
+           use_carry=None, sp=None):
     px, py, times, valid = unpack_inputs(xin)
     return st.chain(dg, du, pre.emis, pre.logp, pre.gc, px, py, times, valid,
                     pre.cand.edge, pre.cand.offset, p, carry, slots,
-                    use_carry)
+                    use_carry, sp)
+
+
+def _step(st: _Stages, dg, du, xin, p, k, carry, slots=None, use_carry=None,
+          sp=None):
+    return _chain(st, dg, du, _pre_packed(st, dg, du, xin, p, k, sp), xin, p,
+                  carry, slots, use_carry, sp)
 
 
 def match_batch_compact_packed_aux(dg: DeviceGraph, du: DeviceUBODT,
@@ -672,14 +786,12 @@ def session_step_packed(dg: DeviceGraph, du: DeviceUBODT, xin,
     """One incremental session step: each row of the packed [4, B, W] input
     is one session's newly arrived points (a valid prefix), continued from
     its carried beam (leading [B]).  Returns (packed, aux, carry')."""
-    return _chain(_KERNELS, dg, du, _pre_packed(_KERNELS, dg, du, xin, p, k),
-                  xin, p, carry)
+    return _step(_KERNELS, dg, du, xin, p, k, carry)
 
 
 def session_step_packed_plain(dg, du, xin, p: MatchParams, k: int,
                               carry: TraceCarry):
-    return _chain(_PLAIN, dg, du, _pre_packed(_PLAIN, dg, du, xin, p, k),
-                  xin, p, carry)
+    return _step(_PLAIN, dg, du, xin, p, k, carry)
 
 
 def session_step_arena(dg: DeviceGraph, du: DeviceUBODT, xin, p: MatchParams,
@@ -690,11 +802,89 @@ def session_step_arena(dg: DeviceGraph, du: DeviceUBODT, xin, p: MatchParams,
     place; padding rows carry slot == S and write nothing.  ``slots`` and
     ``use_carry`` are host [B] arrays, live slots distinct.  Returns
     (packed, aux, slab)."""
-    return _chain(_KERNELS, dg, du, _pre_packed(_KERNELS, dg, du, xin, p, k),
-                  xin, p, slab, slots, use_carry)
+    return _step(_KERNELS, dg, du, xin, p, k, slab, slots, use_carry)
 
 
 def session_step_arena_plain(dg, du, xin, p: MatchParams, k: int,
                              slab: TraceCarry, slots, use_carry):
-    return _chain(_PLAIN, dg, du, _pre_packed(_PLAIN, dg, du, xin, p, k),
-                  xin, p, slab, slots, use_carry)
+    return _step(_PLAIN, dg, du, xin, p, k, slab, slots, use_carry)
+
+
+# -- the sparse-gap model's entry points -----------------------------------------
+#
+# The reference's ``*_packed_sparse`` programs: the dense entry points with
+# the sparse model's transitions (kernel 3's and kernel 5's seam) and
+# gap-conditioned breakage (kernels 4 and 5) through the kernels' SPARSE
+# instantiations.  Argument order is the reference's (p, sp, k); every one
+# returns the [B, 4] aux.
+
+
+def match_batch_compact_packed_sparse(dg: DeviceGraph, du: DeviceUBODT, xin,
+                                      p: MatchParams, sp: SparseParams,
+                                      k: int):
+    """``match_batch_compact_packed_aux`` under the sparse model: (packed
+    [3, B, T], aux [B, 4])."""
+    return _match(_KERNELS, dg, du, xin, p, k, sp)
+
+
+def match_batch_compact_packed_sparse_plain(dg, du, xin, p: MatchParams,
+                                            sp: SparseParams, k: int):
+    return _match(_PLAIN, dg, du, xin, p, k, sp)
+
+
+def precompute_batch_packed_sparse(dg: DeviceGraph, du: DeviceUBODT, xin,
+                                   p: MatchParams, sp: SparseParams,
+                                   k: int) -> TracePre:
+    """``precompute_batch_packed`` under the sparse transition model: the
+    long path's window-batched precompute for a sparse cohort."""
+    return _pre_packed(_KERNELS, dg, du, xin, p, k, sp)
+
+
+def precompute_batch_packed_sparse_plain(dg, du, xin, p: MatchParams,
+                                         sp: SparseParams, k: int):
+    return _pre_packed(_PLAIN, dg, du, xin, p, k, sp)
+
+
+def chain_batch_carry_packed_sparse(dg: DeviceGraph, du: DeviceUBODT,
+                                    pre: TracePre, xin, p: MatchParams,
+                                    sp: SparseParams, k: int,
+                                    carry: TraceCarry):
+    """``chain_batch_carry_packed_aux`` under the sparse model: the seam
+    transition and every step's breakage are gap-conditioned.  Returns
+    (packed [3, B, W], aux [B, 4], carry')."""
+    return _chain(_KERNELS, dg, du, pre, xin, p, carry, sp=sp)
+
+
+def chain_batch_carry_packed_sparse_plain(dg, du, pre: TracePre, xin,
+                                          p: MatchParams, sp: SparseParams,
+                                          k: int, carry: TraceCarry):
+    return _chain(_PLAIN, dg, du, pre, xin, p, carry, sp=sp)
+
+
+def session_step_packed_sparse(dg: DeviceGraph, du: DeviceUBODT, xin,
+                               p: MatchParams, sp: SparseParams, k: int,
+                               carry: TraceCarry):
+    """``session_step_packed`` under the sparse model.  ``k`` stays the
+    carried beam's width: a session's beam cannot change width."""
+    return _step(_KERNELS, dg, du, xin, p, k, carry, sp=sp)
+
+
+def session_step_packed_sparse_plain(dg, du, xin, p: MatchParams,
+                                     sp: SparseParams, k: int,
+                                     carry: TraceCarry):
+    return _step(_PLAIN, dg, du, xin, p, k, carry, sp=sp)
+
+
+def session_step_arena_sparse(dg: DeviceGraph, du: DeviceUBODT, xin,
+                              p: MatchParams, sp: SparseParams, k: int,
+                              slab: TraceCarry, slots, use_carry):
+    """``session_step_arena`` under the sparse model: the slab read and
+    written in place, gap-conditioned like ``session_step_packed_sparse``.
+    Returns (packed, aux, slab)."""
+    return _step(_KERNELS, dg, du, xin, p, k, slab, slots, use_carry, sp)
+
+
+def session_step_arena_sparse_plain(dg, du, xin, p: MatchParams,
+                                    sp: SparseParams, k: int,
+                                    slab: TraceCarry, slots, use_carry):
+    return _step(_PLAIN, dg, du, xin, p, k, slab, slots, use_carry, sp)

@@ -6,10 +6,14 @@ shape of the reference service's (deploy/config.service.json): "network"
 (max_batch, max_wait_ms).  The device defaults to cuda and the command
 fails when CUDA is absent unless --device cpu is given.
 
-Not in this slice of the port: the sparse-gap model (the reference's
-serve entrypoint turns it on; here every trace runs the dense model).
-Per-trace confidence diagnostics are on, as in the reference's serve
-entrypoint ($REPORTER_QUALITY_AUX=0 turns them off), and so is the
+As in the reference's serve entrypoint, three library defaults are turned
+on here.  Per-trace confidence diagnostics ($REPORTER_QUALITY_AUX=0 turns
+them off).  The sparse-gap model: a trace (or session step) whose median
+gap is at least sparse_gap_s (40 s) decodes with the time-adaptive
+transitions and gap-conditioned breakage, per cohort from the
+CALIBRATION.json that $REPORTER_CALIBRATION (or the matcher config's
+"calibration") names, else from the config's sparse family
+($REPORTER_SPARSE=0 reverts every trace to the dense model).  And the
 device-resident session arena: streaming sessions keep their carried
 beams in a device slab between submits ($REPORTER_SESSION_ARENA=0 keeps
 them on the host, with the same answers).
@@ -25,11 +29,26 @@ import sys
 from .service import ReporterService, build_matcher, parse_service_config
 
 
+def serving_defaults(cfg):
+    """Turn on, in a MatcherConfig, what the serve entry point turns on by
+    default (see the module docstring); returns ``cfg``."""
+    off = ("0", "false", "off", "no")
+    if os.environ.get("REPORTER_QUALITY_AUX", "").strip().lower() not in off:
+        cfg.quality_aux = True
+    if os.environ.get("REPORTER_SESSION_ARENA", "").strip().lower() not in off:
+        cfg.session_arena = True
+    # the matcher's sparse model reads $REPORTER_SPARSE first: an explicit
+    # off there still wins over this default
+    cfg.sparse = True
+    return cfg
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m reporter_tpu_torch.serve",
-        description="Serve /report from the PyTorch/CUDA port.  Not in this "
-        "slice: the sparse-gap model (every trace runs the dense model).")
+        description="Serve /report from the PyTorch/CUDA port, the sparse-gap "
+        "model on ($REPORTER_SPARSE=0 turns it off, $REPORTER_CALIBRATION "
+        "names per-cohort parameters).")
     ap.add_argument("config", help="service config JSON (network, matcher, batch)")
     ap.add_argument("address", nargs="?", default=None,
                     help="host:port (default $MATCHER_BIND_ADDR:$MATCHER_LISTEN_PORT "
@@ -42,11 +61,7 @@ def main(argv=None) -> int:
     except Exception as e:  # noqa: BLE001 - reported, exit 1
         sys.stderr.write("Problem with config file: %s\n" % (e,))
         return 1
-    off = ("0", "false", "off", "no")
-    if os.environ.get("REPORTER_QUALITY_AUX", "").strip().lower() not in off:
-        cfg.quality_aux = True
-    if os.environ.get("REPORTER_SESSION_ARENA", "").strip().lower() not in off:
-        cfg.session_arena = True
+    serving_defaults(cfg)
     if args.address:
         host, _, port = args.address.rpartition(":")
         host = host or "0.0.0.0"

@@ -74,3 +74,18 @@ def test_find_candidates_ties_on_nodes():
     d = got.dist.numpy()
     assert (np.abs(d[..., 0] - d[..., 1]) < 1e-4).mean() > 0.9  # ties everywhere
     compare(ref, got, "nodes")
+
+
+def test_sqrt_f32_is_correctly_rounded():
+    """The plain versions' float32 square root equals the correctly rounded
+    one (numpy's, as XLA's and the kernels' __fsqrt_rn) bit for bit: on
+    random magnitudes, on 1 + k ulp (roots close to a rounding midpoint)
+    and on 0, denormals and inf."""
+    from reporter_tpu_torch.ops.candidates import sqrt_f32
+
+    rng = np.random.default_rng(3)
+    near_one = 1.0 + np.arange(1, 200_001, dtype=np.float64) * 2.0 ** -23
+    vals = np.concatenate([near_one, 10.0 ** rng.uniform(-44, 38, 500_000),
+                           [0.0, 1e-45, 3e-45, np.inf, 4.0]]).astype(np.float32)
+    got = sqrt_f32(torch.from_numpy(vals)).numpy()
+    assert got.tobytes() == np.sqrt(vals).tobytes()

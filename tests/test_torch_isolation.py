@@ -33,6 +33,7 @@ import reporter_tpu_torch
 import reporter_tpu_torch.convert
 import reporter_tpu_torch.matching.arena
 import reporter_tpu_torch.matching.session
+import reporter_tpu_torch.matching.sparse
 import reporter_tpu_torch.serve.__main__
 from reporter_tpu_torch.matching import MatcherConfig, SegmentMatcher, SessionEngine, SessionStore
 from reporter_tpu_torch.synth import TraceSynthesizer
@@ -51,6 +52,19 @@ for j in range(0, 20, 4):
     res = eng.match_many([dict(t, trace=t["trace"][j:j + 4]) for t in traces])
 assert all(r["_stream"]["session"]["points_total"] == 20 for r in res)
 assert m.session_arena.summary()["hot_used"] == 3
+# the sparse model, calibrated: windowed, long and streaming 60 s traffic
+sm = SegmentMatcher(arrays=arrays, ubodt=m.ubodt, device="cpu",
+                    config=MatcherConfig(length_buckets=[16], sparse=True,
+                                         calibration="CALIBRATION.json"))
+assert sm.sparse.summary()["calibrated"]
+# one fix a minute: the 5 s traces' points, 60 s apart
+sparse = [dict(t, uuid=t["uuid"] + "-60", trace=[dict(p, time=p["time"] * 12.0)
+                                                 for p in t["trace"]]) for t in traces[:2]]
+out = sm.match_many(sparse + [dict(t, trace=t["trace"][:8]) for t in sparse])
+assert all(r["segments"] for r in out) and sm.sparse.dispatch == {"ge60": 4}
+eng = SessionEngine(sm, SessionStore())
+res = eng.match_many([dict(t, trace=t["trace"][:4]) for t in sparse])
+assert sm.sparse.dispatch == {"ge60": 6}
 assert not [m for m in sys.modules if blocked(m)]
 print("ISOLATED-OK")
 '''
