@@ -47,7 +47,16 @@ delta 3000 m, cuckoo layout) and moves it to the card, then:
      windows) and on the slab (step 1 sparse, step 2 dense, as the
      reference labels a slab-carried step; equal to the plain steps); and
      8 /report of A on the serving defaults, equal to the plain
-     composition.
+     composition;
+  6. the gap-conditioned breakage where it decides (``gap_flip``): A, B
+     and L, and the slab step's input, with each step's time gap scaled
+     by a seeded factor in [0.5, 2] and the breakage distance and break
+     speed set inside the data, so that the dense and the sparse
+     thresholds disagree on steps and seams: kernels 1-4 on A and B and
+     kernel 5 at L's window and on the slab, each against its plain
+     version, the sparse breaks differing from the dense instantiation's.
+     The session step is also held on host carries (kernel 5's
+     [B]-leading mode at 512 x 4), dense and sparse.
 
 Prints the card's name and power limit, one line per phase, a
 ``{"kernels": [...]}`` line, and as its last line
@@ -248,7 +257,7 @@ def session_rows(matcher, traces, j, Wn=4, pad=16):
         [a, np.zeros((pad, Wn), a.dtype)]) for a in (px, py, tm, valid)))).to(matcher.device)
 
 
-def kernel_phases(matcher, xin, timed, p=None, K=None, sp=None):
+def kernel_phases(matcher, xin, timed, p=None, K=None, sp=None, flip=False):
     """Each kernel against its plain version at one of the main path's
     shapes (the packed [4, B, T] input ``xin``): the full call's every
     output, and the main path's call (which skips the outputs the scan
@@ -256,7 +265,9 @@ def kernel_phases(matcher, xin, timed, p=None, K=None, sp=None):
     also time the main path's call of each kernel and of its plain
     version, beside the bound of that call's work.  ``p`` and ``K``
     default to the matcher's; with ``sp`` (a sparse cohort's parameters)
-    kernels 3 and 4 run their sparse instantiations."""
+    kernels 3 and 4 run their sparse instantiations.  ``flip`` (an input
+    and parameters from ``gap_flip``): also check that the sparse scan's
+    breaks differ from the dense instantiation's on the same input."""
     import numpy as np
     import torch
 
@@ -395,6 +406,14 @@ def kernel_phases(matcher, xin, timed, p=None, K=None, sp=None):
                      plain=lambda: V.viterbi_scan_plain(*args4), cold_l2=False,
                      max_abs_err=err4, bound_ms=b4, bound_by=by4,
                      aux_max_abs_err=max_abs_err([(k4[1], k0[1])])))
+    if flip:
+        kd = V.viterbi_scan(*args4[:-1], None)
+        n_flip = int((kd[0][2] != k4[0][2]).sum())
+        check(n_flip > 0, "viterbi_scan%s: the per-step gap-conditioned breakage changed "
+              "breaks against the dense threshold" % tag)
+        rows[-1]["breaks_flipped"] = n_flip
+        print("kernel viterbi_scan%s %dx%d K=%d: %d points break differently from the dense "
+              "instantiation on the same input" % (tag, B, T, K, n_flip))
 
     if timed and dev.type == "cuda":
         for r in rows:
@@ -434,23 +453,18 @@ def _seam_rows(dg, du, carry_edge, first_edge):
     return int(buckets.numel()), int(edges.numel())
 
 
-def _pre(dg, du, xin, p, K, sp):
-    """Kernels 1-3 over a packed window: the dense or the sparse program."""
-    from reporter_tpu_torch.ops import viterbi as V
-
-    if sp is None:
-        return V.precompute_batch_packed(dg, du, xin, p, K)
-    return V.precompute_batch_packed_sparse(dg, du, xin, p, sp, K)
-
-
 def chain_phases(matcher, long_traces, traces64, timed, sp=None, long_pk=None,
-                 sess_pk=None):
+                 sess_pk=None, flip=None):
     """Kernel 5 against its plain version at its two main-path shapes: the
     long path's window (64 x 256, continuing live carries) and the
-    session step against the serving slab (512 x 4, 65,536 slots).  With
-    ``sp`` its sparse instantiation, at the (p, K) of ``long_pk`` for the
-    long window and of ``sess_pk`` for the slab step (default: the
-    matcher's parameters and K)."""
+    session step against the serving slab (512 x 4, 65,536 slots), the
+    latter also on host carries (the slab's rows gathered).  With ``sp``
+    its sparse instantiation, at the (p, K) of ``long_pk`` for the long
+    window and of ``sess_pk`` for the slab step (default: the matcher's
+    parameters and K).  ``flip`` (a seed): both shapes' inputs and
+    parameters go through ``gap_flip``, and the sparse chain's breaks
+    must differ from the dense instantiation's, with seams among the
+    steps whose decision the sparse threshold flips."""
     import numpy as np
     import torch
 
@@ -468,18 +482,22 @@ def chain_phases(matcher, long_traces, traces64, timed, sp=None, long_pk=None,
     px, py, tm, valid, _t = matcher._fill_rows(two, list(range(B)), 2 * W)
     xin = torch.from_numpy(V.pack_inputs(px, py, tm, valid)).to(dev)
     x0, x1 = xin[:, :, :W].contiguous(), xin[:, :, W:].contiguous()
-    pre0 = _pre(dg, du, x0, p, K, sp)
+    if flip is not None:
+        (x0, x1), p, sp = gap_flip([x0, x1], p, sp, flip)
+    pre0 = V.precompute_batch_packed(dg, du, x0, p, K, sp)
     carry = V.viterbi_chain(dg, du, pre0.emis, pre0.logp, pre0.gc, *V.unpack_inputs(x0),
                             pre0.cand.edge, pre0.cand.offset, p,
                             V.initial_carry_batch(B, K, dev), sp=sp)[2]
     check(bool(carry.active.all()), "live carries after window 0")
-    pre = _pre(dg, du, x1, p, K, sp)
+    pre = V.precompute_batch_packed(dg, du, x1, p, K, sp)
     args = (dg, du, pre.emis, pre.logp, pre.gc, *V.unpack_inputs(x1), pre.cand.edge,
             pre.cand.offset, p, carry)
     k5, p5 = V.viterbi_chain(*args, sp=sp), V.viterbi_chain_plain(*args, sp=sp)
     check(torch.equal(k5[0], p5[0]), "viterbi_chain packed (long)")
     check(_carry_same(k5[2], p5[2]), "viterbi_chain carry-out (long)")
     check(torch.allclose(k5[1], p5[1], rtol=1e-4, atol=0), "viterbi_chain aux (long)")
+    if flip is not None:
+        flipped = _breaks_flipped(args, k5[0], carry, x1, p, sp, "long")
     n_rows, n_edges = _seam_rows(dg, du, carry.edge, pre.cand.edge[:, 0])
     T = W
     slot_b = 12 * K + 17
@@ -496,6 +514,8 @@ def chain_phases(matcher, long_traces, traces64, timed, sp=None, long_pk=None,
                        bound_by=byl, max_abs_err=max_abs_err([(k5[0], p5[0])]),
                        aux_max_abs_err=max_abs_err([(k5[1], p5[1])]),
                        seam_bucket_rows=n_rows)
+    if flip is not None:
+        out["long"].update(flipped)
 
     # session step against the serving slab: 480 rows continue their
     # beams, 16 start fresh on slots that hold old beams, 16 are padding
@@ -510,13 +530,15 @@ def chain_phases(matcher, long_traces, traces64, timed, sp=None, long_pk=None,
     # xs1 is the input main() holds kernels 1-4 at (kernel_phases), so the
     # pre both sides share below was itself checked against its plain version
     xs0, xs1 = (session_rows(matcher, traces64[:B - 16], j, Wn) for j in (0, Wn))
-    pre0 = _pre(dg, du, xs0, p, K, sp)
+    if flip is not None:
+        (xs0, xs1), p, sp = gap_flip([xs0, xs1], p, sp, flip + 1)
+    pre0 = V.precompute_batch_packed(dg, du, xs0, p, K, sp)
     V.viterbi_chain(dg, du, pre0.emis, pre0.logp, pre0.gc, *V.unpack_inputs(xs0),
                     pre0.cand.edge, pre0.cand.offset, p, slab, slots, np.zeros(B, bool),
                     sp=sp)
     use = np.zeros(B, bool)
     use[:B - 32] = True
-    pre = _pre(dg, du, xs1, p, K, sp)
+    pre = V.precompute_batch_packed(dg, du, xs1, p, K, sp)
     slab_k = V.TraceCarry(*(t.clone() for t in slab))
     slab_p = V.TraceCarry(*(t.clone() for t in slab))
     sargs = (dg, du, pre.emis, pre.logp, pre.gc, *V.unpack_inputs(xs1), pre.cand.edge,
@@ -527,6 +549,24 @@ def chain_phases(matcher, long_traces, traces64, timed, sp=None, long_pk=None,
     check(_carry_same(slab_k, slab_p), "viterbi_chain slab (arena)")
     check(not _carry_same(slab_k, slab), "the arena step wrote the slab")
     check(torch.allclose(ka[1], pa[1], rtol=1e-4, atol=0), "viterbi_chain aux (arena)")
+    # the same step on host carries, the slab's rows gathered: kernel 5's
+    # [B]-leading mode at the session shape, through the entry point
+    rows = torch.from_numpy(np.minimum(slots, S - 1).astype(np.int64)).to(dev)
+    usem = torch.from_numpy(use).to(dev)
+    hc = V.TraceCarry(*(torch.where(usem.view((B,) + (1,) * (g.dim() - 1)), g[rows], i)
+                        for g, i in zip(slab, V.initial_carry_batch(B, K, dev))))
+    hk = V.session_step_packed(dg, du, xs1, p, K, hc, sp)
+    hp = V.session_step_packed_plain(dg, du, xs1, p, K, hc, sp)
+    check(torch.equal(hk[0], hp[0]) and _carry_same(hk[2], hp[2]),
+          "viterbi_chain packed and carry-out (host carries)")
+    check(torch.allclose(hk[1], hp[1], rtol=1e-4, atol=0), "viterbi_chain aux (host carries)")
+    live_rows = slice(0, B - 16)
+    check(torch.equal(hk[0], ka[0]) and _carry_same(
+        [c[live_rows] for c in hk[2]], [c[rows[live_rows]] for c in slab_k]),
+        "the host-carry step equals the slab step")
+    if flip is not None:
+        flipped = _breaks_flipped(sargs + (slab,), ka[0], hc, xs1, p, sp, "arena",
+                                  dict(slots=slots, use_carry=use))
     live = torch.from_numpy(slots[:B - 32].astype(np.int64)).to(dev)
     in_edge = slab.edge[live]
     n_rows, n_edges = _seam_rows(dg, du, in_edge, pre.cand.edge[:B - 32, 0])
@@ -540,9 +580,11 @@ def chain_phases(matcher, long_traces, traces64, timed, sp=None, long_pk=None,
                         plain=lambda: V.viterbi_chain_plain(*sargs, slab_p, slots, use,
                                                             sp=sp),
                         bound_ms=ba, bound_by=bya,
-                        max_abs_err=max_abs_err([(ka[0], pa[0])]),
-                        aux_max_abs_err=max_abs_err([(ka[1], pa[1])]),
+                        max_abs_err=max_abs_err([(ka[0], pa[0]), (hk[0], hp[0])]),
+                        aux_max_abs_err=max_abs_err([(ka[1], pa[1]), (hk[1], hp[1])]),
                         seam_bucket_rows=n_rows)
+    if flip is not None:
+        out["arena"].update(flipped)
     for r in out.values():
         if timed and dev.type == "cuda":
             r["ms"] = time_ms(r["fn"], cold_l2=False)
@@ -555,6 +597,73 @@ def chain_phases(matcher, long_traces, traces64, timed, sp=None, long_pk=None,
                  "%.4f" % r["plain_ms"] if "plain_ms" in r else "-", r["bound_ms"],
                  r["bound_by"]))
     return out
+
+
+def gap_flip(xins, p, sp, seed):
+    """An input on which the sparse model's gap-conditioned breakage
+    decides.  ``xins``: consecutive packed [4, B, W] windows of the same
+    rows.  Every valid step's time gap is scaled by a factor drawn from
+    [0.5, 2] (``seed``), so gaps vary from step to step and from row to
+    row, window seams included.  The thresholds are set inside the data,
+    as the reference's own breakage test shrinks breakage_distance: the
+    dense breakage distance at the 40th percentile of the steps'
+    straight-line distances, the break speed at the 80th percentile of
+    their implied speeds.  A step between the two thresholds breaks under
+    the dense model and not under the sparse one, so a kernel that
+    misreads a step's gap, or the seam's, disagrees with its plain
+    version.  Returns (windows on ``xins``' device, p', sp')."""
+    import numpy as np
+    import torch
+
+    a = torch.cat(xins, 2).cpu().numpy().astype(np.float64)
+    x, y, t, ok = a[0], a[1], a[2], a[3] != 0
+    step = ok[:, 1:] & ok[:, :-1]  # valid points form each row's prefix
+    dt = np.diff(t, axis=1) * np.random.default_rng(seed).uniform(0.5, 2.0, step.shape)
+    t2 = t.copy()
+    t2[:, 1:] = np.where(ok[:, 1:], t[:, :1] + np.cumsum(np.where(step, dt, 0.0), 1),
+                         t[:, 1:])
+    gc = np.hypot(np.diff(x, axis=1), np.diff(y, axis=1))[step]
+    gap = np.diff(t2, axis=1)[step]
+    brk = float(np.quantile(gc, 0.4))
+    speed = float(np.quantile(gc / np.maximum(gap, 1.0), 0.8))
+    a[2] = t2
+    out = torch.from_numpy(a.astype(np.float32)).to(xins[0].device)
+    cuts = np.cumsum([w.shape[2] for w in xins])[:-1]
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32)  # noqa: E731
+    print("gap_flip: %d steps, gaps %.1f-%.1f s, breakage_distance %.1f m, break_speed "
+          "%.2f m/s: %d steps flip" % (gc.size, gap.min(), gap.max(), brk, speed, int(
+              ((gc > brk) & (gc <= np.maximum(brk, speed * gap))).sum())))
+    return ([w.contiguous() for w in torch.tensor_split(out, list(cuts), 2)],
+            p._replace(breakage_distance=f32(brk)), sp._replace(break_speed=f32(speed)))
+
+
+def _breaks_flipped(args, packed, carry, xin, p, sp, what, slab_kw=None):
+    """After a sparse chain call (``args`` + ``slab_kw``, giving ``packed``)
+    from carries ``carry`` (leading [B]) over the window ``xin``: the rows
+    whose seam decision the sparse threshold flips (the seam's distance
+    beyond breakage_distance but within the gap-conditioned threshold)
+    must exist, and the dense instantiation on the same input must break
+    differently.  A slab call's slab is cloned for the dense run."""
+    import torch
+
+    from reporter_tpu_torch.ops import viterbi as V
+    from reporter_tpu_torch.ops.candidates import hypot_like_jax
+
+    px, py, tm, valid = V.unpack_inputs(xin)
+    gc0 = hypot_like_jax(px[:, 0] - carry.x, py[:, 0] - carry.y)
+    brk0 = V.sparse_breakage(p.breakage_distance, sp, tm[:, 0] - carry.t)
+    seams = int((carry.active & (valid[:, 0] != 0) & (gc0 > p.breakage_distance.to(gc0.device))
+                 & (gc0 <= brk0)).sum())
+    check(seams > 0, "viterbi_chain[sparse] (%s): seams whose break the gap decides" % what)
+    if slab_kw:
+        args = args[:-1] + (V.TraceCarry(*(t.clone() for t in args[-1])),)
+    dense = V.viterbi_chain(*args, **(slab_kw or {}), sp=None)[0]
+    n = int((dense[2] != packed[2]).sum())
+    check(n > 0, "viterbi_chain[sparse] (%s): the gap-conditioned breakage changed breaks "
+          "against the dense threshold" % what)
+    print("kernel viterbi_chain[sparse] (%s): %d points break differently from the dense "
+          "instantiation, %d seams' decisions flipped by the gap" % (what, n, seams))
+    return {"breaks_flipped": n, "seams_flipped": seams}
 
 
 def _counted(path_kernels, drive):
@@ -628,15 +737,9 @@ def long_path(matcher, traces, slabel=""):
     parts = []
     for c in range(n_chunks):
         xc = xin[:, :, c * W:(c + 1) * W].contiguous()
-        if sp is None:
-            pre = V.precompute_batch_packed_plain(matcher._dg, matcher._du, xc, p, K)
-            packed, _a, carry = V.chain_batch_carry_packed_aux_plain(
-                matcher._dg, matcher._du, pre, xc, p, K, carry)
-        else:
-            pre = V.precompute_batch_packed_sparse_plain(matcher._dg, matcher._du, xc, p,
-                                                         sp, K)
-            packed, _a, carry = V.chain_batch_carry_packed_sparse_plain(
-                matcher._dg, matcher._du, pre, xc, p, sp, K, carry)
+        pre = V.precompute_batch_packed_plain(matcher._dg, matcher._du, xc, p, K, sp)
+        packed, _a, carry = V.chain_batch_carry_packed_aux_plain(
+            matcher._dg, matcher._du, pre, xc, p, K, carry, sp)
         parts.append(V.unpack_compact(packed.cpu().numpy()))
     want = [np.concatenate([q[f] for q in parts], 1) for f in range(3)]
     B = len(group)
@@ -1029,8 +1132,8 @@ def sparse_main_path(sm, cohorts, xins, what):
           % (what, json.dumps(sm.sparse.dispatch), json.dumps(launches)))
     for r, xin in zip(rates, xins):
         p, sp, k = sm.sparse.params_for(r["cohort"])
-        got = V.match_batch_compact_packed_sparse(sm._dg, sm._du, xin, p, sp, k)
-        want = V.match_batch_compact_packed_sparse_plain(sm._dg, sm._du, xin, p, sp, k)
+        got = V.match_batch_compact_packed_aux(sm._dg, sm._du, xin, p, k, sp)
+        want = V.match_batch_compact_packed_aux_plain(sm._dg, sm._du, xin, p, k, sp)
         check(torch.equal(got[0], want[0]), "sparse packed output equals the plain versions'")
         check(torch.allclose(got[1], want[1], rtol=1e-4, atol=0), "sparse aux")
         print("sparse path (%s) packed [3,%d,%d] K=%d equals the plain composition, aux "
@@ -1097,8 +1200,8 @@ def sparse_session_path(matcher, traces, label):
     dg, du, K = am._dg, am._du, cfg.beam_k
     p_sp, sp, _k = am.sparse.params_for(label)
     xs = [session_rows(am, traces, j, Wn, pad=0) for j in (0, Wn)]
-    pk0, _a0, c1 = V.session_step_packed_sparse_plain(dg, du, xs[0], p_sp, sp, K,
-                                                      V.initial_carry_batch(n, K, dev))
+    pk0, _a0, c1 = V.session_step_packed_plain(dg, du, xs[0], p_sp, K,
+                                               V.initial_carry_batch(n, K, dev), sp)
     pk1, _a1, c2 = V.session_step_packed_plain(dg, du, xs[1], am._params, K, c1)
     steps = [V.unpack_compact(pk.cpu().numpy()) for pk in (pk0, pk1)]
     leaves = {f: t.cpu().numpy() for f, t in zip(V.TraceCarry._fields, c2)}
@@ -1143,8 +1246,8 @@ def sparse_serve_phase(matcher, traces):
     T = sv._bucket_len(len(requests[0]["trace"]))
     px, py, tm, valid, times = sv._fill_rows(requests, idxs, T)
     p, sp, k = sv.sparse.params_for(label)
-    packed, aux = V.match_batch_compact_packed_sparse_plain(
-        sv._dg, sv._du, upload(V.pack_inputs(px, py, tm, valid), sv.device), p, sp, k)
+    packed, aux = V.match_batch_compact_packed_aux_plain(
+        sv._dg, sv._du, upload(V.pack_inputs(px, py, tm, valid), sv.device), p, k, sp)
     results = [None] * len(requests)
     sv._associate_and_store(idxs, *V.unpack_compact(packed.cpu().numpy()), times, results,
                             aux=aux.cpu().numpy())
@@ -1207,6 +1310,15 @@ def main():
     rows_b = kernel_phases(sm, xin_b, timed=False, p=pb_, K=kb, sp=spb)
     chain_sp = chain_phases(sm, tr_l, tr_a, timed=True, sp=spb, long_pk=(pb_, kb),
                             sess_pk=(pa_, matcher.cfg.beam_k))
+    # the same shapes on inputs where the gap-conditioned breakage decides
+    # (gap_flip): kernels 1-4 on A and B, kernel 5 on L's window and the slab
+    flip_rows = []
+    for seed, (x_s, p_s, sp_s, k_s) in enumerate(((xin_a, pa_, spa, ka),
+                                                  (xin_b, pb_, spb, kb)), 21):
+        (x_f,), p_f, sp_f = gap_flip([x_s], p_s, sp_s, seed)
+        flip_rows.append(kernel_phases(sm, x_f, False, p_f, k_s, sp_f, flip=True))
+    chain_flip = chain_phases(sm, tr_l, tr_a, timed=False, sp=spb, long_pk=(pb_, kb),
+                              sess_pk=(pa_, matcher.cfg.beam_k), flip=31)
     sp_launches, sp_rates = sparse_main_path(sm, [tr_a, tr_b], [xin_a, xin_b],
                                              "uncalibrated")
     cm = sparse_matcher(matcher, calibration=os.path.join(REPO, "CALIBRATION.json"))
@@ -1221,20 +1333,21 @@ def main():
 
     # launches over the counted runs of every path but serve's; kernels
     # 1-4's times and bounds at 512 x 64, max_abs_err over both bucketed
-    # shapes, the session step's and the sparse cohorts A and B (K = 16);
-    # kernel 5's at the long path's 64 x 256; the sparse instantiations'
-    # at cohort A's 512 x 16 (kernels 3, 4) and cohort L's 16 x 256 (5)
+    # shapes, the session step's and the sparse cohorts A and B (K = 16),
+    # gap_flip's included; kernel 5's at the long path's 64 x 256; the
+    # sparse instantiations' at cohort A's 512 x 16 (kernels 3, 4) and
+    # cohort L's 16 x 256 (5)
     runs = [launches, long_launches, sess_launches, sp_launches, cal_launches,
             sp_long_launches, *sp_sess_launches.values()]
     total = {k: sum(r[k] for r in runs) for k in launches}
     kernels = [{
         "name": r["name"], "route": r["route"], "source": r["source"],
         "replaces": r["replaces"], "launches": total[r["name"]],
-        "max_abs_err": max(x["max_abs_err"] for x in (r, r2, r4, ra, rb)),
+        "max_abs_err": max(x["max_abs_err"] for x in (r, r2, r4, ra, rb, fa, fb)),
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": None,
-    } for r, r2, r4, ra, rb in zip(rows, rows256, rows4, rows_a[:2] + rows[2:],
-                                   rows_b[:2] + rows[2:])]
+    } for r, r2, r4, ra, rb, fa, fb in zip(
+        rows, rows256, rows4, *(rs[:2] + rows[2:] for rs in (rows_a, rows_b, *flip_rows)))]
     cl = chain["long"]
     kernels.append({
         "name": "viterbi_chain", "route": "cuda",
@@ -1246,16 +1359,19 @@ def main():
     kernels.extend({
         "name": r["name"], "route": r["route"], "source": r["source"],
         "replaces": r["replaces"], "launches": total[r["name"]],
-        "max_abs_err": max(r["max_abs_err"], rb["max_abs_err"]), "ms": r["ms"],
+        "max_abs_err": max(x["max_abs_err"] for x in rs), "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-        "library_ms": None} for r, rb in zip(rows_a[2:], rows_b[2:]))
+        "library_ms": None} for r, *rs in zip(rows_a[2:], rows_a[2:], rows_b[2:],
+                                                *(f[2:] for f in flip_rows)))
     cs = chain_sp["long"]
     kernels.append({
         "name": "viterbi_chain[sparse]", "route": "cuda",
         "source": "reporter_tpu_torch/csrc/viterbi_chain.cu",
         "replaces": "reporter_tpu/ops/viterbi.py:498",
         "launches": total["viterbi_chain[sparse]"],
-        "max_abs_err": max(c["max_abs_err"] for c in chain_sp.values()), "ms": cs["ms"],
+        "max_abs_err": max(c["max_abs_err"] for c in (*chain_sp.values(),
+                                                       *chain_flip.values())),
+        "ms": cs["ms"],
         "plain_ms": cs["plain_ms"], "bound_ms": cs["bound_ms"], "bound_by": cs["bound_by"],
         "library_ms": None})
     report = {
@@ -1275,7 +1391,12 @@ def main():
                            "probes", "distinct_rows", "hit_rate")}
                        for shape, rs in (("512x16", rows_a), ("64x256", rows_b)) for r in rs},
                    "chain": {name: {k: v for k, v in c.items() if k not in ("fn", "plain")}
-                             for name, c in chain_sp.items()}},
+                             for name, c in chain_sp.items()},
+                   "gap_flip": {
+                       "viterbi_scan[sparse]": [f[3]["breaks_flipped"] for f in flip_rows],
+                       **{"viterbi_chain[sparse]_" + name: {
+                           k: v for k, v in c.items() if k not in ("fn", "plain")}
+                          for name, c in chain_flip.items()}}},
         "metro_reports": n_reports, "peak_memory_mb": torch.cuda.max_memory_allocated() / 1e6,
         "kernels": kernels,
         "extra": dict({"%s_%d" % (r["name"], T): {k: v for k, v in r.items() if k in (

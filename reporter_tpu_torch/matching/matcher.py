@@ -22,8 +22,8 @@ The sparse-gap model (``matching/sparse.py``; off by default, on in the
 serve entry point, ``$REPORTER_SPARSE`` and ``$REPORTER_CALIBRATION`` read
 at construction): a trace whose median gap is at or above
 ``sparse_gap_s`` is bucketed by (params, cohort label, length) and decodes
-through the ``*_packed_sparse`` programs, the kernels' SPARSE
-instantiations, with its cohort's parameters and candidate budget K
+through the packed programs with the cohort's ``SparseParams``, the
+kernels' SPARSE instantiations, with its cohort's parameters and candidate budget K
 (windowed and long traffic; session steps keep ``beam_k``).  Dense traces
 take the dense programs unchanged.
 
@@ -45,11 +45,9 @@ from ..convert import carry_from_numpy
 from ..device import resolve_device, upload
 from ..ops.viterbi import (
     NEG_INF, MatchParams, TraceCarry, chain_batch_carry_packed_aux,
-    chain_batch_carry_packed_sparse, initial_carry_batch,
-    match_batch_compact_packed_aux, match_batch_compact_packed_sparse,
-    pack_inputs, precompute_batch_packed, precompute_batch_packed_sparse,
-    session_step_arena, session_step_arena_sparse, session_step_packed,
-    session_step_packed_sparse, slice_pre, unpack_compact,
+    initial_carry_batch, match_batch_compact_packed_aux, pack_inputs,
+    precompute_batch_packed, session_step_arena, session_step_packed,
+    slice_pre, unpack_compact,
 )
 from ..tiles.arrays import GraphArrays, build_graph_arrays
 from ..tiles.network import RoadNetwork
@@ -254,12 +252,10 @@ class SegmentMatcher:
         (a sparse cohort) dispatches the sparse program with the cohort's
         parameters and K."""
         xin = upload(pack_inputs(px, py, times, valid), self.device)
-        if slabel:
-            p, sp, k = self.sparse.params_for(slabel, pkey)
-            return match_batch_compact_packed_sparse(self._dg, self._du, xin,
-                                                     p, sp, k)
-        return match_batch_compact_packed_aux(
-            self._dg, self._du, xin, self._params_for(pkey), self.cfg.beam_k)
+        p, sp, k = (self.sparse.params_for(slabel, pkey) if slabel
+                    else (self._params_for(pkey), None, self.cfg.beam_k))
+        return match_batch_compact_packed_aux(self._dg, self._du, xin, p, k,
+                                              sp)
 
     @staticmethod
     def _collect_batch(handle):
@@ -414,21 +410,13 @@ class SegmentMatcher:
                 seg = np.concatenate(
                     [seg, np.zeros((4, rung - rows, W), np.float32)], 1)
             seg = upload(seg, self.device)
-            if sp is None:
-                pre = precompute_batch_packed(self._dg, self._du, seg, p, k)
-            else:
-                pre = precompute_batch_packed_sparse(self._dg, self._du, seg,
-                                                     p, sp, k)
+            pre = precompute_batch_packed(self._dg, self._du, seg, p, k, sp)
             for i in range(m):
                 lo, hi = i * B_pad, (i + 1) * B_pad
                 win = (self._dg, self._du, slice_pre(pre, lo, hi),
                        seg[:, lo:hi])
-                if sp is None:
-                    packed, aux_c, carry = chain_batch_carry_packed_aux(
-                        *win, p, k, carry)
-                else:
-                    packed, aux_c, carry = chain_batch_carry_packed_sparse(
-                        *win, p, sp, k, carry)
+                packed, aux_c, carry = chain_batch_carry_packed_aux(
+                    *win, p, k, carry, sp)
                 aux = aux_c if aux is None else torch.cat(
                     [torch.minimum(aux[:, :1], aux_c[:, :1]),
                      aux[:, 1:] + aux_c[:, 1:]], 1)
@@ -675,15 +663,10 @@ class SegmentMatcher:
                       use=None):
         """One session step program: the host-carry or (with ``slots``)
         the slab variant, dense or (with ``sp``) sparse."""
-        k = self.cfg.beam_k
-        a = (self._dg, self._du, xin, p)
+        a = (self._dg, self._du, xin, p, self.cfg.beam_k, carry)
         if slots is None:
-            if sp is None:
-                return session_step_packed(*a, k, carry)
-            return session_step_packed_sparse(*a, sp, k, carry)
-        if sp is None:
-            return session_step_arena(*a, k, carry, slots, use)
-        return session_step_arena_sparse(*a, sp, k, carry, slots, use)
+            return session_step_packed(*a, sp)
+        return session_step_arena(*a, slots, use, sp)
 
     def _dispatch_session_arena(self, items, sub, ns, xin, p: MatchParams,
                                 sp=None, slabel: str = ""):

@@ -77,12 +77,17 @@ def fma(a: torch.Tensor, b: torch.Tensor, c) -> torch.Tensor:
 
 
 def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
-    """Correctly rounded float32 square root.  PyTorch's CPU sqrt is not
-    correctly rounded, in float32 or float64, and which elements it gets
-    wrong can change from call to call (with how the work is split across
-    threads).  So the float64 root, rounded to float32, is moved to the
-    neighbour whose rounding interval holds the true root: the midpoints
-    between neighbouring float32 values square exactly in float64."""
+    """Correctly rounded float32 square root.  PyTorch's CPU float32 sqrt
+    is not correctly rounded.  Its float64 sqrt is within an ulp, and a
+    float32 value's root never lies that close to a float32 rounding
+    midpoint, so rounding it would do; but the first multithreaded float64
+    sqrt of a process sometimes returns one thread's share of the roots
+    only about 2^-36 relative accurate (over 100,000 float64 ulps off:
+    ``tests/test_torch_candidates.py``, run as a script), and those round
+    to the wrong float32 where the root is near a midpoint.  So the
+    rounded root is moved to the neighbour whose rounding interval holds
+    the true root: the midpoints between neighbouring float32 values
+    square exactly in float64, whatever the float64 sqrt returned."""
     y = torch.sqrt(x.double()).float()
     inf = torch.full_like(y, float("inf"))
     dn, up = torch.nextafter(y, -inf), torch.nextafter(y, inf)

@@ -1,6 +1,7 @@
 """Batched HMM map matching: emission, transition, Viterbi (kernels 3-5).
 
-The port of the dense path of ``reporter_tpu/ops/viterbi.py``, a window
+The port of ``reporter_tpu/ops/viterbi.py``'s dense and sparse-gap
+programs without probe dedup or the associative scan, a window
 that starts fresh and a window that continues a carried beam.  Shapes,
 per [B, T] padded batch:
 
@@ -33,6 +34,10 @@ Long traces run in fixed windows: ``precompute_batch_packed`` (kernels
 them.  A session step runs both over one small window, the carry in
 [B]-leading tensors (``session_step_packed``) or in the device slab
 (``session_step_arena``).
+
+Every entry point takes ``sp=None``: with a ``SparseParams`` it runs the
+sparse-gap model (the reference's ``*_packed_sparse`` programs) through
+the SPARSE instantiations of kernels 3-5.
 
 Each kernel wrapper launches its CUDA kernel for CUDA tensors and runs its
 plain PyTorch version for CPU tensors.  Every packed entry point composes
@@ -737,154 +742,86 @@ def _step(st: _Stages, dg, du, xin, p, k, carry, slots=None, use_carry=None,
 
 
 def match_batch_compact_packed_aux(dg: DeviceGraph, du: DeviceUBODT,
-                                   xin: torch.Tensor, p: MatchParams, k: int):
+                                   xin: torch.Tensor, p: MatchParams, k: int,
+                                   sp: Optional[SparseParams] = None):
     """The match program over a packed [4, B, T] f32 input: (packed
     [3, B, T] i32 = edge, offset bits, break; aux [B, 4] f32)."""
-    return _match(_KERNELS, dg, du, xin, p, k)
+    return _match(_KERNELS, dg, du, xin, p, k, sp)
 
 
 def match_batch_compact_packed_aux_plain(dg: DeviceGraph, du: DeviceUBODT,
                                          xin: torch.Tensor, p: MatchParams,
-                                         k: int):
+                                         k: int,
+                                         sp: Optional[SparseParams] = None):
     """``match_batch_compact_packed_aux`` through the plain versions, on
     whatever device the inputs are."""
-    return _match(_PLAIN, dg, du, xin, p, k)
+    return _match(_PLAIN, dg, du, xin, p, k, sp)
 
 
 def precompute_batch_packed(dg: DeviceGraph, du: DeviceUBODT, xin,
-                            p: MatchParams, k: int) -> TracePre:
+                            p: MatchParams, k: int,
+                            sp: Optional[SparseParams] = None) -> TracePre:
     """The carry-independent stages (kernels 1-3) over a packed [4, B, W]
     input.  For long traces B is the chunk-major rows of many windows of a
     trace group, so one dispatch precomputes them all; the result feeds
     ``chain_batch_carry_packed_aux`` window by window (``slice_pre``).
     Leaves the scan never reads (dist, cx, cy, route) are None."""
-    return _pre_packed(_KERNELS, dg, du, xin, p, k)
+    return _pre_packed(_KERNELS, dg, du, xin, p, k, sp)
 
 
-def precompute_batch_packed_plain(dg, du, xin, p: MatchParams, k: int):
-    return _pre_packed(_PLAIN, dg, du, xin, p, k)
+def precompute_batch_packed_plain(dg, du, xin, p: MatchParams, k: int,
+                                  sp: Optional[SparseParams] = None):
+    return _pre_packed(_PLAIN, dg, du, xin, p, k, sp)
 
 
 def chain_batch_carry_packed_aux(dg: DeviceGraph, du: DeviceUBODT,
                                  pre: TracePre, xin, p: MatchParams, k: int,
-                                 carry: TraceCarry):
+                                 carry: TraceCarry,
+                                 sp: Optional[SparseParams] = None):
     """The carry-dependent rest of a window (kernel 5) over a precomputed
     ``pre`` (leading [B]) and the window's packed [4, B, W] input:
     (packed [3, B, W], aux [B, 4], carry').  Aux components combine across
     seams as min / + / + / +."""
-    return _chain(_KERNELS, dg, du, pre, xin, p, carry)
+    return _chain(_KERNELS, dg, du, pre, xin, p, carry, sp=sp)
 
 
 def chain_batch_carry_packed_aux_plain(dg, du, pre: TracePre, xin,
                                        p: MatchParams, k: int,
-                                       carry: TraceCarry):
-    return _chain(_PLAIN, dg, du, pre, xin, p, carry)
+                                       carry: TraceCarry,
+                                       sp: Optional[SparseParams] = None):
+    return _chain(_PLAIN, dg, du, pre, xin, p, carry, sp=sp)
 
 
 def session_step_packed(dg: DeviceGraph, du: DeviceUBODT, xin,
-                        p: MatchParams, k: int, carry: TraceCarry):
+                        p: MatchParams, k: int, carry: TraceCarry,
+                        sp: Optional[SparseParams] = None):
     """One incremental session step: each row of the packed [4, B, W] input
     is one session's newly arrived points (a valid prefix), continued from
-    its carried beam (leading [B]).  Returns (packed, aux, carry')."""
-    return _step(_KERNELS, dg, du, xin, p, k, carry)
+    its carried beam (leading [B]).  Returns (packed, aux, carry').  ``k``
+    stays the carried beam's width under the sparse model too: a
+    session's beam cannot change width."""
+    return _step(_KERNELS, dg, du, xin, p, k, carry, sp=sp)
 
 
 def session_step_packed_plain(dg, du, xin, p: MatchParams, k: int,
-                              carry: TraceCarry):
-    return _step(_PLAIN, dg, du, xin, p, k, carry)
+                              carry: TraceCarry,
+                              sp: Optional[SparseParams] = None):
+    return _step(_PLAIN, dg, du, xin, p, k, carry, sp=sp)
 
 
 def session_step_arena(dg: DeviceGraph, du: DeviceUBODT, xin, p: MatchParams,
-                       k: int, slab: TraceCarry, slots, use_carry):
+                       k: int, slab: TraceCarry, slots, use_carry,
+                       sp: Optional[SparseParams] = None):
     """``session_step_packed`` against the device-resident session slab
     (leading [S]): row b continues slab[slots[b]] where use_carry[b] (else
     the inactive carry) and its successor is written back to that row in
     place; padding rows carry slot == S and write nothing.  ``slots`` and
     ``use_carry`` are host [B] arrays, live slots distinct.  Returns
     (packed, aux, slab)."""
-    return _step(_KERNELS, dg, du, xin, p, k, slab, slots, use_carry)
-
-
-def session_step_arena_plain(dg, du, xin, p: MatchParams, k: int,
-                             slab: TraceCarry, slots, use_carry):
-    return _step(_PLAIN, dg, du, xin, p, k, slab, slots, use_carry)
-
-
-# -- the sparse-gap model's entry points -----------------------------------------
-#
-# The reference's ``*_packed_sparse`` programs: the dense entry points with
-# the sparse model's transitions (kernel 3's and kernel 5's seam) and
-# gap-conditioned breakage (kernels 4 and 5) through the kernels' SPARSE
-# instantiations.  Argument order is the reference's (p, sp, k); every one
-# returns the [B, 4] aux.
-
-
-def match_batch_compact_packed_sparse(dg: DeviceGraph, du: DeviceUBODT, xin,
-                                      p: MatchParams, sp: SparseParams,
-                                      k: int):
-    """``match_batch_compact_packed_aux`` under the sparse model: (packed
-    [3, B, T], aux [B, 4])."""
-    return _match(_KERNELS, dg, du, xin, p, k, sp)
-
-
-def match_batch_compact_packed_sparse_plain(dg, du, xin, p: MatchParams,
-                                            sp: SparseParams, k: int):
-    return _match(_PLAIN, dg, du, xin, p, k, sp)
-
-
-def precompute_batch_packed_sparse(dg: DeviceGraph, du: DeviceUBODT, xin,
-                                   p: MatchParams, sp: SparseParams,
-                                   k: int) -> TracePre:
-    """``precompute_batch_packed`` under the sparse transition model: the
-    long path's window-batched precompute for a sparse cohort."""
-    return _pre_packed(_KERNELS, dg, du, xin, p, k, sp)
-
-
-def precompute_batch_packed_sparse_plain(dg, du, xin, p: MatchParams,
-                                         sp: SparseParams, k: int):
-    return _pre_packed(_PLAIN, dg, du, xin, p, k, sp)
-
-
-def chain_batch_carry_packed_sparse(dg: DeviceGraph, du: DeviceUBODT,
-                                    pre: TracePre, xin, p: MatchParams,
-                                    sp: SparseParams, k: int,
-                                    carry: TraceCarry):
-    """``chain_batch_carry_packed_aux`` under the sparse model: the seam
-    transition and every step's breakage are gap-conditioned.  Returns
-    (packed [3, B, W], aux [B, 4], carry')."""
-    return _chain(_KERNELS, dg, du, pre, xin, p, carry, sp=sp)
-
-
-def chain_batch_carry_packed_sparse_plain(dg, du, pre: TracePre, xin,
-                                          p: MatchParams, sp: SparseParams,
-                                          k: int, carry: TraceCarry):
-    return _chain(_PLAIN, dg, du, pre, xin, p, carry, sp=sp)
-
-
-def session_step_packed_sparse(dg: DeviceGraph, du: DeviceUBODT, xin,
-                               p: MatchParams, sp: SparseParams, k: int,
-                               carry: TraceCarry):
-    """``session_step_packed`` under the sparse model.  ``k`` stays the
-    carried beam's width: a session's beam cannot change width."""
-    return _step(_KERNELS, dg, du, xin, p, k, carry, sp=sp)
-
-
-def session_step_packed_sparse_plain(dg, du, xin, p: MatchParams,
-                                     sp: SparseParams, k: int,
-                                     carry: TraceCarry):
-    return _step(_PLAIN, dg, du, xin, p, k, carry, sp=sp)
-
-
-def session_step_arena_sparse(dg: DeviceGraph, du: DeviceUBODT, xin,
-                              p: MatchParams, sp: SparseParams, k: int,
-                              slab: TraceCarry, slots, use_carry):
-    """``session_step_arena`` under the sparse model: the slab read and
-    written in place, gap-conditioned like ``session_step_packed_sparse``.
-    Returns (packed, aux, slab)."""
     return _step(_KERNELS, dg, du, xin, p, k, slab, slots, use_carry, sp)
 
 
-def session_step_arena_sparse_plain(dg, du, xin, p: MatchParams,
-                                    sp: SparseParams, k: int,
-                                    slab: TraceCarry, slots, use_carry):
+def session_step_arena_plain(dg, du, xin, p: MatchParams, k: int,
+                             slab: TraceCarry, slots, use_carry,
+                             sp: Optional[SparseParams] = None):
     return _step(_PLAIN, dg, du, xin, p, k, slab, slots, use_carry, sp)

@@ -1,7 +1,8 @@
 """The sparse-gap model's device arithmetic in the port (kernels 3-5's plain
 versions with ``sp``, on the CPU) against the reference's jitted
 ``sparse_beta`` / ``sparse_breakage``, ``precompute_batch`` with ``sp`` and
-the five ``*_packed_sparse`` entry points, on the reference's sparse test
+the five ``*_packed_sparse`` programs (the port's packed entry points
+with ``sp``), on the reference's sparse test
 world (``dryrun_scenario(rows=6, cols=6, spacing_m=200)``) with traces at
 45-120 s gaps from the reference's ``TraceSynthesizer``.
 
@@ -126,7 +127,7 @@ def test_sparse_transition_build_equals_reference(world, K, name):
     dense = V.precompute_batch(dg, du, *V.unpack_inputs(torch.from_numpy(xin)), pp, K)
     assert torch.equal(dense.logp, got.logp) == (name == "plaus0")
     # the packed path's sparse precompute is the same build without routes
-    lean = V.precompute_batch_packed_sparse(dg, du, torch.from_numpy(xin), pp, psp, K)
+    lean = V.precompute_batch_packed(dg, du, torch.from_numpy(xin), pp, K, psp)
     assert lean.route is None and torch.equal(lean.logp, got.logp)
 
 
@@ -137,13 +138,13 @@ def test_match_compact_packed_sparse_equals_reference(world, seed, K, name):
     xin = sparse_rows(ra, seed, 7, 32)
     (rp, rsp), (pp, psp) = params(VALUES[name])
     want_packed, want_aux = _ref_match(rg, ru, jnp.asarray(xin), rp, rsp, K)
-    packed, aux = V.match_batch_compact_packed_sparse_plain(
-        dg, du, torch.from_numpy(xin), pp, psp, K)
+    packed, aux = V.match_batch_compact_packed_aux_plain(
+        dg, du, torch.from_numpy(xin), pp, K, psp)
     assert np.array_equal(packed.numpy(), np.asarray(want_packed))
     np.testing.assert_allclose(aux.numpy(), np.asarray(want_aux), rtol=1e-4, atol=0)
     # on the CPU the wrapper entry point is the plain composition
-    assert torch.equal(V.match_batch_compact_packed_sparse(
-        dg, du, torch.from_numpy(xin), pp, psp, K)[0], packed)
+    assert torch.equal(V.match_batch_compact_packed_aux(
+        dg, du, torch.from_numpy(xin), pp, K, psp)[0], packed)
 
 
 def test_gap_conditioned_breakage_connects():
@@ -162,8 +163,8 @@ def test_gap_conditioned_breakage_connects():
     xin = RV.pack_inputs(px, py, np.array([[0.0, 90.0]], np.float32), np.ones((1, 2), bool))
     K = cfg.beam_k
     dense, _a = V.match_batch_compact_packed_aux_plain(dg, du, torch.from_numpy(xin), pp, K)
-    sparse, _a = V.match_batch_compact_packed_sparse_plain(
-        dg, du, torch.from_numpy(xin), pp, psp, K)
+    sparse, _a = V.match_batch_compact_packed_aux_plain(
+        dg, du, torch.from_numpy(xin), pp, K, psp)
     assert int(dense[2, 0, 1]) == 1  # dense: the hop restarts the HMM
     assert int(sparse[2, 0, 1]) == 0  # sparse: an honest drive, connected
     want = _ref_match(rg, rdu, jnp.asarray(xin), rp, rsp, K)[0]
@@ -187,9 +188,9 @@ def test_chain_sparse_equals_reference_window_by_window(world, K, name):
         want = _ref_chain(rg, ru, _ref_spre(rg, ru, jnp.asarray(seg), rp, rsp, K),
                           jnp.asarray(seg), rp, rsp, K, rc)
         st = torch.from_numpy(seg)
-        got = V.chain_batch_carry_packed_sparse_plain(
-            dg, du, V.precompute_batch_packed_sparse_plain(dg, du, st, pp, psp, K), st,
-            pp, psp, K, pc)
+        got = V.chain_batch_carry_packed_aux_plain(
+            dg, du, V.precompute_batch_packed_plain(dg, du, st, pp, K, psp), st,
+            pp, K, pc, psp)
         _check(got, want, "window %d" % c)
         if c:
             seams += int((got[0][2, :, 0] == 0).sum())
@@ -213,15 +214,15 @@ def test_session_steps_sparse_equal_reference(world, Wn):
     for c in range(3):
         seg = np.ascontiguousarray(xin[:, :, c * Wn:(c + 1) * Wn])
         want = _ref_session(rg, ru, jnp.asarray(seg), rp, rsp, K, rc)
-        got = V.session_step_packed_sparse_plain(dg, du, torch.from_numpy(seg), pp, psp,
-                                                 K, pc)
+        got = V.session_step_packed_plain(dg, du, torch.from_numpy(seg), pp, K, pc,
+                                          psp)
         _check(got, want, "session step %d" % c)
         rc, pc = want[2], got[2]
         use = np.array([c > 0, c > 0, c > 0, c == 1, c > 0, False, False])
         want = _ref_arena(rg, ru, jnp.asarray(seg), rp, rsp, K, rslab,
                           jnp.asarray(slots), jnp.asarray(use))
-        got = V.session_step_arena_sparse_plain(dg, du, torch.from_numpy(seg), pp, psp, K,
-                                                pslab, slots, use)
+        got = V.session_step_arena_plain(dg, du, torch.from_numpy(seg), pp, K, pslab,
+                                         slots, use, psp)
         assert got[2] is pslab  # updated in place
         _check(got, want, "arena step %d" % c)
         rslab = want[2]
