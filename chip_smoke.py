@@ -2,10 +2,11 @@
 
     python3 chip_smoke.py
 
-Builds the five CUDA kernels of the match program (one nvcc per source,
+Builds the CUDA kernels of the match program (one nvcc per source,
 sm_90a, all started together; kernels 3-5 with their sparse
-instantiations, counted apart as ``<name>[sparse]``) and the native host
-core, builds the metro-scale grid city (120 x 120 blocks of 150 m, UBODT
+instantiations, counted apart as ``<name>[sparse]``, kernel 2 with its
+wide32 one, the dedup claim and scatter kernels and the probe-outcome
+counters) and the native host core, builds the metro-scale grid city (120 x 120 blocks of 150 m, UBODT
 delta 3000 m, cuckoo layout) and moves it to the card, then:
 
   1. holds each of kernels 1-4 against its plain PyTorch version on the
@@ -56,7 +57,27 @@ delta 3000 m, cuckoo layout) and moves it to the card, then:
      kernel 5 at L's window and on the slab, each against its plain
      version, the sparse breaks differing from the dense instantiation's.
      The session step is also held on host carries (kernel 5's
-     [B]-leading mode at 512 x 4), dense and sparse.
+     [B]-leading mode at 512 x 4), dense and sparse;
+  7. the UBODT memory system: the metro table repacked into the wide32
+     layout (``relayout``); kernel 2's wide32 instantiation against its
+     plain version and against the cuckoo kernel on the same keys, and
+     the deduplicated probe (claim, kernel 2 over the distinct keys,
+     scatter) against the plain full-width probe in both layouts, at 512
+     x 64, 128 x 256, the session step's 512 x 4, the long cohort's
+     chunk-major pre input (512 windows of 256) and A at K = 16; an
+     all-distinct key set that forces the full-width fallback on the
+     card; kernel 5's wide32 seam, dense (64 x 256, the slab) and sparse
+     (L's window, the slab); ``probe_stats`` against its plain version
+     in both layouts and on A with a 400 m table (beyond-delta misses);
+     each new kernel and the end-to-end dedup probe timed at 512 x 64
+     beside kernel 2 alone, ``torch.unique`` as the claim's yardstick;
+     then, through the launch counters, a wide32 + dedup matcher that
+     samples the probe diagnostic on every dense dispatch over the
+     bucketed, long and sparse A paths, each output equal to the cuckoo
+     matcher's without dedup and to the plain composition, and the 8
+     /report of A and the fixture replay under
+     $REPORTER_UBODT_LAYOUT=wide32 $REPORTER_PROBE_DEDUP=1 answering as
+     under the defaults.
 
 Prints the card's name and power limit, one line per phase, a
 ``{"kernels": [...]}`` line, and as its last line
@@ -666,9 +687,10 @@ def _breaks_flipped(args, packed, carry, xin, p, sp, what, slab_kw=None):
     return {"breaks_flipped": n, "seams_flipped": seams}
 
 
-def _counted(path_kernels, drive):
+def _counted(path_kernels, drive, absent=()):
     """Drive one path with every launch count set to 0 just before and read
-    just after; on the card every kernel of the path must have launched."""
+    just after; on the card every kernel of the path must have launched,
+    and none of ``absent``."""
     import torch
 
     from reporter_tpu_torch.ops import _kernels
@@ -683,7 +705,27 @@ def _counted(path_kernels, drive):
     if torch.cuda.is_available():
         check(all(launches[k] > 0 for k in path_kernels),
               "every kernel of the path launched: %s" % json.dumps(launches))
+        check(not any(launches[k] for k in absent),
+              "no kernel off the path launched (%s): %s" % (absent, json.dumps(launches)))
     return res, dt, launches
+
+
+PROBE_FAMILY = ("ubodt_probe", "ubodt_probe[wide32]", "ubodt_dedup_claim",
+                "ubodt_dedup_scatter", "probe_stats")
+
+
+def _path_kernels(matcher, kernels, sampled=False):
+    """(kernels, absent): the kernels a path of ``matcher`` must launch,
+    its table's probe (and the dedup kernels with probe dedup, the
+    diagnostic's when ``sampled`` and the sampler is on) in place of
+    ``ubodt_probe``, and the probe-family kernels it must not launch."""
+    probe = ("ubodt_probe[wide32]",) if matcher._du.wide else ("ubodt_probe",)
+    if matcher.probe_dedup:
+        probe += ("ubodt_dedup_claim", "ubodt_dedup_scatter")
+    if sampled and matcher._probe_every:
+        probe += ("probe_stats",)
+    return (tuple(k for k in kernels if k != "ubodt_probe") + probe,
+            tuple(k for k in PROBE_FAMILY if k not in probe))
 
 
 BUCKETED = ("candidate_sweep", "ubodt_probe", "transition_build", "viterbi_scan")
@@ -694,12 +736,14 @@ SPARSE_CARRIED = ("candidate_sweep", "ubodt_probe", "transition_build[sparse]",
                   "viterbi_chain[sparse]")
 
 
-def long_path(matcher, traces, slabel=""):
+def long_path(matcher, traces, slabel="", base=None):
     """The long path: ``match_many`` over 64 traces of 2,048 points (8
     windows of 256) through the launch counters, then the group's
     per-point output held against the plain composition window by window
     on the card.  With ``slabel`` the traces are that sparse cohort's and
-    ``matcher`` has the model on: the sparse programs at the cohort's K."""
+    ``matcher`` has the model on: the sparse programs at the cohort's K.
+    ``base`` (a matcher with another table layout or dedup setting): its
+    output must be the same."""
     import numpy as np
     import torch
 
@@ -707,8 +751,8 @@ def long_path(matcher, traces, slabel=""):
 
     dev = matcher.device
     matcher.match_many(traces[:1])  # first-call set-up outside the count
-    res, dt, launches = _counted(SPARSE_CARRIED if slabel else CARRIED,
-                                 lambda: matcher.match_many(traces))
+    kernels, absent = _path_kernels(matcher, SPARSE_CARRIED if slabel else CARRIED)
+    res, dt, launches = _counted(kernels, lambda: matcher.match_many(traces), absent)
     check(len(res) == len(traces) and all(r["segments"] for r in res), "long path results")
     n_pts = sum(len(tr["trace"]) for tr in traces)
     rate = {"traces": len(traces), "T": len(traces[0]["trace"]), "s": dt,
@@ -748,6 +792,14 @@ def long_path(matcher, traces, slabel=""):
           "long path output equals the plain composition")
     print("long path [%d, %d x %d] K=%d equals the plain composition window by window"
           % (B, n_chunks, W, K))
+    if base is not None:
+        (hb,) = base._dispatch_long(traces, list(range(len(traces))), (), slabel)
+        _g, (e2, o2, b2), _t, _a = base._fetch_long_aux(hb)
+        check(np.array_equal(edge, e2) and offset.tobytes() == o2.tobytes()
+              and np.array_equal(breaks, b2), "long path output equals the %s table's, "
+              "dedup %s" % (base._du.layout, base.probe_dedup))
+        print("long path output equals the %s matcher's (dedup %s)"
+              % (base._du.layout, base.probe_dedup))
     return launches, rate
 
 
@@ -880,10 +932,10 @@ def session_path(matcher, traces64):
     return am, launches, rate
 
 
-def main_path(matcher, cohorts, xins):
+def main_path(matcher, cohorts, xins, base=None):
     """The bucketed path through the launch counters, then, for each cohort,
     the packed program held against the plain versions' composition on
-    the same batch."""
+    the same batch (and, with ``base``, against that matcher's program)."""
     import torch
 
     from reporter_tpu_torch.ops import _kernels
@@ -908,18 +960,26 @@ def main_path(matcher, cohorts, xins):
               % (len(traces), len(traces[0]["trace"]), dt, len(traces) / dt, n_pts / dt))
     launches = {k: kern.launches for k, kern in _kernels.KERNELS.items()}
     print("main path launches: %s" % json.dumps(launches))
+    kernels, absent = _path_kernels(matcher, BUCKETED, sampled=True)
     if dev.type == "cuda":
-        check(all(launches[k] > 0 for k in BUCKETED), "every kernel launched on the main path")
+        check(all(launches[k] > 0 for k in kernels), "every kernel launched on the main path")
+        check(not any(launches[k] for k in absent), "no kernel off the main path launched")
     p = matcher._params
     for xin in xins:
         got = V.match_batch_compact_packed_aux(matcher._dg, matcher._du, xin, p,
-                                               matcher.cfg.beam_k)
+                                               matcher.cfg.beam_k, None, matcher.probe_dedup)
         want = V.match_batch_compact_packed_aux_plain(matcher._dg, matcher._du, xin, p,
                                                       matcher.cfg.beam_k)
         check(torch.equal(got[0], want[0]), "main path packed output equals the plain versions'")
         check(torch.allclose(got[1], want[1], rtol=1e-4, atol=0), "main path aux")
         print("main path packed [3,%d,%d] equals the plain composition, aux within rtol 1e-4"
               % tuple(xin.shape[1:]))
+        if base is not None:
+            b = V.match_batch_compact_packed_aux(base._dg, base._du, xin, p, base.cfg.beam_k)
+            check(torch.equal(got[0], b[0]) and torch.equal(got[1], b[1]),
+                  "main path output equals the %s table's without dedup" % base._du.layout)
+            print("main path packed [3,%d,%d] (%s, dedup %s) equals the %s matcher's output"
+                  % (*xin.shape[1:], matcher._du.layout, matcher.probe_dedup, base._du.layout))
     return launches, rates
 
 
@@ -1014,12 +1074,6 @@ def _diff(got, want, path):
 def serve_phase(matcher, traces, long_trace, device):
     """Windowed, long and streaming /report on the metro city through the
     launch counters, then the recorded fixtures."""
-    from reporter_tpu_torch.matching import MatcherConfig, SegmentMatcher
-    from reporter_tpu_torch.serve.__main__ import serving_defaults
-    from reporter_tpu_torch.tiles.arrays import build_graph_arrays
-    from reporter_tpu_torch.tiles.network import grid_city
-    from reporter_tpu_torch.tiles.ubodt import build_ubodt
-
     # 8 vehicles, 4 streaming submits of 4 points each, submitted together
     streams = [dict(tr, uuid="veh-%d" % i, stream=True, trace=tr["trace"][j:j + 4])
                for j in range(0, 16, 4) for i, tr in enumerate(traces[8:16])]
@@ -1047,6 +1101,19 @@ def serve_phase(matcher, traces, long_trace, device):
           "streaming submits answered 200, in %.2f s (%d datastore reports), launches %s"
           % (len(long_trace["trace"]), time.perf_counter() - t0, n_reports,
              json.dumps(launches)))
+    fixtures = replay_fixtures(device)
+    return n_reports, launches, fixtures
+
+
+def replay_fixtures(device, what="the serving defaults"):
+    """The 6 recorded /report fixtures on their 8 x 8 grid through a matcher
+    built as serve/__main__.py builds it (the environment read then),
+    each answer diffed against the recorded response."""
+    from reporter_tpu_torch.matching import MatcherConfig, SegmentMatcher
+    from reporter_tpu_torch.serve.__main__ import serving_defaults
+    from reporter_tpu_torch.tiles.arrays import build_graph_arrays
+    from reporter_tpu_torch.tiles.network import grid_city
+    from reporter_tpu_torch.tiles.ubodt import build_ubodt
 
     with open(os.path.join(REPO, "tests", "fixtures", "report_fixtures.json")) as f:
         recorded = json.load(f)
@@ -1062,9 +1129,10 @@ def serve_phase(matcher, traces, long_trace, device):
     for fx, (code, body) in zip(recorded["fixtures"], answers):
         check(code == 200, "fixture status")
         _diff(body, fx["response"], fx["request"]["uuid"])
-    print("serve fixtures: %d recorded /report responses replayed equal"
-          % len(recorded["fixtures"]))
-    return n_reports, launches
+    print("serve fixtures: %d recorded /report responses replayed equal under %s (table %s, "
+          "dedup %s)" % (len(recorded["fixtures"]), what, fixture_matcher.ubodt_layout,
+                         fixture_matcher.probe_dedup))
+    return answers
 
 
 def sparse_matcher(matcher, calibration=None, **cfg_kw):
@@ -1091,11 +1159,12 @@ def sparse_matcher(matcher, calibration=None, **cfg_kw):
     return sm
 
 
-def sparse_main_path(sm, cohorts, xins, what):
+def sparse_main_path(sm, cohorts, xins, what, base=None):
     """The bucketed path of a sparse-on matcher over the sparse cohorts
     through the launch counters (each cohort's traces dispatched as its
     gap cohort), then each cohort's packed program held against the plain
-    composition at the cohort's parameters and K."""
+    composition at the cohort's parameters and K (and, with ``base``,
+    against that matcher's program)."""
     import torch
 
     from reporter_tpu_torch.ops import viterbi as V
@@ -1124,7 +1193,8 @@ def sparse_main_path(sm, cohorts, xins, what):
                   "%.0f points/s" % (what, len(traces), len(traces[0]["trace"]), label, k,
                                      float(sp.vmax), dt, len(traces) / dt, n_pts / dt))
 
-    _r, _dt, launches = _counted(SPARSE_BUCKETED, drive)
+    kernels, absent = _path_kernels(sm, SPARSE_BUCKETED)
+    _r, _dt, launches = _counted(kernels, drive, absent)
     want = {r["cohort"]: r["traces"] for r in rates}
     check(sm.sparse.dispatch == want, "sparse dispatch counts %s == %s"
           % (sm.sparse.dispatch, want))
@@ -1132,12 +1202,18 @@ def sparse_main_path(sm, cohorts, xins, what):
           % (what, json.dumps(sm.sparse.dispatch), json.dumps(launches)))
     for r, xin in zip(rates, xins):
         p, sp, k = sm.sparse.params_for(r["cohort"])
-        got = V.match_batch_compact_packed_aux(sm._dg, sm._du, xin, p, k, sp)
+        got = V.match_batch_compact_packed_aux(sm._dg, sm._du, xin, p, k, sp, sm.probe_dedup)
         want = V.match_batch_compact_packed_aux_plain(sm._dg, sm._du, xin, p, k, sp)
         check(torch.equal(got[0], want[0]), "sparse packed output equals the plain versions'")
         check(torch.allclose(got[1], want[1], rtol=1e-4, atol=0), "sparse aux")
         print("sparse path (%s) packed [3,%d,%d] K=%d equals the plain composition, aux "
               "within rtol 1e-4" % (what, xin.shape[1], xin.shape[2], k))
+        if base is not None:
+            b = V.match_batch_compact_packed_aux(base._dg, base._du, xin, p, k, sp)
+            check(torch.equal(got[0], b[0]) and torch.equal(got[1], b[1]),
+                  "sparse output equals the %s table's without dedup" % base._du.layout)
+            print("sparse path (%s) packed output equals the %s matcher's"
+                  % (what, base._du.layout))
     return launches, rates
 
 
@@ -1238,7 +1314,8 @@ def sparse_serve_phase(matcher, traces):
                         config=serving_defaults(MatcherConfig()), device=matcher.device)
     check(sv.sparse.enabled and sv.session_arena is not None, "serving defaults")
     requests = traces[:8]
-    (answers,), dt, launches = _counted(SPARSE_BUCKETED, lambda: _serve(sv, 15, requests))
+    kernels, absent = _path_kernels(sv, SPARSE_BUCKETED)
+    (answers,), dt, launches = _counted(kernels, lambda: _serve(sv, 15, requests), absent)
     label = sv.sparse.label_for_trace(requests[0])
     check(sv.sparse.dispatch == {label: len(requests)},
           "served traces dispatched sparse: %s" % sv.sparse.dispatch)
@@ -1258,6 +1335,309 @@ def sparse_serve_phase(matcher, traces):
     print("serve sparse: 8 /report of cohort %s answered 200 in %.2f s, K=%d, equal to the "
           "plain composition, dispatch %s, launches %s"
           % (label, dt, k, json.dumps(sv.sparse.dispatch), json.dumps(launches)))
+    return launches, answers
+
+
+# -- the UBODT memory system: wide32 layout, probe dedup, probe diagnostic ----
+
+def wide_table(matcher):
+    """The metro cuckoo table repacked into the wide32 layout (rows
+    extracted, native single-hash packer), with its size and time."""
+    from reporter_tpu_torch import native
+
+    t0 = time.perf_counter()
+    uw = matcher.ubodt.relayout("wide32", lib=native.require_lib())
+    info = {"rows": int(uw.num_rows), "buckets": int(uw.n_buckets),
+            "mb": uw.packed.nbytes / 1e6, "relayout_s": time.perf_counter() - t0,
+            "cuckoo_mb": matcher.ubodt.packed.nbytes / 1e6}
+    check(uw.layout == "wide32" and uw.num_rows == matcher.ubodt.num_rows, "wide32 relayout")
+    print("wide32 table: %(rows)d rows in %(buckets)d buckets x 1 KB = %(mb).1f MB "
+          "(cuckoo %(cuckoo_mb).1f MB), relayout %(relayout_s).1f s" % info)
+    return uw, info
+
+
+def memory_matcher(matcher, ubodt_w, probe_every=0, **cfg_kw):
+    """A matcher over ``matcher``'s city on the wide32 table with probe
+    dedup (``cfg_kw`` on top), sampling the probe diagnostic every
+    ``probe_every``-th dense bucketed dispatch."""
+    from dataclasses import replace
+
+    from reporter_tpu_torch.matching import SegmentMatcher
+
+    saved = os.environ.pop("REPORTER_OBS_PROBE_EVERY", None)
+    os.environ["REPORTER_OBS_PROBE_EVERY"] = str(probe_every)
+    try:
+        mw = SegmentMatcher(arrays=matcher.arrays, ubodt=ubodt_w, device=matcher.device,
+                            config=replace(matcher.cfg, ubodt_layout="wide32",
+                                           probe_dedup=True, **cfg_kw))
+    finally:
+        os.environ.pop("REPORTER_OBS_PROBE_EVERY", None)
+        if saved is not None:
+            os.environ["REPORTER_OBS_PROBE_EVERY"] = saved
+    check(mw._du.wide and mw.probe_dedup and mw._probe_every == probe_every,
+          "wide32 + dedup matcher")
+    return mw
+
+
+def _same(a, b):
+    """Two result tuples equal element for element (None only matching
+    None)."""
+    import torch
+
+    return all(x is y is None or (x is not None and y is not None and torch.equal(x, y))
+               for x, y in zip(a, b))
+
+
+def long_pre_rows(matcher, traces):
+    """The long path's pre input of a cohort: the windows of every trace
+    folded into the batch as chunk-major rows, [4, n_chunks * B, W]."""
+    import torch
+
+    from reporter_tpu_torch.ops import viterbi as V
+
+    W, B = matcher.max_trace_points, len(traces)
+    n_chunks = -(-max(len(t["trace"]) for t in traces) // W)
+    px, py, tm, valid, _t = matcher._fill_rows(traces, list(range(B)), n_chunks * W)
+    x = V.pack_inputs(px, py, tm, valid).reshape(4, B, n_chunks, W).transpose(0, 2, 1, 3)
+    return torch.from_numpy(x.reshape(4, n_chunks * B, W).copy()).to(matcher.device)
+
+
+def memory_phases(matcher, du_w, xin, timed, p=None, K=None, what=""):
+    """Kernel 2's wide32 instantiation and the dedup kernels at one of the
+    main path's shapes (the packed [4, B, T] input ``xin``): the sweep's
+    [B, T-1, K, K] key grid probed on the wide32 table against its plain
+    version and against the cuckoo kernel on the same keys (same content,
+    same answers), then the deduplicated probe (claim, probe, scatter) in
+    both layouts against the plain full-width probe, its distinct count
+    against the plain count.  ``timed``: also time each new kernel beside
+    its bound, its plain version and the library call, and the end-to-end
+    dedup probe beside kernel 2 alone, in both layouts."""
+    import torch
+
+    from reporter_tpu_torch.ops import hashtable as H
+    from reporter_tpu_torch.ops import viterbi as V
+    from reporter_tpu_torch.ops.candidates import candidate_sweep
+
+    K = K or matcher.cfg.beam_k
+    p = p or matcher._params
+    dev, du_c = matcher.device, matcher._du
+    x, y, _t, v = V.unpack_inputs(xin)
+    B, T = x.shape
+    sw = candidate_sweep(matcher._dg, x, y, v, K, p.search_radius, p.sigma_z, False)
+    a, b = sw.to_node[:, :-1, :, None], sw.from_node[:, 1:, None, :]
+    w1, w0 = H.ubodt_lookup(du_w, a, b), H.ubodt_lookup_plain(du_w, a, b)
+    check(_same(w1, w0), "ubodt_probe[wide32] %s" % what)
+    c1 = H.ubodt_lookup(du_c, a, b)
+    check(_same(w1, c1), "ubodt_probe[wide32] equals the cuckoo kernel on the same keys")
+    sa, sb = torch.broadcast_tensors(a, b)
+    N = sa.numel()
+    plain_u = int(H.ubodt_lookup_dedup_plain(du_w, a, b).n_unique[0])
+    out = {"shape": "%dx%d K=%d" % (B, T, K), "n": N,
+           "wide_err": max_abs_err(zip(w1, w0)), "dedup_err": 0.0}
+    for layout, du, full in (("cuckoo", du_c, c1), ("wide32", du_w, w1)):
+        for with_first in (True, False):
+            d = H.ubodt_lookup_dedup(du, a, b, with_first)
+            check(_same(d[:3], full[:2] + (full[2] if with_first else None,)),
+                  "dedup probe (%s) equals the full-width probe %s" % (layout, what))
+        n_unique = int(d.n_unique[0])
+        check(n_unique == plain_u and n_unique <= d.m,
+              "dedup distinct count %d == plain %d, within the budget %d"
+              % (n_unique, plain_u, d.m))
+        out[layout] = {"m": d.m, "n_unique": n_unique, "ratio": N / n_unique}
+    check(int(H.count_distinct_pairs(a, b, torch.ones((), dtype=torch.bool, device=dev)))
+          == plain_u, "count_distinct_pairs")
+    print("memory %s %s: n %d, m %d, n_unique %d, n / n_unique %.2f; wide32 probe, dedup "
+          "(both layouts) and the distinct count exact"
+          % (what, out["shape"], N, out["wide32"]["m"], plain_u, N / plain_u))
+    if not timed or dev.type != "cuda":
+        return out, []
+
+    P = B * T
+    m = out["wide32"]["m"]
+    cnt = torch.empty(1, dtype=torch.int32, device=dev)
+    claim = H._claim(sa, sb, None, m, cnt)
+    compact = H._probe(du_w, claim[2], claim[3], False, n_live=cnt)
+    key64 = H._pair_keys(sa.reshape(-1), sb.reshape(-1))
+    uniq, inv = torch.unique(key64, return_inverse=True)
+    lo = ((uniq & 0xFFFFFFFF) ^ 0x80000000) - 0x80000000
+    cd, ct, _ = H.ubodt_lookup_plain(du_w, (uniq >> 32).to(torch.int32), lo.to(torch.int32),
+                                     False)
+    wb = int(torch.unique(H.device_pair_hash(sa.reshape(-1), sb.reshape(-1),
+                                             du_w.bmask)).numel())
+    U = plain_u
+    rows = [
+        # reads: the two [B, T, K] key arrays, each distinct 1 KB bucket row
+        # once; writes: dist and time.  ~30 integer operations per probe.
+        dict(name="ubodt_probe[wide32]", source="reporter_tpu_torch/csrc/ubodt_probe.cu",
+             replaces="reporter_tpu/ops/hashtable.py:144",
+             fn=lambda: H.ubodt_lookup(du_w, a, b, False),
+             plain=lambda: H.ubodt_lookup_plain(du_w, a, b, False), cold_l2=True,
+             nbytes=8 * P * K + 1024 * wb + 8 * N, nops=30 * N, distinct_rows=wb,
+             library=None),
+        # reads: the key arrays; writes: each key's slot, the distinct keys
+        # and their compact indices.  ~25 integer operations per key.
+        dict(name="ubodt_dedup_claim", source="reporter_tpu_torch/csrc/ubodt_dedup.cu",
+             replaces="reporter_tpu/ops/hashtable.py:160",
+             fn=lambda: H._claim(sa, sb, None, m, cnt),
+             plain=lambda: torch.unique(H._pair_keys(sa.reshape(-1), sb.reshape(-1)),
+                                        return_inverse=True),
+             cold_l2=True, nbytes=8 * P * K + 4 * N + 12 * U, nops=25 * N,
+             library=lambda: torch.unique(key64, return_inverse=True)),
+        # reads: each key's slot, the distinct slots' compact indices and
+        # results; writes: dist and time.
+        dict(name="ubodt_dedup_scatter", source="reporter_tpu_torch/csrc/ubodt_dedup.cu",
+             replaces="reporter_tpu/ops/hashtable.py:198",
+             fn=lambda: H._scatter(du_w, sa, sb, claim, cnt, m, compact),
+             plain=lambda: [r[inv].reshape(sa.shape) for r in (cd, ct)], cold_l2=False,
+             nbytes=4 * N + 12 * U + 8 * N, nops=4 * N, library=None),
+    ]
+    for r in rows:
+        r["bound_ms"], r["bound_by"] = bound(r.pop("nbytes"), r.pop("nops"))
+        r["ms"] = time_ms(r["fn"], cold_l2=r["cold_l2"])
+        r["plain_ms"] = time_ms(r["plain"], cold_l2=r["cold_l2"], queued=False)
+        r["library_ms"] = (None if r["library"] is None
+                           else time_ms(r["library"], cold_l2=True, queued=False))
+        r["max_abs_err"] = 0.0
+        print("kernel %-25s %s kernel_ms=%.4f plain_ms=%.4f library_ms=%s bound_ms=%.4f (%s)"
+              % (r["name"], out["shape"], r["ms"], r["plain_ms"],
+                 "-" if r["library_ms"] is None else "%.4f" % r["library_ms"], r["bound_ms"],
+                 r["bound_by"]))
+    e2e = {}
+    for layout, du in (("cuckoo", du_c), ("wide32", du_w)):
+        e2e[layout] = {
+            "probe_ms": time_ms(lambda: H.ubodt_lookup(du, a, b, False), cold_l2=True),
+            "dedup_ms": time_ms(lambda: H.ubodt_lookup_dedup(du, a, b, False), cold_l2=True),
+            "compact_probe_ms": time_ms(
+                lambda: H._probe(du, claim[2], claim[3], False, n_live=cnt), cold_l2=True)}
+        print("memory %s %s: kernel 2 alone %.4f ms, dedup probe (claim + probe + scatter) "
+              "%.4f ms, its compact probe %.4f ms"
+              % (layout, out["shape"], e2e[layout]["probe_ms"], e2e[layout]["dedup_ms"],
+                 e2e[layout]["compact_probe_ms"]))
+    out["timing"] = e2e
+    return out, rows
+
+
+def dedup_fallback(matcher, du_w, n):
+    """The port of tests/test_ubodt.py's overflow case: ``n`` all-distinct
+    keys (the metro table's first n rows, all hits), more than the budget,
+    through the deduplicated probe in both layouts: bit for bit the plain
+    probe's answers, the fallback reported and counted."""
+    import torch
+
+    from reporter_tpu_torch.ops import hashtable as H
+
+    rows = matcher.ubodt.rows()
+    s = torch.from_numpy(rows[0][:n]).to(matcher.device)
+    d = torch.from_numpy(rows[1][:n]).to(matcher.device)
+    out = {}
+    for layout, du in (("cuckoo", matcher._du), ("wide32", du_w)):
+        H.DEDUP.reset()
+        got = H.ubodt_lookup(du, s, d, dedup=True)
+        check(_same(got, H.ubodt_lookup_plain(du, s, d)),
+              "dedup fallback (%s) equals the plain probe" % layout)
+        summ = H.DEDUP.summary()
+        n_unique = summ["last"][2]
+        check(summ["dedup_fallbacks"] == 1 and n_unique > summ["last"][1],
+              "the fallback was taken and counted: %s" % summ)
+        out[layout] = {"n": n, "m": summ["last"][1], "n_unique_at_least": n_unique,
+                       "dedup_fallbacks": summ["dedup_fallbacks"]}
+        print("dedup fallback %s: %d all-distinct keys, m %d, distinct count > m (%d when the "
+              "claim stopped), full-width probe on the card, equal to the plain probe"
+              % (layout, n, summ["last"][1], n_unique))
+    return out
+
+
+def stats_phases(matcher, du_w, xin, xin_a, timed):
+    """``probe_stats`` against its plain version: ``ubodt_probe_stats`` at
+    512 x 64 in both layouts (identical counts), the kernel's counts and
+    mask alone, timed; then on cohort A with a table of the metro rows
+    within 400 m and delta 400, where beyond-delta misses exist."""
+    import torch
+
+    from reporter_tpu_torch import native
+    from reporter_tpu_torch.ops import viterbi as V
+    from reporter_tpu_torch.ops.candidates import candidate_sweep
+    from reporter_tpu_torch.ops.diagnostics import (
+        probe_outcomes, probe_outcomes_plain, ubodt_probe_stats, ubodt_probe_stats_plain,
+    )
+    from reporter_tpu_torch.ops.hashtable import ubodt_lookup
+    from reporter_tpu_torch.tiles.ubodt import ubodt_from_columns
+
+    dg, p, K = matcher._dg, matcher._params, matcher.cfg.beam_k
+    delta = float(matcher.cfg.ubodt_delta)
+    got = {}
+    for layout, du in (("cuckoo", matcher._du), ("wide32", du_w)):
+        s1 = ubodt_probe_stats(dg, du, xin, p, K, delta).cpu()
+        s0 = ubodt_probe_stats_plain(dg, du, xin, p, K, delta).cpu()
+        check(torch.equal(s1, s0), "probe_stats (%s): %s == %s" % (layout, s1, s0))
+        got[layout] = s1.tolist()
+    check(got["cuckoo"] == got["wide32"], "probe stats equal in both layouts")
+    x, y, _t, v = V.unpack_inputs(xin)
+    B, T = x.shape
+    sw = candidate_sweep(dg, x, y, v, K, p.search_radius, p.sigma_z, False)
+    dist = ubodt_lookup(matcher._du, sw.to_node[:, :-1, :, None],
+                        sw.from_node[:, 1:, None, :], False)[0]
+    args = (dist, sw.cand.edge, v, x, y, p.breakage_distance, delta)
+    k1, k0 = probe_outcomes(*args), probe_outcomes_plain(*args)
+    check(torch.equal(k1[0][:4].cpu(), k0[0].cpu()) and torch.equal(k1[1].bool(), k0[1]),
+          "probe_stats counts and need mask")
+
+    rows = matcher.ubodt.rows()
+    keep = rows[2] <= 400.0
+    cut = ubodt_from_columns(*(c[keep] for c in rows), 400.0,
+                             lib=native.require_lib()).to_device(matcher.device)
+    c1 = ubodt_probe_stats(dg, cut, xin_a, p, K, 400.0).cpu()
+    c0 = ubodt_probe_stats_plain(dg, cut, xin_a, p, K, 400.0).cpu()
+    check(torch.equal(c1, c0) and int(c1[3]) > 0,
+          "probe_stats with delta 400 (beyond-delta misses): %s == %s" % (c1, c0))
+    got["A_delta400"] = c1.tolist()
+    print("probe_stats 512x64 (both layouts) %s; cohort A on the 400 m table %s "
+          "(pairs, miss, costly, beyond delta, distinct): equal to the plain version"
+          % (got["cuckoo"], got["A_delta400"]))
+    row = None
+    if timed and matcher.device.type == "cuda":
+        N, P = dist.numel(), B * T
+        # reads: dist, the candidates' edges, valid/px/py; writes: the need
+        # mask and the counts.  ~12 operations per pair.
+        bms, bby = bound(4 * N + 4 * P * K + 12 * P + N + 20, 12 * N)
+        row = dict(name="probe_stats", source="reporter_tpu_torch/csrc/probe_stats.cu",
+                   replaces="reporter_tpu/ops/diagnostics.py:24",
+                   ms=time_ms(lambda: probe_outcomes(*args)),
+                   plain_ms=time_ms(lambda: probe_outcomes_plain(*args), queued=False),
+                   bound_ms=bms, bound_by=bby, library_ms=None, max_abs_err=max_abs_err(
+                       [(k1[0][:4], k0[0]), (k1[1], k0[1].to(torch.uint8))]))
+        print("kernel %-25s %dx%d K=%d kernel_ms=%.4f plain_ms=%.4f bound_ms=%.4f (%s)"
+              % ("probe_stats", B, T, K, row["ms"], row["plain_ms"], bms, bby))
+    return got, row
+
+
+def memory_serve_phase(arrays, ubodt_w, tr_a, default_answers, default_fixtures, device):
+    """The 8 /report of cohort A and the fixture replay with
+    $REPORTER_UBODT_LAYOUT=wide32 and $REPORTER_PROBE_DEDUP=1 on the
+    serving defaults: the same answers as under the defaults."""
+    from reporter_tpu_torch.matching import MatcherConfig, SegmentMatcher
+    from reporter_tpu_torch.serve.__main__ import serving_defaults
+
+    env = {"REPORTER_UBODT_LAYOUT": "wide32", "REPORTER_PROBE_DEDUP": "1"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        sv = SegmentMatcher(arrays=arrays, ubodt=ubodt_w,
+                            config=serving_defaults(MatcherConfig()), device=device)
+        check(sv._du.wide and sv.probe_dedup, "the environment selects wide32 and dedup")
+        kernels, absent = _path_kernels(sv, SPARSE_BUCKETED)
+        (answers,), dt, launches = _counted(kernels, lambda: _serve(sv, 15, tr_a[:8]),
+                                            absent)
+        check(answers == default_answers, "/report answers equal the defaults'")
+        fixtures = replay_fixtures(device, "REPORTER_UBODT_LAYOUT=wide32 REPORTER_PROBE_DEDUP=1")
+        check(fixtures == default_fixtures, "fixture answers equal the defaults'")
+    finally:
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+    print("serve wide32 + dedup (environment): 8 /report of cohort A in %.2f s and the 6 "
+          "fixtures answered as under the defaults, launches %s" % (dt, json.dumps(launches)))
     return launches
 
 
@@ -1293,7 +1673,8 @@ def main():
     arena_matcher, sess_launches, sess_rate = session_path(matcher, traces64)
     split = [breakdown(matcher, trs) for trs in (traces64, traces256)]
     split.append(long_breakdown(matcher, traces2048))
-    n_reports, serve_launches = serve_phase(arena_matcher, traces64, traces2048[0], device)
+    n_reports, serve_launches, fixtures = serve_phase(arena_matcher, traces64, traces2048[0],
+                                                      device)
 
     # the sparse-gap model: cohorts A (every 9th point of the 512 x 64
     # cohort: 512 x 8 at 45 s, "45-60", bucket 16) and B (every 12th of the
@@ -1329,7 +1710,37 @@ def main():
         "calibrated")
     sp_long_launches, sp_long_rate = long_path(sm, tr_l, "ge60")
     sp_sess_rate, sp_sess_launches = sparse_session_path(matcher, tr_a, "45-60")
-    sp_serve_launches = sparse_serve_phase(matcher, tr_a)
+    sp_serve_launches, sp_answers = sparse_serve_phase(matcher, tr_a)
+
+    # the UBODT memory system: the metro table in the wide32 layout, kernel
+    # 2's wide32 instantiation and the dedup kernels at every shape class
+    # of kernel 2 (both layouts), the forced fallback, kernel 5's wide32
+    # seam, the probe diagnostic, then the paths on a wide32 + dedup
+    # matcher that samples the diagnostic on every dense dispatch
+    ubodt_w, wide_info = wide_table(matcher)
+    mw = memory_matcher(matcher, ubodt_w, probe_every=1)
+    du_w = mw._du
+    mem, mem_rows = memory_phases(matcher, du_w, xin64, True, what="bucketed")
+    mem_shapes = [mem] + [memory_phases(matcher, du_w, x, False, what=w)[0] for x, w in (
+        (xin256, "bucketed"), (session_rows(matcher, traces64[:-16], 4), "session step"),
+        (long_pre_rows(matcher, traces2048), "long pre"))]
+    mem_shapes.append(memory_phases(sm, du_w, xin_a, False, p=pa_, K=ka, what="sparse A")[0])
+    fallback = dedup_fallback(matcher, du_w, mem["n"])
+    chain_w = chain_phases(mw, traces2048, traces64, timed=False)
+    smw = sparse_matcher(mw)
+    chain_w_sp = chain_phases(smw, tr_l, tr_a, timed=False, sp=spb, long_pk=(pb_, kb),
+                              sess_pk=(pa_, matcher.cfg.beam_k))
+    stats, stats_row = stats_phases(matcher, du_w, xin64, xin_a, timed=True)
+    mem_launches, mem_rates = main_path(mw, [traces64, traces256], [xin64, xin256], base=matcher)
+    check(mw.probe_stats["samples"] > 0 and mw.probe_stats["pairs"] > 0,
+          "the sampled probe diagnostic: %s" % mw.probe_stats)
+    print("probe diagnostic sampled on the wide32 + dedup main path: %s"
+          % json.dumps(mw.probe_stats))
+    mem_long_launches, mem_long_rate = long_path(mw, traces2048, base=matcher)
+    mem_sp_launches, mem_sp_rates = sparse_main_path(smw, [tr_a], [xin_a], "wide32 + dedup",
+                                                     base=sm)
+    mem_serve_launches = memory_serve_phase(matcher.arrays, ubodt_w, tr_a, sp_answers,
+                                            fixtures, device)
 
     # launches over the counted runs of every path but serve's; kernels
     # 1-4's times and bounds at 512 x 64, max_abs_err over both bucketed
@@ -1338,7 +1749,8 @@ def main():
     # sparse instantiations' at cohort A's 512 x 16 (kernels 3, 4) and
     # cohort L's 16 x 256 (5)
     runs = [launches, long_launches, sess_launches, sp_launches, cal_launches,
-            sp_long_launches, *sp_sess_launches.values()]
+            sp_long_launches, *sp_sess_launches.values(), mem_launches, mem_long_launches,
+            mem_sp_launches]
     total = {k: sum(r[k] for r in runs) for k in launches}
     kernels = [{
         "name": r["name"], "route": r["route"], "source": r["source"],
@@ -1374,6 +1786,16 @@ def main():
         "ms": cs["ms"],
         "plain_ms": cs["plain_ms"], "bound_ms": cs["bound_ms"], "bound_by": cs["bound_by"],
         "library_ms": None})
+    # the memory system's kernels: times and bounds at 512 x 64, errors
+    # over every shape (each check above is exact, so 0)
+    kernels.extend({
+        "name": r["name"], "route": "cuda", "source": r["source"], "replaces": r["replaces"],
+        "launches": total[r["name"]], "max_abs_err": max(
+            [r["max_abs_err"]] + ([x["wide_err"] for x in mem_shapes]
+                                  if r["name"] == "ubodt_probe[wide32]" else [])),
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+        for r in mem_rows + [stats_row])
     report = {
         "card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
         "build_s": build_s, "city": city, "main_path": rates, "breakdown": split,
@@ -1397,6 +1819,19 @@ def main():
                        **{"viterbi_chain[sparse]_" + name: {
                            k: v for k, v in c.items() if k not in ("fn", "plain")}
                           for name, c in chain_flip.items()}}},
+        "memory": {"wide32_table": wide_info, "shapes": mem_shapes, "fallback": fallback,
+                   "probe_stats": stats, "sampled": mw.probe_stats,
+                   "chain_wide32": {k: {f: v for f, v in c.items() if f not in ("fn", "plain")}
+                                    for k, c in (*chain_w.items(),
+                                                 *(("sparse_" + n, c) for n, c in
+                                                   chain_w_sp.items()))},
+                   "main_path": mem_rates, "long_path": mem_long_rate,
+                   "sparse": mem_sp_rates,
+                   "launches": {"bucketed": mem_launches, "long": mem_long_launches,
+                                "sparse": mem_sp_launches, "serve": mem_serve_launches},
+                   "kernels": {r["name"]: {k: v for k, v in r.items()
+                                           if k not in ("fn", "plain", "library")}
+                               for r in mem_rows}},
         "metro_reports": n_reports, "peak_memory_mb": torch.cuda.max_memory_allocated() / 1e6,
         "kernels": kernels,
         "extra": dict({"%s_%d" % (r["name"], T): {k: v for k, v in r.items() if k in (

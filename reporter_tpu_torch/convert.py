@@ -16,7 +16,7 @@ import torch
 
 from .ops.viterbi import CARRY_DTYPES, SparseParams, TraceCarry
 from .tiles.arrays import DeviceGraph
-from .tiles.ubodt import BUCKET, ROW_W, DeviceUBODT
+from .tiles.ubodt import ROW_W, DeviceUBODT, bucket_entries
 
 
 def graph_from_numpy(edge_rows, cell_rows, grid_origin, grid_dims,
@@ -31,12 +31,14 @@ def graph_from_numpy(edge_rows, cell_rows, grid_origin, grid_dims,
         x0, y0, nx, ny, float(np.float32(cell_size)))
 
 
-def ubodt_from_numpy(packed, bmask) -> DeviceUBODT:
-    """``packed`` cuckoo table ([n_buckets, 128] or [n_buckets, 16, 8]
-    int32) and its bucket mask."""
+def ubodt_from_numpy(packed, bmask, layout: str = "cuckoo") -> DeviceUBODT:
+    """``packed`` table of ``layout`` ([n_buckets, 128] or [n_buckets, 16,
+    8] int32 cuckoo, [n_buckets, 256] or [n_buckets, 32, 8] wide32) and
+    its bucket mask."""
     packed = np.ascontiguousarray(packed, np.int32)
     return DeviceUBODT(
-        torch.from_numpy(packed.reshape(-1, BUCKET * ROW_W)), int(bmask))
+        torch.from_numpy(packed.reshape(-1, bucket_entries(layout) * ROW_W)),
+        int(bmask), layout)
 
 
 _NP_DTYPES = {torch.float32: np.float32, torch.int32: np.int32,

@@ -1,12 +1,18 @@
-// UBODT probe arithmetic shared by the probe kernel (ubodt_probe.cu) and
-// the seam transition of the chain kernel (viterbi_chain.cu): the two
-// uint32 pair hashes of reporter_tpu/ops/hashtable.py:63,:75 and a serial
-// probe of the cuckoo layout (:122 _bucket_rows, :96 _select).
+// UBODT probe arithmetic shared by the probe kernel (ubodt_probe.cu), the
+// dedup scatter (ubodt_dedup.cu) and the seam transition of the chain
+// kernel (viterbi_chain.cu): the two uint32 pair hashes of
+// reporter_tpu/ops/hashtable.py:63,:75, a warp probe and a serial probe of
+// both table layouts (:138 _lookup_plain, :122 _bucket_rows, :96 _select),
+// and the 4-d key grid the probe kernels read through strides.
 //
-// Layout: [n_buckets, 128] int32, 16 entries of 8 lanes per bucket row
-// (src, dst, dist bits, time bits, first_edge, 3 padding), read as 32
-// int4 per row.  A key lives in one of its two buckets; the merge over
-// both rows is min dist, min time (exact, order-free).
+// Layouts, read as int4 (entry e = int4 2e: src, dst, dist bits, time
+// bits; int4 2e+1: first_edge and padding):
+//   cuckoo  [n_buckets, 128] int32 = 32 int4 per row, 16 entries; a key
+//           lives in one of its two buckets (pair_hash1, pair_hash2);
+//   wide32  [n_buckets, 256] int32 = 64 int4 per row, 32 entries; a key
+//           lives in its one bucket (pair_hash1).
+// The merge over rows and entries is min dist, min time, max first edge
+// (exact and order-free; keys are unique, so at most one entry hits).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -31,18 +37,103 @@ __device__ __forceinline__ uint32_t pair_hash2(uint32_t s, uint32_t d) {
   return h;
 }
 
-// One probe by one thread: (dist, time) of (s, d), +inf on a miss.
-__device__ __forceinline__ void probe_serial(const int4* __restrict__ packed,
-                                             uint32_t bmask, int32_t s,
-                                             int32_t d, float* dist,
-                                             float* time) {
-  float bd = INFINITY, bt = INFINITY;
+// Broadcast keys: element i of the 4-d grid `dim` sits at i's coordinates
+// dotted with each side's strides (0 strides broadcast).
+struct Grid4 {
+  int64_t dim[4];
+  int64_t src_stride[4];
+  int64_t dst_stride[4];
+};
+
+// Grid4 from the host's dims / strides arrays; returns the element count.
+inline int64_t make_grid(const int64_t* dims, const int64_t* src_strides,
+                         const int64_t* dst_strides, Grid4* g) {
+  int64_t n = 1;
+  for (int a = 0; a < 4; ++a) {
+    g->dim[a] = dims[a];
+    g->src_stride[a] = src_strides[a];
+    g->dst_stride[a] = dst_strides[a];
+    n *= dims[a];
+  }
+  return n;
+}
+
+__device__ __forceinline__ void grid_keys(const int32_t* __restrict__ src,
+                                          const int32_t* __restrict__ dst,
+                                          const Grid4& g, int64_t i,
+                                          int32_t* s, int32_t* d) {
+  int64_t r = i, so = 0, dof = 0;
 #pragma unroll
-  for (int w = 0; w < 2; ++w) {
+  for (int a = 3; a >= 0; --a) {
+    const int64_t c = r % g.dim[a];
+    r /= g.dim[a];
+    so += c * g.src_stride[a];
+    dof += c * g.dst_stride[a];
+  }
+  *s = src[so];
+  *d = dst[dof];
+}
+
+// One probe by a whole warp (all 32 lanes, the same key): lane l loads
+// int4 l of each 512-byte half row, so a row is one coalesced read (two
+// halves for wide32).  The even lane compares both keys and takes
+// first_edge from its odd neighbour.  Every lane returns the result.
+template <bool WIDE>
+__device__ __forceinline__ void warp_probe(const int4* __restrict__ packed,
+                                           uint32_t bmask, int32_t s,
+                                           int32_t d, int lane, float* dist,
+                                           float* time, int32_t* first) {
+  constexpr int kRows = WIDE ? 1 : 2;   // home buckets
+  constexpr int kHalves = WIDE ? 2 : 1; // 512-byte halves per row
+  float best_d = INFINITY, best_t = INFINITY;
+  int32_t best_f = -1;
+  int4 v[kRows * kHalves];
+#pragma unroll
+  for (int w = 0; w < kRows; ++w) {
     const uint32_t h = (w == 0 ? pair_hash1((uint32_t)s, (uint32_t)d)
                                : pair_hash2((uint32_t)s, (uint32_t)d)) & bmask;
-    const int4* row = packed + (int64_t)h * 32;
-    for (int e = 0; e < 16; ++e) {
+    const int4* row = packed + (int64_t)h * (32 * kHalves);
+#pragma unroll
+    for (int q = 0; q < kHalves; ++q) v[w * kHalves + q] = row[q * 32 + lane];
+  }
+#pragma unroll
+  for (int r = 0; r < kRows * kHalves; ++r) {
+    const int fe = __shfl_down_sync(0xffffffffu, v[r].x, 1);
+    if ((lane & 1) == 0 && v[r].x == s && v[r].y == d) {
+      const float dd = __int_as_float(v[r].z), tt = __int_as_float(v[r].w);
+      best_d = dd < best_d ? dd : best_d;
+      best_t = tt < best_t ? tt : best_t;
+      best_f = fe > best_f ? fe : best_f;
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float od = __shfl_xor_sync(0xffffffffu, best_d, off);
+    const float ot = __shfl_xor_sync(0xffffffffu, best_t, off);
+    const int32_t of = __shfl_xor_sync(0xffffffffu, best_f, off);
+    best_d = od < best_d ? od : best_d;
+    best_t = ot < best_t ? ot : best_t;
+    best_f = of > best_f ? of : best_f;
+  }
+  *dist = best_d;
+  *time = best_t;
+  *first = best_f;
+}
+
+// One probe by one thread: (dist, time) of (s, d), +inf on a miss; `wide`
+// selects the table layout (one 32-entry row, or two 16-entry rows).
+__device__ __forceinline__ void probe_serial(const int4* __restrict__ packed,
+                                             uint32_t bmask, bool wide,
+                                             int32_t s, int32_t d,
+                                             float* dist, float* time) {
+  float bd = INFINITY, bt = INFINITY;
+  const int rows = wide ? 1 : 2;
+  const int entries = wide ? 32 : 16;
+  for (int w = 0; w < rows; ++w) {
+    const uint32_t h = (w == 0 ? pair_hash1((uint32_t)s, (uint32_t)d)
+                               : pair_hash2((uint32_t)s, (uint32_t)d)) & bmask;
+    const int4* row = packed + (int64_t)h * (2 * entries);
+    for (int e = 0; e < entries; ++e) {
       const int4 v = row[2 * e];
       if (v.x == s && v.y == d) {
         const float dd = __int_as_float(v.z), tt = __int_as_float(v.w);

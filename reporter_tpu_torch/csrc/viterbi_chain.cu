@@ -17,7 +17,8 @@
 // seam transition and gap-conditioned breakage).
 //
 // The seam adds K*K serial UBODT probes per trace (each two 512-byte
-// bucket rows, random in a table far larger than L2) to the scan's work:
+// bucket rows, or one 1 KB row of a wide32 table, random in a table far
+// larger than L2) to the scan's work:
 // at the session shape [512, 4] they are most of the bytes the launch
 // moves.
 
@@ -29,7 +30,8 @@ ViterbiArgs chain_args(
     const float* emis, const float* logp, const float* gc, const float* valid,
     const int32_t* cand_edge, const float* cand_offset, const float* px,
     const float* py, const float* times, const float* edge_rows,
-    const int32_t* ubodt, int32_t bmask, int64_t B, int32_t T, float brk,
+    const int32_t* ubodt, int32_t bmask, int32_t wide, int64_t B, int32_t T,
+    float brk,
     float sigma, float beta, float radius, float max_route_factor,
     float max_time_factor, float turn_factor, const float* in_scores,
     const int32_t* in_edge, const float* in_offset, const float* in_x,
@@ -56,6 +58,7 @@ ViterbiArgs chain_args(
   a.edge_rows = edge_rows;
   a.ubodt = reinterpret_cast<const int4*>(ubodt);
   a.bmask = (uint32_t)bmask;
+  a.wide = wide != 0;
   a.tp = {sigma, beta, radius, max_route_factor, max_time_factor,
           turn_factor};
   a.in = {in_scores, in_edge, in_offset, in_x, in_y, in_t, in_active,
@@ -74,8 +77,9 @@ ViterbiArgs chain_args(
     const float *emis, const float *logp, const float *gc,                   \
     const float *valid, const int32_t *cand_edge, const float *cand_offset,  \
     const float *px, const float *py, const float *times,                    \
-    const float *edge_rows, const int32_t *ubodt, int32_t bmask, int64_t B,  \
-    int32_t T, int32_t K, float brk, float sigma, float beta, float radius,  \
+    const float *edge_rows, const int32_t *ubodt, int32_t bmask,             \
+    int32_t wide, int64_t B, int32_t T, int32_t K, float brk, float sigma,   \
+    float beta, float radius,                                                \
     float max_route_factor, float max_time_factor, float turn_factor,        \
     const float *in_scores, const int32_t *in_edge, const float *in_offset,  \
     const float *in_x, const float *in_y, const float *in_t,                 \
@@ -86,7 +90,7 @@ ViterbiArgs chain_args(
     float *aux
 #define CHAIN_ARGS                                                           \
     emis, logp, gc, valid, cand_edge, cand_offset, px, py, times, edge_rows, \
-    ubodt, bmask, B, T, brk, sigma, beta, radius, max_route_factor,          \
+    ubodt, bmask, wide, B, T, brk, sigma, beta, radius, max_route_factor,    \
     max_time_factor, turn_factor, in_scores, in_edge, in_offset, in_x, in_y, \
     in_t, in_active, in_committed, out_scores, out_edge, out_offset, out_x,  \
     out_y, out_t, out_active, out_committed, slots, use, S, packed, aux

@@ -95,8 +95,9 @@ struct ViterbiArgs {
   const float* py;
   const float* times;        // also read by SPARSE without CARRY
   const float* edge_rows;    // [E, 8]
-  const int4* ubodt;         // [n_buckets, 32] int4
+  const int4* ubodt;         // [n_buckets, 32 or 64] int4
   uint32_t bmask;
+  bool wide;                 // the table's layout: wide32 (else cuckoo)
   rtt::TransParams tp;
   rtt::SparseArgs sa;        // SPARSE only
   CarryPtrs in;
@@ -167,8 +168,8 @@ __global__ void viterbi_kernel(const ViterbiArgs a) {
       const float sc = row >= 0 ? a.in.scores[row * K + i] : kNegInf;
       const float* era = a.edge_rows + (int64_t)(ea >= 0 ? ea : 0) * 8;
       float sp_dist, sp_time;
-      rtt::probe_serial(a.ubodt, a.bmask, __float_as_int(era[0]), from_b,
-                        &sp_dist, &sp_time);
+      rtt::probe_serial(a.ubodt, a.bmask, a.wide, __float_as_int(era[0]),
+                        from_b, &sp_dist, &sp_time);
       const float lp = rtt::transition_logp<SPARSE>(
           ea, eb, oa, ob, era, erb, sp_dist, sp_time, gc0, dt0, a.tp, a.sa,
           nullptr);

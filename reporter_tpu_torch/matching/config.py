@@ -8,10 +8,12 @@ max_route_time_factor, turn_penalty_factor.  Adds the device shape knobs
 session knobs and the sparse-gap model's knobs (off by default; the serve
 entry point turns the model on, ``$REPORTER_SPARSE`` and
 ``$REPORTER_CALIBRATION`` act at matcher construction, see
-``matching/sparse.py``).  Keys of the reference's config that belong to
-paths this port does not carry yet (route-consistent interpolation, the
-session arena's budget and cold tier, tiering, meshes) are ignored by
-``from_dict``.
+``matching/sparse.py``) and the UBODT memory system's two options (the
+table layout and in-batch probe dedup; ``$REPORTER_UBODT_LAYOUT`` and
+``$REPORTER_PROBE_DEDUP`` override them at matcher construction).  Keys
+of the reference's config that belong to paths this port does not carry
+yet (route-consistent interpolation, the session arena's budget and cold
+tier, tiering, meshes) are ignored by ``from_dict``.
 """
 
 from __future__ import annotations
@@ -36,6 +38,11 @@ class MatcherConfig:
     # device shape knobs
     beam_k: int = 8
     ubodt_delta: float = 3000.0
+    # UBODT memory system: the table layout ("cuckoo", two 512-byte rows a
+    # probe, or "wide32", one 1 KB row) and in-batch probe dedup (each
+    # distinct pair of a whole dispatch probed once; same answers)
+    ubodt_layout: str = "cuckoo"
+    probe_dedup: bool = False
     # per-trace confidence diagnostics: match results carry a "_quality"
     # block (per-point edges, winner-vs-runner-up margins, pool
     # exhaustion) that the service pops before rendering; the serve

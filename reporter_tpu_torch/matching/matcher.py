@@ -27,14 +27,27 @@ kernels' SPARSE instantiations, with its cohort's parameters and candidate budge
 (windowed and long traffic; session steps keep ``beam_k``).  Dense traces
 take the dense programs unchanged.
 
-Not in this port yet: route-consistent interpolation, probe dedup,
-tiering and meshes.
+The UBODT memory system (``ubodt_layout``, ``probe_dedup``; overridden by
+``$REPORTER_UBODT_LAYOUT`` and ``$REPORTER_PROBE_DEDUP`` at construction):
+the table is built in, or repacked to (``UBODT.relayout``), the resolved
+layout, cuckoo or wide32, and with dedup every bucketed and long ``pre``
+dispatch, dense and sparse, probes each distinct (src, dst) pair once
+(ops/hashtable.py); session steps and the chain's seam probes never
+dedup.  Answers are the same under every setting.
+``$REPORTER_OBS_PROBE_EVERY`` = N samples the probe-outcome diagnostic
+(ops/diagnostics.py) on every Nth dense bucketed dispatch: dispatched on
+the dispatching thread, harvested at collect into ``probe_stats``.
+
+Not in this port yet: route-consistent interpolation, tiering and
+meshes.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import threading
 from collections import deque
 from typing import Dict, List, Optional, Sequence
 
@@ -43,6 +56,8 @@ import torch
 
 from ..convert import carry_from_numpy
 from ..device import resolve_device, upload
+from ..ops.diagnostics import ubodt_probe_stats
+from ..ops.hashtable import DEDUP
 from ..ops.viterbi import (
     NEG_INF, MatchParams, TraceCarry, chain_batch_carry_packed_aux,
     initial_carry_batch, match_batch_compact_packed_aux, pack_inputs,
@@ -51,7 +66,7 @@ from ..ops.viterbi import (
 )
 from ..tiles.arrays import GraphArrays, build_graph_arrays
 from ..tiles.network import RoadNetwork
-from ..tiles.ubodt import UBODT, build_ubodt
+from ..tiles.ubodt import LAYOUTS, UBODT, build_ubodt
 from .arena import SessionArena, carry_host
 from .assoc_native import associate_segments_batch
 from .config import MatcherConfig
@@ -95,8 +110,12 @@ class SegmentMatcher:
                 "grid with a larger cell_size"
                 % (arrays.cell_size, 2.0 * self.cfg.search_radius))
         self.arrays = arrays
+        self.ubodt_layout, self.probe_dedup = self._memory_options()
         if ubodt is None:
-            ubodt = build_ubodt(arrays, delta=self.cfg.ubodt_delta)
+            ubodt = build_ubodt(arrays, delta=self.cfg.ubodt_delta,
+                                layout=self.ubodt_layout)
+        elif ubodt.layout != self.ubodt_layout:
+            ubodt = ubodt.relayout(self.ubodt_layout)
         self.ubodt = ubodt
         self._quality_aux = bool(self.cfg.quality_aux)
         self._dg = arrays.to_device(self.device)
@@ -111,6 +130,32 @@ class SegmentMatcher:
         if self.cfg.session_arena:
             self.session_arena = SessionArena(
                 self.cfg.beam_k, int(self.cfg.max_sessions), self.device)
+        # the sampled probe-outcome diagnostic: every Nth dense bucketed
+        # dispatch (0 = off); results stay on the device until a collect
+        try:
+            self._probe_every = int(os.environ.get("REPORTER_OBS_PROBE_EVERY",
+                                                   "0"))
+        except ValueError:
+            self._probe_every = 0
+        self._dispatch_count = 0
+        self._probe_pending: List[torch.Tensor] = []
+        self._probe_lock = threading.Lock()
+        self.probe_stats = {"samples": 0, "pairs": 0, "miss": 0,
+                            "costly_miss": 0, "beyond_delta": 0,
+                            "dedup_ratio": None}
+
+    def _memory_options(self):
+        """(layout, dedup): $REPORTER_UBODT_LAYOUT / $REPORTER_PROBE_DEDUP
+        over the config's ubodt_layout / probe_dedup."""
+        layout = (os.environ.get("REPORTER_UBODT_LAYOUT", "").strip().lower()
+                  or self.cfg.ubodt_layout or "cuckoo")
+        if layout not in LAYOUTS:
+            raise ValueError("REPORTER_UBODT_LAYOUT/ubodt_layout must be "
+                             "cuckoo|wide32, got %r" % (layout,))
+        env = os.environ.get("REPORTER_PROBE_DEDUP", "").strip().lower()
+        dedup = (env not in ("0", "false", "off", "no") if env
+                 else bool(self.cfg.probe_dedup))
+        return layout, dedup
 
     # -- per-request match parameters (reference wire contract) -----------
 
@@ -254,14 +299,52 @@ class SegmentMatcher:
         xin = upload(pack_inputs(px, py, times, valid), self.device)
         p, sp, k = (self.sparse.params_for(slabel, pkey) if slabel
                     else (self._params_for(pkey), None, self.cfg.beam_k))
-        return match_batch_compact_packed_aux(self._dg, self._du, xin, p, k,
-                                              sp)
+        out = match_batch_compact_packed_aux(self._dg, self._du, xin, p, k,
+                                             sp, self.probe_dedup)
+        if self._probe_every and not slabel:
+            self._dispatch_count += 1
+            if self._dispatch_count % self._probe_every == 0:
+                self._record_probe_stats(xin)
+        return out
 
-    @staticmethod
-    def _collect_batch(handle):
+    def _record_probe_stats(self, xin) -> None:
+        """Queue the probe-outcome diagnostic over a dispatched batch at the
+        default parameters; the result is read at the next collect (at
+        most two wait: an older one is read here)."""
+        res = ubodt_probe_stats(self._dg, self._du, xin, self._params,
+                                self.cfg.beam_k, float(self.cfg.ubodt_delta))
+        with self._probe_lock:
+            self._probe_pending.append(res)
+            drain = self._probe_pending[:-2]
+            del self._probe_pending[:-2]
+        for r in drain:
+            self._consume_probe(r)
+
+    def _consume_probe(self, res) -> None:
+        stats = [int(v) for v in res.cpu()]
+        ps = self.probe_stats
+        ps["samples"] += 1
+        for i, key in enumerate(("pairs", "miss", "costly_miss",
+                                 "beyond_delta")):
+            ps[key] += stats[i]
+        if stats[4] > 0:  # pairs / distinct: the redundancy dedup removes
+            ps["dedup_ratio"] = stats[0] / stats[4]
+
+    def _harvest(self) -> None:
+        """Collect-side reads of what the dispatches left on the device:
+        sampled probe stats and the dedup probes' distinct counts."""
+        with self._probe_lock:
+            pending, self._probe_pending = self._probe_pending, []
+        for r in pending:
+            self._consume_probe(r)
+        DEDUP.harvest()
+
+    def _collect_batch(self, handle):
         """Block on a dispatch -> ((edge, offset, breaks), aux) numpy."""
         packed, aux = handle
-        return unpack_compact(packed.cpu().numpy()), aux.cpu().numpy()
+        out = unpack_compact(packed.cpu().numpy()), aux.cpu().numpy()
+        self._harvest()
+        return out
 
     # -- public API ----------------------------------------------------------
 
@@ -410,7 +493,8 @@ class SegmentMatcher:
                 seg = np.concatenate(
                     [seg, np.zeros((4, rung - rows, W), np.float32)], 1)
             seg = upload(seg, self.device)
-            pre = precompute_batch_packed(self._dg, self._du, seg, p, k, sp)
+            pre = precompute_batch_packed(self._dg, self._du, seg, p, k, sp,
+                                          self.probe_dedup)
             for i in range(m):
                 lo, hi = i * B_pad, (i + 1) * B_pad
                 win = (self._dg, self._du, slice_pre(pre, lo, hi),
@@ -437,6 +521,7 @@ class SegmentMatcher:
             parts.append(unpack_compact(tail.cpu().numpy()))
         res = tuple(np.concatenate([p[f] for p in parts], axis=1)
                     for f in range(3))
+        DEDUP.harvest()
         return group, res, times, aux.cpu().numpy()[: len(group)]
 
     def _associate_and_store(self, idxs, edge, offset, breaks, times, results,

@@ -2,7 +2,7 @@
 
 Trimmed to the symbols the serving path calls: the parallel bounded
 Dijkstra UBODT builder (``rn_ubodt_build`` / ``rn_ubodt_fetch``), the
-cuckoo packer (``rn_cuckoo_pack``) and batched segment association
+cuckoo and wide32 packers (``rn_cuckoo_pack``, ``rn_wide_pack``) and batched segment association
 (``rn_associate_batch_mt``).  The shared C++ source at the repository root
 is compiled with ``g++`` into ``build/reporter_tpu_torch/`` on first use.
 
@@ -49,6 +49,10 @@ _SYMBOLS = {
         ctypes.c_void_p, _i32p, _i32p, _f32p, _f32p, _i32p,
     ]),
     "rn_cuckoo_pack": (ctypes.c_int64, [
+        ctypes.c_int64, _i32p, _i32p, _f32p, _f32p, _i32p,
+        ctypes.c_int64, _i32p,
+    ]),
+    "rn_wide_pack": (ctypes.c_int64, [
         ctypes.c_int64, _i32p, _i32p, _f32p, _f32p, _i32p,
         ctypes.c_int64, _i32p,
     ]),

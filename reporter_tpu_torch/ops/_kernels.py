@@ -11,8 +11,10 @@ kernel, one ``nvcc`` per source, all started together.
 
 Every kernel has a ``launches`` counter that its wrapper bumps once per
 launch; ``reset_launches()`` zeroes them all.  The SPARSE instantiations
-of kernels 3-5 (the sparse-gap model) are entry points of the same
-libraries, counted apart under ``<name>[sparse]``.
+of kernels 3-5 (the sparse-gap model) and the wide32 instantiation of
+kernel 2 are entry points of the same libraries, counted apart under
+``<name>[sparse]`` and ``ubodt_probe[wide32]``; the dedup claim and
+scatter kernels share one library.
 """
 
 from __future__ import annotations
@@ -83,14 +85,25 @@ _SPARSE = [_F] * 6  # the sparse model's scalars, after the dense arguments
 _BUILD = [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I32,
           _F, _F, _F, _F, _F, _F, _P, _P, _P]
 _SCAN = [_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _F, _P, _P]
-_CHAIN = ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I32, _I64, _I32, _I32,
-           _F, _F, _F, _F, _F, _F, _F] + [_P] * 16 + [_P, _P, _I64, _P, _P])
+_CHAIN = ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I64, _I32,
+           _I32, _F, _F, _F, _F, _F, _F, _F] + [_P] * 16
+          + [_P, _P, _I64, _P, _P])
+_PROBE = [_P, _P, _P, _P, _P, _P, _I32, _P, _P, _P, _P]
+_GRID = [_P, _P, _P, _P, _P]  # src, dst, dims, src strides, dst strides
 
 KERNELS: Dict[str, Kernel] = {k.name: k for k in (
     Kernel("candidate_sweep", [
         _P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _F, _F, _F, _I32, _F, _F,
         _P, _P, _P, _P, _P, _P, _P, _P]),
-    Kernel("ubodt_probe", [_P, _P, _P, _P, _P, _P, _I32, _P, _P, _P]),
+    Kernel("ubodt_probe", _PROBE),
+    Kernel("ubodt_probe[wide32]", _PROBE, "ubodt_probe", "ubodt_probe_wide32"),
+    Kernel("ubodt_dedup_claim", _GRID + [_P, _P, _I64, _P, _P, _P, _P, _I64,
+                                         _P], "ubodt_dedup", "ubodt_dedup_claim"),
+    Kernel("ubodt_dedup_scatter", _GRID + [_P, _P, _P, _I64, _P, _P, _P, _P,
+                                           _I32, _I32, _P, _P, _P],
+           "ubodt_dedup", "ubodt_dedup_scatter"),
+    Kernel("probe_stats", [_P, _P, _P, _P, _P, _I64, _I32, _I32, _F, _F, _P,
+                           _P]),
     Kernel("transition_build", _BUILD),
     Kernel("viterbi_scan", _SCAN),
     Kernel("viterbi_chain", _CHAIN),

@@ -1,8 +1,8 @@
 """Batched HMM map matching: emission, transition, Viterbi (kernels 3-5).
 
 The port of ``reporter_tpu/ops/viterbi.py``'s dense and sparse-gap
-programs without probe dedup or the associative scan, a window
-that starts fresh and a window that continues a carried beam.  Shapes,
+programs without the associative scan, a window that starts fresh and a
+window that continues a carried beam.  Shapes,
 per [B, T] padded batch:
 
     candidates   [B, T, K]        kernel 1 (ops/candidates.py), emission fused
@@ -37,7 +37,11 @@ them.  A session step runs both over one small window, the carry in
 
 Every entry point takes ``sp=None``: with a ``SparseParams`` it runs the
 sparse-gap model (the reference's ``*_packed_sparse`` programs) through
-the SPARSE instantiations of kernels 3-5.
+the SPARSE instantiations of kernels 3-5.  The entry points that see a
+whole dispatch's key set (``match_batch_compact_packed_aux``,
+``precompute_batch[_packed]``) take ``dedup=False``: the in-batch probe
+dedup of ops/hashtable.py, same results.  Session steps and the chain's
+seam probes never dedup; the seam probe reads the table's layout.
 
 Each kernel wrapper launches its CUDA kernel for CUDA tensors and runs its
 plain PyTorch version for CPU tensors.  Every packed entry point composes
@@ -642,7 +646,8 @@ def viterbi_chain(dg: DeviceGraph, du: DeviceUBODT, emis, logp, gc, px, py,
     if B and T:
         args = [ptr(emis), ptr(logp), ptr(gc), ptr(valid), ptr(cand_edge),
                 ptr(cand_offset), ptr(px), ptr(py), ptr(times),
-                ptr(dg.edge_rows), ptr(du.packed), du.bmask, B, T, K,
+                ptr(dg.edge_rows), ptr(du.packed), du.bmask, int(du.wide),
+                B, T, K,
                 float(p.breakage_distance), float(p.sigma_z), float(p.beta),
                 float(p.search_radius), float(p.max_route_distance_factor),
                 float(p.max_route_time_factor), float(p.turn_penalty_factor),
@@ -673,13 +678,14 @@ _PLAIN = _Stages(candidate_sweep_plain, ubodt_lookup_plain,
 
 
 def _precompute(st: _Stages, dg, du, px, py, times, valid, p, k, full=True,
-                sp=None):
+                sp=None, dedup=False):
     """The first three stages.  ``full=False`` (the packed path) leaves
     out what the scan never reads: the candidates' dist, cx, cy and the
-    route.  The probe's first edge is never needed here."""
+    route.  The probe's first edge is never needed here; ``dedup`` probes
+    each distinct pair of the whole [B, T-1, K, K] key set once."""
     sw = st.sweep(dg, px, py, valid, k, p.search_radius, p.sigma_z, full)
     sp_dist, sp_time, _ = st.probe(du, sw.to_node[:, :-1, :, None],
-                                   sw.from_node[:, 1:, None, :], False)
+                                   sw.from_node[:, 1:, None, :], False, dedup)
     logp, route, gc = st.build(dg, sw.cand, px, py, times, sp_dist, sp_time,
                                p, full, sp)
     return TracePre(cand=sw.cand, emis=sw.emis, logp=logp, route=route, gc=gc)
@@ -687,11 +693,14 @@ def _precompute(st: _Stages, dg, du, px, py, times, valid, p, k, full=True,
 
 def precompute_batch(dg: DeviceGraph, du: DeviceUBODT, px, py, times, valid,
                      p: MatchParams, k: int,
-                     sp: Optional[SparseParams] = None) -> TracePre:
+                     sp: Optional[SparseParams] = None,
+                     dedup: bool = False) -> TracePre:
     """Candidates, emissions and the [B, T-1, K, K] transition build over a
     [B, T] batch (``valid`` float 0/1).  The reference's ``precompute_batch``
-    with probe dedup off, the dense model or, with ``sp``, the sparse one."""
-    return _precompute(_KERNELS, dg, du, px, py, times, valid, p, k, sp=sp)
+    (probe dedup with ``dedup``), the dense model or, with ``sp``, the
+    sparse one."""
+    return _precompute(_KERNELS, dg, du, px, py, times, valid, p, k, sp=sp,
+                       dedup=dedup)
 
 
 def pack_inputs(px, py, times, valid) -> np.ndarray:
@@ -715,16 +724,18 @@ def unpack_compact(out):
     return out[0], out[1].view(np.float32), out[2] != 0
 
 
-def _match(st: _Stages, dg, du, xin, p, k, sp=None):
-    pre = _pre_packed(st, dg, du, xin, p, k, sp)
+def _match(st: _Stages, dg, du, xin, p, k, sp=None, dedup=False):
+    pre = _pre_packed(st, dg, du, xin, p, k, sp, dedup)
     px, py, times, valid = unpack_inputs(xin)
     return st.scan(pre.emis, pre.logp, pre.gc, valid, pre.cand.edge,
                    pre.cand.offset, p.breakage_distance, times, sp)
 
 
-def _pre_packed(st: _Stages, dg, du, xin, p, k, sp=None) -> TracePre:
+def _pre_packed(st: _Stages, dg, du, xin, p, k, sp=None,
+                dedup=False) -> TracePre:
     px, py, times, valid = unpack_inputs(xin)
-    return _precompute(st, dg, du, px, py, times, valid, p, k, False, sp)
+    return _precompute(st, dg, du, px, py, times, valid, p, k, False, sp,
+                       dedup)
 
 
 def _chain(st: _Stages, dg, du, pre: TracePre, xin, p, carry, slots=None,
@@ -743,35 +754,40 @@ def _step(st: _Stages, dg, du, xin, p, k, carry, slots=None, use_carry=None,
 
 def match_batch_compact_packed_aux(dg: DeviceGraph, du: DeviceUBODT,
                                    xin: torch.Tensor, p: MatchParams, k: int,
-                                   sp: Optional[SparseParams] = None):
+                                   sp: Optional[SparseParams] = None,
+                                   dedup: bool = False):
     """The match program over a packed [4, B, T] f32 input: (packed
     [3, B, T] i32 = edge, offset bits, break; aux [B, 4] f32)."""
-    return _match(_KERNELS, dg, du, xin, p, k, sp)
+    return _match(_KERNELS, dg, du, xin, p, k, sp, dedup)
 
 
 def match_batch_compact_packed_aux_plain(dg: DeviceGraph, du: DeviceUBODT,
                                          xin: torch.Tensor, p: MatchParams,
                                          k: int,
-                                         sp: Optional[SparseParams] = None):
+                                         sp: Optional[SparseParams] = None,
+                                         dedup: bool = False):
     """``match_batch_compact_packed_aux`` through the plain versions, on
     whatever device the inputs are."""
-    return _match(_PLAIN, dg, du, xin, p, k, sp)
+    return _match(_PLAIN, dg, du, xin, p, k, sp, dedup)
 
 
 def precompute_batch_packed(dg: DeviceGraph, du: DeviceUBODT, xin,
                             p: MatchParams, k: int,
-                            sp: Optional[SparseParams] = None) -> TracePre:
+                            sp: Optional[SparseParams] = None,
+                            dedup: bool = False) -> TracePre:
     """The carry-independent stages (kernels 1-3) over a packed [4, B, W]
     input.  For long traces B is the chunk-major rows of many windows of a
     trace group, so one dispatch precomputes them all; the result feeds
     ``chain_batch_carry_packed_aux`` window by window (``slice_pre``).
-    Leaves the scan never reads (dist, cx, cy, route) are None."""
-    return _pre_packed(_KERNELS, dg, du, xin, p, k, sp)
+    Leaves the scan never reads (dist, cx, cy, route) are None.  With
+    ``dedup`` the probe dedups across all those windows' keys at once."""
+    return _pre_packed(_KERNELS, dg, du, xin, p, k, sp, dedup)
 
 
 def precompute_batch_packed_plain(dg, du, xin, p: MatchParams, k: int,
-                                  sp: Optional[SparseParams] = None):
-    return _pre_packed(_PLAIN, dg, du, xin, p, k, sp)
+                                  sp: Optional[SparseParams] = None,
+                                  dedup: bool = False):
+    return _pre_packed(_PLAIN, dg, du, xin, p, k, sp, dedup)
 
 
 def chain_batch_carry_packed_aux(dg: DeviceGraph, du: DeviceUBODT,

@@ -17,6 +17,13 @@ CALIBRATION.json that $REPORTER_CALIBRATION (or the matcher config's
 device-resident session arena: streaming sessions keep their carried
 beams in a device slab between submits ($REPORTER_SESSION_ARENA=0 keeps
 them on the host, with the same answers).
+
+The UBODT memory system keeps the library defaults, as in the reference:
+the cuckoo layout and no probe dedup.  The config's matcher
+"ubodt_layout" / "probe_dedup", or $REPORTER_UBODT_LAYOUT=wide32 and
+$REPORTER_PROBE_DEDUP=1, change them (same answers);
+$REPORTER_OBS_PROBE_EVERY=N samples the probe-outcome diagnostic on every
+Nth dense bucketed dispatch.
 """
 
 from __future__ import annotations
@@ -48,7 +55,11 @@ def main(argv=None) -> int:
         prog="python -m reporter_tpu_torch.serve",
         description="Serve /report from the PyTorch/CUDA port, the sparse-gap "
         "model on ($REPORTER_SPARSE=0 turns it off, $REPORTER_CALIBRATION "
-        "names per-cohort parameters).")
+        "names per-cohort parameters).  The UBODT table is cuckoo without "
+        "probe dedup unless the config's matcher ubodt_layout/probe_dedup or "
+        "$REPORTER_UBODT_LAYOUT=wide32 / $REPORTER_PROBE_DEDUP=1 say "
+        "otherwise; $REPORTER_OBS_PROBE_EVERY=N samples the UBODT "
+        "probe-outcome diagnostic every Nth dispatch.")
     ap.add_argument("config", help="service config JSON (network, matcher, batch)")
     ap.add_argument("address", nargs="?", default=None,
                     help="host:port (default $MATCHER_BIND_ADDR:$MATCHER_LISTEN_PORT "

@@ -1,15 +1,24 @@
 """UBODT: upper-bounded origin-destination table of route distances.
 
-A copy of the reference's cuckoo-layout table.  A bounded-radius Dijkstra
-from every node yields all node pairs within ``delta`` metres; the rows go
-into a 2-choice bucketed cuckoo hash table, ``packed[n_buckets, BUCKET,
-ROW_W]`` int32, one entry = (src, dst, dist-bits, time-bits, first_edge,
-0, 0, 0), BUCKET=16 entries per bucket, so a bucket is one 512-byte row
-and a probe reads exactly two rows (ops/hashtable.py).
+A copy of the reference's table in its two layouts.  A bounded-radius
+Dijkstra from every node yields all node pairs within ``delta`` metres;
+the rows go into a hash table ``packed[n_buckets, entries, ROW_W]`` int32,
+one entry = (src, dst, dist-bits, time-bits, first_edge, 0, 0, 0):
 
-The native packer (rn_cuckoo_pack) and the Python loop below produce
-bit-identical tables; both are bit-identical to the reference's builders.
-The wide32 layout, tiering and sharding are not part of this port yet.
+``cuckoo`` (the default): 2-choice bucketed cuckoo, BUCKET=16 entries per
+bucket, so a bucket is one 512-byte row and a probe reads exactly two
+rows (ops/hashtable.py), sized to LOAD_TARGET.
+
+``wide32``: single-hash (``pair_hash``) buckets of WIDE_BUCKET=32
+entries, one 1 KB row, so a probe reads one row; entries take the first
+free slot of their home bucket, the table is sized to WIDE_LOAD and
+doubles when a bucket overflows.
+
+The native packers (rn_cuckoo_pack, rn_wide_pack) and the Python loops
+below produce bit-identical tables; all are bit-identical to the
+reference's builders.  ``relayout`` repacks a table's rows into the other
+layout without a graph search.  Tiering and sharding are not part of this
+port yet.
 """
 
 from __future__ import annotations
@@ -39,6 +48,22 @@ ROW_W = 8  # int32 lanes per entry
 F_SRC, F_DST, F_DIST, F_TIME, F_FE = 0, 1, 2, 3, 4
 LOAD_TARGET = 0.75
 MAX_KICKS = 500
+# wide32: 32 entries per single-hash bucket = one 256-lane (1 KB) row,
+# sized sparser than cuckoo (no displacement): a bucket overflow doubles
+# the table
+WIDE_BUCKET = 32
+WIDE_LOAD = 0.33
+LAYOUTS = ("cuckoo", "wide32")
+
+
+def bucket_entries(layout: str) -> int:
+    """Entries per bucket row of a table layout (16 cuckoo, 32 wide32)."""
+    if layout == "wide32":
+        return WIDE_BUCKET
+    if layout == "cuckoo":
+        return BUCKET
+    raise ValueError("unknown UBODT layout %r (expected one of %s)"
+                     % (layout, LAYOUTS))
 
 
 def pair_hash(src, dst, mask):
@@ -66,35 +91,47 @@ def pair_hash2(src, dst, mask):
 
 
 class DeviceUBODT:
-    """The table as the probe kernel reads it: ``packed`` [n_buckets, 128]
-    int32 (one bucket per row) and the bucket mask."""
+    """The table as the probe kernels read it: ``packed`` [n_buckets, 128]
+    (cuckoo) or [n_buckets, 256] (wide32) int32, one bucket per row, the
+    bucket mask and the layout tag."""
 
-    def __init__(self, packed: torch.Tensor, bmask: int):
+    def __init__(self, packed: torch.Tensor, bmask: int,
+                 layout: str = "cuckoo"):
+        width = bucket_entries(layout) * ROW_W
         if packed.dtype != torch.int32 or packed.dim() != 2 \
-                or packed.shape[1] != BUCKET * ROW_W:
-            raise ValueError("packed must be [n_buckets, %d] int32"
-                             % (BUCKET * ROW_W,))
+                or packed.shape[1] != width:
+            raise ValueError("packed must be [n_buckets, %d] int32 (%s)"
+                             % (width, layout))
         if packed.shape[0] != int(bmask) + 1:
             raise ValueError("packed has %d buckets, bmask %d"
                              % (packed.shape[0], bmask))
         self.packed = packed.contiguous()
         self.bmask = int(bmask)
+        self.layout = layout
+
+    @property
+    def wide(self) -> bool:
+        return self.layout == "wide32"
 
     def to_device(self, device="cuda") -> "DeviceUBODT":
-        return DeviceUBODT(self.packed.to(resolve_device(device)), self.bmask)
+        return DeviceUBODT(self.packed.to(resolve_device(device)), self.bmask,
+                           self.layout)
 
 
 @dataclass
 class UBODT:
     delta: float
-    packed: np.ndarray  # [n_buckets, BUCKET, ROW_W] int32
+    packed: np.ndarray  # [n_buckets, bucket_entries, ROW_W] int32
     bmask: int  # n_buckets - 1
     num_rows: int
-    max_kicks: int  # longest displacement chain
+    max_kicks: int  # longest displacement chain (cuckoo) / 0 (wide32)
     # the graph's edge_to, attached after construction (path reconstruction)
     _edge_to: Optional[np.ndarray] = None
+    layout: str = "cuckoo"
 
-    bucket_entries = BUCKET
+    @property
+    def bucket_entries(self) -> int:
+        return bucket_entries(self.layout)
 
     @property
     def n_buckets(self) -> int:
@@ -105,13 +142,18 @@ class UBODT:
         return self
 
     def _find(self, src: int, dst: int) -> int:
-        """Flat entry index of the (src, dst) row, or -1."""
-        for h in (int(pair_hash(np.int64(src), np.int64(dst), self.bmask)),
-                  int(pair_hash2(np.int64(src), np.int64(dst), self.bmask))):
-            for s in range(BUCKET):
+        """Flat entry index of the (src, dst) row, or -1: one home bucket
+        (wide32) or two (cuckoo)."""
+        hashes = [int(pair_hash(np.int64(src), np.int64(dst), self.bmask))]
+        if self.layout == "cuckoo":
+            hashes.append(int(pair_hash2(np.int64(src), np.int64(dst),
+                                         self.bmask)))
+        be = self.bucket_entries
+        for h in hashes:
+            for s in range(be):
                 e = self.packed[h, s]
                 if e[F_SRC] == src and e[F_DST] == dst:
-                    return h * BUCKET + s
+                    return h * be + s
         return -1
 
     def lookup(self, src: int, dst: int) -> Tuple[float, int]:
@@ -141,12 +183,38 @@ class UBODT:
                 return edges
         return None
 
+    def rows(self) -> Tuple[np.ndarray, ...]:
+        """(src, dst, dist, time, first_edge) columns of every occupied
+        entry in (bucket, slot) order: what ``relayout`` repacks."""
+        flat = self.packed.reshape(-1, ROW_W)
+        e = flat[flat[:, F_SRC] != EMPTY]
+        return (e[:, F_SRC].copy(), e[:, F_DST].copy(),
+                e[:, F_DIST].view(np.float32).copy(),
+                e[:, F_TIME].view(np.float32).copy(), e[:, F_FE].copy())
+
+    def relayout(self, layout: str, use_native: bool = True,
+                 lib=None) -> "UBODT":
+        """This table's rows repacked into ``layout`` (no graph search);
+        self when the layout already matches.  The packer runs in C++ when
+        the native core is available (or ``lib`` is given)."""
+        if layout == self.layout:
+            return self
+        if use_native and lib is None:
+            from ..native import get_lib
+
+            lib = get_lib()
+        out = ubodt_from_columns(*self.rows(), self.delta, lib=lib,
+                                 layout=layout)
+        out._edge_to = self._edge_to
+        return out
+
     def device_ubodt(self) -> DeviceUBODT:
-        """The probe kernel's view of this table, on the CPU (``to_device``
+        """The probe kernels' view of this table, on the CPU (``to_device``
         moves it)."""
         return DeviceUBODT(
-            torch.from_numpy(self.packed.reshape(self.n_buckets, BUCKET * ROW_W)),
-            self.bmask)
+            torch.from_numpy(self.packed.reshape(
+                self.n_buckets, self.bucket_entries * ROW_W)),
+            self.bmask, self.layout)
 
     def to_device(self, device="cuda") -> DeviceUBODT:
         return self.device_ubodt().to_device(device)
@@ -182,9 +250,11 @@ def _bounded_dijkstra(src, delta, out_start, out_edges, edge_to, edge_len,
 
 def build_ubodt(arrays, delta: float = 3000.0,
                 load_factor: Optional[float] = None, num_threads: int = 0,
-                use_native: bool = True, lib=None) -> UBODT:
-    """Build the table from GraphArrays: the native parallel Dijkstra and
-    packer when available (or ``lib`` is given), else the Python loops."""
+                use_native: bool = True, lib=None,
+                layout: str = "cuckoo") -> UBODT:
+    """Build the table in ``layout`` from GraphArrays: the native parallel
+    Dijkstra and packer when available (or ``lib`` is given), else the
+    Python loops."""
     if use_native and lib is None:
         from ..native import get_lib
 
@@ -193,7 +263,8 @@ def build_ubodt(arrays, delta: float = 3000.0,
         src, dst, dist, tm, fe = _native_build_rows(lib, arrays, delta,
                                                     num_threads)
         return ubodt_from_columns(src, dst, dist, tm, fe, delta, load_factor,
-                                  lib=lib).attach_graph(arrays.edge_to)
+                                  lib=lib, layout=layout
+                                  ).attach_graph(arrays.edge_to)
     rows = []
     for src in range(arrays.num_nodes):
         for dst, d, tm, fe in _bounded_dijkstra(
@@ -205,7 +276,7 @@ def build_ubodt(arrays, delta: float = 3000.0,
         np.asarray(cols[0], np.int32), np.asarray(cols[1], np.int32),
         np.asarray(cols[2], np.float32), np.asarray(cols[3], np.float32),
         np.asarray(cols[4], np.int32), delta, load_factor, lib=None,
-    ).attach_graph(arrays.edge_to)
+        layout=layout).attach_graph(arrays.edge_to)
 
 
 def _native_build_rows(lib, arrays, delta: float, num_threads: int):
@@ -287,13 +358,47 @@ def _pack_python(src, dst, dist, time, first_edge, n_buckets, packed) -> int:
     return max_chain
 
 
+def _pack_wide_python(src, dst, dist, time, first_edge, n_buckets,
+                      packed) -> int:
+    """Python twin of rn_wide_pack: single-hash first-free-slot insert into
+    ``packed`` [n_buckets, WIDE_BUCKET, ROW_W] (pre-filled with src =
+    EMPTY).  Returns the fullest bucket's occupancy, or -1 when a bucket
+    overflows.  A row's slot is its rank among its bucket's rows in input
+    order, which is what the C++ insert loop gives, so the placement is
+    vectorised (a stable argsort by bucket)."""
+    n = len(src)
+    if n == 0:
+        return 0
+    b = pair_hash(np.asarray(src, np.int64), np.asarray(dst, np.int64),
+                  n_buckets - 1).astype(np.int64)
+    order = np.argsort(b, kind="stable")
+    sb = b[order]
+    start = np.concatenate([[0], np.flatnonzero(sb[1:] != sb[:-1]) + 1])
+    group = np.repeat(np.arange(len(start)), np.diff(np.append(start, n)))
+    slot = np.arange(n) - start[group]
+    fill = int(slot.max()) + 1
+    if fill > WIDE_BUCKET:
+        return -1
+    packed[sb, slot, :] = 0
+    packed[sb, slot, F_SRC] = np.asarray(src, np.int32)[order]
+    packed[sb, slot, F_DST] = np.asarray(dst, np.int32)[order]
+    packed[sb, slot, F_DIST] = np.asarray(dist, np.float32).view(np.int32)[order]
+    packed[sb, slot, F_TIME] = np.asarray(time, np.float32).view(np.int32)[order]
+    packed[sb, slot, F_FE] = np.asarray(first_edge, np.int32)[order]
+    return fill
+
+
 def ubodt_from_columns(src, dst, dist, time, first_edge, delta: float,
-                       load_factor: Optional[float] = None, lib=None) -> UBODT:
-    """Pack row columns into the cuckoo table, doubling the bucket count
-    until every insert succeeds; the insert loop runs in C++ when ``lib``
-    is given, else in _pack_python (bit-identical tables)."""
+                       load_factor: Optional[float] = None, lib=None,
+                       layout: str = "cuckoo") -> UBODT:
+    """Pack row columns into a table of ``layout``, doubling the bucket
+    count until every insert succeeds; the insert loop runs in C++
+    (rn_cuckoo_pack / rn_wide_pack) when ``lib`` is given, else in
+    _pack_python / _pack_wide_python (bit-identical tables)."""
+    wide = layout == "wide32"
+    entries = bucket_entries(layout)
     if load_factor is None:
-        load_factor = LOAD_TARGET
+        load_factor = WIDE_LOAD if wide else LOAD_TARGET
     n = int(len(src))
     src = np.ascontiguousarray(src, np.int32)
     dst = np.ascontiguousarray(dst, np.int32)
@@ -301,25 +406,27 @@ def ubodt_from_columns(src, dst, dist, time, first_edge, delta: float,
     time = np.ascontiguousarray(time, np.float32)
     first_edge = np.ascontiguousarray(first_edge, np.int32)
     n_buckets = 1
-    while n_buckets * BUCKET * load_factor < max(n, 1):
+    while n_buckets * entries * load_factor < max(n, 1):
         n_buckets <<= 1
     n_buckets = max(n_buckets, 4)
+    pack = (lib.rn_wide_pack if wide else lib.rn_cuckoo_pack) if lib else None
     while True:
-        packed = np.zeros((n_buckets, BUCKET, ROW_W), np.int32)
+        packed = np.zeros((n_buckets, entries, ROW_W), np.int32)
         packed[:, :, F_SRC] = EMPTY
-        if lib is not None:
-            max_chain = lib.rn_cuckoo_pack(n, src, dst, dist, time, first_edge,
-                                           n_buckets, packed.reshape(-1))
+        if pack is not None:
+            max_chain = pack(n, src, dst, dist, time, first_edge, n_buckets,
+                             packed.reshape(-1))
         else:
-            max_chain = _pack_python(src, dst, dist, time, first_edge,
-                                     n_buckets, packed)
+            max_chain = (_pack_wide_python if wide else _pack_python)(
+                src, dst, dist, time, first_edge, n_buckets, packed)
         if max_chain >= 0:
             break
         n_buckets <<= 1
-        log.info("ubodt: cuckoo chain exceeded %d kicks, growing table to "
-                 "%d buckets", MAX_KICKS, n_buckets)
-    log.info("ubodt: %d rows, %d x %d-entry buckets (load %.2f), max kick "
-             "chain %d", n, n_buckets, BUCKET, n / max(n_buckets * BUCKET, 1),
-             max_chain)
+        log.info("ubodt: %s insert failed (%s), growing table to %d buckets",
+                 layout, "bucket overflow" if wide else
+                 "cuckoo chain exceeded %d kicks" % MAX_KICKS, n_buckets)
+    log.info("ubodt: %d rows, %d x %d-entry buckets (%s, load %.2f), %s %d",
+             n, n_buckets, entries, layout, n / max(n_buckets * entries, 1),
+             "max bucket fill" if wide else "max kick chain", max_chain)
     return UBODT(delta=delta, packed=packed, bmask=n_buckets - 1, num_rows=n,
-                 max_kicks=int(max_chain))
+                 max_kicks=0 if wide else int(max_chain), layout=layout)

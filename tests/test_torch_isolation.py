@@ -34,6 +34,7 @@ import reporter_tpu_torch.convert
 import reporter_tpu_torch.matching.arena
 import reporter_tpu_torch.matching.session
 import reporter_tpu_torch.matching.sparse
+import reporter_tpu_torch.ops.diagnostics
 import reporter_tpu_torch.serve.__main__
 from reporter_tpu_torch.matching import MatcherConfig, SegmentMatcher, SessionEngine, SessionStore
 from reporter_tpu_torch.synth import TraceSynthesizer
@@ -65,6 +66,17 @@ assert all(r["segments"] for r in out) and sm.sparse.dispatch == {"ge60": 4}
 eng = SessionEngine(sm, SessionStore())
 res = eng.match_many([dict(t, trace=t["trace"][:4]) for t in sparse])
 assert sm.sparse.dispatch == {"ge60": 6}
+# the UBODT memory system: a wide32 table repacked from the cuckoo one,
+# probe dedup and the sampled probe diagnostic
+import os
+os.environ["REPORTER_OBS_PROBE_EVERY"] = "1"
+wm = SegmentMatcher(arrays=arrays, ubodt=m.ubodt, device="cpu",
+                    config=MatcherConfig(ubodt_delta=1500.0, length_buckets=[16],
+                                         ubodt_layout="wide32", probe_dedup=True))
+assert wm.ubodt.layout == "wide32" and wm.match_many(traces) == m.match_many(traces)
+short = [dict(t, trace=t["trace"][:12]) for t in traces]  # one bucketed dispatch
+assert wm.match_many(short) == m.match_many(short)
+assert wm.probe_stats["samples"] == 1 and wm.probe_stats["pairs"] > 0
 assert not [m for m in sys.modules if blocked(m)]
 print("ISOLATED-OK")
 '''
