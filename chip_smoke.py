@@ -5,8 +5,8 @@
 Builds the CUDA kernels of the match program (one nvcc per source,
 sm_90a, all started together; kernels 3-5 with their sparse
 instantiations, counted apart as ``<name>[sparse]``, kernel 2 with its
-wide32 one, the dedup claim and scatter kernels and the probe-outcome
-counters) and the native host core, builds the metro-scale grid city (120 x 120 blocks of 150 m, UBODT
+wide32 one, the dedup claim and scatter kernels, the probe-outcome
+counters and the log-depth Viterbi kernels) and the native host core, builds the metro-scale grid city (120 x 120 blocks of 150 m, UBODT
 delta 3000 m, cuckoo layout) and moves it to the card, then:
 
   1. holds each of kernels 1-4 against its plain PyTorch version on the
@@ -77,7 +77,22 @@ delta 3000 m, cuckoo layout) and moves it to the card, then:
      matcher's without dedup and to the plain composition, and the 8
      /report of A and the fixture replay under
      $REPORTER_UBODT_LAYOUT=wide32 $REPORTER_PROBE_DEDUP=1 answering as
-     under the defaults.
+     under the defaults;
+  8. the log-depth (assoc) forward: ``viterbi_assoc`` against its plain
+     version at 512 x 64, 128 x 256 and the session step's 512 x 4, its
+     sparse instantiation on A and B and their ``gap_flip`` inputs,
+     ``viterbi_chain_assoc`` at the long window and on the slab, its
+     sparse instantiation at L's window and on the slab (also flipped),
+     each timed beside the scan or chain kernel on the same inputs, and
+     the crossover (both forwards at T = 16, 64, 256, K = 8 and 16); then,
+     through the launch counters, a matcher with ``viterbi_kernel="assoc"``
+     over the bucketed, long, session (128 sessions x 4 steps) and sparse
+     A and L paths (no scan or chain kernel launched; outputs equal to the
+     plain composition of the assoc forward), the count of traces each
+     path decodes otherwise than the scan matcher, an ``"auto"`` matcher
+     (the scan at 512 x 64, the assoc kernels at 128 x 256 and on the
+     long windows), and 8 /report plus the fixture replay under
+     $REPORTER_VITERBI=assoc.
 
 Prints the card's name and power limit, one line per phase, a
 ``{"kernels": [...]}`` line, and as its last line
@@ -475,7 +490,7 @@ def _seam_rows(dg, du, carry_edge, first_edge):
 
 
 def chain_phases(matcher, long_traces, traces64, timed, sp=None, long_pk=None,
-                 sess_pk=None, flip=None):
+                 sess_pk=None, flip=None, kernel="scan"):
     """Kernel 5 against its plain version at its two main-path shapes: the
     long path's window (64 x 256, continuing live carries) and the
     session step against the serving slab (512 x 4, 65,536 slots), the
@@ -485,7 +500,10 @@ def chain_phases(matcher, long_traces, traces64, timed, sp=None, long_pk=None,
     parameters and K).  ``flip`` (a seed): both shapes' inputs and
     parameters go through ``gap_flip``, and the sparse chain's breaks
     must differ from the dense instantiation's, with seams among the
-    steps whose decision the sparse threshold flips."""
+    steps whose decision the sparse threshold flips.  ``kernel`` "assoc":
+    the log-depth kernel ``viterbi_chain_assoc`` against the plain version
+    of the same forward instead, timed beside kernel 5 on the same
+    inputs."""
     import numpy as np
     import torch
 
@@ -513,12 +531,13 @@ def chain_phases(matcher, long_traces, traces64, timed, sp=None, long_pk=None,
     pre = V.precompute_batch_packed(dg, du, x1, p, K, sp)
     args = (dg, du, pre.emis, pre.logp, pre.gc, *V.unpack_inputs(x1), pre.cand.edge,
             pre.cand.offset, p, carry)
-    k5, p5 = V.viterbi_chain(*args, sp=sp), V.viterbi_chain_plain(*args, sp=sp)
+    k5 = V.viterbi_chain(*args, sp=sp, kernel=kernel)
+    p5 = V.viterbi_chain_plain(*args, sp=sp, kernel=kernel)
     check(torch.equal(k5[0], p5[0]), "viterbi_chain packed (long)")
     check(_carry_same(k5[2], p5[2]), "viterbi_chain carry-out (long)")
     check(torch.allclose(k5[1], p5[1], rtol=1e-4, atol=0), "viterbi_chain aux (long)")
     if flip is not None:
-        flipped = _breaks_flipped(args, k5[0], carry, x1, p, sp, "long")
+        flipped = _breaks_flipped(args, k5[0], carry, x1, p, sp, "long", kernel=kernel)
     n_rows, n_edges = _seam_rows(dg, du, carry.edge, pre.cand.edge[:, 0])
     T = W
     slot_b = 12 * K + 17
@@ -529,9 +548,12 @@ def chain_phases(matcher, long_traces, traces64, timed, sp=None, long_pk=None,
               + 8 * B * T * K + 2 * slot_b * B + 512 * n_rows + 32 * n_edges
               + 12 * B * T + 16 * B)
     bl, byl = bound(nbytes, 2 * K * K * (T - 1) * B + 80 * K * K * B)
+    if kernel == "assoc":  # the log-depth forward's adds and compares
+        bl, byl = bound(nbytes, B * (_assoc_ops(T, K) + 80 * K * K))
     out["long"] = dict(shape="%dx%d K=%d" % (B, T, K),
-                       fn=lambda: V.viterbi_chain(*args, sp=sp),
-                       plain=lambda: V.viterbi_chain_plain(*args, sp=sp), bound_ms=bl,
+                       fn=lambda: V.viterbi_chain(*args, sp=sp, kernel=kernel),
+                       plain=lambda: V.viterbi_chain_plain(*args, sp=sp, kernel=kernel),
+                       bound_ms=bl,
                        bound_by=byl, max_abs_err=max_abs_err([(k5[0], p5[0])]),
                        aux_max_abs_err=max_abs_err([(k5[1], p5[1])]),
                        seam_bucket_rows=n_rows)
@@ -564,8 +586,8 @@ def chain_phases(matcher, long_traces, traces64, timed, sp=None, long_pk=None,
     slab_p = V.TraceCarry(*(t.clone() for t in slab))
     sargs = (dg, du, pre.emis, pre.logp, pre.gc, *V.unpack_inputs(xs1), pre.cand.edge,
              pre.cand.offset, p)
-    ka = V.viterbi_chain(*sargs, slab_k, slots, use, sp=sp)
-    pa = V.viterbi_chain_plain(*sargs, slab_p, slots, use, sp=sp)
+    ka = V.viterbi_chain(*sargs, slab_k, slots, use, sp=sp, kernel=kernel)
+    pa = V.viterbi_chain_plain(*sargs, slab_p, slots, use, sp=sp, kernel=kernel)
     check(torch.equal(ka[0], pa[0]), "viterbi_chain packed (arena)")
     check(_carry_same(slab_k, slab_p), "viterbi_chain slab (arena)")
     check(not _carry_same(slab_k, slab), "the arena step wrote the slab")
@@ -576,8 +598,8 @@ def chain_phases(matcher, long_traces, traces64, timed, sp=None, long_pk=None,
     usem = torch.from_numpy(use).to(dev)
     hc = V.TraceCarry(*(torch.where(usem.view((B,) + (1,) * (g.dim() - 1)), g[rows], i)
                         for g, i in zip(slab, V.initial_carry_batch(B, K, dev))))
-    hk = V.session_step_packed(dg, du, xs1, p, K, hc, sp)
-    hp = V.session_step_packed_plain(dg, du, xs1, p, K, hc, sp)
+    hk = V.session_step_packed(dg, du, xs1, p, K, hc, sp, kernel)
+    hp = V.session_step_packed_plain(dg, du, xs1, p, K, hc, sp, kernel)
     check(torch.equal(hk[0], hp[0]) and _carry_same(hk[2], hp[2]),
           "viterbi_chain packed and carry-out (host carries)")
     check(torch.allclose(hk[1], hp[1], rtol=1e-4, atol=0), "viterbi_chain aux (host carries)")
@@ -587,7 +609,7 @@ def chain_phases(matcher, long_traces, traces64, timed, sp=None, long_pk=None,
         "the host-carry step equals the slab step")
     if flip is not None:
         flipped = _breaks_flipped(sargs + (slab,), ka[0], hc, xs1, p, sp, "arena",
-                                  dict(slots=slots, use_carry=use))
+                                  dict(slots=slots, use_carry=use), kernel)
     live = torch.from_numpy(slots[:B - 32].astype(np.int64)).to(dev)
     in_edge = slab.edge[live]
     n_rows, n_edges = _seam_rows(dg, du, in_edge, pre.cand.edge[:B - 32, 0])
@@ -596,27 +618,36 @@ def chain_phases(matcher, long_traces, traces64, timed, sp=None, long_pk=None,
               + 8 * B * T * K + 5 * B + slot_b * ((B - 32) + (B - 16))
               + 512 * n_rows + 32 * n_edges + 12 * B * T + 16 * B)
     ba, bya = bound(nbytes, 2 * K * K * (T - 1) * B + 80 * K * K * B)
+    if kernel == "assoc":
+        ba, bya = bound(nbytes, B * (_assoc_ops(T, K) + 80 * K * K))
     out["arena"] = dict(shape="%dx%d K=%d slab %d" % (B, T, K, S),
-                        fn=lambda: V.viterbi_chain(*sargs, slab_k, slots, use, sp=sp),
+                        fn=lambda: V.viterbi_chain(*sargs, slab_k, slots, use, sp=sp,
+                                                   kernel=kernel),
                         plain=lambda: V.viterbi_chain_plain(*sargs, slab_p, slots, use,
-                                                            sp=sp),
+                                                            sp=sp, kernel=kernel),
                         bound_ms=ba, bound_by=bya,
                         max_abs_err=max_abs_err([(ka[0], pa[0]), (hk[0], hp[0])]),
                         aux_max_abs_err=max_abs_err([(ka[1], pa[1]), (hk[1], hp[1])]),
                         seam_bucket_rows=n_rows)
     if flip is not None:
         out["arena"].update(flipped)
-    for r in out.values():
+    name = ("viterbi_chain_assoc" if kernel == "assoc" else "viterbi_chain") + (
+        "" if sp is None else "[sparse]")
+    scan = {"long": lambda: V.viterbi_chain(*args, sp=sp),  # kernel 5, same inputs
+            "arena": lambda: V.viterbi_chain(*sargs, slab_k, slots, use, sp=sp)}
+    for what, r in out.items():
         if timed and dev.type == "cuda":
             r["ms"] = time_ms(r["fn"], cold_l2=False)
             r["plain_ms"] = time_ms(r["plain"], cold_l2=False, queued=False)
-        print("kernel %-25s %-22s max_abs_err=%-9.3g kernel_ms=%s plain_ms=%s "
+            if kernel == "assoc":
+                r["scan_ms"] = time_ms(scan[what], cold_l2=False)
+        print("kernel %-27s %-22s max_abs_err=%-9.3g kernel_ms=%s plain_ms=%s%s "
               "bound_ms=%.4f (%s) within tolerance: packed, carry/slab exact; aux rtol 1e-4"
-              % ("viterbi_chain" + ("" if sp is None else "[sparse]"), r["shape"],
-                 r["max_abs_err"],
+              % (name, r["shape"], r["max_abs_err"],
                  "%.4f" % r["ms"] if "ms" in r else "-",
-                 "%.4f" % r["plain_ms"] if "plain_ms" in r else "-", r["bound_ms"],
-                 r["bound_by"]))
+                 "%.4f" % r["plain_ms"] if "plain_ms" in r else "-",
+                 " viterbi_chain_ms=%.4f" % r["scan_ms"] if "scan_ms" in r else "",
+                 r["bound_ms"], r["bound_by"]))
     return out
 
 
@@ -658,7 +689,7 @@ def gap_flip(xins, p, sp, seed):
             p._replace(breakage_distance=f32(brk)), sp._replace(break_speed=f32(speed)))
 
 
-def _breaks_flipped(args, packed, carry, xin, p, sp, what, slab_kw=None):
+def _breaks_flipped(args, packed, carry, xin, p, sp, what, slab_kw=None, kernel="scan"):
     """After a sparse chain call (``args`` + ``slab_kw``, giving ``packed``)
     from carries ``carry`` (leading [B]) over the window ``xin``: the rows
     whose seam decision the sparse threshold flips (the seam's distance
@@ -675,15 +706,16 @@ def _breaks_flipped(args, packed, carry, xin, p, sp, what, slab_kw=None):
     brk0 = V.sparse_breakage(p.breakage_distance, sp, tm[:, 0] - carry.t)
     seams = int((carry.active & (valid[:, 0] != 0) & (gc0 > p.breakage_distance.to(gc0.device))
                  & (gc0 <= brk0)).sum())
-    check(seams > 0, "viterbi_chain[sparse] (%s): seams whose break the gap decides" % what)
+    name = "viterbi_chain%s[sparse]" % ("_assoc" if kernel == "assoc" else "")
+    check(seams > 0, "%s (%s): seams whose break the gap decides" % (name, what))
     if slab_kw:
         args = args[:-1] + (V.TraceCarry(*(t.clone() for t in args[-1])),)
-    dense = V.viterbi_chain(*args, **(slab_kw or {}), sp=None)[0]
+    dense = V.viterbi_chain(*args, **(slab_kw or {}), sp=None, kernel=kernel)[0]
     n = int((dense[2] != packed[2]).sum())
-    check(n > 0, "viterbi_chain[sparse] (%s): the gap-conditioned breakage changed breaks "
-          "against the dense threshold" % what)
-    print("kernel viterbi_chain[sparse] (%s): %d points break differently from the dense "
-          "instantiation, %d seams' decisions flipped by the gap" % (what, n, seams))
+    check(n > 0, "%s (%s): the gap-conditioned breakage changed breaks against the dense "
+          "threshold" % (name, what))
+    print("kernel %s (%s): %d points break differently from the dense instantiation, %d "
+          "seams' decisions flipped by the gap" % (name, what, n, seams))
     return {"breaks_flipped": n, "seams_flipped": seams}
 
 
@@ -728,6 +760,20 @@ def _path_kernels(matcher, kernels, sampled=False):
             tuple(k for k in PROBE_FAMILY if k not in probe))
 
 
+def _forward(matcher, T, carried, sparse=False, kernels=None):
+    """(kernels, absent): ``kernels`` (a path tuple whose last entry is the
+    Viterbi kernel) with that entry replaced by the one a dispatch of
+    window length T launches under the matcher's forward (the assoc
+    kernels where ``_kernel_for(T)`` is "assoc"), and the other forward's
+    kernel, which must not launch."""
+    tag = "[sparse]" if sparse else ""
+    scan, assoc = (("viterbi_chain", "viterbi_chain_assoc") if carried
+                   else ("viterbi_scan", "viterbi_assoc"))
+    use, other = ((assoc, scan) if matcher._kernel_for(T) == "assoc" else (scan, assoc))
+    kernels = kernels or (BUCKETED if not carried else CARRIED)
+    return kernels[:-1] + (use + tag,), (other + tag,)
+
+
 BUCKETED = ("candidate_sweep", "ubodt_probe", "transition_build", "viterbi_scan")
 CARRIED = ("candidate_sweep", "ubodt_probe", "transition_build", "viterbi_chain")
 SPARSE_BUCKETED = ("candidate_sweep", "ubodt_probe", "transition_build[sparse]",
@@ -750,9 +796,13 @@ def long_path(matcher, traces, slabel="", base=None):
     from reporter_tpu_torch.ops import viterbi as V
 
     dev = matcher.device
+    W = matcher.max_trace_points
     matcher.match_many(traces[:1])  # first-call set-up outside the count
-    kernels, absent = _path_kernels(matcher, SPARSE_CARRIED if slabel else CARRIED)
-    res, dt, launches = _counted(kernels, lambda: matcher.match_many(traces), absent)
+    path, other = _forward(matcher, W, True, bool(slabel),
+                           SPARSE_CARRIED if slabel else CARRIED)
+    kernels, absent = _path_kernels(matcher, path)
+    res, dt, launches = _counted(kernels, lambda: matcher.match_many(traces),
+                                 absent + other)
     check(len(res) == len(traces) and all(r["segments"] for r in res), "long path results")
     n_pts = sum(len(tr["trace"]) for tr in traces)
     rate = {"traces": len(traces), "T": len(traces[0]["trace"]), "s": dt,
@@ -760,9 +810,8 @@ def long_path(matcher, traces, slabel="", base=None):
     print("long path %s%dx%d: %.3f s, %.1f traces/s, %.0f points/s, launches %s"
           % ("(sparse %s) " % slabel if slabel else "", len(traces), rate["T"], dt,
              rate["traces_per_s"], rate["points_per_s"], json.dumps(launches)))
-    W = matcher.max_trace_points
     n_chunks = -(-rate["T"] // W)
-    chain = "viterbi_chain[sparse]" if slabel else "viterbi_chain"
+    chain = path[-1]
     if dev.type == "cuda":
         check(launches["candidate_sweep"] == 1 and launches[chain] == n_chunks,
               "one pre dispatch and one chain dispatch per window")
@@ -783,15 +832,15 @@ def long_path(matcher, traces, slabel="", base=None):
         xc = xin[:, :, c * W:(c + 1) * W].contiguous()
         pre = V.precompute_batch_packed_plain(matcher._dg, matcher._du, xc, p, K, sp)
         packed, _a, carry = V.chain_batch_carry_packed_aux_plain(
-            matcher._dg, matcher._du, pre, xc, p, K, carry, sp)
+            matcher._dg, matcher._du, pre, xc, p, K, carry, sp, matcher._kernel_for(W))
         parts.append(V.unpack_compact(packed.cpu().numpy()))
     want = [np.concatenate([q[f] for q in parts], 1) for f in range(3)]
     B = len(group)
     check(np.array_equal(edge[:B], want[0]) and offset[:B].tobytes() == want[1].tobytes()
           and np.array_equal(breaks[:B], want[2]),
           "long path output equals the plain composition")
-    print("long path [%d, %d x %d] K=%d equals the plain composition window by window"
-          % (B, n_chunks, W, K))
+    print("long path [%d, %d x %d] K=%d (%s) equals the plain composition window by window"
+          % (B, n_chunks, W, K, chain))
     if base is not None:
         (hb,) = base._dispatch_long(traces, list(range(len(traces))), (), slabel)
         _g, (e2, o2, b2), _t, _a = base._fetch_long_aux(hb)
@@ -895,7 +944,8 @@ def session_path(matcher, traces64):
     warm = stream(am, [dict(traces64[0], uuid="warm")])  # set-up outside the count
     warm.store.drop("warm")
     split = {}
-    eng, dt, launches = _counted(CARRIED, lambda: stream(am, traces64, split))
+    path, other = _forward(am, Wn, True)
+    eng, dt, launches = _counted(path, lambda: stream(am, traces64, split), other)
     n = len(traces64)
     split = {k + "_ms_per_step": v * 1e3 / steps for k, v in split.items()}
     split["engine_rest_ms_per_step"] = dt * 1e3 / steps - sum(split.values())
@@ -908,7 +958,7 @@ def session_path(matcher, traces64):
     print("session step breakdown (ms per step): %s"
           % ", ".join("%s %.1f" % (k[:-12], v) for k, v in split.items()))
     if matcher.device.type == "cuda":
-        check(launches["viterbi_chain"] == steps, "one slab step per session step")
+        check(launches[path[-1]] == steps, "one slab step per session step")
     host = stream(matcher, traces64)
     oracle = SegmentMatcher(arrays=matcher.arrays, ubodt=matcher.ubodt,
                             config=replace(cfg, length_buckets=[Wn]), device=matcher.device)
@@ -960,20 +1010,26 @@ def main_path(matcher, cohorts, xins, base=None):
               % (len(traces), len(traces[0]["trace"]), dt, len(traces) / dt, n_pts / dt))
     launches = {k: kern.launches for k, kern in _kernels.KERNELS.items()}
     print("main path launches: %s" % json.dumps(launches))
-    kernels, absent = _path_kernels(matcher, BUCKETED, sampled=True)
+    fwd = {_forward(matcher, matcher._bucket_len(len(trs[0]["trace"])), False)[0][-1]
+           for trs in cohorts}
+    other = {"viterbi_scan", "viterbi_assoc"} - fwd
+    kernels, absent = _path_kernels(matcher, BUCKETED[:-1] + tuple(sorted(fwd)), sampled=True)
+    absent += tuple(sorted(other))
     if dev.type == "cuda":
         check(all(launches[k] > 0 for k in kernels), "every kernel launched on the main path")
         check(not any(launches[k] for k in absent), "no kernel off the main path launched")
     p = matcher._params
     for xin in xins:
+        kern = matcher._kernel_for(xin.shape[2])
         got = V.match_batch_compact_packed_aux(matcher._dg, matcher._du, xin, p,
-                                               matcher.cfg.beam_k, None, matcher.probe_dedup)
+                                               matcher.cfg.beam_k, None, matcher.probe_dedup,
+                                               kern)
         want = V.match_batch_compact_packed_aux_plain(matcher._dg, matcher._du, xin, p,
-                                                      matcher.cfg.beam_k)
+                                                      matcher.cfg.beam_k, kernel=kern)
         check(torch.equal(got[0], want[0]), "main path packed output equals the plain versions'")
         check(torch.allclose(got[1], want[1], rtol=1e-4, atol=0), "main path aux")
-        print("main path packed [3,%d,%d] equals the plain composition, aux within rtol 1e-4"
-              % tuple(xin.shape[1:]))
+        print("main path packed [3,%d,%d] equals the plain composition (%s), aux within "
+              "rtol 1e-4" % (*xin.shape[1:], kern))
         if base is not None:
             b = V.match_batch_compact_packed_aux(base._dg, base._du, xin, p, base.cfg.beam_k)
             check(torch.equal(got[0], b[0]) and torch.equal(got[1], b[1]),
@@ -1193,8 +1249,11 @@ def sparse_main_path(sm, cohorts, xins, what, base=None):
                   "%.0f points/s" % (what, len(traces), len(traces[0]["trace"]), label, k,
                                      float(sp.vmax), dt, len(traces) / dt, n_pts / dt))
 
-    kernels, absent = _path_kernels(sm, SPARSE_BUCKETED)
-    _r, _dt, launches = _counted(kernels, drive, absent)
+    fwd = {_forward(sm, sm._bucket_len(len(trs[0]["trace"])), False, True)[0][-1]
+           for trs in cohorts}
+    other = {"viterbi_scan[sparse]", "viterbi_assoc[sparse]"} - fwd
+    kernels, absent = _path_kernels(sm, SPARSE_BUCKETED[:-1] + tuple(sorted(fwd)))
+    _r, _dt, launches = _counted(kernels, drive, absent + tuple(sorted(other)))
     want = {r["cohort"]: r["traces"] for r in rates}
     check(sm.sparse.dispatch == want, "sparse dispatch counts %s == %s"
           % (sm.sparse.dispatch, want))
@@ -1202,8 +1261,11 @@ def sparse_main_path(sm, cohorts, xins, what, base=None):
           % (what, json.dumps(sm.sparse.dispatch), json.dumps(launches)))
     for r, xin in zip(rates, xins):
         p, sp, k = sm.sparse.params_for(r["cohort"])
-        got = V.match_batch_compact_packed_aux(sm._dg, sm._du, xin, p, k, sp, sm.probe_dedup)
-        want = V.match_batch_compact_packed_aux_plain(sm._dg, sm._du, xin, p, k, sp)
+        kern = sm._kernel_for(xin.shape[2])
+        got = V.match_batch_compact_packed_aux(sm._dg, sm._du, xin, p, k, sp, sm.probe_dedup,
+                                               kern)
+        want = V.match_batch_compact_packed_aux_plain(sm._dg, sm._du, xin, p, k, sp,
+                                                      kernel=kern)
         check(torch.equal(got[0], want[0]), "sparse packed output equals the plain versions'")
         check(torch.allclose(got[1], want[1], rtol=1e-4, atol=0), "sparse aux")
         print("sparse path (%s) packed [3,%d,%d] K=%d equals the plain composition, aux "
@@ -1641,6 +1703,219 @@ def memory_serve_phase(arrays, ubodt_w, tr_a, default_answers, default_fixtures,
     return launches
 
 
+def _assoc_ops(T, K):
+    """Adds and compares of the log-depth forward over one trace of T points
+    at K: level 0's maps, every up- and down-sweep combine (K^2 map entries
+    and K restart entries, K add-compare pairs each), the scores and the
+    backpointers from the prefixes, the alive recursion."""
+    from reporter_tpu_torch.ops.viterbi import _assoc_levels
+
+    n = T - 1
+    levels = _assoc_levels(n)
+    combines = sum(c // 2 for c in levels[:-1]) + sum((c - 1) // 2 for c in levels[:-1])
+    return (K * K * n + combines * 2 * K * (K * K + K) + 2 * 2 * K * K * n + 2 * K * n)
+
+
+def assoc_phases(matcher, xin, timed, p=None, K=None, sp=None, flip=False):
+    """The log-depth kernel ``viterbi_assoc`` (its sparse instantiation
+    with ``sp``) against its plain version at one of the main path's
+    shapes (the packed [4, B, T] input ``xin``; kernels 1-3 give its
+    inputs, held on the same input by ``kernel_phases``): packed output bit
+    for bit, aux rtol 1e-4.  Prints how many traces the scan kernel decodes
+    otherwise on the same input (the reference expects 0, near ties
+    aside).  ``timed``: the kernel, the scan kernel and the plain version
+    timed beside the bound.  ``flip`` (a ``gap_flip`` input): the sparse
+    breaks must differ from the dense instantiation's."""
+    import torch
+
+    from reporter_tpu_torch.ops import viterbi as V
+
+    B, T = xin.shape[1], xin.shape[2]
+    K = K or matcher.cfg.beam_k
+    p = p or matcher._params
+    tag = "" if sp is None else "[sparse]"
+    pre = V.precompute_batch_packed(matcher._dg, matcher._du, xin, p, K, sp)
+    _x, _y, t, v = V.unpack_inputs(xin)
+    args = (pre.emis, pre.logp, pre.gc, v, pre.cand.edge, pre.cand.offset,
+            p.breakage_distance, t, sp)
+    ka = V.viterbi_scan(*args, kernel="assoc")
+    pa = V.viterbi_scan_plain(*args, kernel="assoc")
+    check(torch.equal(ka[0], pa[0]), "viterbi_assoc%s packed %dx%d" % (tag, B, T))
+    check(torch.allclose(ka[1], pa[1], rtol=1e-4, atol=0), "viterbi_assoc%s aux" % tag)
+    ks = V.viterbi_scan(*args)
+    differ = int((ka[0] != ks[0]).any(0).any(1).sum())
+    P, N = B * T, B * (T - 1) * K * K
+    # bytes as kernel 4's at this shape; operations those the log-depth
+    # forward does
+    b, by = bound(4 * P * K + 4 * N + 4 * B * (T - 1) + 4 * P + 12 * P + 12 * P + 16 * B
+                  + (0 if sp is None else 4 * P), B * _assoc_ops(T, K))
+    row = dict(name="viterbi_assoc" + tag, route="cuda",
+               source="reporter_tpu_torch/csrc/viterbi_assoc.cu",
+               replaces="reporter_tpu/ops/viterbi.py:674", shape="%dx%d K=%d" % (B, T, K),
+               max_abs_err=max_abs_err([(ka[0], pa[0])]),
+               aux_max_abs_err=max_abs_err([(ka[1], pa[1])]), bound_ms=b, bound_by=by,
+               traces_differing_from_scan=differ)
+    if flip:
+        kd = V.viterbi_scan(*args[:-1], None, kernel="assoc")
+        row["breaks_flipped"] = int((kd[0][2] != ka[0][2]).sum())
+        check(row["breaks_flipped"] > 0, "viterbi_assoc%s: the per-step gap-conditioned "
+              "breakage changed breaks against the dense threshold" % tag)
+    if timed and matcher.device.type == "cuda":
+        row["ms"] = time_ms(lambda: V.viterbi_scan(*args, kernel="assoc"))
+        row["scan_ms"] = time_ms(lambda: V.viterbi_scan(*args))
+        row["plain_ms"] = time_ms(lambda: V.viterbi_scan_plain(*args, kernel="assoc"),
+                                  queued=False)
+    print("kernel %-27s %-16s max_abs_err=%-9.3g kernel_ms=%s viterbi_scan_ms=%s plain_ms=%s "
+          "bound_ms=%.4f (%s)%s; %d traces decode otherwise under the scan; within "
+          "tolerance: packed exact, aux rtol 1e-4"
+          % (row["name"], row["shape"], row["max_abs_err"],
+             *("%.4f" % row[k] if k in row else "-" for k in ("ms", "scan_ms", "plain_ms")),
+             b, by, ", %d breaks flipped" % row["breaks_flipped"] if flip else "", differ))
+    return row
+
+
+def crossover(matcher, traces64, traces256):
+    """The H100's scan-versus-assoc crossover: ``viterbi_scan`` and
+    ``viterbi_assoc`` timed on the same inputs at T = 16 (the 512 x 64
+    cohort cut to 16 points), 64 (512 x 64) and 256 (128 x 256), at K = 8
+    and 16 (dense precompute at that K), each held equal first."""
+    import torch
+
+    from reporter_tpu_torch.ops import viterbi as V
+
+    xins = {16: bucket_rows(matcher, [dict(t, trace=t["trace"][:16]) for t in traces64], 16),
+            64: bucket_rows(matcher, traces64, 64), 256: bucket_rows(matcher, traces256, 256)}
+    p = matcher._params
+    out = []
+    for K in (8, 16):
+        for T, xin in xins.items():
+            pre = V.precompute_batch_packed(matcher._dg, matcher._du, xin, p, K)
+            _x, _y, _t, v = V.unpack_inputs(xin)
+            args = (pre.emis, pre.logp, pre.gc, v, pre.cand.edge, pre.cand.offset,
+                    p.breakage_distance)
+            a = V.viterbi_scan(*args, kernel="assoc")
+            check(torch.equal(a[0], V.viterbi_scan_plain(*args, kernel="assoc")[0]),
+                  "viterbi_assoc at %dx%d K=%d" % (xin.shape[1], T, K))
+            r = {"B": xin.shape[1], "T": T, "K": K}
+            out.append(r)
+            if matcher.device.type != "cuda":
+                continue
+            r["scan_ms"] = time_ms(lambda: V.viterbi_scan(*args))
+            r["assoc_ms"] = time_ms(lambda: V.viterbi_scan(*args, kernel="assoc"))
+            print("crossover %dx%d K=%d: viterbi_scan %.4f ms, viterbi_assoc %.4f ms (%.2fx)"
+                  % (r["B"], T, K, r["scan_ms"], r["assoc_ms"], r["assoc_ms"] / r["scan_ms"]))
+    return out
+
+
+def _differing(a, b):
+    """How many rows of two (edge, offset, breaks) results differ."""
+    import numpy as np
+
+    return int(sum(not (np.array_equal(x[0], y[0]) and x[1].tobytes() == y[1].tobytes()
+                        and np.array_equal(x[2], y[2]))
+                   for x, y in zip(zip(*a), zip(*b))))
+
+
+def assoc_paths(matcher, sm, traces64, traces256, traces2048, tr_a, tr_l, xins, xin_a):
+    """Every path through a matcher with ``viterbi_kernel="assoc"``, each
+    through the launch counters (the assoc kernels launch, the scan and
+    chain kernels do not) and held against the plain composition of the
+    assoc forward: bucketed (512 x 64, 128 x 256), long (64 x 2,048),
+    sessions (128 sessions x 4 steps of 4, slab == host carries == the
+    4-point-window long path), sparse A and L.  Then one ``"auto"``
+    matcher: 512 x 64 takes the scan kernel, 128 x 256 and the long
+    windows the assoc kernels.  Counts the traces each path decodes
+    otherwise than the scan matcher."""
+    from dataclasses import replace
+
+    from reporter_tpu_torch.matching import SegmentMatcher
+
+    def with_kernel(m, kernel):
+        return SegmentMatcher(arrays=m.arrays, ubodt=m.ubodt, device=m.device,
+                              config=replace(m.cfg, viterbi_kernel=kernel))
+
+    am = with_kernel(matcher, "assoc")
+    out = {"launches": {}, "differing": {}}
+    out["launches"]["bucketed"], out["bucketed"] = main_path(am, [traces64, traces256], xins)
+    out["launches"]["long"], out["long"] = long_path(am, traces2048)
+    short = [dict(t, trace=t["trace"][:16]) for t in traces64[:128]]
+    _am, out["launches"]["session"], out["session"] = session_path(am, short)
+    sam = sparse_matcher(am)
+    out["launches"]["sparse_bucketed"], out["sparse"] = sparse_main_path(
+        sam, [tr_a], [xin_a], "assoc")
+    out["launches"]["sparse_long"], out["sparse_long"] = long_path(sam, tr_l, "ge60")
+
+    for name, (m0, m1, trs, slabel) in {
+            "512x64": (matcher, am, traces64, ""), "128x256": (matcher, am, traces256, ""),
+            "long": (matcher, am, traces2048, ""), "sparse A": (sm, sam, tr_a, "45-60"),
+            "sparse L": (sm, sam, tr_l, "ge60")}.items():
+        got = []
+        for m in (m0, m1):
+            if len(trs[0]["trace"]) > m.max_trace_points:
+                (h,) = m._dispatch_long(trs, list(range(len(trs))), (), slabel)
+                got.append(m._fetch_long_aux(h)[1])
+            else:
+                T = m._bucket_len(len(trs[0]["trace"]))
+                px, py, tm, valid, _t = m._fill_rows(trs, list(range(len(trs))), T)
+                got.append(m._collect_batch(m._dispatch_batch(px, py, tm, valid, (),
+                                                              slabel))[0])
+        out["differing"][name] = _differing(*got)
+    print("assoc vs scan matcher: traces decoded otherwise %s (the reference expects 0, "
+          "near ties aside)" % json.dumps(out["differing"]))
+
+    auto = SegmentMatcher(arrays=matcher.arrays, ubodt=matcher.ubodt, device=matcher.device,
+                          config=replace(matcher.cfg, viterbi_kernel="auto"))
+    check(auto._kernel_for(64) == "scan" and auto._kernel_for(256) == "assoc",
+          "auto: the threshold at 256")
+    auto.match_many(traces64[:4])
+    runs = {}
+    for what, trs, path, other in (
+            ("512x64", traces64, BUCKETED, ("viterbi_assoc",)),
+            ("128x256", traces256, BUCKETED[:-1] + ("viterbi_assoc",), ("viterbi_scan",)),
+            ("long", traces2048, CARRIED[:-1] + ("viterbi_chain_assoc",), ("viterbi_chain",))):
+        _r, _dt, runs[what] = _counted(path, lambda: auto.match_many(trs), other)
+    out["launches"]["auto"] = runs
+    print("auto: 512x64 launched viterbi_scan %d, viterbi_assoc %d; 128x256 viterbi_assoc %d, "
+          "viterbi_scan %d; long viterbi_chain_assoc %d, viterbi_chain %d"
+          % (runs["512x64"]["viterbi_scan"], runs["512x64"]["viterbi_assoc"],
+             runs["128x256"]["viterbi_assoc"], runs["128x256"]["viterbi_scan"],
+             runs["long"]["viterbi_chain_assoc"], runs["long"]["viterbi_chain"]))
+    return out
+
+
+def assoc_serve_phase(matcher, traces, device):
+    """Serve under $REPORTER_VITERBI=assoc: 8 /report of the 512 x 64 cohort
+    through the launch counters on the serving defaults (the assoc kernel,
+    not the scan), each answer's segments equal to the assoc matcher's
+    match(), then the 6 recorded fixtures replayed equal."""
+    from reporter_tpu_torch.matching import MatcherConfig, SegmentMatcher
+    from reporter_tpu_torch.serve.__main__ import serving_defaults
+
+    saved = os.environ.get("REPORTER_VITERBI")
+    os.environ["REPORTER_VITERBI"] = "assoc"
+    try:
+        sv = SegmentMatcher(arrays=matcher.arrays, ubodt=matcher.ubodt,
+                            config=serving_defaults(MatcherConfig()), device=device)
+        check(sv._kernel_mode == "assoc", "serve under REPORTER_VITERBI=assoc")
+        requests = traces[:8]
+        (answers,), dt, launches = _counted(
+            BUCKETED[:-1] + ("viterbi_assoc",), lambda: _serve(sv, 15, requests),
+            ("viterbi_scan",))
+        want = sv.match_many(requests)
+        for (code, body), w in zip(answers, want):
+            check(code == 200 and body["segment_matcher"]["segments"]
+                  == json.loads(json.dumps(w["segments"])), "assoc /report equals match()")
+        print("serve assoc: 8 /report answered 200 in %.2f s, equal to match(), launches %s"
+              % (dt, json.dumps(launches)))
+        replay_fixtures(device, "REPORTER_VITERBI=assoc")
+    finally:
+        if saved is None:
+            os.environ.pop("REPORTER_VITERBI", None)
+        else:
+            os.environ["REPORTER_VITERBI"] = saved
+    return launches
+
+
 def main():
     import torch
 
@@ -1693,10 +1968,11 @@ def main():
                             sess_pk=(pa_, matcher.cfg.beam_k))
     # the same shapes on inputs where the gap-conditioned breakage decides
     # (gap_flip): kernels 1-4 on A and B, kernel 5 on L's window and the slab
-    flip_rows = []
+    flip_rows, flips = [], []
     for seed, (x_s, p_s, sp_s, k_s) in enumerate(((xin_a, pa_, spa, ka),
                                                   (xin_b, pb_, spb, kb)), 21):
         (x_f,), p_f, sp_f = gap_flip([x_s], p_s, sp_s, seed)
+        flips.append((x_f, p_f, k_s, sp_f))
         flip_rows.append(kernel_phases(sm, x_f, False, p_f, k_s, sp_f, flip=True))
     chain_flip = chain_phases(sm, tr_l, tr_a, timed=False, sp=spb, long_pk=(pb_, kb),
                               sess_pk=(pa_, matcher.cfg.beam_k), flip=31)
@@ -1742,6 +2018,26 @@ def main():
     mem_serve_launches = memory_serve_phase(matcher.arrays, ubodt_w, tr_a, sp_answers,
                                             fixtures, device)
 
+    # the log-depth (assoc) forward: its four kernels against their plain
+    # versions at every shape class above (the sparse ones also where the
+    # gap-conditioned breakage decides), the crossover against the scan
+    # kernel, every path through an assoc matcher and an auto one, serve
+    # under REPORTER_VITERBI=assoc
+    as_rows = [assoc_phases(matcher, xin64, True), assoc_phases(matcher, xin256, False),
+               assoc_phases(matcher, session_rows(matcher, traces64[:-16], 4), False)]
+    as_sp = [assoc_phases(sm, xin_a, True, pa_, ka, spa),
+             assoc_phases(sm, xin_b, False, pb_, kb, spb)]
+    as_sp += [assoc_phases(sm, x_f, False, p_f, k_f, sp_f, flip=True)
+              for x_f, p_f, k_f, sp_f in flips]
+    chain_as = chain_phases(matcher, traces2048, traces64, timed=True, kernel="assoc")
+    sp_kw = dict(sp=spb, long_pk=(pb_, kb), sess_pk=(pa_, matcher.cfg.beam_k), kernel="assoc")
+    chain_as_sp = chain_phases(sm, tr_l, tr_a, timed=True, **sp_kw)
+    chain_as_flip = chain_phases(sm, tr_l, tr_a, timed=False, flip=31, **sp_kw)
+    cross = crossover(matcher, traces64, traces256)
+    assoc = assoc_paths(matcher, sm, traces64, traces256, traces2048, tr_a, tr_l,
+                        [xin64, xin256], xin_a)
+    assoc["serve_launches"] = assoc_serve_phase(matcher, traces64, device)
+
     # launches over the counted runs of every path but serve's; kernels
     # 1-4's times and bounds at 512 x 64, max_abs_err over both bucketed
     # shapes, the session step's and the sparse cohorts A and B (K = 16),
@@ -1750,7 +2046,8 @@ def main():
     # cohort L's 16 x 256 (5)
     runs = [launches, long_launches, sess_launches, sp_launches, cal_launches,
             sp_long_launches, *sp_sess_launches.values(), mem_launches, mem_long_launches,
-            mem_sp_launches]
+            mem_sp_launches, *(v for k, v in assoc["launches"].items() if k != "auto"),
+            *assoc["launches"]["auto"].values()]
     total = {k: sum(r[k] for r in runs) for k in launches}
     kernels = [{
         "name": r["name"], "route": r["route"], "source": r["source"],
@@ -1796,6 +2093,28 @@ def main():
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
         for r in mem_rows + [stats_row])
+    # the assoc kernels: times and bounds at 512 x 64 (viterbi_assoc), A's
+    # 512 x 16 at K = 16 ([sparse]), the long window 64 x 256 and L's
+    # 16 x 256 at K = 16 (the chain's); errors over every shape
+    cas = {"": chain_as, "[sparse]": {**chain_as_sp, **{
+        "flip_" + k: v for k, v in chain_as_flip.items()}}}
+    for tag, rs in (("", as_rows), ("[sparse]", as_sp)):
+        kernels.append({
+            "name": "viterbi_assoc" + tag, "route": "cuda", "source": rs[0]["source"],
+            "replaces": rs[0]["replaces"], "launches": total["viterbi_assoc" + tag],
+            "max_abs_err": max(r["max_abs_err"] for r in rs), "ms": rs[0]["ms"],
+            "plain_ms": rs[0]["plain_ms"], "bound_ms": rs[0]["bound_ms"],
+            "bound_by": rs[0]["bound_by"], "library_ms": None})
+    for tag, c in cas.items():
+        kernels.append({
+            "name": "viterbi_chain_assoc" + tag, "route": "cuda",
+            "source": "reporter_tpu_torch/csrc/viterbi_assoc.cu",
+            "replaces": "reporter_tpu/ops/viterbi.py:674",
+            "launches": total["viterbi_chain_assoc" + tag],
+            "max_abs_err": max(r["max_abs_err"] for r in c.values()), "ms": c["long"]["ms"],
+            "plain_ms": c["long"]["plain_ms"], "bound_ms": c["long"]["bound_ms"],
+            "bound_by": c["long"]["bound_by"], "library_ms": None})
+    strip = lambda d: {k: v for k, v in d.items() if k not in ("fn", "plain")}  # noqa: E731
     report = {
         "card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
         "build_s": build_s, "city": city, "main_path": rates, "breakdown": split,
@@ -1832,6 +2151,10 @@ def main():
                    "kernels": {r["name"]: {k: v for k, v in r.items()
                                            if k not in ("fn", "plain", "library")}
                                for r in mem_rows}},
+        "assoc": {"kernels": [strip(r) for r in as_rows + as_sp],
+                  "chain": {tag + name: strip(r) for tag, c in cas.items()
+                            for name, r in c.items()},
+                  "crossover": cross, **{k: v for k, v in assoc.items()}},
         "metro_reports": n_reports, "peak_memory_mb": torch.cuda.max_memory_allocated() / 1e6,
         "kernels": kernels,
         "extra": dict({"%s_%d" % (r["name"], T): {k: v for k, v in r.items() if k in (

@@ -1,6 +1,8 @@
 // The per-trace Viterbi shared by kernel 4 (viterbi_scan.cu, a window
 // that starts fresh) and kernel 5 (viterbi_chain.cu, a window that
-// continues a carried beam).
+// continues a carried beam); the log-depth kernels (viterbi_assoc.cu)
+// share its seam (seam_column), per-point aux (point_aux, Aux) and end of
+// trace (finish_trace: seam check, packed output, aux, carry-out).
 //
 // Replaces reporter_tpu/ops/viterbi.py:447 chain_trace (the step function
 // at :466-480; with CARRY the seam transition from the carried beam at
@@ -107,6 +109,178 @@ struct ViterbiArgs {
   int64_t S;                 // slab rows
 };
 
+// The seam: the transition from the carried beam (row ``bb``'s carry, or
+// its slab row) into destination slot j of the window's first point.
+// Called by whole warps: lanes in the group of ``gmask`` share a trace.
+// Returns the first point's score in slot j and sets first_break,
+// committed (the carried chosen slot) and lp_committed (the seam logp
+// from it to slot j).
+template <int K, bool SPARSE>
+__device__ __forceinline__ float seam_column(const ViterbiArgs& a, int64_t bb,
+                                             int j, unsigned gmask,
+                                             bool& first_break, int& committed,
+                                             float& lp_committed) {
+  const int T = a.T;
+  const float* em = a.emis + bb * T * K;
+  const int32_t* ce = a.cand_edge + bb * T * K;
+  const float* co = a.cand_offset + bb * T * K;
+  int64_t row = bb;
+  if (a.slots) {
+    const int64_t sl = a.slots[bb];
+    row = a.use[bb] ? (sl < a.S ? sl : a.S - 1) : -1;
+  }
+  const bool active = row >= 0 && a.in.active[row] != 0;
+  committed = row >= 0 ? a.in.committed[row] : -1;
+  const float cx = row >= 0 ? a.in.x[row] : 0.f;
+  const float cy = row >= 0 ? a.in.y[row] : 0.f;
+  const float ct = row >= 0 ? a.in.t[row] : 0.f;
+  const int64_t p0 = bb * T;
+  const float gc0 = rtt::hypot_like_jax(__fsub_rn(a.px[p0], cx),
+                                        __fsub_rn(a.py[p0], cy));
+  const float dt0 = __fsub_rn(a.times[p0], ct);
+  const int32_t eb = ce[j];
+  const float ob = co[j];
+  const float* erb = a.edge_rows + (int64_t)(eb >= 0 ? eb : 0) * 8;
+  const int32_t from_b = __float_as_int(erb[1]);
+  const int c = committed > 0 ? committed : 0;
+  float best = 0.f;
+  lp_committed = kNegInf;
+  for (int i = 0; i < K; ++i) {
+    const int32_t ea = row >= 0 ? a.in.edge[row * K + i] : -1;
+    const float oa = row >= 0 ? a.in.offset[row * K + i] : 0.f;
+    const float sc = row >= 0 ? a.in.scores[row * K + i] : kNegInf;
+    const float* era = a.edge_rows + (int64_t)(ea >= 0 ? ea : 0) * 8;
+    float sp_dist, sp_time;
+    rtt::probe_serial(a.ubodt, a.bmask, a.wide, __float_as_int(era[0]),
+                      from_b, &sp_dist, &sp_time);
+    const float lp = rtt::transition_logp<SPARSE>(
+        ea, eb, oa, ob, era, erb, sp_dist, sp_time, gc0, dt0, a.tp, a.sa,
+        nullptr);
+    if (i == c) lp_committed = lp;
+    const float tot = __fadd_rn(sc, lp);
+    if (i == 0 || tot > best) best = tot;
+  }
+  const bool connected = best > kNegInf / 2;
+  const bool any = (__ballot_sync(0xffffffffu, connected) & gmask) != 0u;
+  const float brk0 = SPARSE ? rtt::sparse_breakage(a.brk, a.sa, dt0) : a.brk;
+  // breakage: too far apart, nothing connects, or no live carry
+  first_break = gc0 > brk0 || !any || !active;
+  return first_break ? em[j] : __fadd_rn(best, em[j]);
+}
+
+// One point's part of the confidence aux and its local argmax, from its
+// K scores: the winner-vs-runner-up margin when two slots are alive at a
+// valid point, and pool exhaustion (the last slot filled).
+struct PointAux {
+  int local;    // argmax of the scores (the first maximum), -1 all dead
+  bool two;     // two slots alive at a valid point
+  float marg;   // top1 - top2 when ``two``
+  bool exh;     // valid point whose K-th candidate exists
+};
+
+template <int K>
+__device__ __forceinline__ PointAux point_aux(const float (&s)[K], bool vt,
+                                              bool last_slot_filled) {
+  float top1 = s[0];
+  int am = 0;
+#pragma unroll
+  for (int i = 1; i < K; ++i)
+    if (s[i] > top1) { top1 = s[i]; am = i; }
+  float top2 = kNegInf;
+#pragma unroll
+  for (int i = 0; i < K; ++i)
+    if (i != am && s[i] > top2) top2 = s[i];
+  PointAux p;
+  p.local = top1 > kNegInf / 2 ? am : -1;
+  p.two = top1 > kNegInf / 2 && top2 > kNegInf / 2 && vt;
+  p.marg = p.two ? __fsub_rn(top1, top2) : 0.f;
+  p.exh = vt && last_slot_filled;
+  return p;
+}
+
+// The [4] aux of a trace, accumulated point by point in t order.
+struct Aux {
+  float amin = INFINITY, asum = 0.f, acnt = 0.f, aexh = 0.f;
+  __device__ __forceinline__ void add(const PointAux& p) {
+    if (p.two) {
+      amin = p.marg < amin ? p.marg : amin;
+      asum = __fadd_rn(asum, p.marg);
+      acnt = __fadd_rn(acnt, 1.f);
+    }
+    if (p.exh) aexh = __fadd_rn(aexh, 1.f);
+  }
+};
+
+// The end of trace b, by the K lanes j of its group once the chosen
+// slots idx[T] and break flags brk_flag[T] are in shared memory (lanes
+// that are not ``live`` pass a real row b and write nothing): with
+// CARRY the seam check (the committed slot must reach the window's first
+// choice, else the seam is a break), then, for a live lane, the packed
+// [3, B, T] output (edge, offset bits, break), the [B, 4] aux (lane 0's
+// ``ax``) and with CARRY the carry-out at the last valid point ``last``:
+// ``score`` is slot j's score at T-1 and s[] all K of them (padded steps
+// froze the scores, so that is the beam there), renormalised by the max.
+template <int K, bool CARRY>
+__device__ __forceinline__ void finish_trace(
+    const ViterbiArgs& a, int64_t b, int j, bool live, const int8_t* idx,
+    int8_t* brk_flag, const Aux& ax, int committed, float lp_committed,
+    int last, float score, const float (&s)[K]) {
+  const int T = a.T;
+  const float* vd = a.valid + b * T;
+  const int32_t* ce = a.cand_edge + b * T * K;
+  const float* co = a.cand_offset + b * T * K;
+  if constexpr (CARRY) {
+    const int i0 = idx[0];
+    if (j == i0 && committed >= 0 && !brk_flag[0] && vd[0] != 0.f &&
+        !(lp_committed > kNegInf / 2))
+      brk_flag[0] = 1;
+    __syncwarp();
+  }
+
+  if (!live) return;
+  const int64_t plane = a.B * (int64_t)T;
+  for (int t = j; t < T; t += K) {
+    const int it = idx[t];
+    const int sel = it > 0 ? it : 0;
+    const int64_t o = b * T + t;
+    a.packed[o] = it >= 0 ? ce[(int64_t)t * K + sel] : -1;
+    a.packed[plane + o] = __float_as_int(co[(int64_t)t * K + sel]);
+    a.packed[2 * plane + o] = brk_flag[t];
+  }
+  if (j == 0) {
+    a.aux[b * 4 + 0] = ax.amin;
+    a.aux[b * 4 + 1] = ax.asum;
+    a.aux[b * 4 + 2] = ax.acnt;
+    a.aux[b * 4 + 3] = ax.aexh;
+  }
+
+  if constexpr (CARRY) {
+    int64_t orow = b;
+    if (a.slots) {
+      const int64_t sl = a.slots[b];
+      orow = sl < a.S ? sl : -1;  // padding rows drop
+    }
+    if (orow < 0) return;
+    const bool any_valid = last >= 0;
+    const int at = any_valid ? last : 0;
+    float smax = s[0];
+#pragma unroll
+    for (int i = 1; i < K; ++i) smax = s[i] > smax ? s[i] : smax;
+    a.out.scores[orow * K + j] =
+        (score > kNegInf / 2 && smax > kNegInf / 2) ? __fsub_rn(score, smax)
+                                                    : kNegInf;
+    a.out.edge[orow * K + j] = ce[(int64_t)at * K + j];
+    a.out.offset[orow * K + j] = co[(int64_t)at * K + j];
+    if (j == 0) {
+      a.out.x[orow] = a.px[b * T + at];
+      a.out.y[orow] = a.py[b * T + at];
+      a.out.t[orow] = a.times[b * T + at];
+      a.out.active[orow] = any_valid ? 1 : 0;
+      a.out.committed[orow] = any_valid ? (int32_t)idx[at] : -1;
+    }
+  }
+}
+
 template <int K, bool CARRY, bool SPARSE>
 __global__ void viterbi_kernel(const ViterbiArgs a) {
   extern __shared__ int8_t smem[];
@@ -130,9 +304,8 @@ __global__ void viterbi_kernel(const ViterbiArgs a) {
   const float* em = a.emis + bb * T * K;
   const float* vd = a.valid + bb * T;
   const int32_t* ce = a.cand_edge + bb * T * K;
-  const float* co = a.cand_offset + bb * T * K;
 
-  float amin = INFINITY, asum = 0.f, acnt = 0.f, aexh = 0.f;
+  Aux ax;
   float s[K];
   float score = em[j];
   bool first_break = true;
@@ -140,75 +313,20 @@ __global__ void viterbi_kernel(const ViterbiArgs a) {
   // CARRY: the carried committed slot, and the seam logp from it to slot j
   int committed = -1;
   float lp_committed = kNegInf;
-
-  if constexpr (CARRY) {
-    int64_t row = bb;
-    if (a.slots) {
-      const int64_t sl = a.slots[bb];
-      row = a.use[bb] ? (sl < a.S ? sl : a.S - 1) : -1;
-    }
-    const bool active = row >= 0 && a.in.active[row] != 0;
-    committed = row >= 0 ? a.in.committed[row] : -1;
-    const float cx = row >= 0 ? a.in.x[row] : 0.f;
-    const float cy = row >= 0 ? a.in.y[row] : 0.f;
-    const float ct = row >= 0 ? a.in.t[row] : 0.f;
-    const int64_t p0 = bb * T;
-    const float gc0 = rtt::hypot_like_jax(__fsub_rn(a.px[p0], cx),
-                                          __fsub_rn(a.py[p0], cy));
-    const float dt0 = __fsub_rn(a.times[p0], ct);
-    const int32_t eb = ce[j];
-    const float ob = co[j];
-    const float* erb = a.edge_rows + (int64_t)(eb >= 0 ? eb : 0) * 8;
-    const int32_t from_b = __float_as_int(erb[1]);
-    const int c = committed > 0 ? committed : 0;
-    float best = 0.f;
-    for (int i = 0; i < K; ++i) {
-      const int32_t ea = row >= 0 ? a.in.edge[row * K + i] : -1;
-      const float oa = row >= 0 ? a.in.offset[row * K + i] : 0.f;
-      const float sc = row >= 0 ? a.in.scores[row * K + i] : kNegInf;
-      const float* era = a.edge_rows + (int64_t)(ea >= 0 ? ea : 0) * 8;
-      float sp_dist, sp_time;
-      rtt::probe_serial(a.ubodt, a.bmask, a.wide, __float_as_int(era[0]),
-                        from_b, &sp_dist, &sp_time);
-      const float lp = rtt::transition_logp<SPARSE>(
-          ea, eb, oa, ob, era, erb, sp_dist, sp_time, gc0, dt0, a.tp, a.sa,
-          nullptr);
-      if (i == c) lp_committed = lp;
-      const float tot = __fadd_rn(sc, lp);
-      if (i == 0 || tot > best) best = tot;
-    }
-    const bool connected = best > kNegInf / 2;
-    const bool any = (__ballot_sync(0xffffffffu, connected) & gmask) != 0u;
-    const float brk0 = SPARSE ? rtt::sparse_breakage(a.brk, a.sa, dt0) : a.brk;
-    // breakage: too far apart, nothing connects, or no live carry
-    first_break = gc0 > brk0 || !any || !active;
-    score = first_break ? em[j] : __fadd_rn(best, em[j]);
-  }
+  if constexpr (CARRY)
+    score = seam_column<K, SPARSE>(a, bb, j, gmask, first_break, committed,
+                                   lp_committed);
 
   // the scores of step t gathered into s[], its local argmax recorded and
   // the confidence aux of the point accumulated
   auto record = [&](int t) {
 #pragma unroll
     for (int i = 0; i < K; ++i) s[i] = __shfl_sync(0xffffffffu, score, i, K);
-    float top1 = s[0];
-    int am = 0;
-#pragma unroll
-    for (int i = 1; i < K; ++i)
-      if (s[i] > top1) { top1 = s[i]; am = i; }
-    float top2 = kNegInf;
-#pragma unroll
-    for (int i = 0; i < K; ++i)
-      if (i != am && s[i] > top2) top2 = s[i];
     const bool vt = vd[t] != 0.f;
     if (vt) last = t;
-    if (j == 0) loc[t] = (int8_t)(top1 > kNegInf / 2 ? am : -1);
-    if (top1 > kNegInf / 2 && top2 > kNegInf / 2 && vt) {
-      const float marg = __fsub_rn(top1, top2);
-      amin = marg < amin ? marg : amin;
-      asum = __fadd_rn(asum, marg);
-      acnt = __fadd_rn(acnt, 1.f);
-    }
-    if (vt && ce[(int64_t)t * K + K - 1] >= 0) aexh = __fadd_rn(aexh, 1.f);
+    const PointAux p = point_aux<K>(s, vt, ce[(int64_t)t * K + K - 1] >= 0);
+    if (j == 0) loc[t] = (int8_t)p.local;
+    ax.add(p);
   };
 
   bp[j] = -1;
@@ -259,60 +377,8 @@ __global__ void viterbi_kernel(const ViterbiArgs a) {
   }
   __syncwarp();
 
-  if constexpr (CARRY) {
-    // seam check: the committed slot must reach the window's first
-    // choice, else the seam is a break
-    const int i0 = idx[0];
-    if (j == i0 && committed >= 0 && !brk_flag[0] && vd[0] != 0.f &&
-        !(lp_committed > kNegInf / 2))
-      brk_flag[0] = 1;
-    __syncwarp();
-  }
-
-  if (!live) return;
-  const int64_t plane = a.B * (int64_t)T;
-  for (int t = j; t < T; t += K) {
-    const int it = idx[t];
-    const int sel = it > 0 ? it : 0;
-    const int64_t o = b * T + t;
-    a.packed[o] = it >= 0 ? ce[(int64_t)t * K + sel] : -1;
-    a.packed[plane + o] = __float_as_int(co[(int64_t)t * K + sel]);
-    a.packed[2 * plane + o] = brk_flag[t];
-  }
-  if (j == 0) {
-    a.aux[b * 4 + 0] = amin;
-    a.aux[b * 4 + 1] = asum;
-    a.aux[b * 4 + 2] = acnt;
-    a.aux[b * 4 + 3] = aexh;
-  }
-
-  if constexpr (CARRY) {
-    // carry-out at the last valid point; padded steps froze the scores,
-    // so s[] (step T-1) is the beam there
-    int64_t orow = b;
-    if (a.slots) {
-      const int64_t sl = a.slots[b];
-      orow = sl < a.S ? sl : -1;  // padding rows drop
-    }
-    if (orow < 0) return;
-    const bool any_valid = last >= 0;
-    const int at = any_valid ? last : 0;
-    float smax = s[0];
-#pragma unroll
-    for (int i = 1; i < K; ++i) smax = s[i] > smax ? s[i] : smax;
-    a.out.scores[orow * K + j] =
-        (score > kNegInf / 2 && smax > kNegInf / 2) ? __fsub_rn(score, smax)
-                                                    : kNegInf;
-    a.out.edge[orow * K + j] = ce[(int64_t)at * K + j];
-    a.out.offset[orow * K + j] = co[(int64_t)at * K + j];
-    if (j == 0) {
-      a.out.x[orow] = a.px[b * T + at];
-      a.out.y[orow] = a.py[b * T + at];
-      a.out.t[orow] = a.times[b * T + at];
-      a.out.active[orow] = any_valid ? 1 : 0;
-      a.out.committed[orow] = any_valid ? (int32_t)idx[at] : -1;
-    }
-  }
+  finish_trace<K, CARRY>(a, bb, j, live, idx, brk_flag, ax, committed,
+                         lp_committed, last, score, s);
 }
 
 template <int K, bool CARRY, bool SPARSE>
@@ -353,4 +419,94 @@ int launch_k(int K, const ViterbiArgs& a, cudaStream_t s) {
   }
 }
 
+// The C entry points' arguments: kernel 4's, and kernel 5's (the carry
+// in and out, the slab rows, the seam's table and parameters) in the
+// order CHAIN_PARAMS lists them.
+inline ViterbiArgs scan_args(const float* emis, const float* logp,
+                             const float* gc, const float* valid,
+                             const int32_t* cand_edge,
+                             const float* cand_offset, int64_t B, int32_t T,
+                             float brk, int32_t* packed, float* aux) {
+  ViterbiArgs a = {};
+  a.emis = emis;
+  a.logp = logp;
+  a.gc = gc;
+  a.valid = valid;
+  a.cand_edge = cand_edge;
+  a.cand_offset = cand_offset;
+  a.B = B;
+  a.T = T;
+  a.brk = brk;
+  a.packed = packed;
+  a.aux = aux;
+  return a;
+}
+
+inline ViterbiArgs chain_args(
+    const float* emis, const float* logp, const float* gc, const float* valid,
+    const int32_t* cand_edge, const float* cand_offset, const float* px,
+    const float* py, const float* times, const float* edge_rows,
+    const int32_t* ubodt, int32_t bmask, int32_t wide, int64_t B, int32_t T,
+    float brk,
+    float sigma, float beta, float radius, float max_route_factor,
+    float max_time_factor, float turn_factor, const float* in_scores,
+    const int32_t* in_edge, const float* in_offset, const float* in_x,
+    const float* in_y, const float* in_t, const uint8_t* in_active,
+    const int32_t* in_committed, float* out_scores, int32_t* out_edge,
+    float* out_offset, float* out_x, float* out_y, float* out_t,
+    uint8_t* out_active, int32_t* out_committed, const int32_t* slots,
+    const uint8_t* use, int64_t S, int32_t* packed, float* aux) {
+  ViterbiArgs a = {};
+  a.emis = emis;
+  a.logp = logp;
+  a.gc = gc;
+  a.valid = valid;
+  a.cand_edge = cand_edge;
+  a.cand_offset = cand_offset;
+  a.B = B;
+  a.T = T;
+  a.brk = brk;
+  a.packed = packed;
+  a.aux = aux;
+  a.px = px;
+  a.py = py;
+  a.times = times;
+  a.edge_rows = edge_rows;
+  a.ubodt = reinterpret_cast<const int4*>(ubodt);
+  a.bmask = (uint32_t)bmask;
+  a.wide = wide != 0;
+  a.tp = {sigma, beta, radius, max_route_factor, max_time_factor,
+          turn_factor};
+  a.in = {in_scores, in_edge, in_offset, in_x, in_y, in_t, in_active,
+          in_committed};
+  a.out = {out_scores, out_edge, out_offset, out_x, out_y, out_t, out_active,
+           out_committed};
+  a.slots = slots;
+  a.use = use;
+  a.S = S;
+  return a;
+}
+
 }  // namespace
+
+#define CHAIN_PARAMS                                                         \
+    const float *emis, const float *logp, const float *gc,                   \
+    const float *valid, const int32_t *cand_edge, const float *cand_offset,  \
+    const float *px, const float *py, const float *times,                    \
+    const float *edge_rows, const int32_t *ubodt, int32_t bmask,             \
+    int32_t wide, int64_t B, int32_t T, int32_t K, float brk, float sigma,   \
+    float beta, float radius,                                                \
+    float max_route_factor, float max_time_factor, float turn_factor,        \
+    const float *in_scores, const int32_t *in_edge, const float *in_offset,  \
+    const float *in_x, const float *in_y, const float *in_t,                 \
+    const uint8_t *in_active, const int32_t *in_committed,                   \
+    float *out_scores, int32_t *out_edge, float *out_offset, float *out_x,   \
+    float *out_y, float *out_t, uint8_t *out_active, int32_t *out_committed, \
+    const int32_t *slots, const uint8_t *use, int64_t S, int32_t *packed,    \
+    float *aux
+#define CHAIN_ARGS                                                           \
+    emis, logp, gc, valid, cand_edge, cand_offset, px, py, times, edge_rows, \
+    ubodt, bmask, wide, B, T, brk, sigma, beta, radius, max_route_factor,    \
+    max_time_factor, turn_factor, in_scores, in_edge, in_offset, in_x, in_y, \
+    in_t, in_active, in_committed, out_scores, out_edge, out_offset, out_x,  \
+    out_y, out_t, out_active, out_committed, slots, use, S, packed, aux

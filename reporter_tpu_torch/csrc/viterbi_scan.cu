@@ -7,29 +7,6 @@
 
 #include "viterbi_core.cuh"
 
-namespace {
-
-ViterbiArgs scan_args(const float* emis, const float* logp, const float* gc,
-                      const float* valid, const int32_t* cand_edge,
-                      const float* cand_offset, int64_t B, int32_t T,
-                      float brk, int32_t* packed, float* aux) {
-  ViterbiArgs a = {};
-  a.emis = emis;
-  a.logp = logp;
-  a.gc = gc;
-  a.valid = valid;
-  a.cand_edge = cand_edge;
-  a.cand_offset = cand_offset;
-  a.B = B;
-  a.T = T;
-  a.brk = brk;
-  a.packed = packed;
-  a.aux = aux;
-  return a;
-}
-
-}  // namespace
-
 extern "C" int viterbi_scan_launch(const float* emis, const float* logp,
                                    const float* gc, const float* valid,
                                    const int32_t* cand_edge,

@@ -10,10 +10,13 @@ entry point turns the model on, ``$REPORTER_SPARSE`` and
 ``$REPORTER_CALIBRATION`` act at matcher construction, see
 ``matching/sparse.py``) and the UBODT memory system's two options (the
 table layout and in-batch probe dedup; ``$REPORTER_UBODT_LAYOUT`` and
-``$REPORTER_PROBE_DEDUP`` override them at matcher construction).  Keys
-of the reference's config that belong to paths this port does not carry
-yet (route-consistent interpolation, the session arena's budget and cold
-tier, tiering, meshes) are ignored by ``from_dict``.
+``$REPORTER_PROBE_DEDUP`` override them at matcher construction) and the
+Viterbi forward (``viterbi_kernel`` scan | assoc | auto with
+``viterbi_assoc_threshold``; ``$REPORTER_VITERBI`` overrides it at
+matcher construction).  Keys of the reference's config that belong to
+paths this port does not carry yet (route-consistent interpolation, the
+session arena's budget and cold tier, tiering, meshes) are ignored by
+``from_dict``.
 """
 
 from __future__ import annotations
@@ -43,6 +46,12 @@ class MatcherConfig:
     # distinct pair of a whole dispatch probed once; same answers)
     ubodt_layout: str = "cuckoo"
     probe_dedup: bool = False
+    # Viterbi forward: "scan" (the sequential recursion, least work),
+    # "assoc" (the log-depth associative max-plus scan) or "auto" (assoc
+    # for padded window lengths >= viterbi_assoc_threshold); the same
+    # answers up to float ties
+    viterbi_kernel: str = "scan"
+    viterbi_assoc_threshold: int = 256
     # per-trace confidence diagnostics: match results carry a "_quality"
     # block (per-point edges, winner-vs-runner-up margins, pool
     # exhaustion) that the service pops before rendering; the serve

@@ -34,6 +34,13 @@ layout, cuckoo or wide32, and with dedup every bucketed and long ``pre``
 dispatch, dense and sparse, probes each distinct (src, dst) pair once
 (ops/hashtable.py); session steps and the chain's seam probes never
 dedup.  Answers are the same under every setting.
+
+The Viterbi forward (``viterbi_kernel``, overridden by
+``$REPORTER_VITERBI`` at construction): "scan", "assoc" (the log-depth
+kernels) or "auto", which picks per padded window length against
+``viterbi_assoc_threshold`` (``_kernel_for``), at every dispatch: the
+bucketed batches, each long window, every session step.  Kernels 1-3 are
+the same under either forward.
 ``$REPORTER_OBS_PROBE_EVERY`` = N samples the probe-outcome diagnostic
 (ops/diagnostics.py) on every Nth dense bucketed dispatch: dispatched on
 the dispatching thread, harvested at collect into ``probe_stats``.
@@ -111,6 +118,12 @@ class SegmentMatcher:
                 % (arrays.cell_size, 2.0 * self.cfg.search_radius))
         self.arrays = arrays
         self.ubodt_layout, self.probe_dedup = self._memory_options()
+        self._kernel_mode = (os.environ.get("REPORTER_VITERBI", "").strip().lower()
+                             or self.cfg.viterbi_kernel or "scan")
+        if self._kernel_mode not in ("scan", "assoc", "auto"):
+            raise ValueError("REPORTER_VITERBI/viterbi_kernel must be "
+                             "scan|assoc|auto, got %r" % (self._kernel_mode,))
+        self._assoc_threshold = int(self.cfg.viterbi_assoc_threshold)
         if ubodt is None:
             ubodt = build_ubodt(arrays, delta=self.cfg.ubodt_delta,
                                 layout=self.ubodt_layout)
@@ -156,6 +169,13 @@ class SegmentMatcher:
         dedup = (env not in ("0", "false", "off", "no") if env
                  else bool(self.cfg.probe_dedup))
         return layout, dedup
+
+    def _kernel_for(self, T: int) -> str:
+        """The Viterbi forward for padded window length T: the configured
+        one, or under "auto" the assoc forward at or above the threshold."""
+        if self._kernel_mode != "auto":
+            return self._kernel_mode
+        return "assoc" if T >= self._assoc_threshold else "scan"
 
     # -- per-request match parameters (reference wire contract) -----------
 
@@ -300,7 +320,8 @@ class SegmentMatcher:
         p, sp, k = (self.sparse.params_for(slabel, pkey) if slabel
                     else (self._params_for(pkey), None, self.cfg.beam_k))
         out = match_batch_compact_packed_aux(self._dg, self._du, xin, p, k,
-                                             sp, self.probe_dedup)
+                                             sp, self.probe_dedup,
+                                             self._kernel_for(px.shape[1]))
         if self._probe_every and not slabel:
             self._dispatch_count += 1
             if self._dispatch_count % self._probe_every == 0:
@@ -500,7 +521,7 @@ class SegmentMatcher:
                 win = (self._dg, self._du, slice_pre(pre, lo, hi),
                        seg[:, lo:hi])
                 packed, aux_c, carry = chain_batch_carry_packed_aux(
-                    *win, p, k, carry, sp)
+                    *win, p, k, carry, sp, self._kernel_for(W))
                 aux = aux_c if aux is None else torch.cat(
                     [torch.minimum(aux[:, :1], aux_c[:, :1]),
                      aux[:, 1:] + aux_c[:, 1:]], 1)
@@ -749,9 +770,10 @@ class SegmentMatcher:
         """One session step program: the host-carry or (with ``slots``)
         the slab variant, dense or (with ``sp``) sparse."""
         a = (self._dg, self._du, xin, p, self.cfg.beam_k, carry)
+        kernel = self._kernel_for(xin.shape[2])
         if slots is None:
-            return session_step_packed(*a, sp)
-        return session_step_arena(*a, slots, use, sp)
+            return session_step_packed(*a, sp, kernel)
+        return session_step_arena(*a, slots, use, sp, kernel)
 
     def _dispatch_session_arena(self, items, sub, ns, xin, p: MatchParams,
                                 sp=None, slabel: str = ""):

@@ -14,7 +14,9 @@ launch; ``reset_launches()`` zeroes them all.  The SPARSE instantiations
 of kernels 3-5 (the sparse-gap model) and the wide32 instantiation of
 kernel 2 are entry points of the same libraries, counted apart under
 ``<name>[sparse]`` and ``ubodt_probe[wide32]``; the dedup claim and
-scatter kernels share one library.
+scatter kernels share one library, and so do the four log-depth (assoc)
+Viterbi kernels, ``viterbi_assoc`` and ``viterbi_chain_assoc`` with their
+``[sparse]`` instantiations.
 """
 
 from __future__ import annotations
@@ -113,6 +115,14 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
            "viterbi_scan", "viterbi_scan_sparse"),
     Kernel("viterbi_chain[sparse]", _CHAIN + _SPARSE,
            "viterbi_chain", "viterbi_chain_sparse"),
+    # the log-depth forward: kernel 4's and 5's arguments + the workspace
+    Kernel("viterbi_assoc", _SCAN + [_P]),
+    Kernel("viterbi_assoc[sparse]", _SCAN + [_P, _P] + _SPARSE,  # + times
+           "viterbi_assoc", "viterbi_assoc_sparse"),
+    Kernel("viterbi_chain_assoc", _CHAIN + [_P], "viterbi_assoc",
+           "viterbi_chain_assoc"),
+    Kernel("viterbi_chain_assoc[sparse]", _CHAIN + [_P] + _SPARSE,
+           "viterbi_assoc", "viterbi_chain_assoc_sparse"),
 )}
 
 _build_lock = threading.Lock()

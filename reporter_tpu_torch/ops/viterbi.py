@@ -1,9 +1,9 @@
 """Batched HMM map matching: emission, transition, Viterbi (kernels 3-5).
 
 The port of ``reporter_tpu/ops/viterbi.py``'s dense and sparse-gap
-programs without the associative scan, a window that starts fresh and a
-window that continues a carried beam.  Shapes,
-per [B, T] padded batch:
+programs, a window that starts fresh and a window that continues a
+carried beam, with either Viterbi forward.  Shapes, per [B, T] padded
+batch:
 
     candidates   [B, T, K]        kernel 1 (ops/candidates.py), emission fused
     UBODT probe  [B, T-1, K, K]   kernel 2 (ops/hashtable.py)
@@ -23,6 +23,15 @@ per [B, T] padded batch:
                                   seam check, the renormalised carry-out),
                                   its carry in [B]-leading tensors or in a
                                   session slab read and written in place
+    assoc        [B, T]           ``viterbi_assoc`` / ``viterbi_chain_assoc``
+                                  (csrc/viterbi_assoc.cu): kernels 4 and 5
+                                  with the log-depth forward, the
+                                  reference's ``_forward_assoc`` (an alive
+                                  recursion for the breaks, a segmented
+                                  tropical associative scan for the scores
+                                  in ``jax.lax.associative_scan``'s pairing,
+                                  backpointers from the prefixes) and
+                                  ``backtrace_assoc``
 
 Discontinuities follow the reference (and Meili): consecutive points
 further apart than ``breakage_distance``, or a step that no feasible route
@@ -42,6 +51,9 @@ whole dispatch's key set (``match_batch_compact_packed_aux``,
 ``precompute_batch[_packed]``) take ``dedup=False``: the in-batch probe
 dedup of ops/hashtable.py, same results.  Session steps and the chain's
 seam probes never dedup; the seam probe reads the table's layout.
+
+Every entry point also takes ``kernel="scan"``: "assoc" runs the log-depth
+forward (the reference's ``kernel="assoc"``; at T < 2 the scan, as there).
 
 Each kernel wrapper launches its CUDA kernel for CUDA tensors and runs its
 plain PyTorch version for CPU tensors.  Every packed entry point composes
@@ -383,6 +395,141 @@ def _backtrace_plain(S, BP, vb):
     return torch.stack(idx, 1)
 
 
+# -- the log-depth (assoc) forward and backtrace (kernels 4 and 5's assoc twins) --
+
+def _cut(e: torch.Tensor, dim: int, start=None, stop=None, step=None):
+    return e[(slice(None),) * dim + (slice(start, stop, step),)]
+
+
+def _assoc_scan_plain(combine, elems, reverse: bool = False, dim: int = 0):
+    """``jax.lax.associative_scan`` written out on tensors, in its pairing
+    order: combine adjacent pairs, recurse on the half-length sequence
+    (the odd prefixes), then form each even prefix from the odd prefix
+    before it, and interleave.  The order matters: each float ``+`` of a
+    combine rounds, so another tree (Hillis-Steele, Blelloch) gives other
+    bits.  ``combine(a, b)`` takes and returns tuples of tensors, ``a``
+    the earlier elements; ``reverse`` scans from the end, as the
+    reference's does."""
+    elems = [e.flip(dim) if reverse else e for e in elems]
+
+    def scan(es):
+        n = es[0].shape[dim]
+        if n < 2:
+            return es
+        odd = scan(list(combine(tuple(_cut(e, dim, 0, -1, 2) for e in es),
+                                tuple(_cut(e, dim, 1, None, 2) for e in es))))
+        prev = odd if n % 2 else [_cut(o, dim, 0, -1) for o in odd]
+        even = combine(tuple(prev), tuple(_cut(e, dim, 2, None, 2) for e in es))
+        out = []
+        for e, ev, od in zip(es, even, odd):
+            r = torch.empty_like(e)
+            _cut(r, dim, 0, 1).copy_(_cut(e, dim, 0, 1))
+            _cut(r, dim, 2, None, 2).copy_(ev)
+            _cut(r, dim, 1, None, 2).copy_(od)
+            out.append(r)
+        return out
+
+    return tuple(e.flip(dim) if reverse else e for e in scan(elems))
+
+
+def _forward_assoc_plain(init, first_break, emis, logp, gc, vb, brk):
+    """The log-depth forward (the reference's ``_forward_assoc``), batched,
+    with ``_forward_plain``'s arguments and results.  Break flags come from
+    a serial alive-support recursion over [K] booleans (exact: liveness is
+    reachability); the scores from a segmented tropical associative scan
+    of the affine maps f_t(s) = flag_t ? c_t : s (x) M_t, M_t = logp_t +
+    emis[t+1] (padded steps the identity), with ``init`` added to the
+    composed prefix last; backpointers recomputed from the prefix scores,
+    first maximum on ties."""
+    B, T, K = emis.shape
+    vt = vb[:, 1:]  # [B, T-1]
+    feasible = logp > NEG_INF / 2
+    ealive = emis[:, 1:] > NEG_INF / 2
+    hard = gc > brk
+    alive = init > NEG_INF / 2
+    broke = []
+    for t in range(T - 1):
+        conn = (alive[:, :, None] & feasible[:, t]).any(1)  # [B, K]
+        b = hard[:, t] | ~conn.any(1)
+        new = torch.where(b[:, None], ealive[:, t], conn & ealive[:, t])
+        alive = torch.where(vt[:, t, None], new, alive)  # padding: freeze
+        broke.append(b)
+    broke = torch.stack(broke, 1)  # [B, T-1]
+
+    eye = torch.full((K, K), NEG_INF, dtype=emis.dtype, device=emis.device)
+    eye.fill_diagonal_(0.0)
+    M = torch.where(vt[:, :, None, None], logp + emis[:, 1:, None, :], eye)
+    flag = broke & vt
+    c = torch.where(flag[..., None], emis[:, 1:], torch.full_like(emis[:, 1:], NEG_INF))
+
+    def combine(a, b):
+        fa, ma, ca = a
+        fb, mb, cb = b
+        mab = (ma[..., :, :, None] + mb[..., None, :, :]).amax(-2)
+        cab = (ca[..., :, None] + mb).amax(-2)
+        return fa | fb, mab, torch.where(fb[..., None], cb, cab)
+
+    flags, ms, cs = _assoc_scan_plain(combine, (flag, M, c), dim=1)
+    prop = (init[:, None, :, None] + ms).amax(2)  # [B, T-1, K]
+    scores = torch.where(flags[..., None], cs, prop)
+
+    prev = torch.cat([init[:, None], scores[:, :-1]], 1)
+    total = prev[..., :, None] + logp  # [B, T-1, K src, K dst]
+    best_src = torch.argmax(total, dim=2)  # first maximum
+    connected = torch.gather(total, 2, best_src[:, :, None])[:, :, 0] > NEG_INF / 2
+    bp = torch.where(broke[..., None] | ~connected, -1, best_src)
+    bp = torch.where(vt[..., None], bp, -2)  # -2 = padded step
+    return (torch.cat([init[:, None], scores], 1),
+            torch.cat([torch.full_like(bp[:, :1], -1), bp], 1),
+            torch.cat([(first_break & vb[:, 0])[:, None], broke & vt], 1))
+
+
+def _backtrace_assoc_plain(S, BP, vb):
+    """``_backtrace_plain``'s result by the reference's ``backtrace_assoc``:
+    each reverse step is a map of the chosen slot at t+1 (slot K encoding
+    -1) to the slot at t, [K+1] indices, composed by gather in a reverse
+    associative scan."""
+    B, T, K = S.shape
+    local = torch.argmax(S[:, :-1], dim=2)  # [B, T-1]
+    top = torch.gather(S[:, :-1], 2, local[..., None])[..., 0]
+    local = torch.where(top > NEG_INF / 2, local, -1)
+    maps = torch.where(vb[:, 1:, None] & (BP[:, 1:] >= 0), BP[:, 1:], local[..., None])
+    maps = torch.cat([maps, local[..., None]], 2)  # [B, T-1, K+1]
+    maps = torch.where(vb[:, :-1, None], maps, -1)
+
+    def compose(a, b):
+        (a,), (b,) = a, b
+        return (torch.gather(b, -1, torch.where(a >= 0, a, K)),)
+
+    (suffix,) = _assoc_scan_plain(compose, (maps,), reverse=True, dim=1)
+    last = torch.argmax(S[:, -1], dim=1)
+    top = torch.gather(S[:, -1], 1, last[:, None])[:, 0]
+    last = torch.where((top > NEG_INF / 2) & vb[:, -1], last, -1)
+    enc = torch.where(last >= 0, last, K)[:, None, None].expand(B, T - 1, 1)
+    return torch.cat([torch.gather(suffix, 2, enc)[..., 0], last[:, None]], 1)
+
+
+KERNEL_CHOICES = ("scan", "assoc")
+
+
+def _use_assoc(kernel: str, T: int) -> bool:
+    """Whether the ``kernel`` forward runs the assoc code at window length
+    T: "assoc" at T >= 2; at T < 2 it is the scan, as in the reference."""
+    if kernel not in KERNEL_CHOICES:
+        raise ValueError("unknown viterbi kernel %r" % (kernel,))
+    return kernel == "assoc" and T >= 2
+
+
+def _decode_plain(kernel, init, first_break, emis, logp, gc, vb, brk):
+    """(scores, backpointers, breaks, chosen slots) of the ``kernel``
+    forward and its backtrace."""
+    if _use_assoc(kernel, emis.shape[1]):
+        S, BP, BR = _forward_assoc_plain(init, first_break, emis, logp, gc, vb, brk)
+        return S, BP, BR, _backtrace_assoc_plain(S, BP, vb)
+    S, BP, BR = _forward_plain(init, first_break, emis, logp, gc, vb, brk)
+    return S, BP, BR, _backtrace_plain(S, BP, vb)
+
+
 def _pack_plain(idx, BR, cand_edge, cand_offset):
     """The packed [3, B, T] i32 output: chosen edge, offset bits, break."""
     sel = idx.clamp(min=0)[..., None]
@@ -420,36 +567,40 @@ def _step_dt(times):
 
 def viterbi_scan_plain(emis, logp, gc, valid, cand_edge, cand_offset,
                        breakage_distance, times=None,
-                       sp: Optional[SparseParams] = None):
+                       sp: Optional[SparseParams] = None, kernel: str = "scan"):
     """Plain PyTorch version of the carry-free scan ``chain_trace`` +
     ``backtrace`` + ``_compact`` + the confidence block + ``pack_compact``.
     emis [B, T, K]; logp [B, T-1, K, K]; gc [B, T-1]; valid [B, T] float
     0/1; cand_edge/cand_offset [B, T, K]; with ``sp`` (the sparse model's
-    gap-conditioned breakage) also times [B, T].  Returns (packed
+    gap-conditioned breakage) also times [B, T].  ``kernel`` picks the
+    forward: "scan" (the sequential recursion) or "assoc" (the log-depth
+    one and its backtrace; the scan at T < 2).  Returns (packed
     [3, B, T] i32, aux [B, 4] f32)."""
     vb = valid != 0
     brk = (_scalar(breakage_distance, emis) if sp is None
            else sparse_breakage(breakage_distance, sp, _step_dt(times)))
-    S, BP, BR = _forward_plain(emis[:, 0], torch.ones_like(vb[:, 0]), emis,
-                               logp, gc, vb, brk)
-    idx = _backtrace_plain(S, BP, vb)
+    S, _BP, BR, idx = _decode_plain(kernel, emis[:, 0], torch.ones_like(vb[:, 0]),
+                                    emis, logp, gc, vb, brk)
     return _pack_plain(idx, BR, cand_edge, cand_offset), _aux_plain(S, vb, cand_edge)
 
 
 def viterbi_scan(emis, logp, gc, valid, cand_edge, cand_offset,
                  breakage_distance, times=None,
-                 sp: Optional[SparseParams] = None):
+                 sp: Optional[SparseParams] = None, kernel: str = "scan"):
     """Per-trace Viterbi over a batch: the CUDA kernel (its sparse
     instantiation with ``sp``, which reads ``times``) for CUDA tensors, the
-    plain version for CPU tensors.  Returns (packed [3, B, T] i32, aux
-    [B, 4] f32)."""
+    plain version for CPU tensors.  ``kernel`` "assoc" launches the
+    log-depth kernel ``viterbi_assoc`` at T >= 2 (the scan kernel below).
+    Returns (packed [3, B, T] i32, aux [B, 4] f32)."""
     if emis.device.type == "cpu":
         return viterbi_scan_plain(emis, logp, gc, valid, cand_edge,
-                                  cand_offset, breakage_distance, times, sp)
+                                  cand_offset, breakage_distance, times, sp,
+                                  kernel)
     dev = emis.device
     B, T, K = emis.shape
+    kname = "viterbi_assoc" if _use_assoc(kernel, T) else "viterbi_scan"
     if K not in (1, 2, 4, 8, 16, 32):
-        raise ValueError("viterbi_scan: K=%d must be a power of two <= 32" % K)
+        raise ValueError("%s: K=%d must be a power of two <= 32" % (kname, K))
     check(emis, "emis", torch.float32, dev, (B, T, K))
     check(logp, "logp", torch.float32, dev, (B, T - 1, K, K))
     check(gc, "gc", torch.float32, dev, (B, T - 1))
@@ -464,11 +615,14 @@ def viterbi_scan(emis, logp, gc, valid, cand_edge, cand_offset,
         args = [ptr(emis), ptr(logp), ptr(gc), ptr(valid), ptr(cand_edge),
                 ptr(cand_offset), B, T, K, float(breakage_distance),
                 ptr(packed), ptr(aux)]
+        ws = _assoc_workspace(B, T, K, dev) if kname == "viterbi_assoc" else None
+        if ws is not None:  # held until the launch is queued
+            args.append(ptr(ws))
         if sp is None:
-            KERNELS["viterbi_scan"].launch(dev, *args)
+            KERNELS[kname].launch(dev, *args)
         else:
-            KERNELS["viterbi_scan[sparse]"].launch(dev, *args, ptr(times),
-                                                   *sp.floats())
+            KERNELS[kname + "[sparse]"].launch(dev, *args, ptr(times),
+                                              *sp.floats())
     return packed, aux
 
 
@@ -538,7 +692,8 @@ def _carry_out_plain(S, idx, vb, cand_edge, cand_offset, px, py, times):
 def viterbi_chain_plain(dg: DeviceGraph, du: DeviceUBODT, emis, logp, gc,
                         px, py, times, valid, cand_edge, cand_offset,
                         p: MatchParams, carry: TraceCarry, slots=None,
-                        use_carry=None, sp: Optional[SparseParams] = None):
+                        use_carry=None, sp: Optional[SparseParams] = None,
+                        kernel: str = "scan"):
     """Plain PyTorch version of the carry branch of ``chain_trace`` (the
     seam transition from the carried beam, the recursion, the seam check
     and the carry-out) + ``backtrace`` + ``_compact`` + the confidence
@@ -546,7 +701,8 @@ def viterbi_chain_plain(dg: DeviceGraph, du: DeviceUBODT, emis, logp, gc,
     px/py/times [B, T] and ``carry`` with leading [B].  Returns (packed,
     aux, carry').  With ``sp`` the seam transition and every step's
     breakage follow the sparse model (the seam's gap is times[:, 0] minus
-    the carried time).
+    the carried time).  ``kernel`` picks the forward after the seam, as
+    ``viterbi_scan_plain``'s does.
 
     With ``slots`` (host [B] ints) and ``use_carry`` (host [B] bools),
     ``carry`` is the session slab with leading [S]: row b starts from
@@ -573,10 +729,9 @@ def viterbi_chain_plain(dg: DeviceGraph, du: DeviceUBODT, emis, logp, gc,
     brk0 = sparse_breakage(p.breakage_distance, sp, times[:, 0] - carry.t)
     broke0 = ((gc0 > brk0) | ~(best0 > NEG_INF / 2).any(1) | ~carry.active)
     init = torch.where(broke0[:, None], emis[:, 0], best0 + emis[:, 0])
-    S_, BP, BR = _forward_plain(
-        init, broke0, emis, logp, gc, vb,
+    S_, _BP, BR, idx = _decode_plain(
+        kernel, init, broke0, emis, logp, gc, vb,
         sparse_breakage(p.breakage_distance, sp, _step_dt(times)))
-    idx = _backtrace_plain(S_, BP, vb)
     # seam check: the committed slot must reach the window's first choice
     c = carry.committed.long()
     i0 = idx[:, 0]
@@ -603,20 +758,22 @@ def _check_carry(c: TraceCarry, n: int, k: int, dev) -> None:
 def viterbi_chain(dg: DeviceGraph, du: DeviceUBODT, emis, logp, gc, px, py,
                   times, valid, cand_edge, cand_offset, p: MatchParams,
                   carry: TraceCarry, slots=None, use_carry=None,
-                  sp: Optional[SparseParams] = None):
+                  sp: Optional[SparseParams] = None, kernel: str = "scan"):
     """A window continuing a carried beam: the CUDA kernel (its sparse
     instantiation with ``sp``) for CUDA tensors, the plain version for CPU
     tensors.  Arguments and results as ``viterbi_chain_plain``; with
     ``slots`` the kernel gathers, selects and scatters the slab rows
-    itself, in place."""
+    itself, in place.  ``kernel`` "assoc" launches ``viterbi_chain_assoc``
+    at T >= 2."""
     if emis.device.type == "cpu":
         return viterbi_chain_plain(dg, du, emis, logp, gc, px, py, times,
                                    valid, cand_edge, cand_offset, p, carry,
-                                   slots, use_carry, sp)
+                                   slots, use_carry, sp, kernel)
     dev = emis.device
     B, T, K = emis.shape
+    kname = "viterbi_chain_assoc" if _use_assoc(kernel, T) else "viterbi_chain"
     if K not in (1, 2, 4, 8, 16, 32):
-        raise ValueError("viterbi_chain: K=%d must be a power of two <= 32" % K)
+        raise ValueError("%s: K=%d must be a power of two <= 32" % (kname, K))
     check(emis, "emis", torch.float32, dev, (B, T, K))
     check(logp, "logp", torch.float32, dev, (B, T - 1, K, K))
     check(gc, "gc", torch.float32, dev, (B, T - 1))
@@ -653,11 +810,32 @@ def viterbi_chain(dg: DeviceGraph, du: DeviceUBODT, emis, logp, gc, px, py,
                 float(p.max_route_time_factor), float(p.turn_penalty_factor),
                 *(ptr(t) for t in carry), *(ptr(t) for t in out), ptr(sl),
                 ptr(use), S, ptr(packed), ptr(aux)]
+        ws = (_assoc_workspace(B, T, K, dev) if kname == "viterbi_chain_assoc"
+              else None)
+        if ws is not None:  # held until the launch is queued
+            args.append(ptr(ws))
         if sp is None:
-            KERNELS["viterbi_chain"].launch(dev, *args)
+            KERNELS[kname].launch(dev, *args)
         else:
-            KERNELS["viterbi_chain[sparse]"].launch(dev, *args, *sp.floats())
+            KERNELS[kname + "[sparse]"].launch(dev, *args, *sp.floats())
     return packed, aux, out
+
+
+def _assoc_levels(n: int):
+    """Sizes of the assoc scan's levels over n maps: n, then each level
+    half the one before (rounded down) while that one had two or more."""
+    sizes = [n]
+    while sizes[-1] >= 2:
+        sizes.append(sizes[-1] // 2)
+    return sizes
+
+
+def _assoc_workspace(B: int, T: int, K: int, device) -> torch.Tensor:
+    """Global scratch of the assoc kernels, per trace: every level of the
+    scan (a [K, K] map and a [K] restart vector per element) and the
+    [T, K] prefix scores.  The layout is csrc/viterbi_assoc.cu's."""
+    per = sum(_assoc_levels(T - 1)) * (K * K + K) + T * K
+    return torch.empty(B * per, dtype=torch.float32, device=device)
 
 
 # -- composition ---------------------------------------------------------------
@@ -724,11 +902,12 @@ def unpack_compact(out):
     return out[0], out[1].view(np.float32), out[2] != 0
 
 
-def _match(st: _Stages, dg, du, xin, p, k, sp=None, dedup=False):
+def _match(st: _Stages, dg, du, xin, p, k, sp=None, dedup=False,
+           kernel="scan"):
     pre = _pre_packed(st, dg, du, xin, p, k, sp, dedup)
     px, py, times, valid = unpack_inputs(xin)
     return st.scan(pre.emis, pre.logp, pre.gc, valid, pre.cand.edge,
-                   pre.cand.offset, p.breakage_distance, times, sp)
+                   pre.cand.offset, p.breakage_distance, times, sp, kernel)
 
 
 def _pre_packed(st: _Stages, dg, du, xin, p, k, sp=None,
@@ -739,36 +918,38 @@ def _pre_packed(st: _Stages, dg, du, xin, p, k, sp=None,
 
 
 def _chain(st: _Stages, dg, du, pre: TracePre, xin, p, carry, slots=None,
-           use_carry=None, sp=None):
+           use_carry=None, sp=None, kernel="scan"):
     px, py, times, valid = unpack_inputs(xin)
     return st.chain(dg, du, pre.emis, pre.logp, pre.gc, px, py, times, valid,
                     pre.cand.edge, pre.cand.offset, p, carry, slots,
-                    use_carry, sp)
+                    use_carry, sp, kernel)
 
 
 def _step(st: _Stages, dg, du, xin, p, k, carry, slots=None, use_carry=None,
-          sp=None):
+          sp=None, kernel="scan"):
     return _chain(st, dg, du, _pre_packed(st, dg, du, xin, p, k, sp), xin, p,
-                  carry, slots, use_carry, sp)
+                  carry, slots, use_carry, sp, kernel)
 
 
 def match_batch_compact_packed_aux(dg: DeviceGraph, du: DeviceUBODT,
                                    xin: torch.Tensor, p: MatchParams, k: int,
                                    sp: Optional[SparseParams] = None,
-                                   dedup: bool = False):
+                                   dedup: bool = False, kernel: str = "scan"):
     """The match program over a packed [4, B, T] f32 input: (packed
-    [3, B, T] i32 = edge, offset bits, break; aux [B, 4] f32)."""
-    return _match(_KERNELS, dg, du, xin, p, k, sp, dedup)
+    [3, B, T] i32 = edge, offset bits, break; aux [B, 4] f32).  ``kernel``
+    ("scan" or "assoc") picks the Viterbi forward of every entry point."""
+    return _match(_KERNELS, dg, du, xin, p, k, sp, dedup, kernel)
 
 
 def match_batch_compact_packed_aux_plain(dg: DeviceGraph, du: DeviceUBODT,
                                          xin: torch.Tensor, p: MatchParams,
                                          k: int,
                                          sp: Optional[SparseParams] = None,
-                                         dedup: bool = False):
+                                         dedup: bool = False,
+                                         kernel: str = "scan"):
     """``match_batch_compact_packed_aux`` through the plain versions, on
     whatever device the inputs are."""
-    return _match(_PLAIN, dg, du, xin, p, k, sp, dedup)
+    return _match(_PLAIN, dg, du, xin, p, k, sp, dedup, kernel)
 
 
 def precompute_batch_packed(dg: DeviceGraph, du: DeviceUBODT, xin,
@@ -793,51 +974,59 @@ def precompute_batch_packed_plain(dg, du, xin, p: MatchParams, k: int,
 def chain_batch_carry_packed_aux(dg: DeviceGraph, du: DeviceUBODT,
                                  pre: TracePre, xin, p: MatchParams, k: int,
                                  carry: TraceCarry,
-                                 sp: Optional[SparseParams] = None):
+                                 sp: Optional[SparseParams] = None,
+                                 kernel: str = "scan"):
     """The carry-dependent rest of a window (kernel 5) over a precomputed
     ``pre`` (leading [B]) and the window's packed [4, B, W] input:
     (packed [3, B, W], aux [B, 4], carry').  Aux components combine across
     seams as min / + / + / +."""
-    return _chain(_KERNELS, dg, du, pre, xin, p, carry, sp=sp)
+    return _chain(_KERNELS, dg, du, pre, xin, p, carry, sp=sp, kernel=kernel)
 
 
 def chain_batch_carry_packed_aux_plain(dg, du, pre: TracePre, xin,
                                        p: MatchParams, k: int,
                                        carry: TraceCarry,
-                                       sp: Optional[SparseParams] = None):
-    return _chain(_PLAIN, dg, du, pre, xin, p, carry, sp=sp)
+                                       sp: Optional[SparseParams] = None,
+                                       kernel: str = "scan"):
+    return _chain(_PLAIN, dg, du, pre, xin, p, carry, sp=sp, kernel=kernel)
 
 
 def session_step_packed(dg: DeviceGraph, du: DeviceUBODT, xin,
                         p: MatchParams, k: int, carry: TraceCarry,
-                        sp: Optional[SparseParams] = None):
+                        sp: Optional[SparseParams] = None,
+                        kernel: str = "scan"):
     """One incremental session step: each row of the packed [4, B, W] input
     is one session's newly arrived points (a valid prefix), continued from
     its carried beam (leading [B]).  Returns (packed, aux, carry').  ``k``
     stays the carried beam's width under the sparse model too: a
     session's beam cannot change width."""
-    return _step(_KERNELS, dg, du, xin, p, k, carry, sp=sp)
+    return _step(_KERNELS, dg, du, xin, p, k, carry, sp=sp, kernel=kernel)
 
 
 def session_step_packed_plain(dg, du, xin, p: MatchParams, k: int,
                               carry: TraceCarry,
-                              sp: Optional[SparseParams] = None):
-    return _step(_PLAIN, dg, du, xin, p, k, carry, sp=sp)
+                              sp: Optional[SparseParams] = None,
+                              kernel: str = "scan"):
+    return _step(_PLAIN, dg, du, xin, p, k, carry, sp=sp, kernel=kernel)
 
 
 def session_step_arena(dg: DeviceGraph, du: DeviceUBODT, xin, p: MatchParams,
                        k: int, slab: TraceCarry, slots, use_carry,
-                       sp: Optional[SparseParams] = None):
+                       sp: Optional[SparseParams] = None,
+                       kernel: str = "scan"):
     """``session_step_packed`` against the device-resident session slab
     (leading [S]): row b continues slab[slots[b]] where use_carry[b] (else
     the inactive carry) and its successor is written back to that row in
     place; padding rows carry slot == S and write nothing.  ``slots`` and
     ``use_carry`` are host [B] arrays, live slots distinct.  Returns
     (packed, aux, slab)."""
-    return _step(_KERNELS, dg, du, xin, p, k, slab, slots, use_carry, sp)
+    return _step(_KERNELS, dg, du, xin, p, k, slab, slots, use_carry, sp,
+                 kernel)
 
 
 def session_step_arena_plain(dg, du, xin, p: MatchParams, k: int,
                              slab: TraceCarry, slots, use_carry,
-                             sp: Optional[SparseParams] = None):
-    return _step(_PLAIN, dg, du, xin, p, k, slab, slots, use_carry, sp)
+                             sp: Optional[SparseParams] = None,
+                             kernel: str = "scan"):
+    return _step(_PLAIN, dg, du, xin, p, k, slab, slots, use_carry, sp,
+                 kernel)

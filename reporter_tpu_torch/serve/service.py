@@ -243,6 +243,7 @@ class ReporterService:
             "status": "ok",
             "device": str(m.device),
             "max_trace_points": m.max_trace_points,
+            "viterbi_kernel": m._kernel_mode,
             "sessions": self.session_store.summary(),
             "uptime_s": round(_time.time() - self._t_boot, 1),
         }

@@ -77,6 +77,15 @@ assert wm.ubodt.layout == "wide32" and wm.match_many(traces) == m.match_many(tra
 short = [dict(t, trace=t["trace"][:12]) for t in traces]  # one bucketed dispatch
 assert wm.match_many(short) == m.match_many(short)
 assert wm.probe_stats["samples"] == 1 and wm.probe_stats["pairs"] > 0
+# the log-depth (assoc) forward: windowed, long and slab session traffic
+am = SegmentMatcher(arrays=arrays, ubodt=m.ubodt, device="cpu",
+                    config=MatcherConfig(ubodt_delta=1500.0, length_buckets=[16],
+                                         session_arena=True, viterbi_kernel="assoc"))
+assert am.match_many(traces) == m.match_many(traces)
+eng = SessionEngine(am, SessionStore())
+for j in range(0, 20, 4):
+    res = eng.match_many([dict(t, trace=t["trace"][j:j + 4]) for t in traces])
+assert all(r["_stream"]["session"]["points_total"] == 20 for r in res)
 assert not [m for m in sys.modules if blocked(m)]
 print("ISOLATED-OK")
 '''
