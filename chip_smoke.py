@@ -6,7 +6,8 @@ Builds the CUDA kernels of the match program (one nvcc per source,
 sm_90a, all started together; kernels 3-5 with their sparse
 instantiations, counted apart as ``<name>[sparse]``, kernel 2 with its
 wide32 one, the dedup claim and scatter kernels, the probe-outcome
-counters and the log-depth Viterbi kernels) and the native host core, builds the metro-scale grid city (120 x 120 blocks of 150 m, UBODT
+counters, the log-depth Viterbi kernels and kernel 2's tiered
+instantiations) and the native host core, builds the metro-scale grid city (120 x 120 blocks of 150 m, UBODT
 delta 3000 m, cuckoo layout) and moves it to the card, then:
 
   1. holds each of kernels 1-4 against its plain PyTorch version on the
@@ -93,6 +94,31 @@ delta 3000 m, cuckoo layout) and moves it to the card, then:
      (the scan at 512 x 64, the assoc kernels at 128 x 256 and on the
      long windows), and 8 /report plus the fixture replay under
      $REPORTER_VITERBI=assoc.
+  9. the tiered UBODT (hot arena on the card, the table's pages
+     page-locked in host memory and read in place): the host link's peak
+     (its PCIe generation and width as nvidia-smi reads them) beside its
+     measured rate (a timed pinned -> device copy of 256 MiB); for each
+     layout, at a 1-byte budget (every row cold), 64 MiB after one
+     maintenance pass on the 512 x 64 cohort's own probes (about half its
+     rows hot; the pass timed, and a second one) and the table's size
+     (every row hot): the memory check (the tier's device
+     allocations at most its arena, slot map and counters + 1 MiB, the
+     pages page-locked host memory), kernel 2's ``[tiered]``
+     instantiation, the dedup probe and its forced fallback against their
+     plain versions and the untiered probe, bit for bit, with equal
+     per-bucket fetch counts and hit/miss totals, the chain kernels'
+     seams (scan and assoc, dense and sparse, long window and slab) the
+     same way, and the tiered kernel timed beside the untiered one (with
+     every row cold, the dedup probe too, and kernel 2 on two more key
+     sets of the cohort's size, one that repeats no row within reach of
+     a cache and one that repeats 256 keys: what caches serve of cold
+     rows); then, through the launch
+     counters, matchers at the 64 MiB budget over the bucketed, long,
+     session, sparse A and L, assoc and wide32 + dedup paths, each output
+     equal to the untiered matcher's; the 512 sessions through a slab of
+     128 hot slots over 256 pinned host pages (promotion, demotion and
+     spill) equal to the host-carry path; 8 /report and the fixture
+     replay under $REPORTER_UBODT_HOT_BYTES equal to the untiered answers.
 
 Prints the card's name and power limit, one line per phase, a
 ``{"kernels": [...]}`` line, and as its last line
@@ -490,7 +516,7 @@ def _seam_rows(dg, du, carry_edge, first_edge):
 
 
 def chain_phases(matcher, long_traces, traces64, timed, sp=None, long_pk=None,
-                 sess_pk=None, flip=None, kernel="scan"):
+                 sess_pk=None, flip=None, kernel="scan", tier=None):
     """Kernel 5 against its plain version at its two main-path shapes: the
     long path's window (64 x 256, continuing live carries) and the
     session step against the serving slab (512 x 4, 65,536 slots), the
@@ -503,7 +529,9 @@ def chain_phases(matcher, long_traces, traces64, timed, sp=None, long_pk=None,
     steps whose decision the sparse threshold flips.  ``kernel`` "assoc":
     the log-depth kernel ``viterbi_chain_assoc`` against the plain version
     of the same forward instead, timed beside kernel 5 on the same
-    inputs."""
+    inputs.  ``tier`` (the TieredTable behind ``matcher._du``): the seam's
+    fetch counts and hit/miss totals of each kernel call must equal its
+    plain version's."""
     import numpy as np
     import torch
 
@@ -531,8 +559,9 @@ def chain_phases(matcher, long_traces, traces64, timed, sp=None, long_pk=None,
     pre = V.precompute_batch_packed(dg, du, x1, p, K, sp)
     args = (dg, du, pre.emis, pre.logp, pre.gc, *V.unpack_inputs(x1), pre.cand.edge,
             pre.cand.offset, p, carry)
-    k5 = V.viterbi_chain(*args, sp=sp, kernel=kernel)
-    p5 = V.viterbi_chain_plain(*args, sp=sp, kernel=kernel)
+    k5, dk = _tier_delta(tier, lambda: V.viterbi_chain(*args, sp=sp, kernel=kernel))
+    p5, dp = _tier_delta(tier, lambda: V.viterbi_chain_plain(*args, sp=sp, kernel=kernel))
+    _same_fetches(dk, dp, "viterbi_chain seam (long)")
     check(torch.equal(k5[0], p5[0]), "viterbi_chain packed (long)")
     check(_carry_same(k5[2], p5[2]), "viterbi_chain carry-out (long)")
     check(torch.allclose(k5[1], p5[1], rtol=1e-4, atol=0), "viterbi_chain aux (long)")
@@ -586,8 +615,11 @@ def chain_phases(matcher, long_traces, traces64, timed, sp=None, long_pk=None,
     slab_p = V.TraceCarry(*(t.clone() for t in slab))
     sargs = (dg, du, pre.emis, pre.logp, pre.gc, *V.unpack_inputs(xs1), pre.cand.edge,
              pre.cand.offset, p)
-    ka = V.viterbi_chain(*sargs, slab_k, slots, use, sp=sp, kernel=kernel)
-    pa = V.viterbi_chain_plain(*sargs, slab_p, slots, use, sp=sp, kernel=kernel)
+    ka, dk = _tier_delta(tier, lambda: V.viterbi_chain(*sargs, slab_k, slots, use, sp=sp,
+                                                       kernel=kernel))
+    pa, dp = _tier_delta(tier, lambda: V.viterbi_chain_plain(*sargs, slab_p, slots, use,
+                                                             sp=sp, kernel=kernel))
+    _same_fetches(dk, dp, "viterbi_chain seam (arena)")
     check(torch.equal(ka[0], pa[0]), "viterbi_chain packed (arena)")
     check(_carry_same(slab_k, slab_p), "viterbi_chain slab (arena)")
     check(not _carry_same(slab_k, slab), "the arena step wrote the slab")
@@ -649,6 +681,33 @@ def chain_phases(matcher, long_traces, traces64, timed, sp=None, long_pk=None,
                  " viterbi_chain_ms=%.4f" % r["scan_ms"] if "scan_ms" in r else "",
                  r["bound_ms"], r["bound_by"]))
     return out
+
+
+def _tier_delta(tier, fn):
+    """(fn(), (per-bucket fetch counts, [hits, misses]) that the call added
+    to ``tier``); (fn(), None) without a tier."""
+    import torch
+
+    if tier is None:
+        return fn(), None
+    if tier.dev.type == "cuda":
+        torch.cuda.synchronize(tier.dev)
+    c0, t0 = tier.counts.clone(), tier.totals.clone()
+    out = fn()
+    if tier.dev.type == "cuda":
+        torch.cuda.synchronize(tier.dev)
+    return out, ((tier.counts - c0).cpu(), (tier.totals - t0).cpu().tolist())
+
+
+def _same_fetches(dk, dp, what):
+    """A kernel call's fetch counts and totals equal its plain version's."""
+    import torch
+
+    if dk is None:
+        return
+    check(torch.equal(dk[0], dp[0]) and dk[1] == dp[1] and sum(dk[1]) > 0,
+          "%s: the kernel's fetch counts and hit/miss totals %s equal the plain "
+          "version's %s" % (what, dk[1], dp[1]))
 
 
 def gap_flip(xins, p, sp, seed):
@@ -742,16 +801,20 @@ def _counted(path_kernels, drive, absent=()):
     return res, dt, launches
 
 
-PROBE_FAMILY = ("ubodt_probe", "ubodt_probe[wide32]", "ubodt_dedup_claim",
-                "ubodt_dedup_scatter", "probe_stats")
+PROBE_FAMILY = ("ubodt_probe", "ubodt_probe[wide32]", "ubodt_probe[tiered]",
+                "ubodt_probe[wide32,tiered]", "ubodt_dedup_claim", "ubodt_dedup_scatter",
+                "probe_stats")
 
 
 def _path_kernels(matcher, kernels, sampled=False):
     """(kernels, absent): the kernels a path of ``matcher`` must launch,
-    its table's probe (and the dedup kernels with probe dedup, the
+    its table's probe (the instantiation for its layout and tiering; and
+    the dedup kernels with probe dedup, the
     diagnostic's when ``sampled`` and the sampler is on) in place of
     ``ubodt_probe``, and the probe-family kernels it must not launch."""
-    probe = ("ubodt_probe[wide32]",) if matcher._du.wide else ("ubodt_probe",)
+    from reporter_tpu_torch.ops.hashtable import probe_kernel_name
+
+    probe = (probe_kernel_name(matcher._du),)
     if matcher.probe_dedup:
         probe += ("ubodt_dedup_claim", "ubodt_dedup_scatter")
     if sampled and matcher._probe_every:
@@ -782,14 +845,15 @@ SPARSE_CARRIED = ("candidate_sweep", "ubodt_probe", "transition_build[sparse]",
                   "viterbi_chain[sparse]")
 
 
-def long_path(matcher, traces, slabel="", base=None):
+def long_path(matcher, traces, slabel="", base=None, plain=True):
     """The long path: ``match_many`` over 64 traces of 2,048 points (8
     windows of 256) through the launch counters, then the group's
     per-point output held against the plain composition window by window
     on the card.  With ``slabel`` the traces are that sparse cohort's and
     ``matcher`` has the model on: the sparse programs at the cohort's K.
     ``base`` (a matcher with another table layout or dedup setting): its
-    output must be the same."""
+    output must be the same.  ``plain=False`` skips the plain composition
+    (for a matcher whose ``base`` was held against it)."""
     import numpy as np
     import torch
 
@@ -828,19 +892,20 @@ def long_path(matcher, traces, slabel="", base=None):
                 else (matcher._params, None, matcher.cfg.beam_k))
     carry = V.initial_carry_batch(len(group), K, dev)
     parts = []
-    for c in range(n_chunks):
+    for c in range(n_chunks if plain else 0):
         xc = xin[:, :, c * W:(c + 1) * W].contiguous()
         pre = V.precompute_batch_packed_plain(matcher._dg, matcher._du, xc, p, K, sp)
         packed, _a, carry = V.chain_batch_carry_packed_aux_plain(
             matcher._dg, matcher._du, pre, xc, p, K, carry, sp, matcher._kernel_for(W))
         parts.append(V.unpack_compact(packed.cpu().numpy()))
-    want = [np.concatenate([q[f] for q in parts], 1) for f in range(3)]
     B = len(group)
-    check(np.array_equal(edge[:B], want[0]) and offset[:B].tobytes() == want[1].tobytes()
-          and np.array_equal(breaks[:B], want[2]),
-          "long path output equals the plain composition")
-    print("long path [%d, %d x %d] K=%d (%s) equals the plain composition window by window"
-          % (B, n_chunks, W, K, chain))
+    if plain:
+        want = [np.concatenate([q[f] for q in parts], 1) for f in range(3)]
+        check(np.array_equal(edge[:B], want[0]) and offset[:B].tobytes() == want[1].tobytes()
+              and np.array_equal(breaks[:B], want[2]),
+              "long path output equals the plain composition")
+        print("long path [%d, %d x %d] K=%d (%s) equals the plain composition window by "
+              "window" % (B, n_chunks, W, K, chain))
     if base is not None:
         (hb,) = base._dispatch_long(traces, list(range(len(traces))), (), slabel)
         _g, (e2, o2, b2), _t, _a = base._fetch_long_aux(hb)
@@ -945,7 +1010,8 @@ def session_path(matcher, traces64):
     warm.store.drop("warm")
     split = {}
     path, other = _forward(am, Wn, True)
-    eng, dt, launches = _counted(path, lambda: stream(am, traces64, split), other)
+    kernels, absent = _path_kernels(am, path)
+    eng, dt, launches = _counted(kernels, lambda: stream(am, traces64, split), other + absent)
     n = len(traces64)
     split = {k + "_ms_per_step": v * 1e3 / steps for k, v in split.items()}
     split["engine_rest_ms_per_step"] = dt * 1e3 / steps - sum(split.values())
@@ -982,10 +1048,11 @@ def session_path(matcher, traces64):
     return am, launches, rate
 
 
-def main_path(matcher, cohorts, xins, base=None):
+def main_path(matcher, cohorts, xins, base=None, plain=True):
     """The bucketed path through the launch counters, then, for each cohort,
     the packed program held against the plain versions' composition on
-    the same batch (and, with ``base``, against that matcher's program)."""
+    the same batch (``plain=False`` skips it) and, with ``base``, against
+    that matcher's program under the same forward."""
     import torch
 
     from reporter_tpu_torch.ops import _kernels
@@ -1024,18 +1091,22 @@ def main_path(matcher, cohorts, xins, base=None):
         got = V.match_batch_compact_packed_aux(matcher._dg, matcher._du, xin, p,
                                                matcher.cfg.beam_k, None, matcher.probe_dedup,
                                                kern)
-        want = V.match_batch_compact_packed_aux_plain(matcher._dg, matcher._du, xin, p,
-                                                      matcher.cfg.beam_k, kernel=kern)
-        check(torch.equal(got[0], want[0]), "main path packed output equals the plain versions'")
-        check(torch.allclose(got[1], want[1], rtol=1e-4, atol=0), "main path aux")
-        print("main path packed [3,%d,%d] equals the plain composition (%s), aux within "
-              "rtol 1e-4" % (*xin.shape[1:], kern))
+        if plain:
+            want = V.match_batch_compact_packed_aux_plain(matcher._dg, matcher._du, xin, p,
+                                                          matcher.cfg.beam_k, kernel=kern)
+            check(torch.equal(got[0], want[0]),
+                  "main path packed output equals the plain versions'")
+            check(torch.allclose(got[1], want[1], rtol=1e-4, atol=0), "main path aux")
+            print("main path packed [3,%d,%d] equals the plain composition (%s), aux within "
+                  "rtol 1e-4" % (*xin.shape[1:], kern))
         if base is not None:
-            b = V.match_batch_compact_packed_aux(base._dg, base._du, xin, p, base.cfg.beam_k)
+            b = V.match_batch_compact_packed_aux(base._dg, base._du, xin, p, base.cfg.beam_k,
+                                                 kernel=kern)
             check(torch.equal(got[0], b[0]) and torch.equal(got[1], b[1]),
                   "main path output equals the %s table's without dedup" % base._du.layout)
-            print("main path packed [3,%d,%d] (%s, dedup %s) equals the %s matcher's output"
-                  % (*xin.shape[1:], matcher._du.layout, matcher.probe_dedup, base._du.layout))
+            print("main path packed [3,%d,%d] (%s, dedup %s%s) equals the %s matcher's output"
+                  % (*xin.shape[1:], matcher._du.layout, matcher.probe_dedup,
+                     ", tiered" if matcher.tiering is not None else "", base._du.layout))
     return launches, rates
 
 
@@ -1215,7 +1286,7 @@ def sparse_matcher(matcher, calibration=None, **cfg_kw):
     return sm
 
 
-def sparse_main_path(sm, cohorts, xins, what, base=None):
+def sparse_main_path(sm, cohorts, xins, what, base=None, plain=True):
     """The bucketed path of a sparse-on matcher over the sparse cohorts
     through the launch counters (each cohort's traces dispatched as its
     gap cohort), then each cohort's packed program held against the plain
@@ -1264,12 +1335,14 @@ def sparse_main_path(sm, cohorts, xins, what, base=None):
         kern = sm._kernel_for(xin.shape[2])
         got = V.match_batch_compact_packed_aux(sm._dg, sm._du, xin, p, k, sp, sm.probe_dedup,
                                                kern)
-        want = V.match_batch_compact_packed_aux_plain(sm._dg, sm._du, xin, p, k, sp,
-                                                      kernel=kern)
-        check(torch.equal(got[0], want[0]), "sparse packed output equals the plain versions'")
-        check(torch.allclose(got[1], want[1], rtol=1e-4, atol=0), "sparse aux")
-        print("sparse path (%s) packed [3,%d,%d] K=%d equals the plain composition, aux "
-              "within rtol 1e-4" % (what, xin.shape[1], xin.shape[2], k))
+        if plain:
+            want = V.match_batch_compact_packed_aux_plain(sm._dg, sm._du, xin, p, k, sp,
+                                                          kernel=kern)
+            check(torch.equal(got[0], want[0]),
+                  "sparse packed output equals the plain versions'")
+            check(torch.allclose(got[1], want[1], rtol=1e-4, atol=0), "sparse aux")
+            print("sparse path (%s) packed [3,%d,%d] K=%d equals the plain composition, aux "
+                  "within rtol 1e-4" % (what, xin.shape[1], xin.shape[2], k))
         if base is not None:
             b = V.match_batch_compact_packed_aux(base._dg, base._du, xin, p, k, sp)
             check(torch.equal(got[0], b[0]) and torch.equal(got[1], b[1]),
@@ -1916,6 +1989,411 @@ def assoc_serve_phase(matcher, traces, device):
     return launches
 
 
+# -- 9. the tiered UBODT and the session arena's cold tier -----------------------
+
+TIER_PARTIAL = 64 << 20  # the partial hot budget (about half the cohort's rows)
+
+
+# PCIe per-lane rate (GT/s) and line-code efficiency by generation
+PCIE_LANE = {1: (2.5, 8 / 10), 2: (5.0, 8 / 10), 3: (8.0, 128 / 130), 4: (16.0, 128 / 130),
+             5: (32.0, 128 / 130), 6: (64.0, 242 / 256)}
+
+
+def host_link(dev):
+    """The host link: its peak rate per direction, bytes/s, from the PCIe
+    generation and width nvidia-smi reports (Gen5 x16, the H100 SXM5's
+    host interface, where it reports none), the bound's denominator; and
+    its measured rate, a pinned -> device copy of 256 MiB (median of 5),
+    a reading beside it."""
+    import torch
+
+    if dev.type != "cuda":
+        return None
+    q = "pcie.link.gen.max,pcie.link.width.max,pcie.link.gen.current,pcie.link.width.current"
+    got = subprocess.run(["nvidia-smi", "--query-gpu=" + q, "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60).stdout
+    try:
+        gen, width, gen_now, width_now = (int(x) for x in got.splitlines()[0].split(","))
+        spec = "nvidia-smi"
+    except (ValueError, IndexError):
+        gen, width, gen_now, width_now, spec = 5, 16, None, None, "assumed (nvidia-smi: %r)" % got
+    rate, code = PCIE_LANE[gen]
+    peak = rate * 1e9 * width * code / 8
+    src = torch.empty(64 << 20, dtype=torch.int32, pin_memory=True)
+    dst = torch.empty(64 << 20, dtype=torch.int32, device=dev)
+    ms = time_ms(lambda: dst.copy_(src, non_blocking=True), reps=5, warmup=1, queued=False)
+    copy = src.numel() * 4 / (ms / 1e3)
+    print("host link: PCIe Gen%d x%d (%s; now Gen%s x%s), peak %.2f GB/s per direction; "
+          "pinned -> device copy of 256 MiB in %.3f ms = %.2f GB/s (%.1f %% of peak)"
+          % (gen, width, spec, gen_now, width_now, peak / 1e9, ms, copy / 1e9,
+             100 * copy / peak))
+    return {"gen": gen, "width": width, "source": spec, "gen_now": gen_now,
+            "width_now": width_now, "peak_bytes_per_s": peak, "copy_bytes_per_s": copy,
+            "copy_ms": ms}
+
+
+def tier_table(ubodt, budget, dev, keys=None):
+    """A TieredTable of ``ubodt`` at ``budget`` bytes on ``dev``; with
+    ``keys`` (a, b) one tiered probe of them then one maintenance pass,
+    and on the card that pass and a second one after another probe of
+    the keys timed (host clock, the card idle before and after: the cost
+    on the collect thread).  On the card, the memory check: the tier's
+    device allocations are at
+    most its arena, slot map and counters plus 1 MiB, and the pages are
+    host memory, page-locked (CUDA's memory type 1)."""
+    import torch
+
+    from reporter_tpu_torch.ops import _kernels
+    from reporter_tpu_torch.ops import hashtable as H
+    from reporter_tpu_torch.tiles.tiering import TieredTable
+
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(dev)
+        m0 = torch.cuda.memory_allocated(dev)
+    tier = TieredTable(ubodt, budget, device=dev)
+    info = {"budget": budget, "capacity_rows": tier.capacity, "layout": ubodt.layout}
+    passes = 0 if keys is None else 2 if cuda else 1
+    for npass in range(passes):
+        H.ubodt_lookup(tier.device(), *keys, False)
+        tier.drain_stats()
+        if cuda:
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        moved = tier.maintain()
+        if cuda:
+            torch.cuda.synchronize(dev)
+        info["maintain_%d" % (npass + 1)] = dict(moved, ms=(time.perf_counter() - t0) * 1e3)
+    info.update(hot_rows=tier.resident_rows, pinned_bytes=tier.pinned_bytes)
+    if cuda:
+        torch.cuda.synchronize(dev)
+        used = torch.cuda.memory_allocated(dev) - m0
+        arena, slot_map, _p, counts, totals = tier.source()
+        allowed = (4 * (arena.numel() + slot_map.numel() + counts.numel())
+                   + 8 * totals.numel() + (1 << 20))
+        check(used <= allowed, "tiered table's device memory %d B <= arena + slot map + "
+              "counters + 1 MiB = %d B" % (used, allowed))
+        kind = _kernels.memory_type(tier.pages_t.data_ptr())
+        check(tier.pages_t.device.type == "cpu" and kind == 1,
+              "the pages are host memory, page-locked (memory type %d)" % kind)
+        info.update(device_bytes=used, allowed_bytes=allowed,
+                    torch_is_pinned=bool(tier.pages_t.is_pinned()))
+        print("tiered %s table at %d B: %d/%d rows hot, device memory %d B (<= %d B), pages "
+              "%d B page-locked in host memory (torch is_pinned %s); maintenance passes %s"
+              % (ubodt.layout, budget, tier.resident_rows, tier.n_buckets, used, allowed,
+                 tier.pinned_bytes, info["torch_is_pinned"],
+                 json.dumps({k: v for k, v in info.items() if k.startswith("maintain_")})))
+    return tier, info
+
+
+def _distinct_split(tier, a, b):
+    """(distinct hot rows, distinct cold rows, distinct buckets) the keys
+    (a, b) fetch under the tier's current slot map."""
+    import torch
+
+    from reporter_tpu_torch.ops.hashtable import device_pair_hash, device_pair_hash2
+
+    sa, sb = (t.reshape(-1) for t in torch.broadcast_tensors(a, b))
+    hs = [device_pair_hash(sa, sb, tier.ubodt.bmask)]
+    if tier.ubodt.layout != "wide32":
+        hs.append(device_pair_hash2(sa, sb, tier.ubodt.bmask))
+    buckets = torch.unique(torch.cat(hs))
+    hot = tier.source()[1][buckets.to(tier.dev)] >= 0
+    n_hot = int(hot.sum())
+    return n_hot, int(buckets.numel()) - n_hot, int(buckets.numel())
+
+
+def cold_cache_probe(tier, a, b):
+    """What caches serve of cold rows: the all-cold kernel 2 on three key
+    sets of one size (the broadcast of ``a`` and ``b``), each call after
+    an L2 flush: the cohort's own keys; ``scattered``, random pairs of the
+    cohort's nodes (seeded), whose buckets are uniform, so a bucket's
+    repeats lie about n_buckets fetches (n_buckets rows, 537 MB) apart,
+    ten times the 50 MB L2; ``repeated``, the cohort's first 256 keys
+    cycled, whose few rows any cache would hold.  Returns each one's
+    time, distinct buckets, and fetched bytes over time."""
+    import torch
+
+    from reporter_tpu_torch.ops import hashtable as H
+    from reporter_tpu_torch.ops.hashtable import device_pair_hash, device_pair_hash2
+
+    sa, sb = (t.reshape(-1).contiguous() for t in torch.broadcast_tensors(a, b))
+    n, dev = sa.numel(), sa.device
+    gen = torch.Generator(device=dev).manual_seed(1234)
+    pick = lambda: torch.randint(0, n, (n,), device=dev, generator=gen)  # noqa: E731
+    cyc = torch.arange(n, device=dev) % 256
+    sets = {"cohort": (a, b), "scattered": (sa[pick()], sb[pick()]),
+            "repeated": (sa[cyc], sb[cyc])}
+    u = tier.ubodt
+    row_bytes, hashes = 4 * u.bucket_entries * 8, 1 if u.layout == "wide32" else 2
+    out = {}
+    for name, (s, d) in sets.items():
+        fs, fd = (t.reshape(-1) for t in torch.broadcast_tensors(s, d))
+        hs = [device_pair_hash(fs, fd, u.bmask)]
+        if hashes == 2:
+            hs.append(device_pair_hash2(fs, fd, u.bmask))
+        distinct = int(torch.unique(torch.cat(hs)).numel())
+        ms = time_ms(lambda: H.ubodt_lookup(tier.device(), s, d, False), cold_l2=True)
+        fetched = n * hashes * row_bytes
+        out[name] = {"ms": ms, "distinct_buckets": distinct, "fetched_bytes": fetched,
+                     "fetched_bytes_per_s": fetched / (ms / 1e3)}
+    print("cold rows and caches (%s, all cold, %d keys, %d fetches each): %s" % (
+        u.layout, n, n * hashes, "; ".join(
+            "%s %.4f ms, %d distinct buckets, %.2f GB/s fetched" % (
+                k, v["ms"], v["distinct_buckets"], v["fetched_bytes_per_s"] / 1e9)
+            for k, v in out.items())))
+    return out
+
+
+def tier_kernel_phases(matcher, ubodt, xin, link, sm=None, tr_l=None, tr_a=None,
+                       sparse_pk=None, traces2048=None, traces64=None, timed=True):
+    """Kernel 2's tiered instantiation for ``ubodt``'s layout against its
+    plain version, bit for bit, with equal fetch counts and hit/miss
+    totals, at three occupancies: a 1-byte budget (every row cold), 64 MiB
+    after one maintenance pass on the cohort's own traffic (about half
+    hot), and the table's size (every row hot); at each, the dedup probe
+    and its forced fallback the same way, and the chain kernels' seams
+    (scan and assoc, dense and sparse, the long window and the slab) on
+    the tiered table through ``chain_phases``.  ``timed``: the tiered
+    kernel at each occupancy beside the untiered kernel on the same keys,
+    the dedup probe and ``cold_cache_probe`` with every row cold, and row
+    10's bound: the hot side's bytes over HBM's peak, the cold rows'
+    over the host link's peak (``link``, ``host_link``'s)."""
+    import copy
+
+    import torch
+
+    from reporter_tpu_torch.ops import hashtable as H
+    from reporter_tpu_torch.ops import viterbi as V
+    from reporter_tpu_torch.ops.candidates import candidate_sweep
+
+    dev, K, p = matcher.device, matcher.cfg.beam_k, matcher._params
+    x, y, _t, v = V.unpack_inputs(xin)
+    B, T = x.shape
+    sw = candidate_sweep(matcher._dg, x, y, v, K, p.search_radius, p.sigma_z, False)
+    a, b = sw.to_node[:, :-1, :, None], sw.from_node[:, 1:, None, :]
+    du = ubodt.to_device(dev)
+    want = H.ubodt_lookup(du, a, b)
+    rows = ubodt.rows()
+    n_fb = 1 << 16  # all distinct: past the dedup budget of 32,768
+    fs = torch.from_numpy(rows[0][:n_fb]).to(dev)
+    fd = torch.from_numpy(rows[1][:n_fb]).to(dev)
+    fwant = H.ubodt_lookup(du, fs, fd)
+    row_bytes = 4 * ubodt.bucket_entries * 8
+    out = {}
+    for occ, budget in (("cold", 1), ("partial", TIER_PARTIAL),
+                        ("hot", ubodt.n_buckets * row_bytes)):
+        tier, info = tier_table(ubodt, budget, dev, (a, b))
+        tdu = tier.device()
+        name = H.probe_kernel_name(tdu)
+        got, dk = _tier_delta(tier, lambda: H.ubodt_lookup(tdu, a, b))
+        plain, dp = _tier_delta(tier, lambda: H.ubodt_lookup_plain(tdu, a, b))
+        check(_same(got, want) and _same(plain, want), "%s (%s) equals the untiered probe"
+              % (name, occ))
+        _same_fetches(dk, dp, "%s (%s)" % (name, occ))
+        n_hot, n_cold, n_b = _distinct_split(tier, a, b)
+        if occ == "cold":
+            check(dk[1][0] == 0 and n_hot == 0, "every fetch cold at a 1-byte budget")
+        if occ == "hot":
+            check(dk[1][1] == 0 and n_cold == 0, "every fetch hot at the table's size")
+        if occ == "partial":
+            check(dk[1][0] > 0 and dk[1][1] > 0, "hits and misses at the partial budget")
+        dd, ddk = _tier_delta(tier, lambda: H.ubodt_lookup_dedup(tdu, a, b))
+        ddp_, ddp = _tier_delta(tier, lambda: H.ubodt_lookup_dedup_plain(tdu, a, b))
+        check(_same(dd[:3], want) and _same(ddp_[:3], want) and int(dd.n_unique[0]) <= dd.m,
+              "dedup probe (%s) equals the untiered probe" % occ)
+        _same_fetches(ddk, ddp, "dedup probe (%s)" % occ)
+        H.DEDUP.reset()
+        fb, fbk = _tier_delta(tier, lambda: H.ubodt_lookup(tdu, fs, fd, dedup=True))
+        fbp, fbp_d = _tier_delta(tier, lambda: H.ubodt_lookup_dedup_plain(tdu, fs, fd))
+        check(_same(fb, fwant) and _same(fbp[:3], fwant) and H.DEDUP.summary()[
+            "dedup_fallbacks"] == 1, "dedup fallback (%s) equals the untiered probe" % occ)
+        _same_fetches(fbk, fbp_d, "dedup fallback (%s)" % occ)
+        r = dict(info, shape="%dx%d K=%d" % (B, T, K), hits=dk[1][0], misses=dk[1][1],
+                 distinct_hot_rows=n_hot, distinct_cold_rows=n_cold, distinct_buckets=n_b,
+                 max_abs_err=max_abs_err(zip(got, plain)))
+        print("%s %s at %s occupancy: %d hits, %d misses (%d/%d distinct rows hot); kernel, "
+              "plain, dedup and fallback equal the untiered probe, fetch counts and totals "
+              "equal the plain versions'" % (name, r["shape"], occ, dk[1][0], dk[1][1],
+                                             n_hot, n_b))
+        mt = copy.copy(matcher)
+        mt._du = tdu
+        seams = {}
+        for kern in ("scan", "assoc"):
+            if traces2048 is not None:
+                seams[kern] = chain_phases(mt, traces2048, traces64, timed=False,
+                                           kernel=kern, tier=tier)
+            if sm is not None:
+                smt = copy.copy(sm)
+                smt._du = tdu
+                seams[kern + "[sparse]"] = chain_phases(smt, tr_l, tr_a, timed=False,
+                                                        kernel=kern, tier=tier, **sparse_pk)
+        r["seam_max_abs_err"] = max([0.0] + [c["max_abs_err"] for s_ in seams.values()
+                                             for c in s_.values()])
+        if timed and dev.type == "cuda":
+            P, N = B * T, torch.broadcast_tensors(a, b)[0].numel()
+            r["ms"] = time_ms(lambda: H.ubodt_lookup(tdu, a, b, False), cold_l2=True)
+            r["untiered_ms"] = time_ms(lambda: H.ubodt_lookup(du, a, b, False), cold_l2=True)
+            if occ == "partial":  # the plain version gathers cold rows on the host: slow
+                r["plain_ms"] = time_ms(lambda: H.ubodt_lookup_plain(tdu, a, b, False),
+                                        reps=3, warmup=1, cold_l2=True, queued=False)
+            # HBM: the keys, each distinct bucket's slot-map entry, the hot
+            # rows, dist and time out; the host link: the cold rows
+            hbm = 8 * P * K + 4 * n_b + row_bytes * n_hot + 8 * N
+            r["bound_ms"] = (hbm / PEAK_BYTES_S
+                             + row_bytes * n_cold / link["peak_bytes_per_s"]) * 1e3
+            r["bound_by"] = "bytes"
+            if occ == "cold":
+                r["dedup_ms"] = time_ms(lambda: H.ubodt_lookup_dedup(tdu, a, b, False),
+                                        cold_l2=True)
+                r["caches"] = cold_cache_probe(tier, a, b)
+            print("kernel %-26s %s %-7s kernel_ms=%.4f untiered kernel_ms=%.4f plain_ms=%s "
+                  "bound_ms=%.4f (bytes: %d hot rows over HBM, %d cold rows over the link)%s"
+                  % (name, r["shape"], occ, r["ms"], r["untiered_ms"],
+                     "%.4f" % r["plain_ms"] if "plain_ms" in r else "-", r["bound_ms"], n_hot,
+                     n_cold, " dedup_ms=%.4f" % r["dedup_ms"] if "dedup_ms" in r else ""))
+        out[occ] = r
+        tier.close()
+    return out
+
+
+def tier_paths(matcher, ubodt_w, sm, traces64, traces256, traces2048, tr_a, tr_l, xins,
+               xin_a):
+    """Matchers at the partial budget ($REPORTER_UBODT_HOT_BYTES-sized
+    config) over every path, through the launch counters, each output
+    equal to the untiered matcher's: the bucketed path (both cohorts), the
+    long path, the session path (slab, host carries, 4-point long
+    oracle), the sparse cohorts A (bucketed) and L (long), and the assoc
+    forward's bucketed and long paths; then a wide32 + dedup matcher's
+    bucketed and long paths (``ubodt_probe[wide32,tiered]``)."""
+    from dataclasses import replace
+
+    from reporter_tpu_torch.matching import SegmentMatcher
+
+    def tiered(base, **kw):
+        return SegmentMatcher(arrays=base.arrays, ubodt=base.ubodt, device=base.device,
+                              config=replace(base.cfg, ubodt_hot_bytes=TIER_PARTIAL, **kw))
+
+    mt = tiered(matcher)
+    check(mt.tiering is not None and mt._du.tier is mt.tiering, "tiered matcher")
+    out = {"launches": {}, "rates": {}}
+    out["launches"]["bucketed"], out["rates"]["bucketed"] = main_path(
+        mt, [traces64, traces256], xins, base=matcher, plain=False)
+    out["launches"]["long"], out["rates"]["long"] = long_path(mt, traces2048, base=matcher,
+                                                              plain=False)
+    _am, out["launches"]["session"], out["rates"]["session"] = session_path(mt, traces64)
+    smt = tiered(sm)
+    out["launches"]["sparse"], out["rates"]["sparse"] = sparse_main_path(
+        smt, [tr_a], [xin_a], "tiered", base=sm, plain=False)
+    out["launches"]["sparse_long"], out["rates"]["sparse_long"] = long_path(
+        smt, tr_l, "ge60", base=sm, plain=False)
+    base_a = SegmentMatcher(arrays=matcher.arrays, ubodt=matcher.ubodt, device=matcher.device,
+                            config=replace(matcher.cfg, viterbi_kernel="assoc"))
+    mta = tiered(matcher, viterbi_kernel="assoc")
+    out["launches"]["assoc"], out["rates"]["assoc"] = main_path(
+        mta, [traces64, traces256], xins, base=base_a, plain=False)
+    out["launches"]["assoc_long"], out["rates"]["assoc_long"] = long_path(
+        mta, traces2048, base=base_a, plain=False)
+    mwt = memory_matcher(matcher, ubodt_w, ubodt_hot_bytes=TIER_PARTIAL)
+    check(mwt._du.wide and mwt.tiering is not None, "tiered wide32 + dedup matcher")
+    out["launches"]["wide32"], out["rates"]["wide32"] = main_path(
+        mwt, [traces64], xins[:1], base=matcher, plain=False)
+    out["launches"]["wide32_long"], out["rates"]["wide32_long"] = long_path(
+        mwt, traces2048, base=matcher, plain=False)
+    out["tier"] = {"summary": mt.tiering.summary(), "hits": mt.tiering.hits,
+                   "misses": mt.tiering.misses, "evictions": mt.tiering.evictions,
+                   "maintenance_passes": mt.tiering.maintenance_passes}
+    print("tiered matcher (%d B hot): every path equals the untiered matcher's; tier %s"
+          % (TIER_PARTIAL, json.dumps(out["tier"])))
+    return out
+
+
+def session_cold_tier(matcher, traces64, hot=128, cold=256, steps=8, group=128):
+    """The 512 x 64 cohort as 512 sessions in ``steps`` steps of 4 points,
+    submitted in groups of ``group``, through a slab of ``hot`` slots over
+    ``cold`` pinned host pages (promotion, demotion and spill at every
+    group), through the launch counters; records and beams equal the
+    host-carry path's."""
+    from dataclasses import replace
+
+    import numpy as np
+
+    from reporter_tpu_torch.matching import SegmentMatcher, SessionEngine, SessionStore
+    from reporter_tpu_torch.matching.arena import carry_host
+
+    cfg = matcher.cfg
+    slot_b = 12 * cfg.beam_k + 17
+    cm = SegmentMatcher(arrays=matcher.arrays, ubodt=matcher.ubodt, device=matcher.device,
+                        config=replace(cfg, session_arena=True,
+                                       session_arena_bytes=hot * slot_b,
+                                       session_arena_cold_bytes=cold * slot_b))
+    arena = cm.session_arena
+    check((arena.hot_slots, arena.cold_slots) == (hot, cold), "slab of %d + %d" % (hot, cold))
+
+    def stream(m):
+        eng = SessionEngine(m, SessionStore(cfg.max_sessions, cfg.session_ttl_s),
+                            tail_points=cfg.session_tail_points)
+        for j in range(0, steps * 4, 4):
+            for g in range(0, len(traces64), group):
+                eng.match_many([dict(tr, trace=tr["trace"][j:j + 4])
+                                for tr in traces64[g:g + group]])
+        return eng
+
+    path, other = _forward(cm, 4, True)
+    kernels, absent = _path_kernels(cm, path)
+    eng, dt, launches = _counted(kernels, lambda: stream(cm), other + absent)
+    summ = arena.summary()
+    check(summ["promotions"] > 0 and summ["evictions"] > 0 and summ["readbacks"] > 0,
+          "promotion, demotion and spill happened: %s" % summ)
+    host = stream(matcher)
+    for tr in traces64:
+        u = tr["uuid"]
+        s, hs = eng.store.peek(u), host.store.peek(u)
+        check(s.records == hs.records, "cold-tier records equal host-carry path (%s)" % u)
+        a, b = carry_host(s.carry), carry_host(hs.carry)
+        check(all(np.asarray(a[k]).tobytes() == np.asarray(b[k]).tobytes() for k in a),
+              "cold-tier beam equals host-carry beam (%s)" % u)
+    print("session cold tier: %d sessions x %d steps in groups of %d through %d hot slots and "
+          "%d cold pages in %.3f s: promotions %d, evictions %d, readbacks %d; records and "
+          "beams equal the host-carry path's, launches %s"
+          % (len(traces64), steps, group, hot, cold, dt, summ["promotions"],
+             summ["evictions"], summ["readbacks"], json.dumps(launches)))
+    return launches, dict(summ, s=dt)
+
+
+def tier_serve_phase(arrays, ubodt, tr_a, default_answers, default_fixtures, device):
+    """The 8 /report of cohort A and the fixture replay with
+    $REPORTER_UBODT_HOT_BYTES at the partial budget on the serving
+    defaults: the same answers as the untiered defaults'."""
+    from reporter_tpu_torch.matching import MatcherConfig, SegmentMatcher
+    from reporter_tpu_torch.serve.__main__ import serving_defaults
+
+    env = {"REPORTER_UBODT_HOT_BYTES": str(TIER_PARTIAL)}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        sv = SegmentMatcher(arrays=arrays, ubodt=ubodt,
+                            config=serving_defaults(MatcherConfig()), device=device)
+        check(sv.tiering is not None and sv.tiering.hot_bytes == TIER_PARTIAL,
+              "the environment tiers the table")
+        kernels, absent = _path_kernels(sv, SPARSE_BUCKETED)
+        (answers,), dt, launches = _counted(kernels, lambda: _serve(sv, 15, tr_a[:8]),
+                                            absent)
+        check(answers == default_answers, "/report answers equal the untiered defaults'")
+        fixtures = replay_fixtures(device, "REPORTER_UBODT_HOT_BYTES=%d" % TIER_PARTIAL)
+        check(fixtures == default_fixtures, "fixture answers equal the untiered defaults'")
+    finally:
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+    print("serve tiered (REPORTER_UBODT_HOT_BYTES=%d): 8 /report of cohort A in %.2f s and "
+          "the 6 fixtures answered as untiered, launches %s"
+          % (TIER_PARTIAL, dt, json.dumps(launches)))
+    return launches
+
+
+
 def main():
     import torch
 
@@ -2038,6 +2516,22 @@ def main():
                         [xin64, xin256], xin_a)
     assoc["serve_launches"] = assoc_serve_phase(matcher, traces64, device)
 
+    # the tiered UBODT (kernel row 10): kernel 2's tiered instantiations,
+    # the dedup probe and the chain seams at three occupancies in both
+    # layouts, every path through tiered matchers, the session arena's
+    # cold tier, serve under REPORTER_UBODT_HOT_BYTES
+    link = host_link(device)
+    tier_k = {u.layout: tier_kernel_phases(
+        matcher, u, xin64, link, sm, tr_l, tr_a,
+        dict(sp=spb, long_pk=(pb_, kb), sess_pk=(pa_, matcher.cfg.beam_k)),
+        traces2048, traces64) for u in (matcher.ubodt, ubodt_w)}
+    tiered = tier_paths(matcher, ubodt_w, sm, traces64, traces256, traces2048, tr_a, tr_l,
+                        [xin64, xin256], xin_a)
+    cold_launches, cold_tier = session_cold_tier(matcher, traces64)
+    tiered["launches"]["session_cold_tier"] = cold_launches
+    tiered["launches"]["serve"] = tier_serve_phase(matcher.arrays, matcher.ubodt, tr_a,
+                                                   sp_answers, fixtures, device)
+
     # launches over the counted runs of every path but serve's; kernels
     # 1-4's times and bounds at 512 x 64, max_abs_err over both bucketed
     # shapes, the session step's and the sparse cohorts A and B (K = 16),
@@ -2047,7 +2541,8 @@ def main():
     runs = [launches, long_launches, sess_launches, sp_launches, cal_launches,
             sp_long_launches, *sp_sess_launches.values(), mem_launches, mem_long_launches,
             mem_sp_launches, *(v for k, v in assoc["launches"].items() if k != "auto"),
-            *assoc["launches"]["auto"].values()]
+            *assoc["launches"]["auto"].values(),
+            *(v for k, v in tiered["launches"].items() if k != "serve")]
     total = {k: sum(r[k] for r in runs) for k in launches}
     kernels = [{
         "name": r["name"], "route": r["route"], "source": r["source"],
@@ -2114,6 +2609,19 @@ def main():
             "max_abs_err": max(r["max_abs_err"] for r in c.values()), "ms": c["long"]["ms"],
             "plain_ms": c["long"]["plain_ms"], "bound_ms": c["long"]["bound_ms"],
             "bound_by": c["long"]["bound_by"], "library_ms": None})
+    # the tiered instantiations of kernel 2 (row 10): times, bounds and the
+    # plain version's at 512 x 64 at the partial budget; errors over every
+    # occupancy, the seams' included (each check above is exact, so 0)
+    for layout, name in (("cuckoo", "ubodt_probe[tiered]"),
+                         ("wide32", "ubodt_probe[wide32,tiered]")):
+        r = tier_k[layout]["partial"]
+        kernels.append({
+            "name": name, "route": "cuda", "source": "reporter_tpu_torch/csrc/ubodt_probe.cu",
+            "replaces": "reporter_tpu/tiles/tiering.py:538", "launches": total[name],
+            "max_abs_err": max(max(o["max_abs_err"], o["seam_max_abs_err"])
+                               for o in tier_k[layout].values()),
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None})
     strip = lambda d: {k: v for k, v in d.items() if k not in ("fn", "plain")}  # noqa: E731
     report = {
         "card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -2155,6 +2663,8 @@ def main():
                   "chain": {tag + name: strip(r) for tag, c in cas.items()
                             for name, r in c.items()},
                   "crossover": cross, **{k: v for k, v in assoc.items()}},
+        "tiering": {"host_link": link, "kernels": tier_k,
+                    "paths": tiered, "session_cold_tier": cold_tier},
         "metro_reports": n_reports, "peak_memory_mb": torch.cuda.max_memory_allocated() / 1e6,
         "kernels": kernels,
         "extra": dict({"%s_%d" % (r["name"], T): {k: v for k, v in r.items() if k in (

@@ -34,6 +34,14 @@
 //
 // The key (-1, -1) equals the empty marker: it has a slot of its own at
 // index nslots.
+//
+// On a tiered table (a RowSource with a slot map) the fallback reads its
+// rows through the tier (rtt::bucket_row) and counts them, and, when the
+// dedup ran, one thread counts what the reference's deduplicated probe
+// also fetches: its compact buffer of m slots holds the n_unique distinct
+// keys and m - n_unique copies of the key (0, 0), all probed
+// (reporter_tpu/ops/hashtable.py:183-196), while kernel 2 here probes the
+// n_unique distinct keys only.
 
 #include "ubodt.cuh"
 
@@ -117,11 +125,24 @@ __global__ void scatter_kernel(const int32_t* __restrict__ src,
                                const int4* __restrict__ packed,
                                uint32_t bmask, float* __restrict__ out_dist,
                                float* __restrict__ out_time,
-                               int32_t* __restrict__ out_first) {
+                               int32_t* __restrict__ out_first,
+                               rtt::RowSource tier) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int lane = threadIdx.x & 31;
   const bool live = i < n;
+  const bool tiered = tier.slot_map != nullptr;
   if (*count <= m) {  // uniform over the grid
+    if (tiered && i == 0) {  // the compact buffer's (0, 0) tail
+      const unsigned long long tail = (unsigned long long)(m - *count);
+      unsigned long long hits = 0, misses = 0;
+      for (int w = 0; w < (WIDE ? 1 : 2) && tail; ++w) {
+        const uint32_t h = (w == 0 ? rtt::pair_hash1(0u, 0u)
+                                   : rtt::pair_hash2(0u, 0u)) & bmask;
+        if (tier.counts) atomicAdd(tier.counts + h, (int32_t)tail);
+        (tier.slot_map[h] >= 0 ? hits : misses) += tail;
+      }
+      rtt::add_totals(tier, hits, misses);
+    }
     if (!live) return;
     const int32_t idx = sidx[slot_of[i]];
     out_dist[i] = c_dist[idx];
@@ -135,18 +156,27 @@ __global__ void scatter_kernel(const int32_t* __restrict__ src,
   const unsigned ball = __ballot_sync(0xffffffffu, live);
   float rd = 0.f, rt = 0.f;
   int32_t rf = -1;
+  int hits = 0;
   for (int k = 0; k < 32; ++k) {
     if (!((ball >> k) & 1u)) continue;  // uniform
     const int32_t sk = __shfl_sync(0xffffffffu, s, k);
     const int32_t dk = __shfl_sync(0xffffffffu, d, k);
     float pd, pt;
     int32_t pf;
-    rtt::warp_probe<WIDE>(packed, bmask, sk, dk, lane, &pd, &pt, &pf);
+    hits += tiered ? rtt::warp_probe<WIDE, true>(packed, tier, bmask, sk, dk,
+                                                 lane, &pd, &pt, &pf)
+                   : rtt::warp_probe<WIDE, false>(packed, tier, bmask, sk, dk,
+                                                  lane, &pd, &pt, &pf);
     if (lane == k) {
       rd = pd;
       rt = pt;
       rf = pf;
     }
+  }
+  if (tiered && lane == 0) {  // the warp's fetches
+    const int fetches = __popc(ball) * (WIDE ? 1 : 2);
+    rtt::add_totals(tier, (unsigned long long)hits,
+                    (unsigned long long)(fetches - hits));
   }
   if (live) {
     out_dist[i] = rd;
@@ -187,7 +217,10 @@ extern "C" int ubodt_dedup_claim_launch(
   return (int)cudaGetLastError();
 }
 
+
 // wide: the table's layout (0 cuckoo, 1 wide32), for the fallback probe.
+// slot_map (null: untiered), arena, counts and totals: the tier's, as
+// kernel 2's tiered instantiations take them (packed the host pages).
 extern "C" int ubodt_dedup_scatter_launch(
     const int32_t* src, const int32_t* dst, const int64_t* dims,
     const int64_t* src_strides, const int64_t* dst_strides,
@@ -195,22 +228,27 @@ extern "C" int ubodt_dedup_scatter_launch(
     int64_t m, const float* c_dist, const float* c_time,
     const int32_t* c_first, const int32_t* packed, int32_t bmask,
     int32_t wide, float* out_dist, float* out_time, int32_t* out_first,
-    void* stream) {
+    const int32_t* slot_map, const int32_t* arena, int32_t* counts,
+    int64_t* totals, void* stream) {
   rtt::Grid4 g;
   const int64_t n = rtt::make_grid(dims, src_strides, dst_strides, &g);
   if (n <= 0) return 0;
   if (blocks_for(n) > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const int4* p = reinterpret_cast<const int4*>(packed);
   cudaStream_t st = (cudaStream_t)stream;
-  if (wide) {
-    scatter_kernel<true><<<(unsigned)blocks_for(n), kThreads, 0, st>>>(
+  const rtt::RowSource tier = {slot_map, reinterpret_cast<const int4*>(arena),
+                               counts,
+                               reinterpret_cast<unsigned long long*>(totals)};
+  const uint32_t bm = (uint32_t)bmask;
+  const unsigned blocks = (unsigned)blocks_for(n);
+  if (wide)
+    scatter_kernel<true><<<blocks, kThreads, 0, st>>>(
         src, dst, g, n, slot_of, sidx, count, m, c_dist, c_time, c_first, p,
-        (uint32_t)bmask, out_dist, out_time, out_first);
-  } else {
-    scatter_kernel<false><<<(unsigned)blocks_for(n), kThreads, 0, st>>>(
+        bm, out_dist, out_time, out_first, tier);
+  else
+    scatter_kernel<false><<<blocks, kThreads, 0, st>>>(
         src, dst, g, n, slot_of, sidx, count, m, c_dist, c_time, c_first, p,
-        (uint32_t)bmask, out_dist, out_time, out_first);
-  }
+        bm, out_dist, out_time, out_first, tier);
   return (int)cudaGetLastError();
 }
 

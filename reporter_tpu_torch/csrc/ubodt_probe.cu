@@ -25,12 +25,28 @@
 // dedup path's device-side distinct count) may limit the probes to the
 // first n_live keys; when it exceeds the key count no probe runs (the
 // dedup scatter then probes every key itself).
+//
+// The TIERED instantiations (ubodt_probe_tiered_launch and
+// ubodt_probe_wide32_tiered_launch, counted apart as ubodt_probe[tiered]
+// and ubodt_probe[wide32,tiered]) replace reporter_tpu/tiles/tiering.py:538
+// tiered_bucket_rows: packed is then the full table in pinned host memory,
+// each row comes from the hot arena when slot_map names one (an L2-resident
+// 4 MB map for the metro table) and is read in place over the host link
+// when not (rtt::bucket_row).  A cold row costs a PCIe round trip, so a
+// cold probe is bounded by the host link's rate, not HBM's.  Lane 0 of each
+// probe's warp counts its fetches per bucket; the block totals its hits
+// and misses (__syncthreads_count) before one atomic each.  The untiered
+// instantiations are the code above, unchanged.
+//
+// ubodt_host_register pins a host buffer and maps it into the card's
+// address space (cudaHostRegister + cudaHostGetDevicePointer): the tiered
+// table's pages.
 
 #include "ubodt.cuh"
 
 namespace {
 
-template <bool WIDE>
+template <bool WIDE, bool TIERED>
 __global__ void ubodt_probe_kernel(const int32_t* __restrict__ src,
                                    const int32_t* __restrict__ dst,
                                    rtt::Grid4 g, int64_t n,
@@ -38,7 +54,8 @@ __global__ void ubodt_probe_kernel(const int32_t* __restrict__ src,
                                    const int4* __restrict__ packed,
                                    uint32_t bmask, float* __restrict__ out_dist,
                                    float* __restrict__ out_time,
-                                   int32_t* __restrict__ out_first) {
+                                   int32_t* __restrict__ out_first,
+                                   rtt::RowSource tier) {
   const int lane = threadIdx.x & 31;
   const int64_t probe = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   int64_t live = n;
@@ -46,36 +63,71 @@ __global__ void ubodt_probe_kernel(const int32_t* __restrict__ src,
     const int64_t c = *n_live;
     live = c <= n ? c : 0;
   }
-  if (probe >= live) return;  // uniform across the warp
-  int32_t s, d;
-  rtt::grid_keys(src, dst, g, probe, &s, &d);
-  float dist, time;
-  int32_t first;
-  rtt::warp_probe<WIDE>(packed, bmask, s, d, lane, &dist, &time, &first);
-  if (lane == 0) {
-    out_dist[probe] = dist;
-    out_time[probe] = time;
-    if (out_first) out_first[probe] = first;
+  if constexpr (!TIERED) {
+    if (probe >= live) return;  // uniform across the warp
+    int32_t s, d;
+    rtt::grid_keys(src, dst, g, probe, &s, &d);
+    float dist, time;
+    int32_t first;
+    rtt::warp_probe<WIDE, false>(packed, tier, bmask, s, d, lane, &dist,
+                                 &time, &first);
+    if (lane == 0) {
+      out_dist[probe] = dist;
+      out_time[probe] = time;
+      if (out_first) out_first[probe] = first;
+    }
+  } else {
+    // every thread reaches the block's counts below
+    const bool active = probe < live;  // uniform across the warp
+    int n_hot = 0;
+    if (active) {
+      int32_t s, d;
+      rtt::grid_keys(src, dst, g, probe, &s, &d);
+      float dist, time;
+      int32_t first;
+      n_hot = rtt::warp_probe<WIDE, true>(packed, tier, bmask, s, d, lane,
+                                          &dist, &time, &first);
+      if (lane == 0) {
+        out_dist[probe] = dist;
+        out_time[probe] = time;
+        if (out_first) out_first[probe] = first;
+      }
+    }
+    constexpr int kRows = WIDE ? 1 : 2;
+    const bool lead = lane == 0 && active;
+    const int hits = __syncthreads_count(lead && n_hot >= 1) +
+                     (WIDE ? 0 : __syncthreads_count(lead && n_hot >= 2));
+    const int fetches = __syncthreads_count(lead) * kRows;
+    if (threadIdx.x == 0)
+      rtt::add_totals(tier, (unsigned long long)hits,
+                      (unsigned long long)(fetches - hits));
   }
 }
 
-template <bool WIDE>
+template <bool WIDE, bool TIERED>
 int launch(const int32_t* src, const int32_t* dst, const int64_t* dims,
            const int64_t* src_strides, const int64_t* dst_strides,
            const int32_t* packed, int32_t bmask, const int32_t* n_live,
            float* out_dist, float* out_time, int32_t* out_first,
-           void* stream) {
+           rtt::RowSource tier, void* stream) {
   rtt::Grid4 g;
   const int64_t n = rtt::make_grid(dims, src_strides, dst_strides, &g);
   if (n <= 0) return 0;
+  if (TIERED && tier.slot_map == nullptr) return (int)cudaErrorInvalidValue;
   const int threads = 256;  // 8 probes per block
   const int64_t blocks = (n * 32 + threads - 1) / threads;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  ubodt_probe_kernel<WIDE><<<(unsigned)blocks, threads, 0,
-                             (cudaStream_t)stream>>>(
+  ubodt_probe_kernel<WIDE, TIERED><<<(unsigned)blocks, threads, 0,
+                                     (cudaStream_t)stream>>>(
       src, dst, g, n, n_live, reinterpret_cast<const int4*>(packed),
-      (uint32_t)bmask, out_dist, out_time, out_first);
+      (uint32_t)bmask, out_dist, out_time, out_first, tier);
   return (int)cudaGetLastError();
+}
+
+inline rtt::RowSource row_source(const int32_t* slot_map, const int32_t* arena,
+                                 int32_t* counts, int64_t* totals) {
+  return {slot_map, reinterpret_cast<const int4*>(arena), counts,
+          reinterpret_cast<unsigned long long*>(totals)};
 }
 
 }  // namespace
@@ -91,8 +143,9 @@ extern "C" int ubodt_probe_launch(const int32_t* src, const int32_t* dst,
                                   const int32_t* n_live, float* out_dist,
                                   float* out_time, int32_t* out_first,
                                   void* stream) {
-  return launch<false>(src, dst, dims, src_strides, dst_strides, packed,
-                       bmask, n_live, out_dist, out_time, out_first, stream);
+  return launch<false, false>(src, dst, dims, src_strides, dst_strides,
+                              packed, bmask, n_live, out_dist, out_time,
+                              out_first, rtt::RowSource{}, stream);
 }
 
 // The same for a wide32 table: packed [bmask + 1, 256] int32.
@@ -105,8 +158,64 @@ extern "C" int ubodt_probe_wide32_launch(const int32_t* src,
                                          const int32_t* n_live,
                                          float* out_dist, float* out_time,
                                          int32_t* out_first, void* stream) {
-  return launch<true>(src, dst, dims, src_strides, dst_strides, packed,
-                      bmask, n_live, out_dist, out_time, out_first, stream);
+  return launch<true, false>(src, dst, dims, src_strides, dst_strides,
+                             packed, bmask, n_live, out_dist, out_time,
+                             out_first, rtt::RowSource{}, stream);
+}
+
+// The tiered instantiations: kernel 2's arguments with packed the pinned
+// host pages (a device-mapped address), then slot_map [n_buckets] int32,
+// arena [rows, 128 or 256] int32, counts [n_buckets] int32 (or null) and
+// totals [2] int64 (or null).
+extern "C" int ubodt_probe_tiered_launch(
+    const int32_t* src, const int32_t* dst, const int64_t* dims,
+    const int64_t* src_strides, const int64_t* dst_strides,
+    const int32_t* packed, int32_t bmask, const int32_t* n_live,
+    float* out_dist, float* out_time, int32_t* out_first,
+    const int32_t* slot_map, const int32_t* arena, int32_t* counts,
+    int64_t* totals, void* stream) {
+  return launch<false, true>(src, dst, dims, src_strides, dst_strides, packed,
+                             bmask, n_live, out_dist, out_time, out_first,
+                             row_source(slot_map, arena, counts, totals),
+                             stream);
+}
+
+extern "C" int ubodt_probe_wide32_tiered_launch(
+    const int32_t* src, const int32_t* dst, const int64_t* dims,
+    const int64_t* src_strides, const int64_t* dst_strides,
+    const int32_t* packed, int32_t bmask, const int32_t* n_live,
+    float* out_dist, float* out_time, int32_t* out_first,
+    const int32_t* slot_map, const int32_t* arena, int32_t* counts,
+    int64_t* totals, void* stream) {
+  return launch<true, true>(src, dst, dims, src_strides, dst_strides, packed,
+                            bmask, n_live, out_dist, out_time, out_first,
+                            row_source(slot_map, arena, counts, totals),
+                            stream);
+}
+
+// Page-lock ``bytes`` of host memory at ``host`` and map it into the
+// card's address space; *dev_ptr receives the address kernels read it by.
+extern "C" int ubodt_host_register(void* host, size_t bytes, void** dev_ptr) {
+  cudaError_t e = cudaHostRegister(host, bytes, cudaHostRegisterMapped);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaHostGetDevicePointer(dev_ptr, host, 0);
+  if (e != cudaSuccess) cudaHostUnregister(host);
+  return (int)e;
+}
+
+extern "C" int ubodt_host_unregister(void* host) {
+  return (int)cudaHostUnregister(host);
+}
+
+// The memory type CUDA reports for an address (cudaMemoryType: 1 host,
+// i.e. page-locked, 2 device, 0 unregistered), or -1 on an error.
+extern "C" int ubodt_memory_type(const void* ptr) {
+  cudaPointerAttributes attr;
+  if (cudaPointerGetAttributes(&attr, ptr) != cudaSuccess) {
+    cudaGetLastError();
+    return -1;
+  }
+  return (int)attr.type;
 }
 
 extern "C" const char* ubodt_probe_error_string(int code) {

@@ -209,8 +209,9 @@ viterbi_assoc_kernel(const ViterbiArgs a, float* ws) {
     if constexpr (CARRY) {
       const unsigned gmask = (K == 32) ? 0xffffffffu
                                        : (((1u << K) - 1u) << (lane / K * K));
+      // every group of K lanes repeats the trace's seam; the first counts
       score = seam_column<K, SPARSE>(a, b, j, gmask, first_break, committed,
-                                     lp_committed);
+                                     lp_committed, lane < K);
     }
     if (lane < K) {
       sh.init[lane] = score;

@@ -100,6 +100,7 @@ struct ViterbiArgs {
   const int4* ubodt;         // [n_buckets, 32 or 64] int4
   uint32_t bmask;
   bool wide;                 // the table's layout: wide32 (else cuckoo)
+  rtt::RowSource tier;       // the hot tier and fetch counters, or none
   rtt::TransParams tp;
   rtt::SparseArgs sa;        // SPARSE only
   CarryPtrs in;
@@ -114,12 +115,14 @@ struct ViterbiArgs {
 // Called by whole warps: lanes in the group of ``gmask`` share a trace.
 // Returns the first point's score in slot j and sets first_break,
 // committed (the carried chosen slot) and lp_committed (the seam logp
-// from it to slot j).
+// from it to slot j).  ``count``: this lane's probes count as fetches of a
+// tiered table (false for a lane that repeats another's trace).
 template <int K, bool SPARSE>
 __device__ __forceinline__ float seam_column(const ViterbiArgs& a, int64_t bb,
                                              int j, unsigned gmask,
                                              bool& first_break, int& committed,
-                                             float& lp_committed) {
+                                             float& lp_committed,
+                                             bool count) {
   const int T = a.T;
   const float* em = a.emis + bb * T * K;
   const int32_t* ce = a.cand_edge + bb * T * K;
@@ -145,20 +148,27 @@ __device__ __forceinline__ float seam_column(const ViterbiArgs& a, int64_t bb,
   const int c = committed > 0 ? committed : 0;
   float best = 0.f;
   lp_committed = kNegInf;
+  int hits = 0, fetches = 0;
   for (int i = 0; i < K; ++i) {
     const int32_t ea = row >= 0 ? a.in.edge[row * K + i] : -1;
     const float oa = row >= 0 ? a.in.offset[row * K + i] : 0.f;
     const float sc = row >= 0 ? a.in.scores[row * K + i] : kNegInf;
     const float* era = a.edge_rows + (int64_t)(ea >= 0 ? ea : 0) * 8;
     float sp_dist, sp_time;
-    rtt::probe_serial(a.ubodt, a.bmask, a.wide, __float_as_int(era[0]),
-                      from_b, &sp_dist, &sp_time);
+    rtt::probe_serial(a.ubodt, a.tier, a.bmask, a.wide,
+                      __float_as_int(era[0]), from_b, &sp_dist, &sp_time,
+                      count, &hits, &fetches);
     const float lp = rtt::transition_logp<SPARSE>(
         ea, eb, oa, ob, era, erb, sp_dist, sp_time, gc0, dt0, a.tp, a.sa,
         nullptr);
     if (i == c) lp_committed = lp;
     const float tot = __fadd_rn(sc, lp);
     if (i == 0 || tot > best) best = tot;
+  }
+  if (a.tier.totals) {  // uniform: the warp's fetches in one atomic each
+    const unsigned h = __reduce_add_sync(0xffffffffu, (unsigned)hits);
+    const unsigned f = __reduce_add_sync(0xffffffffu, (unsigned)fetches);
+    if ((threadIdx.x & 31) == 0) rtt::add_totals(a.tier, h, f - h);
   }
   const bool connected = best > kNegInf / 2;
   const bool any = (__ballot_sync(0xffffffffu, connected) & gmask) != 0u;
@@ -315,7 +325,7 @@ __global__ void viterbi_kernel(const ViterbiArgs a) {
   float lp_committed = kNegInf;
   if constexpr (CARRY)
     score = seam_column<K, SPARSE>(a, bb, j, gmask, first_break, committed,
-                                   lp_committed);
+                                   lp_committed, live);
 
   // the scores of step t gathered into s[], its local argmax recorded and
   // the confidence aux of the point accumulated
@@ -446,8 +456,9 @@ inline ViterbiArgs chain_args(
     const float* emis, const float* logp, const float* gc, const float* valid,
     const int32_t* cand_edge, const float* cand_offset, const float* px,
     const float* py, const float* times, const float* edge_rows,
-    const int32_t* ubodt, int32_t bmask, int32_t wide, int64_t B, int32_t T,
-    float brk,
+    const int32_t* ubodt, int32_t bmask, int32_t wide,
+    const int32_t* slot_map, const int32_t* arena, int32_t* counts,
+    int64_t* totals, int64_t B, int32_t T, float brk,
     float sigma, float beta, float radius, float max_route_factor,
     float max_time_factor, float turn_factor, const float* in_scores,
     const int32_t* in_edge, const float* in_offset, const float* in_x,
@@ -475,6 +486,8 @@ inline ViterbiArgs chain_args(
   a.ubodt = reinterpret_cast<const int4*>(ubodt);
   a.bmask = (uint32_t)bmask;
   a.wide = wide != 0;
+  a.tier = {slot_map, reinterpret_cast<const int4*>(arena), counts,
+            reinterpret_cast<unsigned long long*>(totals)};
   a.tp = {sigma, beta, radius, max_route_factor, max_time_factor,
           turn_factor};
   a.in = {in_scores, in_edge, in_offset, in_x, in_y, in_t, in_active,
@@ -494,7 +507,9 @@ inline ViterbiArgs chain_args(
     const float *valid, const int32_t *cand_edge, const float *cand_offset,  \
     const float *px, const float *py, const float *times,                    \
     const float *edge_rows, const int32_t *ubodt, int32_t bmask,             \
-    int32_t wide, int64_t B, int32_t T, int32_t K, float brk, float sigma,   \
+    int32_t wide, const int32_t *slot_map, const int32_t *arena,             \
+    int32_t *counts, int64_t *totals, int64_t B, int32_t T, int32_t K,       \
+    float brk, float sigma,                                                  \
     float beta, float radius,                                                \
     float max_route_factor, float max_time_factor, float turn_factor,        \
     const float *in_scores, const int32_t *in_edge, const float *in_offset,  \
@@ -506,7 +521,8 @@ inline ViterbiArgs chain_args(
     float *aux
 #define CHAIN_ARGS                                                           \
     emis, logp, gc, valid, cand_edge, cand_offset, px, py, times, edge_rows, \
-    ubodt, bmask, wide, B, T, brk, sigma, beta, radius, max_route_factor,    \
+    ubodt, bmask, wide, slot_map, arena, counts, totals, B, T, brk, sigma,   \
+    beta, radius, max_route_factor,                                          \
     max_time_factor, turn_factor, in_scores, in_edge, in_offset, in_x, in_y, \
     in_t, in_active, in_committed, out_scores, out_edge, out_offset, out_x,  \
     out_y, out_t, out_active, out_committed, slots, use, S, packed, aux

@@ -13,16 +13,39 @@ table layout and in-batch probe dedup; ``$REPORTER_UBODT_LAYOUT`` and
 ``$REPORTER_PROBE_DEDUP`` override them at matcher construction) and the
 Viterbi forward (``viterbi_kernel`` scan | assoc | auto with
 ``viterbi_assoc_threshold``; ``$REPORTER_VITERBI`` overrides it at
-matcher construction).  Keys of the reference's config that belong to
-paths this port does not carry yet (route-consistent interpolation, the
-session arena's budget and cold tier, tiering, meshes) are ignored by
-``from_dict``.
+matcher construction), the tiered UBODT (``ubodt_hot_bytes``,
+``ubodt_shard``; ``$REPORTER_UBODT_HOT_BYTES`` and ``$REPORTER_UBODT_SHARD``
+override them), the session arena's byte budgets
+(``session_arena_bytes``, ``session_arena_cold_bytes``;
+``$REPORTER_SESSION_ARENA_BYTES`` and ``_COLD_BYTES``) and
+route-consistent interpolation (``interpolate``, ``$REPORTER_INTERPOLATE``).
+``from_dict`` drops the keys of the reference's config that belong to
+paths this port does not carry yet (the host packer, warmup, meshes, the
+degraded CPU fallback) with one warning per key per process.
 """
 
 from __future__ import annotations
 
+import logging
+import threading
 from dataclasses import dataclass, field
-from typing import List
+from typing import List, Set
+
+log = logging.getLogger(__name__)
+
+# keys from_dict has warned about in this process
+_WARNED: Set[tuple] = set()
+_WARNED_LOCK = threading.Lock()
+
+
+def warn_dropped(what: str, key: str) -> None:
+    """Log once per process that config key ``key`` of ``what`` is not
+    carried by this port and has no effect."""
+    with _WARNED_LOCK:
+        if (what, key) in _WARNED:
+            return
+        _WARNED.add((what, key))
+    log.warning("%s key %r is not carried by this port; ignored", what, key)
 
 
 @dataclass
@@ -73,10 +96,23 @@ class MatcherConfig:
     session_tail_points: int = 64
     max_sessions: int = 65536
     session_ttl_s: float = 3600.0
-    # carried session beams in a device slab of max_sessions slots updated
-    # in place by the step (matching/arena.py); off by default, the serve
-    # entry point turns it on
+    # carried session beams in a device slab updated in place by the step
+    # (matching/arena.py); off by default, the serve entry point turns it
+    # on.  The slab holds min(max_sessions, session_arena_bytes // slot
+    # bytes) slots (0 = max_sessions); beams it cannot hold page to pinned
+    # host memory, session_arena_cold_bytes of it (0 = 4x the hot slots)
     session_arena: bool = False
+    session_arena_bytes: int = 0
+    session_arena_cold_bytes: int = 0
+    # the tiered UBODT (tiles/tiering.py): with ubodt_hot_bytes > 0 the
+    # card holds only an arena of that many bytes of hot bucket rows, the
+    # full table stays in pinned host memory; ubodt_shard "i/N" seeds the
+    # arena with bucket range i of N.  Same answers at any budget
+    ubodt_hot_bytes: int = 0
+    ubodt_shard: str = ""
+    # route-consistent interpolation (matching/sparse.py): boundary times
+    # by free-flow speed; match_options.interpolate overrides per trace
+    interpolate: bool = False
     # sparse-gap model (matching/sparse.py): a trace whose median gap is at
     # or above sparse_gap_s decodes with the time-adaptive transitions and
     # gap-conditioned breakage, at sparse_beam_k candidates on windowed and
@@ -102,7 +138,12 @@ class MatcherConfig:
 
     @classmethod
     def from_dict(cls, d: dict) -> "MatcherConfig":
+        """The config of a dict's known keys; every other key is dropped
+        with one warning per key per process."""
         known = set(cls.__dataclass_fields__)
+        for k in d:
+            if k not in known:
+                warn_dropped("matcher config", k)
         return cls(**{k: v for k, v in d.items() if k in known})
 
     @classmethod

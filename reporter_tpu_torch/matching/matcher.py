@@ -45,8 +45,23 @@ the same under either forward.
 (ops/diagnostics.py) on every Nth dense bucketed dispatch: dispatched on
 the dispatching thread, harvested at collect into ``probe_stats``.
 
-Not in this port yet: route-consistent interpolation, tiering and
-meshes.
+The tiered UBODT (``ubodt_hot_bytes``, ``ubodt_shard``; overridden by
+``$REPORTER_UBODT_HOT_BYTES`` and ``$REPORTER_UBODT_SHARD``): with a
+positive budget ``_du`` is a ``TieredDeviceUBODT`` (tiles/tiering.py),
+a hot arena on the device over the table in pinned host memory, which
+every probe of every path reads through (kernel 2's ``[tiered]``
+instantiations, the dedup scatter, the chain kernels' seams); the fetch
+totals are read at collect, where a maintenance pass may re-pick the hot
+set.  The session slab's byte budget and pinned host cold tier
+(``session_arena_bytes``, ``session_arena_cold_bytes``) are
+``matching/arena.py``'s.
+
+Route-consistent interpolation (``cfg.interpolate``,
+``$REPORTER_INTERPOLATE``, a request's ``match_options.interpolate``)
+re-times the windowed and long traces' segment boundaries by free-flow
+speed at association (``matching/sparse.py``).
+
+Not in this port yet: meshes.
 """
 
 from __future__ import annotations
@@ -73,11 +88,12 @@ from ..ops.viterbi import (
 )
 from ..tiles.arrays import GraphArrays, build_graph_arrays
 from ..tiles.network import RoadNetwork
+from ..tiles.tiering import TieredTable, parse_shard
 from ..tiles.ubodt import LAYOUTS, UBODT, build_ubodt
 from .arena import SessionArena, carry_host
 from .assoc_native import associate_segments_batch
 from .config import MatcherConfig
-from .sparse import SparseModel, clamp_radius
+from .sparse import SparseModel, associate_interpolated, clamp_radius
 
 # chunks allowed in flight on the device while the host associates
 # earlier ones; each pins its packed input and output
@@ -131,8 +147,34 @@ class SegmentMatcher:
             ubodt = ubodt.relayout(self.ubodt_layout)
         self.ubodt = ubodt
         self._quality_aux = bool(self.cfg.quality_aux)
+        # route-consistent interpolation default; a request's
+        # match_options.interpolate overrides it either way
+        env_ip = os.environ.get("REPORTER_INTERPOLATE", "").strip().lower()
+        self._interpolate = (env_ip not in ("0", "false", "off", "no") if env_ip
+                             else bool(self.cfg.interpolate))
         self._dg = arrays.to_device(self.device)
-        self._du = ubodt.to_device(self.device)
+        # the tiered table: $REPORTER_UBODT_HOT_BYTES (or ubodt_hot_bytes)
+        # > 0 keeps only a hot arena of bucket rows on the device, the full
+        # table in pinned host memory (tiles/tiering.py; same answers);
+        # $REPORTER_UBODT_SHARD = "i/N" seeds the arena with that range
+        env_hot = os.environ.get("REPORTER_UBODT_HOT_BYTES", "").strip()
+        try:
+            self._ubodt_hot_bytes = int(env_hot) if env_hot else int(
+                self.cfg.ubodt_hot_bytes or 0)
+        except ValueError:
+            raise ValueError("REPORTER_UBODT_HOT_BYTES must be an integer "
+                             "byte count, got %r" % (env_hot,))
+        self.ubodt_shard = parse_shard(
+            os.environ.get("REPORTER_UBODT_SHARD", "").strip()
+            or self.cfg.ubodt_shard or "")
+        self.tiering = None
+        if self._ubodt_hot_bytes > 0:
+            self.tiering = TieredTable(ubodt, self._ubodt_hot_bytes,
+                                       shard=self.ubodt_shard,
+                                       device=self.device)
+            self._du = self.tiering.device()
+        else:
+            self._du = ubodt.to_device(self.device)
         self._params = MatchParams.from_config(self.cfg)
         self._params_cache: Dict[tuple, MatchParams] = {}
         # the sparse-gap model: off unless cfg.sparse or $REPORTER_SPARSE
@@ -141,8 +183,21 @@ class SegmentMatcher:
         # by default, the serve entry point turns it on
         self.session_arena = None
         if self.cfg.session_arena:
+            env_b = os.environ.get("REPORTER_SESSION_ARENA_BYTES", "").strip()
+            env_cb = os.environ.get("REPORTER_SESSION_ARENA_COLD_BYTES",
+                                    "").strip()
+            try:
+                hot_b = int(env_b) if env_b else int(
+                    self.cfg.session_arena_bytes or 0)
+                cold_b = int(env_cb) if env_cb else int(
+                    self.cfg.session_arena_cold_bytes or 0)
+            except ValueError:
+                raise ValueError(
+                    "REPORTER_SESSION_ARENA_BYTES/_COLD_BYTES must be integer "
+                    "byte counts, got %r/%r" % (env_b, env_cb))
             self.session_arena = SessionArena(
-                self.cfg.beam_k, int(self.cfg.max_sessions), self.device)
+                self.cfg.beam_k, int(self.cfg.max_sessions), self.device,
+                hot_bytes=hot_b, cold_bytes=cold_b)
         # the sampled probe-outcome diagnostic: every Nth dense bucketed
         # dispatch (0 = off); results stay on the device until a collect
         try:
@@ -206,6 +261,22 @@ class SegmentMatcher:
         }
         if radius > float(self.arrays.cell_size) / 2.0:
             out["search_radius_clamped"] = True
+        return out
+
+    def _interp_indices(self, traces):
+        """Indices of the traces whose association runs through the
+        route-consistent interpolation (a request's
+        match_options.interpolate, else the matcher's default); None when
+        none does."""
+        out = None
+        for i, tr in enumerate(traces):
+            mo = tr.get("match_options") if isinstance(tr, dict) else None
+            want = self._interpolate
+            if isinstance(mo, dict) and "interpolate" in mo:
+                want = bool(mo["interpolate"])
+            if want:
+                out = out or set()
+                out.add(i)
         return out
 
     def _params_key(self, trace) -> tuple:
@@ -353,12 +424,15 @@ class SegmentMatcher:
 
     def _harvest(self) -> None:
         """Collect-side reads of what the dispatches left on the device:
-        sampled probe stats and the dedup probes' distinct counts."""
+        sampled probe stats, the dedup probes' distinct counts and the
+        tiered table's fetch totals (which may run a maintenance pass)."""
         with self._probe_lock:
             pending, self._probe_pending = self._probe_pending, []
         for r in pending:
             self._consume_probe(r)
         DEDUP.harvest()
+        if self.tiering is not None:
+            self.tiering.drain_stats()
 
     def _collect_batch(self, handle):
         """Block on a dispatch -> ((edge, offset, breaks), aux) numpy."""
@@ -384,6 +458,7 @@ class SegmentMatcher:
         # the label is "" for dense traces and whenever the model is off
         buckets: Dict[tuple, List[int]] = {}
         long_map: Dict[tuple, List[int]] = {}
+        interp = self._interp_indices(traces)
         for i, tr in enumerate(traces):
             n = len(tr["trace"])
             if n == 0:
@@ -411,7 +486,8 @@ class SegmentMatcher:
         def drain_one():
             idxs_, handle_, times_ = pending.popleft()
             res, aux = self._collect_batch(handle_)
-            self._associate_and_store(idxs_, *res, times_, results, aux=aux)
+            self._associate_and_store(idxs_, *res, times_, results, aux=aux,
+                                      interp=interp)
 
         for pkey, slabel, blen, idxs in chunks:
             px, py, tm, valid, times = self._fill_rows(traces, idxs, blen)
@@ -437,7 +513,7 @@ class SegmentMatcher:
             for h in long_handles:
                 idxs_, res, times_, aux = self._fetch_long_aux(h)
                 self._associate_and_store(idxs_, *res, times_, results,
-                                          aux=aux)
+                                          aux=aux, interp=interp)
             return results  # type: ignore[return-value]
 
         return finish
@@ -532,8 +608,7 @@ class SegmentMatcher:
                     outs.clear()
         return host_parts, outs, aux
 
-    @staticmethod
-    def _fetch_long_aux(handle):
+    def _fetch_long_aux(self, handle):
         """Block on one long group -> (group, (edge, offset, breaks) numpy
         [B_pad, n_chunks*W], times, aux [len(group), 4] numpy)."""
         group, host_parts, tail, times, aux = handle
@@ -542,14 +617,16 @@ class SegmentMatcher:
             parts.append(unpack_compact(tail.cpu().numpy()))
         res = tuple(np.concatenate([p[f] for p in parts], axis=1)
                     for f in range(3))
-        DEDUP.harvest()
+        self._harvest()
         return group, res, times, aux.cpu().numpy()[: len(group)]
 
     def _associate_and_store(self, idxs, edge, offset, breaks, times, results,
-                             aux=None):
+                             aux=None, interp=None):
         """Wire-format association for the first len(idxs) rows; with
         quality diagnostics on, each result also carries a "_quality" block
-        the service pops before rendering."""
+        the service pops before rendering.  The traces whose index is in
+        ``interp`` associate through the route-consistent interpolation
+        instead (same record shape, speed-weighted boundary times)."""
         B = len(idxs)
         T = edge.shape[1]
         abs_tm = np.zeros((B, T), np.float64)
@@ -565,6 +642,18 @@ class SegmentMatcher:
         )
         for row, i in enumerate(idxs):
             results[i] = {"segments": seg_lists[row]}
+        if interp:
+            off32 = np.asarray(offset, np.float32)
+            for row, i in enumerate(idxs):
+                if i not in interp:
+                    continue
+                mps = [{"edge": int(edge[row, t]), "offset": float(off32[row, t]),
+                        "time": float(abs_tm[row, t]), "break": bool(breaks[row, t]),
+                        "shape_index": t} for t in range(int(n_pts[row]))]
+                results[i] = {"segments": associate_interpolated(
+                    self.arrays, self.ubodt, mps,
+                    queue_thresh_mps=self.cfg.queue_speed_threshold_kph / 3.6,
+                    back_tol=2.0 * self.cfg.sigma_z + 5.0)}
         if not self._quality_aux:
             return
         for row, i in enumerate(idxs):
@@ -729,6 +818,8 @@ class SegmentMatcher:
                     n = ns[row]
                     out[i] = ((edge[row, :n], offset[row, :n], breaks[row, :n]),
                               aux_np[row], rows[row])
+            if self.tiering is not None:
+                self.tiering.drain_stats()
             return out
 
         return finish

@@ -1,6 +1,6 @@
 """The sparse-gap matching model's host side: cohort labels and per-cohort
-parameters (the port of ``reporter_tpu/matching/sparse.py``, without the
-route-consistent interpolation).
+parameters and route-consistent interpolation (the port of
+``reporter_tpu/matching/sparse.py``).
 
   * **Cohorts.**  A trace whose median inter-point gap is at or above
     ``sparse_gap_s`` belongs to a sparse cohort, labelled with the quality
@@ -19,6 +19,14 @@ The model is on when ``$REPORTER_SPARSE`` says so, else when
 (with the matcher).  Off, it changes nothing: every trace takes the dense
 programs.  ``dispatch`` counts traces (windowed, long) and session steps
 dispatched through the sparse programs, per cohort label.
+
+  * **Route-consistent interpolation** (``associate_interpolated``): the
+    association's path walk, with each matched point pair's traversal
+    time re-allocated across the spans in between by free-flow time
+    (length / edge speed) instead of linearly by route distance.  The
+    record shape is the classic association's.  The matcher runs it for
+    a trace whose ``match_options.interpolate`` is true, or, without the
+    key, when ``cfg.interpolate`` (``$REPORTER_INTERPOLATE``) says so.
 """
 
 from __future__ import annotations
@@ -30,6 +38,8 @@ import os
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+
+from .segments import _build_paths, _Pin, _segment_records, _TimeLine
 
 log = logging.getLogger(__name__)
 
@@ -211,3 +221,73 @@ class SparseModel:
             "calibration": (self.calibration or {}).get("path"),
             "dispatch": dict(self.dispatch),
         }
+
+
+# -- route-consistent interpolation ------------------------------------------
+
+
+def _retime_by_speed(arrays, spans, tl: _TimeLine) -> _TimeLine:
+    """Pins at every span boundary between consecutive matched-point pins,
+    timed by cumulative free-flow traversal time (span length / edge
+    speed) instead of linearly by route distance.  The matched points'
+    pins keep their measured times; only the boundary times in between
+    are new."""
+    pins = tl.pins
+    if len(pins) < 2 or not spans:
+        return tl
+    # span ends as (route position, edge) in path order
+    bounds: List[Tuple[float, int]] = []
+    for s in spans:
+        end = s.route_start + (s.exit_off - s.enter_off)
+        bounds.append((end, s.edge))
+    out: List[_Pin] = [pins[0]]
+    bi = 0
+    for a, b in zip(pins, pins[1:]):
+        seg_total = b.route_pos - a.route_pos
+        inner: List[Tuple[float, int]] = []
+        while bi < len(bounds) and bounds[bi][0] <= b.route_pos + 1e-9:
+            pos, edge = bounds[bi]
+            bi += 1
+            if a.route_pos + 1e-6 < pos < b.route_pos - 1e-6:
+                inner.append((pos, edge))
+        if inner and seg_total > 1e-9 and b.time > a.time:
+            # free-flow time of each piece between a, the inner span ends
+            # and b: the spans covering it, weighted by length / speed
+            cuts = [a.route_pos] + [pos for pos, _e in inner] + [b.route_pos]
+            ff = []
+            for lo, hi in zip(cuts, cuts[1:]):
+                t_ff = 0.0
+                for s in spans:
+                    s_lo = s.route_start
+                    s_hi = s.route_start + (s.exit_off - s.enter_off)
+                    o_lo, o_hi = max(lo, s_lo), min(hi, s_hi)
+                    if o_hi > o_lo:
+                        speed = max(float(arrays.edge_speed[s.edge]), 0.1)
+                        t_ff += (o_hi - o_lo) / speed
+                ff.append(t_ff)
+            total_ff = sum(ff)
+            dt = b.time - a.time
+            acc = 0.0
+            for (pos, _edge), t_piece in zip(inner, ff[:-1]):
+                acc += t_piece
+                frac = acc / total_ff if total_ff > 1e-12 else (
+                    (pos - a.route_pos) / seg_total)
+                out.append(_Pin(pos, a.time + frac * dt, a.shape_index))
+        out.append(b)
+    return _TimeLine(out)
+
+
+def associate_interpolated(arrays, ubodt, match_points: List[dict],
+                           queue_thresh_mps: float = 20.0 / 3.6,
+                           back_tol: float = 15.0) -> List[dict]:
+    """``matching/segments.associate_segments`` with route-consistent
+    interpolation: the same path reconstruction, with speed-weighted pins
+    at the span boundaries between matched points before the records
+    render.  Same record shape, key order and rounding."""
+    out: List[dict] = []
+    for spans, tl in _build_paths(arrays, ubodt, match_points,
+                                  back_tol=back_tol):
+        out.extend(_segment_records(arrays, spans,
+                                    _retime_by_speed(arrays, spans, tl),
+                                    queue_thresh_mps))
+    return out

@@ -16,7 +16,11 @@ kernel 2 are entry points of the same libraries, counted apart under
 ``<name>[sparse]`` and ``ubodt_probe[wide32]``; the dedup claim and
 scatter kernels share one library, and so do the four log-depth (assoc)
 Viterbi kernels, ``viterbi_assoc`` and ``viterbi_chain_assoc`` with their
-``[sparse]`` instantiations.
+``[sparse]`` instantiations.  Kernel 2's tiered instantiations (rows from
+a hot arena or pinned host pages) are counted apart as
+``ubodt_probe[tiered]`` and ``ubodt_probe[wide32,tiered]``;
+``host_register`` maps a tiered table's host pages into the card's
+address space.
 """
 
 from __future__ import annotations
@@ -87,8 +91,9 @@ _SPARSE = [_F] * 6  # the sparse model's scalars, after the dense arguments
 _BUILD = [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I32,
           _F, _F, _F, _F, _F, _F, _P, _P, _P]
 _SCAN = [_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _F, _P, _P]
-_CHAIN = ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I64, _I32,
-           _I32, _F, _F, _F, _F, _F, _F, _F] + [_P] * 16
+_TIER = [_P] * 4  # slot_map, arena, counts, totals (all null: untiered)
+_CHAIN = ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32] + _TIER
+          + [_I64, _I32, _I32, _F, _F, _F, _F, _F, _F, _F] + [_P] * 16
           + [_P, _P, _I64, _P, _P])
 _PROBE = [_P, _P, _P, _P, _P, _P, _I32, _P, _P, _P, _P]
 _GRID = [_P, _P, _P, _P, _P]  # src, dst, dims, src strides, dst strides
@@ -99,10 +104,14 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
         _P, _P, _P, _P, _P, _P, _P, _P]),
     Kernel("ubodt_probe", _PROBE),
     Kernel("ubodt_probe[wide32]", _PROBE, "ubodt_probe", "ubodt_probe_wide32"),
+    Kernel("ubodt_probe[tiered]", _PROBE + _TIER, "ubodt_probe",
+           "ubodt_probe_tiered"),
+    Kernel("ubodt_probe[wide32,tiered]", _PROBE + _TIER, "ubodt_probe",
+           "ubodt_probe_wide32_tiered"),
     Kernel("ubodt_dedup_claim", _GRID + [_P, _P, _I64, _P, _P, _P, _P, _I64,
                                          _P], "ubodt_dedup", "ubodt_dedup_claim"),
     Kernel("ubodt_dedup_scatter", _GRID + [_P, _P, _P, _I64, _P, _P, _P, _P,
-                                           _I32, _I32, _P, _P, _P],
+                                           _I32, _I32, _P, _P, _P] + _TIER,
            "ubodt_dedup", "ubodt_dedup_scatter"),
     Kernel("probe_stats", [_P, _P, _P, _P, _P, _I64, _I32, _I32, _F, _F, _P,
                            _P]),
@@ -155,6 +164,63 @@ def build_kernels() -> Dict[str, str]:
             if k._fn is None:
                 k._bind()
         return out
+
+
+_host_lock = threading.Lock()
+# registered host buffers: address -> [device address, references]
+_HOST: Dict[int, list] = {}
+
+
+def _probe_lib():
+    if KERNELS["ubodt_probe"]._fn is None:
+        build_kernels()
+    lib = ctypes.CDLL(KERNELS["ubodt_probe"].library)
+    lib.ubodt_host_register.argtypes = [_P, ctypes.c_size_t,
+                                        ctypes.POINTER(_P)]
+    lib.ubodt_host_unregister.argtypes = [_P]
+    lib.ubodt_memory_type.argtypes = [_P]
+    for fn in (lib.ubodt_host_register, lib.ubodt_host_unregister,
+               lib.ubodt_memory_type):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def host_register(addr: int, nbytes: int) -> int:
+    """Page-lock ``nbytes`` of host memory at ``addr`` and map it into the
+    card's address space (once per buffer, counted); returns the address
+    kernels read it by.  Raises when CUDA refuses."""
+    with _host_lock:
+        ent = _HOST.get(addr)
+        if ent is None:
+            lib = _probe_lib()
+            dev = _P()
+            rc = lib.ubodt_host_register(_P(addr), nbytes, ctypes.byref(dev))
+            if rc != 0:
+                raise RuntimeError("cudaHostRegister of %d bytes failed: %s "
+                                   "(cudaError %d)" % (nbytes, KERNELS[
+                                       "ubodt_probe"]._err(rc).decode(), rc))
+            ent = _HOST[addr] = [int(dev.value), 0]
+        ent[1] += 1
+        return ent[0]
+
+
+def host_unregister(addr: int) -> None:
+    """Drop one reference to a buffer ``host_register`` mapped; the last
+    one unregisters it."""
+    with _host_lock:
+        ent = _HOST.get(addr)
+        if ent is None:
+            return
+        ent[1] -= 1
+        if ent[1] == 0:
+            del _HOST[addr]
+            _probe_lib().ubodt_host_unregister(_P(addr))
+
+
+def memory_type(addr: int) -> int:
+    """CUDA's memory type of an address: 1 page-locked host, 2 device, 0
+    unregistered host memory, -1 when CUDA cannot tell."""
+    return int(_probe_lib().ubodt_memory_type(_P(addr)))
 
 
 def reset_launches() -> None:

@@ -26,6 +26,13 @@ the budget, probes its keys itself.  The claim kernel in count mode is
 ``count_distinct_pairs``.  The distinct count stays on the device until
 the caller's collect (``DEDUP.harvest``).
 
+A tiered table (``tiles/tiering.TieredDeviceUBODT``) is probed the same
+way: kernel 2's ``[tiered]`` instantiations and the scatter read each row
+from the hot arena or the pinned host pages and count the fetches; the
+plain versions fetch through ``TieredTable.rows_plain``, which counts the
+same.  Each top-level lookup records its fetch units (one per hash) for
+the maintenance cadence.  The answers are the untiered table's.
+
 Each wrapper launches its CUDA kernel for CUDA tensors and runs its plain
 version for CPU tensors.  Torch has no uint32 arithmetic and its int32
 ``>>`` is arithmetic, so the plain hashes compute in int64 masked to 32
@@ -34,6 +41,8 @@ bits after every multiply and shift (the kernels use true uint32).
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
 import threading
 from collections import deque
 from typing import NamedTuple, Optional
@@ -97,6 +106,26 @@ def _select(rows: torch.Tensor, src: torch.Tensor, dst: torch.Tensor):
     return dist, time, first
 
 
+def _tier(u):
+    """The table's tier manager, None for an untiered table."""
+    return getattr(u, "tier", None)
+
+
+def note_lookup(u) -> None:
+    """Record one lookup's fetch units (one per hash) on a tiered table."""
+    t = _tier(u)
+    if t is not None:
+        t.note_units(u.max_probes)
+
+
+def _rows(u, b: torch.Tensor) -> torch.Tensor:
+    """Bucket rows [N, 128 or 256] of buckets ``b``: the plain version of
+    the kernels' row fetch (``_bucket_rows``), through the tier when the
+    table has one."""
+    t = _tier(u)
+    return u.packed[b] if t is None else t.rows_plain(b)
+
+
 def _empty_result(shape, dev, with_first):
     return (torch.empty(shape, dtype=torch.float32, device=dev),
             torch.empty(shape, dtype=torch.float32, device=dev),
@@ -114,15 +143,21 @@ def ubodt_lookup_plain(u: DeviceUBODT, src: torch.Tensor, dst: torch.Tensor,
     src, dst = torch.broadcast_tensors(src, dst)
     if dedup and src.numel() >= _DEDUP_MIN_PAIRS:
         return tuple(ubodt_lookup_dedup_plain(u, src, dst, with_first)[:3])
+    note_lookup(u)
+    return _probe_plain(u, src, dst, with_first)
+
+
+def _probe_plain(u, src, dst, with_first):
+    """The plain probe of broadcast keys, without recording fetch units."""
     shape = src.shape
     s = src.reshape(-1)
     d = dst.reshape(-1)
     outs = ([], [], [])
     for lo in range(0, s.shape[0], _PLAIN_CHUNK):
         sc, dc = s[lo:lo + _PLAIN_CHUNK], d[lo:lo + _PLAIN_CHUNK]
-        r = _select(u.packed[device_pair_hash(sc, dc, u.bmask)], sc, dc)
+        r = _select(_rows(u, device_pair_hash(sc, dc, u.bmask)), sc, dc)
         if not u.wide:
-            r2 = _select(u.packed[device_pair_hash2(sc, dc, u.bmask)], sc, dc)
+            r2 = _select(_rows(u, device_pair_hash2(sc, dc, u.bmask)), sc, dc)
             r = (torch.minimum(r[0], r2[0]), torch.minimum(r[1], r2[1]),
                  torch.maximum(r[2], r2[2]))
         for o, x in zip(outs, r):
@@ -145,30 +180,64 @@ def _grid(src: torch.Tensor, dst: torch.Tensor):
             torch.tensor((0,) * pad + dst.stride(), dtype=torch.int64))
 
 
-def _check_keys(u: DeviceUBODT, src, dst) -> None:
-    dev = src.device
-    for name, t in (("src", src), ("dst", dst)):
-        if t.dtype != torch.int32 or t.device != dev:
-            raise ValueError("%s must be int32 on %s" % (name, dev))
+def check_table(u, dev: torch.device) -> None:
+    """Validate a table for a launch on ``dev``: an untiered table's rows
+    (int32, on ``dev``, 16-byte aligned), or a tier on ``dev``."""
+    t = _tier(u)
+    if t is not None:
+        if t.dev != dev:
+            raise ValueError("tiered table is on %s, not %s" % (t.dev, dev))
+        return
     check(u.packed, "packed", torch.int32, dev)
     if u.packed.data_ptr() % 16:
         raise ValueError("packed table must be 16-byte aligned")
 
 
+def _check_keys(u: DeviceUBODT, src, dst) -> None:
+    dev = src.device
+    for name, t in (("src", src), ("dst", dst)):
+        if t.dtype != torch.int32 or t.device != dev:
+            raise ValueError("%s must be int32 on %s" % (name, dev))
+    check_table(u, dev)
+
+
+def probe_kernel_name(u) -> str:
+    """The kernel 2 instantiation that probes table ``u``."""
+    tags = [t for t, on in (("wide32", u.wide), ("tiered", _tier(u) is not None))
+            if on]
+    return "ubodt_probe" + ("[%s]" % ",".join(tags) if tags else "")
+
+
+@contextlib.contextmanager
+def table_args(u):
+    """(table address, [slot_map, arena, counts, totals] addresses) for a
+    launch over table ``u``; a tiered table's are captured under its
+    ``launch_lock``, held until the launch is queued."""
+    t = _tier(u)
+    if t is None:
+        yield ptr(u.packed), [ptr(None)] * 4
+        return
+    with t.launch_lock:
+        arena, slot_map, pages, counts, totals = t.source()
+        yield (ctypes.c_void_p(pages),
+               [ptr(slot_map), ptr(arena), ptr(counts), ptr(totals)])
+
+
 def _probe(u: DeviceUBODT, src, dst, with_first, n_live=None):
-    """Launch kernel 2 (its wide32 instantiation for a wide32 table) over
-    broadcast keys.  ``n_live`` (device int32 [1]): probe only the first
-    n_live keys, none when n_live exceeds the key count (the dedup scatter
-    then probes them itself)."""
+    """Launch kernel 2 (its wide32 and tiered instantiations as the table
+    asks) over broadcast keys.  ``n_live`` (device int32 [1]): probe only
+    the first n_live keys, none when n_live exceeds the key count (the
+    dedup scatter then probes them itself)."""
     dims, s_str, d_str = _grid(src, dst)
     dist, time, first = _empty_result(tuple(src.shape), src.device,
                                       with_first)
     if dist.numel():
-        name = "ubodt_probe[wide32]" if u.wide else "ubodt_probe"
-        KERNELS[name].launch(
-            src.device, ptr(src), ptr(dst), ptr(dims), ptr(s_str),
-            ptr(d_str), ptr(u.packed), u.bmask, ptr(n_live), ptr(dist),
-            ptr(time), ptr(first))
+        tiered = _tier(u) is not None
+        with table_args(u) as (table, tier):
+            KERNELS[probe_kernel_name(u)].launch(
+                src.device, ptr(src), ptr(dst), ptr(dims), ptr(s_str),
+                ptr(d_str), table, u.bmask, ptr(n_live), ptr(dist),
+                ptr(time), ptr(first), *(tier if tiered else ()))
     return dist, time, first
 
 
@@ -200,20 +269,23 @@ def ubodt_lookup_dedup_plain(u: DeviceUBODT, src: torch.Tensor,
     src, dst = torch.broadcast_tensors(src, dst)
     shape, n = src.shape, src.numel()
     m = _budget(n)
+    note_lookup(u)
     if m >= n:
-        return DedupProbe(*ubodt_lookup_plain(u, src, dst, with_first), None,
-                          m)
+        return DedupProbe(*_probe_plain(u, src, dst, with_first), None, m)
     uniq, inv = torch.unique(_pair_keys(src.reshape(-1), dst.reshape(-1)),
                              return_inverse=True)
-    n_unique = torch.tensor([uniq.numel()], dtype=torch.int32,
-                            device=src.device)
-    if uniq.numel() > m:
-        return DedupProbe(*ubodt_lookup_plain(u, src, dst, with_first),
-                          n_unique, m)
-    lo = ((uniq & _M32) ^ 0x80000000) - 0x80000000  # the low word, signed
-    r = ubodt_lookup_plain(u, (uniq >> 32).to(torch.int32),
-                           lo.to(torch.int32), with_first)
-    out = [None if x is None else x[inv].reshape(shape) for x in r]
+    U = uniq.numel()
+    n_unique = torch.tensor([U], dtype=torch.int32, device=src.device)
+    if U > m:
+        return DedupProbe(*_probe_plain(u, src, dst, with_first), n_unique, m)
+    hi = (uniq >> 32).to(torch.int32)
+    lo = (((uniq & _M32) ^ 0x80000000) - 0x80000000).to(torch.int32)
+    if _tier(u) is not None:
+        # the reference probes its whole compact buffer: the distinct keys
+        # and m - U keys (0, 0), all fetched and counted
+        hi, lo = (torch.cat([x, x.new_zeros(m - U)]) for x in (hi, lo))
+    r = _probe_plain(u, hi, lo, with_first)
+    out = [None if x is None else x[:U][inv].reshape(shape) for x in r]
     return DedupProbe(*out, n_unique, m)
 
 
@@ -259,6 +331,7 @@ def ubodt_lookup_dedup(u: DeviceUBODT, src: torch.Tensor, dst: torch.Tensor,
     _check_keys(u, src, dst)
     dev, shape, n = src.device, tuple(src.shape), src.numel()
     m = _budget(n)
+    note_lookup(u)
     if m >= n:
         return DedupProbe(*_probe(u, src, dst, with_first), None, m)
     count = torch.empty(1, dtype=torch.int32, device=dev)
@@ -276,11 +349,12 @@ def _scatter(u: DeviceUBODT, src, dst, claim, count, m: int, compact):
     dims, s_str, d_str = _grid(src, dst)
     dist, time, first = _empty_result(tuple(src.shape), dev,
                                       compact[2] is not None)
-    KERNELS["ubodt_dedup_scatter"].launch(
-        dev, ptr(src), ptr(dst), ptr(dims), ptr(s_str), ptr(d_str),
-        ptr(claim[0]), ptr(claim[1]), ptr(count), m, ptr(compact[0]),
-        ptr(compact[1]), ptr(compact[2]), ptr(u.packed), u.bmask,
-        int(u.wide), ptr(dist), ptr(time), ptr(first))
+    with table_args(u) as (table, tier):
+        KERNELS["ubodt_dedup_scatter"].launch(
+            dev, ptr(src), ptr(dst), ptr(dims), ptr(s_str), ptr(d_str),
+            ptr(claim[0]), ptr(claim[1]), ptr(count), m, ptr(compact[0]),
+            ptr(compact[1]), ptr(compact[2]), table, u.bmask, int(u.wide),
+            ptr(dist), ptr(time), ptr(first), *tier)
     return dist, time, first
 
 
@@ -353,6 +427,7 @@ def ubodt_lookup(u: DeviceUBODT, src: torch.Tensor, dst: torch.Tensor,
     if src.device.type == "cpu":
         return ubodt_lookup_plain(u, src, dst, with_first)
     _check_keys(u, src, dst)
+    note_lookup(u)
     return _probe(u, src, dst, with_first)
 
 

@@ -77,7 +77,9 @@ from .candidates import (
     NEG_INF, Candidates, _scalar, candidate_sweep, candidate_sweep_plain, fma,
     hypot_like_jax,
 )
-from .hashtable import ubodt_lookup, ubodt_lookup_plain
+from .hashtable import (
+    check_table, note_lookup, table_args, ubodt_lookup, ubodt_lookup_plain,
+)
 
 _PI = float(np.float32(math.pi))
 _TWO_PI = float(np.float32(2.0 * math.pi))
@@ -783,9 +785,7 @@ def viterbi_chain(dg: DeviceGraph, du: DeviceUBODT, emis, logp, gc, px, py,
     check(cand_edge, "cand_edge", torch.int32, dev, (B, T, K))
     check(cand_offset, "cand_offset", torch.float32, dev, (B, T, K))
     check(dg.edge_rows, "edge_rows", torch.float32, dev)
-    check(du.packed, "packed", torch.int32, dev)
-    if du.packed.data_ptr() % 16:
-        raise ValueError("packed table must be 16-byte aligned")
+    check_table(du, dev)
     if slots is None:
         _check_carry(carry, B, K, dev)
         out = TraceCarry(*(torch.empty_like(t) for t in carry))
@@ -801,23 +801,28 @@ def viterbi_chain(dg: DeviceGraph, du: DeviceUBODT, emis, logp, gc, px, py,
     packed = torch.empty((3, B, T), dtype=torch.int32, device=dev)
     aux = torch.empty((B, 4), dtype=torch.float32, device=dev)
     if B and T:
-        args = [ptr(emis), ptr(logp), ptr(gc), ptr(valid), ptr(cand_edge),
-                ptr(cand_offset), ptr(px), ptr(py), ptr(times),
-                ptr(dg.edge_rows), ptr(du.packed), du.bmask, int(du.wide),
-                B, T, K,
-                float(p.breakage_distance), float(p.sigma_z), float(p.beta),
-                float(p.search_radius), float(p.max_route_distance_factor),
-                float(p.max_route_time_factor), float(p.turn_penalty_factor),
-                *(ptr(t) for t in carry), *(ptr(t) for t in out), ptr(sl),
-                ptr(use), S, ptr(packed), ptr(aux)]
+        # the seam probes the table: one lookup's fetch units
+        note_lookup(du)
         ws = (_assoc_workspace(B, T, K, dev) if kname == "viterbi_chain_assoc"
               else None)
-        if ws is not None:  # held until the launch is queued
-            args.append(ptr(ws))
-        if sp is None:
-            KERNELS[kname].launch(dev, *args)
-        else:
-            KERNELS[kname + "[sparse]"].launch(dev, *args, *sp.floats())
+        with table_args(du) as (table, tier):
+            args = [ptr(emis), ptr(logp), ptr(gc), ptr(valid), ptr(cand_edge),
+                    ptr(cand_offset), ptr(px), ptr(py), ptr(times),
+                    ptr(dg.edge_rows), table, du.bmask, int(du.wide), *tier,
+                    B, T, K,
+                    float(p.breakage_distance), float(p.sigma_z),
+                    float(p.beta), float(p.search_radius),
+                    float(p.max_route_distance_factor),
+                    float(p.max_route_time_factor),
+                    float(p.turn_penalty_factor),
+                    *(ptr(t) for t in carry), *(ptr(t) for t in out), ptr(sl),
+                    ptr(use), S, ptr(packed), ptr(aux)]
+            if ws is not None:  # held until the launch is queued
+                args.append(ptr(ws))
+            if sp is None:
+                KERNELS[kname].launch(dev, *args)
+            else:
+                KERNELS[kname + "[sparse]"].launch(dev, *args, *sp.floats())
     return packed, aux, out
 
 

@@ -24,6 +24,15 @@ the cuckoo layout and no probe dedup.  The config's matcher
 $REPORTER_PROBE_DEDUP=1, change them (same answers);
 $REPORTER_OBS_PROBE_EVERY=N samples the probe-outcome diagnostic on every
 Nth dense bucketed dispatch.
+
+The tiered UBODT: $REPORTER_UBODT_HOT_BYTES (or the matcher's
+"ubodt_hot_bytes") > 0 keeps only that many bytes of hot bucket rows on
+the card and reads the cold ones in place from pinned host memory (same
+answers); $REPORTER_UBODT_SHARD=i/N seeds the hot set with bucket range
+i of N.  $REPORTER_SESSION_ARENA_BYTES / _COLD_BYTES budget the session
+slab and its pinned host cold tier.  $REPORTER_INTERPOLATE=1 (or the
+matcher's "interpolate", or a request's match_options.interpolate) times
+segment boundaries by free-flow speed.
 """
 
 from __future__ import annotations
@@ -33,7 +42,7 @@ import logging
 import os
 import sys
 
-from .service import ReporterService, build_matcher, parse_service_config
+from .service import ReporterService, batch_options, build_matcher, parse_service_config
 
 
 def serving_defaults(cfg):
@@ -80,9 +89,7 @@ def main(argv=None) -> int:
         host = os.environ.get("MATCHER_BIND_ADDR", "0.0.0.0")
         port = os.environ.get("MATCHER_LISTEN_PORT", "8002")
     matcher = build_matcher(cfg, conf, device=args.device)
-    batch = conf.get("batch", {})
-    service = ReporterService(matcher, max_batch=int(batch.get("max_batch", 64)),
-                              max_wait_ms=float(batch.get("max_wait_ms", 10.0)))
+    service = ReporterService(matcher, **batch_options(conf))
     server = service.make_server(host, int(port))
     logging.info("serving /report on %s:%s (device %s)", host, port, matcher.device)
     try:

@@ -212,6 +212,11 @@ class ReporterService:
                 return ("match_options.shape_match %r is not supported "
                         "(this matcher map-snaps; use \"map_snap\" or omit "
                         "the key)" % (sm,)), None, None
+            # route-consistent interpolation: booleans only, so a typo'd
+            # string cannot silently pick a default
+            ip = mo.get("interpolate")
+            if ip is not None and not isinstance(ip, bool):
+                return "match_options.interpolate must be a boolean", None, None
         return None, rl, tl
 
     def handle_report(self, trace: dict) -> Tuple[int, dict]:
@@ -244,9 +249,13 @@ class ReporterService:
             "device": str(m.device),
             "max_trace_points": m.max_trace_points,
             "viterbi_kernel": m._kernel_mode,
+            "ubodt_shard": ("%d/%d" % m.ubodt_shard) if m.ubodt_shard else None,
+            "ubodt_tiered": m.tiering is not None,
             "sessions": self.session_store.summary(),
             "uptime_s": round(_time.time() - self._t_boot, 1),
         }
+        if m.tiering is not None:
+            out["ubodt_tier"] = m.tiering.summary()
         if m.session_arena is not None:
             out["session_arena"] = m.session_arena.summary()
         return 200, out
@@ -324,6 +333,27 @@ class ReporterService:
             daemon_threads = True
 
         return Server((host, port), Handler)
+
+
+# the "batch" keys this port reads; the reference's others (max_inflight)
+# are dropped with a warning
+BATCH_KEYS = ("max_batch", "max_wait_ms", "session_max_batch", "session_wait_ms")
+
+
+def batch_options(conf: dict) -> dict:
+    """ReporterService's batching arguments from a service config's
+    "batch" block; every other key of the block is dropped with one
+    warning per key per process."""
+    from ..matching.config import warn_dropped
+
+    batch = conf.get("batch", {})
+    for k in batch:
+        if k not in BATCH_KEYS:
+            warn_dropped("batch config", k)
+    return {"max_batch": int(batch.get("max_batch", 64)),
+            "max_wait_ms": float(batch.get("max_wait_ms", 10.0)),
+            "session_max_batch": int(batch.get("session_max_batch", 256)),
+            "session_wait_ms": float(batch.get("session_wait_ms", 2.0))}
 
 
 def parse_service_config(path: str):

@@ -36,6 +36,7 @@ import reporter_tpu_torch.matching.session
 import reporter_tpu_torch.matching.sparse
 import reporter_tpu_torch.ops.diagnostics
 import reporter_tpu_torch.serve.__main__
+import reporter_tpu_torch.tiles.tiering
 from reporter_tpu_torch.matching import MatcherConfig, SegmentMatcher, SessionEngine, SessionStore
 from reporter_tpu_torch.synth import TraceSynthesizer
 from reporter_tpu_torch.tiles.arrays import build_graph_arrays
@@ -86,6 +87,24 @@ eng = SessionEngine(am, SessionStore())
 for j in range(0, 20, 4):
     res = eng.match_many([dict(t, trace=t["trace"][j:j + 4]) for t in traces])
 assert all(r["_stream"]["session"]["points_total"] == 20 for r in res)
+# the tiered UBODT (a 2 KB hot arena), route-consistent interpolation and
+# the session slab's byte budget with its cold tier
+tm = SegmentMatcher(arrays=arrays, ubodt=m.ubodt, device="cpu",
+                    config=MatcherConfig(ubodt_delta=1500.0, length_buckets=[16],
+                                         ubodt_hot_bytes=2048, session_arena=True,
+                                         session_arena_bytes=2 * 113,
+                                         session_arena_cold_bytes=113))
+assert tm.match_many(traces) == m.match_many(traces)
+assert tm.tiering.summary()["capacity_rows"] == 4 and tm.tiering.misses > 0
+ip = [dict(t, match_options={"interpolate": True}) for t in traces]
+assert [len(r["segments"]) for r in tm.match_many(ip)] == \
+    [len(r["segments"]) for r in m.match_many(traces)]
+eng = SessionEngine(tm, SessionStore())
+for j in range(0, 20, 4):
+    for t in traces:
+        res = eng.match_many([dict(t, trace=t["trace"][j:j + 4])])
+s_ = tm.session_arena.summary()
+assert (s_["hot_used"], s_["cold_used"]) == (2, 1) and s_["evictions"] > 0
 assert not [m for m in sys.modules if blocked(m)]
 print("ISOLATED-OK")
 '''
