@@ -7,7 +7,8 @@ sm_90a, all started together; kernels 3-5 with their sparse
 instantiations, counted apart as ``<name>[sparse]``, kernel 2 with its
 wide32 one, the dedup claim and scatter kernels, the probe-outcome
 counters, the log-depth Viterbi kernels and kernel 2's tiered
-instantiations) and the native host core, builds the metro-scale grid city (120 x 120 blocks of 150 m, UBODT
+instantiations, the mesh's sharded probe, segment histogram and slab
+kernels) and the native host core, builds the metro-scale grid city (120 x 120 blocks of 150 m, UBODT
 delta 3000 m, cuckoo layout) and moves it to the card, then:
 
   1. holds each of kernels 1-4 against its plain PyTorch version on the
@@ -119,6 +120,27 @@ delta 3000 m, cuckoo layout) and moves it to the card, then:
      128 hot slots over 256 pinned host pages (promotion, demotion and
      spill) equal to the host-carry path; 8 /report and the fixture
      replay under $REPORTER_UBODT_HOT_BYTES equal to the untiered answers.
+  10. the device mesh, every rank on this card (explicit device lists):
+     kernel 2's bucket-range instantiation ``ubodt_probe[sharded]`` (and
+     ``[wide32,sharded]``) at gp 2, 4 and 8 on the 512 x 64 cohort's keys,
+     each rank against its plain version and the ranks' pmin / pmax
+     against the untiered kernel 2, bit for bit, one rank of gp 4 timed;
+     the chain kernels reading a seam resolved over 4 gp ranks against
+     their in-kernel probe, bit for bit (scan and assoc, dense at 64 x 256
+     and 512 x 4, sparse at L's window and 512 x 4); kernel 4's
+     chosen-slot output against the plain decode and
+     ``segment_histogram`` against its plain version at 512 x 64 and 128
+     x 256 (counts exact, sums within rtol 1e-5), timed beside four
+     ``index_add_`` calls; ``slab_gather_owned`` / ``slab_scatter_owned``
+     at dp 2 and 4 against their plain versions and the single slab, bit
+     for bit; then, through the launch counters, a dp2 and a dp2 x gp4
+     matcher over the bucketed, long and sparse A paths (and wide32 on
+     gp4), and 512 sessions x 4 steps on the slot-sharded slab with
+     evictions mid-stream, each answer equal to one card's;
+     ``graph_sharded_match_fn`` on dp2 x gp4 against
+     ``match_and_histogram``; 8 /report and the fixture replay under
+     $REPORTER_DEVICES=2, then $REPORTER_DEVICES=8
+     $REPORTER_GRAPH_DEVICES=4, equal to one card's.
 
 Prints the card's name and power limit, one line per phase, a
 ``{"kernels": [...]}`` line, and as its last line
@@ -802,7 +824,8 @@ def _counted(path_kernels, drive, absent=()):
 
 
 PROBE_FAMILY = ("ubodt_probe", "ubodt_probe[wide32]", "ubodt_probe[tiered]",
-                "ubodt_probe[wide32,tiered]", "ubodt_dedup_claim", "ubodt_dedup_scatter",
+                "ubodt_probe[wide32,tiered]", "ubodt_probe[sharded]",
+                "ubodt_probe[wide32,sharded]", "ubodt_dedup_claim", "ubodt_dedup_scatter",
                 "probe_stats")
 
 
@@ -2392,7 +2415,519 @@ def tier_serve_phase(arrays, ubodt, tr_a, default_answers, default_fixtures, dev
           % (TIER_PARTIAL, dt, json.dumps(launches)))
     return launches
 
+MESH_GP = (2, 4, 8)  # gp ranks of the sharded probe's checks
 
+
+def _views(du, gp):
+    """Rank g of gp's bucket-range views of ``du`` (on its device, no
+    copy) and the ShardedUBODT over them; each slice holds 1/gp of the
+    table's bytes."""
+    from reporter_tpu_torch.tiles.ubodt import ShardedUBODT
+
+    views = [du.shard(g, gp) for g in range(gp)]
+    for v in views:
+        check(v.packed.numel() * 4 == du.packed.numel() * 4 // gp,
+              "a gp rank's slice holds 1/%d of the table" % gp)
+    return views, ShardedUBODT(views)
+
+
+def mesh_probe_phases(matcher, du_w, xin, timed):
+    """Kernel 11a: at gp 2, 4 and 8, for both layouts, on a cohort's
+    [B, T-1, K, K] keys, each rank's ``ubodt_probe[sharded]`` equals its
+    plain version bit for bit, and the ranks' pmin / pmax equals the
+    untiered kernel 2 bit for bit.  Times one rank of gp 4 (the dp2 x gp4
+    mesh's) after an L2 flush, beside its bound: the rank's in-range
+    distinct rows."""
+    import torch
+
+    from reporter_tpu_torch.ops import viterbi as V
+    from reporter_tpu_torch.ops.candidates import candidate_sweep
+    from reporter_tpu_torch.ops.hashtable import (
+        device_pair_hash, device_pair_hash2, ubodt_lookup, ubodt_lookup_plain,
+    )
+
+    p, K = matcher._params, matcher.cfg.beam_k
+    x, y, _t, v = V.unpack_inputs(xin)
+    sw = candidate_sweep(matcher._dg, x, y, v, K, p.search_radius, p.sigma_z, False)
+    a, b = sw.to_node[:, :-1, :, None], sw.from_node[:, 1:, None, :]
+    ka, kb = (t.reshape(-1) for t in torch.broadcast_tensors(a, b))
+    N = ka.numel()
+    rows = {}
+    for du in (matcher._du, du_w):
+        name = "ubodt_probe[%ssharded]" % ("wide32," if du.wide else "")
+        want = ubodt_lookup(du, a, b)
+        hashes = [device_pair_hash(ka, kb, du.bmask)]
+        if not du.wide:
+            hashes.append(device_pair_hash2(ka, kb, du.bmask))
+        buckets = torch.unique(torch.cat(hashes))
+        row_b = 4 * du.packed.shape[1]
+        for gp in MESH_GP:
+            views, sharded = _views(du, gp)
+            for view in views:
+                got = ubodt_lookup(view, a, b)
+                plain = ubodt_lookup_plain(view, a, b)
+                check(all(torch.equal(g, w) for g, w in zip(got, plain)),
+                      "%s rank %d/%d equals its plain version" % (name, view.lo, gp))
+            merged = ubodt_lookup(sharded, a, b)
+            check(all(torch.equal(g, w) for g, w in zip(merged, want)),
+                  "%s pmin/pmax over gp=%d equals the untiered kernel 2" % (name, gp))
+            if gp == 4:
+                r0 = views[0]
+                mine = int(((buckets >= r0.lo) & (buckets < r0.lo + r0.local_buckets)).sum())
+                # reads: the [B, T, K] keys, the rank's distinct in-range
+                # rows once; writes: dist and time; ~40 integer ops a probe
+                bnd, by = bound(8 * sw.to_node.numel() + row_b * mine + 8 * N, 40 * N)
+                rows[name] = dict(
+                    name=name, route="cuda", source="reporter_tpu_torch/csrc/ubodt_probe.cu",
+                    replaces="reporter_tpu/ops/hashtable.py:249", max_abs_err=0.0,
+                    bound_ms=bnd, bound_by=by, library_ms=None, probes=N, gp=4,
+                    rank_rows=mine, distinct_rows=int(buckets.numel()),
+                    fn=lambda r0=r0: ubodt_lookup(r0, a, b, with_first=False),
+                    plain=lambda r0=r0: ubodt_lookup_plain(r0, a, b, with_first=False),
+                    merged=lambda s=sharded: ubodt_lookup(s, a, b, with_first=False))
+        print("kernel %-27s %d keys at gp 2, 4, 8: every rank equals its plain version and "
+              "the ranks' pmin/pmax equals kernel 2 (%s), bit for bit"
+              % (name, N, du.layout))
+    for r in rows.values():
+        if timed:
+            r["ms"] = time_ms(r["fn"], cold_l2=True)
+            r["plain_ms"] = time_ms(r["plain"], cold_l2=True, queued=False)
+            r["merged_ms"] = time_ms(r["merged"], cold_l2=True, queued=False)
+        print("kernel %-27s rank 0 of gp 4, %d probes, %d of %d distinct rows in range: "
+              "kernel_ms=%s plain_ms=%s all four ranks + pmin/pmax %s ms bound_ms=%.4f (%s)"
+              % (r["name"], N, r["rank_rows"], r["distinct_rows"],
+                 "%.4f" % r["ms"] if "ms" in r else "-",
+                 "%.4f" % r["plain_ms"] if "plain_ms" in r else "-",
+                 "%.4f" % r["merged_ms"] if "merged_ms" in r else "-", r["bound_ms"],
+                 r["bound_by"]))
+    return list(rows.values())
+
+
+def mesh_seam_phases(matcher, sm, long_traces, traces64, tr_l, tr_a, pk, timed):
+    """The chain kernels' seam on a gp mesh: with the table split over 4
+    gp ranks the seam's [B, K, K] probe resolves outside the launch and the
+    chain kernels read it; their outputs equal the in-kernel probe's bit
+    for bit, scan and assoc, dense (the long cohort's 64 x 256 window, the
+    512 x 4 session step on carries gathered from a slab) and sparse (L's
+    16 x 256 window at K = 16, the session step at A's parameters)."""
+    import numpy as np
+    import torch
+
+    from reporter_tpu_torch.ops import viterbi as V
+
+    out = {}
+    for m, trs_long, trs_sess, (lp, lk), (spar, sk), sp in (
+            (matcher, long_traces, traces64, (matcher._params, matcher.cfg.beam_k),
+             (matcher._params, matcher.cfg.beam_k), None),
+            (sm, tr_l, tr_a, pk["long_pk"], pk["sess_pk"], pk["sp"])):
+        dev, dg, du = m.device, m._dg, m._du
+        _views_, sharded = _views(du, 4)
+        W = m.max_trace_points
+        B = len(trs_long)
+        two = [dict(tr, trace=tr["trace"][:2 * W]) for tr in trs_long]
+        px, py, tm, valid, _t = m._fill_rows(two, list(range(B)), 2 * W)
+        xin = torch.from_numpy(V.pack_inputs(px, py, tm, valid)).to(dev)
+        x0, x1 = xin[:, :, :W].contiguous(), xin[:, :, W:].contiguous()
+        pre0 = V.precompute_batch_packed(dg, du, x0, lp, lk, sp)
+        carry = V.viterbi_chain(dg, du, pre0.emis, pre0.logp, pre0.gc, *V.unpack_inputs(x0),
+                                pre0.cand.edge, pre0.cand.offset, lp,
+                                V.initial_carry_batch(B, lk, dev), sp=sp)[2]
+        pre = V.precompute_batch_packed(dg, du, x1, lp, lk, sp)
+        largs = (pre.emis, pre.logp, pre.gc, *V.unpack_inputs(x1), pre.cand.edge,
+                 pre.cand.offset, lp, carry)
+        # the session step: 512 rows (496 sessions, 16 padding) from a slab
+        # of 65,536 slots, 464 continuing, 32 fresh, on host carries
+        S, Bs = 65536, len(trs_sess)
+        rng = np.random.default_rng(6)
+        slots = np.full(Bs, S, np.int32)
+        slots[:Bs - 16] = rng.choice(S, Bs - 16, replace=False)
+        slab = V.initial_carry_batch(S, sk, dev)
+        xs0, xs1 = (session_rows(m, trs_sess[:Bs - 16], j, 4) for j in (0, 4))
+        p0 = V.precompute_batch_packed(dg, du, xs0, spar, sk, sp)
+        V.viterbi_chain(dg, du, p0.emis, p0.logp, p0.gc, *V.unpack_inputs(xs0), p0.cand.edge,
+                        p0.cand.offset, spar, slab, slots, np.zeros(Bs, bool), sp=sp)
+        use = np.zeros(Bs, bool)
+        use[:Bs - 32] = True
+        rows = torch.from_numpy(np.minimum(slots, S - 1).astype(np.int64)).to(dev)
+        usem = torch.from_numpy(use).to(dev)
+        hc = V.TraceCarry(*(torch.where(usem.view((Bs,) + (1,) * (g.dim() - 1)), g[rows], i)
+                            for g, i in zip(slab, V.initial_carry_batch(Bs, sk, dev))))
+        ps = V.precompute_batch_packed(dg, du, xs1, spar, sk, sp)
+        sargs = (ps.emis, ps.logp, ps.gc, *V.unpack_inputs(xs1), ps.cand.edge,
+                 ps.cand.offset, spar, hc)
+        tag = "" if sp is None else "[sparse]"
+        for kernel in ("scan", "assoc"):
+            for what, args in (("long", largs), ("session", sargs)):
+                probing = V.viterbi_chain(dg, du, *args, sp=sp, kernel=kernel)
+                resolved = V.viterbi_chain(dg, sharded, *args, sp=sp, kernel=kernel)
+                check(torch.equal(probing[0], resolved[0]) and torch.equal(probing[1], resolved[1])
+                      and _carry_same(probing[2], resolved[2]),
+                      "the resolved seam equals the in-kernel probe (%s%s, %s, %s)"
+                      % (kernel, tag, what, du.layout))
+                key = "%s%s_%s" % (kernel, tag, what)
+                out[key] = {"shape": "%dx%d K=%d" % (args[0].shape[0], args[0].shape[1],
+                                                      args[0].shape[2])}
+                if timed and sp is None and kernel == "scan" and what == "long":
+                    out[key]["probing_ms"] = time_ms(
+                        lambda: V.viterbi_chain(dg, du, *args, sp=sp, kernel=kernel))
+                    out[key]["resolved_ms"] = time_ms(
+                        lambda: V.viterbi_chain(dg, sharded, *args, sp=sp, kernel=kernel),
+                        queued=False)
+    print("chain seam on a gp=4 mesh: the resolved [B, K, K] seam equals the in-kernel "
+          "probe bit for bit (scan and assoc; dense 64x256 and 512x4, sparse 16x256 and "
+          "512x4); %s" % json.dumps({k: v for k, v in out.items() if len(v) > 1}))
+    return out
+
+
+def histogram_phases(matcher, xins, timed):
+    """Kernel 11b and kernel 4's chosen-slot output: on each decoded batch
+    the scan kernel's ``choice`` equals the plain decode's exactly, and
+    ``segment_histogram`` equals its plain version on the same inputs:
+    counts exact, time and distance sums within rtol 1e-5 (the atomics'
+    order).  Timed at 512 x 64 beside four ``index_add_`` calls on the
+    same inputs (the yardstick)."""
+    import torch
+
+    from reporter_tpu_torch.ops import histogram as Hg
+    from reporter_tpu_torch.ops import viterbi as V
+
+    dg, du, p, K = matcher._dg, matcher._du, matcher._params, matcher.cfg.beam_k
+    S = len(matcher.arrays.seg_ids)
+    row = None
+    for xin in xins:
+        x, y, t, v = V.unpack_inputs(xin)
+        pre, packed, aux, choice = V.match_batch_full(dg, du, x, y, t, v, p, K)
+        pre0, packed0, _a0, choice0 = V.match_batch_full(dg, du, x, y, t, v, p, K, plain=True)
+        check(torch.equal(choice, choice0) and torch.equal(packed, packed0),
+              "viterbi_scan's chosen slots equal the plain decode's")
+        check(torch.allclose(pre.route, pre0.route, rtol=1e-6, atol=0),
+              "the transition build's route")
+        hargs = (choice, pre.route, pre.cand.edge, packed[2], t, dg.edge_seg, S)
+        hk = Hg.segment_histogram(*hargs)
+        hp = Hg.segment_histogram_plain(*hargs)
+        check(torch.equal(hk.point_count, hp.point_count)
+              and torch.equal(hk.trace_count, hp.trace_count), "histogram counts exact")
+        for f in ("time_in_segment", "distance_in_segment"):
+            check(torch.allclose(getattr(hk, f), getattr(hp, f), rtol=1e-5, atol=1e-3),
+                  "histogram %s within rtol 1e-5" % f)
+        err = max_abs_err(zip(hk, hp))
+        B, T = t.shape
+        matched = int((choice[0] >= 0).sum())
+        routed = int(((choice[0] >= 0) & (choice[1] >= 0)).sum())
+        seg = Hg.point_segments(choice, pre.cand.edge, dg.edge_seg)
+        n_edges = int(torch.unique(torch.gather(
+            pre.cand.edge, 2, choice[0].clamp(min=0).long()[..., None])).numel())
+        # reads: choice, breaks, times once; the chosen candidate edge, the
+        # chosen route entry and the edge's segment id per point; writes
+        # the [4, S] output.  ~T/2 compares a point for first occurrence.
+        bnd, by = bound(16 * B * T + 4 * matched + 4 * routed + 4 * n_edges + 16 * S,
+                        B * T * (T + 20) // 2)
+        print("kernel %-27s %dx%d S=%d: %d matched points, counts exact, sums within rtol "
+              "1e-5 (max_abs_err %.3g)" % ("segment_histogram", B, T, S, matched, err))
+        if row is None:
+            flat = torch.where(seg >= 0, seg, S).reshape(-1)
+            same = ((seg[:, 1:] == seg[:, :-1]) & (seg[:, 1:] >= 0) & (packed[2][:, 1:] == 0))
+            step = torch.where(same, seg[:, 1:], S).reshape(-1)
+            dt = torch.where(same, t[:, 1:] - t[:, :-1], 0.0).reshape(-1)
+            rd = Hg.chosen_route(choice, pre.route)[:, 1:]
+            dd = torch.where(same & torch.isfinite(rd), rd, 0.0).reshape(-1)
+            first = torch.sort(flat.view(B, T), 1).values
+            first = torch.where(torch.cat([torch.ones_like(first[:, :1], dtype=torch.bool),
+                                           first[:, 1:] != first[:, :-1]], 1), first, S)
+            first = first.reshape(-1)
+            ones = torch.ones_like(flat, dtype=torch.float32)
+            bins = torch.zeros((4, S + 1), dtype=torch.float32, device=t.device)
+
+            def library():  # four index_add_ calls: the yardstick, not the port
+                bins.zero_()
+                bins[0].index_add_(0, flat, ones)
+                bins[1].index_add_(0, first, ones)
+                bins[2].index_add_(0, step, dt)
+                bins[3].index_add_(0, step, dd)
+            library()
+            check(torch.equal(bins[:2, :S], torch.stack([hk.point_count, hk.trace_count])),
+                  "the index_add_ yardstick computes the same counts")
+            row = dict(name="segment_histogram", route="cuda",
+                       source="reporter_tpu_torch/csrc/segment_histogram.cu",
+                       replaces="reporter_tpu/parallel/mesh.py:75", max_abs_err=err,
+                       bound_ms=bnd, bound_by=by, shape="%dx%d S=%d" % (B, T, S),
+                       fn=lambda: Hg.segment_histogram(*hargs),
+                       plain=lambda: Hg.segment_histogram_plain(*hargs), library=library)
+        else:
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+    if timed:
+        row["ms"] = time_ms(row["fn"])
+        row["plain_ms"] = time_ms(row["plain"], queued=False)
+        row["library_ms"] = time_ms(row["library"], queued=False)
+    print("kernel %-27s %s kernel_ms=%s plain_ms=%s library_ms=%s (4 x index_add_) "
+          "bound_ms=%.4f (%s)" % (row["name"], row["shape"],
+                                  "%.4f" % row["ms"] if "ms" in row else "-",
+                                  "%.4f" % row["plain_ms"] if "plain_ms" in row else "-",
+                                  "%.4f" % row["library_ms"] if "library_ms" in row else "-",
+                                  row["bound_ms"], row["bound_by"]))
+    row.setdefault("library_ms", None)
+    return row
+
+
+def slab_phases(device, K, timed, S=65536, B=512):
+    """Kernel 11c: the slot-sharded slab's gather and scatter at dp 2 and
+    4, 512 sessions' rows (480 live, 16 fresh, 16 padding) of a 65,536-slot
+    slab whose rows are seeded bit patterns (NaN payloads and -0.0
+    included): every rank equals its plain version bit for bit, the psum
+    of the ranks' gathers is the single slab's rows (zeros for padding),
+    and the scattered shards are the single slab with its owned rows
+    written.  Timed at dp 2, rank 0."""
+    import numpy as np
+    import torch
+
+    from reporter_tpu_torch.ops import collectives
+    from reporter_tpu_torch.ops import viterbi as V
+
+    rng = np.random.default_rng(13)
+    W = 3 * K + 5
+
+    def carry_of(words):
+        return V.carry_from_words(torch.from_numpy(words).to(device), K)
+    raw = rng.integers(-2 ** 31, 2 ** 31, (S, W), dtype=np.int64).astype(np.int32)
+    raw[:, 3 * K + 3] &= 1  # active: a bool byte
+    raw[:8, 0] = np.array([0x80000000, 0x7FC00001] * 4, np.uint32).view(np.int32)  # -0.0, NaN
+    slab = carry_of(raw)
+    slots = np.full(B, S, np.int32)
+    slots[:B - 16] = rng.choice(S, B - 16, replace=False)
+    slots[:8] = np.arange(8)  # the NaN and -0.0 rows
+    sl = torch.from_numpy(slots).to(device)
+    live = slots < S
+    want = np.where(live[:, None], raw[np.minimum(slots, S - 1)], np.int32(0))
+    new = rng.integers(-2 ** 31, 2 ** 31, (B, W), dtype=np.int64).astype(np.int32)
+    new[:, 3 * K + 3] &= 1
+    after = raw.copy()
+    after[slots[live]] = new[live]
+    rows = {}
+    for dp in (2, 4):
+        s_local = S // dp
+        shards = [V.TraceCarry(*(t[r * s_local:(r + 1) * s_local].clone() for t in slab))
+                  for r in range(dp)]
+        gk = [V.slab_gather_owned(sh, sl, r * s_local) for r, sh in enumerate(shards)]
+        gp = [V.slab_gather_owned_plain(sh, sl, r * s_local) for r, sh in enumerate(shards)]
+        check(all(torch.equal(a, b) for a, b in zip(gk, gp)),
+              "slab_gather_owned equals its plain version (dp %d)" % dp)
+        total = collectives.psum(gk)[0].cpu().numpy()
+        check(total.tobytes() == want.tobytes(),
+              "the psum of the ranks' gathers is the slab's rows bit for bit (dp %d)" % dp)
+        words = torch.from_numpy(new).to(device)
+        sk = [V.TraceCarry(*(t.clone() for t in sh)) for sh in shards]
+        sp_ = [V.TraceCarry(*(t.clone() for t in sh)) for sh in shards]
+        for r in range(dp):
+            V.slab_scatter_owned(sk[r], words, sl, r * s_local)
+            V.slab_scatter_owned_plain(sp_[r], words, sl, r * s_local)
+        check(all(_carry_same(a, b) for a, b in zip(sk, sp_)),
+              "slab_scatter_owned equals its plain version (dp %d)" % dp)
+        joined = torch.cat([V.carry_words(sh) for sh in sk]).cpu().numpy()
+        check(joined.tobytes() == after.tobytes(),
+              "the scattered shards are the slab with its owned rows written (dp %d)" % dp)
+        if dp == 2:
+            owned = int(((slots >= 0) & (slots < s_local)).sum())
+            slot_b = 12 * K + 17
+            for name, fn, plain, nbytes in (
+                    ("slab_gather_owned",
+                     lambda: V.slab_gather_owned(shards[0], sl, 0),
+                     lambda: V.slab_gather_owned_plain(shards[0], sl, 0),
+                     slot_b * owned + 4 * B + 4 * B * W),
+                    ("slab_scatter_owned",
+                     lambda: V.slab_scatter_owned(sk[0], words, sl, 0),
+                     lambda: V.slab_scatter_owned_plain(sp_[0], words, sl, 0),
+                     4 * B * W + 4 * B + slot_b * owned)):
+                bnd, by = bound(nbytes, B * W)
+                rows[name] = dict(name=name, route="cuda",
+                                  source="reporter_tpu_torch/csrc/slab_shard.cu",
+                                  replaces="reporter_tpu/ops/viterbi.py:%d" % (
+                                      1047 if "gather" in name else 1082),
+                                  max_abs_err=0.0, bound_ms=bnd, bound_by=by,
+                                  library_ms=None, owned_rows=owned, fn=fn, plain=plain)
+    for r in rows.values():
+        if timed:
+            r["ms"] = time_ms(r["fn"])
+            r["plain_ms"] = time_ms(r["plain"], queued=False)
+        print("kernel %-27s dp 2 rank 0, %d rows (%d owned) of a %d-slot slab, K=%d: equal its "
+              "plain version at dp 2 and 4, bit for bit; kernel_ms=%s plain_ms=%s "
+              "bound_ms=%.4f (%s)" % (r["name"], B, r["owned_rows"], S, K,
+                                      "%.4f" % r["ms"] if "ms" in r else "-",
+                                      "%.4f" % r["plain_ms"] if "plain_ms" in r else "-",
+                                      r["bound_ms"], r["bound_by"]))
+    return list(rows.values())
+
+
+def mesh_matcher(matcher, devices, graph_devices=1, ubodt=None, **cfg_kw):
+    """A matcher over ``matcher``'s city (its table, or ``ubodt``) on a dp
+    x gp mesh whose ranks all share ``matcher``'s card (the chip machine
+    has one)."""
+    from dataclasses import replace
+
+    from reporter_tpu_torch.matching import SegmentMatcher
+
+    ubodt = ubodt or matcher.ubodt
+    cfg_kw.setdefault("ubodt_layout", ubodt.layout)
+    mm = SegmentMatcher(arrays=matcher.arrays, ubodt=ubodt,
+                        config=replace(matcher.cfg, devices=devices,
+                                       graph_devices=graph_devices, **cfg_kw),
+                        device=[matcher.device] * devices)
+    check(mm._mesh is not None and mm._mesh.shape.get("gp", 1) == graph_devices,
+          "a %d-device mesh with gp=%d" % (devices, graph_devices))
+    return mm
+
+
+def _wire(results):
+    return json.dumps(results, sort_keys=True)
+
+
+def mesh_paths(matcher, sm, ubodt_w, traces64, traces256, traces2048, tr_a, xin64):
+    """Every path on a dp2 matcher and a dp2 x gp4 matcher (ranks sharing
+    the card), through the launch counters, each answer wire-identical to
+    the 1-card matcher's: ``match_many`` over 512 x 64, 128 x 256, the
+    long cohort and sparse A (and 512 x 64 on the wide32 table split over
+    gp); 512 sessions x 4 steps on the slot-sharded slab in groups of
+    128 through 256 hot slots and 512 pinned pages (evictions and
+    promotions mid-stream), equal to the host-carry path;
+    and ``graph_sharded_match_fn`` on the dp2 x gp4 mesh against
+    ``match_and_histogram`` on one card."""
+    import numpy as np
+    import torch
+
+    from reporter_tpu_torch.matching import SessionEngine, SessionStore
+    from reporter_tpu_torch.matching.arena import carry_host
+    from reporter_tpu_torch.ops import viterbi as V
+    from reporter_tpu_torch.parallel import graph_sharded_match_fn, make_mesh2
+    from reporter_tpu_torch.parallel import match_and_histogram
+
+    base = {}
+    for key, m, trs in (("64", matcher, traces64), ("256", matcher, traces256),
+                        ("long", matcher, traces2048), ("A", sm, tr_a)):
+        base[key] = _wire(m.match_many(trs))
+    cfg = matcher.cfg
+    slot_b = 12 * cfg.beam_k + 17
+    n = len(traces64)  # 512 on the card: 256 hot slots, 512 pages, groups of 128
+    hot, cold, group, steps = n // 2, n, n // 4, 4
+
+    def stream(m):
+        eng = SessionEngine(m, SessionStore(cfg.max_sessions, cfg.session_ttl_s),
+                            tail_points=cfg.session_tail_points)
+        for j in range(0, steps * 4, 4):
+            for g in range(0, len(traces64), group):
+                eng.match_many([dict(tr, trace=tr["trace"][j:j + 4])
+                                for tr in traces64[g:g + group]])
+        return eng
+    host = stream(matcher)
+    out = {"launches": {}, "s": {}}
+    for label, devices, gp in (("dp2", 2, 1), ("dp2xgp4", 8, 4)):
+        mm = mesh_matcher(matcher, devices, gp)
+        smm = mesh_matcher(matcher, devices, gp, sparse=True)
+        cases = [("64", mm, traces64, BUCKETED, 64), ("256", mm, traces256, BUCKETED, 256),
+                 ("long", mm, traces2048, CARRIED, 256), ("A", smm, tr_a, SPARSE_BUCKETED, 16)]
+        if gp > 1:
+            cases.append(("64", mesh_matcher(matcher, devices, gp, ubodt=ubodt_w), traces64,
+                          BUCKETED, 64))
+        for key, m, trs, path, T in cases:
+            m.match_many(trs[:2])  # first-call set-up outside the count
+            fwd, other = _forward(m, T, key == "long", key == "A", path)
+            kernels, absent = _path_kernels(m, fwd)
+            res, dt, launches = _counted(kernels, lambda: m.match_many(trs), absent + other)
+            name = "%s_%s%s" % (label, key, "_wide32" if m._du.wide else "")
+            check(_wire(res) == base[key], "%s match_many is wire-identical to one card" % name)
+            out["launches"][name] = launches
+            out["s"][name] = dt
+        am = mesh_matcher(matcher, devices, gp, session_arena=True,
+                          session_arena_bytes=hot * slot_b // devices,
+                          session_arena_cold_bytes=cold * slot_b)
+        arena = am.session_arena
+        check((arena.hot_slots, arena.cold_slots) == (hot, cold), "mesh slab of %d + %d"
+              % (hot, cold))
+        fwd, other = _forward(am, 4, True)
+        kernels, absent = _path_kernels(am, fwd)
+        kernels += ("slab_gather_owned", "slab_scatter_owned")
+        eng, dt, launches = _counted(kernels, lambda: stream(am), other + absent)
+        summ = arena.summary()
+        check(summ["promotions"] > 0 and summ["evictions"] > 0,
+              "evictions and promotions mid-stream: %s" % summ)
+        for tr in traces64:
+            u = tr["uuid"]
+            s, hs = eng.store.peek(u), host.store.peek(u)
+            check(s.records == hs.records, "%s slab records equal one card's (%s)" % (label, u))
+            a, b = carry_host(s.carry), carry_host(hs.carry)
+            check(all(np.asarray(a[k]).tobytes() == np.asarray(b[k]).tobytes() for k in a),
+                  "%s slab beam equals one card's (%s)" % (label, u))
+        out["launches"][label + "_session"] = launches
+        out["s"][label + "_session"] = dt
+        out[label + "_arena"] = summ
+        print("mesh %s: match_many over 512x64, 128x256, 64x2048 and sparse A wire-identical "
+              "to one card (%s s); 512 sessions x %d steps on the slot-sharded slab (%d hot "
+              "slots over %d ranks, %d cold pages: %d promotions, %d evictions) equal to one "
+              "card's host carries in %.3f s; launches %s"
+              % (label, ", ".join("%s %.3f" % (k, v) for k, v in out["s"].items()
+                                   if k.startswith(label) and not k.endswith("session")),
+                 steps, hot, devices // gp, cold, summ["promotions"], summ["evictions"], dt,
+                 json.dumps({k: v for k, v in launches.items() if v})))
+    # graph_sharded_match_fn on the dp2 x gp4 mesh against one card
+    S = len(matcher.arrays.seg_ids)
+    mesh = make_mesh2(2, 4, [matcher.device] * 8)
+    x, y, t, v = V.unpack_inputs(xin64)
+    fn = graph_sharded_match_fn(mesh, cfg.beam_k, S)
+    fn(matcher._dg, matcher._du, x, y, t, v, matcher._params)  # the table's placement
+    (rs, hs), dt, launches = _counted(
+        ("candidate_sweep", "ubodt_probe[sharded]", "transition_build", "viterbi_scan",
+         "segment_histogram"),
+        lambda: fn(matcher._dg, matcher._du, x, y, t, v, matcher._params), ("ubodt_probe",))
+    r1, h1 = match_and_histogram(matcher._dg, matcher._du, x, y, t, v, matcher._params,
+                                 cfg.beam_k, S)
+    check(torch.equal(rs.idx, r1.idx) and torch.equal(rs.breaks, r1.breaks),
+          "graph_sharded_match_fn idx equals one card's")
+    check(torch.equal(hs.point_count, h1.point_count)
+          and torch.equal(hs.trace_count, h1.trace_count), "mesh histogram counts exact")
+    for f in ("time_in_segment", "distance_in_segment"):
+        check(torch.allclose(getattr(hs, f), getattr(h1, f), rtol=1e-5, atol=1e-3),
+              "mesh histogram %s within rtol 1e-5" % f)
+    out["launches"]["graph_sharded_match_fn"] = launches
+    out["s"]["graph_sharded_match_fn"] = dt
+    print("graph_sharded_match_fn on dp2 x gp4 (512x64): idx equals match_and_histogram on one "
+          "card, counts exact, sums within rtol 1e-5, in %.3f s, launches %s"
+          % (dt, json.dumps({k: v for k, v in launches.items() if v})))
+    return out
+
+
+def mesh_serve_phase(arrays, ubodt, tr_a, default_answers, default_fixtures, device):
+    """8 /report of cohort A and the fixture replay through a service whose
+    matcher is built under $REPORTER_DEVICES / $REPORTER_GRAPH_DEVICES (a
+    dp2 mesh, then a dp2 x gp4 one, the ranks on the one card) on the
+    serving defaults: the answers of one card."""
+    from reporter_tpu_torch.matching import MatcherConfig, SegmentMatcher
+    from reporter_tpu_torch.serve.__main__ import serving_defaults
+
+    out = {}
+    for n, gp in ((2, 1), (8, 4)):
+        env = {"REPORTER_DEVICES": str(n), "REPORTER_GRAPH_DEVICES": str(gp)}
+        label = "dp2" if gp == 1 else "dp2 x gp4"
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            sv = SegmentMatcher(arrays=arrays, ubodt=ubodt,
+                                config=serving_defaults(MatcherConfig()), device=[device] * n)
+            check(sv._mesh is not None and sv._mesh.n_dp == 2 and sv._mesh.n_gp == gp,
+                  "the environment builds a %s mesh" % label)
+            kernels, absent = _path_kernels(sv, SPARSE_BUCKETED)
+            (answers,), dt, launches = _counted(kernels, lambda: _serve(sv, 15, tr_a[:8]),
+                                                absent)
+            check(answers == default_answers, "/report answers on %s equal one card's" % label)
+            fixtures = replay_fixtures([device] * n, "a %s mesh on one card" % label)
+            check(fixtures == default_fixtures, "fixture answers on %s equal one card's" % label)
+        finally:
+            for k, v in saved.items():
+                os.environ.pop(k, None)
+                if v is not None:
+                    os.environ[k] = v
+        print("serve on a %s mesh: 8 /report of cohort A in %.2f s and the 6 fixtures "
+              "answered as on one card, launches %s"
+              % (label, dt, json.dumps({k: v for k, v in launches.items() if v})))
+        out[label] = launches
+    return out
 
 def main():
     import torch
@@ -2532,6 +3067,21 @@ def main():
     tiered["launches"]["serve"] = tier_serve_phase(matcher.arrays, matcher.ubodt, tr_a,
                                                    sp_answers, fixtures, device)
 
+    # the device mesh (kernel row 11), every rank on this card: kernel 11a
+    # at gp 2, 4, 8 in both layouts, the chain kernels' resolved seam,
+    # kernel 11b with kernel 4's chosen slots, kernel 11c at dp 2 and 4,
+    # then every path on dp2 and dp2 x gp4 matchers, the histogram
+    # program on the 2-D mesh, serve and the fixtures on a dp2 x gp4 mesh
+    mesh_probe = mesh_probe_phases(matcher, du_w, xin64, timed=True)
+    mesh_seam = mesh_seam_phases(matcher, sm, traces2048, traces64, tr_l, tr_a,
+                                 dict(sp=spb, long_pk=(pb_, kb),
+                                      sess_pk=(pa_, matcher.cfg.beam_k)), timed=True)
+    hist_row = histogram_phases(matcher, [xin64, xin256], timed=True)
+    slab_rows = slab_phases(device, matcher.cfg.beam_k, timed=True)
+    mesh = mesh_paths(matcher, sm, ubodt_w, traces64, traces256, traces2048, tr_a, xin64)
+    mesh["serve_launches"] = mesh_serve_phase(matcher.arrays, matcher.ubodt, tr_a,
+                                              sp_answers, fixtures, device)
+
     # launches over the counted runs of every path but serve's; kernels
     # 1-4's times and bounds at 512 x 64, max_abs_err over both bucketed
     # shapes, the session step's and the sparse cohorts A and B (K = 16),
@@ -2542,7 +3092,8 @@ def main():
             sp_long_launches, *sp_sess_launches.values(), mem_launches, mem_long_launches,
             mem_sp_launches, *(v for k, v in assoc["launches"].items() if k != "auto"),
             *assoc["launches"]["auto"].values(),
-            *(v for k, v in tiered["launches"].items() if k != "serve")]
+            *(v for k, v in tiered["launches"].items() if k != "serve"),
+            *mesh["launches"].values()]
     total = {k: sum(r[k] for r in runs) for k in launches}
     kernels = [{
         "name": r["name"], "route": r["route"], "source": r["source"],
@@ -2622,7 +3173,17 @@ def main():
                                for o in tier_k[layout].values()),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None})
-    strip = lambda d: {k: v for k, v in d.items() if k not in ("fn", "plain")}  # noqa: E731
+    # the mesh's kernels (row 11): times and bounds of one gp rank of 4 at
+    # 512 x 64, the histogram at 512 x 64, the slab kernels at dp 2 rank 0
+    for r in mesh_probe + [hist_row] + slab_rows:
+        kernels.append({
+            "name": r["name"], "route": "cuda", "source": r["source"],
+            "replaces": r["replaces"], "launches": total[r["name"]],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"]})
+    strip = lambda d: {k: v for k, v in d.items()  # noqa: E731
+                       if k not in ("fn", "plain", "merged", "library")}
     report = {
         "card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
         "build_s": build_s, "city": city, "main_path": rates, "breakdown": split,
@@ -2665,6 +3226,8 @@ def main():
                   "crossover": cross, **{k: v for k, v in assoc.items()}},
         "tiering": {"host_link": link, "kernels": tier_k,
                     "paths": tiered, "session_cold_tier": cold_tier},
+        "mesh": {"kernels": [strip(r) for r in mesh_probe + [hist_row] + slab_rows],
+                 "seam": mesh_seam, **mesh},
         "metro_reports": n_reports, "peak_memory_mb": torch.cuda.max_memory_allocated() / 1e6,
         "kernels": kernels,
         "extra": dict({"%s_%d" % (r["name"], T): {k: v for k, v in r.items() if k in (

@@ -92,6 +92,15 @@ __device__ __forceinline__ void add_totals(const RowSource& src,
   if (misses) atomicAdd(src.totals + 1, misses);
 }
 
+// A gp rank's bucket range [lo, lo + n) of the table (SHARDED probes):
+// packed then holds only those n rows, and a bucket outside the range
+// contributes a row of -2 lanes, which matches no key (node ids are never
+// negative), as the reference's sharded probe masks it.
+struct BucketRange {
+  uint32_t lo;
+  uint32_t n;
+};
+
 // Broadcast keys: element i of the 4-d grid `dim` sits at i's coordinates
 // dotted with each side's strides (0 strides broadcast).
 struct Grid4 {
@@ -134,13 +143,15 @@ __device__ __forceinline__ void grid_keys(const int32_t* __restrict__ src,
 // halves for wide32).  The even lane compares both keys and takes
 // first_edge from its odd neighbour.  Every lane returns the result and
 // the number of the probe's rows that were hot; with TIERED, lane 0
-// counts each fetch.
-template <bool WIDE, bool TIERED>
+// counts each fetch.  With SHARDED, packed holds only ``range``'s rows
+// and a bucket outside it reads as -2 lanes.
+template <bool WIDE, bool TIERED, bool SHARDED = false>
 __device__ __forceinline__ int warp_probe(const int4* __restrict__ packed,
                                           const RowSource& src,
                                           uint32_t bmask, int32_t s,
                                           int32_t d, int lane, float* dist,
-                                          float* time, int32_t* first) {
+                                          float* time, int32_t* first,
+                                          BucketRange range = BucketRange{}) {
   constexpr int kRows = WIDE ? 1 : 2;   // home buckets
   constexpr int kHalves = WIDE ? 2 : 1; // 512-byte halves per row
   float best_d = INFINITY, best_t = INFINITY;
@@ -151,14 +162,25 @@ __device__ __forceinline__ int warp_probe(const int4* __restrict__ packed,
   for (int w = 0; w < kRows; ++w) {
     const uint32_t h = (w == 0 ? pair_hash1((uint32_t)s, (uint32_t)d)
                                : pair_hash2((uint32_t)s, (uint32_t)d)) & bmask;
-    bool hot;
-    const int4* row = bucket_row<TIERED>(packed, src, h, 32 * kHalves, &hot);
-    if constexpr (TIERED) {
-      n_hot += hot;
-      if (lane == 0) count_fetch(src, h);
-    }
+    if constexpr (SHARDED) {
+      const uint32_t loc = h - range.lo;  // wraps past n below lo
+      const bool mine = loc < range.n;
+      const int4* row = packed + (int64_t)(mine ? loc : 0) * (32 * kHalves);
 #pragma unroll
-    for (int q = 0; q < kHalves; ++q) v[w * kHalves + q] = row[q * 32 + lane];
+      for (int q = 0; q < kHalves; ++q)
+        v[w * kHalves + q] = mine ? row[q * 32 + lane]
+                                  : make_int4(-2, -2, -2, -2);
+    } else {
+      bool hot;
+      const int4* row = bucket_row<TIERED>(packed, src, h, 32 * kHalves,
+                                           &hot);
+      if constexpr (TIERED) {
+        n_hot += hot;
+        if (lane == 0) count_fetch(src, h);
+      }
+#pragma unroll
+      for (int q = 0; q < kHalves; ++q) v[w * kHalves + q] = row[q * 32 + lane];
+    }
   }
 #pragma unroll
   for (int r = 0; r < kRows * kHalves; ++r) {

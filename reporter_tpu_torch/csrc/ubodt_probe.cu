@@ -38,6 +38,20 @@
 // and misses (__syncthreads_count) before one atomic each.  The untiered
 // instantiations are the code above, unchanged.
 //
+// The SHARDED instantiations (ubodt_probe_sharded_launch and
+// ubodt_probe_wide32_sharded_launch, counted apart as ubodt_probe[sharded]
+// and ubodt_probe[wide32,sharded]) replace
+// reporter_tpu/ops/hashtable.py:249 _ubodt_lookup_sharded with its local
+// _bucket_rows and _select: one gp rank's probe of its bucket range
+// [lo, lo + L), packed holding only those L rows.  A bucket outside the
+// range reads as a row of -2 lanes, as the reference masks it, so a key
+// that lives on another rank gives (inf, inf, -1) here, and the ranks'
+// answers merge exactly by min dist, min time, max first edge (the
+// wrapper's pmin / pmax over the gp axis).  Bounded by memory: a rank
+// reads only its in-range rows (about 1/gp of the distinct rows), plus
+// the keys and its outputs.  Same design as kernel 2; the untiered code
+// path is unchanged.
+//
 // ubodt_host_register pins a host buffer and maps it into the card's
 // address space (cudaHostRegister + cudaHostGetDevicePointer): the tiered
 // table's pages.
@@ -46,7 +60,7 @@
 
 namespace {
 
-template <bool WIDE, bool TIERED>
+template <bool WIDE, bool TIERED, bool SHARDED>
 __global__ void ubodt_probe_kernel(const int32_t* __restrict__ src,
                                    const int32_t* __restrict__ dst,
                                    rtt::Grid4 g, int64_t n,
@@ -55,7 +69,8 @@ __global__ void ubodt_probe_kernel(const int32_t* __restrict__ src,
                                    uint32_t bmask, float* __restrict__ out_dist,
                                    float* __restrict__ out_time,
                                    int32_t* __restrict__ out_first,
-                                   rtt::RowSource tier) {
+                                   rtt::RowSource tier,
+                                   rtt::BucketRange range) {
   const int lane = threadIdx.x & 31;
   const int64_t probe = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   int64_t live = n;
@@ -69,8 +84,8 @@ __global__ void ubodt_probe_kernel(const int32_t* __restrict__ src,
     rtt::grid_keys(src, dst, g, probe, &s, &d);
     float dist, time;
     int32_t first;
-    rtt::warp_probe<WIDE, false>(packed, tier, bmask, s, d, lane, &dist,
-                                 &time, &first);
+    rtt::warp_probe<WIDE, false, SHARDED>(packed, tier, bmask, s, d, lane,
+                                          &dist, &time, &first, range);
     if (lane == 0) {
       out_dist[probe] = dist;
       out_time[probe] = time;
@@ -104,23 +119,27 @@ __global__ void ubodt_probe_kernel(const int32_t* __restrict__ src,
   }
 }
 
-template <bool WIDE, bool TIERED>
+template <bool WIDE, bool TIERED, bool SHARDED = false>
 int launch(const int32_t* src, const int32_t* dst, const int64_t* dims,
            const int64_t* src_strides, const int64_t* dst_strides,
            const int32_t* packed, int32_t bmask, const int32_t* n_live,
            float* out_dist, float* out_time, int32_t* out_first,
-           rtt::RowSource tier, void* stream) {
+           rtt::RowSource tier, void* stream,
+           rtt::BucketRange range = rtt::BucketRange{}) {
   rtt::Grid4 g;
   const int64_t n = rtt::make_grid(dims, src_strides, dst_strides, &g);
   if (n <= 0) return 0;
   if (TIERED && tier.slot_map == nullptr) return (int)cudaErrorInvalidValue;
+  if (SHARDED && (range.n == 0 || (uint64_t)range.lo + range.n >
+                                      (uint64_t)(uint32_t)bmask + 1))
+    return (int)cudaErrorInvalidValue;
   const int threads = 256;  // 8 probes per block
   const int64_t blocks = (n * 32 + threads - 1) / threads;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  ubodt_probe_kernel<WIDE, TIERED><<<(unsigned)blocks, threads, 0,
-                                     (cudaStream_t)stream>>>(
+  ubodt_probe_kernel<WIDE, TIERED, SHARDED><<<(unsigned)blocks, threads, 0,
+                                              (cudaStream_t)stream>>>(
       src, dst, g, n, n_live, reinterpret_cast<const int4*>(packed),
-      (uint32_t)bmask, out_dist, out_time, out_first, tier);
+      (uint32_t)bmask, out_dist, out_time, out_first, tier, range);
   return (int)cudaGetLastError();
 }
 
@@ -191,6 +210,32 @@ extern "C" int ubodt_probe_wide32_tiered_launch(
                             bmask, n_live, out_dist, out_time, out_first,
                             row_source(slot_map, arena, counts, totals),
                             stream);
+}
+
+// The sharded instantiations: kernel 2's arguments with packed the rank's
+// [L, 128 or 256] rows, then its range's first bucket lo and length L.
+extern "C" int ubodt_probe_sharded_launch(
+    const int32_t* src, const int32_t* dst, const int64_t* dims,
+    const int64_t* src_strides, const int64_t* dst_strides,
+    const int32_t* packed, int32_t bmask, const int32_t* n_live,
+    float* out_dist, float* out_time, int32_t* out_first, int32_t lo,
+    int32_t L, void* stream) {
+  return launch<false, false, true>(
+      src, dst, dims, src_strides, dst_strides, packed, bmask, n_live,
+      out_dist, out_time, out_first, rtt::RowSource{}, stream,
+      rtt::BucketRange{(uint32_t)lo, (uint32_t)L});
+}
+
+extern "C" int ubodt_probe_wide32_sharded_launch(
+    const int32_t* src, const int32_t* dst, const int64_t* dims,
+    const int64_t* src_strides, const int64_t* dst_strides,
+    const int32_t* packed, int32_t bmask, const int32_t* n_live,
+    float* out_dist, float* out_time, int32_t* out_first, int32_t lo,
+    int32_t L, void* stream) {
+  return launch<true, false, true>(
+      src, dst, dims, src_strides, dst_strides, packed, bmask, n_live,
+      out_dist, out_time, out_first, rtt::RowSource{}, stream,
+      rtt::BucketRange{(uint32_t)lo, (uint32_t)L});
 }
 
 // Page-lock ``bytes`` of host memory at ``host`` and map it into the

@@ -32,11 +32,17 @@
 // in shared memory; the confidence aux accumulates during the forward
 // pass.  Lane 0 of the group walks back; then the group writes the packed
 // [3, B, T] output (edge, offset bits, break) and the [B, 4] aux.
+// Kernel 4 may also write ``choice`` [2, B, T]: each point's chosen slot
+// and its backpointer there (the source slot of the step into it), what
+// the segment histogram reads.
 //
 // With CARRY, thread j first computes the seam column j: for each carried
 // source slot i it probes the UBODT for (to(carry.edge[i]),
-// from(cand.edge[0][j])) and applies the dense transition arithmetic
-// (transition.cuh, the same roundings as kernel 3), then starts from the
+// from(cand.edge[0][j])), or, on a gp mesh (the table split over ranks, so
+// no launch sees all of it), reads that probe's result from the [B, K, K]
+// seam_dist / seam_time the wrapper resolved over the ranks, and applies
+// the dense transition arithmetic (transition.cuh, the same roundings as
+// kernel 3), then starts from the
 // carried scores instead of the emissions alone.  After the walk it
 // re-checks that the committed slot reaches the window's first choice and
 // writes the carry-out (scores renormalised by their max, the last valid
@@ -101,6 +107,11 @@ struct ViterbiArgs {
   uint32_t bmask;
   bool wide;                 // the table's layout: wide32 (else cuckoo)
   rtt::RowSource tier;       // the hot tier and fetch counters, or none
+  // [B, K, K] the seam's probe results, resolved outside the launch (a
+  // table split over a gp mesh: every rank's range probed, merged); null:
+  // the seam probes ubodt itself
+  const float* seam_dist;
+  const float* seam_time;
   rtt::TransParams tp;
   rtt::SparseArgs sa;        // SPARSE only
   CarryPtrs in;
@@ -108,6 +119,7 @@ struct ViterbiArgs {
   const int32_t* slots;      // [B] slab rows, or null: row b is carry row b
   const uint8_t* use;        // [B] with slots: read the slab row
   int64_t S;                 // slab rows
+  int32_t* choice;           // [2, B, T] chosen slot and its backpointer, or null
 };
 
 // The seam: the transition from the carried beam (row ``bb``'s carry, or
@@ -155,9 +167,15 @@ __device__ __forceinline__ float seam_column(const ViterbiArgs& a, int64_t bb,
     const float sc = row >= 0 ? a.in.scores[row * K + i] : kNegInf;
     const float* era = a.edge_rows + (int64_t)(ea >= 0 ? ea : 0) * 8;
     float sp_dist, sp_time;
-    rtt::probe_serial(a.ubodt, a.tier, a.bmask, a.wide,
-                      __float_as_int(era[0]), from_b, &sp_dist, &sp_time,
-                      count, &hits, &fetches);
+    if (a.seam_dist) {
+      const int64_t q = (bb * K + i) * K + j;
+      sp_dist = a.seam_dist[q];
+      sp_time = a.seam_time[q];
+    } else {
+      rtt::probe_serial(a.ubodt, a.tier, a.bmask, a.wide,
+                        __float_as_int(era[0]), from_b, &sp_dist, &sp_time,
+                        count, &hits, &fetches);
+    }
     const float lp = rtt::transition_logp<SPARSE>(
         ea, eb, oa, ob, era, erb, sp_dist, sp_time, gc0, dt0, a.tp, a.sa,
         nullptr);
@@ -387,6 +405,15 @@ __global__ void viterbi_kernel(const ViterbiArgs a) {
   }
   __syncwarp();
 
+  if (a.choice && live) {  // the histogram's inputs: slot, and where it came from
+    const int64_t plane = a.B * (int64_t)T;
+    for (int t = j; t < T; t += K) {
+      const int it = idx[t];
+      a.choice[b * T + t] = it;
+      a.choice[plane + b * T + t] = it >= 0 ? bp[(size_t)t * K + it] : -1;
+    }
+  }
+
   finish_trace<K, CARRY>(a, bb, j, live, idx, brk_flag, ax, committed,
                          lp_committed, last, score, s);
 }
@@ -458,7 +485,8 @@ inline ViterbiArgs chain_args(
     const float* py, const float* times, const float* edge_rows,
     const int32_t* ubodt, int32_t bmask, int32_t wide,
     const int32_t* slot_map, const int32_t* arena, int32_t* counts,
-    int64_t* totals, int64_t B, int32_t T, float brk,
+    int64_t* totals, const float* seam_dist, const float* seam_time,
+    int64_t B, int32_t T, float brk,
     float sigma, float beta, float radius, float max_route_factor,
     float max_time_factor, float turn_factor, const float* in_scores,
     const int32_t* in_edge, const float* in_offset, const float* in_x,
@@ -488,6 +516,8 @@ inline ViterbiArgs chain_args(
   a.wide = wide != 0;
   a.tier = {slot_map, reinterpret_cast<const int4*>(arena), counts,
             reinterpret_cast<unsigned long long*>(totals)};
+  a.seam_dist = seam_dist;
+  a.seam_time = seam_time;
   a.tp = {sigma, beta, radius, max_route_factor, max_time_factor,
           turn_factor};
   a.in = {in_scores, in_edge, in_offset, in_x, in_y, in_t, in_active,
@@ -508,7 +538,8 @@ inline ViterbiArgs chain_args(
     const float *px, const float *py, const float *times,                    \
     const float *edge_rows, const int32_t *ubodt, int32_t bmask,             \
     int32_t wide, const int32_t *slot_map, const int32_t *arena,             \
-    int32_t *counts, int64_t *totals, int64_t B, int32_t T, int32_t K,       \
+    int32_t *counts, int64_t *totals, const float *seam_dist,                \
+    const float *seam_time, int64_t B, int32_t T, int32_t K,                 \
     float brk, float sigma,                                                  \
     float beta, float radius,                                                \
     float max_route_factor, float max_time_factor, float turn_factor,        \
@@ -521,7 +552,8 @@ inline ViterbiArgs chain_args(
     float *aux
 #define CHAIN_ARGS                                                           \
     emis, logp, gc, valid, cand_edge, cand_offset, px, py, times, edge_rows, \
-    ubodt, bmask, wide, slot_map, arena, counts, totals, B, T, brk, sigma,   \
+    ubodt, bmask, wide, slot_map, arena, counts, totals, seam_dist,          \
+    seam_time, B, T, brk, sigma,                                             \
     beta, radius, max_route_factor,                                          \
     max_time_factor, turn_factor, in_scores, in_edge, in_offset, in_x, in_y, \
     in_t, in_active, in_committed, out_scores, out_edge, out_offset, out_x,  \

@@ -3,7 +3,10 @@
 // "confidence".  The kernel body is viterbi_core.cuh's, without the
 // carry; what it replaces, what bounds it and its design are written
 // there.  viterbi_scan_sparse_launch runs the SPARSE instantiation: each
-// step's breakage threshold from its gap in ``times``.
+// step's breakage threshold from its gap in ``times``.  The dense entry
+// point may also write ``choice`` [2, B, T] (null skips it): each point's
+// chosen slot and the backpointer there, the inputs of the segment
+// histogram (segment_histogram.cu).
 
 #include "viterbi_core.cuh"
 
@@ -13,9 +16,10 @@ extern "C" int viterbi_scan_launch(const float* emis, const float* logp,
                                    const float* cand_offset, int64_t B,
                                    int32_t T, int32_t K, float brk,
                                    int32_t* packed, float* aux,
-                                   void* stream) {
-  const ViterbiArgs a = scan_args(emis, logp, gc, valid, cand_edge,
-                                  cand_offset, B, T, brk, packed, aux);
+                                   int32_t* choice, void* stream) {
+  ViterbiArgs a = scan_args(emis, logp, gc, valid, cand_edge, cand_offset, B,
+                            T, brk, packed, aux);
+  a.choice = choice;
   return launch_k<false, false>(K, a, (cudaStream_t)stream);
 }
 

@@ -30,6 +30,15 @@ device's current stream, in order with the steps; a host read of a cold
 page waits for the stream first.  A group wider than the whole slab takes
 the host-carry path, bit for bit the same.
 
+On a device mesh (``mesh``, ``parallel/mesh.py``) the slab's slot axis is
+split over the dp ranks (the rule table's ``slab`` row): rank r holds
+slots [r * S_local, (r + 1) * S_local) on its device, ``hot`` is the list
+of the ranks' shards and the step is ``ops/viterbi.session_step_arena_mesh``.
+The byte budget is per device, so it multiplies by the mesh's device
+count, and the slot count rounds up to a multiple of the dp ranks, as in
+the reference.  Demotion, promotion and readback address a slot's row in
+its shard; the cold tier is one pinned host slab, as on one device.
+
 Concurrency: one re-entrant ``lock`` serialises every slab access; the
 dispatcher holds it across acquire -> step launch.  The step updates the
 slab on the device stream, in order with every later read.
@@ -46,6 +55,7 @@ import torch
 
 from ..convert import carry_from_numpy
 from ..ops.viterbi import TraceCarry, initial_carry_batch
+from ..parallel.rules import BATCH_AXIS, spec_for
 
 log = logging.getLogger(__name__)
 
@@ -96,24 +106,35 @@ class SessionArena:
     arena.lock:`` section."""
 
     def __init__(self, beam_k: int, max_sessions: int = 65536, device="cuda",
-                 hot_bytes: int = 0, cold_bytes: int = 0):
+                 hot_bytes: int = 0, cold_bytes: int = 0, mesh=None):
         self.beam_k = int(beam_k)
         # per-slot payload: scores/edge/offset [K] at 4 B, x/y/t/committed
         # at 4 B, active at 1 B
         self.slot_bytes = 12 * self.beam_k + 17
+        self.devices = 1 if mesh is None else mesh.n_dp * mesh.n_gp
+        n_dp = 1
+        if mesh is not None and BATCH_AXIS in spec_for("slab", mesh):
+            n_dp = mesh.n_dp
         cap = max(1, int(max_sessions))
-        self.hot_slots = (max(1, min(cap, int(hot_bytes) // self.slot_bytes))
+        self.hot_slots = (max(1, min(cap, int(hot_bytes) * self.devices
+                                     // self.slot_bytes))
                           if hot_bytes and int(hot_bytes) > 0 else cap)
+        # the sharded slab splits its slot axis evenly over the dp ranks
+        self.hot_slots = -(-self.hot_slots // n_dp) * n_dp
         self.cold_slots = (max(0, int(cold_bytes) // self.slot_bytes)
                            if cold_bytes and int(cold_bytes) > 0
                            else 4 * self.hot_slots)
         self.lock = threading.RLock()
-        self._hot = initial_carry_batch(self.hot_slots, self.beam_k, device)
-        self._dev = self._hot.scores.device
+        self._s_local = self.hot_slots // n_dp
+        devs = [device] if mesh is None else mesh.dp_devices
+        self._shards = [initial_carry_batch(self._s_local, self.beam_k, d)
+                        for d in devs]
+        self._hot = self._shards[0] if mesh is None else self._shards
+        self._dev = self._shards[0].scores.device
         pin = self._dev.type == "cuda"
         self._cold_slab = TraceCarry(*(
             torch.empty((self.cold_slots,) + tuple(t.shape[1:]), dtype=t.dtype,
-                        pin_memory=pin) for t in self._hot))
+                        pin_memory=pin) for t in self._shards[0]))
         self.cold_memory_kind = "pinned_host" if pin else "host"
         # uuid -> hot slot / cold page; both free-listed
         self._slot_of: Dict[str, int] = {}
@@ -132,9 +153,21 @@ class SessionArena:
                  self.cold_slots, self.cold_memory_kind)
 
     @property
-    def hot(self) -> TraceCarry:
-        """The slab (use under ``lock``; the step updates it in place)."""
+    def hot(self):
+        """The slab (use under ``lock``; the step updates it in place): a
+        ``TraceCarry`` with leading [hot_slots], or on a mesh the dp
+        ranks' shards."""
         return self._hot
+
+    def _hot_row(self, slot: int):
+        """(the shard holding ``slot``, its row there)."""
+        return self._shards[slot // self._s_local], slot % self._s_local
+
+    def _sync(self) -> None:
+        """Wait for what the streams of the slab's devices have queued."""
+        for dev in {sh.scores.device for sh in self._shards}:
+            if dev.type == "cuda":
+                torch.cuda.current_stream(dev).synchronize()
 
     def ref_for(self, uuid: str) -> ArenaRef:
         with self.lock:
@@ -158,8 +191,9 @@ class SessionArena:
     # -- row plumbing --------------------------------------------------------
 
     def _set_row(self, slot: int, c: dict) -> None:
-        for leaf, v in zip(self._hot, carry_from_numpy(c)):
-            leaf[slot].copy_(v)
+        rows, i = self._hot_row(slot)
+        for leaf, v in zip(rows, carry_from_numpy(c)):
+            leaf[i].copy_(v)
 
     @staticmethod
     def _dict_of(rows: TraceCarry, i: int) -> dict:
@@ -173,9 +207,8 @@ class SessionArena:
         return row
 
     def _cold_dict(self, page: int) -> dict:
-        """A cold page as a host dict, once the stream has written it."""
-        if self._dev.type == "cuda":
-            torch.cuda.current_stream(self._dev).synchronize()
+        """A cold page as a host dict, once the streams have written it."""
+        self._sync()
         return self._dict_of(self._cold_slab, page)
 
     def _victim_locked(self, pinned) -> Optional[str]:
@@ -224,12 +257,13 @@ class SessionArena:
                 self._spill_cold_locked()
             if len(self._cold) < self.cold_slots:
                 page = self._cold_free.pop()
-                for c, h in zip(self._cold_slab, self._hot):
-                    c[page].copy_(h[slot], non_blocking=True)
+                rows, i = self._hot_row(slot)
+                for c, h in zip(self._cold_slab, rows):
+                    c[page].copy_(h[i], non_blocking=True)
                 self._cold[uuid] = page
                 self.evictions += 1
                 return
-        self._detach_locked(uuid, self._dict_of(self._hot, slot))
+        self._detach_locked(uuid, self._dict_of(*self._hot_row(slot)))
 
     def _alloc_slot_locked(self, pinned) -> Optional[int]:
         if self._free:
@@ -278,8 +312,9 @@ class SessionArena:
                            for cl in self._cold_slab]
                     self._cold_free.append(page)
                     slot = self._alloc_slot_locked(pinned)
-                    for h, r in zip(self._hot, row):
-                        h[slot].copy_(r)
+                    rows, i = self._hot_row(slot)
+                    for h, r in zip(rows, row):
+                        h[i].copy_(r)
                     self._slot_of[uuid] = slot
                     self.promotions += 1
                 if slot is None:
@@ -313,7 +348,7 @@ class SessionArena:
         with self.lock:
             slot = self._slot_of.get(uuid)
             if slot is not None:
-                out = self._dict_of(self._hot, slot)
+                out = self._dict_of(*self._hot_row(slot))
             elif uuid in self._cold:
                 out = self._cold_dict(self._cold[uuid])
             else:
@@ -346,7 +381,7 @@ class SessionArena:
             return {"hot": len(self._slot_of), "cold": len(self._cold)}
 
     def summary(self) -> dict:
-        """The reference's session_arena block, for one device."""
+        """The reference's session_arena block."""
         with self.lock:
             return {
                 "hot_slots": self.hot_slots,
@@ -357,9 +392,10 @@ class SessionArena:
                 "hot_bytes": self.hot_slots * self.slot_bytes,
                 "cold_bytes": len(self._cold) * self.slot_bytes,
                 "cold_memory_kind": self.cold_memory_kind,
-                "devices": 1,
-                "hot_slots_per_chip": self.hot_slots,
-                "hot_bytes_per_chip": self.hot_slots * self.slot_bytes,
+                "devices": self.devices,
+                "hot_slots_per_chip": self.hot_slots // self.devices,
+                "hot_bytes_per_chip":
+                    self.hot_slots * self.slot_bytes // self.devices,
                 "promotions": self.promotions,
                 "evictions": self.evictions,
                 "readbacks": self.readbacks,

@@ -18,10 +18,12 @@ matcher construction), the tiered UBODT (``ubodt_hot_bytes``,
 override them), the session arena's byte budgets
 (``session_arena_bytes``, ``session_arena_cold_bytes``;
 ``$REPORTER_SESSION_ARENA_BYTES`` and ``_COLD_BYTES``) and
-route-consistent interpolation (``interpolate``, ``$REPORTER_INTERPOLATE``).
-``from_dict`` drops the keys of the reference's config that belong to
-paths this port does not carry yet (the host packer, warmup, meshes, the
-degraded CPU fallback) with one warning per key per process.
+route-consistent interpolation (``interpolate``, ``$REPORTER_INTERPOLATE``)
+and the device mesh (``devices``, ``graph_devices``; ``$REPORTER_DEVICES``
+and ``$REPORTER_GRAPH_DEVICES`` override them).  ``from_dict`` drops the
+keys of the reference's config that belong to paths this port does not
+carry yet (the host packer, warmup, the degraded CPU fallback) with one
+warning per key per process.
 """
 
 from __future__ import annotations
@@ -113,6 +115,12 @@ class MatcherConfig:
     # route-consistent interpolation (matching/sparse.py): boundary times
     # by free-flow speed; match_options.interpolate overrides per trace
     interpolate: bool = False
+    # the device mesh (parallel/mesh.py): ``devices`` ranks in all, the
+    # trace batch split over devices // graph_devices dp ranks and the
+    # UBODT's bucket ranges over graph_devices gp ranks; both powers of
+    # two, graph_devices dividing devices.  Same answers at every topology
+    devices: int = 1
+    graph_devices: int = 1
     # sparse-gap model (matching/sparse.py): a trace whose median gap is at
     # or above sparse_gap_s decodes with the time-adaptive transitions and
     # gap-conditioned breakage, at sparse_beam_k candidates on windowed and

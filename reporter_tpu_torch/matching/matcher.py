@@ -61,13 +61,28 @@ Route-consistent interpolation (``cfg.interpolate``,
 re-times the windowed and long traces' segment boundaries by free-flow
 speed at association (``matching/sparse.py``).
 
-Not in this port yet: meshes.
+The device mesh (``devices``, ``graph_devices``; ``$REPORTER_DEVICES`` and
+``$REPORTER_GRAPH_DEVICES`` read at construction): with more than one
+device the matcher builds a dp x gp ``parallel.mesh.Mesh`` first (of the
+visible cards, or of the list given as ``device``; ranks may share one),
+then places every program argument by the rule table
+(``parallel/rules.py``): the graph replicated on each dp rank, the table
+replicated or, on a gp axis, split into bucket ranges, and each
+dispatch's rows (padded to a multiple of the dp ranks) split over dp.
+Each dp rank runs kernels 1-5 on its rows on its own device; only the
+probe fans out over its gp ranks (kernel 11a, merged by pmin / pmax), so
+the Viterbi compute runs once per dp shard where the reference
+replicates it over the gp ranks: the same bytes.  The bucketed, long,
+sparse, host-carry session and slab session programs all run on it, under
+either forward; the slab's slots are split over dp (kernel 11c).  A
+tiered table on a mesh raises.  The answers are the single device's.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import logging
 import os
 import threading
 from collections import deque
@@ -83,9 +98,11 @@ from ..ops.hashtable import DEDUP
 from ..ops.viterbi import (
     NEG_INF, MatchParams, TraceCarry, chain_batch_carry_packed_aux,
     initial_carry_batch, match_batch_compact_packed_aux, pack_inputs,
-    precompute_batch_packed, session_step_arena, session_step_packed,
-    slice_pre, unpack_compact,
+    precompute_batch_packed, session_step_arena, session_step_arena_mesh,
+    session_step_packed, slice_pre, unpack_compact,
 )
+from ..ops import collectives
+from ..parallel.mesh import Mesh, make_mesh, make_mesh2, place
 from ..tiles.arrays import GraphArrays, build_graph_arrays
 from ..tiles.network import RoadNetwork
 from ..tiles.tiering import TieredTable, parse_shard
@@ -95,6 +112,8 @@ from .assoc_native import associate_segments_batch
 from .config import MatcherConfig
 from .sparse import SparseModel, associate_interpolated, clamp_radius
 
+log = logging.getLogger(__name__)
+
 # chunks allowed in flight on the device while the host associates
 # earlier ones; each pins its packed input and output
 PIPELINE_DEPTH = 8
@@ -102,6 +121,12 @@ PIPELINE_DEPTH = 8
 # long traces: window outputs allowed to wait on the device before one
 # concatenated fetch; each pins its packed output (12*B_pad*W bytes)
 MAX_DEFERRED_CHUNKS = 64
+
+
+def _join(parts, dim: int) -> torch.Tensor:
+    """The dp ranks' blocks of one output joined along ``dim`` on rank 0's
+    device."""
+    return collectives.all_gather(list(parts), dim)[0]
 
 
 def _pad_rows(pad: int, *arrays):
@@ -119,8 +144,15 @@ class SegmentMatcher:
         ubodt: Optional[UBODT] = None,
         device="cuda",
     ):
-        self.device = resolve_device(device)
         self.cfg = config or MatcherConfig()
+        # the device mesh first: the table's placement and the session
+        # slab shard against it
+        self._mesh = self._make_mesh(device)
+        self._n_dp = 1 if self._mesh is None else self._mesh.n_dp
+        if isinstance(device, (list, tuple)):
+            (device,) = device[:1]
+        self.device = (self._mesh.dp_devices[0] if self._mesh is not None
+                       else resolve_device(device))
         if arrays is None:
             if network is None:
                 raise ValueError("need a network or prebuilt arrays")
@@ -152,7 +184,14 @@ class SegmentMatcher:
         env_ip = os.environ.get("REPORTER_INTERPOLATE", "").strip().lower()
         self._interpolate = (env_ip not in ("0", "false", "off", "no") if env_ip
                              else bool(self.cfg.interpolate))
-        self._dg = arrays.to_device(self.device)
+        # each dp rank's (graph, table) views; rank 0's are self._dg/_du
+        self._ranks = None
+        if self._mesh is not None:
+            self._ranks = list(zip(place(self._mesh, "dg", arrays.device_graph()),
+                                   place(self._mesh, "du", ubodt.device_ubodt())))
+            self._dg = self._ranks[0][0]
+        else:
+            self._dg = arrays.to_device(self.device)
         # the tiered table: $REPORTER_UBODT_HOT_BYTES (or ubodt_hot_bytes)
         # > 0 keeps only a hot arena of bucket rows on the device, the full
         # table in pinned host memory (tiles/tiering.py; same answers);
@@ -169,10 +208,15 @@ class SegmentMatcher:
             or self.cfg.ubodt_shard or "")
         self.tiering = None
         if self._ubodt_hot_bytes > 0:
+            if self._mesh is not None:
+                raise ValueError("a tiered UBODT (ubodt_hot_bytes) on a device "
+                                 "mesh is not carried by this port yet")
             self.tiering = TieredTable(ubodt, self._ubodt_hot_bytes,
                                        shard=self.ubodt_shard,
                                        device=self.device)
             self._du = self.tiering.device()
+        elif self._mesh is not None:
+            self._du = self._ranks[0][1]
         else:
             self._du = ubodt.to_device(self.device)
         self._params = MatchParams.from_config(self.cfg)
@@ -197,7 +241,7 @@ class SegmentMatcher:
                     "byte counts, got %r/%r" % (env_b, env_cb))
             self.session_arena = SessionArena(
                 self.cfg.beam_k, int(self.cfg.max_sessions), self.device,
-                hot_bytes=hot_b, cold_bytes=cold_b)
+                hot_bytes=hot_b, cold_bytes=cold_b, mesh=self._mesh)
         # the sampled probe-outcome diagnostic: every Nth dense bucketed
         # dispatch (0 = off); results stay on the device until a collect
         try:
@@ -205,12 +249,66 @@ class SegmentMatcher:
                                                    "0"))
         except ValueError:
             self._probe_every = 0
+        if self._probe_every and self._mesh is not None and self._mesh.n_gp > 1:
+            # as in the reference, whose sampled program cannot probe a
+            # table split over gp ranks
+            log.warning("probe-outcome sampling is off on a gp mesh")
+            self._probe_every = 0
         self._dispatch_count = 0
         self._probe_pending: List[torch.Tensor] = []
         self._probe_lock = threading.Lock()
         self.probe_stats = {"samples": 0, "pairs": 0, "miss": 0,
                             "costly_miss": 0, "beyond_delta": 0,
                             "dedup_ratio": None}
+
+    def _make_mesh(self, device) -> Optional[Mesh]:
+        """The dp x gp mesh of ``cfg.devices`` ranks ($REPORTER_DEVICES,
+        $REPORTER_GRAPH_DEVICES over the config; the resolved counts are
+        written back into ``self.cfg``, a copy), None for one device.  Its
+        devices are ``device`` when that is a list (ranks may repeat a
+        device), else the visible cards, which must be enough; any other
+        single device than ``"cuda"`` raises on a mesh."""
+        counts = {}
+        for env_key, name in (("REPORTER_DEVICES", "devices"),
+                              ("REPORTER_GRAPH_DEVICES", "graph_devices")):
+            raw = os.environ.get(env_key, "").strip()
+            try:
+                counts[name] = int(raw) if raw else int(getattr(self.cfg, name))
+            except ValueError:
+                raise ValueError("%s must be an integer device count, got %r"
+                                 % (env_key, raw))
+        n_total = max(1, counts["devices"])
+        n_gp = max(1, counts["graph_devices"])
+        if n_total & (n_total - 1) or n_gp & (n_gp - 1):
+            raise ValueError(
+                "cfg.devices/graph_devices must be powers of two, got %d/%d"
+                % (n_total, n_gp))
+        if n_total % n_gp:
+            raise ValueError("cfg.graph_devices=%d must divide devices=%d"
+                             % (n_gp, n_total))
+        self.cfg = dataclasses.replace(self.cfg, devices=n_total,
+                                       graph_devices=n_gp)
+        devices = list(device) if isinstance(device, (list, tuple)) else None
+        if n_total == 1:
+            if devices is not None and len(devices) != 1:
+                raise ValueError("a list of %d devices for a 1-device matcher"
+                                 % len(devices))
+            return None
+        if devices is None and torch.device(
+                "cuda" if device is None else device) != torch.device("cuda"):
+            raise ValueError(
+                "a %d-device mesh runs on the visible cards (device='cuda') or "
+                "on an explicit device list, not on device=%r"
+                % (n_total, str(device)))
+        if n_gp > 1:
+            return make_mesh2(n_total // n_gp, n_gp, devices)
+        return make_mesh(n_total, devices)
+
+    def _rung(self, n: int) -> int:
+        """Rows of a dispatch of ``n`` rows: its ladder rung, rounded up to
+        a multiple of the mesh's dp ranks (each takes an equal block)."""
+        r = self._ladder_rung(n)
+        return -(-r // self._n_dp) * self._n_dp
 
     def _memory_options(self):
         """(layout, dedup): $REPORTER_UBODT_LAYOUT / $REPORTER_PROBE_DEDUP
@@ -387,16 +485,25 @@ class SegmentMatcher:
         returns (packed [3, B, T], aux [B, 4]) device tensors.  ``slabel``
         (a sparse cohort) dispatches the sparse program with the cohort's
         parameters and K."""
-        xin = upload(pack_inputs(px, py, times, valid), self.device)
+        xin = pack_inputs(px, py, times, valid)
         p, sp, k = (self.sparse.params_for(slabel, pkey) if slabel
                     else (self._params_for(pkey), None, self.cfg.beam_k))
-        out = match_batch_compact_packed_aux(self._dg, self._du, xin, p, k,
-                                             sp, self.probe_dedup,
-                                             self._kernel_for(px.shape[1]))
+        args = (p, k, sp, self.probe_dedup, self._kernel_for(px.shape[1]))
+        if self._mesh is None:
+            xin = upload(xin, self.device)
+            out = match_batch_compact_packed_aux(self._dg, self._du, xin, *args)
+        else:
+            with self._mesh.lock:
+                parts = [match_batch_compact_packed_aux(dg, du, x, *args)
+                         for (dg, du), x in zip(self._ranks,
+                                                place(self._mesh, "xin", xin))]
+                out = (_join([pt[0] for pt in parts], 1),
+                       _join([pt[1] for pt in parts], 0))
         if self._probe_every and not slabel:
             self._dispatch_count += 1
             if self._dispatch_count % self._probe_every == 0:
-                self._record_probe_stats(xin)
+                self._record_probe_stats(upload(xin, self.device)
+                                         if isinstance(xin, np.ndarray) else xin)
         return out
 
     def _record_probe_stats(self, xin) -> None:
@@ -492,7 +599,7 @@ class SegmentMatcher:
         for pkey, slabel, blen, idxs in chunks:
             px, py, tm, valid, times = self._fill_rows(traces, idxs, blen)
             px, py, tm, valid = _pad_rows(
-                self._ladder_rung(len(idxs)) - len(idxs), px, py, tm, valid)
+                self._rung(len(idxs)) - len(idxs), px, py, tm, valid)
             pending.append((idxs, self._dispatch_batch(px, py, tm, valid, pkey,
                                                        slabel), times))
             if len(pending) >= PIPELINE_DEPTH:
@@ -543,7 +650,7 @@ class SegmentMatcher:
             px, py, tm, valid, times = self._fill_rows(traces, group,
                                                        n_chunks * W)
             px, py, tm, valid = _pad_rows(
-                self._ladder_rung(len(group)) - len(group), px, py, tm, valid)
+                self._rung(len(group)) - len(group), px, py, tm, valid)
             host_parts, outs, aux = self._dispatch_long_group(
                 pack_inputs(px, py, tm, valid), n_chunks, W,
                 self._params_for(pkey), pkey, slabel)
@@ -566,13 +673,33 @@ class SegmentMatcher:
         device in window order, and the group's [B_pad, 4] aux folded
         across seams (min / + / + / +).  A sparse cohort (``slabel``) runs
         the sparse pre and chain programs with its own parameters and K
-        in place of ``p``."""
+        in place of ``p``.  On a mesh each dp rank runs its block of rows'
+        windows and the outputs join on rank 0's device."""
+        if self._mesh is None:
+            return self._long_group(self._dg, self._du, self.device, xin,
+                                    n_chunks, W, p, pkey, slabel)
+        with self._mesh.lock:
+            parts = [self._long_group(dg, du, dev, x, n_chunks, W, p, pkey,
+                                      slabel)
+                     for (dg, du), dev, x in zip(
+                         self._ranks, self._mesh.dp_devices,
+                         np.split(xin, self._n_dp, 1))]
+        host_parts = [tuple(np.concatenate([hp[f] for hp in wave], 0)
+                            for f in range(3))
+                      for wave in zip(*(pt[0] for pt in parts))]
+        outs = [_join(win, 1) for win in zip(*(pt[1] for pt in parts))]
+        return host_parts, outs, _join([pt[2] for pt in parts], 0)
+
+    def _long_group(self, dg, du, dev, xin: np.ndarray, n_chunks: int, W: int,
+                    p: MatchParams, pkey: tuple = (), slabel: str = ""):
+        """``_dispatch_long_group`` on one device's graph ``dg`` and table
+        ``du``."""
         B_pad = xin.shape[1]
         k = self.cfg.beam_k
         sp = None
         if slabel:
             p, sp, k = self.sparse.params_for(slabel, pkey)
-        carry = initial_carry_batch(B_pad, k, self.device)
+        carry = initial_carry_batch(B_pad, k, dev)
         outs: list = []
         host_parts: list = []
         aux = None
@@ -589,13 +716,12 @@ class SegmentMatcher:
             if rung != rows:  # all-invalid rows that no chain reads
                 seg = np.concatenate(
                     [seg, np.zeros((4, rung - rows, W), np.float32)], 1)
-            seg = upload(seg, self.device)
-            pre = precompute_batch_packed(self._dg, self._du, seg, p, k, sp,
+            seg = upload(seg, dev)
+            pre = precompute_batch_packed(dg, du, seg, p, k, sp,
                                           self.probe_dedup)
             for i in range(m):
                 lo, hi = i * B_pad, (i + 1) * B_pad
-                win = (self._dg, self._du, slice_pre(pre, lo, hi),
-                       seg[:, lo:hi])
+                win = (dg, du, slice_pre(pre, lo, hi), seg[:, lo:hi])
                 packed, aux_c, carry = chain_batch_carry_packed_aux(
                     *win, p, k, carry, sp, self._kernel_for(W))
                 aux = aux_c if aux is None else torch.cat(
@@ -770,9 +896,9 @@ class SegmentMatcher:
                 sub = idxs[g: g + cap]
                 px, py, tm, valid, ns = self._fill_session_rows(items, sub, W)
                 px, py, tm, valid = _pad_rows(
-                    self._ladder_rung(len(sub)) - len(sub), px, py, tm, valid)
+                    self._rung(len(sub)) - len(sub), px, py, tm, valid)
                 b_pad = px.shape[0]
-                xin = upload(pack_inputs(px, py, tm, valid), self.device)
+                xin = pack_inputs(px, py, tm, valid)
                 h = None
                 if arena is not None and all("uuid" in items[i] for i in sub):
                     h = self._dispatch_session_arena(items, sub, ns, xin, p,
@@ -856,15 +982,35 @@ class SegmentMatcher:
         p, sp, _k = self.sparse.params_for(slabel, pkey)
         return p, sp
 
-    def _session_step(self, xin, p: MatchParams, sp, carry, slots=None,
-                      use=None):
-        """One session step program: the host-carry or (with ``slots``)
-        the slab variant, dense or (with ``sp``) sparse."""
-        a = (self._dg, self._du, xin, p, self.cfg.beam_k, carry)
+    def _session_step(self, xin: np.ndarray, p: MatchParams, sp, carry,
+                      slots=None, use=None):
+        """One session step program over host rows ``xin``: the host-carry
+        or (with ``slots``) the slab variant, dense or (with ``sp``)
+        sparse.  On a mesh each dp rank steps its block of rows, the slab
+        variant through the slot-sharded slab; the outputs join on rank
+        0's device."""
+        k = self.cfg.beam_k
         kernel = self._kernel_for(xin.shape[2])
-        if slots is None:
-            return session_step_packed(*a, sp, kernel)
-        return session_step_arena(*a, slots, use, sp, kernel)
+        if self._mesh is None:
+            a = (self._dg, self._du, upload(xin, self.device), p, k, carry)
+            if slots is None:
+                return session_step_packed(*a, sp, kernel)
+            return session_step_arena(*a, slots, use, sp, kernel)
+        m = self._mesh
+        with m.lock:
+            xins = place(m, "xin", xin)
+            if slots is not None:
+                packed, aux = session_step_arena_mesh(
+                    self._ranks, xins, p, k, carry, slots, use, sp, kernel)
+                return _join(packed, 1), _join(aux, 0), carry
+            carries = zip(*(place(m, "carry", leaf) for leaf in carry))
+            parts = [session_step_packed(dg, du, x, p, k, TraceCarry(*c), sp,
+                                         kernel)
+                     for (dg, du), x, c in zip(self._ranks, xins, carries)]
+            return (_join([pt[0] for pt in parts], 1),
+                    _join([pt[1] for pt in parts], 0),
+                    TraceCarry(*(_join(leaves, 0)
+                                 for leaves in zip(*(pt[2] for pt in parts)))))
 
     def _dispatch_session_arena(self, items, sub, ns, xin, p: MatchParams,
                                 sp=None, slabel: str = ""):
@@ -903,10 +1049,12 @@ class SegmentMatcher:
         arena = self.session_arena
         chunk_outs = []
 
+        n = self._rung(1)  # one row, padded to the mesh's dp ranks
+
         def rows(c0):
             chunk = dict(item, points=pts[c0: c0 + W])
             px, py, tm, valid, ns = self._fill_session_rows([chunk], [0], W)
-            return upload(pack_inputs(px, py, tm, valid), self.device), ns[0]
+            return pack_inputs(*_pad_rows(n - 1, px, py, tm, valid)), ns[0]
 
         if arena is not None and "uuid" in item:
             with arena.lock:
@@ -914,15 +1062,18 @@ class SegmentMatcher:
                     [(str(item["uuid"]), item.get("carry"))])
                 if acq is not None:
                     (slot,), (use,), (ref,) = acq
+                    slots = np.full(n, arena.hot_slots, np.int32)
+                    slots[0] = slot
                     for c0 in range(0, len(pts), W):
                         xin, nc = rows(c0)
                         packed, aux, _slab = self._session_step(
-                            xin, p, sp, arena.hot, np.array([slot], np.int32),
-                            np.array([use]))
+                            xin, p, sp, arena.hot, slots,
+                            np.arange(n) < (1 if use else 0))
                         use = True
                         chunk_outs.append((packed, aux, nc))
                     return ("chain_arena", idx, chunk_outs, ref)
-        carry = self._carry_batch([carry_host(item["carry"])], 1)
+        carry = self._carry_batch([carry_host(item["carry"])]
+                                  + [None] * (n - 1), n)
         for c0 in range(0, len(pts), W):
             xin, nc = rows(c0)
             packed, aux, carry = self._session_step(xin, p, sp, carry)

@@ -20,7 +20,11 @@ Viterbi kernels, ``viterbi_assoc`` and ``viterbi_chain_assoc`` with their
 a hot arena or pinned host pages) are counted apart as
 ``ubodt_probe[tiered]`` and ``ubodt_probe[wide32,tiered]``;
 ``host_register`` maps a tiered table's host pages into the card's
-address space.
+address space.  The device mesh's kernels: kernel 2's bucket-range
+instantiations for a gp rank, ``ubodt_probe[sharded]`` and
+``ubodt_probe[wide32,sharded]``, the ``segment_histogram`` and the
+slot-sharded slab's ``slab_gather_owned`` and ``slab_scatter_owned`` (one
+library).
 """
 
 from __future__ import annotations
@@ -92,11 +96,13 @@ _BUILD = [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I32,
           _F, _F, _F, _F, _F, _F, _P, _P, _P]
 _SCAN = [_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _F, _P, _P]
 _TIER = [_P] * 4  # slot_map, arena, counts, totals (all null: untiered)
+# + seam_dist, seam_time (null: the seam probes the table itself)
 _CHAIN = ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32] + _TIER
-          + [_I64, _I32, _I32, _F, _F, _F, _F, _F, _F, _F] + [_P] * 16
+          + [_P, _P] + [_I64, _I32, _I32, _F, _F, _F, _F, _F, _F, _F] + [_P] * 16
           + [_P, _P, _I64, _P, _P])
 _PROBE = [_P, _P, _P, _P, _P, _P, _I32, _P, _P, _P, _P]
 _GRID = [_P, _P, _P, _P, _P]  # src, dst, dims, src strides, dst strides
+_SLAB = [_P] * 8 + [_I64, _I64, _P, _I64, _I32, _P]  # leaves, s_local, lo, slots, B, K, words
 
 KERNELS: Dict[str, Kernel] = {k.name: k for k in (
     Kernel("candidate_sweep", [
@@ -108,6 +114,11 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
            "ubodt_probe_tiered"),
     Kernel("ubodt_probe[wide32,tiered]", _PROBE + _TIER, "ubodt_probe",
            "ubodt_probe_wide32_tiered"),
+    # a gp rank's bucket range: + lo, L
+    Kernel("ubodt_probe[sharded]", _PROBE + [_I32, _I32], "ubodt_probe",
+           "ubodt_probe_sharded"),
+    Kernel("ubodt_probe[wide32,sharded]", _PROBE + [_I32, _I32], "ubodt_probe",
+           "ubodt_probe_wide32_sharded"),
     Kernel("ubodt_dedup_claim", _GRID + [_P, _P, _I64, _P, _P, _P, _P, _I64,
                                          _P], "ubodt_dedup", "ubodt_dedup_claim"),
     Kernel("ubodt_dedup_scatter", _GRID + [_P, _P, _P, _I64, _P, _P, _P, _P,
@@ -116,7 +127,7 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
     Kernel("probe_stats", [_P, _P, _P, _P, _P, _I64, _I32, _I32, _F, _F, _P,
                            _P]),
     Kernel("transition_build", _BUILD),
-    Kernel("viterbi_scan", _SCAN),
+    Kernel("viterbi_scan", _SCAN + [_P]),  # + choice (null: not written)
     Kernel("viterbi_chain", _CHAIN),
     Kernel("transition_build[sparse]", _BUILD + _SPARSE,
            "transition_build", "transition_build_sparse"),
@@ -132,6 +143,10 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
            "viterbi_chain_assoc"),
     Kernel("viterbi_chain_assoc[sparse]", _CHAIN + [_P] + _SPARSE,
            "viterbi_assoc", "viterbi_chain_assoc_sparse"),
+    # choice, route, cand_edge, breaks, times, edge_seg, B, T, K, S, out
+    Kernel("segment_histogram", [_P] * 6 + [_I64, _I32, _I32, _I32, _P]),
+    Kernel("slab_gather_owned", _SLAB, "slab_shard", "slab_gather_owned"),
+    Kernel("slab_scatter_owned", _SLAB, "slab_shard", "slab_scatter_owned"),
 )}
 
 _build_lock = threading.Lock()

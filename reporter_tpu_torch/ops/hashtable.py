@@ -33,6 +33,15 @@ plain versions fetch through ``TieredTable.rows_plain``, which counts the
 same.  Each top-level lookup records its fetch units (one per hash) for
 the maintenance cadence.  The answers are the untiered table's.
 
+A table split over a device mesh's gp axis (``tiles/ubodt.ShardedUBODT``,
+one dp rank's view) is probed by every gp rank over its bucket range,
+kernel 2's ``[sharded]`` instantiations, a bucket outside the range
+reading as -2 lanes that match nothing; the ranks' answers merge by pmin
+of dist and time and pmax of the first edge over the gp axis
+(``ops/collectives.py``), exactly the whole table's answer (the
+reference's ``_ubodt_lookup_sharded``).  Dedup is skipped there, as in the
+reference.
+
 Each wrapper launches its CUDA kernel for CUDA tensors and runs its plain
 version for CPU tensors.  Torch has no uint32 arithmetic and its int32
 ``>>`` is arithmetic, so the plain hashes compute in int64 masked to 32
@@ -49,7 +58,10 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..tiles.ubodt import F_DIST, F_DST, F_FE, F_SRC, F_TIME, ROW_W, DeviceUBODT
+from . import collectives
+from ..tiles.ubodt import (
+    F_DIST, F_DST, F_FE, F_SRC, F_TIME, ROW_W, DeviceUBODT, ShardedUBODT,
+)
 from ._kernels import KERNELS, check, ptr
 
 _M32 = 0xFFFFFFFF
@@ -121,9 +133,17 @@ def note_lookup(u) -> None:
 def _rows(u, b: torch.Tensor) -> torch.Tensor:
     """Bucket rows [N, 128 or 256] of buckets ``b``: the plain version of
     the kernels' row fetch (``_bucket_rows``), through the tier when the
-    table has one."""
+    table has one; a bucket-range view's rows outside its range are -2
+    lanes."""
     t = _tier(u)
-    return u.packed[b] if t is None else t.rows_plain(b)
+    if t is not None:
+        return t.rows_plain(b)
+    if not getattr(u, "sharded", False):
+        return u.packed[b]
+    loc = b - u.lo
+    mine = (loc >= 0) & (loc < u.local_buckets)
+    rows = u.packed[torch.where(mine, loc, 0)]
+    return torch.where(mine[:, None], rows, torch.full_like(rows, -2))
 
 
 def _empty_result(shape, dev, with_first):
@@ -141,6 +161,8 @@ def ubodt_lookup_plain(u: DeviceUBODT, src: torch.Tensor, dst: torch.Tensor,
     ``ubodt_lookup_dedup_plain`` (same results) from _DEDUP_MIN_PAIRS
     pairs."""
     src, dst = torch.broadcast_tensors(src, dst)
+    if isinstance(u, ShardedUBODT):
+        return ubodt_lookup_sharded(u, src, dst, with_first, plain=True)
     if dedup and src.numel() >= _DEDUP_MIN_PAIRS:
         return tuple(ubodt_lookup_dedup_plain(u, src, dst, with_first)[:3])
     note_lookup(u)
@@ -203,8 +225,9 @@ def _check_keys(u: DeviceUBODT, src, dst) -> None:
 
 def probe_kernel_name(u) -> str:
     """The kernel 2 instantiation that probes table ``u``."""
-    tags = [t for t, on in (("wide32", u.wide), ("tiered", _tier(u) is not None))
-            if on]
+    tags = [t for t, on in (("wide32", u.wide), ("tiered", _tier(u) is not None),
+                            ("sharded", isinstance(u, ShardedUBODT)
+                             or getattr(u, "sharded", False))) if on]
     return "ubodt_probe" + ("[%s]" % ",".join(tags) if tags else "")
 
 
@@ -233,11 +256,13 @@ def _probe(u: DeviceUBODT, src, dst, with_first, n_live=None):
                                       with_first)
     if dist.numel():
         tiered = _tier(u) is not None
+        extra = ((u.lo, u.local_buckets) if getattr(u, "sharded", False)
+                 else ())
         with table_args(u) as (table, tier):
             KERNELS[probe_kernel_name(u)].launch(
                 src.device, ptr(src), ptr(dst), ptr(dims), ptr(s_str),
                 ptr(d_str), table, u.bmask, ptr(n_live), ptr(dist),
-                ptr(time), ptr(first), *(tier if tiered else ()))
+                ptr(time), ptr(first), *(tier if tiered else extra))
     return dist, time, first
 
 
@@ -419,6 +444,8 @@ def ubodt_lookup(u: DeviceUBODT, src: torch.Tensor, dst: torch.Tensor,
     the broadcast through strides (no materialised key arrays); CPU
     tensors run the plain versions."""
     src, dst = torch.broadcast_tensors(src, dst)
+    if isinstance(u, ShardedUBODT):
+        return ubodt_lookup_sharded(u, src, dst, with_first)
     if dedup and src.numel() >= _DEDUP_MIN_PAIRS:
         r = ubodt_lookup_dedup(u, src, dst, with_first)
         if r.n_unique is not None:
@@ -429,6 +456,29 @@ def ubodt_lookup(u: DeviceUBODT, src: torch.Tensor, dst: torch.Tensor,
     _check_keys(u, src, dst)
     note_lookup(u)
     return _probe(u, src, dst, with_first)
+
+
+def ubodt_lookup_sharded(u: ShardedUBODT, src: torch.Tensor,
+                         dst: torch.Tensor, with_first: bool = True,
+                         plain: bool = False):
+    """The probe of a table split over the gp axis: each gp rank probes
+    its bucket range (kernel 2's ``[sharded]`` instantiation on a card,
+    the plain version with ``plain`` or on the CPU), then pmin over dist
+    and time and pmax over the first edge resolve every key on gp rank 0's
+    device.  Keys live in exactly one rank's range, so the merge is exact
+    (the reference's ``_ubodt_lookup_sharded``)."""
+    src, dst = torch.broadcast_tensors(src, dst)
+    lookup = (ubodt_lookup_plain if plain or src.device.type == "cpu"
+              else ubodt_lookup)
+    parts = []
+    for sh in u.shards:
+        dev = sh.packed.device
+        parts.append(lookup(sh, src.to(dev), dst.to(dev), with_first))
+    dist = collectives.pmin([p[0] for p in parts])[0]
+    time = collectives.pmin([p[1] for p in parts])[0]
+    first = (collectives.pmax([p[2] for p in parts])[0] if with_first
+             else None)
+    return dist, time, first
 
 
 def count_distinct_pairs_plain(src: torch.Tensor, dst: torch.Tensor,

@@ -63,15 +63,17 @@ reference a chip run holds the kernels against on the card).
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..device import upload
 from ..tiles.arrays import DeviceGraph
-from ..tiles.ubodt import DeviceUBODT
+from ..tiles.ubodt import DeviceUBODT, ShardedUBODT
+from . import collectives
 from ._kernels import KERNELS, check, ptr
 from .candidates import (
     NEG_INF, Candidates, _scalar, candidate_sweep, candidate_sweep_plain, fma,
@@ -567,9 +569,17 @@ def _step_dt(times):
     return times[:, 1:] - times[:, :-1]
 
 
+def _choice_plain(idx, BP):
+    """[2, B, T] i32: each point's chosen slot and the backpointer there
+    (-1 where unmatched)."""
+    src = torch.gather(BP, 2, idx.clamp(min=0)[..., None])[..., 0]
+    return torch.stack([idx, torch.where(idx >= 0, src, -1)]).to(torch.int32)
+
+
 def viterbi_scan_plain(emis, logp, gc, valid, cand_edge, cand_offset,
                        breakage_distance, times=None,
-                       sp: Optional[SparseParams] = None, kernel: str = "scan"):
+                       sp: Optional[SparseParams] = None, kernel: str = "scan",
+                       with_choice: bool = False):
     """Plain PyTorch version of the carry-free scan ``chain_trace`` +
     ``backtrace`` + ``_compact`` + the confidence block + ``pack_compact``.
     emis [B, T, K]; logp [B, T-1, K, K]; gc [B, T-1]; valid [B, T] float
@@ -577,30 +587,38 @@ def viterbi_scan_plain(emis, logp, gc, valid, cand_edge, cand_offset,
     gap-conditioned breakage) also times [B, T].  ``kernel`` picks the
     forward: "scan" (the sequential recursion) or "assoc" (the log-depth
     one and its backtrace; the scan at T < 2).  Returns (packed
-    [3, B, T] i32, aux [B, 4] f32)."""
+    [3, B, T] i32, aux [B, 4] f32), and with ``with_choice`` also the
+    [2, B, T] i32 chosen slot and backpointer there of each point."""
     vb = valid != 0
     brk = (_scalar(breakage_distance, emis) if sp is None
            else sparse_breakage(breakage_distance, sp, _step_dt(times)))
-    S, _BP, BR, idx = _decode_plain(kernel, emis[:, 0], torch.ones_like(vb[:, 0]),
-                                    emis, logp, gc, vb, brk)
-    return _pack_plain(idx, BR, cand_edge, cand_offset), _aux_plain(S, vb, cand_edge)
+    S, BP, BR, idx = _decode_plain(kernel, emis[:, 0], torch.ones_like(vb[:, 0]),
+                                   emis, logp, gc, vb, brk)
+    out = _pack_plain(idx, BR, cand_edge, cand_offset), _aux_plain(S, vb, cand_edge)
+    return out + (_choice_plain(idx, BP),) if with_choice else out
 
 
 def viterbi_scan(emis, logp, gc, valid, cand_edge, cand_offset,
                  breakage_distance, times=None,
-                 sp: Optional[SparseParams] = None, kernel: str = "scan"):
+                 sp: Optional[SparseParams] = None, kernel: str = "scan",
+                 with_choice: bool = False):
     """Per-trace Viterbi over a batch: the CUDA kernel (its sparse
     instantiation with ``sp``, which reads ``times``) for CUDA tensors, the
     plain version for CPU tensors.  ``kernel`` "assoc" launches the
     log-depth kernel ``viterbi_assoc`` at T >= 2 (the scan kernel below).
-    Returns (packed [3, B, T] i32, aux [B, 4] f32)."""
+    Returns (packed [3, B, T] i32, aux [B, 4] f32), and with
+    ``with_choice`` (the dense scan kernel writes it) the [2, B, T] chosen
+    slots and backpointers there."""
     if emis.device.type == "cpu":
         return viterbi_scan_plain(emis, logp, gc, valid, cand_edge,
                                   cand_offset, breakage_distance, times, sp,
-                                  kernel)
+                                  kernel, with_choice)
     dev = emis.device
     B, T, K = emis.shape
     kname = "viterbi_assoc" if _use_assoc(kernel, T) else "viterbi_scan"
+    if with_choice and (kname != "viterbi_scan" or sp is not None):
+        raise ValueError("the chosen slots are written by the dense scan "
+                         "kernel only")
     if K not in (1, 2, 4, 8, 16, 32):
         raise ValueError("%s: K=%d must be a power of two <= 32" % (kname, K))
     check(emis, "emis", torch.float32, dev, (B, T, K))
@@ -611,6 +629,8 @@ def viterbi_scan(emis, logp, gc, valid, cand_edge, cand_offset,
     check(cand_offset, "cand_offset", torch.float32, dev, (B, T, K))
     packed = torch.empty((3, B, T), dtype=torch.int32, device=dev)
     aux = torch.empty((B, 4), dtype=torch.float32, device=dev)
+    choice = (torch.empty((2, B, T), dtype=torch.int32, device=dev)
+              if with_choice else None)
     if sp is not None:
         check(times, "times", torch.float32, dev, (B, T))
     if B and T:
@@ -621,11 +641,13 @@ def viterbi_scan(emis, logp, gc, valid, cand_edge, cand_offset,
         if ws is not None:  # held until the launch is queued
             args.append(ptr(ws))
         if sp is None:
+            if kname == "viterbi_scan":
+                args.append(ptr(choice))
             KERNELS[kname].launch(dev, *args)
         else:
             KERNELS[kname + "[sparse]"].launch(dev, *args, ptr(times),
                                               *sp.floats())
-    return packed, aux
+    return (packed, aux, choice) if with_choice else (packed, aux)
 
 
 # -- kernel 5: the chain, a window continuing a carried beam -------------------
@@ -658,17 +680,29 @@ def _seam_plain(dg, du, carry: TraceCarry, cand_edge, cand_offset, px, py,
     (logp0 [B, K src, K dst], gc0 [B]).  The probe and the transition
     build run over the two-point window (carried point, first point)."""
     two = lambda c, w: torch.stack([c, w[:, 0]], 1)  # noqa: E731
-    edge2 = two(carry.edge, cand_edge)  # [B, 2, K]
-    rows = dg.edge_rows[torch.where(edge2 >= 0, edge2, 0).long()]
-    to_a = rows[:, :1, :, 0].contiguous().view(torch.int32)  # [B, 1, K]
-    from_b = rows[:, 1:, :, 1].contiguous().view(torch.int32)
-    sp_dist, sp_time, _ = ubodt_lookup_plain(du, to_a[..., :, None],
-                                             from_b[..., None, :], False)
-    cand = Candidates(edge2, two(carry.offset, cand_offset), None, None, None)
+    sp_dist, sp_time = seam_probe(dg, du, carry.edge, cand_edge[:, 0], plain=True)
+    cand = Candidates(two(carry.edge, cand_edge), two(carry.offset, cand_offset),
+                      None, None, None)
     logp0, _, gc0 = transition_build_plain(
         dg, cand, two(carry.x, px), two(carry.y, py), two(carry.t, times),
-        sp_dist, sp_time, p, with_route=False, sp=sp)
+        sp_dist[:, None], sp_time[:, None], p, with_route=False, sp=sp)
     return logp0[:, 0], gc0[:, 0]
+
+
+def seam_probe(dg, du, carry_edge, first_edge, plain: bool = False):
+    """The seam's UBODT probe, outside the chain launch: (dist, time)
+    [B, K src, K dst] of (to(carry_edge[b, i]), from(first_edge[b, j])),
+    the keys the chain kernels' seam forms (an empty slot reads edge 0).
+    On a gp mesh (``du`` a ``ShardedUBODT``) this is how the seam sees the
+    whole table: every rank probes its range and the answers merge.
+    ``plain`` probes with the plain version (the plain chain's seam)."""
+    def node(edges, lane):
+        rows = dg.edge_rows[torch.where(edges >= 0, edges, 0).long()]
+        return rows[..., lane].contiguous().view(torch.int32)
+    lookup = ubodt_lookup_plain if plain else ubodt_lookup
+    d, t, _ = lookup(du, node(carry_edge, 0)[:, :, None],
+                     node(first_edge, 1)[:, None, :], False)
+    return d.contiguous(), t.contiguous()
 
 
 def _carry_out_plain(S, idx, vb, cand_edge, cand_offset, px, py, times):
@@ -774,6 +808,10 @@ def viterbi_chain(dg: DeviceGraph, du: DeviceUBODT, emis, logp, gc, px, py,
     dev = emis.device
     B, T, K = emis.shape
     kname = "viterbi_chain_assoc" if _use_assoc(kernel, T) else "viterbi_chain"
+    sharded = isinstance(du, ShardedUBODT)
+    if sharded and slots is not None:
+        raise ValueError("a table split over gp ranks takes the mesh's "
+                         "session step (session_step_arena_mesh), not a slab")
     if K not in (1, 2, 4, 8, 16, 32):
         raise ValueError("%s: K=%d must be a power of two <= 32" % (kname, K))
     check(emis, "emis", torch.float32, dev, (B, T, K))
@@ -785,7 +823,8 @@ def viterbi_chain(dg: DeviceGraph, du: DeviceUBODT, emis, logp, gc, px, py,
     check(cand_edge, "cand_edge", torch.int32, dev, (B, T, K))
     check(cand_offset, "cand_offset", torch.float32, dev, (B, T, K))
     check(dg.edge_rows, "edge_rows", torch.float32, dev)
-    check_table(du, dev)
+    if not sharded:
+        check_table(du, dev)
     if slots is None:
         _check_carry(carry, B, K, dev)
         out = TraceCarry(*(torch.empty_like(t) for t in carry))
@@ -801,15 +840,20 @@ def viterbi_chain(dg: DeviceGraph, du: DeviceUBODT, emis, logp, gc, px, py,
     packed = torch.empty((3, B, T), dtype=torch.int32, device=dev)
     aux = torch.empty((B, 4), dtype=torch.float32, device=dev)
     if B and T:
-        # the seam probes the table: one lookup's fetch units
-        note_lookup(du)
+        # the seam probes the table: one lookup's fetch units; on a gp
+        # mesh the seam's probe is resolved over the ranks first
+        seam = (seam_probe(dg, du, carry.edge, cand_edge[:, 0]) if sharded
+                else (None, None))
+        if not sharded:
+            note_lookup(du)
         ws = (_assoc_workspace(B, T, K, dev) if kname == "viterbi_chain_assoc"
               else None)
-        with table_args(du) as (table, tier):
+        with (contextlib.nullcontext((ptr(None), [ptr(None)] * 4)) if sharded
+              else table_args(du)) as (table, tier):
             args = [ptr(emis), ptr(logp), ptr(gc), ptr(valid), ptr(cand_edge),
                     ptr(cand_offset), ptr(px), ptr(py), ptr(times),
                     ptr(dg.edge_rows), table, du.bmask, int(du.wide), *tier,
-                    B, T, K,
+                    ptr(seam[0]), ptr(seam[1]), B, T, K,
                     float(p.breakage_distance), float(p.sigma_z),
                     float(p.beta), float(p.search_radius),
                     float(p.max_route_distance_factor),
@@ -1035,3 +1079,152 @@ def session_step_arena_plain(dg, du, xin, p: MatchParams, k: int,
                              kernel: str = "scan"):
     return _step(_PLAIN, dg, du, xin, p, k, slab, slots, use_carry, sp,
                  kernel)
+
+
+# -- the slot-sharded session slab on a mesh (kernel 11c) -----------------------
+#
+# On a device mesh the slab's [S] slot axis is split over the dp ranks,
+# rank r holding slots [r * S_local, (r + 1) * S_local).  A step gathers
+# each row's beam from whichever rank owns its slot as int32 bit patterns
+# (zeros from every other rank), sums the ranks' blocks (exact: one
+# nonzero pattern and zeros), decodes each rank's own rows on host carries
+# (kernel 5's [B]-leading mode), all-gathers the successors and scatters
+# each into the rank that owns its slot: the reference's
+# ``_arena_gather_mesh``, ``_arena_scatter_mesh`` and
+# ``session_step_arena_mesh``.
+
+def carry_words(carry: TraceCarry) -> torch.Tensor:
+    """[B, 3K + 5] int32: each row's carry as bit patterns, in the order
+    scores [K], edge [K], offset [K], x, y, t, active (0/1), committed."""
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t.to(torch.int32)
+    return torch.cat([bits(carry.scores), carry.edge, bits(carry.offset)]
+                     + [bits(t)[:, None] for t in (carry.x, carry.y, carry.t,
+                                                   carry.active, carry.committed)], 1)
+
+
+def carry_from_words(words: torch.Tensor, k: int) -> TraceCarry:
+    """``carry_words``' inverse, bit for bit."""
+    def f32(w):
+        return w.contiguous().view(torch.float32)
+    return TraceCarry(scores=f32(words[:, :k]), edge=words[:, k:2 * k].contiguous(),
+                      offset=f32(words[:, 2 * k:3 * k]), x=f32(words[:, 3 * k]),
+                      y=f32(words[:, 3 * k + 1]), t=f32(words[:, 3 * k + 2]),
+                      active=words[:, 3 * k + 3] != 0,
+                      committed=words[:, 3 * k + 4].contiguous())
+
+
+def _owned(slots: torch.Tensor, lo: int, s_local: int):
+    loc = slots.long() - lo
+    return loc, (loc >= 0) & (loc < s_local)
+
+
+def slab_gather_owned_plain(shard: TraceCarry, slots: torch.Tensor,
+                            lo: int) -> torch.Tensor:
+    """Plain version of ``slab_gather_owned``."""
+    s_local = shard.scores.shape[0]
+    loc, owned = _owned(slots, lo, s_local)
+    rows = carry_words(TraceCarry(*(leaf[loc.clamp(0, s_local - 1)]
+                                    for leaf in shard)))
+    return torch.where(owned[:, None], rows, torch.zeros_like(rows))
+
+
+def slab_scatter_owned_plain(shard: TraceCarry, words: torch.Tensor,
+                             slots: torch.Tensor, lo: int) -> TraceCarry:
+    """Plain version of ``slab_scatter_owned``."""
+    loc, owned = _owned(slots, lo, shard.scores.shape[0])
+    new = carry_from_words(words[owned], shard.scores.shape[1])
+    for leaf, rows in zip(shard, new):
+        leaf.index_copy_(0, loc[owned], rows)
+    return shard
+
+
+def _slab_launch(name: str, shard: TraceCarry, slots, lo: int, words):
+    dev = shard.scores.device
+    s_local, k = shard.scores.shape
+    _check_carry(shard, s_local, k, dev)
+    check(slots, "slots", torch.int32, dev)
+    check(words, "words", torch.int32, dev, (slots.shape[0], 3 * k + 5))
+    KERNELS[name].launch(dev, *(ptr(t) for t in shard), s_local, lo,
+                         ptr(slots), slots.shape[0], k, ptr(words))
+
+
+def slab_gather_owned(shard: TraceCarry, slots: torch.Tensor,
+                      lo: int) -> torch.Tensor:
+    """One dp rank's side of the mesh step's gather: for each row of the
+    global [B] slot map ``slots`` (int32 on the shard's device), the
+    carry of ``shard`` (the rank's [S_local] slab rows, its first global
+    slot ``lo``) as [B, 3K + 5] int32 bit patterns where the rank owns the
+    slot, zeros elsewhere.  The CUDA kernel for a CUDA shard, the plain
+    version for a CPU one."""
+    if shard.scores.device.type == "cpu":
+        return slab_gather_owned_plain(shard, slots, lo)
+    words = torch.empty((slots.shape[0], 3 * shard.scores.shape[1] + 5),
+                        dtype=torch.int32, device=shard.scores.device)
+    _slab_launch("slab_gather_owned", shard, slots, lo, words)
+    return words
+
+
+def slab_scatter_owned(shard: TraceCarry, words: torch.Tensor,
+                       slots: torch.Tensor, lo: int) -> TraceCarry:
+    """One dp rank's side of the mesh step's scatter: the rows of the
+    global [B, 3K + 5] carry-out ``words`` whose slots the rank owns are
+    written into ``shard`` in place, the rest dropped (padding rows name
+    slot S, owned by nobody).  The CUDA kernel for a CUDA shard, the plain
+    version for a CPU one.  Returns the shard."""
+    if shard.scores.device.type == "cpu":
+        return slab_scatter_owned_plain(shard, words, slots, lo)
+    _slab_launch("slab_scatter_owned", shard, slots, lo, words)
+    return shard
+
+
+def session_step_arena_mesh(ranks: Sequence[tuple], xins: Sequence[torch.Tensor],
+                            p: MatchParams, k: int, slab: Sequence[TraceCarry],
+                            slots, use_carry, sp: Optional[SparseParams] = None,
+                            kernel: str = "scan"):
+    """``session_step_arena`` over a slot-sharded slab: ``ranks`` the dp
+    ranks' (dg, du) views, ``xins`` each rank's [4, b_local, W] rows of the
+    step (rank r holds global rows r * b_local ...), ``slab`` the ranks'
+    slab shards of equal length, ``slots`` / ``use_carry`` the host [B]
+    global slot map (S = all shards' slots: a padding row) and carry
+    mask.  Gather (kernel 11c), psum, each rank's decode on host carries
+    (kernel 5), all-gather, scatter (kernel 11c): the packed outputs, aux
+    and slab bytes are the single-device step's, bit for bit.  Returns
+    (packed, aux) lists, one per rank; the slab shards change in place."""
+    s_local = slab[0].scores.shape[0]
+    devs = [sh.scores.device for sh in slab]
+    sl, use = _slab_rows(slots, use_carry, s_local * len(slab), devs[0])
+    sls = [sl.to(d) for d in devs]
+    words = collectives.psum([slab_gather_owned(sh, s, r * s_local)
+                              for r, (sh, s) in enumerate(zip(slab, sls))])
+    outs = []
+    b_local = xins[0].shape[1]
+    for r, ((dg, du), xin, w) in enumerate(zip(ranks, xins, words)):
+        rows = slice(r * b_local, (r + 1) * b_local)
+        mine = use[rows].to(devs[r])
+        inact = initial_carry_batch(b_local, k, devs[r])
+        carry = TraceCarry(*(
+            torch.where(mine.view((b_local,) + (1,) * (g.dim() - 1)), g, i)
+            for g, i in zip(carry_from_words(w[rows], k), inact)))
+        outs.append(session_step_packed(dg, du, xin, p, k, carry, sp, kernel))
+    cw = collectives.all_gather([carry_words(o[2]) for o in outs])
+    for r, (sh, w, s) in enumerate(zip(slab, cw, sls)):
+        slab_scatter_owned(sh, w, s, r * s_local)
+    return [o[0] for o in outs], [o[1] for o in outs]
+
+
+def match_batch_full(dg: DeviceGraph, du, px, py, times, valid,
+                     p: MatchParams, k: int, plain: bool = False):
+    """The reference's ``match_batch`` over [B, T] arrays (the scan
+    forward, the dense model, no dedup), keeping what the segment
+    histogram reads: (``TracePre`` with the candidates' every field and the
+    route, packed [3, B, T] i32, aux [B, 4] f32, choice [2, B, T] i32 =
+    each point's chosen slot and the backpointer there).  ``plain`` runs
+    the plain versions."""
+    st = _PLAIN if plain else _KERNELS
+    valid = valid.to(torch.float32)
+    pre = _precompute(st, dg, du, px, py, times, valid, p, k)
+    packed, aux, choice = st.scan(pre.emis, pre.logp, pre.gc, valid,
+                                  pre.cand.edge, pre.cand.offset,
+                                  p.breakage_distance, with_choice=True)
+    return pre, packed, aux, choice

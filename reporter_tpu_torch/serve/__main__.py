@@ -32,7 +32,10 @@ answers); $REPORTER_UBODT_SHARD=i/N seeds the hot set with bucket range
 i of N.  $REPORTER_SESSION_ARENA_BYTES / _COLD_BYTES budget the session
 slab and its pinned host cold tier.  $REPORTER_INTERPOLATE=1 (or the
 matcher's "interpolate", or a request's match_options.interpolate) times
-segment boundaries by free-flow speed.
+segment boundaries by free-flow speed.  The matcher's "devices" and
+"graph_devices" (or $REPORTER_DEVICES / $REPORTER_GRAPH_DEVICES) spread
+it over a dp x gp mesh of the visible cards (same answers; more cards
+than are visible raises).
 """
 
 from __future__ import annotations

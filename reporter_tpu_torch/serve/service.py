@@ -247,6 +247,8 @@ class ReporterService:
         out = {
             "status": "ok",
             "device": str(m.device),
+            "mesh": ({"dp": m._mesh.n_dp, "gp": m._mesh.n_gp}
+                     if m._mesh is not None else None),
             "max_trace_points": m.max_trace_points,
             "viterbi_kernel": m._kernel_mode,
             "ubodt_shard": ("%d/%d" % m.ubodt_shard) if m.ubodt_shard else None,
@@ -379,7 +381,8 @@ def parse_service_config(path: str):
 
 def build_matcher(cfg, conf: dict, device="cuda") -> SegmentMatcher:
     """Load or build the network, build the UBODT and move both to
-    ``device``."""
+    ``device`` (with the config's ``devices`` / ``graph_devices`` above 1,
+    a list of the mesh's devices, or "cuda" for the visible cards)."""
     from ..tiles.network import RoadNetwork, grid_city
 
     netspec = conf.get("network", {"type": "grid"})

@@ -35,11 +35,12 @@ class DeviceGraph:
     """What the device kernels read of the graph.  The grid scalars are
     float32 values (Python floats already rounded through float32), so the
     kernels and the plain versions see the same numbers the reference's
-    float32 device scalars hold."""
+    float32 device scalars hold.  ``edge_seg`` ([E] int32 dense segment
+    index, -1 unassociated) is what the segment histogram reads."""
 
     def __init__(self, edge_rows: torch.Tensor, cell_rows: torch.Tensor,
                  grid_x0: float, grid_y0: float, grid_nx: int, grid_ny: int,
-                 cell_size: float):
+                 cell_size: float, edge_seg: Optional[torch.Tensor] = None):
         if edge_rows.dtype != torch.float32 or edge_rows.dim() != 2 \
                 or edge_rows.shape[1] != 8:
             raise ValueError("edge_rows must be [E, 8] float32")
@@ -56,6 +57,7 @@ class DeviceGraph:
         self.grid_nx = int(grid_nx)
         self.grid_ny = int(grid_ny)
         self.cell_size = float(np.float32(cell_size))
+        self.edge_seg = edge_seg
 
     @property
     def cap(self) -> int:
@@ -65,7 +67,9 @@ class DeviceGraph:
         dev = resolve_device(device)
         return DeviceGraph(self.edge_rows.to(dev), self.cell_rows.to(dev),
                            self.grid_x0, self.grid_y0, self.grid_nx,
-                           self.grid_ny, self.cell_size)
+                           self.grid_ny, self.cell_size,
+                           None if self.edge_seg is None
+                           else self.edge_seg.to(dev))
 
 
 @dataclass
@@ -160,7 +164,8 @@ class GraphArrays:
             torch.from_numpy(self.edge_rows()),
             torch.from_numpy(self.cell_rows()),
             self.grid_x0, self.grid_y0, self.grid_nx, self.grid_ny,
-            self.cell_size)
+            self.cell_size,
+            torch.from_numpy(np.ascontiguousarray(self.edge_seg, np.int32)))
 
     def to_device(self, device="cuda") -> DeviceGraph:
         return self.device_graph().to_device(device)

@@ -17,8 +17,9 @@ doubles when a bucket overflows.
 The native packers (rn_cuckoo_pack, rn_wide_pack) and the Python loops
 below produce bit-identical tables; all are bit-identical to the
 reference's builders.  ``relayout`` repacks a table's rows into the other
-layout without a graph search.  Tiering and sharding are not part of this
-port yet.
+layout without a graph search.  The tiered table is ``tiles/tiering.py``'s;
+on a device mesh's gp axis each rank holds the bucket-range slice
+``DeviceUBODT.shard`` gives (``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -93,29 +94,89 @@ def pair_hash2(src, dst, mask):
 class DeviceUBODT:
     """The table as the probe kernels read it: ``packed`` [n_buckets, 128]
     (cuckoo) or [n_buckets, 256] (wide32) int32, one bucket per row, the
-    bucket mask and the layout tag."""
+    bucket mask and the layout tag.
+
+    A gp rank's view (``shard``, ``sharded`` True) holds only the
+    contiguous bucket range [lo, lo + L) of the table, ``packed``
+    [L, width]: its probe reads the
+    rows it holds and lets every other bucket contribute a row of -2
+    lanes, which matches no key (the reference's ``_ubodt_lookup_sharded``
+    masking), so the ranks' answers merge exactly by min / max."""
 
     def __init__(self, packed: torch.Tensor, bmask: int,
-                 layout: str = "cuckoo"):
+                 layout: str = "cuckoo", lo: int = 0, sharded: bool = False):
         width = bucket_entries(layout) * ROW_W
         if packed.dtype != torch.int32 or packed.dim() != 2 \
                 or packed.shape[1] != width:
             raise ValueError("packed must be [n_buckets, %d] int32 (%s)"
                              % (width, layout))
-        if packed.shape[0] != int(bmask) + 1:
+        if not sharded and (lo or packed.shape[0] != int(bmask) + 1):
             raise ValueError("packed has %d buckets, bmask %d"
                              % (packed.shape[0], bmask))
+        if lo < 0 or packed.shape[0] < 1 or lo + packed.shape[0] > int(bmask) + 1:
+            raise ValueError("bucket range [%d, %d) outside a table of %d "
+                             "buckets" % (lo, lo + packed.shape[0], bmask + 1))
         self.packed = packed.contiguous()
         self.bmask = int(bmask)
         self.layout = layout
+        self.lo = int(lo)
+        # a gp rank's bucket-range view (set only by ``shard``)
+        self.sharded = bool(sharded)
 
     @property
     def wide(self) -> bool:
         return self.layout == "wide32"
 
+    @property
+    def local_buckets(self) -> int:
+        """Buckets this view holds: the whole table, or a rank's range."""
+        return self.packed.shape[0]
+
     def to_device(self, device="cuda") -> "DeviceUBODT":
         return DeviceUBODT(self.packed.to(resolve_device(device)), self.bmask,
-                           self.layout)
+                           self.layout, self.lo, self.sharded)
+
+    def shard(self, idx: int, n_shards: int, device=None) -> "DeviceUBODT":
+        """Rank ``idx`` of ``n_shards``'s view: the contiguous bucket range
+        of ``tiles.tiering.shard_bucket_range`` (the partition the fleet
+        shards use too), copied to ``device`` (default: where the table
+        is).  The table must split evenly (``check_ubodt_shardable``)."""
+        from .tiering import shard_bucket_range
+
+        if self.sharded:
+            raise ValueError("a bucket-range view cannot be sharded again")
+        if (self.bmask + 1) % n_shards:
+            raise ValueError("UBODT bucket count %d not divisible by gp=%d"
+                             % (self.bmask + 1, n_shards))
+        lo, hi = shard_bucket_range(idx, n_shards, self.bmask + 1)
+        dev = self.packed.device if device is None else device
+        return DeviceUBODT(self.packed[lo:hi].to(dev), self.bmask,
+                           self.layout, lo, sharded=True)
+
+
+class ShardedUBODT:
+    """One dp rank's view of a table split over a mesh's gp axis (the
+    reference's ``DeviceUBODT.with_shard_axis``): the gp ranks' bucket-range
+    views in rank order, each on its rank's device, together the whole
+    table.  A probe fans out over them and merges by min / max
+    (``ops/hashtable.ubodt_lookup``)."""
+
+    def __init__(self, shards):
+        self.shards = list(shards)
+        first = self.shards[0]
+        self.bmask, self.layout = first.bmask, first.layout
+        at = 0
+        for sh in self.shards:
+            if (sh.lo, sh.bmask, sh.layout) != (at, self.bmask, self.layout):
+                raise ValueError("gp shards must cover the table in rank order")
+            at += sh.local_buckets
+        if at != self.bmask + 1:
+            raise ValueError("gp shards cover %d of %d buckets"
+                             % (at, self.bmask + 1))
+
+    @property
+    def wide(self) -> bool:
+        return self.layout == "wide32"
 
 
 @dataclass

@@ -105,6 +105,24 @@ for j in range(0, 20, 4):
         res = eng.match_many([dict(t, trace=t["trace"][j:j + 4])])
 s_ = tm.session_arena.summary()
 assert (s_["hot_used"], s_["cold_used"]) == (2, 1) and s_["evictions"] > 0
+# the device mesh: a dp 2 x gp 2 matcher on shared cpu ranks (the table in
+# bucket ranges, the slab split over dp) and the histogram program
+import torch
+import reporter_tpu_torch.ops.collectives
+import reporter_tpu_torch.parallel.rules
+from reporter_tpu_torch.parallel import graph_sharded_match_fn, make_mesh2
+mm = SegmentMatcher(arrays=arrays, ubodt=m.ubodt, device=["cpu"] * 4,
+                    config=MatcherConfig(ubodt_delta=1500.0, length_buckets=[16], devices=4,
+                                         graph_devices=2, session_arena=True))
+assert mm._mesh.shape == {"dp": 2, "gp": 2} and mm.match_many(traces) == m.match_many(traces)
+eng = SessionEngine(mm, SessionStore())
+for j in range(0, 20, 4):
+    res = eng.match_many([dict(t, trace=t["trace"][j:j + 4]) for t in traces])
+assert all(r["_stream"]["session"]["points_total"] == 20 for r in res)
+px, py, tm, valid, _t = mm._fill_rows(traces, [0, 1], 32)
+fn = graph_sharded_match_fn(make_mesh2(2, 2, ["cpu"] * 4), 8, len(arrays.seg_ids))
+_r, hist = fn(m._dg, m._du, *(torch.from_numpy(a) for a in (px, py, tm, valid)), m._params)
+assert 0 < float(hist.point_count.sum()) <= 40
 assert not [m for m in sys.modules if blocked(m)]
 print("ISOLATED-OK")
 '''
