@@ -141,6 +141,26 @@ delta 3000 m, cuckoo layout) and moves it to the card, then:
      ``match_and_histogram``; 8 /report and the fixture replay under
      $REPORTER_DEVICES=2, then $REPORTER_DEVICES=8
      $REPORTER_GRAPH_DEVICES=4, equal to one card's.
+  11. the redesigned kernels on edge inputs (``probe_edges``,
+     ``recursion_edges``): kernel 2's family on a ragged key set of table
+     rows, the empty marker's key (-1, 0) (several hits a row), keys that
+     miss and the cohort's keys, on the cuckoo and wide32 tables,
+     untiered, tiered at 64 MiB and every rank of gp 4, each equal to its
+     plain version with equal fetch counts, ``n_live`` at 0, 3,001 and
+     past the key count writing exactly the live outputs, the dedup
+     probe's fallback and compact probe exact; kernels 4 and 5 in every
+     instantiation (K = 1, 2, 4, 8, 16, 32, carried or not, dense or
+     sparse) at B = 1, 16 and 512 rows (and 64, 256: every block size of
+     their launch), each equal to its plain version.
+
+    python3 chip_smoke.py --pair PARENT [TREE ...]
+
+runs the same phases and also times every kernel call the phases time
+against the kernels built from other checkouts, the parent first, in one
+process: each build's SASS instruction counts (``cuobjdump``), then each
+call timed in turns (the trees, this tree twice, the trees in reverse),
+its outputs and a tiered table's fetch counts equal across the builds bit
+for bit; writes chiprun_out/pair.json (``pair_setup``, ``_paired``).
 
 Prints the card's name and power limit, one line per phase, a
 ``{"kernels": [...]}`` line, and as its last line
@@ -172,11 +192,17 @@ def check(cond, msg):
 
 
 _FLUSH = []
+# --pair: {tree tag: {kernel name: Kernel of that tree's build}}, and what
+# the paired timings found (``_paired``)
+_PAIR = {}
+_PAIRED = {"sass": {}, "cases": {}}
 
 
-def time_ms(fn, reps=20, warmup=3, cold_l2=False, queued=True):
+def time_ms(fn, reps=20, warmup=3, cold_l2=False, queued=True, prep=None, label=None,
+            tier=None):
     """Median device time of one call of ``fn`` over ``reps`` calls, in ms,
-    from CUDA events.
+    from CUDA events.  Under ``--pair`` a call with a ``label`` (a kernel's
+    call) is timed against the other trees' builds too (``_paired``).
 
     With ``queued`` the calls are enqueued behind a spin kernel, so the
     host's work in each call (output allocation, argument checks, the
@@ -188,12 +214,22 @@ def time_ms(fn, reps=20, warmup=3, cold_l2=False, queued=True):
     pair brackets the call alone, for a kernel whose main-path inputs are
     cold in L2.  ``queued=False`` (the plain versions, whose many small
     ops are launch-bound on the host) lets the host's gaps count, as they
-    do for a caller."""
+    do for a caller.  ``prep`` (a call that restores what ``fn`` changes,
+    such as a slab step's slab) runs before each call, outside its event
+    pair, so that every timed call starts from the same state."""
+    kw = dict(reps=reps, warmup=warmup, cold_l2=cold_l2, queued=queued, prep=prep)
+    return _paired(fn, label, tier, kw) if _PAIR and label else _median_ms(fn, **kw)
+
+
+def _median_ms(fn, reps, warmup, cold_l2, queued, prep):
+    """``time_ms`` of this tree's build."""
     import torch
 
     if cold_l2 and not _FLUSH:
         _FLUSH.append(torch.empty(64 << 20, dtype=torch.int32, device="cuda"))
     for _ in range(warmup):
+        if prep is not None:
+            prep()
         fn()
     torch.cuda.synchronize()
     cycles = 50_000_000  # ~25 ms at the H100's clock
@@ -202,11 +238,14 @@ def time_ms(fn, reps=20, warmup=3, cold_l2=False, queued=True):
             torch.cuda._sleep(cycles)
         spun = torch.cuda.Event()
         spun.record()
-        if cold_l2:
+        if cold_l2 or prep is not None:
             pairs = [(torch.cuda.Event(enable_timing=True),
                       torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
             for a, b in pairs:
-                _FLUSH[0].zero_()
+                if cold_l2:
+                    _FLUSH[0].zero_()
+                if prep is not None:
+                    prep()
                 a.record()
                 fn()
                 b.record()
@@ -223,6 +262,46 @@ def time_ms(fn, reps=20, warmup=3, cold_l2=False, queued=True):
             return statistics.median(a.elapsed_time(b) for a, b in pairs)
         cycles *= 4
     raise RuntimeError("timing: the host did not get ahead of the card")
+
+
+def _paired(fn, label, tier, kw):
+    """``time_ms`` under ``--pair``: the outputs of ``fn`` (from the state
+    ``prep`` restores) under each other tree's kernels equal this tree's
+    bit for bit where this tree's two calls agree (a claim's order may
+    not), and with ``tier`` so do the fetch counts and hit/miss totals;
+    then the builds are timed in turns (the trees, this tree twice, the
+    trees in reverse).  Records the case under ``label`` in ``_PAIRED``
+    and returns this tree's mean."""
+    prep = kw["prep"]
+
+    def call():
+        if prep is not None:
+            prep()
+        return fn()
+    want, dk = _tier_delta(tier, call)
+    steady = _outputs_equal(want, call())
+    for tag, ks in _PAIR.items():
+        with design(ks):
+            got, dp = _tier_delta(tier, call)
+        check(not steady or _outputs_equal(got, want),
+              "%s: %s's kernels give this tree's outputs bit for bit" % (label, tag))
+        _same_fetches(dk, dp, "%s against %s" % (label, tag))
+    builds = dict(_PAIR, change={})
+    t = {}
+    for tag in list(_PAIR) + ["change", "change"] + list(_PAIR)[::-1]:
+        with design(builds[tag]):
+            t.setdefault(tag, []).append(_median_ms(fn, **kw))
+    mine = statistics.mean(t["change"])
+    ratio = {tag: mine / statistics.mean(t[tag]) for tag in _PAIR}
+    key, i = label, 2
+    while key in _PAIRED["cases"]:
+        key, i = "%s #%d" % (label, i), i + 1
+    _PAIRED["cases"][key] = {"ms": t, "ratio": ratio, "outputs_compared": steady}
+    print("pair %-56s %s  change/%s, outputs %s" % (key, "  ".join(
+        "%s %s" % (tag, " ".join("%.4f" % x for x in v)) for tag, v in t.items()),
+        " ".join("%s %.3f" % kv for kv in ratio.items()),
+        "equal" if steady else "vary between calls: not compared"))
+    return mine
 
 
 def max_abs_err(pairs):
@@ -357,9 +436,7 @@ def kernel_phases(matcher, xin, timed, p=None, K=None, sp=None, flip=False):
 
     from reporter_tpu_torch.ops import viterbi as V
     from reporter_tpu_torch.ops.candidates import candidate_sweep, candidate_sweep_plain
-    from reporter_tpu_torch.ops.hashtable import (
-        device_pair_hash, device_pair_hash2, ubodt_lookup, ubodt_lookup_plain,
-    )
+    from reporter_tpu_torch.ops.hashtable import ubodt_lookup, ubodt_lookup_plain
 
     dev = matcher.device
     B, T = xin.shape[1], xin.shape[2]
@@ -428,13 +505,12 @@ def kernel_phases(matcher, xin, timed, p=None, K=None, sp=None, flip=False):
     check(all(torch.equal(u, w) for u, w in zip(r1, r0)), "ubodt_probe")
     err2 = max_abs_err(zip(r1, r0))
     same(ubodt_lookup(du, a_keys, b_keys, with_first=False)[:2], r1[:2], "ubodt_probe")
-    ka, kb = torch.broadcast_tensors(a_keys, b_keys)
-    buckets = torch.unique(torch.cat([device_pair_hash(ka.reshape(-1), kb.reshape(-1), du.bmask),
-                                      device_pair_hash2(ka.reshape(-1), kb.reshape(-1), du.bmask)]))
-    N = ka.numel()
+    buckets = torch.unique(probe_buckets(du, a_keys, b_keys))
+    N = torch.broadcast_tensors(a_keys, b_keys)[0].numel()
     hit = float(torch.isfinite(r1[0]).float().mean())
     # reads: the two [B, T, K] key arrays, each distinct 512-byte bucket
-    # row once; writes: dist and time (the main path skips first_edge).
+    # row the probe reads once (a key's second row only where its first
+    # misses); writes: dist and time (the main path skips first_edge).
     # ~40 integer operations per probe.
     b2, by2 = bound(8 * P * K + 512 * int(buckets.numel()) + 8 * N, 40 * N)
     rows.append(dict(name="ubodt_probe", route="cuda",
@@ -501,7 +577,8 @@ def kernel_phases(matcher, xin, timed, p=None, K=None, sp=None, flip=False):
 
     if timed and dev.type == "cuda":
         for r in rows:
-            r["ms"] = time_ms(r["fn"], cold_l2=r["cold_l2"])
+            r["ms"] = time_ms(r["fn"], cold_l2=r["cold_l2"],
+                              label="%s %dx%d K=%d" % (r["name"], B, T, K))
             r["plain_ms"] = time_ms(r["plain"], cold_l2=r["cold_l2"], queued=False)
     for r in rows:
         print("kernel %-25s %dx%d K=%d max_abs_err=%-9.3g kernel_ms=%s plain_ms=%s "
@@ -511,6 +588,35 @@ def kernel_phases(matcher, xin, timed, p=None, K=None, sp=None, flip=False):
                  "%.4f" % r["plain_ms"] if "plain_ms" in r else "-", r["bound_ms"],
                  r["bound_by"], r["tolerance"]))
     return rows
+
+
+def probe_buckets(du, a, b, lo=0, n=None):
+    """The bucket rows kernel 2's warp probe (``csrc/ubodt.cuh``
+    ``warp_probe``) reads for the keys (a, b) broadcast, repeats kept:
+    each key's first-hash row and, on a cuckoo table, its second-hash row
+    only where the first row does not hold the key.  With a gp rank's
+    range [lo, lo + n) only rows inside it count, and a second row is
+    skipped only where the first row is in range and holds the key.
+    ``du``: the whole untiered table (on the keys' device)."""
+    import torch
+
+    from reporter_tpu_torch.ops import hashtable as H
+
+    sa, sb = (t.reshape(-1) for t in torch.broadcast_tensors(a, b))
+    n = du.bmask + 1 if n is None else n
+    h1 = H.device_pair_hash(sa, sb, du.bmask)
+    in1 = (h1 >= lo) & (h1 < lo + n)
+    if du.wide:
+        return h1[in1]
+    held = []
+    for i in range(0, sa.numel(), 1 << 18):
+        e = du.packed[h1[i:i + (1 << 18)]].reshape(-1, du.packed.shape[1] // H.ROW_W, H.ROW_W)
+        held.append(((e[:, :, H.F_SRC] == sa[i:i + (1 << 18), None])
+                     & (e[:, :, H.F_DST] == sb[i:i + (1 << 18), None])).any(1))
+    held = torch.cat(held) if held else torch.zeros(0, dtype=torch.bool, device=sa.device)
+    h2 = H.device_pair_hash2(sa, sb, du.bmask)
+    in2 = (h2 >= lo) & (h2 < lo + n) & ~(in1 & held)
+    return torch.cat([h1[in1], h2[in2]])
 
 
 def _carry_same(a, b):
@@ -674,9 +780,11 @@ def chain_phases(matcher, long_traces, traces64, timed, sp=None, long_pk=None,
     ba, bya = bound(nbytes, 2 * K * K * (T - 1) * B + 80 * K * K * B)
     if kernel == "assoc":
         ba, bya = bound(nbytes, B * (_assoc_ops(T, K) + 80 * K * K))
+    saved = V.TraceCarry(*(t.clone() for t in slab_k))
     out["arena"] = dict(shape="%dx%d K=%d slab %d" % (B, T, K, S),
                         fn=lambda: V.viterbi_chain(*sargs, slab_k, slots, use, sp=sp,
                                                    kernel=kernel),
+                        reset=lambda: [d.copy_(v) for d, v in zip(slab_k, saved)],
                         plain=lambda: V.viterbi_chain_plain(*sargs, slab_p, slots, use,
                                                             sp=sp, kernel=kernel),
                         bound_ms=ba, bound_by=bya,
@@ -691,10 +799,14 @@ def chain_phases(matcher, long_traces, traces64, timed, sp=None, long_pk=None,
             "arena": lambda: V.viterbi_chain(*sargs, slab_k, slots, use, sp=sp)}
     for what, r in out.items():
         if timed and dev.type == "cuda":
-            r["ms"] = time_ms(r["fn"], cold_l2=False)
+            r["ms"] = time_ms(r["fn"], cold_l2=False, prep=r.get("reset"),
+                              label="%s %s %s" % (name, what, r["shape"]))
             r["plain_ms"] = time_ms(r["plain"], cold_l2=False, queued=False)
             if kernel == "assoc":
-                r["scan_ms"] = time_ms(scan[what], cold_l2=False)
+                r["scan_ms"] = time_ms(scan[what], cold_l2=False, prep=r.get("reset"),
+                                       label="viterbi_chain%s %s %s (assoc's inputs)" % (
+                                           "" if sp is None else "[sparse]", what,
+                                           r["shape"]))
         print("kernel %-27s %-22s max_abs_err=%-9.3g kernel_ms=%s plain_ms=%s%s "
               "bound_ms=%.4f (%s) within tolerance: packed, carry/slab exact; aux rtol 1e-4"
               % (name, r["shape"], r["max_abs_err"],
@@ -1651,7 +1763,8 @@ def memory_phases(matcher, du_w, xin, timed, p=None, K=None, what=""):
     ]
     for r in rows:
         r["bound_ms"], r["bound_by"] = bound(r.pop("nbytes"), r.pop("nops"))
-        r["ms"] = time_ms(r["fn"], cold_l2=r["cold_l2"])
+        r["ms"] = time_ms(r["fn"], cold_l2=r["cold_l2"],
+                          label="%s %s" % (r["name"], out["shape"]))
         r["plain_ms"] = time_ms(r["plain"], cold_l2=r["cold_l2"], queued=False)
         r["library_ms"] = (None if r["library"] is None
                            else time_ms(r["library"], cold_l2=True, queued=False))
@@ -1663,10 +1776,13 @@ def memory_phases(matcher, du_w, xin, timed, p=None, K=None, what=""):
     e2e = {}
     for layout, du in (("cuckoo", du_c), ("wide32", du_w)):
         e2e[layout] = {
-            "probe_ms": time_ms(lambda: H.ubodt_lookup(du, a, b, False), cold_l2=True),
-            "dedup_ms": time_ms(lambda: H.ubodt_lookup_dedup(du, a, b, False), cold_l2=True),
+            "probe_ms": time_ms(lambda: H.ubodt_lookup(du, a, b, False), cold_l2=True,
+                                label="%s %s" % (H.probe_kernel_name(du), out["shape"])),
+            "dedup_ms": time_ms(lambda: H.ubodt_lookup_dedup(du, a, b, False), cold_l2=True,
+                                label="dedup probe %s %s" % (layout, out["shape"])),
             "compact_probe_ms": time_ms(
-                lambda: H._probe(du, claim[2], claim[3], False, n_live=cnt), cold_l2=True)}
+                lambda: H._probe(du, claim[2], claim[3], False, n_live=cnt), cold_l2=True,
+                label="dedup compact probe %s %s" % (layout, out["shape"]))}
         print("memory %s %s: kernel 2 alone %.4f ms, dedup probe (claim + probe + scatter) "
               "%.4f ms, its compact probe %.4f ms"
               % (layout, out["shape"], e2e[layout]["probe_ms"], e2e[layout]["dedup_ms"],
@@ -1760,7 +1876,8 @@ def stats_phases(matcher, du_w, xin, xin_a, timed):
         bms, bby = bound(4 * N + 4 * P * K + 12 * P + N + 20, 12 * N)
         row = dict(name="probe_stats", source="reporter_tpu_torch/csrc/probe_stats.cu",
                    replaces="reporter_tpu/ops/diagnostics.py:24",
-                   ms=time_ms(lambda: probe_outcomes(*args)),
+                   ms=time_ms(lambda: probe_outcomes(*args),
+                              label="probe_stats %dx%d K=%d" % (B, T, K)),
                    plain_ms=time_ms(lambda: probe_outcomes_plain(*args), queued=False),
                    bound_ms=bms, bound_by=bby, library_ms=None, max_abs_err=max_abs_err(
                        [(k1[0][:4], k0[0]), (k1[1], k0[1].to(torch.uint8))]))
@@ -1857,8 +1974,10 @@ def assoc_phases(matcher, xin, timed, p=None, K=None, sp=None, flip=False):
         check(row["breaks_flipped"] > 0, "viterbi_assoc%s: the per-step gap-conditioned "
               "breakage changed breaks against the dense threshold" % tag)
     if timed and matcher.device.type == "cuda":
-        row["ms"] = time_ms(lambda: V.viterbi_scan(*args, kernel="assoc"))
-        row["scan_ms"] = time_ms(lambda: V.viterbi_scan(*args))
+        row["ms"] = time_ms(lambda: V.viterbi_scan(*args, kernel="assoc"),
+                            label="viterbi_assoc%s %s" % (tag, row["shape"]))
+        row["scan_ms"] = time_ms(lambda: V.viterbi_scan(*args),
+                                 label="viterbi_scan%s %s (assoc's inputs)" % (tag, row["shape"]))
         row["plain_ms"] = time_ms(lambda: V.viterbi_scan_plain(*args, kernel="assoc"),
                                   queued=False)
     print("kernel %-27s %-16s max_abs_err=%-9.3g kernel_ms=%s viterbi_scan_ms=%s plain_ms=%s "
@@ -1896,8 +2015,10 @@ def crossover(matcher, traces64, traces256):
             out.append(r)
             if matcher.device.type != "cuda":
                 continue
-            r["scan_ms"] = time_ms(lambda: V.viterbi_scan(*args))
-            r["assoc_ms"] = time_ms(lambda: V.viterbi_scan(*args, kernel="assoc"))
+            shape = "%dx%d K=%d (crossover)" % (r["B"], T, K)
+            r["scan_ms"] = time_ms(lambda: V.viterbi_scan(*args), label="viterbi_scan " + shape)
+            r["assoc_ms"] = time_ms(lambda: V.viterbi_scan(*args, kernel="assoc"),
+                                    label="viterbi_assoc " + shape)
             print("crossover %dx%d K=%d: viterbi_scan %.4f ms, viterbi_assoc %.4f ms (%.2fx)"
                   % (r["B"], T, K, r["scan_ms"], r["assoc_ms"], r["assoc_ms"] / r["scan_ms"]))
     return out
@@ -2109,24 +2230,19 @@ def tier_table(ubodt, budget, dev, keys=None):
     return tier, info
 
 
-def _distinct_split(tier, a, b):
-    """(distinct hot rows, distinct cold rows, distinct buckets) the keys
-    (a, b) fetch under the tier's current slot map."""
+def _distinct_split(tier, du, a, b):
+    """(distinct hot rows, distinct cold rows, distinct buckets) kernel 2
+    reads for the keys (a, b) under the tier's current slot map
+    (``probe_buckets`` on ``du``, the untiered table)."""
     import torch
 
-    from reporter_tpu_torch.ops.hashtable import device_pair_hash, device_pair_hash2
-
-    sa, sb = (t.reshape(-1) for t in torch.broadcast_tensors(a, b))
-    hs = [device_pair_hash(sa, sb, tier.ubodt.bmask)]
-    if tier.ubodt.layout != "wide32":
-        hs.append(device_pair_hash2(sa, sb, tier.ubodt.bmask))
-    buckets = torch.unique(torch.cat(hs))
+    buckets = torch.unique(probe_buckets(du, a, b))
     hot = tier.source()[1][buckets.to(tier.dev)] >= 0
     n_hot = int(hot.sum())
     return n_hot, int(buckets.numel()) - n_hot, int(buckets.numel())
 
 
-def cold_cache_probe(tier, a, b):
+def cold_cache_probe(tier, du, a, b):
     """What caches serve of cold rows: the all-cold kernel 2 on three key
     sets of one size (the broadcast of ``a`` and ``b``), each call after
     an L2 flush: the cohort's own keys; ``scattered``, random pairs of the
@@ -2134,11 +2250,11 @@ def cold_cache_probe(tier, a, b):
     repeats lie about n_buckets fetches (n_buckets rows, 537 MB) apart,
     ten times the 50 MB L2; ``repeated``, the cohort's first 256 keys
     cycled, whose few rows any cache would hold.  Returns each one's
-    time, distinct buckets, and fetched bytes over time."""
+    time, distinct buckets, and fetched bytes (the rows the kernel reads,
+    ``probe_buckets`` on ``du``, the untiered table) over time."""
     import torch
 
     from reporter_tpu_torch.ops import hashtable as H
-    from reporter_tpu_torch.ops.hashtable import device_pair_hash, device_pair_hash2
 
     sa, sb = (t.reshape(-1).contiguous() for t in torch.broadcast_tensors(a, b))
     n, dev = sa.numel(), sa.device
@@ -2148,22 +2264,22 @@ def cold_cache_probe(tier, a, b):
     sets = {"cohort": (a, b), "scattered": (sa[pick()], sb[pick()]),
             "repeated": (sa[cyc], sb[cyc])}
     u = tier.ubodt
-    row_bytes, hashes = 4 * u.bucket_entries * 8, 1 if u.layout == "wide32" else 2
+    row_bytes = 4 * u.bucket_entries * 8
     out = {}
     for name, (s, d) in sets.items():
-        fs, fd = (t.reshape(-1) for t in torch.broadcast_tensors(s, d))
-        hs = [device_pair_hash(fs, fd, u.bmask)]
-        if hashes == 2:
-            hs.append(device_pair_hash2(fs, fd, u.bmask))
-        distinct = int(torch.unique(torch.cat(hs)).numel())
-        ms = time_ms(lambda: H.ubodt_lookup(tier.device(), s, d, False), cold_l2=True)
-        fetched = n * hashes * row_bytes
+        read = probe_buckets(du, s, d)
+        distinct = int(torch.unique(read).numel())
+        ms = time_ms(lambda: H.ubodt_lookup(tier.device(), s, d, False), cold_l2=True,
+                     label="%s all cold, %s keys" % (H.probe_kernel_name(tier.device()), name),
+                     tier=tier)
+        fetched = read.numel() * row_bytes
         out[name] = {"ms": ms, "distinct_buckets": distinct, "fetched_bytes": fetched,
                      "fetched_bytes_per_s": fetched / (ms / 1e3)}
-    print("cold rows and caches (%s, all cold, %d keys, %d fetches each): %s" % (
-        u.layout, n, n * hashes, "; ".join(
-            "%s %.4f ms, %d distinct buckets, %.2f GB/s fetched" % (
-                k, v["ms"], v["distinct_buckets"], v["fetched_bytes_per_s"] / 1e9)
+    print("cold rows and caches (%s, all cold, %d keys): %s" % (
+        u.layout, n, "; ".join(
+            "%s %.4f ms, %d rows read (%d distinct), %.2f GB/s fetched" % (
+                k, v["ms"], v["fetched_bytes"] // row_bytes, v["distinct_buckets"],
+                v["fetched_bytes_per_s"] / 1e9)
             for k, v in out.items())))
     return out
 
@@ -2214,7 +2330,7 @@ def tier_kernel_phases(matcher, ubodt, xin, link, sm=None, tr_l=None, tr_a=None,
         check(_same(got, want) and _same(plain, want), "%s (%s) equals the untiered probe"
               % (name, occ))
         _same_fetches(dk, dp, "%s (%s)" % (name, occ))
-        n_hot, n_cold, n_b = _distinct_split(tier, a, b)
+        n_hot, n_cold, n_b = _distinct_split(tier, du, a, b)
         if occ == "cold":
             check(dk[1][0] == 0 and n_hot == 0, "every fetch cold at a 1-byte budget")
         if occ == "hot":
@@ -2255,8 +2371,11 @@ def tier_kernel_phases(matcher, ubodt, xin, link, sm=None, tr_l=None, tr_a=None,
                                              for c in s_.values()])
         if timed and dev.type == "cuda":
             P, N = B * T, torch.broadcast_tensors(a, b)[0].numel()
-            r["ms"] = time_ms(lambda: H.ubodt_lookup(tdu, a, b, False), cold_l2=True)
-            r["untiered_ms"] = time_ms(lambda: H.ubodt_lookup(du, a, b, False), cold_l2=True)
+            r["ms"] = time_ms(lambda: H.ubodt_lookup(tdu, a, b, False), cold_l2=True,
+                              label="%s %s %s" % (name, r["shape"], occ), tier=tier)
+            r["untiered_ms"] = time_ms(lambda: H.ubodt_lookup(du, a, b, False), cold_l2=True,
+                                       label="%s %s (beside %s)" % (
+                                           H.probe_kernel_name(du), r["shape"], occ))
             if occ == "partial":  # the plain version gathers cold rows on the host: slow
                 r["plain_ms"] = time_ms(lambda: H.ubodt_lookup_plain(tdu, a, b, False),
                                         reps=3, warmup=1, cold_l2=True, queued=False)
@@ -2268,8 +2387,9 @@ def tier_kernel_phases(matcher, ubodt, xin, link, sm=None, tr_l=None, tr_a=None,
             r["bound_by"] = "bytes"
             if occ == "cold":
                 r["dedup_ms"] = time_ms(lambda: H.ubodt_lookup_dedup(tdu, a, b, False),
-                                        cold_l2=True)
-                r["caches"] = cold_cache_probe(tier, a, b)
+                                        cold_l2=True, label="dedup probe %s %s %s" % (
+                                            name, r["shape"], occ), tier=tier)
+                r["caches"] = cold_cache_probe(tier, du, a, b)
             print("kernel %-26s %s %-7s kernel_ms=%.4f untiered kernel_ms=%.4f plain_ms=%s "
                   "bound_ms=%.4f (bytes: %d hot rows over HBM, %d cold rows over the link)%s"
                   % (name, r["shape"], occ, r["ms"], r["untiered_ms"],
@@ -2442,9 +2562,7 @@ def mesh_probe_phases(matcher, du_w, xin, timed):
 
     from reporter_tpu_torch.ops import viterbi as V
     from reporter_tpu_torch.ops.candidates import candidate_sweep
-    from reporter_tpu_torch.ops.hashtable import (
-        device_pair_hash, device_pair_hash2, ubodt_lookup, ubodt_lookup_plain,
-    )
+    from reporter_tpu_torch.ops.hashtable import ubodt_lookup, ubodt_lookup_plain
 
     p, K = matcher._params, matcher.cfg.beam_k
     x, y, _t, v = V.unpack_inputs(xin)
@@ -2456,10 +2574,7 @@ def mesh_probe_phases(matcher, du_w, xin, timed):
     for du in (matcher._du, du_w):
         name = "ubodt_probe[%ssharded]" % ("wide32," if du.wide else "")
         want = ubodt_lookup(du, a, b)
-        hashes = [device_pair_hash(ka, kb, du.bmask)]
-        if not du.wide:
-            hashes.append(device_pair_hash2(ka, kb, du.bmask))
-        buckets = torch.unique(torch.cat(hashes))
+        buckets = torch.unique(probe_buckets(du, a, b))
         row_b = 4 * du.packed.shape[1]
         for gp in MESH_GP:
             views, sharded = _views(du, gp)
@@ -2473,9 +2588,12 @@ def mesh_probe_phases(matcher, du_w, xin, timed):
                   "%s pmin/pmax over gp=%d equals the untiered kernel 2" % (name, gp))
             if gp == 4:
                 r0 = views[0]
-                mine = int(((buckets >= r0.lo) & (buckets < r0.lo + r0.local_buckets)).sum())
+                mine = int(torch.unique(probe_buckets(du, a, b, r0.lo,
+                                                      r0.local_buckets)).numel())
                 # reads: the [B, T, K] keys, the rank's distinct in-range
-                # rows once; writes: dist and time; ~40 integer ops a probe
+                # rows the probe reads once (a key's second row only where
+                # its first is out of range or misses); writes: dist and
+                # time; ~40 integer ops a probe
                 bnd, by = bound(8 * sw.to_node.numel() + row_b * mine + 8 * N, 40 * N)
                 rows[name] = dict(
                     name=name, route="cuda", source="reporter_tpu_torch/csrc/ubodt_probe.cu",
@@ -2490,7 +2608,8 @@ def mesh_probe_phases(matcher, du_w, xin, timed):
               % (name, N, du.layout))
     for r in rows.values():
         if timed:
-            r["ms"] = time_ms(r["fn"], cold_l2=True)
+            r["ms"] = time_ms(r["fn"], cold_l2=True, label="%s gp4 rank 0 %d probes" % (
+                r["name"], N))
             r["plain_ms"] = time_ms(r["plain"], cold_l2=True, queued=False)
             r["merged_ms"] = time_ms(r["merged"], cold_l2=True, queued=False)
         print("kernel %-27s rank 0 of gp 4, %d probes, %d of %d distinct rows in range: "
@@ -2569,7 +2688,9 @@ def mesh_seam_phases(matcher, sm, long_traces, traces64, tr_l, tr_a, pk, timed):
                                                       args[0].shape[2])}
                 if timed and sp is None and kernel == "scan" and what == "long":
                     out[key]["probing_ms"] = time_ms(
-                        lambda: V.viterbi_chain(dg, du, *args, sp=sp, kernel=kernel))
+                        lambda: V.viterbi_chain(dg, du, *args, sp=sp, kernel=kernel),
+                        label="viterbi_chain %s (the seam's probing side)" % (
+                            out[key]["shape"]))
                     out[key]["resolved_ms"] = time_ms(
                         lambda: V.viterbi_chain(dg, sharded, *args, sp=sp, kernel=kernel),
                         queued=False)
@@ -2656,7 +2777,7 @@ def histogram_phases(matcher, xins, timed):
         else:
             row["max_abs_err"] = max(row["max_abs_err"], err)
     if timed:
-        row["ms"] = time_ms(row["fn"])
+        row["ms"] = time_ms(row["fn"], label="segment_histogram " + row["shape"])
         row["plain_ms"] = time_ms(row["plain"], queued=False)
         row["library_ms"] = time_ms(row["library"], queued=False)
     print("kernel %-27s %s kernel_ms=%s plain_ms=%s library_ms=%s (4 x index_add_) "
@@ -2746,7 +2867,7 @@ def slab_phases(device, K, timed, S=65536, B=512):
                                   library_ms=None, owned_rows=owned, fn=fn, plain=plain)
     for r in rows.values():
         if timed:
-            r["ms"] = time_ms(r["fn"])
+            r["ms"] = time_ms(r["fn"], label="%s dp 2 rank 0 K=%d" % (r["name"], K))
             r["plain_ms"] = time_ms(r["plain"], queued=False)
         print("kernel %-27s dp 2 rank 0, %d rows (%d owned) of a %d-slot slab, K=%d: equal its "
               "plain version at dp 2 and 4, bit for bit; kernel_ms=%s plain_ms=%s "
@@ -2929,7 +3050,329 @@ def mesh_serve_phase(arrays, ubodt, tr_a, default_answers, default_fixtures, dev
         out[label] = launches
     return out
 
-def main():
+# -- phase 11: the redesigned kernels (kernel 2's family, the recursion of
+# kernels 4 and 5) on edge inputs, and the paired timing against a parent
+
+def edge_keys(matcher, a, b, n_rows=4096, n_empty=1024, n_miss=1024, n_cohort=857):
+    """A ragged key set (7,001 keys) that takes every branch of kernel 2's
+    warp probe, in a seeded order so that every warp's 32 keys mix them:
+    table rows' keys (hits, all distinct), the empty marker's key (-1, 0),
+    which meets every empty entry of its rows, node ids past the graph
+    (all miss) and the cohort's first keys.  Returns (src, dst) int32 on
+    the card; more distinct keys than half the count, so the dedup probe
+    takes its full-width fallback on them."""
+    import torch
+
+    dev = matcher.device
+    rows = matcher.ubodt.rows()
+    nn = matcher.arrays.num_nodes
+    ka, kb = (t.reshape(-1)[:n_cohort] for t in torch.broadcast_tensors(a, b))
+    i32 = dict(dtype=torch.int32, device=dev)
+    s = torch.cat([torch.from_numpy(rows[0][:n_rows]).to(**i32), torch.full((n_empty,), -1, **i32),
+                   torch.arange(nn, nn + n_miss, **i32), ka])
+    d = torch.cat([torch.from_numpy(rows[1][:n_rows]).to(**i32), torch.zeros(n_empty, **i32),
+                   torch.arange(n_miss, **i32), kb])
+    perm = torch.randperm(s.numel(), generator=torch.Generator().manual_seed(11)).to(dev)
+    return s[perm].contiguous(), d[perm].contiguous()
+
+
+def _probe_into(u, s, d, n_live):
+    """Kernel 2 (the instantiation table ``u`` asks) over 1-d keys with the
+    device count ``n_live`` into outputs filled with a sentinel first (a
+    NaN payload, first edge -7), so that what the launch left unwritten
+    shows."""
+    import torch
+
+    from reporter_tpu_torch.ops import hashtable as H
+    from reporter_tpu_torch.ops._kernels import KERNELS, ptr
+
+    n, dev = s.numel(), s.device
+    dims, s_str, d_str = H._grid(s, d)
+    dist = torch.full((n,), 0x7FC0DEAD, dtype=torch.int32, device=dev).view(torch.float32)
+    time_ = dist.clone()
+    first = torch.full((n,), -7, dtype=torch.int32, device=dev)
+    tiered = H._tier(u) is not None
+    extra = (u.lo, u.local_buckets) if getattr(u, "sharded", False) else ()
+    with H.table_args(u) as (table, tier):
+        KERNELS[H.probe_kernel_name(u)].launch(
+            dev, ptr(s), ptr(d), ptr(dims), ptr(s_str), ptr(d_str), table, u.bmask,
+            ptr(n_live), ptr(dist), ptr(time_), ptr(first), *(tier if tiered else extra))
+    return dist, time_, first
+
+
+def _bits_equal(a, b):
+    """Two result tuples equal bit for bit (NaN payloads included)."""
+    import torch
+
+    def bits(t):
+        return t.contiguous().view(torch.int32 if t.element_size() == 4 else torch.uint8)
+    return all(x.dtype == y.dtype and bits(x).equal(bits(y)) for x, y in zip(a, b))
+
+
+def probe_edges(matcher, ubodt_w, du_w, xin):
+    """Kernel 2's family on ``edge_keys``: for the cuckoo and wide32
+    tables, untiered, tiered at the partial budget (after one maintenance
+    pass on the cohort's keys: hot and cold rows) and every rank of gp 4
+    (most keys out of the rank's range), the kernel equals its plain
+    version bit for bit, with equal fetch counts and hit/miss totals on
+    the tiered tables; with ``n_live`` 0, 3,001 and above the key count,
+    exactly the first n_live outputs are written, equal to the plain
+    probe's, and a tiered launch counts exactly their fetches; the dedup
+    probe (its full-width fallback on the keys, its compact probe on the
+    keys three times over) equals the plain probe.  Returns a summary."""
+    import torch
+
+    from reporter_tpu_torch.ops import hashtable as H
+    from reporter_tpu_torch.ops import viterbi as V
+    from reporter_tpu_torch.ops.candidates import candidate_sweep
+
+    dev, p, K = matcher.device, matcher._params, matcher.cfg.beam_k
+    x, y, _t, v = V.unpack_inputs(xin)
+    sw = candidate_sweep(matcher._dg, x, y, v, K, p.search_radius, p.sigma_z, False)
+    a, b = sw.to_node[:, :-1, :, None], sw.from_node[:, 1:, None, :]
+    s, d = edge_keys(matcher, a, b)
+    n = s.numel()
+    s3, d3 = s.repeat(3), d.repeat(3)
+    out = {"keys": n}
+    for ubodt, du in ((matcher.ubodt, matcher._du), (ubodt_w, du_w)):
+        # the (-1, 0) key's rows: how many empty entries it meets (each a hit)
+        e = torch.tensor([-1], dtype=torch.int32, device=dev)
+        z = torch.zeros(1, dtype=torch.int32, device=dev)
+        hs = [H.device_pair_hash(e, z, du.bmask)] + (
+            [] if du.wide else [H.device_pair_hash2(e, z, du.bmask)])
+        ent = du.packed[torch.cat(hs)].reshape(-1, 8)
+        out[du.layout + "_empty_hits"] = int(((ent[:, 0] == -1) & (ent[:, 1] == 0)).sum())
+        tier, _info = tier_table(ubodt, TIER_PARTIAL, dev, (a, b))
+        tables = [(du.layout, du, None), (du.layout + " tiered", tier.device(), tier)]
+        tables += [("%s gp4 rank %d" % (du.layout, g), view, None)
+                   for g, view in enumerate(_views(du, 4)[0])]
+        for what, u, tr in tables:
+            name = H.probe_kernel_name(u)
+            got, dk = _tier_delta(tr, lambda: H.ubodt_lookup(u, s, d))
+            want, dp = _tier_delta(tr, lambda: H.ubodt_lookup_plain(u, s, d))
+            check(_bits_equal(got, want), "%s (%s) on the edge keys equals its plain version"
+                  % (name, what))
+            _same_fetches(dk, dp, "%s (%s) edge keys" % (name, what))
+            for c in ((0, 3001, n + 1) if dev.type == "cuda" else ()):
+                cnt = torch.tensor([c], dtype=torch.int32, device=dev)
+                outs, dk = _tier_delta(tr, lambda: _probe_into(u, s, d, cnt))
+                live = c if c <= n else 0
+                check(_bits_equal([o[:live] for o in outs], [w[:live] for w in want]),
+                      "%s (%s) n_live %d: the live outputs equal the plain probe" % (name, what, c))
+                check(bool((outs[2][live:] == -7).all()) and bool(
+                    (outs[0][live:].view(torch.int32) == 0x7FC0DEAD).all()),
+                      "%s (%s) n_live %d: nothing written past the live count" % (name, what, c))
+                if tr is not None:
+                    ref, dp = _tier_delta(tr, lambda: H.ubodt_lookup_plain(u, s[:live], d[:live])
+                                          if live else None)
+                    if live:
+                        _same_fetches(dk, dp, "%s n_live %d" % (name, c))
+                    else:
+                        check(int(dk[0].abs().sum()) == 0 and dk[1] == [0, 0],
+                              "%s n_live %d: no fetch counted" % (name, c))
+            if not getattr(u, "sharded", False):
+                for ks, kd, path in ((s, d, "fallback"), (s3, d3, "compact")):
+                    H.DEDUP.reset()
+                    dd, dk = _tier_delta(tr, lambda: H.ubodt_lookup_dedup(u, ks, kd))
+                    dq, dp = _tier_delta(tr, lambda: H.ubodt_lookup_dedup_plain(u, ks, kd))
+                    full = H.ubodt_lookup_plain(u, ks, kd)
+                    fell = int(dd.n_unique[0]) > dd.m
+                    check(fell == (path == "fallback") and _bits_equal(dd[:3], full)
+                          and _bits_equal(dq[:3], full),
+                          "dedup probe (%s, %s) on the edge keys equals the plain probe"
+                          % (what, path))
+                    _same_fetches(dk, dp, "dedup probe (%s, %s)" % (what, path))
+        tier.close()
+        print("probe edges %s: %d keys ((-1, 0) meets %d empty entries in its rows), untiered, "
+              "tiered and every gp-4 rank: kernel = plain bit for bit, n_live 0 / 3001 / n+1 "
+              "exact, fetch counts equal; dedup fallback and compact probe exact"
+              % (du.layout, n, out[du.layout + "_empty_hits"]))
+    return out
+
+
+def recursion_edges(matcher, xin64, xin_a, pa, ka, spa):
+    """Kernels 4 and 5 (the redesigned recursion) in every instantiation
+    <K, CARRY, SPARSE>, K = 1, 2, 4, 8, 16 and 32, each against its plain
+    version: on the first B rows of the 512 x 64 cohort the scan (with its
+    chosen slots) and the chain over the rows' second 32 points continuing
+    the carries of their first 32 (both windows held); on cohort A's
+    first B rows (512 x 16 at 45 s, its parameters ``pa``, ``spa``) the
+    sparse scan and the sparse chain over two windows of 8.  B = 1, 16
+    and 512, and 64 and 256 at the matcher's K and 64 at A's (``ka``), so
+    that the block sizing takes each branch (32, 64 and 128 threads at K
+    = 8) and the shared-memory ring each depth.  Returns the shapes
+    checked."""
+    import torch
+
+    from reporter_tpu_torch.ops import viterbi as V
+
+    dev, dg, du = matcher.device, matcher._dg, matcher._du
+    p, K8 = matcher._params, matcher.cfg.beam_k
+    done = []
+
+    def scan(x, p_, K, sp, what):
+        pre = V.precompute_batch_packed(dg, du, x, p_, K, sp)
+        _x, _y, t, v = V.unpack_inputs(x)
+        args = (pre.emis, pre.logp, pre.gc, v, pre.cand.edge, pre.cand.offset,
+                p_.breakage_distance, t, sp)
+        kw = {} if sp is not None else {"with_choice": True}
+        k, q = V.viterbi_scan(*args, **kw), V.viterbi_scan_plain(*args, **kw)
+        check(torch.equal(k[0], q[0]) and all(torch.equal(u, w) for u, w in zip(k[2:], q[2:]))
+              and torch.allclose(k[1], q[1], rtol=1e-4, atol=0),
+              "%s equals its plain version" % what)
+
+    def chain(x, p_, K, sp, what):
+        """Two windows (x's halves), the second from the first's carries."""
+        W = x.shape[2] // 2
+        carry = V.initial_carry_batch(x.shape[1], K, dev)
+        for w, xw in enumerate((x[:, :, :W].contiguous(), x[:, :, W:].contiguous())):
+            pre = V.precompute_batch_packed(dg, du, xw, p_, K, sp)
+            args = (dg, du, pre.emis, pre.logp, pre.gc, *V.unpack_inputs(xw), pre.cand.edge,
+                    pre.cand.offset, p_, carry)
+            k, q = V.viterbi_chain(*args, sp=sp), V.viterbi_chain_plain(*args, sp=sp)
+            check(torch.equal(k[0], q[0]) and _carry_same(k[2], q[2])
+                  and torch.allclose(k[1], q[1], rtol=1e-4, atol=0),
+                  "%s (window %d) equals its plain version" % (what, w))
+            carry = k[2]
+
+    for K in (1, 2, 4, 8, 16, 32):
+        for B in (1, 16, 64, 256, 512) if K == K8 else (1, 16, 512):
+            x = xin64[:, :B].contiguous()
+            scan(x, p, K, None, "viterbi_scan %dx64 K=%d" % (B, K))
+            chain(x, p, K, None, "viterbi_chain %dx32 K=%d" % (B, K))
+            done.append("%dx64 K=%d" % (B, K))
+        for B in (1, 16, 64, 512) if K == ka else (1, 16, 512):
+            x = xin_a[:, :B].contiguous()
+            scan(x, pa, K, spa, "viterbi_scan[sparse] %dx16 K=%d" % (B, K))
+            chain(x, pa, K, spa, "viterbi_chain[sparse] %dx8 K=%d" % (B, K))
+            done.append("sparse %dx16 K=%d" % (B, K))
+    print("recursion edges: viterbi_scan (with chosen slots) and viterbi_chain (two windows), "
+          "dense on the 512 x 64 cohort's first B rows and sparse on A's, at K = 1, 2, 4, 8, "
+          "16, 32 and B = 1, 16, 512 (and 64, 256 at K = %d, 64 at K = %d): each equal to "
+          "its plain version" % (K8, ka))
+    return done
+
+
+def parent_kernels(parent, tag):
+    """Every kernel library of ``KERNELS`` that ``parent`` (a checkout of
+    another tree) has, built from its sources as this tree's are, into
+    build/pair/<tag>/, and bound: ({name: Kernel}, {library: nvcc
+    output})."""
+    import copy
+
+    from reporter_tpu_torch._build import build_all
+    from reporter_tpu_torch.ops import _kernels
+
+    csrc = os.path.join(os.path.abspath(parent), "reporter_tpu_torch", "csrc")
+    out_dir = os.path.join(REPO, "build", "pair", tag)
+    os.makedirs(out_dir, exist_ok=True)
+    headers = [os.path.join(csrc, f) for f in sorted(os.listdir(csrc)) if f.endswith(".cuh")]
+    bases = {k.base for k in _kernels.KERNELS.values()
+             if os.path.exists(os.path.join(csrc, k.base + ".cu"))}
+    jobs = {os.path.join(out_dir, "lib%s.so" % base): (
+        [_kernels.nvcc_path()] + _kernels.NVCC_FLAGS + [os.path.join(csrc, base + ".cu")],
+        [os.path.join(csrc, base + ".cu")] + headers) for base in sorted(bases)}
+    out = build_all(jobs)
+    bound_ = {}
+    for name, k in _kernels.KERNELS.items():
+        if k.base in bases:
+            pk = copy.copy(k)
+            pk.library, pk._fn = os.path.join(out_dir, "lib%s.so" % k.base), None
+            pk._bind()
+            bound_[name] = pk
+    return bound_, out
+
+
+class design:
+    """Within the block, the wrappers launch the given kernels' entry
+    points (another build of the same C interface) in place of this
+    tree's; the launch counters stay this tree's."""
+
+    def __init__(self, kernels):
+        self.kernels = kernels
+
+    def __enter__(self):
+        from reporter_tpu_torch.ops._kernels import KERNELS
+
+        self.saved = {n: (KERNELS[n]._fn, KERNELS[n]._err) for n in self.kernels}
+        for n, k in self.kernels.items():
+            KERNELS[n]._fn, KERNELS[n]._err = k._fn, k._err
+
+    def __exit__(self, *exc):
+        from reporter_tpu_torch.ops._kernels import KERNELS
+
+        for n, fe in self.saved.items():
+            KERNELS[n]._fn, KERNELS[n]._err = fe
+
+
+def sass_counts(libs):
+    """{kernel function (demangled, without its parameters): SASS
+    instruction count} over the built libraries, read by ``cuobjdump
+    --dump-sass`` (nothing is launched)."""
+    import re
+
+    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    counts, fn = {}, None
+    for lib in libs:
+        text = subprocess.run([cuobjdump, "--dump-sass", lib], capture_output=True, text=True,
+                              timeout=300, check=True).stdout
+        for line in text.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                fn = m.group(1)
+                counts[fn] = 0
+            elif fn is not None and re.match(r"\s+/\*[0-9a-f]{4,}\*/", line):
+                counts[fn] += 1
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(counts), capture_output=True,
+                               text=True, timeout=60).stdout.splitlines()
+    except FileNotFoundError:
+        names = []
+    if len(names) != len(counts):
+        names = list(counts)
+    out = {}
+    for nm, c in zip(names, counts.values()):
+        m = re.search(r"(\w+(?:<[^()]*>)?)\(", nm)  # the kernel and its template arguments
+        out[m.group(1) if m else nm] = c
+    return out
+
+
+def _outputs_equal(a, b):
+    """Two wrapper results equal bit for bit (tensors, tuples, carries)."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and _bits_equal([a], [b])
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(_outputs_equal(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def pair_setup(trees):
+    """``--pair TREE [TREE ...]``: every kernel library of each TREE (a
+    checkout; the parent first) built and bound into ``_PAIR``, so that
+    every labelled ``time_ms`` of the run also times those builds
+    (``_paired``); prints each build's registers and each kernel
+    function's SASS instruction count in every build."""
+    from reporter_tpu_torch.ops import _kernels
+
+    for i, tree in enumerate(trees):
+        tag = "%d_%s" % (i, os.path.basename(os.path.abspath(tree)))
+        _PAIR[tag], nvcc_out = parent_kernels(tree, tag)
+        for lib, text in sorted(nvcc_out.items()):
+            regs = [ln.split("ptxas info    :")[-1].strip() for ln in text.splitlines()
+                    if "registers" in ln]
+            print("  %s %s: %s" % (tag, os.path.basename(lib), "; ".join(regs)))
+    builds = dict({t: ks.values() for t, ks in _PAIR.items()},
+                  change=_kernels.KERNELS.values())
+    sass = {tag: sass_counts(sorted({k.library for k in ks})) for tag, ks in builds.items()}
+    for fn_name in sorted(set().union(*sass.values())):
+        print("sass %-64s %s" % (fn_name[:64], " ".join(
+            "%s %s" % (tag, sass[tag].get(fn_name, "-")) for tag in builds)))
+    _PAIRED["sass"] = sass
+
+
+def main(pair=()):
     import torch
 
     if not torch.cuda.is_available():
@@ -2946,6 +3389,8 @@ def main():
     t_start = time.perf_counter()
     device = torch.device("cuda", torch.cuda.current_device())
     build_s = build()
+    if pair:
+        pair_setup(pair)
     matcher, city = metro_city(120, device)
     traces64 = cohort(matcher, 7, 512, 64)
     traces256 = cohort(matcher, 8, 128, 256)
@@ -3082,6 +3527,11 @@ def main():
     mesh["serve_launches"] = mesh_serve_phase(matcher.arrays, matcher.ubodt, tr_a,
                                               sp_answers, fixtures, device)
 
+    # the redesigned kernels (kernel 2's family, the recursion of kernels 4
+    # and 5) on edge inputs, each against its plain version
+    probe_edge = probe_edges(matcher, ubodt_w, du_w, xin64)
+    rec_edge = recursion_edges(matcher, xin64, xin_a, pa_, ka, spa)
+
     # launches over the counted runs of every path but serve's; kernels
     # 1-4's times and bounds at 512 x 64, max_abs_err over both bucketed
     # shapes, the session step's and the sparse cohorts A and B (K = 16),
@@ -3182,8 +3632,7 @@ def main():
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"]})
-    strip = lambda d: {k: v for k, v in d.items()  # noqa: E731
-                       if k not in ("fn", "plain", "merged", "library")}
+    strip = lambda d: {k: v for k, v in d.items() if not callable(v)}  # noqa: E731
     report = {
         "card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
         "build_s": build_s, "city": city, "main_path": rates, "breakdown": split,
@@ -3200,26 +3649,21 @@ def main():
                            "ms", "plain_ms", "bound_ms", "max_abs_err", "aux_max_abs_err",
                            "probes", "distinct_rows", "hit_rate")}
                        for shape, rs in (("512x16", rows_a), ("64x256", rows_b)) for r in rs},
-                   "chain": {name: {k: v for k, v in c.items() if k not in ("fn", "plain")}
-                             for name, c in chain_sp.items()},
+                   "chain": {name: strip(c) for name, c in chain_sp.items()},
                    "gap_flip": {
                        "viterbi_scan[sparse]": [f[3]["breaks_flipped"] for f in flip_rows],
-                       **{"viterbi_chain[sparse]_" + name: {
-                           k: v for k, v in c.items() if k not in ("fn", "plain")}
+                       **{"viterbi_chain[sparse]_" + name: strip(c)
                           for name, c in chain_flip.items()}}},
         "memory": {"wide32_table": wide_info, "shapes": mem_shapes, "fallback": fallback,
                    "probe_stats": stats, "sampled": mw.probe_stats,
-                   "chain_wide32": {k: {f: v for f, v in c.items() if f not in ("fn", "plain")}
-                                    for k, c in (*chain_w.items(),
+                   "chain_wide32": {k: strip(c) for k, c in (*chain_w.items(),
                                                  *(("sparse_" + n, c) for n, c in
                                                    chain_w_sp.items()))},
                    "main_path": mem_rates, "long_path": mem_long_rate,
                    "sparse": mem_sp_rates,
                    "launches": {"bucketed": mem_launches, "long": mem_long_launches,
                                 "sparse": mem_sp_launches, "serve": mem_serve_launches},
-                   "kernels": {r["name"]: {k: v for k, v in r.items()
-                                           if k not in ("fn", "plain", "library")}
-                               for r in mem_rows}},
+                   "kernels": {r["name"]: strip(r) for r in mem_rows}},
         "assoc": {"kernels": [strip(r) for r in as_rows + as_sp],
                   "chain": {tag + name: strip(r) for tag, c in cas.items()
                             for name, r in c.items()},
@@ -3228,13 +3672,13 @@ def main():
                     "paths": tiered, "session_cold_tier": cold_tier},
         "mesh": {"kernels": [strip(r) for r in mesh_probe + [hist_row] + slab_rows],
                  "seam": mesh_seam, **mesh},
+        "redesign_edges": {"probe": probe_edge, "recursion": rec_edge},
         "metro_reports": n_reports, "peak_memory_mb": torch.cuda.max_memory_allocated() / 1e6,
         "kernels": kernels,
         "extra": dict({"%s_%d" % (r["name"], T): {k: v for k, v in r.items() if k in (
             "probes", "distinct_rows", "hit_rate", "max_abs_err", "aux_max_abs_err")}
             for T, rs in ((64, rows), (256, rows256), (4, rows4)) for r in rs},
-            **{"viterbi_chain_" + name: {k: v for k, v in c.items() if k not in ("fn", "plain")}
-               for name, c in chain.items()}),
+            **{"viterbi_chain_" + name: strip(c) for name, c in chain.items()}),
         "wall_s": time.perf_counter() - t_start,
     }
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
@@ -3242,6 +3686,12 @@ def main():
         json.dump(report, f, indent=1)
     print("wall %.1f s, peak device memory %.0f MB"
           % (report["wall_s"], report["peak_memory_mb"]))
+    if pair:
+        _PAIRED.update(card=smi, trees=[os.path.abspath(t) for t in pair])
+        os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(REPO, "chiprun_out", "pair.json"), "w") as f:
+            json.dump(_PAIRED, f, indent=1)
+        print(json.dumps({"pair": {k: v["ratio"] for k, v in _PAIRED["cases"].items()}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -3250,4 +3700,11 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Chip smoke run of the PyTorch/CUDA port.")
+    ap.add_argument("--pair", metavar="TREE", nargs="+", default=(),
+                    help="also time every kernel call against the kernels built from each "
+                    "TREE, a checkout (the parent first): pair_setup, _paired")
+    args = ap.parse_args()
+    sys.exit(main(args.pair))

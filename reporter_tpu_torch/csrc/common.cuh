@@ -12,6 +12,7 @@
 
 namespace rtt {
 
+constexpr int kMaxDevices = 64;  // per-device launch caches
 constexpr float kBig = 1e30f;      // finite miss marker during selection
 constexpr float kNegInf = -1e30f;  // the reference's NEG_INF
 constexpr float kPi = 3.14159265358979323846f;

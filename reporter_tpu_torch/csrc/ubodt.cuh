@@ -4,8 +4,10 @@
 // of reporter_tpu/ops/hashtable.py:63,:75, the bucket-row fetch
 // (bucket_row, :122 _bucket_rows with reporter_tpu/tiles/tiering.py:538
 // tiered_bucket_rows), a warp probe and a serial probe of both table
-// layouts (:138 _lookup_plain, :96 _select), and the 4-d key grid the
-// probe kernels read through strides.
+// layouts (:138 _lookup_plain, :96 _select), the 4-d key grid the probe
+// kernels read through strides, decoded in 32-bit fast-divmod arithmetic,
+// and kernel 2's persistent grid (probe_kernel, launch_probe), which the
+// dedup scatter's fallback launches too.
 //
 // Tiered tables (RowSource with a slot map): a bucket's row comes from the
 // hot arena on the card when slot_map[b] >= 0, else from the full table
@@ -22,12 +24,18 @@
 //   wide32  [n_buckets, 256] int32 = 64 int4 per row, 32 entries; a key
 //           lives in its one bucket (pair_hash1).
 // The merge over rows and entries is min dist, min time, max first edge
-// (exact and order-free; keys are unique, so at most one entry hits).
+// (exact and order-free; keys are unique, so at most one entry of a real
+// key hits, and the empty marker's key (-1, 0) hits only entries of equal
+// values).
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <atomic>
+
+#include "common.cuh"
 
 namespace rtt {
 
@@ -102,23 +110,49 @@ struct BucketRange {
 };
 
 // Broadcast keys: element i of the 4-d grid `dim` sits at i's coordinates
-// dotted with each side's strides (0 strides broadcast).
+// dotted with each side's strides (0 strides broadcast).  The host passes
+// dims as 12 int64 (ops/hashtable.py _grid): the 4 dims, then each dim's
+// fast-divmod multiplier and shift, so that the decode divides by a
+// multiply-high, an add and a shift in 32-bit arithmetic: for d >= 1,
+// l = ceil(log2 d) and mul = ceil(2^(32+l) / d) - 2^32, i / d =
+// (umulhi(i, mul) + i) >> l for every i < 2^31.  ``fast`` holds when the
+// grid has fewer than 2^31 keys and every offset fits in 31 bits; a larger
+// grid decodes in int64.
 struct Grid4 {
+  bool fast;
+  uint32_t dim32[4], mul[4], shr[4];
+  uint32_t src_stride32[4], dst_stride32[4];
   int64_t dim[4];
   int64_t src_stride[4];
   int64_t dst_stride[4];
 };
 
-// Grid4 from the host's dims / strides arrays; returns the element count.
+// Grid4 from the host's dims (12 int64, above) and strides arrays;
+// returns the element count.
 inline int64_t make_grid(const int64_t* dims, const int64_t* src_strides,
                          const int64_t* dst_strides, Grid4* g) {
-  int64_t n = 1;
+  constexpr int64_t kLim = 0x7fffffffLL;
+  int64_t n = 1, reach_s = 0, reach_d = 0;
+  bool fits = true;
   for (int a = 0; a < 4; ++a) {
     g->dim[a] = dims[a];
     g->src_stride[a] = src_strides[a];
     g->dst_stride[a] = dst_strides[a];
     n *= dims[a];
+    fits = fits && dims[a] <= kLim && src_strides[a] >= 0 &&
+           src_strides[a] <= kLim && dst_strides[a] >= 0 &&
+           dst_strides[a] <= kLim;
+    if (dims[a] > 0 && fits) {
+      reach_s += (dims[a] - 1) * src_strides[a];
+      reach_d += (dims[a] - 1) * dst_strides[a];
+    }
+    g->dim32[a] = (uint32_t)dims[a];
+    g->mul[a] = (uint32_t)dims[4 + a];
+    g->shr[a] = (uint32_t)dims[8 + a];
+    g->src_stride32[a] = (uint32_t)src_strides[a];
+    g->dst_stride32[a] = (uint32_t)dst_strides[a];
   }
+  g->fast = fits && n < kLim && reach_s < kLim && reach_d < kLim;
   return n;
 }
 
@@ -126,6 +160,21 @@ __device__ __forceinline__ void grid_keys(const int32_t* __restrict__ src,
                                           const int32_t* __restrict__ dst,
                                           const Grid4& g, int64_t i,
                                           int32_t* s, int32_t* d) {
+  if (g.fast) {
+    uint32_t r = (uint32_t)i, so = 0, dof = 0;
+#pragma unroll
+    for (int a = 3; a >= 1; --a) {
+      const uint32_t q = (__umulhi(r, g.mul[a]) + r) >> g.shr[a];
+      const uint32_t c = r - q * g.dim32[a];
+      so += c * g.src_stride32[a];
+      dof += c * g.dst_stride32[a];
+      r = q;
+    }
+    // i < n, so the leading coordinate is what is left
+    *s = src[so + r * g.src_stride32[0]];
+    *d = dst[dof + r * g.dst_stride32[0]];
+    return;
+  }
   int64_t r = i, so = 0, dof = 0;
 #pragma unroll
   for (int a = 3; a >= 0; --a) {
@@ -138,79 +187,215 @@ __device__ __forceinline__ void grid_keys(const int32_t* __restrict__ src,
   *d = dst[dof];
 }
 
-// One probe by a whole warp (all 32 lanes, the same key): lane l loads
-// int4 l of each 512-byte half row, so a row is one coalesced read (two
-// halves for wide32).  The even lane compares both keys and takes
-// first_edge from its odd neighbour.  Every lane returns the result and
-// the number of the probe's rows that were hot; with TIERED, lane 0
-// counts each fetch.  With SHARDED, packed holds only ``range``'s rows
-// and a bucket outside it reads as -2 lanes.
+// The probes of 32 keys by one warp: every lane calls it with its own key
+// (s, d) and ``active`` (false: no key), and gets its own key's (dist,
+// time, first_edge), +inf / +inf / -1 on a miss.  The owning lane alone
+// hashes its key and finds its rows (with TIERED it reads slot_map and
+// counts each fetch; with SHARDED a row outside ``range`` is not visited:
+// packed holds only the range's rows, and the reference's -2 lanes there
+// match no key).  Then the warp walks the visited rows of all 32 keys in
+// turn, kBatch rows in flight: each row's address is broadcast by
+// shuffle and lane l loads int4 l of each 512-byte half, so a row is one
+// coalesced read (two for wide32).  The even lanes compare against the
+// row's broadcast key and a ballot finds the hits; shuffles bring each
+// hit's dist, time and first_edge (from the odd neighbour) to the owner,
+// which merges them by min dist, min time, max first_edge, the
+// reference's merge.  Real keys are unique, so a row holds at most one
+// hit, but the empty marker (-1, 0) hits every empty entry (src -1, zeros
+// elsewhere): every set bit of the ballot is merged, so that key's answer
+// (0, 0, 0) is exact too.  A cuckoo key found in its first row skips its
+// second: a unique key is not there, and the empty marker's second row
+// could only add equal hits.  Its fetch still counts (the reference reads
+// both rows).  Returns how many of the owner's rows were hot (TIERED; 0
+// otherwise).
 template <bool WIDE, bool TIERED, bool SHARDED = false>
 __device__ __forceinline__ int warp_probe(const int4* __restrict__ packed,
                                           const RowSource& src,
-                                          uint32_t bmask, int32_t s,
-                                          int32_t d, int lane, float* dist,
-                                          float* time, int32_t* first,
+                                          uint32_t bmask, bool active,
+                                          int32_t s, int32_t d, int lane,
+                                          float* dist, float* time,
+                                          int32_t* first,
                                           BucketRange range = BucketRange{}) {
-  constexpr int kRows = WIDE ? 1 : 2;   // home buckets
-  constexpr int kHalves = WIDE ? 2 : 1; // 512-byte halves per row
-  float best_d = INFINITY, best_t = INFINITY;
-  int32_t best_f = -1;
+  constexpr unsigned kAll = 0xffffffffu;
+  constexpr int kRows = WIDE ? 1 : 2;      // home buckets
+  constexpr int kHalves = WIDE ? 2 : 1;    // 512-byte halves per row
+  constexpr int kRowInt4 = 32 * kHalves;
+  constexpr int kBatch = WIDE ? 4 : 8;     // rows in flight, 4 KB a warp
+  const int4* row[kRows];
+  unsigned visit[kRows];
   int n_hot = 0;
-  int4 v[kRows * kHalves];
 #pragma unroll
   for (int w = 0; w < kRows; ++w) {
     const uint32_t h = (w == 0 ? pair_hash1((uint32_t)s, (uint32_t)d)
                                : pair_hash2((uint32_t)s, (uint32_t)d)) & bmask;
+    bool mine = active;
+    row[w] = packed;
     if constexpr (SHARDED) {
       const uint32_t loc = h - range.lo;  // wraps past n below lo
-      const bool mine = loc < range.n;
-      const int4* row = packed + (int64_t)(mine ? loc : 0) * (32 * kHalves);
-#pragma unroll
-      for (int q = 0; q < kHalves; ++q)
-        v[w * kHalves + q] = mine ? row[q * 32 + lane]
-                                  : make_int4(-2, -2, -2, -2);
-    } else {
+      mine = mine && loc < range.n;
+      if (mine) row[w] = packed + (int64_t)loc * kRowInt4;
+    } else if (mine) {
       bool hot;
-      const int4* row = bucket_row<TIERED>(packed, src, h, 32 * kHalves,
-                                           &hot);
+      row[w] = bucket_row<TIERED>(packed, src, h, kRowInt4, &hot);
       if constexpr (TIERED) {
         n_hot += hot;
-        if (lane == 0) count_fetch(src, h);
+        count_fetch(src, h);
+      }
+    }
+    visit[w] = __ballot_sync(kAll, mine);
+  }
+  float bd = INFINITY, bt = INFINITY;
+  int32_t bf = -1;
+  bool found = false;
+#pragma unroll
+  for (int w = 0; w < kRows; ++w) {
+    unsigned left = visit[w];
+    // a key found in its first row is not in its second (keys are unique;
+    // the empty marker's second row could only repeat (0, 0, 0)): skip it
+    if (w > 0) left &= ~__ballot_sync(kAll, found);
+    while (left) {  // uniform across the warp
+      int4 v[kBatch][kHalves];
+      int who[kBatch];
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        who[k] = left ? __ffs(left) - 1 : -1;
+        left &= left - 1u;
+        if (who[k] >= 0) {
+          const int4* r = reinterpret_cast<const int4*>(__shfl_sync(
+              kAll, reinterpret_cast<unsigned long long>(row[w]), who[k]));
+#pragma unroll
+          for (int q = 0; q < kHalves; ++q) v[k][q] = r[q * 32 + lane];
+        }
       }
 #pragma unroll
-      for (int q = 0; q < kHalves; ++q) v[w * kHalves + q] = row[q * 32 + lane];
+      for (int k = 0; k < kBatch; ++k) {
+        if (who[k] < 0) break;
+        const int32_t ks = __shfl_sync(kAll, s, who[k]);
+        const int32_t kd = __shfl_sync(kAll, d, who[k]);
+#pragma unroll
+        for (int q = 0; q < kHalves; ++q) {
+          unsigned hit = __ballot_sync(
+              kAll, (lane & 1) == 0 && v[k][q].x == ks && v[k][q].y == kd);
+          while (hit) {
+            const int l = __ffs(hit) - 1;
+            hit &= hit - 1u;
+            const float dd = __int_as_float(__shfl_sync(kAll, v[k][q].z, l));
+            const float tt = __int_as_float(__shfl_sync(kAll, v[k][q].w, l));
+            const int32_t fe = __shfl_sync(kAll, v[k][q].x, l + 1);
+            if (lane == who[k]) {
+              bd = dd < bd ? dd : bd;
+              bt = tt < bt ? tt : bt;
+              bf = fe > bf ? fe : bf;
+              found = true;
+            }
+          }
+        }
+      }
     }
   }
-#pragma unroll
-  for (int r = 0; r < kRows * kHalves; ++r) {
-    const int fe = __shfl_down_sync(0xffffffffu, v[r].x, 1);
-    if ((lane & 1) == 0 && v[r].x == s && v[r].y == d) {
-      const float dd = __int_as_float(v[r].z), tt = __int_as_float(v[r].w);
-      best_d = dd < best_d ? dd : best_d;
-      best_t = tt < best_t ? tt : best_t;
-      best_f = fe > best_f ? fe : best_f;
-    }
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float od = __shfl_xor_sync(0xffffffffu, best_d, off);
-    const float ot = __shfl_xor_sync(0xffffffffu, best_t, off);
-    const int32_t of = __shfl_xor_sync(0xffffffffu, best_f, off);
-    best_d = od < best_d ? od : best_d;
-    best_t = ot < best_t ? ot : best_t;
-    best_f = of > best_f ? of : best_f;
-  }
-  *dist = best_d;
-  *time = best_t;
-  *first = best_f;
+  *dist = bd;
+  *time = bt;
+  *first = bf;
   return n_hot;
+}
+
+constexpr int kProbeThreads = 256;  // 8 warps, 256 probes a block per pass
+
+// Kernel 2 over the n keys of grid g, a persistent grid: each warp takes
+// 32 keys a pass (rtt::warp_probe) and strides over them up to the live
+// count, which a block reads once.  ``past`` < 0: n_live (or n when null)
+// keys are live, none when it exceeds n (the dedup path's compact probe).
+// ``past`` >= 0: all n keys are live when *n_live > past, else none (the
+// dedup scatter's full-width fallback, decided on the device).
+template <bool WIDE, bool TIERED, bool SHARDED>
+__global__ void __launch_bounds__(kProbeThreads) probe_kernel(
+    const int32_t* __restrict__ src, const int32_t* __restrict__ dst,
+    Grid4 g, int64_t n, const int32_t* __restrict__ n_live, int64_t past,
+    const int4* __restrict__ packed, uint32_t bmask,
+    float* __restrict__ out_dist, float* __restrict__ out_time,
+    int32_t* __restrict__ out_first, RowSource tier, BucketRange range) {
+  __shared__ int64_t block_live;
+  if (threadIdx.x == 0) {
+    int64_t live = n;
+    if (n_live) {
+      const int64_t c = *n_live;
+      live = past < 0 ? (c <= n ? c : 0) : (c > past ? n : 0);
+    }
+    block_live = live;
+  }
+  __syncthreads();
+  const int64_t live = block_live;
+  const int lane = threadIdx.x & 31;
+  const int64_t stride = (int64_t)gridDim.x * kProbeThreads;
+  unsigned hits = 0, fetches = 0;  // TIERED: this lane's probes' rows
+  // the loop bound is uniform across the warp: every lane runs every pass
+  for (int64_t base = (int64_t)blockIdx.x * kProbeThreads + (threadIdx.x & ~31);
+       base < live; base += stride) {
+    const int64_t probe = base + lane;
+    const bool active = probe < live;
+    int32_t s = 0, d = 0;
+    if (active) grid_keys(src, dst, g, probe, &s, &d);
+    float dist, time;
+    int32_t first;
+    const int hot = warp_probe<WIDE, TIERED, SHARDED>(
+        packed, tier, bmask, active, s, d, lane, &dist, &time, &first, range);
+    if (active) {
+      out_dist[probe] = dist;
+      out_time[probe] = time;
+      if (out_first) out_first[probe] = first;
+      hits += hot;
+      fetches += WIDE ? 1 : 2;
+    }
+  }
+  if constexpr (TIERED) {
+    const unsigned h = __reduce_add_sync(0xffffffffu, hits);
+    const unsigned f = __reduce_add_sync(0xffffffffu, fetches);
+    if (lane == 0) add_totals(tier, h, f - h);
+  }
+}
+
+// Launch probe_kernel on its persistent grid: the SMs times the blocks of
+// the instantiation one SM holds (the occupancy calculator, asked once per
+// device), fewer when the keys need fewer.
+template <bool WIDE, bool TIERED, bool SHARDED>
+cudaError_t launch_probe(const int32_t* src, const int32_t* dst,
+                         const Grid4& g, int64_t n, const int32_t* n_live,
+                         int64_t past, const int4* packed, uint32_t bmask,
+                         float* out_dist, float* out_time, int32_t* out_first,
+                         const RowSource& tier, BucketRange range,
+                         cudaStream_t stream) {
+  static std::atomic<int> cached[kMaxDevices];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const bool keep = dev < kMaxDevices;
+  int resident = keep ? cached[dev].load(std::memory_order_relaxed) : 0;
+  if (resident == 0) {
+    int sms = 0, per_sm = 0;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, probe_kernel<WIDE, TIERED, SHARDED>, kProbeThreads, 0);
+    if (e != cudaSuccess) return e;
+    resident = sms * (per_sm > 0 ? per_sm : 1);
+    if (keep) cached[dev].store(resident, std::memory_order_relaxed);
+  }
+  const int64_t need = (n + kProbeThreads - 1) / kProbeThreads;
+  const int64_t blocks = need < resident ? need : resident;
+  probe_kernel<WIDE, TIERED, SHARDED><<<(unsigned)blocks, kProbeThreads, 0,
+                                        stream>>>(
+      src, dst, g, n, n_live, past, packed, bmask, out_dist, out_time,
+      out_first, tier, range);
+  return cudaGetLastError();
 }
 
 // One probe by one thread: (dist, time) of (s, d), +inf on a miss; `wide`
 // selects the table layout (one 32-entry row, or two 16-entry rows).  Rows
 // come through the source's tier when it has one; with ``count`` each
-// fetch is counted and ``hits`` / ``fetches`` grow.
+// fetch is counted and ``hits`` / ``fetches`` grow.  A row's entries are
+// loaded kBatch at a time (1 or 16), every load of a batch before its
+// compares, in entry order, so the merge is the same for any kBatch.
+template <int kBatch = 1>
 __device__ __forceinline__ void probe_serial(const int4* __restrict__ packed,
                                              const RowSource& src,
                                              uint32_t bmask, bool wide,
@@ -218,6 +403,7 @@ __device__ __forceinline__ void probe_serial(const int4* __restrict__ packed,
                                              float* dist, float* time,
                                              bool count, int* hits,
                                              int* fetches) {
+  static_assert(kBatch == 1 || kBatch == 16, "a row holds 16 or 32 entries");
   float bd = INFINITY, bt = INFINITY;
   const int rows = wide ? 1 : 2;
   const int entries = wide ? 32 : 16;
@@ -234,12 +420,17 @@ __device__ __forceinline__ void probe_serial(const int4* __restrict__ packed,
       *hits += hot;
       *fetches += 1;
     }
-    for (int e = 0; e < entries; ++e) {
-      const int4 v = row[2 * e];
-      if (v.x == s && v.y == d) {
-        const float dd = __int_as_float(v.z), tt = __int_as_float(v.w);
-        bd = dd < bd ? dd : bd;
-        bt = tt < bt ? tt : bt;
+    for (int e0 = 0; e0 < entries; e0 += kBatch) {
+      int4 v[kBatch];
+#pragma unroll
+      for (int e = 0; e < kBatch; ++e) v[e] = row[2 * (e0 + e)];
+#pragma unroll
+      for (int e = 0; e < kBatch; ++e) {
+        if (v[e].x == s && v[e].y == d) {
+          const float dd = __int_as_float(v[e].z), tt = __int_as_float(v[e].w);
+          bd = dd < bd ? dd : bd;
+          bt = tt < bt ? tt : bt;
+        }
       }
     }
   }

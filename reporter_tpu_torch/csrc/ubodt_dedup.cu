@@ -19,9 +19,11 @@
 //   probe    kernel 2 over the compact buffers, n_live = the count.
 //   scatter  a separate launch, so every claim is visible: each key copies
 //            the result at its slot's compact index.  When the count is
-//            past m, the same launch probes every key itself (the
-//            reference's full-width fallback, decided on the device with
-//            no host readback).
+//            past m, kernel 2's grid (rtt::launch_probe), launched right
+//            after it, probes every key itself instead (the reference's
+//            full-width fallback, decided on the device with no host
+//            readback); each of the two exits at once when the other
+//            does the work.
 //
 // The compact order depends on the order in which atomics land; the
 // outputs do not: each position's result is the probe of its own key, so
@@ -113,76 +115,35 @@ __global__ void claim_kernel(const int32_t* __restrict__ src,
   if (slot_of != nullptr && i < n) slot_of[i] = (int32_t)slot;
 }
 
-template <bool WIDE>
-__global__ void scatter_kernel(const int32_t* __restrict__ src,
-                               const int32_t* __restrict__ dst, rtt::Grid4 g,
-                               int64_t n, const int32_t* __restrict__ slot_of,
+__global__ void scatter_kernel(const int64_t n,
+                               const int32_t* __restrict__ slot_of,
                                const int32_t* __restrict__ sidx,
                                const int32_t* __restrict__ count, int64_t m,
                                const float* __restrict__ c_dist,
                                const float* __restrict__ c_time,
-                               const int32_t* __restrict__ c_first,
-                               const int4* __restrict__ packed,
+                               const int32_t* __restrict__ c_first, bool wide,
                                uint32_t bmask, float* __restrict__ out_dist,
                                float* __restrict__ out_time,
                                int32_t* __restrict__ out_first,
                                rtt::RowSource tier) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int lane = threadIdx.x & 31;
-  const bool live = i < n;
-  const bool tiered = tier.slot_map != nullptr;
-  if (*count <= m) {  // uniform over the grid
-    if (tiered && i == 0) {  // the compact buffer's (0, 0) tail
-      const unsigned long long tail = (unsigned long long)(m - *count);
-      unsigned long long hits = 0, misses = 0;
-      for (int w = 0; w < (WIDE ? 1 : 2) && tail; ++w) {
-        const uint32_t h = (w == 0 ? rtt::pair_hash1(0u, 0u)
-                                   : rtt::pair_hash2(0u, 0u)) & bmask;
-        if (tier.counts) atomicAdd(tier.counts + h, (int32_t)tail);
-        (tier.slot_map[h] >= 0 ? hits : misses) += tail;
-      }
-      rtt::add_totals(tier, hits, misses);
+  if (*count > m) return;  // uniform over the grid: the fallback probes
+  if (tier.slot_map != nullptr && i == 0) {  // the compact buffer's (0, 0) tail
+    const unsigned long long tail = (unsigned long long)(m - *count);
+    unsigned long long hits = 0, misses = 0;
+    for (int w = 0; w < (wide ? 1 : 2) && tail; ++w) {
+      const uint32_t h = (w == 0 ? rtt::pair_hash1(0u, 0u)
+                                 : rtt::pair_hash2(0u, 0u)) & bmask;
+      if (tier.counts) atomicAdd(tier.counts + h, (int32_t)tail);
+      (tier.slot_map[h] >= 0 ? hits : misses) += tail;
     }
-    if (!live) return;
-    const int32_t idx = sidx[slot_of[i]];
-    out_dist[i] = c_dist[idx];
-    out_time[i] = c_time[idx];
-    if (out_first) out_first[i] = c_first[idx];
-    return;
+    rtt::add_totals(tier, hits, misses);
   }
-  // past the budget: the warp probes its lanes' keys one after another
-  int32_t s = 0, d = 0;
-  if (live) rtt::grid_keys(src, dst, g, i, &s, &d);
-  const unsigned ball = __ballot_sync(0xffffffffu, live);
-  float rd = 0.f, rt = 0.f;
-  int32_t rf = -1;
-  int hits = 0;
-  for (int k = 0; k < 32; ++k) {
-    if (!((ball >> k) & 1u)) continue;  // uniform
-    const int32_t sk = __shfl_sync(0xffffffffu, s, k);
-    const int32_t dk = __shfl_sync(0xffffffffu, d, k);
-    float pd, pt;
-    int32_t pf;
-    hits += tiered ? rtt::warp_probe<WIDE, true>(packed, tier, bmask, sk, dk,
-                                                 lane, &pd, &pt, &pf)
-                   : rtt::warp_probe<WIDE, false>(packed, tier, bmask, sk, dk,
-                                                  lane, &pd, &pt, &pf);
-    if (lane == k) {
-      rd = pd;
-      rt = pt;
-      rf = pf;
-    }
-  }
-  if (tiered && lane == 0) {  // the warp's fetches
-    const int fetches = __popc(ball) * (WIDE ? 1 : 2);
-    rtt::add_totals(tier, (unsigned long long)hits,
-                    (unsigned long long)(fetches - hits));
-  }
-  if (live) {
-    out_dist[i] = rd;
-    out_time[i] = rt;
-    if (out_first) out_first[i] = rf;
-  }
+  if (i >= n) return;
+  const int32_t idx = sidx[slot_of[i]];
+  out_dist[i] = c_dist[idx];
+  out_time[i] = c_time[idx];
+  if (out_first) out_first[i] = c_first[idx];
 }
 
 constexpr int kThreads = 256;
@@ -240,16 +201,30 @@ extern "C" int ubodt_dedup_scatter_launch(
                                counts,
                                reinterpret_cast<unsigned long long*>(totals)};
   const uint32_t bm = (uint32_t)bmask;
-  const unsigned blocks = (unsigned)blocks_for(n);
+  scatter_kernel<<<(unsigned)blocks_for(n), kThreads, 0, st>>>(
+      n, slot_of, sidx, count, m, c_dist, c_time, c_first, wide != 0, bm,
+      out_dist, out_time, out_first, tier);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  // past the budget: kernel 2 over every key (a grid that exits at once
+  // when the dedup ran)
+  const bool tiered = slot_map != nullptr;
+  const rtt::BucketRange all{};
   if (wide)
-    scatter_kernel<true><<<blocks, kThreads, 0, st>>>(
-        src, dst, g, n, slot_of, sidx, count, m, c_dist, c_time, c_first, p,
-        bm, out_dist, out_time, out_first, tier);
+    e = tiered ? rtt::launch_probe<true, true, false>(
+                     src, dst, g, n, count, m, p, bm, out_dist, out_time,
+                     out_first, tier, all, st)
+               : rtt::launch_probe<true, false, false>(
+                     src, dst, g, n, count, m, p, bm, out_dist, out_time,
+                     out_first, tier, all, st);
   else
-    scatter_kernel<false><<<blocks, kThreads, 0, st>>>(
-        src, dst, g, n, slot_of, sidx, count, m, c_dist, c_time, c_first, p,
-        bm, out_dist, out_time, out_first, tier);
-  return (int)cudaGetLastError();
+    e = tiered ? rtt::launch_probe<false, true, false>(
+                     src, dst, g, n, count, m, p, bm, out_dist, out_time,
+                     out_first, tier, all, st)
+               : rtt::launch_probe<false, false, false>(
+                     src, dst, g, n, count, m, p, bm, out_dist, out_time,
+                     out_first, tier, all, st);
+  return (int)e;
 }
 
 extern "C" const char* ubodt_dedup_error_string(int code) {

@@ -15,16 +15,23 @@
 // many rows, so the least traffic is the distinct rows touched, once
 // each).
 //
-// Design: one warp per probe (rtt::warp_probe): lane l loads 16 bytes of
-// each 512-byte half row, so each half is one coalesced transaction; a
-// warp reduction merges (min dist, min time, max first_edge), exactly the
-// reference's min/max merge.  Keys are read through strides, so the
-// [B, T-1, K, K] key grid of the main path is a broadcast of two [B, T, K]
-// arrays and is never materialised.  out_first may be null (the match
-// path reads only dist and time): it is then not written.  n_live (the
-// dedup path's device-side distinct count) may limit the probes to the
-// first n_live keys; when it exceeds the key count no probe runs (the
-// dedup scatter then probes every key itself).
+// Design (rtt::warp_probe): a warp takes 32 probes at a time.  Lane l
+// alone decodes its key from the 4-d grid (32-bit fast divmod), loads the
+// two node ids, hashes and finds its rows; the warp then reads the 32
+// probes' rows in turn, 8 rows in flight (4 for wide32's 1 KB rows), each
+// one coalesced read of 16 bytes a lane, and finds the hit by a ballot
+// over the entries' keys.  A cuckoo key found in its first row does not
+// read its second.  The grid is persistent: SMs x resident blocks
+// (the occupancy query, once per device), each warp striding over the
+// probes up to the live count, which a block reads once, so the dedup
+// path's compact probe costs its live keys, not its budget.  Keys are
+// read through strides, so the [B, T-1, K, K] key grid of the main path is
+// a broadcast of two [B, T, K] arrays and is never materialised; the
+// outputs are written 32 consecutive probes a warp.  out_first may be
+// null (the match path reads only dist and time): it is then not written.
+// n_live (the dedup path's device-side distinct count) may limit the
+// probes to the first n_live keys; when it exceeds the key count no probe
+// runs (the dedup scatter then probes every key itself).
 //
 // The TIERED instantiations (ubodt_probe_tiered_launch and
 // ubodt_probe_wide32_tiered_launch, counted apart as ubodt_probe[tiered]
@@ -33,10 +40,9 @@
 // each row comes from the hot arena when slot_map names one (an L2-resident
 // 4 MB map for the metro table) and is read in place over the host link
 // when not (rtt::bucket_row).  A cold row costs a PCIe round trip, so a
-// cold probe is bounded by the host link's rate, not HBM's.  Lane 0 of each
-// probe's warp counts its fetches per bucket; the block totals its hits
-// and misses (__syncthreads_count) before one atomic each.  The untiered
-// instantiations are the code above, unchanged.
+// cold probe is bounded by the host link's rate, not HBM's.  The lane that
+// owns a probe counts its fetches per bucket; each warp totals its hits
+// and misses once, at the end, in one atomic each.
 //
 // The SHARDED instantiations (ubodt_probe_sharded_launch and
 // ubodt_probe_wide32_sharded_launch, counted apart as ubodt_probe[sharded]
@@ -49,8 +55,8 @@
 // answers merge exactly by min dist, min time, max first edge (the
 // wrapper's pmin / pmax over the gp axis).  Bounded by memory: a rank
 // reads only its in-range rows (about 1/gp of the distinct rows), plus
-// the keys and its outputs.  Same design as kernel 2; the untiered code
-// path is unchanged.
+// the keys and its outputs.  Same design as kernel 2: the owning lane
+// tests the range, and the warp visits only the in-range rows.
 //
 // ubodt_host_register pins a host buffer and maps it into the card's
 // address space (cudaHostRegister + cudaHostGetDevicePointer): the tiered
@@ -59,65 +65,6 @@
 #include "ubodt.cuh"
 
 namespace {
-
-template <bool WIDE, bool TIERED, bool SHARDED>
-__global__ void ubodt_probe_kernel(const int32_t* __restrict__ src,
-                                   const int32_t* __restrict__ dst,
-                                   rtt::Grid4 g, int64_t n,
-                                   const int32_t* __restrict__ n_live,
-                                   const int4* __restrict__ packed,
-                                   uint32_t bmask, float* __restrict__ out_dist,
-                                   float* __restrict__ out_time,
-                                   int32_t* __restrict__ out_first,
-                                   rtt::RowSource tier,
-                                   rtt::BucketRange range) {
-  const int lane = threadIdx.x & 31;
-  const int64_t probe = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  int64_t live = n;
-  if (n_live) {
-    const int64_t c = *n_live;
-    live = c <= n ? c : 0;
-  }
-  if constexpr (!TIERED) {
-    if (probe >= live) return;  // uniform across the warp
-    int32_t s, d;
-    rtt::grid_keys(src, dst, g, probe, &s, &d);
-    float dist, time;
-    int32_t first;
-    rtt::warp_probe<WIDE, false, SHARDED>(packed, tier, bmask, s, d, lane,
-                                          &dist, &time, &first, range);
-    if (lane == 0) {
-      out_dist[probe] = dist;
-      out_time[probe] = time;
-      if (out_first) out_first[probe] = first;
-    }
-  } else {
-    // every thread reaches the block's counts below
-    const bool active = probe < live;  // uniform across the warp
-    int n_hot = 0;
-    if (active) {
-      int32_t s, d;
-      rtt::grid_keys(src, dst, g, probe, &s, &d);
-      float dist, time;
-      int32_t first;
-      n_hot = rtt::warp_probe<WIDE, true>(packed, tier, bmask, s, d, lane,
-                                          &dist, &time, &first);
-      if (lane == 0) {
-        out_dist[probe] = dist;
-        out_time[probe] = time;
-        if (out_first) out_first[probe] = first;
-      }
-    }
-    constexpr int kRows = WIDE ? 1 : 2;
-    const bool lead = lane == 0 && active;
-    const int hits = __syncthreads_count(lead && n_hot >= 1) +
-                     (WIDE ? 0 : __syncthreads_count(lead && n_hot >= 2));
-    const int fetches = __syncthreads_count(lead) * kRows;
-    if (threadIdx.x == 0)
-      rtt::add_totals(tier, (unsigned long long)hits,
-                      (unsigned long long)(fetches - hits));
-  }
-}
 
 template <bool WIDE, bool TIERED, bool SHARDED = false>
 int launch(const int32_t* src, const int32_t* dst, const int64_t* dims,
@@ -133,14 +80,10 @@ int launch(const int32_t* src, const int32_t* dst, const int64_t* dims,
   if (SHARDED && (range.n == 0 || (uint64_t)range.lo + range.n >
                                       (uint64_t)(uint32_t)bmask + 1))
     return (int)cudaErrorInvalidValue;
-  const int threads = 256;  // 8 probes per block
-  const int64_t blocks = (n * 32 + threads - 1) / threads;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  ubodt_probe_kernel<WIDE, TIERED, SHARDED><<<(unsigned)blocks, threads, 0,
-                                              (cudaStream_t)stream>>>(
-      src, dst, g, n, n_live, reinterpret_cast<const int4*>(packed),
-      (uint32_t)bmask, out_dist, out_time, out_first, tier, range);
-  return (int)cudaGetLastError();
+  return (int)rtt::launch_probe<WIDE, TIERED, SHARDED>(
+      src, dst, g, n, n_live, -1, reinterpret_cast<const int4*>(packed),
+      (uint32_t)bmask, out_dist, out_time, out_first, tier, range,
+      (cudaStream_t)stream);
 }
 
 inline rtt::RowSource row_source(const int32_t* slot_map, const int32_t* arena,
@@ -151,9 +94,10 @@ inline rtt::RowSource row_source(const int32_t* slot_map, const int32_t* arena,
 
 }  // namespace
 
-// dims / src_strides / dst_strides: host arrays of 4 int64 (elements; 0
-// strides broadcast).  packed: [bmask + 1, 128] int32, 16-byte aligned.
-// n_live: device int32 or null.
+// dims: host int64 [12], the 4 dims then their fast-divmod multipliers
+// and shifts (rtt::Grid4); src_strides / dst_strides: host int64 [4]
+// (elements; 0 strides broadcast).  packed: [bmask + 1, 128] int32,
+// 16-byte aligned.  n_live: device int32 or null.
 extern "C" int ubodt_probe_launch(const int32_t* src, const int32_t* dst,
                                   const int64_t* dims,
                                   const int64_t* src_strides,

@@ -28,10 +28,23 @@
 // gathers the K running scores by shuffle, scans the K sources in index
 // order with a strict > (the first maximum, as argmax takes it) and
 // applies break, restart and padding-freeze exactly as the reference's
-// step.  Backpointers (int8), each step's local argmax and break flag stay
-// in shared memory; the confidence aux accumulates during the forward
-// pass.  Lane 0 of the group walks back; then the group writes the packed
-// [3, B, T] output (edge, offset bits, break) and the [B, 4] aux.
+// step.  A step's operands never come from global memory inside the
+// step: each step's [K, K] logp slab reaches a shared-memory ring (Ring, 8
+// steps deep, 4 at K = 32) by cp.async 7 (3) steps ahead, and the
+// emissions and step scalars (valid, gc, the last slot's edge, the time)
+// a span of 32 steps at a time, a span ahead (Layout sizes every buffer
+// to T at most).  So a step costs its shuffles, adds, compares, one
+// ballot and shared-memory reads, not a memory round trip.  The
+// confidence aux leaves the step too: the scores wait in shared memory
+// and every 32 steps the group's lanes compute the points' local argmax
+// and aux parts in parallel, lane 0 adding them in point order.
+// Backpointers (int8) and each step's argmax, break and flags stay in
+// shared memory.  Lane 0 of the group walks back (each point's flags read
+// a point ahead); then the group writes the packed [3, B, T] output
+// (edge, offset bits, break; loads batched before their stores) and the
+// [B, 4] aux.  Blocks shrink from 128 threads to 64 or 32 for a small
+// batch (launch), so that the traces spread over more SMs.  The
+// arithmetic and its order are the reference's, as before this design.
 // Kernel 4 may also write ``choice`` [2, B, T]: each point's chosen slot
 // and its backpointer there (the source slot of the step into it), what
 // the segment histogram reads.
@@ -54,6 +67,10 @@
 // row at most once per launch, so reading and writing one slab in one
 // launch is safe.
 #pragma once
+
+#include <cuda_pipeline.h>
+
+#include <atomic>
 
 #include "transition.cuh"
 #include "ubodt.cuh"
@@ -129,7 +146,10 @@ struct ViterbiArgs {
 // committed (the carried chosen slot) and lp_committed (the seam logp
 // from it to slot j).  ``count``: this lane's probes count as fetches of a
 // tiered table (false for a lane that repeats another's trace).
-template <int K, bool SPARSE>
+// kProbeBatch: probe_serial's entries loaded at once (the recursion
+// kernel's 16; the assoc kernels keep 1, which their code generation
+// favours).
+template <int K, bool SPARSE, int kProbeBatch = 1>
 __device__ __forceinline__ float seam_column(const ViterbiArgs& a, int64_t bb,
                                              int j, unsigned gmask,
                                              bool& first_break, int& committed,
@@ -172,7 +192,7 @@ __device__ __forceinline__ float seam_column(const ViterbiArgs& a, int64_t bb,
       sp_dist = a.seam_dist[q];
       sp_time = a.seam_time[q];
     } else {
-      rtt::probe_serial(a.ubodt, a.tier, a.bmask, a.wide,
+      rtt::probe_serial<kProbeBatch>(a.ubodt, a.tier, a.bmask, a.wide,
                         __float_as_int(era[0]), from_b, &sp_dist, &sp_time,
                         count, &hits, &fetches);
     }
@@ -248,7 +268,9 @@ struct Aux {
 // ``ax``) and with CARRY the carry-out at the last valid point ``last``:
 // ``score`` is slot j's score at T-1 and s[] all K of them (padded steps
 // froze the scores, so that is the beam there), renormalised by the max.
-template <int K, bool CARRY>
+// Each lane writes its points kBatch at a time, every load of a batch
+// before its stores (the recursion kernel's 8; the assoc kernels keep 1).
+template <int K, bool CARRY, int kBatch = 1>
 __device__ __forceinline__ void finish_trace(
     const ViterbiArgs& a, int64_t b, int j, bool live, const int8_t* idx,
     int8_t* brk_flag, const Aux& ax, int committed, float lp_committed,
@@ -266,14 +288,33 @@ __device__ __forceinline__ void finish_trace(
   }
 
   if (!live) return;
+  // (the stores could alias the loads, which would otherwise wait on one
+  // another)
   const int64_t plane = a.B * (int64_t)T;
-  for (int t = j; t < T; t += K) {
-    const int it = idx[t];
-    const int sel = it > 0 ? it : 0;
-    const int64_t o = b * T + t;
-    a.packed[o] = it >= 0 ? ce[(int64_t)t * K + sel] : -1;
-    a.packed[plane + o] = __float_as_int(co[(int64_t)t * K + sel]);
-    a.packed[2 * plane + o] = brk_flag[t];
+  for (int t0 = j; t0 < T; t0 += kBatch * K) {
+    int32_t edge[kBatch], off[kBatch];
+    int8_t brk[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int t = t0 + u * K;
+      if (t < T) {
+        const int it = idx[t];
+        const int sel = it > 0 ? it : 0;
+        edge[u] = it >= 0 ? ce[(int64_t)t * K + sel] : -1;
+        off[u] = __float_as_int(co[(int64_t)t * K + sel]);
+        brk[u] = brk_flag[t];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int t = t0 + u * K;
+      if (t < T) {
+        const int64_t o = b * T + t;
+        a.packed[o] = edge[u];
+        a.packed[plane + o] = off[u];
+        a.packed[2 * plane + o] = brk[u];
+      }
+    }
   }
   if (j == 0) {
     a.aux[b * 4 + 0] = ax.amin;
@@ -309,9 +350,48 @@ __device__ __forceinline__ void finish_trace(
   }
 }
 
+// The prefetch ring: each step's [K, K] logp slab, staged kDepth - 1
+// steps ahead in shared memory by cp.async (kLp words a trace: a row of
+// padding, so that the groups of a warp read distinct banks).
+template <int K>
+struct Ring {
+  static constexpr int kDepth = K >= 32 ? 4 : 8;
+  static constexpr int kLp = K * K + K;
+};
+
+// Steps per span of the emissions and step scalars staged at once, and
+// per pass of the confidence aux (a power of two).  A span is staged a
+// span ahead, into one half of a two-span buffer.
+constexpr int kChunk = 32;
+
+// Where a block's shared memory goes, for ``traces`` traces of T points
+// (no buffer longer than T): the ring (slots x traces x kLp floats); per
+// trace, in floats, the aux pass's scores (rows x K) and two spans of
+// emissions (span x K) and of the four step scalars (valid, gc, the last
+// slot's candidate edge, the time); then per trace T*K backpointers, four
+// bytes a point (argmax, break, chosen slot, valid and last-slot flags)
+// and the aux pass's flags (rows).
+template <int K>
+struct Layout {
+  int slots, rows, span;
+  size_t ring, floats, bytes;
+  __host__ __device__ Layout(int traces, int T) {
+    slots = T < Ring<K>::kDepth ? T : Ring<K>::kDepth;
+    rows = T < kChunk ? T : kChunk;
+    span = T < 2 * kChunk ? T : 2 * kChunk;
+    ring = (size_t)slots * traces * Ring<K>::kLp * 4;
+    floats = ((size_t)rows * K + (size_t)span * (K + 4) + 3) & ~(size_t)3;
+    bytes = (size_t)T * (K + 4) + rows;
+  }
+  __host__ __device__ size_t total(int traces) const {
+    return ring + (size_t)traces * (floats * 4 + bytes);
+  }
+};
+
 template <int K, bool CARRY, bool SPARSE>
 __global__ void viterbi_kernel(const ViterbiArgs a) {
-  extern __shared__ int8_t smem[];
+  extern __shared__ __align__(16) int8_t smem[];
+  using R = Ring<K>;
   const int T = a.T;
   const int traces_per_block = blockDim.x / K;
   const int g = threadIdx.x / K;  // group (trace) within the block
@@ -321,10 +401,18 @@ __global__ void viterbi_kernel(const ViterbiArgs a) {
   // groups past B still run the loop (the shuffles need whole warps) on
   // trace 0's data, and write nothing
   const int64_t bb = live ? b : 0;
-  int8_t* bp = smem + (size_t)g * T * (K + 3);  // backpointers [T][K]
-  int8_t* loc = bp + (size_t)T * K;             // argmax per step, -1 dead
-  int8_t* brk_flag = loc + T;                   // break per step
-  int8_t* idx = brk_flag + T;                   // chosen slot per step
+  const Layout<K> L(traces_per_block, T);
+  float* ring_lp = reinterpret_cast<float*>(smem);
+  float* sbuf = reinterpret_cast<float*>(smem + L.ring) + (size_t)g * L.floats;
+  float* em_span = sbuf + L.rows * K;            // [span][K] emissions
+  float* sc_span = em_span + L.span * K;         // [4][span] step scalars
+  int8_t* bp = smem + L.ring + (size_t)traces_per_block * L.floats * 4 +
+               (size_t)g * L.bytes;              // backpointers [T][K]
+  int8_t* loc = bp + (size_t)T * K;              // argmax per step, -1 dead
+  int8_t* brk_flag = loc + T;                    // break per step
+  int8_t* idx = brk_flag + T;                    // chosen slot per step
+  int8_t* vflag = idx + T;                       // valid | last slot filled << 1
+  int8_t* pflag = vflag + T;                     // aux pass: two | exh << 1
 
   const unsigned lane = threadIdx.x & 31;
   const unsigned gmask = (K == 32) ? 0xffffffffu
@@ -332,6 +420,63 @@ __global__ void viterbi_kernel(const ViterbiArgs a) {
   const float* em = a.emis + bb * T * K;
   const float* vd = a.valid + bb * T;
   const int32_t* ce = a.cand_edge + bb * T * K;
+  const float* tm = SPARSE ? a.times + bb * T : nullptr;
+  const float* lp_trace = a.logp + bb * (int64_t)(T - 1) * K * K;
+
+  // The operands reach shared memory ahead of the recursion, by the
+  // trace's K lanes: the emissions and step scalars a span of kChunk steps
+  // at a time, two spans at the start; each step's logp slab kDepth - 1
+  // steps ahead (a commit group a step).
+  const bool em16 =
+      ((reinterpret_cast<uintptr_t>(em) | reinterpret_cast<uintptr_t>(em_span)) &
+       15) == 0;
+  const float* gc = a.gc + bb * (T - 1) - 1;  // gc[t] is step t's
+  const float* last_edge = reinterpret_cast<const float*>(ce) + K - 1;
+  auto stage_span = [&](int t0) {  // steps t0 .. t0 + kChunk - 1
+    const int n = T - t0 < kChunk ? T - t0 : kChunk;
+    const int h = t0 & (2 * kChunk - 1);  // the span's first row
+    float* de = em_span + h * K;
+    const float* se = em + (int64_t)t0 * K;
+    if (em16 && ((n * K) & 3) == 0) {
+      for (int c = j; c < n * K / 4; c += K)
+        __pipeline_memcpy_async(de + 4 * c, se + 4 * c, 16);
+    } else {
+      for (int c = j; c < n * K; c += K)
+        __pipeline_memcpy_async(de + c, se + c, 4);
+    }
+    for (int u = j; u < n; u += K) {
+      const int t = t0 + u;
+      float* ds = sc_span + h + u;
+      __pipeline_memcpy_async(ds, vd + t, 4);
+      if (t >= 1) __pipeline_memcpy_async(ds + L.span, gc + t, 4);
+      __pipeline_memcpy_async(ds + 2 * L.span, last_edge + (int64_t)t * K, 4);
+      if (SPARSE) __pipeline_memcpy_async(ds + 3 * L.span, tm + t, 4);
+    }
+  };
+  const bool lp16 = K >= 4 && (reinterpret_cast<uintptr_t>(a.logp) & 15) == 0;
+  // step t's logp slab into ring slot t % kDepth
+  auto stage = [&](int t) {
+    float* dlp =
+        ring_lp + ((int64_t)(t % R::kDepth) * traces_per_block + g) * R::kLp;
+    const float* slp = lp_trace + (int64_t)(t - 1) * K * K;
+    if (lp16) {
+#pragma unroll
+      for (int r = 0; r < K / 4; ++r)
+        __pipeline_memcpy_async(dlp + 4 * (j + r * K), slp + 4 * (j + r * K),
+                                16);
+    } else {
+#pragma unroll
+      for (int r = 0; r < K; ++r)
+        __pipeline_memcpy_async(dlp + j + r * K, slp + j + r * K, 4);
+    }
+  };
+  stage_span(0);
+  if (T > kChunk) stage_span(kChunk);
+  __pipeline_commit();
+  for (int t = 1; t < R::kDepth; ++t) {
+    if (t < T) stage(t);
+    __pipeline_commit();
+  }
 
   Aux ax;
   float s[K];
@@ -342,44 +487,97 @@ __global__ void viterbi_kernel(const ViterbiArgs a) {
   int committed = -1;
   float lp_committed = kNegInf;
   if constexpr (CARRY)
-    score = seam_column<K, SPARSE>(a, bb, j, gmask, first_break, committed,
-                                   lp_committed, live);
+    score = seam_column<K, SPARSE, 16>(a, bb, j, gmask, first_break,
+                                       committed, lp_committed, live);
 
-  // the scores of step t gathered into s[], its local argmax recorded and
-  // the confidence aux of the point accumulated
-  auto record = [&](int t) {
+  // the K scores of the current step gathered into s[]
+  auto gather = [&]() {
 #pragma unroll
     for (int i = 0; i < K; ++i) s[i] = __shfl_sync(0xffffffffu, score, i, K);
-    const bool vt = vd[t] != 0.f;
+  };
+  // point t's scores and flags kept for the aux pass
+  auto keep = [&](int t, bool vt, bool last_slot_filled) {
+    sbuf[(t & (kChunk - 1)) * K + j] = score;
+    if (j == 0) vflag[t] = (int8_t)(vt | (last_slot_filled << 1));
     if (vt) last = t;
-    const PointAux p = point_aux<K>(s, vt, ce[(int64_t)t * K + K - 1] >= 0);
-    if (j == 0) loc[t] = (int8_t)p.local;
-    ax.add(p);
+  };
+  // the aux pass over points t0..t1 (one chunk): each lane takes every
+  // K-th point, its local argmax and its part of the confidence aux from
+  // its K scores; then lane 0 accumulates the parts in point order
+  auto aux_pass = [&](int t0, int t1) {
+    __syncwarp();
+    for (int c = j; t0 + c <= t1; c += K) {
+      float sr[K];
+#pragma unroll
+      for (int i = 0; i < K; ++i) sr[i] = sbuf[c * K + i];
+      const int f = vflag[t0 + c];
+      const PointAux p = point_aux<K>(sr, (f & 1) != 0, (f & 2) != 0);
+      loc[t0 + c] = (int8_t)p.local;
+      sbuf[c * K] = p.marg;  // row c is this lane's alone
+      pflag[c] = (int8_t)(p.two | (p.exh << 1));
+    }
+    __syncwarp();
+    if (j == 0) {
+      for (int c = 0; t0 + c <= t1; ++c) {
+        PointAux p;
+        p.two = (pflag[c] & 1) != 0;
+        p.exh = (pflag[c] & 2) != 0;
+        p.marg = sbuf[c * K];
+        ax.add(p);
+      }
+    }
+    __syncwarp();
   };
 
+  // the first spans' group (the oldest) has landed; the barrier makes the
+  // other lanes' copies visible
+  __pipeline_wait_prior(R::kDepth - 1);
+  __syncwarp();
   bp[j] = -1;
-  if (j == 0) brk_flag[0] = first_break && vd[0] != 0.f;
-  record(0);
+  if (j == 0) brk_flag[0] = first_break && sc_span[0] != 0.f;
+  keep(0, sc_span[0] != 0.f, __float_as_int(sc_span[2 * L.span]) >= 0);
+  gather();
+  if (T == 1) aux_pass(0, 0);
+  float t_prev = SPARSE ? sc_span[3 * L.span] : 0.f;
   for (int t = 1; t < T; ++t) {
-    const float* lp = a.logp + ((bb * (T - 1) + (t - 1)) * K) * K;
-    float best = __fadd_rn(s[0], lp[j]);
+    // step t's groups have landed (kDepth - 2 later ones may be in
+    // flight); the barrier makes the other lanes' copies visible
+    __pipeline_wait_prior(R::kDepth - 2);
+    __syncwarp();
+    const float* lp =
+        ring_lp + ((int64_t)(t % R::kDepth) * traces_per_block + g) * R::kLp;
+    float l[K];
+#pragma unroll
+    for (int i = 0; i < K; ++i) l[i] = lp[i * K + j];
+    const int h = t & (2 * kChunk - 1);
+    const float e = em_span[h * K + j];
+    const bool vt = sc_span[h] != 0.f;
+    const float gct = sc_span[L.span + h];
+    const bool last_filled = __float_as_int(sc_span[2 * L.span + h]) >= 0;
+    const float t_now = SPARSE ? sc_span[3 * L.span + h] : 0.f;
+    // refill the ring slot step t - 1 read and, every kChunk steps, the
+    // span the last kChunk steps read (every lane is past them); a span is
+    // read kChunk steps on, after its group
+    if (t + R::kDepth - 1 < T) stage(t + R::kDepth - 1);
+    if ((t & (kChunk - 1)) == 0 && t + kChunk < T) stage_span(t + kChunk);
+    __pipeline_commit();
+
+    float best = __fadd_rn(s[0], l[0]);
     int bi = 0;
 #pragma unroll
     for (int i = 1; i < K; ++i) {
-      const float tot = __fadd_rn(s[i], lp[i * K + j]);
+      const float tot = __fadd_rn(s[i], l[i]);
       if (tot > best) { best = tot; bi = i; }
     }
     const bool connected = best > kNegInf / 2;
     const bool any = (__ballot_sync(0xffffffffu, connected) & gmask) != 0u;
     float brk = a.brk;
     if constexpr (SPARSE) {
-      const float* tm = a.times + bb * T;
-      brk = rtt::sparse_breakage(a.brk, a.sa, __fsub_rn(tm[t], tm[t - 1]));
+      brk = rtt::sparse_breakage(a.brk, a.sa, __fsub_rn(t_now, t_prev));
+      t_prev = t_now;
     }
     // breakage: too far apart, or nothing connects
-    const bool broke = a.gc[bb * (T - 1) + (t - 1)] > brk || !any;
-    const float e = em[(int64_t)t * K + j];
-    const bool vt = vd[t] != 0.f;
+    const bool broke = gct > brk || !any;
     float ns = broke ? e : __fadd_rn(best, e);
     ns = vt ? ns : score;  // padding: freeze
     int bpv = (broke || !connected) ? -1 : bi;
@@ -387,20 +585,33 @@ __global__ void viterbi_kernel(const ViterbiArgs a) {
     bp[(size_t)t * K + j] = (int8_t)bpv;
     if (j == 0) brk_flag[t] = broke && vt;
     score = ns;
-    record(t);
+    keep(t, vt, last_filled);
+    gather();
+    if ((t & (kChunk - 1)) == kChunk - 1 || t == T - 1)  // uniform
+      aux_pass(t & ~(kChunk - 1), t);
   }
+  __pipeline_wait_prior(0);
   __syncwarp();
 
   if (j == 0) {  // reverse walk; a padded or dead successor restarts at the local argmax
-    int nxt = (loc[T - 1] >= 0 && vd[T - 1] != 0.f) ? loc[T - 1] : -1;
+    int nxt = (loc[T - 1] >= 0 && (vflag[T - 1] & 1)) ? loc[T - 1] : -1;
     idx[T - 1] = (int8_t)nxt;
+    // point t's and t + 1's flags in registers, the next point's read
+    // before this one's store
+    bool v_next = (vflag[T - 1] & 1) != 0;
+    int l_t = T >= 2 ? loc[T - 2] : 0;
+    bool v_t = T >= 2 && (vflag[T - 2] & 1) != 0;
     for (int t = T - 2; t >= 0; --t) {
+      const int l_n = t > 0 ? loc[t - 1] : 0;
+      const bool v_n = t > 0 && (vflag[t - 1] & 1) != 0;
       const int from_next = nxt >= 0 ? bp[(size_t)(t + 1) * K + nxt] : -1;
-      int it = (vd[t + 1] != 0.f && nxt >= 0 && from_next >= 0) ? from_next
-                                                                  : loc[t];
-      it = vd[t] != 0.f ? it : -1;
+      int it = (v_next && nxt >= 0 && from_next >= 0) ? from_next : l_t;
+      it = v_t ? it : -1;
       idx[t] = (int8_t)it;
       nxt = it;
+      v_next = v_t;
+      l_t = l_n;
+      v_t = v_n;
     }
   }
   __syncwarp();
@@ -414,26 +625,37 @@ __global__ void viterbi_kernel(const ViterbiArgs a) {
     }
   }
 
-  finish_trace<K, CARRY>(a, bb, j, live, idx, brk_flag, ax, committed,
-                         lp_committed, last, score, s);
+  finish_trace<K, CARRY, 8>(a, bb, j, live, idx, brk_flag, ax, committed,
+                            lp_committed, last, score, s);
 }
+
+// Traces spread over the SMs: blocks of 128 threads while the batch fills
+// kSpread of them, else 64 or 32, so that a small batch (the long and
+// sparse windows, 16-64 traces) runs on more SMs.
+constexpr int64_t kSpread = 32;
 
 template <int K, bool CARRY, bool SPARSE>
 int launch(const ViterbiArgs& a, cudaStream_t stream) {
-  // shared memory per trace: T*K backpointers + 3*T step bytes; shrink the
-  // block (down to one warp) before asking for more than the default 48 KB
-  const size_t per_trace = (size_t)a.T * (K + 3);
-  int threads = 128;
-  while (threads > 32 && (size_t)(threads / K) * per_trace > 48 * 1024)
+  static std::atomic<bool> opted[rtt::kMaxDevices];
+  constexpr size_t kMaxSmem = 227 * 1024;
+  int threads = 128;  // whole warps: 32 / K traces share one
+  while (threads > 32 && (a.B * K + threads - 1) / threads < kSpread)
     threads /= 2;
-  const size_t smem = (size_t)(threads / K) * per_trace;
-  if (smem > 48 * 1024) {
-    if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-    const cudaError_t e = cudaFuncSetAttribute(
-        viterbi_kernel<K, CARRY, SPARSE>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+  while (threads > 32 && Layout<K>(threads / K, a.T).total(threads / K) > kMaxSmem)
+    threads /= 2;
+  const size_t smem = Layout<K>(threads / K, a.T).total(threads / K);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {  // above the default: opt in once per device
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
     if (e != cudaSuccess) return (int)e;
+    if (dev >= rtt::kMaxDevices || !opted[dev].load()) {
+      e = cudaFuncSetAttribute(viterbi_kernel<K, CARRY, SPARSE>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)kMaxSmem);
+      if (e != cudaSuccess) return (int)e;
+      if (dev < rtt::kMaxDevices) opted[dev].store(true);
+    }
   }
   const int64_t traces_per_block = threads / K;
   const int64_t blocks = (a.B + traces_per_block - 1) / traces_per_block;

@@ -191,13 +191,29 @@ def _probe_plain(u, src, dst, with_first):
     return res if with_first else (res[0], res[1], None)
 
 
+def fast_divmod(d: int):
+    """(multiplier, shift) that divide by ``d`` (1 <= d < 2**31) in the
+    kernels' 32-bit arithmetic: with l = ceil(log2 d) and mul =
+    ceil(2**(32 + l) / d) - 2**32, i // d == (umulhi(i, mul) + i) >> l
+    for every 0 <= i < 2**31 (umulhi: the high word of the 64-bit
+    product)."""
+    if not 1 <= d < 1 << 31:
+        return 0, 0  # the kernels decode such a grid in int64
+    l = (d - 1).bit_length()
+    return ((1 << (32 + l)) + d - 1) // d - (1 << 32), l
+
+
 def _grid(src: torch.Tensor, dst: torch.Tensor):
     """The kernels' view of broadcast keys: (dims, src strides, dst
-    strides) as host int64 [4] tensors, leading dims padded with 1 / 0."""
+    strides) as host int64 tensors, leading dims padded with 1 / 0; dims
+    holds 12 values: the 4 dims, then their ``fast_divmod`` multipliers,
+    then their shifts (``rtt::Grid4``)."""
     if src.dim() > 4:
         raise ValueError("at most 4 key dims, got %d" % src.dim())
     pad = 4 - src.dim()
-    return (torch.tensor((1,) * pad + tuple(src.shape), dtype=torch.int64),
+    dims = (1,) * pad + tuple(src.shape)
+    mul, shr = zip(*(fast_divmod(d) for d in dims))
+    return (torch.tensor(dims + mul + shr, dtype=torch.int64),
             torch.tensor((0,) * pad + src.stride(), dtype=torch.int64),
             torch.tensor((0,) * pad + dst.stride(), dtype=torch.int64))
 
