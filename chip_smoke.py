@@ -152,6 +152,18 @@ delta 3000 m, cuckoo layout) and moves it to the card, then:
      instantiation (K = 1, 2, 4, 8, 16, 32, carried or not, dense or
      sparse) at B = 1, 16 and 512 rows (and 64, 256: every block size of
      their launch), each equal to its plain version.
+  12. the redesigned sweep and transition build on edge inputs
+     (``sweep_edges``, ``build_edges``, ``design_shapes``): kernel 1 at
+     every K of 1-32 on the metro city (cap 8) and at K = 1, 2, 8, 16, 32
+     on grid cities whose cells hold 2, 24 and 56 items, over nodes (ties),
+     block centres (all miss), points beyond the borders, on cell lines,
+     near roads and invalid points, full and packed; kernel 3, dense and
+     sparse, at K = 1, 2, 4, 8, 16, 32 (and 3, 24) and B x T in {1, 16,
+     512} x {2, 3, 64, 2048} on synthetic candidates (same-edge forward,
+     jitter and loop pairs, empty slots, dt <= 0, headings at +-pi and
+     beyond) and probe results (finite, 0, +inf): each equal to its plain
+     version bit for bit; both timed at 512 x 64, 128 x 256, 64 x 2,048 (K
+     = 8) and A's 512 x 16 (K = 16), kernel 1 also on each cap.
 
     python3 chip_smoke.py --pair PARENT [TREE ...]
 
@@ -456,13 +468,7 @@ def kernel_phases(matcher, xin, timed, p=None, K=None, sp=None, flip=False):
     args1 = (dg, x, y, v, K, p.search_radius, p.sigma_z)
     s1 = candidate_sweep(*args1)
     s0 = candidate_sweep_plain(*args1)
-    check(torch.equal(s1.cand.edge, s0.cand.edge), "candidate_sweep edge")
-    check(torch.equal(s1.to_node, s0.to_node) and torch.equal(s1.from_node, s0.from_node),
-          "candidate_sweep node ids")
-    for f in ("dist", "offset", "cx", "cy"):
-        check(torch.allclose(getattr(s1.cand, f), getattr(s0.cand, f), rtol=0, atol=1e-4,
-                             equal_nan=False), "candidate_sweep " + f)
-    check(torch.allclose(s1.emis, s0.emis, rtol=1e-6, atol=0), "candidate_sweep emis")
+    check(_sweep_equal(s1, s0), "candidate_sweep equals its plain version bit for bit")
     err1 = max_abs_err([(getattr(s1.cand, f), getattr(s0.cand, f))
                         for f in ("edge", "offset", "dist", "cx", "cy")]
                        + [(s1.emis, s0.emis), (s1.to_node, s0.to_node)])
@@ -492,7 +498,7 @@ def kernel_phases(matcher, xin, timed, p=None, K=None, sp=None, flip=False):
     rows.append(dict(name="candidate_sweep", route="cuda",
                      source="reporter_tpu_torch/csrc/candidate_sweep.cu",
                      replaces="reporter_tpu/ops/candidates.py:88",
-                     tolerance="edge, node ids exact; dist/offset/cx/cy atol 1e-4; emis rtol 1e-6",
+                     tolerance="exact (every output bit for bit)",
                      fn=lambda: candidate_sweep(*args1, full=False),
                      plain=lambda: candidate_sweep_plain(*args1, full=False), cold_l2=True,
                      max_abs_err=err1, bound_ms=b1, bound_by=by1))
@@ -526,8 +532,7 @@ def kernel_phases(matcher, xin, timed, p=None, K=None, sp=None, flip=False):
     args3 = (dg, s1.cand, x, y, t, r1[0], r1[1], p)
     l1 = V.transition_build(*args3, sp=sp)
     l0 = V.transition_build_plain(*args3, sp=sp)
-    for name, u, w in zip(("logp", "route", "gc"), l1, l0):
-        check(torch.allclose(u, w, rtol=1e-6, atol=0), "transition_build%s %s" % (tag, name))
+    check(_bits_equal(l1, l0), "transition_build%s equals its plain version bit for bit" % tag)
     err3 = max_abs_err(zip(l1, l0))
     lean3 = V.transition_build(*args3, with_route=False, sp=sp)
     same([lean3[0], lean3[2]], [l1[0], l1[2]], "transition_build" + tag)
@@ -540,7 +545,7 @@ def kernel_phases(matcher, xin, timed, p=None, K=None, sp=None, flip=False):
     rows.append(dict(name="transition_build" + tag, route="cuda",
                      source="reporter_tpu_torch/csrc/transition_build.cu",
                      replaces="reporter_tpu/ops/viterbi.py:%d" % (196 if sp is None else 247),
-                     tolerance="rtol 1e-6",
+                     tolerance="exact (logp, route, gc bit for bit)",
                      fn=lambda: V.transition_build(*args3, with_route=False, sp=sp),
                      plain=lambda: V.transition_build_plain(*args3, with_route=False, sp=sp),
                      cold_l2=False, max_abs_err=err3, bound_ms=b3, bound_by=by3))
@@ -3109,6 +3114,14 @@ def _bits_equal(a, b):
     return all(x.dtype == y.dtype and bits(x).equal(bits(y)) for x, y in zip(a, b))
 
 
+def _sweep_equal(a, b):
+    """Two sweeps' outputs equal bit for bit, and unwritten (None) alike."""
+    fa, fb = ([s.cand.edge, s.cand.offset, s.cand.dist, s.cand.cx, s.cand.cy, s.emis,
+               s.to_node, s.from_node] for s in (a, b))
+    return (all((x is None) == (y is None) for x, y in zip(fa, fb))
+            and _bits_equal([x for x in fa if x is not None], [y for y in fb if y is not None]))
+
+
 def probe_edges(matcher, ubodt_w, du_w, xin):
     """Kernel 2's family on ``edge_keys``: for the cuckoo and wide32
     tables, untiered, tiered at the partial budget (after one maintenance
@@ -3251,6 +3264,275 @@ def recursion_edges(matcher, xin64, xin_a, pa, ka, spa):
           "16, 32 and B = 1, 16, 512 (and 64, 256 at K = %d, 64 at K = %d): each equal to "
           "its plain version" % (K8, ka))
     return done
+
+
+# -- phase 12: the redesigned candidate sweep (kernel 1) and transition
+# build (kernel 3, dense and sparse) on edge inputs, and timed at the main
+# path's shapes.  The input makers are numpy only: tests/test_torch_sweep_design.py
+# holds the plain versions against the JAX package on the same inputs.
+
+SWEEP_CELLS = ((100.0, 2), (200.0, None), (450.0, None))  # caps 2, 24, 56 on 150 m blocks
+SWEEP_KINDS = ("node", "block centre", "border", "cell line", "near road", "uniform")
+
+
+def sweep_edge_points(arrays, B=16, T=256, seed=0):
+    """[B, T] float32 px, py and valid of points that take the sweep's
+    edge branches, in a seeded order: graph nodes (every edge that meets
+    there ties), block centres (75 m from the roads of the grid cities'
+    150 m blocks: every item misses), points beyond each border of the
+    grid (clamped cells repeat), points exactly on cell lines and
+    midlines (the quadrant's side decided at 0 and 0.5), points near the
+    roads and uniform points over the grid; valid 0 for the first row and
+    a seeded tenth of the rest.  Also returns each point's kind, its index
+    in ``SWEEP_KINDS``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n, per = B * T, B * T // 8
+    nx, ny, cs = arrays.grid_nx, arrays.grid_ny, np.float32(arrays.cell_size)
+    x0, y0 = np.float32(arrays.grid_x0), np.float32(arrays.grid_y0)
+    w, h = nx * cs, ny * cs
+    node = rng.integers(0, arrays.num_nodes, per)
+    nxy = np.stack([arrays.node_x[node], arrays.node_y[node]], 1)
+    centre = np.stack([arrays.node_x[node[::-1]], arrays.node_y[node[::-1]]], 1) + 75.0
+    side = rng.integers(0, 4, per)
+    along = rng.uniform(-100.0, max(w, h) + 100.0, per)
+    out = rng.uniform(1.0, 600.0, per)
+    border = np.stack([np.select([side == 0, side == 1], [x0 - out, x0 + w + out], x0 + along),
+                       np.select([side == 2, side == 3], [y0 - out, y0 + h + out], y0 + along)], 1)
+    cells = np.stack([rng.integers(0, nx, per), rng.integers(0, ny, per)], 1).astype(np.float32)
+    half = rng.integers(0, 2, (per, 2)).astype(np.float32) * np.float32(0.5)
+    lines = np.stack([x0, y0]) + (cells + half) * cs
+    along_x = rng.integers(0, 2, per) == 1
+    run, across = rng.uniform(-60.0, 60.0, per), rng.uniform(-3.0, 3.0, per)
+    near = nxy[rng.permutation(per)] + np.stack([np.where(along_x, run, across),
+                                                 np.where(along_x, across, run)], 1)
+    rest = np.stack([rng.uniform(x0, x0 + w, n - 5 * per), rng.uniform(y0, y0 + h, n - 5 * per)], 1)
+    groups = [nxy, centre, border, lines, near, rest]
+    pts = np.concatenate(groups).astype(np.float32)
+    kind = np.concatenate([np.full(len(g), i) for i, g in enumerate(groups)])
+    order = rng.permutation(n)
+    pts, kind = pts[order], kind[order]
+    valid = (rng.uniform(size=n) >= 0.1).astype(np.float32)
+    valid[:T] = 0.0
+    return (pts[:, 0].reshape(B, T).copy(), pts[:, 1].reshape(B, T).copy(),
+            valid.reshape(B, T), kind.reshape(B, T))
+
+
+PI32 = 3.14159265358979323846  # rounds to the kernels' kPi in float32
+# headings that take every branch of the kernels' angle difference: +-pi,
+# their neighbours, 0, +-pi/2 and values outside [-pi, pi] (fmodf's own
+# range), beside uniform ones
+EDGE_HEADINGS = (PI32, -PI32, 3.1415925, -3.1415925, 0.0, PI32 / 2, -PI32 / 2, 10.0, -10.0,
+                 7.0, -7.0, 2 * PI32)
+
+
+def build_edge_inputs(B, T, K, back_tol, seed=0, E=48):
+    """Numpy inputs of the transition build (kernel 3) that take its edge
+    branches: [E, 8] edge rows (lengths 0-500 m, speeds 0 to 30 m/s,
+    headings from ``EDGE_HEADINGS`` and uniform), [B, T, K] candidates
+    (empty slots -1; a third of slots keep the previous point's edge, its
+    offset moved forward, back within ``back_tol`` (jitter), back exactly
+    ``back_tol`` or back beyond it (a loop)), [B, T] points (some
+    repeated: gc 0) and times (gaps of -1 to 120 s: some <= 0), and [B,
+    T-1, K, K] probe results (finite, 0 and +inf).  Returns a dict of
+    float32 / int32 arrays."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    rows = np.zeros((E, 8), f32)
+    rows[:, 0] = rng.integers(0, 1000, E).astype(np.int32).view(f32)
+    rows[:, 1] = rng.integers(0, 1000, E).astype(np.int32).view(f32)
+    rows[:, 2] = np.where(rng.uniform(size=E) < 0.1, 0.0, rng.uniform(1.0, 500.0, E))
+    rows[:, 3] = rng.choice([0.0, 0.05, 0.1, 5.0, 13.9, 30.0], E)
+    heads = np.asarray(EDGE_HEADINGS, f32)
+    for c in (4, 5):
+        pick = rng.uniform(size=E) < 0.6
+        rows[:, c] = np.where(pick, rng.choice(heads, E), rng.uniform(-PI32, PI32, E))
+    edge = rng.integers(0, E, (B, T, K)).astype(np.int32)
+    edge[rng.uniform(size=(B, T, K)) < 0.15] = -1
+    offset = rng.uniform(0.0, 400.0, (B, T, K)).astype(f32)
+    keep = rng.uniform(size=(B, T - 1, K)) < 0.35
+    step = rng.choice([0, 1, 2, 3, 4], (B, T - 1, K))
+    tol = f32(back_tol)
+    delta = np.select([step == 0, step == 1, step == 2, step == 3],
+                      [rng.uniform(0.0, 80.0, step.shape), -rng.uniform(0.0, tol, step.shape),
+                       np.full(step.shape, -tol), -rng.uniform(tol, 300.0, step.shape)],
+                      0.0).astype(f32)
+    for t in range(1, T):
+        k = keep[:, t - 1]
+        edge[:, t][k] = edge[:, t - 1][k]
+        offset[:, t - 1][k & (step[:, t - 1] == 2)] = tol  # then 0 - tol: exactly back
+        offset[:, t][k] = offset[:, t - 1][k] + delta[:, t - 1][k]
+    px = rng.uniform(-3000.0, 3000.0, (B, T)).astype(f32)
+    py = rng.uniform(-3000.0, 3000.0, (B, T)).astype(f32)
+    rep = rng.uniform(size=(B, T - 1)) < 0.05
+    px[:, 1:][rep], py[:, 1:][rep] = px[:, :-1][rep], py[:, :-1][rep]
+    gaps = rng.choice([-1.0, 0.0, 0.5, 1.0, 5.0, 45.0, 60.0, 120.0], (B, T - 1))
+    times = np.concatenate([np.zeros((B, 1)), np.cumsum(gaps, 1)], 1).astype(f32)
+    shape = (B, T - 1, K, K)
+    u = rng.uniform(size=shape)
+    sp_dist = np.where(u < 0.2, np.inf, np.where(u < 0.3, 0.0,
+                                                 rng.uniform(0.0, 3000.0, shape))).astype(f32)
+    v = rng.uniform(size=shape)
+    sp_time = np.where(u < 0.2, np.inf, np.where(v < 0.1, 0.0, np.where(
+        v > 0.97, np.inf, rng.uniform(0.0, 300.0, shape)))).astype(f32)
+    return dict(edge_rows=rows, edge=edge, offset=offset, px=px, py=py, times=times,
+                sp_dist=sp_dist, sp_time=sp_time)
+
+
+def sweep_graphs(device, rows=16):
+    """{cap: DeviceGraph on ``device``} of a ``rows`` x ``rows`` grid city
+    of 150 m blocks at each of ``SWEEP_CELLS``: 100 m cells cut to 2
+    items (``bucket_cap=2``: 4 * cap < K for K > 2, the pad path), 200 m
+    cells (cap 24) and 450 m cells (cap 56: the chunked selection)."""
+    from reporter_tpu_torch.tiles.arrays import build_graph_arrays
+    from reporter_tpu_torch.tiles.network import grid_city
+
+    net = grid_city(rows, rows, spacing_m=150.0)
+    out = {}
+    for cell, cap in SWEEP_CELLS:
+        arrays = build_graph_arrays(net, cell_size=cell, bucket_cap=cap)
+        dg = arrays.to_device(device)
+        out[dg.cap] = (arrays, dg)
+    return out
+
+
+def sweep_edges(matcher, xin, timed):
+    """Kernel 1 (the redesigned sweep) against its plain version bit for
+    bit, ``full`` true and false: on the metro city (cap 8) at every K of
+    1-32 over ``sweep_edge_points`` and the first 4,096 points of the
+    packed cohort ``xin``; on ``sweep_graphs``' caps 2, 24 and 56 at K =
+    1, 2, 8, 16 and 32 over their own edge points.  ``timed``: also time
+    kernel 1 at K = 8 and 16 on each of those caps over 32,768 points (512
+    x 64 of edge points), a labelled call that ``--pair`` compares.
+    Returns {graph: [K checked]}."""
+    import torch
+
+    from reporter_tpu_torch.ops import viterbi as V
+    from reporter_tpu_torch.ops.candidates import candidate_sweep, candidate_sweep_plain
+
+    dev, p = matcher.device, matcher._params
+    x, y, _t, v = V.unpack_inputs(xin)
+    graphs = {8: (matcher.arrays, matcher._dg)}
+    graphs.update(sweep_graphs(dev))
+    done = {}
+
+    def on(a):
+        return torch.from_numpy(a).to(dev)
+
+    for cap, (arrays, dg) in graphs.items():
+        pts = [on(a) for a in sweep_edge_points(arrays, seed=cap)[:3]]
+        if cap == 8:
+            pts = [torch.cat([a, b.reshape(-1)[:4096].reshape(16, 256)])
+                   for a, b in zip(pts, (x, y, v))]
+        ks = range(1, 33) if cap == 8 else (1, 2, 8, 16, 32)
+        for K in ks:
+            for full in (True, False):
+                args = (dg, *pts, K, p.search_radius, p.sigma_z, full)
+                check(_sweep_equal(candidate_sweep(*args), candidate_sweep_plain(*args)),
+                      "candidate_sweep cap %d K=%d full=%s on the edge points equals its plain "
+                      "version bit for bit" % (cap, K, full))
+        done["cap %d" % cap] = list(ks)
+        if timed and cap != 8 and dev.type == "cuda":
+            big = [on(a) for a in sweep_edge_points(arrays, 512, 64, seed=100 + cap)[:3]]
+            for K in (8, 16):
+                args = (dg, *big, K, p.search_radius, p.sigma_z, False)
+                check(_sweep_equal(candidate_sweep(*args), candidate_sweep_plain(*args)),
+                      "candidate_sweep cap %d 512x64 K=%d equals its plain version" % (cap, K))
+                done["cap %d 512x64 K=%d ms" % (cap, K)] = time_ms(
+                    lambda: candidate_sweep(*args), cold_l2=True,
+                    label="candidate_sweep cap %d 512x64 K=%d" % (cap, K))
+    print("sweep edges: candidate_sweep on nodes, block centres, beyond the borders, on cell "
+          "lines, near roads, valid 0: cap 8 at K = 1-32, caps 2, 24, 56 at K = 1, 2, 8, 16, "
+          "32, full and packed: each equal to its plain version bit for bit%s"
+          % ("".join("; %s %.4f" % kv for kv in done.items() if kv[0].endswith("ms"))))
+    return done
+
+
+def build_edges(matcher, pa, spa):
+    """Kernel 3 (the redesigned transition build), dense and sparse (the
+    sparse cohort's parameters ``pa``, ``spa``), against its plain version
+    bit for bit (logp, route and gc; the packed call's logp and gc equal
+    the full call's) on ``build_edge_inputs`` at every K of 1, 2, 4, 8, 16
+    and 32, and 3 and 24 (the run-time-K instantiation), with B in 1, 16,
+    512 and T in 2, 3, 64, 2,048 where the pairs number at most 2^23: every
+    block shape, a block's steps across traces and a partial last block.
+    Returns the shapes checked."""
+    import types
+
+    import torch
+
+    from reporter_tpu_torch.ops import viterbi as V
+    from reporter_tpu_torch.ops.candidates import Candidates
+
+    dev, p = matcher.device, matcher._params
+    back_tol = 2.0 * float(p.sigma_z) + 5.0
+    done = []
+    for K in (1, 2, 4, 8, 16, 32, 3, 24):
+        for B in (1, 16, 512):
+            for T in (2, 3, 64, 2048):
+                if B * (T - 1) * K * K > 1 << 23:
+                    continue
+                a = {k: torch.from_numpy(v).to(dev) for k, v in build_edge_inputs(
+                    B, T, K, back_tol, seed=K * 10007 + B * 31 + T).items()}
+                dg = types.SimpleNamespace(edge_rows=a["edge_rows"])
+                cand = Candidates(a["edge"], a["offset"], None, None, None)
+                for p_, sp in ((p, None), (pa, spa)):
+                    args = (dg, cand, a["px"], a["py"], a["times"], a["sp_dist"], a["sp_time"],
+                            p_)
+                    got = V.transition_build(*args, sp=sp)
+                    want = V.transition_build_plain(*args, sp=sp)
+                    lean = V.transition_build(*args, with_route=False, sp=sp)
+                    what = "transition_build%s %dx%d K=%d" % (
+                        "" if sp is None else "[sparse]", B, T, K)
+                    check(_bits_equal(got, want) and _bits_equal([lean[0], lean[2]],
+                                                                 [got[0], got[2]]),
+                          what + " on the edge inputs equals its plain version bit for bit")
+                done.append("%dx%d K=%d" % (B, T, K))
+    print("build edges: transition_build and [sparse] at K = 1, 2, 4, 8, 16, 32, 3, 24 and "
+          "B x T in {1, 16, 512} x {2, 3, 64, 2048} (%d shapes): same-edge forward, jitter and "
+          "loop pairs, empty slots, dt <= 0, headings at +-pi and outside it, probe results "
+          "finite, 0 and +inf: each equal to its plain version bit for bit" % len(done))
+    return done
+
+
+def design_shapes(matcher, shapes, pa, spa):
+    """Kernel 1 and kernel 3 (dense, and sparse with ``pa``, ``spa``) at
+    the main path's shapes, each (packed input, K) of ``shapes``: each
+    held against its plain version bit for bit and timed in the packed
+    path's call, labelled for ``--pair``.  Returns {label: ms}."""
+    from reporter_tpu_torch.ops import viterbi as V
+    from reporter_tpu_torch.ops.candidates import candidate_sweep, candidate_sweep_plain
+    from reporter_tpu_torch.ops.hashtable import ubodt_lookup
+
+    dg, du, p = matcher._dg, matcher._du, matcher._params
+    out = {}
+    for xin, K in shapes:
+        x, y, t, v = V.unpack_inputs(xin)
+        B, T = x.shape
+        args1 = (dg, x, y, v, K, p.search_radius, p.sigma_z, False)
+        sw = candidate_sweep(*args1)
+        check(_sweep_equal(sw, candidate_sweep_plain(*args1)),
+              "candidate_sweep %dx%d K=%d equals its plain version" % (B, T, K))
+        calls = {"candidate_sweep": (lambda: candidate_sweep(*args1), True)}
+        dist, time_, _ = ubodt_lookup(du, sw.to_node[:, :-1, :, None],
+                                      sw.from_node[:, 1:, None, :], with_first=False)
+        for tag, p_, sp in (("", p, None), ("[sparse]", pa, spa)):
+            args3 = (dg, sw.cand, x, y, t, dist, time_, p_)
+            check(_bits_equal(V.transition_build(*args3, sp=sp),
+                              V.transition_build_plain(*args3, sp=sp)),
+                  "transition_build%s %dx%d K=%d equals its plain version" % (tag, B, T, K))
+            calls["transition_build" + tag] = (
+                lambda a=args3, s=sp: V.transition_build(*a, with_route=False, sp=s), False)
+        for name, (fn, cold) in calls.items():
+            label = "%s %dx%d K=%d" % (name, B, T, K)
+            if x.device.type == "cuda":
+                out[label] = time_ms(fn, cold_l2=cold, label=label)
+    print("design shapes: kernels 1 and 3 equal their plain versions bit for bit; %s"
+          % "; ".join("%s %.4f ms" % kv for kv in out.items()))
+    return out
 
 
 def parent_kernels(parent, tag):
@@ -3532,6 +3814,15 @@ def main(pair=()):
     probe_edge = probe_edges(matcher, ubodt_w, du_w, xin64)
     rec_edge = recursion_edges(matcher, xin64, xin_a, pa_, ka, spa)
 
+    # the redesigned sweep and transition build (kernels 1 and 3) on edge
+    # inputs, each against its plain version, and timed at the main path's
+    # shapes (the long cohort's 64 x 2,048 too)
+    sweep_edge = sweep_edges(matcher, xin64, timed=True)
+    build_edge = build_edges(matcher, pa_, spa)
+    shape_ms = design_shapes(matcher, [(xin64, 8), (xin256, 8),
+                                       (bucket_rows(matcher, traces2048, 2048), 8),
+                                       (xin_a, ka)], pa_, spa)
+
     # launches over the counted runs of every path but serve's; kernels
     # 1-4's times and bounds at 512 x 64, max_abs_err over both bucketed
     # shapes, the session step's and the sparse cohorts A and B (K = 16),
@@ -3672,7 +3963,8 @@ def main(pair=()):
                     "paths": tiered, "session_cold_tier": cold_tier},
         "mesh": {"kernels": [strip(r) for r in mesh_probe + [hist_row] + slab_rows],
                  "seam": mesh_seam, **mesh},
-        "redesign_edges": {"probe": probe_edge, "recursion": rec_edge},
+        "redesign_edges": {"probe": probe_edge, "recursion": rec_edge, "sweep": sweep_edge,
+                           "build": build_edge, "shapes": shape_ms},
         "metro_reports": n_reports, "peak_memory_mb": torch.cuda.max_memory_allocated() / 1e6,
         "kernels": kernels,
         "extra": dict({"%s_%d" % (r["name"], T): {k: v for k, v in r.items() if k in (

@@ -8,20 +8,40 @@
 //
 // Work per point: four cell rows of 8*cap floats (the 2x2 quadrant
 // block), a projection of the point onto each of the 4*cap shape
-// segments, the 4K nearest by (distance, index), a per-edge dedup and the
-// first K.  On the H100 it is bounded by memory: each point gathers
-// 4 * 32 * cap bytes of cell rows, which neighbouring points of a trace
-// mostly share through L1/L2; the arithmetic (~30 flops per segment) is
-// far below the float32 rate.
+// segments, the m = min(4K, 4*cap) nearest by (distance, index), a
+// per-edge dedup and the first K.  The bytes are small (each distinct cell
+// row once: ~10 MB at 512 x 64 on the metro city, a few microseconds on
+// the H100), so instructions and their latency bound it: ~60 per segment
+// (an IEEE division, hypot's root and division), then the selection.
 //
-// Design: one thread per point.  The pool is kept by insertion into a
-// sorted local array while the segments are visited in index order, with
-// a strict < comparison, which reproduces lax.top_k(-d)'s lower-index-
-// first tie rule.  Pool entries store only (distance, index); an entry's
-// other fields are recomputed from its index with the same arithmetic,
-// so they are identical and the array stays small.  out_dist, out_cx and
-// out_cy may be null together (the packed match path reads none of them):
-// they are then not written.
+// Design: one warp per point; the lanes split the segments.
+//   1. Lane l computes item l, l + 32, ... (flat index q = c * cap + j of
+//      cell c's segment j); each plane of a cell row is one coalesced run.
+//   2. Each item's sort key is (float bits of d) << 32 | q as a uint64.  d
+//      is +0.0 or more, or kBig: never NaN (d <= radius fails for NaN,
+//      which becomes kBig) and never -0.0 (hypot_like_jax returns
+//      max(|u|, |v|) * sqrt(...), or +inf), so unsigned order is the
+//      reference's order and q breaks every tie lower-index-first as
+//      lax.top_k does.  With 4*cap <= 32 one bitonic sort across the warp
+//      (__shfl_xor_sync) leaves pool entry i in lane i.  With more items
+//      the warp takes them 32 at a time: each chunk is sorted the same
+//      way and merged into a running pool of the m smallest keys in
+//      shared memory (each key's place is its rank in its own sequence
+//      plus a binary search in the other), so any cap stays exact.
+//   3. Dedup by ballot: pool entry i is a duplicate when an earlier entry
+//      holds the same live edge; __match_any_sync finds earlier lanes of
+//      its 32-entry row, and with m > 32 a scan of the earlier rows'
+//      edges (staged in shared memory) the rest.  A kept (live, not
+//      duplicate) entry's output slot is the count of kept entries before
+//      it; every other entry (a miss or a duplicate, kBig in the
+//      reference's second top-k) follows the kept ones in pool order.
+//      Only slots below kk = min(K, m) are taken; K - kk pads follow.
+//   4. Lane o writes slot o of every field, so a warp's stores are
+//      contiguous.  Its entry's fields come by shuffle from the lane that
+//      computed the item (4*cap <= 32), or are recomputed from the flat
+//      index with the same arithmetic (more items).
+// out_dist, out_cx and out_cy may be null together (the packed match path
+// reads none of them): they are then not written.
 
 #include "common.cuh"
 
@@ -29,6 +49,10 @@ namespace {
 
 using rtt::kBig;
 using rtt::kNegInf;
+
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kWarps = 8;  // points (warps) a block
+constexpr uint64_t kNoKey = ~0ull;  // a lane past the items: sorts last
 
 struct Item {
   float d, edge, off, qx, qy;
@@ -63,8 +87,48 @@ __device__ __forceinline__ Item sweep_item(const float* __restrict__ row,
   return it;
 }
 
+__device__ __forceinline__ uint64_t sort_key(float d, int q) {
+  return ((uint64_t)__float_as_uint(d) << 32) | (uint32_t)q;
+}
+
+// Ascending bitonic sort of one key a lane over blocks of n lanes (n a
+// power of two <= 32; block 0 ends ascending).  Keys are distinct, or
+// kNoKey.
+__device__ __forceinline__ uint64_t warp_sort(uint64_t key, int lane, int n) {
+  for (int k = 2; k <= n; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      const uint64_t other = __shfl_xor_sync(kFull, key, j);
+      const bool keep_min = ((lane & j) == 0) == ((lane & k) == 0);
+      key = (keep_min == (other < key)) ? other : key;
+    }
+  }
+  return key;
+}
+
+// Number of keys below `key` in the ascending a[0, n), n <= N (a power of
+// two): a branchless binary search.
+template <int N>
+__device__ __forceinline__ int rank_in(const uint64_t* a, int n, uint64_t key) {
+  int pos = 0;
+#pragma unroll
+  for (int step = N; step > 0; step >>= 1)
+    if (pos + step <= n && a[pos + step - 1] < key) pos += step;
+  return pos;
+}
+
+// A warp's shared memory: the pool's two buffers and the sorted chunk
+// (merge path), the pool's edges (m > 32) and each output slot's pool item
+// (flat index, bit 31 set when the slot is not a kept entry).
 template <int MAXM>
-__global__ void candidate_sweep_kernel(
+struct Smem {
+  uint64_t pool[2][MAXM];
+  uint64_t chunk[32];
+  int edge[MAXM];
+  int item[32];
+};
+
+template <int MAXM>
+__global__ void __launch_bounds__(kWarps * 32) candidate_sweep_kernel(
     const float* __restrict__ px, const float* __restrict__ py,
     const float* __restrict__ valid, const float* __restrict__ cell_rows,
     const float* __restrict__ edge_rows, int64_t n_points, int cap, int nx,
@@ -73,9 +137,14 @@ __global__ void candidate_sweep_kernel(
     float* __restrict__ out_dist, float* __restrict__ out_cx,
     float* __restrict__ out_cy, float* __restrict__ out_emis,
     int32_t* __restrict__ out_to, int32_t* __restrict__ out_from) {
-  const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n_points) return;
+  constexpr int R = MAXM / 32;  // pool rows of 32 entries
+  __shared__ Smem<MAXM> smem[kWarps];
+  const int lane = threadIdx.x & 31;
+  Smem<MAXM>& sm = smem[threadIdx.x >> 5];
+  const int64_t p = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (p >= n_points) return;  // the whole warp
   const float x = px[p], y = py[p];
+  const unsigned lanes_below = (1u << lane) - 1u;
 
   // the 2x2 quadrant cells: the point's cell and its neighbour on the
   // side of each axis the point lies in (border clamping may repeat one)
@@ -86,98 +155,152 @@ __global__ void candidate_sweep_kernel(
   const int cy0 = min(max((int)fly, 0), ny - 1);
   const int sx = (__fsub_rn(fx, flx) >= 0.5f) ? 1 : -1;
   const int sy = (__fsub_rn(fy, fly) >= 0.5f) ? 1 : -1;
-  const int ncx[2] = {cx0, min(max(cx0 + sx, 0), nx - 1)};
-  const int ncy[2] = {cy0, min(max(cy0 + sy, 0), ny - 1)};
-  const float* rows[4];
-#pragma unroll
-  for (int c = 0; c < 4; ++c)
-    rows[c] = cell_rows + (int64_t)(ncy[c >> 1] * nx + ncx[c & 1]) * 8 * cap;
+  const int cx1 = min(max(cx0 + sx, 0), nx - 1);
+  const int cy1 = min(max(cy0 + sy, 0), ny - 1);
+  // item q = c * cap + j: segment j of cell c (c = 2 * y-side + x-side)
+  auto row_of = [&](int c) {
+    const int cy = (c & 2) ? cy1 : cy0, cx = (c & 1) ? cx1 : cx0;
+    return cell_rows + (int64_t)(cy * nx + cx) * 8 * cap;
+  };
+  auto item = [&](int q) {
+    const int c = q / cap;
+    return sweep_item(row_of(c), cap, q - c * cap, x, y, radius);
+  };
 
-  // pool: the m nearest items by (distance, flat index), ascending
   const int n_items = 4 * cap;
   const int m = min(4 * k, n_items);
-  float pd[MAXM];
-  int pidx[MAXM];
-  int cnt = 0;
-  for (int c = 0; c < 4; ++c) {
-    for (int j = 0; j < cap; ++j) {
-      const float d = sweep_item(rows[c], cap, j, x, y, radius).d;
-      int pos;
-      if (cnt < m) {
-        pos = cnt++;
-      } else if (d < pd[m - 1]) {
-        pos = m - 1;
-      } else {
-        continue;
+  const int kk = min(k, m);
+  // pool entry 32 r + lane, ascending by (distance, flat index)
+  uint64_t pk[R];
+  Item mine;  // this lane's item (4 * cap <= 32: item `lane`)
+  if (n_items <= 32) {
+    mine = item(min(lane, n_items - 1));
+    int n = 2;
+    while (n < n_items) n <<= 1;
+    pk[0] = warp_sort(lane < n_items ? sort_key(mine.d, lane) : kNoKey, lane,
+                      n);
+#pragma unroll
+    for (int r = 1; r < R; ++r) pk[r] = kNoKey;  // m <= n_items <= 32
+  } else {
+    int psize = 0, cur = 0;
+    for (int base = 0; base < n_items; base += 32) {
+      const int q = base + lane;
+      const uint64_t key = warp_sort(
+          q < n_items ? sort_key(item(q).d, q) : kNoKey, lane, 32);
+      const int nvalid = min(32, n_items - base);
+      const int next = min(psize + nvalid, m);
+      const uint64_t* in = sm.pool[cur];
+      uint64_t* out = sm.pool[cur ^ 1];
+      sm.chunk[lane] = key;
+      __syncwarp();
+      const int at = lane + rank_in<MAXM>(in, psize, key);
+      if (lane < nvalid && at < next) out[at] = key;
+      for (int i = lane; i < psize; i += 32) {
+        const uint64_t v = in[i];
+        const int to = i + rank_in<32>(sm.chunk, 32, v);
+        if (to < next) out[to] = v;
       }
-      while (pos > 0 && d < pd[pos - 1]) {
-        pd[pos] = pd[pos - 1];
-        pidx[pos] = pidx[pos - 1];
-        --pos;
-      }
-      pd[pos] = d;
-      pidx[pos] = c * cap + j;
+      __syncwarp();
+      psize = next;
+      cur ^= 1;
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int i = 32 * r + lane;
+      pk[r] = i < m ? sm.pool[cur][i] : kNoKey;
     }
   }
 
-  // selection: the first K of the pool sorted by (distance with later
-  // duplicates of an edge pushed to kBig, pool index).  The live
-  // non-duplicate entries come first in pool order, then every kBig entry
-  // (misses and duplicates) in pool order.
-  int kept[MAXM];  // edge id of a live non-duplicate entry, else -1
-  const int kk = min(k, m);
-  int o = 0;
-  const int64_t base = p * k;
-  const bool point_ok = valid[p] != 0.f;
-  auto emit = [&](const Item& it, bool live) {
-    const int32_t e = live ? (int32_t)it.edge : -1;
-    const float dist = live ? it.d : INFINITY;
-    out_edge[base + o] = e;
-    out_off[base + o] = it.off;
-    if (out_dist) {  // null on the packed path, which never reads them
-      out_dist[base + o] = dist;
-      out_cx[base + o] = it.qx;
-      out_cy[base + o] = it.qy;
+  // dedup: a live entry whose edge an earlier entry holds is dropped to
+  // kBig; the kept entries take the first slots, the rest follow
+  int ed[R];
+  bool kept[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = 32 * r + lane;
+    const int q = (int)(uint32_t)pk[r];
+    const bool live = i < m && __uint_as_float((uint32_t)(pk[r] >> 32)) < kBig / 2;
+    float ef;
+    if (n_items <= 32) {
+      ef = __shfl_sync(kFull, mine.edge, q & 31);
+    } else {
+      const int c = live ? q / cap : 0;
+      ef = live ? row_of(c)[6 * cap + q - c * cap] : -1.f;
     }
-    float em = kNegInf;
-    if (live && point_ok) {
-      const float q = __fdiv_rn(dist, sigma);
-      em = __fmul_rn(-0.5f, __fmul_rn(q, q));
-    }
-    out_emis[base + o] = em;
-    const int64_t er = (int64_t)(e >= 0 ? e : 0) * 8;
-    out_to[base + o] = __float_as_int(edge_rows[er]);
-    out_from[base + o] = __float_as_int(edge_rows[er + 1]);
-    ++o;
-  };
-  for (int q = 0; q < m; ++q) {
-    int e = -1;
-    if (pd[q] < kBig / 2) {
-      const int id = pidx[q];
-      e = (int)sweep_item(rows[id / cap], cap, id % cap, x, y, radius).edge;
-      for (int r = 0; r < q; ++r)
-        if (kept[r] == e) { e = -1; break; }
-    }
-    kept[q] = e;
-    if (e >= 0 && o < kk) {
-      const int id = pidx[q];
-      emit(sweep_item(rows[id / cap], cap, id % cap, x, y, radius), true);
+    ed[r] = live ? (int)ef : -1;
+    // lanes that hold no live entry get values no edge id takes
+    const unsigned same = __match_any_sync(kFull, live ? ed[r] : -1 - lane);
+    kept[r] = live && (same & lanes_below) == 0;
+    if (R > 1 && i < m) sm.edge[i] = ed[r];
+  }
+  if (R > 1) {
+    __syncwarp();
+#pragma unroll
+    for (int r = 1; r < R; ++r) {
+      if (32 * r >= m) break;
+      for (int e = 0; e < 32 * r; ++e)
+        kept[r] = kept[r] && sm.edge[e] != ed[r];
     }
   }
-  for (int q = 0; q < m && o < kk; ++q) {
-    if (kept[q] >= 0) continue;
-    const int id = pidx[q];
-    emit(sweep_item(rows[id / cap], cap, id % cap, x, y, radius), false);
+  unsigned kept_b[R];
+  int n_kept = 0;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    kept_b[r] = __ballot_sync(kFull, kept[r]);
+    n_kept += __popc(kept_b[r]);
   }
-  for (; o < k;) {  // a sparse grid can hold fewer items than the beam
-    Item pad;
-    pad.d = kBig;
-    pad.edge = -1.f;
-    pad.off = 0.f;
-    pad.qx = 0.f;
-    pad.qy = 0.f;
-    emit(pad, false);
+  int kept_before = 0, rest_before = n_kept;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = 32 * r + lane;
+    const unsigned rest_b = __ballot_sync(kFull, i < m && !kept[r]);
+    const int slot = kept[r] ? kept_before + __popc(kept_b[r] & lanes_below)
+                             : rest_before + __popc(rest_b & lanes_below);
+    if (i < m && slot < kk)
+      sm.item[slot] = (int)((uint32_t)pk[r] | (kept[r] ? 0u : 0x80000000u));
+    kept_before += __popc(kept_b[r]);
+    rest_before += __popc(rest_b);
   }
+  __syncwarp();
+
+  // lane o writes output slot o: pool entries up to kk, then pads
+  const int o = lane;
+  const int v = sm.item[o < kk ? o : 0];
+  const int q = v & 0x7fffffff;
+  const bool live = o < kk && v >= 0;
+  Item it = {kBig, -1.f, 0.f, 0.f, 0.f};
+  if (n_items <= 32) {
+    const int src = q & 31;
+    it.d = __shfl_sync(kFull, mine.d, src);
+    it.edge = __shfl_sync(kFull, mine.edge, src);
+    it.off = __shfl_sync(kFull, mine.off, src);
+    it.qx = __shfl_sync(kFull, mine.qx, src);
+    it.qy = __shfl_sync(kFull, mine.qy, src);
+  } else if (o < kk) {
+    it = item(q);
+  }
+  if (o >= k) return;
+  // a pad: a sparse grid can hold fewer items than the beam
+  if (o >= kk) it = {kBig, -1.f, 0.f, 0.f, 0.f};
+  const int64_t at = p * k + o;
+  const int32_t e = live ? (int32_t)it.edge : -1;
+  const float dist = live ? it.d : INFINITY;
+  out_edge[at] = e;
+  out_off[at] = it.off;
+  if (out_dist) {  // null on the packed path, which never reads them
+    out_dist[at] = dist;
+    out_cx[at] = it.qx;
+    out_cy[at] = it.qy;
+  }
+  float em = kNegInf;
+  if (live && valid[p] != 0.f) {
+    const float qd = __fdiv_rn(dist, sigma);
+    em = __fmul_rn(-0.5f, __fmul_rn(qd, qd));
+  }
+  out_emis[at] = em;
+  const int64_t er = (int64_t)(e >= 0 ? e : 0) * 8;
+  out_to[at] = __float_as_int(edge_rows[er]);
+  out_from[at] = __float_as_int(edge_rows[er + 1]);
 }
 
 }  // namespace
@@ -189,17 +312,19 @@ extern "C" int candidate_sweep_launch(
     int32_t k, float radius, float sigma, int32_t* out_edge, float* out_off,
     float* out_dist, float* out_cx, float* out_cy, float* out_emis,
     int32_t* out_to, int32_t* out_from, void* stream) {
-  if (k < 1 || k > 32 || cap < 1) return (int)cudaErrorInvalidValue;
-  const int threads = 128;
-  const unsigned blocks = (unsigned)((n_points + threads - 1) / threads);
+  if (k < 1 || k > 32 || cap < 1 || cap > (1 << 28))
+    return (int)cudaErrorInvalidValue;
+  const int64_t blocks = (n_points + kWarps - 1) / kWarps;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (blocks == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  if (4 * k <= 32)
-    candidate_sweep_kernel<32><<<blocks, threads, 0, s>>>(
+  if (4 * (k < cap ? k : cap) <= 32)  // m = min(4K, 4 cap): one pool row
+    candidate_sweep_kernel<32><<<(unsigned)blocks, kWarps * 32, 0, s>>>(
         px, py, valid, cell_rows, edge_rows, n_points, cap, nx, ny, x0, y0,
         cell, k, radius, sigma, out_edge, out_off, out_dist, out_cx, out_cy,
         out_emis, out_to, out_from);
   else
-    candidate_sweep_kernel<128><<<blocks, threads, 0, s>>>(
+    candidate_sweep_kernel<128><<<(unsigned)blocks, kWarps * 32, 0, s>>>(
         px, py, valid, cell_rows, edge_rows, n_points, cap, nx, ny, x0, y0,
         cell, k, radius, sigma, out_edge, out_off, out_dist, out_cx, out_cy,
         out_emis, out_to, out_from);

@@ -119,4 +119,145 @@ __device__ __forceinline__ float transition_logp(
   return feasible ? lp : kNegInf;
 }
 
+// transition_logp split by what each value depends on, for the transition
+// build, which computes a step's and a candidate's parts once and only the
+// pair's part per pair.  Every hoisted value is the same operation on the
+// same operands as in transition_logp, and pair_cut and pair_logp keep
+// its order and roundings, so they give the same bits (an infeasible pair
+// is kNegInf and +inf whatever else transition_logp computes for it): a
+// change to one must be made to the other.  (The chain kernels' seam keeps transition_logp itself:
+// its code generation is fragile, PERF.md.)
+
+// What a step shares: gc and dt between its two points, the max-route
+// cut, the route-time cut's bound, beta (sparse_beta(dt) when SPARSE) and
+// pi * beta.
+struct StepTerms {
+  float gc, dt, max_route, max_time, beta, pi_beta;
+};
+
+template <bool SPARSE>
+__device__ __forceinline__ StepTerms step_terms(float gc, float dt,
+                                                const TransParams& p,
+                                                const SparseArgs& sa) {
+  StepTerms s;
+  s.gc = gc;
+  s.dt = dt;
+  s.max_route = __fmul_rn(p.max_route_factor, __fadd_rn(gc, p.radius));
+  s.max_time = __fmul_rn(p.max_time_factor, fmaxf(dt, 1.0f));
+  s.beta = SPARSE ? sparse_beta(p.beta, sa, dt) : p.beta;
+  s.pi_beta = __fmul_rn(kPi, s.beta);
+  return s;
+}
+
+// What a source candidate (ea, oa) shares over its K pairs: remain, its
+// speed floor, remain / speed_a and its edge's exit heading (era[5]).
+struct SrcTerms {
+  int32_t e;
+  float o, remain, speed, rtime, head;
+};
+
+__device__ __forceinline__ SrcTerms src_terms(int32_t ea, float oa,
+                                              const float* era) {
+  SrcTerms a;
+  a.e = ea;
+  a.o = oa;
+  a.remain = __fsub_rn(era[2], oa);
+  a.speed = fmaxf(era[3], 0.1f);
+  a.rtime = __fdiv_rn(a.remain, a.speed);
+  a.head = era[5];
+  return a;
+}
+
+// What a destination candidate (eb, ob) shares: ob / speed_b and its
+// edge's entry heading (erb[4]).
+struct DstTerms {
+  int32_t e;
+  float o, rtime, head;
+};
+
+__device__ __forceinline__ DstTerms dst_terms(int32_t eb, float ob,
+                                              const float* erb) {
+  DstTerms b;
+  b.e = eb;
+  b.o = ob;
+  b.rtime = __fdiv_rn(ob, fmaxf(erb[3], 0.1f));
+  b.head = erb[4];
+  return b;
+}
+
+// angle_diff's value for every input, with fmodf only outside the range
+// the edge rows' headings give.  fmod(d, 2 pi) is d for d in [0, 2 pi),
+// and d - 2 pi for d in [2 pi, 4 pi), where the subtraction is exact
+// (Sterbenz); for d in (-2 pi, 0) it is d, to which the floored
+// remainder adds 2 pi (-0.0 falls in the first range, as fmodf keeps it).
+__device__ __forceinline__ float angle_diff_fast(float a, float b) {
+  const float d = __fadd_rn(__fsub_rn(b, a), kPi);
+  float r;
+  if (d >= 0.f && d < kTwoPi) {
+    r = d;
+  } else if (d >= kTwoPi && d < 2.f * kTwoPi) {
+    r = __fsub_rn(d, kTwoPi);
+  } else if (d < 0.f && d > -kTwoPi) {
+    r = __fadd_rn(d, kTwoPi);
+  } else {
+    r = fmodf(d, kTwoPi);
+    if (r != 0.f && ((r < 0.f) != (kTwoPi < 0.f))) r = __fadd_rn(r, kTwoPi);
+  }
+  return __fsub_rn(r, kPi);
+}
+
+// transition_logp's cuts for the pair (a, b) at step s (back_tol = 2 sigma
+// + 5): whether it is feasible, its route (*rt) and whether a same-edge
+// rule gave the route (*same_known).  The same-edge time is computed only
+// where the time cut reads it.
+__device__ __forceinline__ bool pair_cut(const SrcTerms& a, const DstTerms& b,
+                                         const StepTerms& s, float sp_dist,
+                                         float sp_time, float back_tol,
+                                         float* rt, bool* same_known) {
+  float r = __fadd_rn(__fadd_rn(a.remain, sp_dist), b.o);
+  float rtime = __fadd_rn(__fadd_rn(a.rtime, sp_time), b.rtime);
+
+  const bool same = a.e == b.e && a.e >= 0;
+  const float delta = __fsub_rn(b.o, a.o);
+  const bool same_fwd = same && delta >= 0.f;
+  const bool same_jitter = same && delta < 0.f && -delta <= back_tol;
+  if (same_fwd) r = delta;
+  if (same_jitter) r = __fmaf_rn(-delta, 1.05f, 1.0f);
+  *same_known = same_fwd || same_jitter;
+  *rt = r;
+
+  const bool ok = a.e >= 0 && b.e >= 0;
+  bool feasible = ok && isfinite(r) && r <= s.max_route;
+  if (feasible && !(s.dt <= 0.f)) {
+    if (*same_known) rtime = __fdiv_rn(fabsf(delta), a.speed);
+    feasible = rtime <= s.max_time;
+  }
+  return feasible;
+}
+
+// transition_logp's value for a feasible pair of route rt at step s, from
+// the source edge's exit heading and the destination edge's entry heading.
+template <bool SPARSE>
+__device__ __forceinline__ float pair_logp(float head_a, float head_b,
+                                           const StepTerms& s, float rt,
+                                           bool same_known,
+                                           const TransParams& p,
+                                           const SparseArgs& sa) {
+  float lp = __fdiv_rn(-fabsf(__fsub_rn(rt, s.gc)), s.beta);
+  float pen = 0.f;
+  if (!same_known) {
+    const float turn = fabsf(angle_diff_fast(head_a, head_b));
+    pen = __fdiv_rn(__fmul_rn(p.turn_factor, turn), s.pi_beta);
+  }
+  lp = __fsub_rn(lp, pen);
+  if (SPARSE && s.dt > 0.f) {
+    const float implied = __fdiv_rn(rt, fmaxf(s.dt, 1.f));
+    const float excess = __fdiv_rn(fmaxf(__fsub_rn(implied, sa.vmax), 0.f),
+                                   fmaxf(sa.vmax, 1.f));
+    // not fused: the compiled reference rounds the product on its own
+    lp = __fsub_rn(lp, __fmul_rn(sa.plaus_weight, excess));
+  }
+  return lp;
+}
+
 }  // namespace rtt
