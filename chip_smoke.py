@@ -164,6 +164,18 @@ delta 3000 m, cuckoo layout) and moves it to the card, then:
      beyond) and probe results (finite, 0, +inf): each equal to its plain
      version bit for bit; both timed at 512 x 64, 128 x 256, 64 x 2,048 (K
      = 8) and A's 512 x 16 (K = 16), kernel 1 also on each cap.
+  13. the redesigned log-depth forward and dedup claim on edge inputs
+     (``assoc_edges``, ``claim_edges``): every instantiation <K, CARRY,
+     SPARSE> of the assoc template at K = 1, 2, 4, 8, 16, 32 and T = 2, 3,
+     17, 64, 256 on rows that restart, break at step 0, break at every
+     step, break for a dead source, end in padding or are all padding,
+     tie, or never break, fresh and continuing live carries of the long
+     cohort (on a 64-slot slab too: rows with ``use`` false, padding
+     rows), the seam tiered (equal fetch counts) and resolved over a gp-4
+     view; the claim on key runs with (-1, -1) keys, all keys equal, all
+     (-1, -1) and all distinct past the budget, in both layouts and in
+     count mode: each equal to its plain version (packed and carry bit for
+     bit, aux rtol 1e-4; distinct counts exact).
 
     python3 chip_smoke.py --pair PARENT [TREE ...]
 
@@ -1820,6 +1832,13 @@ def dedup_fallback(matcher, du_w, n):
               "the fallback was taken and counted: %s" % summ)
         out[layout] = {"n": n, "m": summ["last"][1], "n_unique_at_least": n_unique,
                        "dedup_fallbacks": summ["dedup_fallbacks"]}
+        if matcher.device.type == "cuda":  # the claim and the whole probe, fallen back
+            m, cnt = summ["last"][1], torch.empty(1, dtype=torch.int32, device=s.device)
+            out[layout]["claim_ms"] = time_ms(lambda: H._claim(s, d, None, m, cnt), cold_l2=True,
+                                              label="ubodt_dedup_claim fallback %d" % n)
+            out[layout]["dedup_ms"] = time_ms(lambda: H.ubodt_lookup_dedup(du, s, d, False),
+                                              cold_l2=True,
+                                              label="dedup probe fallback %s %d" % (layout, n))
         print("dedup fallback %s: %d all-distinct keys, m %d, distinct count > m (%d when the "
               "claim stopped), full-width probe on the card, equal to the plain probe"
               % (layout, n, summ["last"][1], n_unique))
@@ -1926,10 +1945,10 @@ def _assoc_ops(T, K):
     at K: level 0's maps, every up- and down-sweep combine (K^2 map entries
     and K restart entries, K add-compare pairs each), the scores and the
     backpointers from the prefixes, the alive recursion."""
-    from reporter_tpu_torch.ops.viterbi import _assoc_levels
-
     n = T - 1
-    levels = _assoc_levels(n)
+    levels = [n]
+    while levels[-1] >= 2:
+        levels.append(levels[-1] // 2)
     combines = sum(c // 2 for c in levels[:-1]) + sum((c - 1) // 2 for c in levels[:-1])
     return (K * K * n + combines * 2 * K * (K * K + K) + 2 * 2 * K * K * n + 2 * K * n)
 
@@ -3535,6 +3554,230 @@ def design_shapes(matcher, shapes, pa, spa):
     return out
 
 
+# -- phase 13: the redesigned log-depth forward (row 9, every instantiation
+# of its template) and dedup claim (row 8b) on edge inputs.  The input
+# makers are numpy only: tests/test_torch_assoc_design.py emulates both
+# designs on the same inputs against the JAX package.
+
+ASSOC_KINDS = ("plain", "break at 0", "every step broken", "dead source", "padded tail",
+               "all padding", "ties", "no breaks")
+ASSOC_TS = (2, 3, 17, 64, 256)
+
+
+def assoc_edge_inputs(B, T, K, seed=0):
+    """Numpy inputs of the log-depth forward at B x T x K whose rows take
+    its branches, row b of kind ``ASSOC_KINDS[b % 8]``: restarts (random
+    infeasible transitions and dead emissions), a hard break at step 0,
+    every step broken, a dead-source break (a point with no alive
+    emission, and a step whose live sources reach nothing), a padded
+    tail, an all-padding row, ties (values on a 0.25 grid) and a row with
+    nothing dead.  Returns float32 emis [B, T, K] (-1e30 dead and on
+    padding), logp [B, T-1, K, K], gc [B, T-1], valid [B, T] (0/1, a
+    prefix), times [B, T] (gaps of -1 to 120 s), init [B, K] (the
+    emissions at t = 0 with a third of the slots dead, as a carried beam
+    has them), int32 cand_edge [B, T, K] (-1 where dead), float32
+    cand_offset and the breakage distance ``brk``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    f32, neg, n = np.float32, np.float32(-1e30), T - 1
+    emis = rng.uniform(-20.0, 0.0, (B, T, K)).astype(f32)
+    emis[rng.uniform(size=(B, T, K)) < 0.2] = neg
+    logp = rng.uniform(-30.0, 0.0, (B, n, K, K)).astype(f32)
+    logp[rng.uniform(size=(B, n, K, K)) < 0.4] = neg
+    gc = rng.uniform(0.0, 100.0, (B, n)).astype(f32)
+    valid = np.ones((B, T), f32)
+    for b in range(B):
+        kind = ASSOC_KINDS[b % len(ASSOC_KINDS)]
+        if kind == "break at 0":
+            gc[b, 0] = 1e5
+        elif kind == "every step broken":
+            gc[b] = 1e5
+        elif kind == "dead source":
+            emis[b, rng.integers(0, T)] = neg
+            s = rng.integers(0, n)
+            logp[b, s, emis[b, s] > neg / 2] = neg
+        elif kind == "padded tail":
+            valid[b, rng.integers(1, T):] = 0.0
+        elif kind == "all padding":
+            valid[b] = 0.0
+        elif kind == "ties":
+            emis[b] = np.where(emis[b] > neg / 2, -rng.integers(0, 8, (T, K)) / 4.0, neg)
+            logp[b] = np.where(logp[b] > neg / 2, -rng.integers(0, 8, (n, K, K)) / 4.0, neg)
+        elif kind == "no breaks":
+            emis[b] = rng.uniform(-20.0, 0.0, (T, K))
+            logp[b] = rng.uniform(-30.0, 0.0, (n, K, K))
+    emis[valid == 0] = neg
+    gaps = rng.choice([-1.0, 0.0, 0.5, 5.0, 45.0, 60.0, 120.0], (B, n))
+    times = np.concatenate([np.zeros((B, 1)), np.cumsum(gaps, 1)], 1).astype(f32)
+    init = emis[:, 0].copy()
+    init[rng.uniform(size=(B, K)) < 0.33] = neg
+    cand_edge = np.where(emis > neg / 2, rng.integers(0, 1000, (B, T, K)), -1).astype(np.int32)
+    cand_offset = rng.uniform(0.0, 400.0, (B, T, K)).astype(f32)
+    return dict(emis=emis, logp=logp, gc=gc, valid=valid, times=times, init=init,
+                cand_edge=cand_edge, cand_offset=cand_offset, brk=150.0)
+
+
+def claim_edge_keys(n=200_000, seed=0):
+    """Numpy int32 (src, dst) key sets of n keys for the dedup claim, by
+    name: "runs" (runs of a few keys repeated, as neighbouring steps give
+    them, with (-1, -1), (-1, x) and (x, -1) keys mixed in), "all equal",
+    "(-1, -1) only" and "all distinct" (n distinct pairs: more than the
+    budget n // 2, the fallback); and a uint8 mask of about half the
+    positions for count mode."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 5000, (n // 16 + 1, 2))
+    runs = np.repeat(base, 16, 0)[:n].copy()
+    swap = rng.uniform(size=n) < 0.3
+    runs[swap] = base[rng.integers(0, len(base), int(swap.sum()))]
+    runs[rng.uniform(size=n) < 0.02] = -1
+    runs[rng.uniform(size=n) < 0.01, 0] = -1
+    runs[rng.uniform(size=n) < 0.01, 1] = -1
+    flat = rng.permutation(n * 4)[:n]
+    keys = {"runs": runs, "all equal": np.full((n, 2), 77), "(-1, -1) only": np.full((n, 2), -1),
+            "all distinct": np.stack([flat // 7919, flat % 7919], 1)}
+    keys = {k: (v[:, 0].astype(np.int32), v[:, 1].astype(np.int32)) for k, v in keys.items()}
+    return keys, (rng.uniform(size=n) < 0.5).astype(np.uint8)
+
+
+def _assoc_same(k, q):
+    """Two (packed, aux[, carry]) results: packed and carry bit for bit,
+    aux within rtol 1e-4."""
+    import torch
+
+    return (torch.equal(k[0], q[0]) and torch.allclose(k[1], q[1], rtol=1e-4, atol=0)
+            and (len(k) < 3 or _carry_same(k[2], q[2])))
+
+
+def assoc_edges(matcher, sm, ubodt, long_traces, B=16):
+    """Phase 13, row 9: every instantiation <K, CARRY, SPARSE> of the
+    log-depth template at K = 1, 2, 4, 8, 16, 32 and T = 2, 3, 17, 64, 256
+    against its plain version (packed output and carry bit for bit, aux
+    rtol 1e-4).  Fresh windows (``viterbi_assoc[sparse]``) on
+    ``assoc_edge_inputs`` (B rows: every kind twice).  Continued windows
+    (``viterbi_chain_assoc[sparse]``): the first B traces of the long
+    cohort cut to 2T points, the second T continuing the carries of the
+    first (the seam probes the metro table), with emis, logp, gc and valid
+    replaced by ``assoc_edge_inputs``'; at T = 3 and 17 also on a 64-slot
+    slab (a quarter of the rows with ``use`` false, two padding rows);
+    at K = 8 and 16, T = 17, the seam resolved over a gp-4 view of the
+    table and on a tiered table (``TIER_PARTIAL``: fetch counts and
+    hit/miss totals equal to the plain version's).  The sparse model's
+    parameters are cohort L's (``sm``).  Returns the cases checked."""
+    import numpy as np
+    import torch
+
+    from reporter_tpu_torch.ops import viterbi as V
+
+    dev, dg, du = matcher.device, matcher._dg, matcher._du
+    pb, spb, _kb = sm.sparse.params_for("ge60")
+    done = []
+    tier, _info = tier_table(ubodt, TIER_PARTIAL, dev)
+    sharded = _views(du, 4)[1]
+    for T in ASSOC_TS:
+        two = [dict(tr, trace=tr["trace"][:2 * T]) for tr in long_traces[:B]]
+        px, py, tm, valid, _t = matcher._fill_rows(two, list(range(B)), 2 * T)
+        xin = torch.from_numpy(V.pack_inputs(px, py, tm, valid)).to(dev)
+        x0, x1 = xin[:, :, :T].contiguous(), xin[:, :, T:].contiguous()
+        for K in (1, 2, 4, 8, 16, 32):
+            e = {k: (torch.from_numpy(v).to(dev) if isinstance(v, np.ndarray) else v)
+                 for k, v in assoc_edge_inputs(B, T, K, seed=T * 64 + K).items()}
+            for p, sp in ((matcher._params, None), (pb, spb)):
+                tag = "" if sp is None else "[sparse]"
+                args = (e["emis"], e["logp"], e["gc"], e["valid"], e["cand_edge"],
+                        e["cand_offset"], e["brk"], e["times"], sp)
+                check(_assoc_same(V.viterbi_scan(*args, kernel="assoc"),
+                                  V.viterbi_scan_plain(*args, kernel="assoc")),
+                      "viterbi_assoc%s %dx%d K=%d (edge inputs) equals its plain version"
+                      % (tag, B, T, K))
+                pre0 = V.precompute_batch_packed(dg, du, x0, p, K, sp)
+                carry = V.viterbi_chain(dg, du, pre0.emis, pre0.logp, pre0.gc,
+                                        *V.unpack_inputs(x0), pre0.cand.edge, pre0.cand.offset,
+                                        p, V.initial_carry_batch(B, K, dev), sp=sp)[2]
+                pre = V.precompute_batch_packed(dg, du, x1, p, K, sp)
+                x, y, t, _v = V.unpack_inputs(x1)
+                win = (e["emis"], e["logp"], e["gc"], x, y, t, e["valid"], pre.cand.edge,
+                       pre.cand.offset, p)
+                what = "viterbi_chain_assoc%s %dx%d K=%d" % (tag, B, T, K)
+                tables = [("", du, None)]
+                if K in (8, 16) and T == 17:
+                    tables += [(" tiered", tier.device(), tier)]
+                for tname, u, tr in tables:
+                    got, dk = _tier_delta(tr, lambda: V.viterbi_chain(
+                        dg, u, *win, carry, sp=sp, kernel="assoc"))
+                    want, dp = _tier_delta(tr, lambda: V.viterbi_chain_plain(
+                        dg, u, *win, carry, sp=sp, kernel="assoc"))
+                    check(_assoc_same(got, want), "%s%s (edge inputs) equals its plain version"
+                          % (what, tname))
+                    _same_fetches(dk, dp, what + tname)
+                if K in (8, 16) and T == 17:
+                    check(_assoc_same(V.viterbi_chain(dg, sharded, *win, carry, sp=sp,
+                                                      kernel="assoc"), got),
+                          "%s: the seam resolved over gp 4 equals the in-kernel probe" % what)
+                if T in (3, 17):
+                    S = 64
+                    rng = np.random.default_rng(T * K)
+                    slots = rng.choice(S, B, replace=False).astype(np.int32)
+                    slots[-2:] = S
+                    use = rng.uniform(size=B) > 0.25
+                    use[-2:] = False
+                    slab = V.initial_carry_batch(S, K, dev)
+                    rows = torch.from_numpy(slots[:-2].astype(np.int64)).to(dev)
+                    for f, c in zip(slab, carry):
+                        f[rows] = c[:-2]
+                    sk, sq = (V.TraceCarry(*(f.clone() for f in slab)) for _ in range(2))
+                    got = V.viterbi_chain(dg, du, *win, sk, slots, use, sp=sp, kernel="assoc")
+                    want = V.viterbi_chain_plain(dg, du, *win, sq, slots, use, sp=sp,
+                                                 kernel="assoc")
+                    check(_assoc_same(got[:2], want[:2]) and _carry_same(sk, sq),
+                          "%s on a slab (use false, padding rows) equals its plain version"
+                          % what)
+                done.append("%s%s T=%d K=%d" % ("assoc", tag, T, K))
+    tier.close()
+    print("assoc edges: viterbi_assoc and viterbi_chain_assoc, dense and sparse, at K = 1, 2, "
+          "4, 8, 16, 32 and T = %s on every kind of row (%s), carried and on a slab, the seam "
+          "tiered and resolved over gp 4: each equal to its plain version (packed and carry "
+          "bit for bit, aux rtol 1e-4)" % (", ".join(map(str, ASSOC_TS)), ", ".join(ASSOC_KINDS)))
+    return done
+
+
+def claim_edges(matcher, du_w):
+    """Phase 13, row 8b: the dedup claim on ``claim_edge_keys`` (both
+    layouts): the deduplicated probe equals the plain probe bit for bit;
+    its distinct count equals ``torch.unique``'s where it is within the
+    budget and exceeds the budget where the set has more keys (the
+    fallback); in count mode (the mask) the count equals the plain
+    count.  Returns {set: (n_unique, m)}."""
+    import torch
+
+    from reporter_tpu_torch.ops import hashtable as H
+
+    dev = matcher.device
+    sets, mask = claim_edge_keys()
+    maskt = torch.from_numpy(mask).to(dev)
+    out = {}
+    for name, (s, d) in sets.items():
+        s, d = torch.from_numpy(s).to(dev), torch.from_numpy(d).to(dev)
+        want_u = int(torch.unique(H._pair_keys(s, d)).numel())
+        for du in (matcher._du, du_w):
+            r = H.ubodt_lookup_dedup(du, s, d)
+            check(_same(r[:3], H.ubodt_lookup_plain(du, s, d)),
+                  "dedup probe (%s, %s) equals the plain probe" % (name, du.layout))
+            u = int(r.n_unique[0])
+            check(u == want_u if want_u <= r.m else u > r.m,
+                  "claim (%s): distinct count %d against %d, budget %d" % (name, u, want_u, r.m))
+        cnt = int(H.count_distinct_pairs(s, d, maskt))
+        check(cnt == int(H.count_distinct_pairs_plain(s, d, maskt)),
+              "count mode (%s): %d distinct among the masked keys" % (name, cnt))
+        out[name] = (u, r.m)
+    print("claim edges: %s: the dedup probe exact in both layouts, distinct counts exact "
+          "within the budget and past it at the fallback, count mode exact"
+          % "; ".join("%s n_unique %d (m %d)" % (k, *v) for k, v in out.items()))
+    return out
+
+
 def parent_kernels(parent, tag):
     """Every kernel library of ``KERNELS`` that ``parent`` (a checkout of
     another tree) has, built from its sources as this tree's are, into
@@ -3574,17 +3817,34 @@ class design:
         self.kernels = kernels
 
     def __enter__(self):
+        import ctypes
+
+        from reporter_tpu_torch.ops import viterbi as V
         from reporter_tpu_torch.ops._kernels import KERNELS
 
         self.saved = {n: (KERNELS[n]._fn, KERNELS[n]._err) for n in self.kernels}
         for n, k in self.kernels.items():
             KERNELS[n]._fn, KERNELS[n]._err = k._fn, k._err
+        self.ws = V._assoc_ws_floats
+        assoc = self.kernels.get("viterbi_assoc")
+        if assoc is not None and not hasattr(ctypes.CDLL(assoc.library),
+                                             "viterbi_assoc_workspace"):
+            # a build from before the workspace query: its kernels take
+            # every level and the [T, K] scores in the workspace
+            def old(T, K, carry, ours=self.ws):
+                levels = [T - 1]
+                while levels[-1] >= 2:
+                    levels.append(levels[-1] // 2)
+                return max(ours(T, K, carry), sum(levels) * (K * K + K) + T * K)
+            V._assoc_ws_floats = old
 
     def __exit__(self, *exc):
+        from reporter_tpu_torch.ops import viterbi as V
         from reporter_tpu_torch.ops._kernels import KERNELS
 
         for n, fe in self.saved.items():
             KERNELS[n]._fn, KERNELS[n]._err = fe
+        V._assoc_ws_floats = self.ws
 
 
 def sass_counts(libs):
@@ -3823,6 +4083,11 @@ def main(pair=()):
                                        (bucket_rows(matcher, traces2048, 2048), 8),
                                        (xin_a, ka)], pa_, spa)
 
+    # the redesigned log-depth forward (row 9) and dedup claim (row 8b) on
+    # edge inputs, each against its plain version
+    assoc_edge = assoc_edges(matcher, sm, matcher.ubodt, traces2048)
+    claim_edge = claim_edges(matcher, du_w)
+
     # launches over the counted runs of every path but serve's; kernels
     # 1-4's times and bounds at 512 x 64, max_abs_err over both bucketed
     # shapes, the session step's and the sparse cohorts A and B (K = 16),
@@ -3964,7 +4229,8 @@ def main(pair=()):
         "mesh": {"kernels": [strip(r) for r in mesh_probe + [hist_row] + slab_rows],
                  "seam": mesh_seam, **mesh},
         "redesign_edges": {"probe": probe_edge, "recursion": rec_edge, "sweep": sweep_edge,
-                           "build": build_edge, "shapes": shape_ms},
+                           "build": build_edge, "shapes": shape_ms, "assoc": assoc_edge,
+                           "claim": claim_edge},
         "metro_reports": n_reports, "peak_memory_mb": torch.cuda.max_memory_allocated() / 1e6,
         "kernels": kernels,
         "extra": dict({"%s_%d" % (r["name"], T): {k: v for k, v in r.items() if k in (

@@ -5,17 +5,27 @@
 // "dedup-sort", "dedup-compact", "dedup-scatter" and the lax.cond to the
 // full-width probe) and :213 count_distinct_pairs.  The reference finds
 // the distinct keys of a dispatch by a lexicographic sort, the TPU's way;
-// here the keys go into a hash set instead:
+// here the keys go into hash sets instead:
 //
-//   claim    one thread per key reads (src, dst) through the same 4-d
-//            strides as kernel 2 (the [B, T-1, K, K] grid is never
-//            materialised) and inserts the 64-bit key src << 32 | dst
-//            into an open-addressing set of next_pow2(2m) slots (linear
-//            probing, atomicCAS).  The winner of a slot takes a compact
-//            index by a warp-aggregated atomicAdd on the distinct count
-//            and, below the budget m, writes its key to the compact
-//            buffers.  Every thread records its key's slot.  Once the
-//            count is past m the fallback is certain and probing stops.
+//   claim    each block takes a contiguous run of 1,024 keys of the
+//            [B, T-1, K, K] grid (read through kernel 2's 4-d strides, never
+//            materialised), 4 a thread, and first deduplicates them in a
+//            hash set in shared memory (a slot that already holds the key
+//            takes no atomic).  Neighbouring steps of a trace share most
+//            of their (to node, from node) pairs, so a run holds far fewer
+//            distinct keys than keys (13.5x fewer in all at 512 x 64, K =
+//            8).  Only the block's distinct keys go to the global set
+//            (next_pow2(2m) slots of 64-bit keys, cleared before the claim;
+//            linear probing by atomicCAS, a slot read first unless the
+//            block's keys are mostly new); the block takes its compact
+//            range by one atomicAdd on the distinct count, and each
+//            global winner below the budget m writes its key to the compact
+//            buffers.  Distinct indices and ranks come from a ballot and
+//            one shared-memory atomic a warp.  Each key finds its global
+//            slot through the block's table.  Once more than m keys are
+//            won (blocks whose keys are mostly new add theirs to a second
+//            count as each warp wins them) the fallback is certain and
+//            insertion stops.
 //   probe    kernel 2 over the compact buffers, n_live = the count.
 //   scatter  a separate launch, so every claim is visible: each key copies
 //            the result at its slot's compact index.  When the count is
@@ -28,14 +38,12 @@
 // The compact order depends on the order in which atomics land; the
 // outputs do not: each position's result is the probe of its own key, so
 // the outputs are bit-identical to the plain probe's, deduplicated or
-// fallen back.  The set (8 bytes a slot, plus a 4-byte compact index) is
-// cleared on the stream before each claim; at 512 x 64 points, K = 8, it
-// is 2,097,152 slots, 25 MB, inside the 50 MB L2.  The count mode (m = 0,
-// a validity mask, no budget, next_pow2(2n) slots) counts the distinct
-// keys among the valid positions: count_distinct_pairs.
+// fallen back.  The count mode (m = 0, a validity mask, no budget,
+// next_pow2(2n) slots) counts the distinct keys among the valid positions:
+// count_distinct_pairs.
 //
-// The key (-1, -1) equals the empty marker: it has a slot of its own at
-// index nslots.
+// The key (-1, -1) equals the empty marker: it has a slot of its own in
+// both sets (index kLocal locally, nslots globally).
 //
 // On a tiered table (a RowSource with a slot map) the fallback reads its
 // rows through the tier (rtt::bucket_row) and counts them, and, when the
@@ -50,6 +58,10 @@
 namespace {
 
 constexpr unsigned long long kEmpty = ~0ull;
+constexpr int kClaimThreads = 256;
+constexpr int kPerThread = 4;
+constexpr int kRun = kClaimThreads * kPerThread;  // keys a block
+constexpr int kLocal = 2 * kRun;                  // the block's set (a power of two)
 
 __device__ __forceinline__ unsigned long long mix64(unsigned long long x) {
   x ^= x >> 30;
@@ -60,59 +72,149 @@ __device__ __forceinline__ unsigned long long mix64(unsigned long long x) {
   return x;
 }
 
-__global__ void claim_kernel(const int32_t* __restrict__ src,
-                             const int32_t* __restrict__ dst, rtt::Grid4 g,
-                             const uint8_t* __restrict__ valid, int64_t n,
-                             unsigned long long* __restrict__ keys,
-                             int64_t nslots, int32_t* __restrict__ sidx,
-                             int32_t* __restrict__ slot_of,
-                             int32_t* __restrict__ csrc,
-                             int32_t* __restrict__ cdst, int64_t m,
-                             int32_t* count) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int lane = threadIdx.x & 31;
-  bool won = false;
-  int64_t slot = -1;
-  int32_t s = 0, d = 0;
-  if (i < n && (valid == nullptr || valid[i] != 0)) {
-    rtt::grid_keys(src, dst, g, i, &s, &d);
-    const unsigned long long key =
-        ((unsigned long long)(uint32_t)s << 32) | (uint32_t)d;
-    if (key == kEmpty) {
-      slot = nslots;
-      won = atomicCAS(&keys[nslots], kEmpty, 0ull) == kEmpty;
-    } else {
-      const unsigned long long smask = (unsigned long long)nslots - 1ull;
-      unsigned long long h = mix64(key) & smask;
-      for (int64_t step = 0; step < nslots; ++step) {
-        const unsigned long long prev = atomicCAS(&keys[h], kEmpty, key);
-        if (prev == kEmpty || prev == key) {
-          won = prev == kEmpty;
-          slot = (int64_t)h;
-          break;
-        }
-        if (m > 0 && *(volatile int32_t*)count > m) break;  // fallback
-        h = (h + 1ull) & smask;
-      }
-    }
+// Insert ``key`` into the global set; returns its slot (-1 when the
+// fallback became certain first) and sets *won for its first claimant.
+// A slot is read before its atomicCAS (a slot that already holds the key
+// takes no atomic), except the first when ``cas_first`` (a block whose
+// keys are mostly new).  ``won_so_far`` counts from -1.
+__device__ __forceinline__ int64_t global_insert(unsigned long long key,
+                                                 unsigned long long* keys,
+                                                 int64_t nslots, int64_t m,
+                                                 const int32_t* won_so_far,
+                                                 bool cas_first, bool* won) {
+  *won = false;
+  if (key == kEmpty) {
+    *won = atomicCAS(&keys[nslots], kEmpty, 0ull) == kEmpty;
+    return nslots;
   }
-  // the warp's winners take consecutive compact indices
+  const unsigned long long smask = (unsigned long long)nslots - 1ull;
+  unsigned long long h = mix64(key) & smask;
+  for (int64_t step = 0; step < nslots; ++step) {
+    unsigned long long prev = cas_first && step == 0 ? kEmpty : __ldcg(keys + h);
+    if (prev == kEmpty) prev = atomicCAS(&keys[h], kEmpty, key);
+    if (prev == kEmpty) {
+      *won = true;
+      return (int64_t)h;
+    }
+    if (prev == key) return (int64_t)h;
+    if (m > 0 && *(volatile const int32_t*)won_so_far >= m) return -1;  // fallback
+    h = (h + 1ull) & smask;
+  }
+  return -1;
+}
+
+// Each winning lane of the warp its index: base (one atomicAdd on *n a
+// warp) plus its rank among the warp's winners; -1 for a lane that lost.
+__device__ __forceinline__ int warp_index(bool won, int32_t* n) {
   const unsigned ball = __ballot_sync(0xffffffffu, won);
-  if (ball != 0u) {
-    const int leader = __ffs(ball) - 1;
-    int base = 0;
-    if (lane == leader) base = atomicAdd(count, __popc(ball));
-    base = __shfl_sync(0xffffffffu, base, leader);
-    if (won && m > 0) {
-      const int idx = base + __popc(ball & ((1u << lane) - 1u));
-      sidx[slot] = idx;
-      if (idx < m) {
-        csrc[idx] = s;
-        cdst[idx] = d;
+  if (ball == 0u) return -1;
+  const int lane = threadIdx.x & 31, leader = __ffs(ball) - 1;
+  int base = 0;
+  if (lane == leader) base = atomicAdd(n, __popc(ball));
+  base = __shfl_sync(0xffffffffu, base, leader);
+  return won ? base + __popc(ball & ((1u << lane) - 1u)) : -1;
+}
+
+__global__ void __launch_bounds__(kClaimThreads)
+claim_kernel(const int32_t* __restrict__ src, const int32_t* __restrict__ dst,
+             rtt::Grid4 g, const uint8_t* __restrict__ valid, int64_t n,
+             unsigned long long* __restrict__ keys, int64_t nslots,
+             int32_t* __restrict__ sidx, int32_t* __restrict__ slot_of,
+             int32_t* __restrict__ csrc, int32_t* __restrict__ cdst, int64_t m,
+             int32_t* count, int32_t* won_so_far) {
+  __shared__ unsigned long long lkeys[kLocal];
+  __shared__ int16_t lidx[kLocal + 1];  // local slot -> the block's distinct index
+  __shared__ int16_t dslot[kRun];       // distinct index -> local slot
+  __shared__ int16_t rank[kRun];        // distinct index -> rank among the winners, -1
+  __shared__ int32_t gslot[kRun];       // distinct index -> global slot
+  __shared__ int32_t n_local, n_won, base, empty_seen, done;
+  const int tid = threadIdx.x;
+  const int64_t run = (int64_t)blockIdx.x * kRun;
+  for (int s = tid; s < kLocal; s += kClaimThreads) lkeys[s] = kEmpty;
+  if (tid == 0) {
+    n_local = n_won = empty_seen = 0;
+    done = m > 0 && *(volatile const int32_t*)won_so_far >= m;
+  }
+  __syncthreads();
+  // the fallback is certain already: nothing of this run is needed (the
+  // scatter reads no slot then)
+  if (done) return;
+
+  // the block's keys into its set: the first claimant of a local slot
+  // gives the key a distinct index
+  int ls[kPerThread];
+#pragma unroll
+  for (int r = 0; r < kPerThread; ++r) {
+    const int64_t i = run + r * kClaimThreads + tid;
+    const bool live = i < n && (valid == nullptr || valid[i] != 0);
+    int32_t s = 0, d = 0;
+    if (live) rtt::grid_keys(src, dst, g, i, &s, &d);
+    const unsigned long long key = ((unsigned long long)(uint32_t)s << 32) | (uint32_t)d;
+    int h = -1;
+    bool won = false;
+    if (live && key == kEmpty) {
+      h = kLocal;
+      won = atomicCAS(&empty_seen, 0, 1) == 0;
+    } else if (live) {
+      h = (int)((unsigned)mix64(key) & (kLocal - 1));
+      for (;;) {
+        unsigned long long prev = *(volatile unsigned long long*)&lkeys[h];
+        if (prev == kEmpty) prev = atomicCAS(&lkeys[h], kEmpty, key);
+        won = prev == kEmpty;
+        if (won || prev == key) break;
+        h = (h + 1) & (kLocal - 1);
       }
     }
+    const int li = warp_index(won, &n_local);
+    if (won) {
+      lidx[h] = (int16_t)li;
+      dslot[li] = (int16_t)h;
+    }
+    ls[r] = h;
   }
-  if (slot_of != nullptr && i < n) slot_of[i] = (int32_t)slot;
+  __syncthreads();
+
+  // the block's distinct keys into the global set; none once more than m
+  // keys are won (the fallback is certain then)
+  const int U = n_local;
+  const bool mostly_new = U >= kRun / 4;  // its winners are counted as they come
+  for (int l0 = 0; l0 < U; l0 += kClaimThreads) {
+    const int li = l0 + tid;
+    bool won = false;
+    if (li < U) {
+      const int h = dslot[li];
+      const bool stop = m > 0 && *(volatile const int32_t*)won_so_far >= m;
+      gslot[li] = (int32_t)(stop ? -1
+                                 : global_insert(h == kLocal ? kEmpty : lkeys[h], keys,
+                                                 nslots, m, won_so_far, mostly_new, &won));
+    }
+    const int rk = warp_index(won, &n_won);
+    if (li < U) rank[li] = (int16_t)rk;
+    if (m > 0 && mostly_new) {
+      const unsigned w = __ballot_sync(0xffffffffu, won);
+      if ((tid & 31) == 0 && w) atomicAdd(won_so_far, __popc(w));
+    }
+  }
+  __syncthreads();
+  if (tid == 0) base = n_won ? atomicAdd(count, n_won) : 0;  // the block's range
+  __syncthreads();
+  if (m == 0) return;  // count mode
+  for (int li = tid; li < U; li += kClaimThreads) {
+    if (rank[li] < 0) continue;
+    const int idx = base + rank[li];
+    sidx[gslot[li]] = idx;
+    if (idx < m) {
+      const int h = dslot[li];
+      const unsigned long long key = h == kLocal ? kEmpty : lkeys[h];
+      csrc[idx] = (int32_t)(key >> 32);
+      cdst[idx] = (int32_t)(uint32_t)key;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kPerThread; ++r) {
+    const int64_t i = run + r * kClaimThreads + tid;
+    if (i < n) slot_of[i] = ls[r] < 0 ? -1 : gslot[lidx[ls[r]]];
+  }
 }
 
 __global__ void scatter_kernel(const int64_t n,
@@ -152,10 +254,10 @@ inline int64_t blocks_for(int64_t n) { return (n + kThreads - 1) / kThreads; }
 
 }  // namespace
 
-// Clears the set (keys: nslots + 1 int64, nslots a power of two) and the
-// count, then claims.  valid: uint8 [n] or null.  m > 0: dedup (sidx
-// [nslots + 1], slot_of [n], csrc/cdst [m]); m == 0: count mode, the
-// four may be null.
+// Clears the set (keys: nslots + 2 int64, nslots a power of two; the last
+// holds the keys won so far, from -1) and the count, then claims.  valid:
+// uint8 [n] or null.  m > 0: dedup (sidx [nslots + 1], slot_of [n],
+// csrc/cdst [m]); m == 0: count mode, the four may be null.
 extern "C" int ubodt_dedup_claim_launch(
     const int32_t* src, const int32_t* dst, const int64_t* dims,
     const int64_t* src_strides, const int64_t* dst_strides,
@@ -167,14 +269,15 @@ extern "C" int ubodt_dedup_claim_launch(
   cudaStream_t st = (cudaStream_t)stream;
   if (nslots <= 0 || (nslots & (nslots - 1)) != 0)
     return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaMemsetAsync(keys, 0xFF, (size_t)(nslots + 1) * 8, st);
+  cudaError_t e = cudaMemsetAsync(keys, 0xFF, (size_t)(nslots + 2) * 8, st);
   if (e == cudaSuccess) e = cudaMemsetAsync(count, 0, sizeof(int32_t), st);
   if (e != cudaSuccess) return (int)e;
   if (n <= 0) return 0;
-  if (blocks_for(n) > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  claim_kernel<<<(unsigned)blocks_for(n), kThreads, 0, st>>>(
-      src, dst, g, valid, n, reinterpret_cast<unsigned long long*>(keys),
-      nslots, sidx, slot_of, csrc, cdst, m, count);
+  const int64_t blocks = (n + kRun - 1) / kRun;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  claim_kernel<<<(unsigned)blocks, kClaimThreads, 0, st>>>(
+      src, dst, g, valid, n, reinterpret_cast<unsigned long long*>(keys), nslots,
+      sidx, slot_of, csrc, cdst, m, count, reinterpret_cast<int32_t*>(keys + nslots + 1));
   return (int)cudaGetLastError();
 }
 

@@ -139,6 +139,91 @@ struct ViterbiArgs {
   int32_t* choice;           // [2, B, T] chosen slot and its backpointer, or null
 };
 
+// The seam's parts, one carried slot i and one destination slot j at a
+// time (seam_column loops i; the log-depth kernels give each (i, j) a
+// thread).  SeamRow: what every entry of trace ``bb`` reads: its carry
+// row (the slab row through ``slots``, -1 for none), whether that carry is
+// active, its chosen slot, and the window's first point's distance and
+// time gap from the carried point.
+struct SeamRow {
+  int64_t row;
+  bool active;
+  int committed;
+  float gc0, dt0;
+};
+
+__device__ __forceinline__ SeamRow seam_row(const ViterbiArgs& a, int64_t bb) {
+  SeamRow r;
+  r.row = bb;
+  if (a.slots) {
+    const int64_t sl = a.slots[bb];
+    r.row = a.use[bb] ? (sl < a.S ? sl : a.S - 1) : -1;
+  }
+  r.active = r.row >= 0 && a.in.active[r.row] != 0;
+  r.committed = r.row >= 0 ? a.in.committed[r.row] : -1;
+  const float cx = r.row >= 0 ? a.in.x[r.row] : 0.f;
+  const float cy = r.row >= 0 ? a.in.y[r.row] : 0.f;
+  const float ct = r.row >= 0 ? a.in.t[r.row] : 0.f;
+  const int64_t p0 = bb * a.T;
+  r.gc0 = rtt::hypot_like_jax(__fsub_rn(a.px[p0], cx), __fsub_rn(a.py[p0], cy));
+  r.dt0 = __fsub_rn(a.times[p0], ct);
+  return r;
+}
+
+// The window's first candidate j: its edge, offset, edge row and from-node.
+struct SeamDst {
+  int32_t eb;
+  float ob;
+  const float* erb;
+  int32_t from_b;
+};
+
+template <int K>
+__device__ __forceinline__ SeamDst seam_dst(const ViterbiArgs& a, int64_t bb, int j) {
+  SeamDst d;
+  d.eb = a.cand_edge[bb * a.T * K + j];
+  d.ob = a.cand_offset[bb * a.T * K + j];
+  d.erb = a.edge_rows + (int64_t)(d.eb >= 0 ? d.eb : 0) * 8;
+  d.from_b = __float_as_int(d.erb[1]);
+  return d;
+}
+
+// The seam transition's logp from carried slot i into d (UBODT probe, or
+// on a gp mesh the resolved seam_dist / seam_time); *sc: slot i's carried
+// score.  ``count``: the probe counts as fetches of a tiered table.
+template <int K, bool SPARSE, int kProbeBatch>
+__device__ __forceinline__ float seam_logp(const ViterbiArgs& a, int64_t bb,
+                                           const SeamRow& r, const SeamDst& d,
+                                           int i, int j, bool count, int* hits,
+                                           int* fetches, float* sc) {
+  const int32_t ea = r.row >= 0 ? a.in.edge[r.row * K + i] : -1;
+  const float oa = r.row >= 0 ? a.in.offset[r.row * K + i] : 0.f;
+  *sc = r.row >= 0 ? a.in.scores[r.row * K + i] : kNegInf;
+  const float* era = a.edge_rows + (int64_t)(ea >= 0 ? ea : 0) * 8;
+  float sp_dist, sp_time;
+  if (a.seam_dist) {
+    const int64_t q = (bb * K + i) * K + j;
+    sp_dist = a.seam_dist[q];
+    sp_time = a.seam_time[q];
+  } else {
+    rtt::probe_serial<kProbeBatch>(a.ubodt, a.tier, a.bmask, a.wide,
+                                   __float_as_int(era[0]), d.from_b, &sp_dist,
+                                   &sp_time, count, hits, fetches);
+  }
+  return rtt::transition_logp<SPARSE>(ea, d.eb, oa, d.ob, era, d.erb, sp_dist,
+                                      sp_time, r.gc0, r.dt0, a.tp, a.sa,
+                                      nullptr);
+}
+
+// The seam's breakage: too far apart, nothing connects (``any``: some
+// destination slot's best is alive), or no live carry.
+template <bool SPARSE>
+__device__ __forceinline__ bool seam_break(const ViterbiArgs& a,
+                                           const SeamRow& r, bool any) {
+  const float brk0 = SPARSE ? rtt::sparse_breakage(a.brk, a.sa, r.dt0) : a.brk;
+  return r.gc0 > brk0 || !any || !r.active;
+}
+
 // The seam: the transition from the carried beam (row ``bb``'s carry, or
 // its slab row) into destination slot j of the window's first point.
 // Called by whole warps: lanes in the group of ``gmask`` share a trace.
@@ -147,58 +232,25 @@ struct ViterbiArgs {
 // from it to slot j).  ``count``: this lane's probes count as fetches of a
 // tiered table (false for a lane that repeats another's trace).
 // kProbeBatch: probe_serial's entries loaded at once (the recursion
-// kernel's 16; the assoc kernels keep 1, which their code generation
-// favours).
+// kernel's 16; the log-depth kernels give each probe a thread of its own
+// instead, seam_logp).
 template <int K, bool SPARSE, int kProbeBatch = 1>
 __device__ __forceinline__ float seam_column(const ViterbiArgs& a, int64_t bb,
                                              int j, unsigned gmask,
                                              bool& first_break, int& committed,
                                              float& lp_committed,
                                              bool count) {
-  const int T = a.T;
-  const float* em = a.emis + bb * T * K;
-  const int32_t* ce = a.cand_edge + bb * T * K;
-  const float* co = a.cand_offset + bb * T * K;
-  int64_t row = bb;
-  if (a.slots) {
-    const int64_t sl = a.slots[bb];
-    row = a.use[bb] ? (sl < a.S ? sl : a.S - 1) : -1;
-  }
-  const bool active = row >= 0 && a.in.active[row] != 0;
-  committed = row >= 0 ? a.in.committed[row] : -1;
-  const float cx = row >= 0 ? a.in.x[row] : 0.f;
-  const float cy = row >= 0 ? a.in.y[row] : 0.f;
-  const float ct = row >= 0 ? a.in.t[row] : 0.f;
-  const int64_t p0 = bb * T;
-  const float gc0 = rtt::hypot_like_jax(__fsub_rn(a.px[p0], cx),
-                                        __fsub_rn(a.py[p0], cy));
-  const float dt0 = __fsub_rn(a.times[p0], ct);
-  const int32_t eb = ce[j];
-  const float ob = co[j];
-  const float* erb = a.edge_rows + (int64_t)(eb >= 0 ? eb : 0) * 8;
-  const int32_t from_b = __float_as_int(erb[1]);
+  const SeamRow r = seam_row(a, bb);
+  const SeamDst d = seam_dst<K>(a, bb, j);
+  committed = r.committed;
   const int c = committed > 0 ? committed : 0;
   float best = 0.f;
   lp_committed = kNegInf;
   int hits = 0, fetches = 0;
   for (int i = 0; i < K; ++i) {
-    const int32_t ea = row >= 0 ? a.in.edge[row * K + i] : -1;
-    const float oa = row >= 0 ? a.in.offset[row * K + i] : 0.f;
-    const float sc = row >= 0 ? a.in.scores[row * K + i] : kNegInf;
-    const float* era = a.edge_rows + (int64_t)(ea >= 0 ? ea : 0) * 8;
-    float sp_dist, sp_time;
-    if (a.seam_dist) {
-      const int64_t q = (bb * K + i) * K + j;
-      sp_dist = a.seam_dist[q];
-      sp_time = a.seam_time[q];
-    } else {
-      rtt::probe_serial<kProbeBatch>(a.ubodt, a.tier, a.bmask, a.wide,
-                        __float_as_int(era[0]), from_b, &sp_dist, &sp_time,
-                        count, &hits, &fetches);
-    }
-    const float lp = rtt::transition_logp<SPARSE>(
-        ea, eb, oa, ob, era, erb, sp_dist, sp_time, gc0, dt0, a.tp, a.sa,
-        nullptr);
+    float sc;
+    const float lp = seam_logp<K, SPARSE, kProbeBatch>(a, bb, r, d, i, j, count,
+                                                       &hits, &fetches, &sc);
     if (i == c) lp_committed = lp;
     const float tot = __fadd_rn(sc, lp);
     if (i == 0 || tot > best) best = tot;
@@ -210,10 +262,9 @@ __device__ __forceinline__ float seam_column(const ViterbiArgs& a, int64_t bb,
   }
   const bool connected = best > kNegInf / 2;
   const bool any = (__ballot_sync(0xffffffffu, connected) & gmask) != 0u;
-  const float brk0 = SPARSE ? rtt::sparse_breakage(a.brk, a.sa, dt0) : a.brk;
-  // breakage: too far apart, nothing connects, or no live carry
-  first_break = gc0 > brk0 || !any || !active;
-  return first_break ? em[j] : __fadd_rn(best, em[j]);
+  first_break = seam_break<SPARSE>(a, r, any);
+  const float e = a.emis[bb * a.T * K + j];
+  return first_break ? e : __fadd_rn(best, e);
 }
 
 // One point's part of the confidence aux and its local argmax, from its
@@ -259,6 +310,43 @@ struct Aux {
   }
 };
 
+// The carry-out of trace b by lane j (one of K): at the last valid point
+// ``last`` (-1: none), the scores renormalised by their max (``score`` is
+// slot j's at T-1, s[] all K: padded steps froze them, so that is the beam
+// there), the candidates, position and chosen slot; to the slab row
+// through ``slots`` (a padding row writes nothing) or row b.
+template <int K>
+__device__ __forceinline__ void carry_out(const ViterbiArgs& a, int64_t b,
+                                          int j, const int8_t* idx, int last,
+                                          float score, const float (&s)[K]) {
+  const int T = a.T;
+  const int32_t* ce = a.cand_edge + b * T * K;
+  const float* co = a.cand_offset + b * T * K;
+  int64_t orow = b;
+  if (a.slots) {
+    const int64_t sl = a.slots[b];
+    orow = sl < a.S ? sl : -1;  // padding rows drop
+  }
+  if (orow < 0) return;
+  const bool any_valid = last >= 0;
+  const int at = any_valid ? last : 0;
+  float smax = s[0];
+#pragma unroll
+  for (int i = 1; i < K; ++i) smax = s[i] > smax ? s[i] : smax;
+  a.out.scores[orow * K + j] =
+      (score > kNegInf / 2 && smax > kNegInf / 2) ? __fsub_rn(score, smax)
+                                                  : kNegInf;
+  a.out.edge[orow * K + j] = ce[(int64_t)at * K + j];
+  a.out.offset[orow * K + j] = co[(int64_t)at * K + j];
+  if (j == 0) {
+    a.out.x[orow] = a.px[b * T + at];
+    a.out.y[orow] = a.py[b * T + at];
+    a.out.t[orow] = a.times[b * T + at];
+    a.out.active[orow] = any_valid ? 1 : 0;
+    a.out.committed[orow] = any_valid ? (int32_t)idx[at] : -1;
+  }
+}
+
 // The end of trace b, by the K lanes j of its group once the chosen
 // slots idx[T] and break flags brk_flag[T] are in shared memory (lanes
 // that are not ``live`` pass a real row b and write nothing): with
@@ -269,7 +357,7 @@ struct Aux {
 // ``score`` is slot j's score at T-1 and s[] all K of them (padded steps
 // froze the scores, so that is the beam there), renormalised by the max.
 // Each lane writes its points kBatch at a time, every load of a batch
-// before its stores (the recursion kernel's 8; the assoc kernels keep 1).
+// before its stores.
 template <int K, bool CARRY, int kBatch = 1>
 __device__ __forceinline__ void finish_trace(
     const ViterbiArgs& a, int64_t b, int j, bool live, const int8_t* idx,
@@ -323,31 +411,7 @@ __device__ __forceinline__ void finish_trace(
     a.aux[b * 4 + 3] = ax.aexh;
   }
 
-  if constexpr (CARRY) {
-    int64_t orow = b;
-    if (a.slots) {
-      const int64_t sl = a.slots[b];
-      orow = sl < a.S ? sl : -1;  // padding rows drop
-    }
-    if (orow < 0) return;
-    const bool any_valid = last >= 0;
-    const int at = any_valid ? last : 0;
-    float smax = s[0];
-#pragma unroll
-    for (int i = 1; i < K; ++i) smax = s[i] > smax ? s[i] : smax;
-    a.out.scores[orow * K + j] =
-        (score > kNegInf / 2 && smax > kNegInf / 2) ? __fsub_rn(score, smax)
-                                                    : kNegInf;
-    a.out.edge[orow * K + j] = ce[(int64_t)at * K + j];
-    a.out.offset[orow * K + j] = co[(int64_t)at * K + j];
-    if (j == 0) {
-      a.out.x[orow] = a.px[b * T + at];
-      a.out.y[orow] = a.py[b * T + at];
-      a.out.t[orow] = a.times[b * T + at];
-      a.out.active[orow] = any_valid ? 1 : 0;
-      a.out.committed[orow] = any_valid ? (int32_t)idx[at] : -1;
-    }
-  }
+  if constexpr (CARRY) carry_out<K>(a, b, j, idx, last, score, s);
 }
 
 // The prefetch ring: each step's [K, K] logp slab, staged kDepth - 1

@@ -238,6 +238,17 @@ def memory_type(addr: int) -> int:
     return int(_probe_lib().ubodt_memory_type(_P(addr)))
 
 
+def library_function(kernel: str, symbol: str, restype, argtypes):
+    """A plain C function of ``kernel``'s library (a size query), after
+    building and binding the kernels if needed."""
+    k = KERNELS[kernel]
+    if k._fn is None:
+        build_kernels()
+    fn = getattr(ctypes.CDLL(k.library), symbol)
+    fn.restype, fn.argtypes = restype, argtypes
+    return fn
+
+
 def reset_launches() -> None:
     for k in KERNELS.values():
         k.launches = 0

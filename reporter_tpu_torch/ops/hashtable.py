@@ -19,7 +19,8 @@ probe runs.  The outputs are bit-identical to the plain probe's in every
 case: each position's result is a function of its key alone.
 
 On the card the sort is replaced by a hash set (``csrc/ubodt_dedup.cu``):
-a claim kernel inserts every key into an open-addressing set and compacts
+a claim kernel deduplicates each block's run of keys in shared memory,
+inserts the run's distinct keys into an open-addressing set and compacts
 the distinct ones, kernel 2 probes the compact buffer, and a scatter
 kernel copies each key's result back, or, when the distinct count is past
 the budget, probes its keys itself.  The claim kernel in count mode is
@@ -337,7 +338,8 @@ def _next_pow2(x: int) -> int:
 def _claim(src, dst, valid, m: int, count: torch.Tensor):
     """Launch the claim kernel over broadcast keys: every key (where
     ``valid``, a contiguous uint8 mask of the broadcast shape) inserted
-    into a set of next_pow2(2 * budget) slots and the distinct count
+    (after its block's own dedup) into a set of next_pow2(2 * budget)
+    slots and the distinct count
     written to ``count``.  With ``m`` > 0 (dedup) the first m distinct
     keys are also compacted; returns (slot of each key, compact index of
     each slot, compact src, compact dst).  ``m`` == 0 (count mode): no
@@ -346,7 +348,8 @@ def _claim(src, dst, valid, m: int, count: torch.Tensor):
     n = src.numel()
     dims, s_str, d_str = _grid(src, dst)
     nslots = _next_pow2(2 * (m if m else n))
-    keys = torch.empty(nslots + 1, dtype=torch.int64, device=dev)
+    # the set's keys, then the keys won so far (the kernel clears both)
+    keys = torch.empty(nslots + 2, dtype=torch.int64, device=dev)
     i32 = lambda k: torch.empty(k, dtype=torch.int32, device=dev)  # noqa: E731
     slot_of, sidx, cs, cd = ((i32(n), i32(nslots + 1), i32(m), i32(m)) if m
                              else (None,) * 4)

@@ -64,6 +64,7 @@ reference a chip run holds the kernels against on the card).
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import math
 from typing import NamedTuple, Optional, Sequence
 
@@ -74,7 +75,7 @@ from ..device import upload
 from ..tiles.arrays import DeviceGraph
 from ..tiles.ubodt import DeviceUBODT, ShardedUBODT
 from . import collectives
-from ._kernels import KERNELS, check, ptr
+from ._kernels import KERNELS, check, library_function, ptr
 from .candidates import (
     NEG_INF, Candidates, _scalar, candidate_sweep, candidate_sweep_plain, fma,
     hypot_like_jax,
@@ -637,8 +638,8 @@ def viterbi_scan(emis, logp, gc, valid, cand_edge, cand_offset,
         args = [ptr(emis), ptr(logp), ptr(gc), ptr(valid), ptr(cand_edge),
                 ptr(cand_offset), B, T, K, float(breakage_distance),
                 ptr(packed), ptr(aux)]
-        ws = _assoc_workspace(B, T, K, dev) if kname == "viterbi_assoc" else None
-        if ws is not None:  # held until the launch is queued
+        if kname == "viterbi_assoc":  # the workspace, held until the launch is queued
+            ws = _assoc_workspace(B, T, K, dev, carry=False)
             args.append(ptr(ws))
         if sp is None:
             if kname == "viterbi_scan":
@@ -846,8 +847,8 @@ def viterbi_chain(dg: DeviceGraph, du: DeviceUBODT, emis, logp, gc, px, py,
                 else (None, None))
         if not sharded:
             note_lookup(du)
-        ws = (_assoc_workspace(B, T, K, dev) if kname == "viterbi_chain_assoc"
-              else None)
+        ws = (_assoc_workspace(B, T, K, dev, carry=True)
+              if kname == "viterbi_chain_assoc" else None)
         with (contextlib.nullcontext((ptr(None), [ptr(None)] * 4)) if sharded
               else table_args(du)) as (table, tier):
             args = [ptr(emis), ptr(logp), ptr(gc), ptr(valid), ptr(cand_edge),
@@ -861,7 +862,7 @@ def viterbi_chain(dg: DeviceGraph, du: DeviceUBODT, emis, logp, gc, px, py,
                     float(p.turn_penalty_factor),
                     *(ptr(t) for t in carry), *(ptr(t) for t in out), ptr(sl),
                     ptr(use), S, ptr(packed), ptr(aux)]
-            if ws is not None:  # held until the launch is queued
+            if kname == "viterbi_chain_assoc":  # held until the launch is queued
                 args.append(ptr(ws))
             if sp is None:
                 KERNELS[kname].launch(dev, *args)
@@ -870,21 +871,21 @@ def viterbi_chain(dg: DeviceGraph, du: DeviceUBODT, emis, logp, gc, px, py,
     return packed, aux, out
 
 
-def _assoc_levels(n: int):
-    """Sizes of the assoc scan's levels over n maps: n, then each level
-    half the one before (rounded down) while that one had two or more."""
-    sizes = [n]
-    while sizes[-1] >= 2:
-        sizes.append(sizes[-1] // 2)
-    return sizes
+def _assoc_workspace(B: int, T: int, K: int, device, carry: bool):
+    """Global scratch of the assoc kernels, or None where a trace's scan
+    fits in shared memory.  Per trace (csrc/viterbi_assoc.cu's
+    ``level_floats``): every level's [K, K] maps, the stored prefix maps
+    of the levels above the first, then every level's [K] restart vectors,
+    as the library's ``viterbi_assoc_workspace`` sizes them."""
+    per = _assoc_ws_floats(T, K, carry)
+    return torch.empty(B * per, dtype=torch.float32, device=device) if per else None
 
 
-def _assoc_workspace(B: int, T: int, K: int, device) -> torch.Tensor:
-    """Global scratch of the assoc kernels, per trace: every level of the
-    scan (a [K, K] map and a [K] restart vector per element) and the
-    [T, K] prefix scores.  The layout is csrc/viterbi_assoc.cu's."""
-    per = sum(_assoc_levels(T - 1)) * (K * K + K) + T * K
-    return torch.empty(B * per, dtype=torch.float32, device=device)
+def _assoc_ws_floats(T: int, K: int, carry: bool) -> int:
+    """Floats of global workspace one trace needs (0: its scan fits in
+    shared memory), from the library's ``viterbi_assoc_workspace``."""
+    return library_function("viterbi_assoc", "viterbi_assoc_workspace", ctypes.c_int64,
+                            [ctypes.c_int32] * 3)(T, K, int(carry))
 
 
 # -- composition ---------------------------------------------------------------

@@ -314,8 +314,12 @@ def test_unknown_kernel_raises():
 @pytest.fixture
 def launched(monkeypatch):
     """Every kernel replaced by a recorder of (name, arguments passed, the
-    C function's arity), so that the wrappers' launch side runs here."""
+    C function's arity), so that the wrappers' launch side runs here; the
+    assoc kernels' workspace query (their library's) answers 0 floats a
+    trace below T = 4 (the levels in shared memory), 5 T K above."""
     from reporter_tpu_torch.ops import _kernels
+
+    monkeypatch.setattr(V, "_assoc_ws_floats", lambda T, K, carry: 0 if T < 4 else 5 * T * K)
 
     calls = []
     for name, k in list(_kernels.KERNELS.items()):
@@ -359,8 +363,9 @@ def test_wrappers_launch_by_forward_and_length(launched, T, sparse):
             [("viterbi_chain_assoc" if assoc else "viterbi_chain") + tag] * 2
         assert [c[0] for c in launched] == names
         assert all(n == arity for _name, n, arity in launched)
-    assert V._assoc_workspace(B, T, K, dev).numel() == \
-        B * (sum(V._assoc_levels(T - 1)) * (K * K + K) + T * K)
+    for carry in (False, True):
+        ws = V._assoc_workspace(B, T, K, dev, carry)
+        assert ws is None if T < 4 else ws.numel() == B * 5 * T * K
 
 
 # -- the matcher ---------------------------------------------------------------
