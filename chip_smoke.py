@@ -133,9 +133,10 @@ delta 3000 m, cuckoo layout) and moves it to the card, then:
      x 256 (counts exact, sums within rtol 1e-5), timed beside four
      ``index_add_`` calls; ``slab_gather_owned`` / ``slab_scatter_owned``
      at dp 2 and 4 against their plain versions and the single slab, bit
-     for bit; then, through the launch counters, a dp2 and a dp2 x gp4
-     matcher over the bucketed, long and sparse A paths (and wide32 on
-     gp4), and 512 sessions x 4 steps on the slot-sharded slab with
+     for bit (timed at rank 0 of dp 2 and 4, K = 8; of dp 2 at K = 16
+     and at B = 4,096); then, through the launch counters, a dp2 and a
+     dp2 x gp4 matcher over the bucketed, long and sparse A paths (and
+     wide32 on gp4), and 512 sessions x 4 steps on the slot-sharded slab with
      evictions mid-stream, each answer equal to one card's;
      ``graph_sharded_match_fn`` on dp2 x gp4 against
      ``match_and_histogram``; 8 /report and the fixture replay under
@@ -176,6 +177,23 @@ delta 3000 m, cuckoo layout) and moves it to the card, then:
      (-1, -1) and all distinct past the budget, in both layouts and in
      count mode: each equal to its plain version (packed and carry bit for
      bit, aux rtol 1e-4; distinct counts exact).
+  14. the redesigned slab kernels (row 11c) on edge inputs
+     (``slab_edges``): at K = 1, 2, 3, 4, 7, 8, 9, 16, 27, 32, B = 1, 7,
+     33, 512, 4,096 and dp 1, 2, 4, 8, on slot maps whose live rows are
+     all rank 0's, all other ranks', none (all padding), anywhere, or the
+     boundary slots of every shard, over a slab with -0.0 and NaN payloads
+     in every float leaf (and shards that are views one row into their
+     storage): each rank's gather and scatter equal their plain versions
+     bit for bit, the psum of the gathers is the slab's rows and the
+     scattered slab has exactly its live rows written; then one
+     ``session_step_arena_mesh`` at dp 2 and 4 (512 x 4 on the 65,536-slot
+     slab) equal to the single-slab step and timed whole and in its parts
+     (``mesh_step_split``).  The slab kernels are also timed in phase 10
+     at dp 4, at K = 16 and at B = 4,096.
+
+Before the phases it times ``torch.cuda._sleep(1)``, a one-thread kernel,
+under ``time_ms`` (``launch_floor``): the least time that timer reads for
+a launch, printed as ``floor_ms`` and written beside the kernels' list.
 
     python3 chip_smoke.py --pair PARENT [TREE ...]
 
@@ -187,7 +205,7 @@ its outputs and a tiered table's fetch counts equal across the builds bit
 for bit; writes chiprun_out/pair.json (``pair_setup``, ``_paired``).
 
 Prints the card's name and power limit, one line per phase, a
-``{"kernels": [...]}`` line, and as its last line
+``{"kernels": [...], "floor_ms": ...}`` line, and as its last line
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
 without CUDA it exits non-zero before printing any result.  Details go to
 build/chip_smoke.json.
@@ -362,11 +380,44 @@ def build():
     print("build: %d libraries in %.1f s (nvcc sm_90a + g++, in parallel)"
           % (len(out), dt))
     for lib, text in sorted(out.items()):
-        regs = [ln.split("ptxas info    :")[-1].strip() for ln in text.splitlines()
-                if "registers" in ln]
+        regs = ptxas_report(text)
         if regs:
-            print("  %s: %s" % (os.path.basename(lib), "; ".join(regs)))
+            print("  %s: %s" % (os.path.basename(lib), regs))
     return dt
+
+
+def _short_names(mangled):
+    """Each kernel function's name with its template arguments, without
+    its parameters (c++filt where it is found, else as given)."""
+    import re
+
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(mangled), capture_output=True,
+                               text=True, timeout=60).stdout.splitlines()
+    except FileNotFoundError:
+        names = []
+    if len(names) != len(mangled):
+        names = list(mangled)
+    out = []
+    for nm in names:
+        m = re.search(r"(\w+(?:<[^()]*>)?)\(", nm)  # the kernel and its template arguments
+        out.append(m.group(1) if m else nm)
+    return out
+
+
+def ptxas_report(text):
+    """"function: Used N registers, ..." for each kernel function that an
+    ``nvcc -Xptxas -v`` output compiled."""
+    import re
+
+    names, regs = [], []
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            names.append(m.group(1))
+        elif "registers" in ln and len(regs) < len(names):
+            regs.append(ln.split("ptxas info    :")[-1].strip())
+    return "; ".join("%s: %s" % kv for kv in zip(_short_names(names[:len(regs)]), regs))
 
 
 def metro_city(rows, device):
@@ -2814,14 +2865,15 @@ def histogram_phases(matcher, xins, timed):
     return row
 
 
-def slab_phases(device, K, timed, S=65536, B=512):
+def slab_phases(device, K, timed, S=65536, B=512, timed_dps=(2, 4)):
     """Kernel 11c: the slot-sharded slab's gather and scatter at dp 2 and
-    4, 512 sessions' rows (480 live, 16 fresh, 16 padding) of a 65,536-slot
-    slab whose rows are seeded bit patterns (NaN payloads and -0.0
-    included): every rank equals its plain version bit for bit, the psum
-    of the ranks' gathers is the single slab's rows (zeros for padding),
-    and the scattered shards are the single slab with its owned rows
-    written.  Timed at dp 2, rank 0."""
+    4, B sessions' rows (all but 32 live, 16 fresh, 16 padding) of a
+    65,536-slot slab whose rows are seeded bit patterns (NaN payloads and
+    -0.0 included): every rank equals its plain version bit for bit, the
+    psum of the ranks' gathers is the single slab's rows (zeros for
+    padding), and the scattered shards are the single slab with its owned
+    rows written.  Timed at rank 0 of each dp in ``timed_dps``.  Returns
+    (the kernels' rows at the first of them, {call: ms})."""
     import numpy as np
     import torch
 
@@ -2840,6 +2892,10 @@ def slab_phases(device, K, timed, S=65536, B=512):
     slots = np.full(B, S, np.int32)
     slots[:B - 16] = rng.choice(S, B - 16, replace=False)
     slots[:8] = np.arange(8)  # the NaN and -0.0 rows
+    # live slots are distinct (one row a session): a later row that drew one
+    # of those eight takes the least slot no row holds
+    again = np.flatnonzero(slots[8:B - 16] < 8) + 8
+    slots[again] = np.setdiff1d(np.arange(S), slots[:B - 16])[:len(again)]
     sl = torch.from_numpy(slots).to(device)
     live = slots < S
     want = np.where(live[:, None], raw[np.minimum(slots, S - 1)], np.int32(0))
@@ -2847,7 +2903,7 @@ def slab_phases(device, K, timed, S=65536, B=512):
     new[:, 3 * K + 3] &= 1
     after = raw.copy()
     after[slots[live]] = new[live]
-    rows = {}
+    rows, times = {}, {}
     for dp in (2, 4):
         s_local = S // dp
         shards = [V.TraceCarry(*(t[r * s_local:(r + 1) * s_local].clone() for t in slab))
@@ -2870,36 +2926,271 @@ def slab_phases(device, K, timed, S=65536, B=512):
         joined = torch.cat([V.carry_words(sh) for sh in sk]).cpu().numpy()
         check(joined.tobytes() == after.tobytes(),
               "the scattered shards are the slab with its owned rows written (dp %d)" % dp)
-        if dp == 2:
-            owned = int(((slots >= 0) & (slots < s_local)).sum())
-            slot_b = 12 * K + 17
-            for name, fn, plain, nbytes in (
-                    ("slab_gather_owned",
-                     lambda: V.slab_gather_owned(shards[0], sl, 0),
-                     lambda: V.slab_gather_owned_plain(shards[0], sl, 0),
-                     slot_b * owned + 4 * B + 4 * B * W),
-                    ("slab_scatter_owned",
-                     lambda: V.slab_scatter_owned(sk[0], words, sl, 0),
-                     lambda: V.slab_scatter_owned_plain(sp_[0], words, sl, 0),
-                     4 * B * W + 4 * B + slot_b * owned)):
-                bnd, by = bound(nbytes, B * W)
-                rows[name] = dict(name=name, route="cuda",
-                                  source="reporter_tpu_torch/csrc/slab_shard.cu",
-                                  replaces="reporter_tpu/ops/viterbi.py:%d" % (
-                                      1047 if "gather" in name else 1082),
-                                  max_abs_err=0.0, bound_ms=bnd, bound_by=by,
-                                  library_ms=None, owned_rows=owned, fn=fn, plain=plain)
-    for r in rows.values():
-        if timed:
-            r["ms"] = time_ms(r["fn"], label="%s dp 2 rank 0 K=%d" % (r["name"], K))
-            r["plain_ms"] = time_ms(r["plain"], queued=False)
-        print("kernel %-27s dp 2 rank 0, %d rows (%d owned) of a %d-slot slab, K=%d: equal its "
-              "plain version at dp 2 and 4, bit for bit; kernel_ms=%s plain_ms=%s "
-              "bound_ms=%.4f (%s)" % (r["name"], B, r["owned_rows"], S, K,
-                                      "%.4f" % r["ms"] if "ms" in r else "-",
-                                      "%.4f" % r["plain_ms"] if "plain_ms" in r else "-",
-                                      r["bound_ms"], r["bound_by"]))
-    return list(rows.values())
+        if dp not in timed_dps:
+            continue
+        owned = int(((slots >= 0) & (slots < s_local)).sum())
+        slot_b = 12 * K + 17
+        for name, fn, plain, nbytes in (
+                ("slab_gather_owned",
+                 lambda sh=shards[0]: V.slab_gather_owned(sh, sl, 0),
+                 lambda sh=shards[0]: V.slab_gather_owned_plain(sh, sl, 0),
+                 slot_b * owned + 4 * B + 4 * B * W),
+                ("slab_scatter_owned",
+                 lambda sh=sk[0], w=words: V.slab_scatter_owned(sh, w, sl, 0),
+                 lambda sh=sp_[0], w=words: V.slab_scatter_owned_plain(sh, w, sl, 0),
+                 4 * owned * W + 4 * B + slot_b * owned)):  # unowned rows: nothing read
+            bnd, by = bound(nbytes, B * W)
+            what = "dp %d rank 0, %d rows (%d owned) of a %d-slot slab, K=%d" % (
+                dp, B, owned, S, K)
+            r = dict(name=name, route="cuda", source="reporter_tpu_torch/csrc/slab_shard.cu",
+                     replaces="reporter_tpu/ops/viterbi.py:%d" % (
+                         1047 if "gather" in name else 1082),
+                     max_abs_err=0.0, bound_ms=bnd, bound_by=by, library_ms=None,
+                     owned_rows=owned, fn=fn, plain=plain)
+            if timed:
+                r["ms"] = times["%s dp %d K=%d B=%d" % (name, dp, K, B)] = time_ms(
+                    fn, label="%s dp %d rank 0 K=%d B=%d" % (name, dp, K, B))
+                r["plain_ms"] = time_ms(plain, queued=False)
+            rows.setdefault(name, r)
+            print("kernel %-27s %s: equal its plain version at dp 2 and 4, bit for bit; "
+                  "kernel_ms=%s plain_ms=%s bound_ms=%.5f (%s)"
+                  % (name, what, "%.4f" % r["ms"] if "ms" in r else "-",
+                     "%.4f" % r["plain_ms"] if "plain_ms" in r else "-", bnd, by))
+    return list(rows.values()), times
+
+
+def launch_floor(smi):
+    """The least time ``time_ms`` reads for a kernel launch: a one-thread
+    kernel of PyTorch's (``torch.cuda._sleep(1)``), queued behind the
+    spin, back to back, an event between each two.  Printed with the
+    card's name and power limit."""
+    import torch
+
+    floor = time_ms(lambda: torch.cuda._sleep(1), reps=100)
+    print("launch floor: floor_ms=%.4f (torch.cuda._sleep(1) under time_ms: queued, back to "
+          "back, an event between each two) on %s" % (floor, smi))
+    return floor
+
+
+SLAB_MAPS = ("rank 0", "none owned", "padding", "shuffled", "boundaries")
+SLAB_KS = (1, 2, 3, 4, 7, 8, 9, 16, 27, 32)  # every words-a-lane count, K % 4 both ways
+SLAB_BS = (1, 7, 33, 512, 4096)
+SLAB_DPS = (1, 2, 4, 8)
+
+
+def slab_edge_slots(S, dp, B, kind, seed=0):
+    """[B] int32 global slot map of an S-slot slab split over dp ranks
+    (numpy), live slots distinct, S a padding row: every live row owned by
+    rank 0 ("rank 0"), by the other ranks ("none owned"; all padding at dp
+    1), all padding, distinct slots anywhere with an eighth of the rows
+    padding ("shuffled"), or the slots lo - 1, lo, lo + S_local - 1 and lo +
+    S_local of every shard ("boundaries"), as many as B holds; rows in a
+    seeded order."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    s_local = S // dp
+    if kind == "rank 0":
+        live = rng.choice(s_local, min(B, s_local), replace=False)
+    elif kind == "none owned":
+        live = s_local + rng.choice(S - s_local, min(B, S - s_local), replace=False)
+    elif kind == "padding":
+        live = np.zeros(0, np.int64)
+    elif kind == "shuffled":
+        live = rng.choice(S, min(B - B // 8, S), replace=False)
+    elif kind == "boundaries":
+        edges = {lo + d for lo in range(0, S, s_local) for d in (-1, 0, s_local - 1, s_local)}
+        live = rng.permutation(sorted(e for e in edges if 0 <= e < S))[:B]
+    else:
+        raise ValueError(kind)
+    out = np.full(B, S, np.int32)
+    out[:len(live)] = live
+    return out[rng.permutation(B)]
+
+
+def slab_edge_words(S, K, seed=0):
+    """[S, 3K + 5] int32 slab rows (numpy): seeded bit patterns, the active
+    word 0 or 1, every float word -0.0 on rows 3i and a NaN payload on rows
+    3i + 1."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    W = 3 * K + 5
+    raw = rng.integers(-2 ** 31, 2 ** 31, (S, W), dtype=np.int64).astype(np.int32)
+    raw[:, 3 * K + 3] &= 1
+    floats = np.r_[0:K, 2 * K:3 * K, 3 * K:3 * K + 3]  # scores, offset, x, y, t
+    raw[0::3, floats] = np.int32(-2 ** 31)  # -0.0
+    raw[1::3, floats] = np.array(0x7FC00001, np.uint32).view(np.int32)
+    return raw
+
+
+def slab_edges(device, S=32768):
+    """Kernel 11c on edge inputs: at every K of ``SLAB_KS``, B of
+    ``SLAB_BS``, dp of ``SLAB_DPS`` and slot map of ``SLAB_MAPS`` over an
+    S-slot slab (-0.0 and NaN payloads in every float leaf), each rank's
+    gather and scatter equal their plain versions bit for bit, the psum of
+    the ranks' gathers is the slab's rows (zeros for padding) and the
+    scattered slab is the slab with its live rows written; at B = 33 and
+    512 also on shards whose leaves are views one row into their storage
+    (4-byte and 1-byte offsets).  Untimed."""
+    import numpy as np
+    import torch
+
+    from reporter_tpu_torch.ops import collectives
+    from reporter_tpu_torch.ops import viterbi as V
+
+    t0 = time.perf_counter()
+    n = 0
+    for K in SLAB_KS:
+        raw = slab_edge_words(S + 1, K, seed=K)
+        full = V.carry_from_words(torch.from_numpy(raw).to(device), K)
+        words_all = torch.from_numpy(raw[1:]).to(device)
+        aligned = V.carry_from_words(words_all, K)
+        new_all = torch.from_numpy(slab_edge_words(max(SLAB_BS), K, seed=100 + K)).to(device)
+        bad = []
+        for B in SLAB_BS:
+            new = new_all[:B]
+            for dp in SLAB_DPS:
+                s_local = S // dp
+                for kind in SLAB_MAPS:
+                    for off in ((0, 1) if B in (33, 512) and kind == "shuffled" else (0,)):
+                        case = "K=%d B=%d dp %d %s%s" % (K, B, dp, kind, " offset" if off else "")
+                        np_slots = slab_edge_slots(S, dp, B, kind, seed=K * 7 + B + dp)
+                        sl = torch.from_numpy(np_slots).to(device)
+                        src = full if off else aligned
+                        slab = V.TraceCarry(*(t[off:] for t in src))
+                        shards = [V.TraceCarry(*(t[r * s_local:(r + 1) * s_local] for t in slab))
+                                  for r in range(dp)]
+                        gk = [V.slab_gather_owned(sh, sl, r * s_local)
+                              for r, sh in enumerate(shards)]
+                        gp = [V.slab_gather_owned_plain(sh, sl, r * s_local)
+                              for r, sh in enumerate(shards)]
+                        live = (sl < S)[:, None]
+                        want = torch.where(live, words_all[sl.long().clamp(max=S - 1)], 0)
+                        bad.append((case + " gather", sum((a != b).sum() for a, b in zip(gk, gp))
+                                    + (collectives.psum(gk)[0] != want).sum()))
+                        outs = []
+                        for scatter in (V.slab_scatter_owned, V.slab_scatter_owned_plain):
+                            store = V.TraceCarry(*(t.clone() for t in src))
+                            view = V.TraceCarry(*(t[off:] for t in store))
+                            for r in range(dp):
+                                scatter(V.TraceCarry(*(t[r * s_local:(r + 1) * s_local]
+                                                       for t in view)), new, sl, r * s_local)
+                            outs.append(V.carry_words(view))
+                        after = words_all.clone()
+                        keep = sl < S
+                        after[sl[keep].long()] = new[keep]
+                        bad.append((case + " scatter", (outs[0] != outs[1]).sum()
+                                    + (outs[0] != after).sum()))
+                        n += 1
+        counts = torch.stack([b for _, b in bad]).cpu().numpy()
+        check(not counts.any(), "slab kernels equal their plain versions and the slab: %s"
+              % [c for (c, _), k in zip(bad, counts) if k][:8])
+    dt = time.perf_counter() - t0
+    print("slab edges: %d cases (K %s, B %s, dp %s, maps %s; shards one row into their storage "
+          "at B = 33, 512): gather and scatter equal their plain versions and the slab bit for "
+          "bit, -0.0 and NaN payloads kept, in %.1f s" % (
+              n, list(SLAB_KS), list(SLAB_BS), list(SLAB_DPS), list(SLAB_MAPS), dt))
+    return {"cases": n, "s": dt}
+
+
+def mesh_step_split(matcher, traces64, timed, dps=(2, 4)):
+    """One ``session_step_arena_mesh`` at dp 2 and 4: 512 rows of 4 points
+    (480 continuing, 16 fresh, 16 padding; K = 8) against the 65,536-slot
+    slab split over the ranks (every rank on this card), equal to the
+    single-slab step (packed and slab bit for bit), timed whole and in its
+    parts as the step runs them: the 11c kernels (every rank's gather and
+    scatter), the psum and the all-gather, the words <-> carry glue
+    (``mesh_carry_in``: ``carry_from_words`` and the ``where`` with
+    ``initial_carry_batch``; ``carry_words``), kernels 1-3 and kernel 5,
+    each part through the functions the step calls.  Events around each part,
+    back to back, with the host's gaps (the step's Python and launches are
+    the caller's time).  Returns {part: ms} for each dp (untimed: {})."""
+    import numpy as np
+    import torch
+
+    from reporter_tpu_torch.ops import collectives
+    from reporter_tpu_torch.ops import viterbi as V
+
+    dev = matcher.device
+    dg, du, p = matcher._dg, matcher._du, matcher._params
+    S, B, K, Wn = matcher.cfg.max_sessions, len(traces64), matcher.cfg.beam_k, 4
+    rng = np.random.default_rng(5)
+    slots = np.full(B, S, np.int32)
+    slots[:B - 16] = rng.choice(S, B - 16, replace=False)
+    use = np.zeros(B, bool)
+    use[:B - 32] = True
+    xs0, xs1 = (session_rows(matcher, traces64[:B - 16], j, Wn) for j in (0, Wn))
+    slab = V.initial_carry_batch(S, K, dev)
+    V.session_step_arena(dg, du, xs0, p, K, slab, slots, np.zeros(B, bool))
+    one = V.TraceCarry(*(t.clone() for t in slab))
+    want = V.session_step_arena(dg, du, xs1, p, K, one, slots, use)
+    out = {}
+    for dp in dps:
+        s_local, b_local = S // dp, B // dp
+        shards = [V.TraceCarry(*(t[r * s_local:(r + 1) * s_local].clone() for t in slab))
+                  for r in range(dp)]
+        saved = [V.TraceCarry(*(t.clone() for t in sh)) for sh in shards]
+
+        def restore(shards=shards, saved=saved):
+            for sh, sv in zip(shards, saved):
+                for d, v in zip(sh, sv):
+                    d.copy_(v)
+        ranks = [(dg, du)] * dp
+        xins = [xs1[:, r * b_local:(r + 1) * b_local].contiguous() for r in range(dp)]
+        step = lambda ranks=ranks, xins=xins, shards=shards: V.session_step_arena_mesh(  # noqa: E731
+            ranks, xins, p, K, shards, slots, use)
+        packed, _aux = step()
+        check(torch.equal(torch.cat(packed, 1), want[0]),
+              "the dp %d mesh step's packed output equals one slab's" % dp)
+        check(_carry_same(V.TraceCarry(*(torch.cat(leaf) for leaf in zip(*shards))), one),
+              "the dp %d mesh step's slab equals one slab's" % dp)
+        # the parts, on the step's own intermediates
+        restore()
+        sls, usem = V.mesh_slot_rows(slots, use, shards)
+        gathered = [V.slab_gather_owned(sh, sl, r * s_local)
+                    for r, (sh, sl) in enumerate(zip(shards, sls))]
+        words = collectives.psum(gathered)
+        mine = [slice(r * b_local, (r + 1) * b_local) for r in range(dp)]
+        glue_in = lambda: [V.mesh_carry_in(w[rows], usem[rows], K)  # noqa: E731
+                           for w, rows in zip(words, mine)]
+        carries = glue_in()
+        pres = [V.precompute_batch_packed(dg, du, x, p, K) for x in xins]
+        outs = [V.chain_batch_carry_packed_aux(dg, du, pr, x, p, K, c)
+                for pr, x, c in zip(pres, xins, carries)]
+        cwords = [V.carry_words(o[2]) for o in outs]
+        cw = collectives.all_gather(cwords)
+        parts = {
+            "step": (step, restore),
+            "11c kernels": (lambda: ([V.slab_gather_owned(sh, sl, r * s_local)
+                                      for r, (sh, sl) in enumerate(zip(shards, sls))],
+                                     [V.slab_scatter_owned(sh, w, sl, r * s_local)
+                                      for r, (sh, w, sl) in enumerate(zip(shards, cw, sls))]),
+                            restore),
+            "psum + all_gather": (lambda: (collectives.psum(gathered),
+                                           collectives.all_gather(cwords)), None),
+            "glue": (lambda: (glue_in(), [V.carry_words(o[2]) for o in outs]), None),
+            "kernels 1-3": (lambda: [V.precompute_batch_packed(dg, du, x, p, K) for x in xins],
+                            None),
+            "kernel 5": (lambda: [V.chain_batch_carry_packed_aux(dg, du, pr, x, p, K, c)
+                                  for pr, x, c in zip(pres, xins, carries)], None),
+        }
+        if not timed:  # the CPU rehearsal: each part runs once
+            for fn, _prep in parts.values():
+                fn()
+            continue
+        # under --pair only the step and its 11c part run another tree's
+        # code: those two are paired, the rest timed on this tree's build
+        ms = {name: time_ms(fn, reps=50, prep=prep, queued=False,
+                            label="mesh step dp %d: %s" % (dp, name)
+                            if name in ("step", "11c kernels") else None)
+              for name, (fn, prep) in parts.items()}
+        restore()
+        out["dp%d" % dp] = ms
+        print("mesh session step dp %d (512 x 4, K=%d, %d-slot slab over %d ranks on one card): "
+              "%s ms (events around each part, host gaps included)"
+              % (dp, K, S, dp, ", ".join("%s %.4f" % kv for kv in ms.items())))
+    return out
 
 
 def mesh_matcher(matcher, devices, graph_devices=1, ubodt=None, **cfg_kw):
@@ -3865,18 +4156,7 @@ def sass_counts(libs):
                 counts[fn] = 0
             elif fn is not None and re.match(r"\s+/\*[0-9a-f]{4,}\*/", line):
                 counts[fn] += 1
-    try:
-        names = subprocess.run(["c++filt"], input="\n".join(counts), capture_output=True,
-                               text=True, timeout=60).stdout.splitlines()
-    except FileNotFoundError:
-        names = []
-    if len(names) != len(counts):
-        names = list(counts)
-    out = {}
-    for nm, c in zip(names, counts.values()):
-        m = re.search(r"(\w+(?:<[^()]*>)?)\(", nm)  # the kernel and its template arguments
-        out[m.group(1) if m else nm] = c
-    return out
+    return dict(zip(_short_names(list(counts)), counts.values()))
 
 
 def _outputs_equal(a, b):
@@ -3902,9 +4182,7 @@ def pair_setup(trees):
         tag = "%d_%s" % (i, os.path.basename(os.path.abspath(tree)))
         _PAIR[tag], nvcc_out = parent_kernels(tree, tag)
         for lib, text in sorted(nvcc_out.items()):
-            regs = [ln.split("ptxas info    :")[-1].strip() for ln in text.splitlines()
-                    if "registers" in ln]
-            print("  %s %s: %s" % (tag, os.path.basename(lib), "; ".join(regs)))
+            print("  %s %s: %s" % (tag, os.path.basename(lib), ptxas_report(text)))
     builds = dict({t: ks.values() for t, ks in _PAIR.items()},
                   change=_kernels.KERNELS.values())
     sass = {tag: sass_counts(sorted({k.library for k in ks})) for tag, ks in builds.items()}
@@ -3933,6 +4211,7 @@ def main(pair=()):
     build_s = build()
     if pair:
         pair_setup(pair)
+    floor_ms = launch_floor(smi.splitlines()[0])
     matcher, city = metro_city(120, device)
     traces64 = cohort(matcher, 7, 512, 64)
     traces256 = cohort(matcher, 8, 128, 256)
@@ -4064,7 +4343,9 @@ def main(pair=()):
                                  dict(sp=spb, long_pk=(pb_, kb),
                                       sess_pk=(pa_, matcher.cfg.beam_k)), timed=True)
     hist_row = histogram_phases(matcher, [xin64, xin256], timed=True)
-    slab_rows = slab_phases(device, matcher.cfg.beam_k, timed=True)
+    slab_rows, slab_ms = slab_phases(device, matcher.cfg.beam_k, timed=True)
+    slab_ms.update(slab_phases(device, 16, True, timed_dps=(2,))[1])
+    slab_ms.update(slab_phases(device, matcher.cfg.beam_k, True, B=4096, timed_dps=(2,))[1])
     mesh = mesh_paths(matcher, sm, ubodt_w, traces64, traces256, traces2048, tr_a, xin64)
     mesh["serve_launches"] = mesh_serve_phase(matcher.arrays, matcher.ubodt, tr_a,
                                               sp_answers, fixtures, device)
@@ -4087,6 +4368,11 @@ def main(pair=()):
     # edge inputs, each against its plain version
     assoc_edge = assoc_edges(matcher, sm, matcher.ubodt, traces2048)
     claim_edge = claim_edges(matcher, du_w)
+
+    # the redesigned slab kernels (row 11c) on edge inputs, each against its
+    # plain version, and the mesh session step's time split into its parts
+    slab_edge = slab_edges(device)
+    mesh_step = mesh_step_split(matcher, traces64, timed=True)
 
     # launches over the counted runs of every path but serve's; kernels
     # 1-4's times and bounds at 512 x 64, max_abs_err over both bucketed
@@ -4227,10 +4513,11 @@ def main(pair=()):
         "tiering": {"host_link": link, "kernels": tier_k,
                     "paths": tiered, "session_cold_tier": cold_tier},
         "mesh": {"kernels": [strip(r) for r in mesh_probe + [hist_row] + slab_rows],
-                 "seam": mesh_seam, **mesh},
+                 "seam": mesh_seam, "slab_ms": slab_ms, "step_split": mesh_step, **mesh},
         "redesign_edges": {"probe": probe_edge, "recursion": rec_edge, "sweep": sweep_edge,
                            "build": build_edge, "shapes": shape_ms, "assoc": assoc_edge,
-                           "claim": claim_edge},
+                           "claim": claim_edge, "slab": slab_edge},
+        "floor_ms": floor_ms,
         "metro_reports": n_reports, "peak_memory_mb": torch.cuda.max_memory_allocated() / 1e6,
         "kernels": kernels,
         "extra": dict({"%s_%d" % (r["name"], T): {k: v for k, v in r.items() if k in (
@@ -4250,7 +4537,7 @@ def main(pair=()):
         with open(os.path.join(REPO, "chiprun_out", "pair.json"), "w") as f:
             json.dump(_PAIRED, f, indent=1)
         print(json.dumps({"pair": {k: v["ratio"] for k, v in _PAIRED["cases"].items()}}))
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "floor_ms": floor_ms}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1143,6 +1143,8 @@ def slab_scatter_owned_plain(shard: TraceCarry, words: torch.Tensor,
 def _slab_launch(name: str, shard: TraceCarry, slots, lo: int, words):
     dev = shard.scores.device
     s_local, k = shard.scores.shape
+    if not 1 <= k <= 32:
+        raise ValueError("%s: k=%d outside 1..32" % (name, k))
     _check_carry(shard, s_local, k, dev)
     check(slots, "slots", torch.int32, dev)
     check(words, "words", torch.int32, dev, (slots.shape[0], 3 * k + 5))
@@ -1179,6 +1181,27 @@ def slab_scatter_owned(shard: TraceCarry, words: torch.Tensor,
     return shard
 
 
+def mesh_slot_rows(slots, use_carry, slab: Sequence[TraceCarry]):
+    """A mesh step's host [B] slot map and carry mask checked against the
+    ranks' slab shards (S = all shards' slots: a padding row): (the slot
+    map on each rank's device, the carry mask on rank 0's)."""
+    s_local = slab[0].scores.shape[0]
+    sl, use = _slab_rows(slots, use_carry, s_local * len(slab),
+                         slab[0].scores.device)
+    return [sl.to(sh.scores.device) for sh in slab], use
+
+
+def mesh_carry_in(words: torch.Tensor, use: torch.Tensor, k: int) -> TraceCarry:
+    """A rank's carry-in from its rows of the psum'd [b, 3K + 5] slab
+    words: the slab's carry where ``use`` ([b] bool), the inactive carry
+    elsewhere."""
+    b = words.shape[0]
+    return TraceCarry(*(
+        torch.where(use.view((b,) + (1,) * (g.dim() - 1)), g, i)
+        for g, i in zip(carry_from_words(words, k),
+                        initial_carry_batch(b, k, words.device))))
+
+
 def session_step_arena_mesh(ranks: Sequence[tuple], xins: Sequence[torch.Tensor],
                             p: MatchParams, k: int, slab: Sequence[TraceCarry],
                             slots, use_carry, sp: Optional[SparseParams] = None,
@@ -1189,24 +1212,19 @@ def session_step_arena_mesh(ranks: Sequence[tuple], xins: Sequence[torch.Tensor]
     slab shards of equal length, ``slots`` / ``use_carry`` the host [B]
     global slot map (S = all shards' slots: a padding row) and carry
     mask.  Gather (kernel 11c), psum, each rank's decode on host carries
-    (kernel 5), all-gather, scatter (kernel 11c): the packed outputs, aux
-    and slab bytes are the single-device step's, bit for bit.  Returns
-    (packed, aux) lists, one per rank; the slab shards change in place."""
+    (``mesh_carry_in``, kernel 5), all-gather, scatter (kernel 11c): the
+    packed outputs, aux and slab bytes are the single-device step's, bit
+    for bit.  Returns (packed, aux) lists, one per rank; the slab shards
+    change in place."""
     s_local = slab[0].scores.shape[0]
-    devs = [sh.scores.device for sh in slab]
-    sl, use = _slab_rows(slots, use_carry, s_local * len(slab), devs[0])
-    sls = [sl.to(d) for d in devs]
+    sls, use = mesh_slot_rows(slots, use_carry, slab)
     words = collectives.psum([slab_gather_owned(sh, s, r * s_local)
                               for r, (sh, s) in enumerate(zip(slab, sls))])
     outs = []
     b_local = xins[0].shape[1]
     for r, ((dg, du), xin, w) in enumerate(zip(ranks, xins, words)):
         rows = slice(r * b_local, (r + 1) * b_local)
-        mine = use[rows].to(devs[r])
-        inact = initial_carry_batch(b_local, k, devs[r])
-        carry = TraceCarry(*(
-            torch.where(mine.view((b_local,) + (1,) * (g.dim() - 1)), g, i)
-            for g, i in zip(carry_from_words(w[rows], k), inact)))
+        carry = mesh_carry_in(w[rows], use[rows].to(w.device), k)
         outs.append(session_step_packed(dg, du, xin, p, k, carry, sp, kernel))
     cw = collectives.all_gather([carry_words(o[2]) for o in outs])
     for r, (sh, w, s) in enumerate(zip(slab, cw, sls)):

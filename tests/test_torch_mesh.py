@@ -394,22 +394,24 @@ def test_slab_sessions_dp2_gp4(kernel):
         ref, trs, RefEngine, RefStore, step=5), trs)
 
 
+@pytest.mark.parametrize("k", [1, 8, 16, 32])
 @pytest.mark.parametrize("dp", [2, 4])
-def test_slab_gather_scatter_equal_reference(dp):
+def test_slab_gather_scatter_equal_reference(dp, k):
     """The slot-sharded gather (owned rows' bit patterns, psummed) and
     scatter (all-gathered carry-out, owned rows written) against
     ``_arena_gather_mesh`` / ``_arena_scatter_mesh`` under shard_map, NaN
-    payloads, -0.0 and padding rows included."""
+    payloads, -0.0 and padding rows included, at beam widths of one to
+    four words a lane of the kernels' warp."""
     S, B = 16, 8
     rng = np.random.default_rng(dp)
-    words = rng.integers(-2 ** 31, 2 ** 31, (S, 3 * K + 5), dtype=np.int64).astype(np.int32)
-    words[:, 3 * K + 3] &= 1
+    words = rng.integers(-2 ** 31, 2 ** 31, (S, 3 * k + 5), dtype=np.int64).astype(np.int32)
+    words[:, 3 * k + 3] &= 1
     words[:2, 0] = np.array([0x80000000, 0x7FC00001], np.uint32).view(np.int32)
-    slab = V.carry_from_words(torch.from_numpy(words), K)
+    slab = V.carry_from_words(torch.from_numpy(words), k)
     slots = np.array([0, 1, 9, 16, 4, 12, 16, 7], np.int32)  # 16 = padding
-    new = rng.integers(-2 ** 31, 2 ** 31, (B, 3 * K + 5), dtype=np.int64).astype(np.int32)
-    new[:, 3 * K + 3] &= 1
-    out = V.carry_from_words(torch.from_numpy(new), K)
+    new = rng.integers(-2 ** 31, 2 ** 31, (B, 3 * k + 5), dtype=np.int64).astype(np.int32)
+    new[:, 3 * k + 3] &= 1
+    out = V.carry_from_words(torch.from_numpy(new), k)
 
     def ref_of(c):
         return RefCarry(*(jnp.asarray(t.numpy()) for t in c))
@@ -426,7 +428,7 @@ def test_slab_gather_scatter_equal_reference(dp):
     shards = [V.TraceCarry(*(t[r * s_local:(r + 1) * s_local].clone() for t in slab))
               for r in range(dp)]
     got_g = V.carry_from_words(collectives.psum(
-        [V.slab_gather_owned(sh, sl, r * s_local) for r, sh in enumerate(shards)])[0], K)
+        [V.slab_gather_owned(sh, sl, r * s_local) for r, sh in enumerate(shards)])[0], k)
     for g, w in zip(got_g, want_g):
         assert g.numpy().tobytes() == np.asarray(w).tobytes()
     words_out = V.carry_words(out)
