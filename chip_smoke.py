@@ -190,6 +190,27 @@ delta 3000 m, cuckoo layout) and moves it to the card, then:
      slab) equal to the single-slab step and timed whole and in its parts
      (``mesh_step_split``).  The slab kernels are also timed in phase 10
      at dp 4, at K = 16 and at B = 4,096.
+  15. the redesigned dedup scatter (row 8b's) and probe-outcome counters
+     (row 12) on edge inputs and at the main path's shapes
+     (``scatter_edges``, ``stats_edges``, ``redesign_shapes``): the
+     scatter launch at n = 1, 3, 5, 1,023, 1,025, 4,097 and 2,064,383 keys
+     (n % 4 != 0: the scalar tail) within the budget and past it (the
+     fused full-width probe), both layouts, with and without first_edge,
+     equal to the plain probe bit for bit; ``probe_outcomes`` at K = 1, 2,
+     3, 4, 6, 8, 12, 16, 32 (both kernels: a warp a step, a lane 4 pairs
+     where K % 4 == 0) and B x T from 0 x 2 and 1 x 1 (nothing launched) and 3 x
+     2 (fewer steps than the grid's warps) to 512 x 65, on dist with +-inf
+     and NaN, same-edge and negative candidates, invalid points and gaps
+     exactly at the breakage distance and delta, counts and need mask equal
+     to the plain version's bit for bit; then both timed (and so paired
+     under ``--pair``): the scatter at 512 x 64 on the cuckoo table, 128 x
+     256 in both layouts and cohort A (512 x 16, K = 16) on the 400 m
+     table, ``probe_stats`` at 512 x 64 on the wide32 probe's dist, 128 x
+     256 and A on the 400 m table.  The scatter is also timed on the
+     all-distinct keys past the budget (``dedup_fallback``) and on the
+     tiered table at 64 MiB (``tier_kernel_phases``, its (0, 0) tail
+     count compared across trees), and at 512 x 64 beside its closest
+     PyTorch composition (``memory_phases``: three calls).
 
 Before the phases it times ``torch.cuda._sleep(1)``, a one-thread kernel,
 under ``time_ms`` (``launch_floor``): the least time that timer reads for
@@ -1803,6 +1824,14 @@ def memory_phases(matcher, du_w, xin, timed, p=None, K=None, what=""):
     wb = int(torch.unique(H.device_pair_hash(sa.reshape(-1), sb.reshape(-1),
                                              du_w.bmask)).numel())
     U = plain_u
+
+    def compose():
+        """The closest PyTorch composition of the scatter (three calls, not
+        one): each key's compact index, then the results at it."""
+        idx = torch.index_select(claim[1], 0, claim[0])
+        return [torch.index_select(c, 0, idx).reshape(sa.shape) for c in compact[:2]]
+    check(_bits_equal(compose(), H._scatter(du_w, sa, sb, claim, cnt, m, compact)[:2]),
+          "the scatter's PyTorch composition equals the kernel")
     rows = [
         # reads: the two [B, T, K] key arrays, each distinct 1 KB bucket row
         # once; writes: dist and time.  ~30 integer operations per probe.
@@ -1827,7 +1856,7 @@ def memory_phases(matcher, du_w, xin, timed, p=None, K=None, what=""):
              replaces="reporter_tpu/ops/hashtable.py:198",
              fn=lambda: H._scatter(du_w, sa, sb, claim, cnt, m, compact),
              plain=lambda: [r[inv].reshape(sa.shape) for r in (cd, ct)], cold_l2=False,
-             nbytes=4 * N + 12 * U + 8 * N, nops=4 * N, library=None),
+             nbytes=4 * N + 12 * U + 8 * N, nops=4 * N, library=None, composition=compose),
     ]
     for r in rows:
         r["bound_ms"], r["bound_by"] = bound(r.pop("nbytes"), r.pop("nops"))
@@ -1836,11 +1865,14 @@ def memory_phases(matcher, du_w, xin, timed, p=None, K=None, what=""):
         r["plain_ms"] = time_ms(r["plain"], cold_l2=r["cold_l2"], queued=False)
         r["library_ms"] = (None if r["library"] is None
                            else time_ms(r["library"], cold_l2=True, queued=False))
+        if "composition" in r:  # timed as the kernel is: device time, L2 warm
+            r["composition_ms"] = time_ms(r.pop("composition"), cold_l2=r["cold_l2"])
         r["max_abs_err"] = 0.0
-        print("kernel %-25s %s kernel_ms=%.4f plain_ms=%.4f library_ms=%s bound_ms=%.4f (%s)"
+        print("kernel %-25s %s kernel_ms=%.4f plain_ms=%.4f library_ms=%s bound_ms=%.4f (%s)%s"
               % (r["name"], out["shape"], r["ms"], r["plain_ms"],
                  "-" if r["library_ms"] is None else "%.4f" % r["library_ms"], r["bound_ms"],
-                 r["bound_by"]))
+                 r["bound_by"], " composition_ms=%.4f" % r["composition_ms"]
+                 if "composition_ms" in r else ""))
     e2e = {}
     for layout, du in (("cuckoo", du_c), ("wide32", du_w)):
         e2e[layout] = {
@@ -1890,6 +1922,11 @@ def dedup_fallback(matcher, du_w, n):
             out[layout]["dedup_ms"] = time_ms(lambda: H.ubodt_lookup_dedup(du, s, d, False),
                                               cold_l2=True,
                                               label="dedup probe fallback %s %d" % (layout, n))
+            fn, got_s = scatter_launch(du, s, d, m)  # the fused full-width probe
+            check(_bits_equal(got_s[:2], got[:2]), "scatter fallback (%s) equals the probe"
+                  % layout)
+            out[layout]["scatter_ms"] = time_ms(
+                fn, cold_l2=True, label="ubodt_dedup_scatter fallback %s %d" % (layout, n))
         print("dedup fallback %s: %d all-distinct keys, m %d, distinct count > m (%d when the "
               "claim stopped), full-width probe on the card, equal to the plain probe"
               % (layout, n, summ["last"][1], n_unique))
@@ -1900,7 +1937,8 @@ def stats_phases(matcher, du_w, xin, xin_a, timed):
     """``probe_stats`` against its plain version: ``ubodt_probe_stats`` at
     512 x 64 in both layouts (identical counts), the kernel's counts and
     mask alone, timed; then on cohort A with a table of the metro rows
-    within 400 m and delta 400, where beyond-delta misses exist."""
+    within 400 m and delta 400, where beyond-delta misses exist.  Returns
+    (the counts, the timed row, the 400 m table on the device)."""
     import torch
 
     from reporter_tpu_torch import native
@@ -1958,7 +1996,7 @@ def stats_phases(matcher, du_w, xin, xin_a, timed):
                        [(k1[0][:4], k0[0]), (k1[1], k0[1].to(torch.uint8))]))
         print("kernel %-25s %dx%d K=%d kernel_ms=%.4f plain_ms=%.4f bound_ms=%.4f (%s)"
               % ("probe_stats", B, T, K, row["ms"], row["plain_ms"], bms, bby))
-    return got, row
+    return got, row, cut
 
 
 def memory_serve_phase(arrays, ubodt_w, tr_a, default_answers, default_fixtures, device):
@@ -2460,6 +2498,12 @@ def tier_kernel_phases(matcher, ubodt, xin, link, sm=None, tr_l=None, tr_a=None,
             r["bound_ms"] = (hbm / PEAK_BYTES_S
                              + row_bytes * n_cold / link["peak_bytes_per_s"]) * 1e3
             r["bound_by"] = "bytes"
+            if occ == "partial":  # the scatter's (0, 0) tail count, compared across trees
+                sa, sb = torch.broadcast_tensors(a, b)
+                fn, got_s = scatter_launch(tdu, sa, sb, H._budget(N))
+                check(_bits_equal(got_s[:2], want[:2]), "scatter (%s) equals the probe" % occ)
+                r["scatter_ms"] = time_ms(fn, label="ubodt_dedup_scatter %s %s %s" % (
+                    name, r["shape"], occ), tier=tier)
             if occ == "cold":
                 r["dedup_ms"] = time_ms(lambda: H.ubodt_lookup_dedup(tdu, a, b, False),
                                         cold_l2=True, label="dedup probe %s %s %s" % (
@@ -4069,6 +4113,220 @@ def claim_edges(matcher, du_w):
     return out
 
 
+STATS_BRK, STATS_DELTA = 2000.0, 1500.0  # probe_stats' edge thresholds
+# the row kernel at K = 1, 2, 3, 6 (scalar need bytes at 1 and 3), the quad
+# kernel at 4 (8 steps a warp), 8 (2), 12 (36 quads a step), 16 and 32
+STATS_KS = (1, 2, 3, 4, 6, 8, 12, 16, 32)
+STATS_SHAPES = ((0, 2), (1, 1), (1, 2), (3, 2), (2, 3), (5, 65), (None, 2), (None, 65))
+
+
+def stats_edge_inputs(B, T, K, seed=0):
+    """Numpy inputs of ``probe_outcomes`` (dist [B, T-1, K, K] f32, cand_edge
+    [B, T, K] i32, valid, px, py [B, T] f32) for thresholds ``STATS_BRK``
+    and ``STATS_DELTA``: dist finite, +inf, -inf and NaN; candidate edges
+    of a few ids (same-edge pairs), -1 and -2; points invalid (0) and
+    valid (1 and 0.5); steps whose straight-line gap is exactly the
+    breakage distance or delta (legs (d, 0) and (0.6 d, 0.8 d)), an eighth
+    of a metre either side, inf (a y of inf) and NaN (two in a row).
+    Coordinates are multiples of 1/8 below 2^20, so every step's legs are
+    exact.  x stays finite: for an x leg of NaN and a y leg of 0 the
+    kernels' ``hypot_like_jax`` gives 0 where ``jnp.hypot`` gives NaN
+    (PERF.md section 7)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    kinds = rng.integers(0, 4, (B, max(T - 1, 0), K, K))
+    dist = np.where(kinds == 0, rng.uniform(0, 3000, kinds.shape), np.where(
+        kinds == 1, np.inf, np.where(kinds == 2, -np.inf, np.nan))).astype(np.float32)
+    edge = rng.integers(-2, 6, (B, T, K)).astype(np.int32)
+    valid = rng.choice(np.array([0.0, 1.0, 0.5], np.float32), (B, T), p=[0.1, 0.8, 0.1])
+    legs = []
+    for d in (STATS_BRK, STATS_DELTA):
+        legs += [(d, 0.0), (0.6 * d, 0.8 * d), (d + 0.125, 0.0), (d - 0.125, 0.0)]
+    pick = rng.integers(0, len(legs) + 2, (B, max(T - 1, 0)))
+    dx = rng.integers(0, 8 * 2500, pick.shape) / 8.0
+    dy = rng.integers(0, 8 * 2500, pick.shape) / 8.0
+    for i, (lx, ly) in enumerate(legs):
+        dx[pick == i], dy[pick == i] = lx, ly
+    px = np.concatenate([np.zeros((B, 1)), np.cumsum(dx, 1)], 1).astype(np.float32)
+    py = np.concatenate([np.zeros((B, 1)), np.cumsum(dy, 1)], 1).astype(np.float32)
+    py[rng.uniform(size=(B, T)) < 0.01] = np.inf
+    if B and T >= 3:
+        py[0, 1:3] = np.inf
+    return dict(dist=dist, cand_edge=edge, valid=valid, px=px, py=py)
+
+
+def stats_edges(device, big=512):
+    """Phase 15, row 12: ``probe_outcomes`` on ``stats_edge_inputs`` at every
+    K of ``STATS_KS`` and each (B, T) of ``STATS_SHAPES`` (None: ``big``
+    traces), B = 0 and T = 1 (nothing launched, counts 0) and a step count
+    that does not fill the grid among them: the counts and the need mask
+    equal the plain version's bit for bit, slot [4] 0.  Returns the
+    number of cases."""
+    import torch
+
+    from reporter_tpu_torch.ops.diagnostics import probe_outcomes, probe_outcomes_plain
+
+    n = 0
+    for K in STATS_KS:
+        for B, T in STATS_SHAPES:
+            B = big if B is None else B
+            t = {k: torch.from_numpy(v).to(device)
+                 for k, v in stats_edge_inputs(B, T, K, seed=K * 131 + T).items()}
+            args = (t["dist"], t["cand_edge"], t["valid"], t["px"], t["py"], STATS_BRK,
+                    STATS_DELTA)
+            got, want = probe_outcomes(*args), probe_outcomes_plain(*args)
+            check(torch.equal(got[0][:4].cpu(), want[0].cpu()) and int(got[0][4]) == 0
+                  and torch.equal(got[1].cpu(), want[1].to(torch.uint8).cpu()),
+                  "probe_stats edges K=%d B=%d T=%d: %s == %s" % (K, B, T, got[0].tolist(),
+                                                                want[0].tolist()))
+            n += 1
+    shapes = [(big if B is None else B, T) for B, T in STATS_SHAPES]
+    print("probe_stats edges: %d cases (K = %s, B x T = %s) equal to the plain version, counts "
+          "and need mask bit for bit" % (n, STATS_KS, shapes))
+    return n
+
+
+SCATTER_NS = (1, 3, 5, 1023, 1025, 4097, 2_064_383)  # n % 4 = 1, 3, 1, 3, 1, 1, 3
+
+
+def scatter_edge_keys(rows, n, seed=0):
+    """Numpy int32 (src, dst) of n keys for the dedup scatter: runs of
+    table keys (hits), keys that miss and the empty marker (-1, 0), with
+    about n / 8 distinct; and n distinct table keys (for the fallback)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    pool = max(1, n // 8)
+    src = rows[0][rng.integers(0, len(rows[0]), pool)].copy()
+    dst = rows[1][rng.integers(0, len(rows[1]), pool)].copy()
+    hit = rng.uniform(size=pool) < 0.7
+    pick = rng.integers(0, len(rows[0]), int(hit.sum()))
+    src[hit], dst[hit] = rows[0][pick], rows[1][pick]
+    empty = rng.uniform(size=pool) < 0.05
+    src[empty], dst[empty] = -1, 0
+    at = rng.integers(0, pool, n)
+    distinct = rng.permutation(len(rows[0]))[:n]
+    return ((src[at].astype(np.int32), dst[at].astype(np.int32)),
+            (rows[0][distinct].astype(np.int32), rows[1][distinct].astype(np.int32)))
+
+
+def scatter_launch(du, sa, sb, m, with_first=False):
+    """The claim and the compact probe of keys (sa, sb) at budget ``m`` on
+    table ``du``: (a call of the scatter launch alone, its outputs).  On
+    the CPU (a rehearsal) the call is the plain deduplicated probe."""
+    import torch
+
+    from reporter_tpu_torch.ops import hashtable as H
+
+    if sa.device.type != "cuda":
+        cpu = lambda: tuple(H.ubodt_lookup_dedup_plain(du, sa, sb, with_first)[:3])  # noqa: E731
+        return cpu, cpu()
+    cnt = torch.empty(1, dtype=torch.int32, device=sa.device)
+    claim = H._claim(sa, sb, None, m, cnt)
+    compact = H._probe(du, claim[2], claim[3], with_first, n_live=cnt)
+    fn = lambda: H._scatter(du, sa, sb, claim, cnt, m, compact)  # noqa: E731
+    return fn, fn()
+
+
+def scatter_edges(matcher, du_w, ns=SCATTER_NS):
+    """Phase 15, row 8b's scatter: the scatter launch at every n of
+    ``SCATTER_NS`` (n % 4 != 0: the scalar tail) on ``scatter_edge_keys``
+    within the budget (m = n) and, from n = 3, on n distinct keys past it
+    (m = 1: the fused full-width probe), in both layouts, with and without
+    first_edge: each equal to the plain full-width probe bit for bit.
+    Returns the number of cases."""
+    import torch
+
+    from reporter_tpu_torch.ops import hashtable as H
+
+    dev, rows, k = matcher.device, matcher.ubodt.rows(), 0
+    for n in ns:
+        runs, distinct = scatter_edge_keys(rows, n, seed=n)
+        for (s, d), m in ((runs, n), (distinct, 1)):
+            if n < 3 and m == 1:
+                continue
+            s, d = torch.from_numpy(s).to(dev), torch.from_numpy(d).to(dev)
+            for du in (matcher._du, du_w):
+                for wf in (True, False):
+                    _fn, got = scatter_launch(du, s, d, m, wf)
+                    check(_bits_equal([x for x in got if x is not None],
+                                      [x for x in H.ubodt_lookup_plain(du, s, d, wf)
+                                       if x is not None]),
+                          "scatter n=%d m=%d (%s, first %s) equals the plain probe"
+                          % (n, m, du.layout, wf))
+                    k += 1
+    print("scatter edges: %d cases (n = %s, within the budget and past it, both layouts, with "
+          "and without first_edge) equal to the plain probe bit for bit" % (k, ns))
+    return k
+
+
+def sweep_keys(matcher, xin, p=None, K=None):
+    """The sweep of a packed [4, B, T] batch at K and its probe's key grid:
+    (sweep, src, dst broadcast to [B, T-1, K, K], (px, py, valid))."""
+    import torch
+
+    from reporter_tpu_torch.ops import viterbi as V
+    from reporter_tpu_torch.ops.candidates import candidate_sweep
+
+    K, p = K or matcher.cfg.beam_k, p or matcher._params
+    x, y, _t, v = V.unpack_inputs(xin)
+    sw = candidate_sweep(matcher._dg, x, y, v, K, p.search_radius, p.sigma_z, False)
+    sa, sb = torch.broadcast_tensors(sw.to_node[:, :-1, :, None], sw.from_node[:, 1:, None, :])
+    return sw, sa, sb, (x, y, v)
+
+
+def redesign_shapes(matcher, sm, du_w, cut, xin64, xin256, xin_a, pa, ka, timed):
+    """Phase 15, rows 8b's scatter and 12 at the main path's shapes: the
+    scatter launch alone (after the claim and the compact probe) and
+    ``probe_outcomes`` alone, each against its plain version bit for bit
+    and, ``timed``, timed with a label (so ``--pair`` times every tree):
+    the scatter at 512 x 64 on the cuckoo table (wide32 in
+    ``memory_phases``), 128 x 256 in both layouts and cohort A (512 x 16,
+    K = 16) on the 400 m table; ``probe_stats`` at 512 x 64 on the wide32
+    probe's dist (the cuckoo one in ``stats_phases``), 128 x 256 and A on
+    the 400 m table (beyond-delta misses).  Returns {label: ms}."""
+    import torch
+
+    from reporter_tpu_torch.ops import hashtable as H
+    from reporter_tpu_torch.ops.diagnostics import probe_outcomes, probe_outcomes_plain
+
+    out = {}
+    cases = [(matcher, xin64, None, None, [matcher._du], du_w),
+             (matcher, xin256, None, None, [matcher._du, du_w], matcher._du),
+             (sm, xin_a, pa, ka, [cut], cut)]
+    for mm, xin, p, K, tables, sdu in cases:
+        sw, sa, sb, (x, y, v) = sweep_keys(mm, xin, p, K)
+        B, T = x.shape
+        shape = "%dx%d K=%d" % (B, T, sw.cand.edge.shape[-1])
+        for du in tables:
+            tag = "%s %s%s" % (du.layout, shape, " delta 400" if du is cut else "")
+            fn, got = scatter_launch(du, sa, sb, H._budget(sa.numel()))
+            check(_bits_equal(got[:2], H.ubodt_lookup_plain(du, sa, sb, False)[:2]),
+                  "scatter (%s) equals the plain probe" % tag)
+            if timed:
+                out["ubodt_dedup_scatter " + tag] = time_ms(
+                    fn, label="ubodt_dedup_scatter " + tag)
+        dist = H.ubodt_lookup(sdu, sa, sb, False)[0]
+        delta = 400.0 if sdu is cut else float(matcher.cfg.ubodt_delta)
+        pp = p or mm._params
+        args = (dist, sw.cand.edge, v, x, y, pp.breakage_distance, delta)
+        got, want = probe_outcomes(*args), probe_outcomes_plain(*args)
+        tag = "%s %s%s" % (sdu.layout, shape, " delta 400" if sdu is cut else "")
+        check(torch.equal(got[0][:4].cpu(), want[0].cpu())
+              and torch.equal(got[1].cpu(), want[1].to(torch.uint8).cpu()),
+              "probe_stats (%s) counts %s and need mask" % (tag, want[0].tolist()))
+        if sdu is cut:
+            check(int(want[0][3]) > 0, "beyond-delta misses on the 400 m table")
+        if timed:
+            out["probe_stats " + tag] = time_ms(lambda: probe_outcomes(*args),
+                                                label="probe_stats " + tag)
+    print("redesign shapes: the scatter and probe_stats equal their plain versions at "
+          "512x64, 128x256 and A on the 400 m table; %s"
+          % ", ".join("%s %.4f ms" % kv for kv in out.items()))
+    return out
+
+
 def parent_kernels(parent, tag):
     """Every kernel library of ``KERNELS`` that ``parent`` (a checkout of
     another tree) has, built from its sources as this tree's are, into
@@ -4285,7 +4543,7 @@ def main(pair=()):
     smw = sparse_matcher(mw)
     chain_w_sp = chain_phases(smw, tr_l, tr_a, timed=False, sp=spb, long_pk=(pb_, kb),
                               sess_pk=(pa_, matcher.cfg.beam_k))
-    stats, stats_row = stats_phases(matcher, du_w, xin64, xin_a, timed=True)
+    stats, stats_row, cut = stats_phases(matcher, du_w, xin64, xin_a, timed=True)
     mem_launches, mem_rates = main_path(mw, [traces64, traces256], [xin64, xin256], base=matcher)
     check(mw.probe_stats["samples"] > 0 and mw.probe_stats["pairs"] > 0,
           "the sampled probe diagnostic: %s" % mw.probe_stats)
@@ -4373,6 +4631,13 @@ def main(pair=()):
     # plain version, and the mesh session step's time split into its parts
     slab_edge = slab_edges(device)
     mesh_step = mesh_step_split(matcher, traces64, timed=True)
+
+    # the redesigned dedup scatter (row 8b) and probe-outcome counters (row
+    # 12) on edge inputs and at the main path's shapes, each against its
+    # plain version
+    scatter_edge = scatter_edges(matcher, du_w)
+    stats_edge = stats_edges(device)
+    shape15 = redesign_shapes(matcher, sm, du_w, cut, xin64, xin256, xin_a, pa_, ka, True)
 
     # launches over the counted runs of every path but serve's; kernels
     # 1-4's times and bounds at 512 x 64, max_abs_err over both bucketed
@@ -4516,7 +4781,9 @@ def main(pair=()):
                  "seam": mesh_seam, "slab_ms": slab_ms, "step_split": mesh_step, **mesh},
         "redesign_edges": {"probe": probe_edge, "recursion": rec_edge, "sweep": sweep_edge,
                            "build": build_edge, "shapes": shape_ms, "assoc": assoc_edge,
-                           "claim": claim_edge, "slab": slab_edge},
+                           "claim": claim_edge, "slab": slab_edge,
+                           "scatter": scatter_edge, "probe_stats": stats_edge},
+        "redesign_shapes": shape15,
         "floor_ms": floor_ms,
         "metro_reports": n_reports, "peak_memory_mb": torch.cuda.max_memory_allocated() / 1e6,
         "kernels": kernels,

@@ -1,14 +1,17 @@
-// Float helpers shared by the port's kernels.  The kernels repeat the
-// float32 arithmetic of the reference as XLA compiles it: XLA's CPU backend
-// always lets LLVM contract a product feeding a sum into a fused
-// multiply-add, so the kernels use __fmaf_rn exactly at those sites and
-// explicit _rn intrinsics everywhere else (the build also passes
-// --fmad=false, so nvcc contracts nothing on its own).
+// Helpers shared by the port's kernels: float arithmetic, the decode of a
+// step of a [B, T] batch, and the occupancy query of persistent grids.
+// The kernels repeat the float32 arithmetic of the reference as XLA
+// compiles it: XLA's CPU backend always lets LLVM contract a product
+// feeding a sum into a fused multiply-add, so the kernels use __fmaf_rn
+// exactly at those sites and explicit _rn intrinsics everywhere else (the
+// build also passes --fmad=false, so nvcc contracts nothing on its own).
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace rtt {
 
@@ -31,6 +34,58 @@ __device__ __forceinline__ float hypot_like_jax(float u, float v) {
   const float x = (m == 0.f)
       ? m : __fmul_rn(m, __fsqrt_rn(__fmaf_rn(r, r, 1.f)));
   return inf ? INFINITY : x;
+}
+
+// A step r = b * (T-1) + t of a [B, T] batch's B * (T-1) consecutive-point
+// steps, and its first point p = b * T + t = r + b: b = r / (T-1) as
+// (umulhi(r, mul) + r) >> shr in 32-bit arithmetic (ops/hashtable.py
+// fast_divmod, made on the host by step_decode) when there are fewer than
+// 2^31 steps, else in int64.
+struct StepDecode {
+  int64_t tm1;
+  uint32_t mul, shr;
+  bool fast;
+
+  __device__ __forceinline__ int64_t point(int64_t r) const {
+    if (fast) {
+      const uint32_t r32 = (uint32_t)r;
+      return r + (int64_t)((__umulhi(r32, mul) + r32) >> shr);
+    }
+    return r + r / tm1;
+  }
+};
+
+// l = ceil(log2 d), mul = ceil(2^(32+l) / d) - 2^32 for d = T - 1 >= 1:
+// exact for every r < 2^31.
+inline StepDecode step_decode(int64_t n_steps, int32_t T) {
+  StepDecode dec = {T - 1, 0, 0, n_steps < 0x7fffffffLL};
+  const uint64_t d = (uint64_t)(T - 1);
+  while ((1ull << dec.shr) < d) ++dec.shr;
+  dec.mul = (uint32_t)((((1ull << (32 + dec.shr)) + d - 1) / d) - (1ull << 32));
+  return dec;
+}
+
+// The blocks of ``kernel`` (``threads`` a block, no dynamic shared
+// memory) that the device's SMs hold at once: the occupancy calculator,
+// asked once per device and kept in ``cached`` (one array a kernel).
+template <typename Kernel>
+cudaError_t resident_blocks(Kernel kernel, int threads,
+                            std::atomic<int> (&cached)[kMaxDevices],
+                            int* resident) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const bool keep = dev < kMaxDevices;
+  *resident = keep ? cached[dev].load(std::memory_order_relaxed) : 0;
+  if (*resident > 0) return cudaSuccess;
+  int sms = 0, per_sm = 0;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+  if (e != cudaSuccess) return e;
+  *resident = sms * (per_sm > 0 ? per_sm : 1);
+  if (keep) cached[dev].store(*resident, std::memory_order_relaxed);
+  return cudaSuccess;
 }
 
 }  // namespace rtt

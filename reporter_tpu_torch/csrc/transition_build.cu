@@ -62,21 +62,7 @@ __host__ __device__ constexpr int steps_for(int K) {
 }
 constexpr int kSide = 512;  // S * K for every K <= 512
 
-// A step's trace decoded from r: b = r / (T-1), as (umulhi(r, mul) + r)
-// >> shr in 32-bit arithmetic when the grid has fewer than 2^31 steps.
-struct StepDecode {
-  int64_t tm1;
-  uint32_t mul, shr;
-  bool fast;
-
-  __device__ __forceinline__ int64_t point(int64_t r) const {
-    if (fast) {
-      const uint32_t r32 = (uint32_t)r;
-      return r + (int64_t)((__umulhi(r32, mul) + r32) >> shr);
-    }
-    return r + r / tm1;
-  }
-};
+using rtt::StepDecode;
 
 template <int KT, bool SPARSE>  // KT = K, or 0: K at run time
 __global__ void __launch_bounds__(kThreads, kMinBlocks) transition_build_kernel(
@@ -271,12 +257,7 @@ int launch(const int32_t* edge, const float* offset, const float* px,
   if (T < 2 || B <= 0 || K <= 0) return 0;
   if (K > kSide) return (int)cudaErrorInvalidValue;
   const int64_t n_steps = B * (int64_t)(T - 1);
-  // ops/hashtable.py fast_divmod: l = ceil(log2 d), mul = ceil(2^(32+l) /
-  // d) - 2^32; exact for every r < 2^31
-  StepDecode dec = {T - 1, 0, 0, n_steps < 0x7fffffffLL};
-  const uint64_t d = (uint64_t)(T - 1);
-  while ((1ull << dec.shr) < d) ++dec.shr;
-  dec.mul = (uint32_t)((((1ull << (32 + dec.shr)) + d - 1) / d) - (1ull << 32));
+  const StepDecode dec = rtt::step_decode(n_steps, T);
   cudaStream_t s = (cudaStream_t)stream;
 #define RTT_BUILD(KT)                                                        \
   launch_kt<KT, SPARSE>(edge, offset, px, py, times, edge_rows, sp_dist,     \

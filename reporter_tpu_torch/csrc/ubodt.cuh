@@ -6,8 +6,8 @@
 // tiered_bucket_rows), a warp probe and a serial probe of both table
 // layouts (:138 _lookup_plain, :96 _select), the 4-d key grid the probe
 // kernels read through strides, decoded in 32-bit fast-divmod arithmetic,
-// and kernel 2's persistent grid (probe_kernel, launch_probe), which the
-// dedup scatter's fallback launches too.
+// and kernel 2's persistent grid (probe_loop, probe_kernel, launch_probe),
+// whose loop the dedup scatter's full-width fallback runs too.
 //
 // Tiered tables (RowSource with a slot map): a bucket's row comes from the
 // hot arena on the card when slot_map[b] >= 0, else from the full table
@@ -301,30 +301,18 @@ __device__ __forceinline__ int warp_probe(const int4* __restrict__ packed,
 
 constexpr int kProbeThreads = 256;  // 8 warps, 256 probes a block per pass
 
-// Kernel 2 over the n keys of grid g, a persistent grid: each warp takes
-// 32 keys a pass (rtt::warp_probe) and strides over them up to the live
-// count, which a block reads once.  ``past`` < 0: n_live (or n when null)
-// keys are live, none when it exceeds n (the dedup path's compact probe).
-// ``past`` >= 0: all n keys are live when *n_live > past, else none (the
-// dedup scatter's full-width fallback, decided on the device).
+// Kernel 2's grid-stride loop over the keys [0, live) of grid g, on a
+// persistent grid of kProbeThreads-thread blocks: each warp takes 32 keys
+// a pass (warp_probe).  ``live`` must be the same for the whole warp.
+// The body of probe_kernel, and of the dedup scatter's full-width
+// fallback (ubodt_dedup.cu).
 template <bool WIDE, bool TIERED, bool SHARDED>
-__global__ void __launch_bounds__(kProbeThreads) probe_kernel(
+__device__ __forceinline__ void probe_loop(
     const int32_t* __restrict__ src, const int32_t* __restrict__ dst,
-    Grid4 g, int64_t n, const int32_t* __restrict__ n_live, int64_t past,
-    const int4* __restrict__ packed, uint32_t bmask,
-    float* __restrict__ out_dist, float* __restrict__ out_time,
-    int32_t* __restrict__ out_first, RowSource tier, BucketRange range) {
-  __shared__ int64_t block_live;
-  if (threadIdx.x == 0) {
-    int64_t live = n;
-    if (n_live) {
-      const int64_t c = *n_live;
-      live = past < 0 ? (c <= n ? c : 0) : (c > past ? n : 0);
-    }
-    block_live = live;
-  }
-  __syncthreads();
-  const int64_t live = block_live;
+    const Grid4& g, int64_t live, const int4* __restrict__ packed,
+    uint32_t bmask, float* __restrict__ out_dist, float* __restrict__ out_time,
+    int32_t* __restrict__ out_first, const RowSource& tier,
+    BucketRange range) {
   const int lane = threadIdx.x & 31;
   const int64_t stride = (int64_t)gridDim.x * kProbeThreads;
   unsigned hits = 0, fetches = 0;  // TIERED: this lane's probes' rows
@@ -354,38 +342,51 @@ __global__ void __launch_bounds__(kProbeThreads) probe_kernel(
   }
 }
 
-// Launch probe_kernel on its persistent grid: the SMs times the blocks of
-// the instantiation one SM holds (the occupancy calculator, asked once per
-// device), fewer when the keys need fewer.
+// Kernel 2 over the n keys of grid g (probe_loop): n_live (or n when
+// null) keys are live, none when it exceeds n (the dedup path's compact
+// probe).  A block reads the live count once.
+template <bool WIDE, bool TIERED, bool SHARDED>
+__global__ void __launch_bounds__(kProbeThreads) probe_kernel(
+    const int32_t* __restrict__ src, const int32_t* __restrict__ dst,
+    Grid4 g, int64_t n, const int32_t* __restrict__ n_live,
+    const int4* __restrict__ packed, uint32_t bmask,
+    float* __restrict__ out_dist, float* __restrict__ out_time,
+    int32_t* __restrict__ out_first, RowSource tier, BucketRange range) {
+  __shared__ int64_t block_live;
+  if (threadIdx.x == 0) {
+    int64_t live = n;
+    if (n_live) {
+      const int64_t c = *n_live;
+      live = c <= n ? c : 0;
+    }
+    block_live = live;
+  }
+  __syncthreads();
+  probe_loop<WIDE, TIERED, SHARDED>(src, dst, g, block_live, packed, bmask,
+                                    out_dist, out_time, out_first, tier,
+                                    range);
+}
+
+// Launch probe_kernel on its persistent grid: the blocks the SMs hold at
+// once (resident_blocks), fewer when the keys need fewer.
 template <bool WIDE, bool TIERED, bool SHARDED>
 cudaError_t launch_probe(const int32_t* src, const int32_t* dst,
                          const Grid4& g, int64_t n, const int32_t* n_live,
-                         int64_t past, const int4* packed, uint32_t bmask,
-                         float* out_dist, float* out_time, int32_t* out_first,
+                         const int4* packed, uint32_t bmask, float* out_dist,
+                         float* out_time, int32_t* out_first,
                          const RowSource& tier, BucketRange range,
                          cudaStream_t stream) {
   static std::atomic<int> cached[kMaxDevices];
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  int resident = 0;
+  const cudaError_t e = resident_blocks(probe_kernel<WIDE, TIERED, SHARDED>,
+                                        kProbeThreads, cached, &resident);
   if (e != cudaSuccess) return e;
-  const bool keep = dev < kMaxDevices;
-  int resident = keep ? cached[dev].load(std::memory_order_relaxed) : 0;
-  if (resident == 0) {
-    int sms = 0, per_sm = 0;
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, probe_kernel<WIDE, TIERED, SHARDED>, kProbeThreads, 0);
-    if (e != cudaSuccess) return e;
-    resident = sms * (per_sm > 0 ? per_sm : 1);
-    if (keep) cached[dev].store(resident, std::memory_order_relaxed);
-  }
   const int64_t need = (n + kProbeThreads - 1) / kProbeThreads;
   const int64_t blocks = need < resident ? need : resident;
   probe_kernel<WIDE, TIERED, SHARDED><<<(unsigned)blocks, kProbeThreads, 0,
                                         stream>>>(
-      src, dst, g, n, n_live, past, packed, bmask, out_dist, out_time,
-      out_first, tier, range);
+      src, dst, g, n, n_live, packed, bmask, out_dist, out_time, out_first,
+      tier, range);
   return cudaGetLastError();
 }
 

@@ -27,13 +27,25 @@
 //            count as each warp wins them) the fallback is certain and
 //            insertion stops.
 //   probe    kernel 2 over the compact buffers, n_live = the count.
-//   scatter  a separate launch, so every claim is visible: each key copies
-//            the result at its slot's compact index.  When the count is
-//            past m, kernel 2's grid (rtt::launch_probe), launched right
-//            after it, probes every key itself instead (the reference's
-//            full-width fallback, decided on the device with no host
-//            readback); each of the two exits at once when the other
-//            does the work.
+//   scatter  a separate launch, so every claim is visible, on a
+//            persistent grid held to kernel 2's occupancy (4 blocks of
+//            256 an SM).  Every thread reads the count itself (one word:
+//            the branch is the same for the whole grid).  Bounded by
+//            memory: each key's slot read and its results written, 12
+//            bytes a key (16 with first_edge), the compact side from L2.
+//            Within the budget each key copies the result
+//            at its slot's compact index: a thread takes 4 consecutive
+//            keys a pass (one 16-byte load of their slots, 4 independent
+//            reads of the compact indices, 8 or 12 of the results, 16-byte
+//            stores), the next pass's slots loaded before this pass's
+//            reads, the first pass's before the count test resolves, so
+//            neither the count nor the slots are a link in the chain; a
+//            tail of n % 4 keys runs one a thread.  A key's chain is one
+//            slot read, one index read and one result read.  Past
+//            the budget the same launch runs kernel 2's loop over every
+//            key (rtt::probe_loop: the reference's full-width fallback,
+//            decided on the device with no host readback and no second
+//            launch).
 //
 // The compact order depends on the order in which atomics land; the
 // outputs do not: each position's result is the probe of its own key, so
@@ -217,23 +229,54 @@ claim_kernel(const int32_t* __restrict__ src, const int32_t* __restrict__ dst,
   }
 }
 
-__global__ void scatter_kernel(const int64_t n,
-                               const int32_t* __restrict__ slot_of,
-                               const int32_t* __restrict__ sidx,
-                               const int32_t* __restrict__ count, int64_t m,
-                               const float* __restrict__ c_dist,
-                               const float* __restrict__ c_time,
-                               const int32_t* __restrict__ c_first, bool wide,
-                               uint32_t bmask, float* __restrict__ out_dist,
-                               float* __restrict__ out_time,
-                               int32_t* __restrict__ out_first,
-                               rtt::RowSource tier) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (*count > m) return;  // uniform over the grid: the fallback probes
-  if (tier.slot_map != nullptr && i == 0) {  // the compact buffer's (0, 0) tail
+// The slots of keys 4q..4q+3, loaded as one 16-byte read through the
+// read-only path, in program order before the count's read (both asm
+// volatile, so the compiler keeps them in this order and the slot load is
+// in flight while the count test resolves).
+__device__ __forceinline__ int4 slots_early(const int32_t* slot_of, int64_t q) {
+  int4 v;
+  asm volatile("ld.global.nc.v4.s32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(slot_of + 4 * q));
+  return v;
+}
+
+__device__ __forceinline__ int32_t count_now(const int32_t* count) {
+  int32_t c;
+  asm volatile("ld.global.nc.s32 %0, [%1];" : "=r"(c) : "l"(count));
+  return c;
+}
+
+// Each key's result from the compact probe through its slot, or, past the
+// budget, kernel 2's full-width probe of every key (WIDE, TIERED: the
+// table's).  slot_of and the outputs are 16-byte aligned.  Held to 64
+// registers, 4 blocks an SM, as kernel 2's untiered probe_kernel is on
+// its own: the fallback then probes on kernel 2's grid.
+template <bool WIDE, bool TIERED>
+__global__ void __launch_bounds__(rtt::kProbeThreads, 4) scatter_kernel(
+    const int32_t* __restrict__ src, const int32_t* __restrict__ dst,
+    rtt::Grid4 g, int64_t n, const int32_t* __restrict__ slot_of,
+    const int32_t* __restrict__ sidx, const int32_t* count, int64_t m,
+    const float* __restrict__ c_dist, const float* __restrict__ c_time,
+    const int32_t* __restrict__ c_first, const int4* __restrict__ packed,
+    uint32_t bmask, float* __restrict__ out_dist,
+    float* __restrict__ out_time, int32_t* __restrict__ out_first,
+    rtt::RowSource tier) {
+  const int64_t t0 = (int64_t)blockIdx.x * rtt::kProbeThreads + threadIdx.x;
+  const int64_t threads = (int64_t)gridDim.x * rtt::kProbeThreads;
+  const int64_t nq = n >> 2;  // whole runs of 4 keys
+  int4 so = make_int4(0, 0, 0, 0);
+  if (t0 < nq) so = slots_early(slot_of, t0);
+  if (count_now(count) > m) {  // the same for every thread: the fallback
+    rtt::probe_loop<WIDE, TIERED, false>(src, dst, g, n, packed, bmask,
+                                         out_dist, out_time, out_first, tier,
+                                         rtt::BucketRange{});
+    return;
+  }
+  if (TIERED && t0 == 0) {  // the compact buffer's (0, 0) tail
     const unsigned long long tail = (unsigned long long)(m - *count);
     unsigned long long hits = 0, misses = 0;
-    for (int w = 0; w < (wide ? 1 : 2) && tail; ++w) {
+    for (int w = 0; w < (WIDE ? 1 : 2) && tail; ++w) {
       const uint32_t h = (w == 0 ? rtt::pair_hash1(0u, 0u)
                                  : rtt::pair_hash2(0u, 0u)) & bmask;
       if (tier.counts) atomicAdd(tier.counts + h, (int32_t)tail);
@@ -241,16 +284,57 @@ __global__ void scatter_kernel(const int64_t n,
     }
     rtt::add_totals(tier, hits, misses);
   }
-  if (i >= n) return;
-  const int32_t idx = sidx[slot_of[i]];
-  out_dist[i] = c_dist[idx];
-  out_time[i] = c_time[idx];
-  if (out_first) out_first[i] = c_first[idx];
+  const int4* slot4 = reinterpret_cast<const int4*>(slot_of);
+  for (int64_t q = t0; q < nq; q += threads) {
+    const int64_t qn = q + threads;
+    const int4 next = qn < nq ? __ldg(slot4 + qn) : so;
+    const int32_t i0 = __ldg(sidx + so.x), i1 = __ldg(sidx + so.y);
+    const int32_t i2 = __ldg(sidx + so.z), i3 = __ldg(sidx + so.w);
+    const float4 d = make_float4(__ldg(c_dist + i0), __ldg(c_dist + i1),
+                                 __ldg(c_dist + i2), __ldg(c_dist + i3));
+    const float4 t = make_float4(__ldg(c_time + i0), __ldg(c_time + i1),
+                                 __ldg(c_time + i2), __ldg(c_time + i3));
+    if (out_first)
+      reinterpret_cast<int4*>(out_first)[q] =
+          make_int4(__ldg(c_first + i0), __ldg(c_first + i1),
+                    __ldg(c_first + i2), __ldg(c_first + i3));
+    reinterpret_cast<float4*>(out_dist)[q] = d;
+    reinterpret_cast<float4*>(out_time)[q] = t;
+    so = next;
+  }
+  const int64_t i = 4 * nq + t0;  // the tail, one key a thread
+  if (i < n) {
+    const int32_t idx = sidx[slot_of[i]];
+    out_dist[i] = c_dist[idx];
+    out_time[i] = c_time[idx];
+    if (out_first) out_first[i] = c_first[idx];
+  }
 }
 
-constexpr int kThreads = 256;
-
-inline int64_t blocks_for(int64_t n) { return (n + kThreads - 1) / kThreads; }
+template <bool WIDE, bool TIERED>
+cudaError_t launch_scatter(const int32_t* src, const int32_t* dst,
+                           const rtt::Grid4& g, int64_t n,
+                           const int32_t* slot_of, const int32_t* sidx,
+                           const int32_t* count, int64_t m,
+                           const float* c_dist, const float* c_time,
+                           const int32_t* c_first, const int4* packed,
+                           uint32_t bmask, float* out_dist, float* out_time,
+                           int32_t* out_first, const rtt::RowSource& tier,
+                           cudaStream_t st) {
+  static std::atomic<int> cached[rtt::kMaxDevices];
+  int resident = 0;
+  const cudaError_t e = rtt::resident_blocks(scatter_kernel<WIDE, TIERED>,
+                                             rtt::kProbeThreads, cached,
+                                             &resident);
+  if (e != cudaSuccess) return e;
+  // enough blocks for the fallback's one key a thread, at most resident
+  const int64_t need = (n + rtt::kProbeThreads - 1) / rtt::kProbeThreads;
+  const int64_t blocks = need < resident ? need : resident;
+  scatter_kernel<WIDE, TIERED><<<(unsigned)blocks, rtt::kProbeThreads, 0, st>>>(
+      src, dst, g, n, slot_of, sidx, count, m, c_dist, c_time, c_first,
+      packed, bmask, out_dist, out_time, out_first, tier);
+  return cudaGetLastError();
+}
 
 }  // namespace
 
@@ -285,6 +369,7 @@ extern "C" int ubodt_dedup_claim_launch(
 // wide: the table's layout (0 cuckoo, 1 wide32), for the fallback probe.
 // slot_map (null: untiered), arena, counts and totals: the tier's, as
 // kernel 2's tiered instantiations take them (packed the host pages).
+// slot_of, out_dist, out_time and out_first (or null) 16-byte aligned.
 extern "C" int ubodt_dedup_scatter_launch(
     const int32_t* src, const int32_t* dst, const int64_t* dims,
     const int64_t* src_strides, const int64_t* dst_strides,
@@ -297,36 +382,25 @@ extern "C" int ubodt_dedup_scatter_launch(
   rtt::Grid4 g;
   const int64_t n = rtt::make_grid(dims, src_strides, dst_strides, &g);
   if (n <= 0) return 0;
-  if (blocks_for(n) > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (((uintptr_t)slot_of | (uintptr_t)out_dist | (uintptr_t)out_time |
+       (uintptr_t)out_first) & 15)
+    return (int)cudaErrorInvalidValue;
   const int4* p = reinterpret_cast<const int4*>(packed);
   cudaStream_t st = (cudaStream_t)stream;
   const rtt::RowSource tier = {slot_map, reinterpret_cast<const int4*>(arena),
                                counts,
                                reinterpret_cast<unsigned long long*>(totals)};
   const uint32_t bm = (uint32_t)bmask;
-  scatter_kernel<<<(unsigned)blocks_for(n), kThreads, 0, st>>>(
-      n, slot_of, sidx, count, m, c_dist, c_time, c_first, wide != 0, bm,
-      out_dist, out_time, out_first, tier);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  // past the budget: kernel 2 over every key (a grid that exits at once
-  // when the dedup ran)
+#define RTT_SCATTER(W, T)                                                    \
+  launch_scatter<W, T>(src, dst, g, n, slot_of, sidx, count, m, c_dist,      \
+                       c_time, c_first, p, bm, out_dist, out_time, out_first, \
+                       tier, st)
   const bool tiered = slot_map != nullptr;
-  const rtt::BucketRange all{};
-  if (wide)
-    e = tiered ? rtt::launch_probe<true, true, false>(
-                     src, dst, g, n, count, m, p, bm, out_dist, out_time,
-                     out_first, tier, all, st)
-               : rtt::launch_probe<true, false, false>(
-                     src, dst, g, n, count, m, p, bm, out_dist, out_time,
-                     out_first, tier, all, st);
-  else
-    e = tiered ? rtt::launch_probe<false, true, false>(
-                     src, dst, g, n, count, m, p, bm, out_dist, out_time,
-                     out_first, tier, all, st)
-               : rtt::launch_probe<false, false, false>(
-                     src, dst, g, n, count, m, p, bm, out_dist, out_time,
-                     out_first, tier, all, st);
+  const cudaError_t e = wide ? (tiered ? RTT_SCATTER(true, true)
+                                       : RTT_SCATTER(true, false))
+                             : (tiered ? RTT_SCATTER(false, true)
+                                       : RTT_SCATTER(false, false));
+#undef RTT_SCATTER
   return (int)e;
 }
 

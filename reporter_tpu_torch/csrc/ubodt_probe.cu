@@ -81,7 +81,7 @@ int launch(const int32_t* src, const int32_t* dst, const int64_t* dims,
                                       (uint64_t)(uint32_t)bmask + 1))
     return (int)cudaErrorInvalidValue;
   return (int)rtt::launch_probe<WIDE, TIERED, SHARDED>(
-      src, dst, g, n, n_live, -1, reinterpret_cast<const int4*>(packed),
+      src, dst, g, n, n_live, reinterpret_cast<const int4*>(packed),
       (uint32_t)bmask, out_dist, out_time, out_first, tier, range,
       (cudaStream_t)stream);
 }

@@ -52,7 +52,7 @@ def probe_outcomes(dist, cand_edge, valid, px, py, breakage_distance,
     ``dist`` and its candidates' edges [B, T, K] (``valid``, ``px``, ``py``
     [B, T] f32): (stats int32 [5] = pairs needing a probe, misses, costly
     misses, beyond-delta misses, 0; need uint8 [B, T-1, K, K]).  CPU
-    tensors run the plain version."""
+    tensors run the plain version; the kernel takes K of at most 32."""
     dev = dist.device
     if dev.type == "cpu":
         counts, need = probe_outcomes_plain(dist, cand_edge, valid, px, py,
@@ -61,6 +61,8 @@ def probe_outcomes(dist, cand_edge, valid, px, py, breakage_distance,
                 need.to(torch.uint8))
     B, T = px.shape
     K = cand_edge.shape[-1]
+    if K > 32:
+        raise ValueError("probe_stats: k=%d outside 1..32" % K)
     check(dist, "dist", torch.float32, dev, (B, T - 1, K, K))
     check(cand_edge, "cand_edge", torch.int32, dev, (B, T, K))
     for name, t in (("valid", valid), ("px", px), ("py", py)):
