@@ -130,9 +130,10 @@ delta 3000 m, cuckoo layout) and moves it to the card, then:
      and 512 x 4, sparse at L's window and 512 x 4); kernel 4's
      chosen-slot output against the plain decode and
      ``segment_histogram`` against its plain version at 512 x 64 and 128
-     x 256 (counts exact, sums within rtol 1e-5), timed beside four
-     ``index_add_`` calls; ``slab_gather_owned`` / ``slab_scatter_owned``
-     at dp 2 and 4 against their plain versions and the single slab, bit
+     x 256 (counts exact, sums within rtol 1e-5), timed at both, at 512
+     x 64 beside four ``index_add_`` calls; ``slab_gather_owned`` /
+     ``slab_scatter_owned`` at dp 2 and 4 against their plain versions
+     and the single slab, bit
      for bit (timed at rank 0 of dp 2 and 4, K = 8; of dp 2 at K = 16
      and at B = 4,096); then, through the launch counters, a dp2 and a
      dp2 x gp4 matcher over the bucketed, long and sparse A paths (and
@@ -152,28 +153,32 @@ delta 3000 m, cuckoo layout) and moves it to the card, then:
      probe's fallback and compact probe exact; kernels 4 and 5 in every
      instantiation (K = 1, 2, 4, 8, 16, 32, carried or not, dense or
      sparse) at B = 1, 16 and 512 rows (and 64, 256: every block size of
-     their launch), each equal to its plain version.
+     their launch), and on 16 rows with x legs of NaN beside y legs of 0
+     (in the windows and at the seam), each equal to its plain version.
   12. the redesigned sweep and transition build on edge inputs
      (``sweep_edges``, ``build_edges``, ``design_shapes``): kernel 1 at
      every K of 1-32 on the metro city (cap 8) and at K = 1, 2, 8, 16, 32
      on grid cities whose cells hold 2, 24 and 56 items, over nodes (ties),
      block centres (all miss), points beyond the borders, on cell lines,
-     near roads and invalid points, full and packed; kernel 3, dense and
-     sparse, at K = 1, 2, 4, 8, 16, 32 (and 3, 24) and B x T in {1, 16,
-     512} x {2, 3, 64, 2048} on synthetic candidates (same-edge forward,
-     jitter and loop pairs, empty slots, dt <= 0, headings at +-pi and
-     beyond) and probe results (finite, 0, +inf): each equal to its plain
-     version bit for bit; both timed at 512 x 64, 128 x 256, 64 x 2,048 (K
-     = 8) and A's 512 x 16 (K = 16), kernel 1 also on each cap.
+     near roads, points whose x is NaN beside a node's y and invalid
+     points, full and packed; kernel 3, dense and sparse, at K = 1, 2, 4,
+     8, 16, 32 (and 3, 24) and B x T in {1, 16, 512} x {2, 3, 64, 2048}
+     on synthetic candidates (same-edge forward, jitter and loop pairs,
+     empty slots, dt <= 0, headings at +-pi and beyond, x legs of NaN
+     beside y legs of 0) and probe results (finite, 0, +inf): each equal
+     to its plain version bit for bit; both timed at 512 x 64, 128 x 256,
+     64 x 2,048 (K = 8) and A's 512 x 16 (K = 16), kernel 1 also on each
+     cap.
   13. the redesigned log-depth forward and dedup claim on edge inputs
      (``assoc_edges``, ``claim_edges``): every instantiation <K, CARRY,
      SPARSE> of the assoc template at K = 1, 2, 4, 8, 16, 32 and T = 2, 3,
      17, 64, 256 on rows that restart, break at step 0, break at every
      step, break for a dead source, end in padding or are all padding,
-     tie, or never break, fresh and continuing live carries of the long
-     cohort (on a 64-slot slab too: rows with ``use`` false, padding
-     rows), the seam tiered (equal fetch counts) and resolved over a gp-4
-     view; the claim on key runs with (-1, -1) keys, all keys equal, all
+     tie, or never break, with a NaN gc at a few steps, fresh and
+     continuing live carries of the long cohort (x legs of NaN beside y
+     legs of 0 at the seam; on a 64-slot slab too: rows with ``use``
+     false, padding rows), the seam tiered (equal fetch counts) and
+     resolved over a gp-4 view; the claim on key runs with (-1, -1) keys, all keys equal, all
      (-1, -1) and all distinct past the budget, in both layouts and in
      count mode: each equal to its plain version (packed and carry bit for
      bit, aux rtol 1e-4; distinct counts exact).
@@ -200,9 +205,10 @@ delta 3000 m, cuckoo layout) and moves it to the card, then:
      3, 4, 6, 8, 12, 16, 32 (both kernels: a warp a step, a lane 4 pairs
      where K % 4 == 0) and B x T from 0 x 2 and 1 x 1 (nothing launched) and 3 x
      2 (fewer steps than the grid's warps) to 512 x 65, on dist with +-inf
-     and NaN, same-edge and negative candidates, invalid points and gaps
-     exactly at the breakage distance and delta, counts and need mask equal
-     to the plain version's bit for bit; then both timed (and so paired
+     and NaN, same-edge and negative candidates, invalid points, gaps
+     exactly at the breakage distance and delta and x legs of NaN beside
+     y legs of 0, counts and need mask equal to the plain version's bit
+     for bit; then both timed (and so paired
      under ``--pair``): the scatter at 512 x 64 on the cuckoo table, 128 x
      256 in both layouts and cohort A (512 x 16, K = 16) on the 400 m
      table, ``probe_stats`` at 512 x 64 on the wide32 probe's dist, 128 x
@@ -211,6 +217,16 @@ delta 3000 m, cuckoo layout) and moves it to the card, then:
      tiered table at 64 MiB (``tier_kernel_phases``, its (0, 0) tail
      count compared across trees), and at 512 x 64 beside its closest
      PyTorch composition (``memory_phases``: three calls).
+  16. the redesigned segment histogram (row 11b) on edge inputs
+     (``histogram_edges``): T = 1, 2, 31, 32, 33, 64, 255, 256, 257 and
+     2,048 (a warp a chunk of 64 points, one to four warps a row, at T
+     <= 256, a block a row past it), B = 0 (nothing launched), 1, 7, 64,
+     20,000
+     (more rows than the persistent grid's warps), K = 1, 2, 4, 8, rows
+     unmatched, on one segment, re-entering segments, broken at every
+     step, with route entries of +-inf, NaN, 0 and -0.0 and chosen edges
+     whose segment is -1 or outside [0, S), and S = 4 (every row's adds
+     on four bins): counts bit for bit, sums within rtol 1e-5.
 
 Before the phases it times ``torch.cuda._sleep(1)``, a one-thread kernel,
 under ``time_ms`` (``launch_floor``): the least time that timer reads for
@@ -262,7 +278,7 @@ _PAIRED = {"sass": {}, "cases": {}}
 
 
 def time_ms(fn, reps=20, warmup=3, cold_l2=False, queued=True, prep=None, label=None,
-            tier=None):
+            tier=None, same=None):
     """Median device time of one call of ``fn`` over ``reps`` calls, in ms,
     from CUDA events.  Under ``--pair`` a call with a ``label`` (a kernel's
     call) is timed against the other trees' builds too (``_paired``).
@@ -279,9 +295,10 @@ def time_ms(fn, reps=20, warmup=3, cold_l2=False, queued=True, prep=None, label=
     ops are launch-bound on the host) lets the host's gaps count, as they
     do for a caller.  ``prep`` (a call that restores what ``fn`` changes,
     such as a slab step's slab) runs before each call, outside its event
-    pair, so that every timed call starts from the same state."""
+    pair, so that every timed call starts from the same state.  ``same``
+    (default: bit for bit) compares two trees' outputs under ``--pair``."""
     kw = dict(reps=reps, warmup=warmup, cold_l2=cold_l2, queued=queued, prep=prep)
-    return _paired(fn, label, tier, kw) if _PAIR and label else _median_ms(fn, **kw)
+    return _paired(fn, label, tier, kw, same) if _PAIR and label else _median_ms(fn, **kw)
 
 
 def _median_ms(fn, reps, warmup, cold_l2, queued, prep):
@@ -327,11 +344,12 @@ def _median_ms(fn, reps, warmup, cold_l2, queued, prep):
     raise RuntimeError("timing: the host did not get ahead of the card")
 
 
-def _paired(fn, label, tier, kw):
+def _paired(fn, label, tier, kw, same=None):
     """``time_ms`` under ``--pair``: the outputs of ``fn`` (from the state
     ``prep`` restores) under each other tree's kernels equal this tree's
-    bit for bit where this tree's two calls agree (a claim's order may
-    not), and with ``tier`` so do the fetch counts and hit/miss totals;
+    (bit for bit, or by ``same``) where this tree's two calls agree (a
+    claim's order may not), and with ``tier`` so do the fetch counts and
+    hit/miss totals;
     then the builds are timed in turns (the trees, this tree twice, the
     trees in reverse).  Records the case under ``label`` in ``_PAIRED``
     and returns this tree's mean."""
@@ -342,11 +360,12 @@ def _paired(fn, label, tier, kw):
             prep()
         return fn()
     want, dk = _tier_delta(tier, call)
-    steady = _outputs_equal(want, call())
+    same = same or _outputs_equal
+    steady = same(want, call())
     for tag, ks in _PAIR.items():
         with design(ks):
             got, dp = _tier_delta(tier, call)
-        check(not steady or _outputs_equal(got, want),
+        check(not steady or same(got, want),
               "%s: %s's kernels give this tree's outputs bit for bit" % (label, tag))
         _same_fetches(dk, dp, "%s against %s" % (label, tag))
     builds = dict(_PAIR, change={})
@@ -2819,13 +2838,23 @@ def mesh_seam_phases(matcher, sm, long_traces, traces64, tr_l, tr_a, pk, timed):
     return out
 
 
+def _hist_same(a, b):
+    """Two ``SegmentHistogram``s: counts bit for bit, the time and distance
+    sums within rtol 1e-5 (the adds' order differs between designs)."""
+    import torch
+
+    return (torch.equal(a.point_count, b.point_count) and torch.equal(a.trace_count, b.trace_count)
+            and all(torch.allclose(x, y, rtol=1e-5, atol=1e-3) for x, y in zip(a[2:], b[2:])))
+
+
 def histogram_phases(matcher, xins, timed):
     """Kernel 11b and kernel 4's chosen-slot output: on each decoded batch
     the scan kernel's ``choice`` equals the plain decode's exactly, and
     ``segment_histogram`` equals its plain version on the same inputs:
     counts exact, time and distance sums within rtol 1e-5 (the atomics'
     order).  Timed at 512 x 64 beside four ``index_add_`` calls on the
-    same inputs (the yardstick)."""
+    same inputs (the yardstick), and at 128 x 256 alone (both labelled,
+    so ``--pair`` times both against every tree)."""
     import torch
 
     from reporter_tpu_torch.ops import histogram as Hg
@@ -2859,9 +2888,10 @@ def histogram_phases(matcher, xins, timed):
             pre.cand.edge, 2, choice[0].clamp(min=0).long()[..., None])).numel())
         # reads: choice, breaks, times once; the chosen candidate edge, the
         # chosen route entry and the edge's segment id per point; writes
-        # the [4, S] output.  ~T/2 compares a point for first occurrence.
+        # the [4, S] output.  Operations: ~40 a point (the runs' scan, 5
+        # steps of 4 values, and the step's terms).
         bnd, by = bound(16 * B * T + 4 * matched + 4 * routed + 4 * n_edges + 16 * S,
-                        B * T * (T + 20) // 2)
+                        40 * B * T)
         print("kernel %-27s %dx%d S=%d: %d matched points, counts exact, sums within rtol "
               "1e-5 (max_abs_err %.3g)" % ("segment_histogram", B, T, S, matched, err))
         if row is None:
@@ -2895,8 +2925,18 @@ def histogram_phases(matcher, xins, timed):
                        plain=lambda: Hg.segment_histogram_plain(*hargs), library=library)
         else:
             row["max_abs_err"] = max(row["max_abs_err"], err)
+            shape = "%dx%d S=%d" % (B, T, S)
+            row.setdefault("shapes", {})[shape] = {"bound_ms": bnd, "bound_by": by}
+            if timed:
+                row["shapes"][shape]["ms"] = time_ms(
+                    lambda a=hargs: Hg.segment_histogram(*a), label="segment_histogram " + shape,
+                    same=_hist_same)
+            print("kernel %-27s %s kernel_ms=%s bound_ms=%.4f (%s)" % (
+                "segment_histogram", shape, "%.4f" % row["shapes"][shape]["ms"]
+                if timed else "-", bnd, by))
     if timed:
-        row["ms"] = time_ms(row["fn"], label="segment_histogram " + row["shape"])
+        row["ms"] = time_ms(row["fn"], label="segment_histogram " + row["shape"],
+                            same=_hist_same)
         row["plain_ms"] = time_ms(row["plain"], queued=False)
         row["library_ms"] = time_ms(row["library"], queued=False)
     print("kernel %-27s %s kernel_ms=%s plain_ms=%s library_ms=%s (4 x index_add_) "
@@ -3557,6 +3597,32 @@ def probe_edges(matcher, ubodt_w, du_w, xin):
     return out
 
 
+def nan_legs(xin, seam=None, prev=None, frac=0.02, seed=0):
+    """A copy of the packed [4, B, T] input ``xin`` in which a seeded
+    ``frac`` of the points (t >= 1), and with ``seam`` the point t = seam
+    of every fourth row (b % 4 == 1), have an x of NaN and their
+    predecessor's y: steps whose x leg is NaN beside a y leg of 0 (the
+    legs for which ``rtt::hypot_like_jax`` once gave 0 where ``jnp.hypot``
+    gives NaN).  A point at t = 0 (``seam`` 0) takes the last y of
+    ``prev``, the packed input of the window before: the seam's step
+    from the carried point."""
+    import numpy as np
+    import torch
+
+    out = xin.clone()
+    B, T = out.shape[1:]
+    pick = np.random.default_rng(seed).uniform(size=(B, T)) < frac
+    pick[:, 0] = False
+    if seam is not None:
+        pick[1::4, seam] = True
+    first = prev[1, :, -1:] if prev is not None else out[1, :, :1]
+    prev_y = torch.cat([first, out[1, :, :-1]], 1)
+    m = torch.from_numpy(pick).to(out.device)
+    out[1] = torch.where(m, prev_y, out[1])
+    out[0] = torch.where(m, torch.full_like(out[0], float("nan")), out[0])
+    return out
+
+
 def recursion_edges(matcher, xin64, xin_a, pa, ka, spa):
     """Kernels 4 and 5 (the redesigned recursion) in every instantiation
     <K, CARRY, SPARSE>, K = 1, 2, 4, 8, 16 and 32, each against its plain
@@ -3567,7 +3633,9 @@ def recursion_edges(matcher, xin64, xin_a, pa, ka, spa):
     sparse scan and the sparse chain over two windows of 8.  B = 1, 16
     and 512, and 64 and 256 at the matcher's K and 64 at A's (``ka``), so
     that the block sizing takes each branch (32, 64 and 128 threads at K
-    = 8) and the shared-memory ring each depth.  Returns the shapes
+    = 8) and the shared-memory ring each depth; at every K also on 16 rows
+    of each with x legs of NaN beside y legs of 0 (``nan_legs``: inside
+    the windows and at the second window's seam).  Returns the shapes
     checked."""
     import torch
 
@@ -3602,6 +3670,8 @@ def recursion_edges(matcher, xin64, xin_a, pa, ka, spa):
                   "%s (window %d) equals its plain version" % (what, w))
             carry = k[2]
 
+    nan64 = nan_legs(xin64[:, :16], seam=32, seed=1)
+    nan_a = nan_legs(xin_a[:, :16], seam=8, seed=2)
     for K in (1, 2, 4, 8, 16, 32):
         for B in (1, 16, 64, 256, 512) if K == K8 else (1, 16, 512):
             x = xin64[:, :B].contiguous()
@@ -3613,10 +3683,17 @@ def recursion_edges(matcher, xin64, xin_a, pa, ka, spa):
             scan(x, pa, K, spa, "viterbi_scan[sparse] %dx16 K=%d" % (B, K))
             chain(x, pa, K, spa, "viterbi_chain[sparse] %dx8 K=%d" % (B, K))
             done.append("sparse %dx16 K=%d" % (B, K))
+        # x legs of NaN beside y legs of 0, in the windows and at the seam
+        scan(nan64, p, K, None, "viterbi_scan 16x64 K=%d (NaN x legs)" % K)
+        chain(nan64, p, K, None, "viterbi_chain 16x32 K=%d (NaN x legs)" % K)
+        scan(nan_a, pa, K, spa, "viterbi_scan[sparse] 16x16 K=%d (NaN x legs)" % K)
+        chain(nan_a, pa, K, spa, "viterbi_chain[sparse] 16x8 K=%d (NaN x legs)" % K)
+        done.append("NaN x legs 16x64, sparse 16x16 K=%d" % K)
     print("recursion edges: viterbi_scan (with chosen slots) and viterbi_chain (two windows), "
           "dense on the 512 x 64 cohort's first B rows and sparse on A's, at K = 1, 2, 4, 8, "
-          "16, 32 and B = 1, 16, 512 (and 64, 256 at K = %d, 64 at K = %d): each equal to "
-          "its plain version" % (K8, ka))
+          "16, 32 and B = 1, 16, 512 (and 64, 256 at K = %d, 64 at K = %d), and on 16 rows "
+          "with x legs of NaN beside y legs of 0 (in the windows and at the seam): each equal "
+          "to its plain version" % (K8, ka))
     return done
 
 
@@ -3626,7 +3703,7 @@ def recursion_edges(matcher, xin64, xin_a, pa, ka, spa):
 # holds the plain versions against the JAX package on the same inputs.
 
 SWEEP_CELLS = ((100.0, 2), (200.0, None), (450.0, None))  # caps 2, 24, 56 on 150 m blocks
-SWEEP_KINDS = ("node", "block centre", "border", "cell line", "near road", "uniform")
+SWEEP_KINDS = ("node", "block centre", "border", "cell line", "near road", "NaN x", "uniform")
 
 
 def sweep_edge_points(arrays, B=16, T=256, seed=0):
@@ -3636,8 +3713,10 @@ def sweep_edge_points(arrays, B=16, T=256, seed=0):
     150 m blocks: every item misses), points beyond each border of the
     grid (clamped cells repeat), points exactly on cell lines and
     midlines (the quadrant's side decided at 0 and 0.5), points near the
-    roads and uniform points over the grid; valid 0 for the first row and
-    a seeded tenth of the rest.  Also returns each point's kind, its index
+    roads, points whose x is NaN and whose y is a node's (the cell lookup
+    takes x's cell index to 0, the grid's empty margin column: no item,
+    no candidate) and uniform points over the grid; valid 0 for the first
+    row and a seeded tenth of the rest.  Also returns each point's kind, its index
     in ``SWEEP_KINDS``."""
     import numpy as np
 
@@ -3661,8 +3740,10 @@ def sweep_edge_points(arrays, B=16, T=256, seed=0):
     run, across = rng.uniform(-60.0, 60.0, per), rng.uniform(-3.0, 3.0, per)
     near = nxy[rng.permutation(per)] + np.stack([np.where(along_x, run, across),
                                                  np.where(along_x, across, run)], 1)
-    rest = np.stack([rng.uniform(x0, x0 + w, n - 5 * per), rng.uniform(y0, y0 + h, n - 5 * per)], 1)
-    groups = [nxy, centre, border, lines, near, rest]
+    rest = np.stack([rng.uniform(x0, x0 + w, n - 6 * per), rng.uniform(y0, y0 + h, n - 6 * per)], 1)
+    nan_x = np.stack([np.full(per, np.nan), arrays.node_y[rng.integers(0, arrays.num_nodes, per)]],
+                     1)
+    groups = [nxy, centre, border, lines, near, nan_x, rest]
     pts = np.concatenate(groups).astype(np.float32)
     kind = np.concatenate([np.full(len(g), i) for i, g in enumerate(groups)])
     order = rng.permutation(n)
@@ -3679,6 +3760,22 @@ PI32 = 3.14159265358979323846  # rounds to the kernels' kPi in float32
 # range), beside uniform ones
 EDGE_HEADINGS = (PI32, -PI32, 3.1415925, -3.1415925, 0.0, PI32 / 2, -PI32 / 2, 10.0, -10.0,
                  7.0, -7.0, 2 * PI32)
+
+
+def nan_steps(px, py, frac=0.03, seed=0):
+    """Copies of the [B, T] float32 points ``px``, ``py`` in which a seeded
+    ``frac`` of the points t >= 1 (and the last row's last point) have an
+    x of NaN and their predecessor's y: steps whose x leg is NaN beside a
+    y leg of 0."""
+    import numpy as np
+
+    px, py = px.copy(), py.copy()
+    B, T = px.shape
+    pick = np.random.default_rng(seed).uniform(size=(B, max(T - 1, 0))) < frac
+    if B and T >= 2:
+        pick[-1, -1] = True
+    px[:, 1:][pick], py[:, 1:][pick] = np.nan, py[:, :-1][pick]
+    return px, py
 
 
 def build_edge_inputs(B, T, K, back_tol, seed=0, E=48):
@@ -3799,9 +3896,9 @@ def sweep_edges(matcher, xin, timed):
                     lambda: candidate_sweep(*args), cold_l2=True,
                     label="candidate_sweep cap %d 512x64 K=%d" % (cap, K))
     print("sweep edges: candidate_sweep on nodes, block centres, beyond the borders, on cell "
-          "lines, near roads, valid 0: cap 8 at K = 1-32, caps 2, 24, 56 at K = 1, 2, 8, 16, "
-          "32, full and packed: each equal to its plain version bit for bit%s"
-          % ("".join("; %s %.4f" % kv for kv in done.items() if kv[0].endswith("ms"))))
+          "lines, near roads, x NaN beside a node's y, valid 0: cap 8 at K = 1-32, caps 2, 24, "
+          "56 at K = 1, 2, 8, 16, 32, full and packed: each equal to its plain version bit for "
+          "bit%s" % ("".join("; %s %.4f" % kv for kv in done.items() if kv[0].endswith("ms"))))
     return done
 
 
@@ -3809,7 +3906,8 @@ def build_edges(matcher, pa, spa):
     """Kernel 3 (the redesigned transition build), dense and sparse (the
     sparse cohort's parameters ``pa``, ``spa``), against its plain version
     bit for bit (logp, route and gc; the packed call's logp and gc equal
-    the full call's) on ``build_edge_inputs`` at every K of 1, 2, 4, 8, 16
+    the full call's) on ``build_edge_inputs`` with x legs of NaN beside y
+    legs of 0 at a few steps (``nan_steps``) at every K of 1, 2, 4, 8, 16
     and 32, and 3 and 24 (the run-time-K instantiation), with B in 1, 16,
     512 and T in 2, 3, 64, 2,048 where the pairs number at most 2^23: every
     block shape, a block's steps across traces and a partial last block.
@@ -3829,8 +3927,9 @@ def build_edges(matcher, pa, spa):
             for T in (2, 3, 64, 2048):
                 if B * (T - 1) * K * K > 1 << 23:
                     continue
-                a = {k: torch.from_numpy(v).to(dev) for k, v in build_edge_inputs(
-                    B, T, K, back_tol, seed=K * 10007 + B * 31 + T).items()}
+                raw = build_edge_inputs(B, T, K, back_tol, seed=K * 10007 + B * 31 + T)
+                raw["px"], raw["py"] = nan_steps(raw["px"], raw["py"], seed=K + B + T)
+                a = {k: torch.from_numpy(v).to(dev) for k, v in raw.items()}
                 dg = types.SimpleNamespace(edge_rows=a["edge_rows"])
                 cand = Candidates(a["edge"], a["offset"], None, None, None)
                 for p_, sp in ((p, None), (pa, spa)):
@@ -3994,9 +4093,12 @@ def assoc_edges(matcher, sm, ubodt, long_traces, B=16):
     ``assoc_edge_inputs`` (B rows: every kind twice).  Continued windows
     (``viterbi_chain_assoc[sparse]``): the first B traces of the long
     cohort cut to 2T points, the second T continuing the carries of the
-    first (the seam probes the metro table), with emis, logp, gc and valid
-    replaced by ``assoc_edge_inputs``'; at T = 3 and 17 also on a 64-slot
-    slab (a quarter of the rows with ``use`` false, two padding rows);
+    first (the seam probes the metro table; x legs of NaN beside y legs
+    of 0 at every fourth row's seam and at a few points, ``nan_legs``),
+    with emis, logp, gc and valid replaced by ``assoc_edge_inputs``' (gc
+    NaN at 3 % of the steps, as such a leg gives it); at T = 3 and 17
+    also on a 64-slot slab (a quarter of the rows with ``use`` false, two
+    padding rows);
     at K = 8 and 16, T = 17, the seam resolved over a gp-4 view of the
     table and on a tiered table (``TIER_PARTIAL``: fetch counts and
     hit/miss totals equal to the plain version's).  The sparse model's
@@ -4015,10 +4117,14 @@ def assoc_edges(matcher, sm, ubodt, long_traces, B=16):
         two = [dict(tr, trace=tr["trace"][:2 * T]) for tr in long_traces[:B]]
         px, py, tm, valid, _t = matcher._fill_rows(two, list(range(B)), 2 * T)
         xin = torch.from_numpy(V.pack_inputs(px, py, tm, valid)).to(dev)
-        x0, x1 = xin[:, :, :T].contiguous(), xin[:, :, T:].contiguous()
+        x0 = xin[:, :, :T].contiguous()
+        x1 = nan_legs(xin[:, :, T:].contiguous(), seam=0, prev=x0, seed=T)
         for K in (1, 2, 4, 8, 16, 32):
+            raw = assoc_edge_inputs(B, T, K, seed=T * 64 + K)
+            # the gc of a step whose x leg is NaN beside a y leg of 0
+            raw["gc"][np.random.default_rng(T + K).uniform(size=raw["gc"].shape) < 0.03] = np.nan
             e = {k: (torch.from_numpy(v).to(dev) if isinstance(v, np.ndarray) else v)
-                 for k, v in assoc_edge_inputs(B, T, K, seed=T * 64 + K).items()}
+                 for k, v in raw.items()}
             for p, sp in ((matcher._params, None), (pb, spb)):
                 tag = "" if sp is None else "[sparse]"
                 args = (e["emis"], e["logp"], e["gc"], e["valid"], e["cand_edge"],
@@ -4127,11 +4233,10 @@ def stats_edge_inputs(B, T, K, seed=0):
     of a few ids (same-edge pairs), -1 and -2; points invalid (0) and
     valid (1 and 0.5); steps whose straight-line gap is exactly the
     breakage distance or delta (legs (d, 0) and (0.6 d, 0.8 d)), an eighth
-    of a metre either side, inf (a y of inf) and NaN (two in a row).
-    Coordinates are multiples of 1/8 below 2^20, so every step's legs are
-    exact.  x stays finite: for an x leg of NaN and a y leg of 0 the
-    kernels' ``hypot_like_jax`` gives 0 where ``jnp.hypot`` gives NaN
-    (PERF.md section 7)."""
+    of a metre either side, inf (a y of inf), NaN (two in a row) and an x
+    leg of NaN beside a y leg of 0 (a point whose x is NaN and whose y is
+    its predecessor's).  Coordinates are multiples of 1/8 below 2^20, so
+    every step's finite legs are exact."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -4153,6 +4258,7 @@ def stats_edge_inputs(B, T, K, seed=0):
     py[rng.uniform(size=(B, T)) < 0.01] = np.inf
     if B and T >= 3:
         py[0, 1:3] = np.inf
+    px, py = nan_steps(px, py, seed=seed + 1)
     return dict(dist=dist, cand_edge=edge, valid=valid, px=px, py=py)
 
 
@@ -4185,6 +4291,121 @@ def stats_edges(device, big=512):
     print("probe_stats edges: %d cases (K = %s, B x T = %s) equal to the plain version, counts "
           "and need mask bit for bit" % (n, STATS_KS, shapes))
     return n
+
+
+# -- phase 16: the redesigned segment histogram (row 11b) on edge inputs.
+# The input maker is numpy only: tests/test_torch_histogram_design.py
+# emulates the kernel's design on the same inputs against the JAX package.
+
+HIST_KINDS = ("random", "unmatched", "one segment", "re-entry", "every step broken",
+              "route specials", "segment outside")
+HIST_TS = (1, 2, 31, 32, 33, 64, 255, 256, 257)  # PT = 1, 2, 4, 8 and the block branch
+HIST_BS = (0, 1, 7)
+
+
+def histogram_edge_inputs(B, T, K=4, S=64, kind=None, seed=0):
+    """Numpy decoded inputs of ``segment_histogram`` at B x T x K over S
+    segments, row b of kind ``HIST_KINDS[b % 7]`` (or ``kind``): random
+    runs of segments (a chosen slot of -1 a tenth of the time, a chosen
+    candidate edge of -1, read as edge 0, breaks a tenth of the time); no
+    point matched; every point on one segment; runs that re-enter two
+    or three segments; a break at every step; chosen route entries of
+    +inf, -inf, NaN, 0 and -0.0; chosen edges whose segment is -1 or at
+    or past S (S, S + 1, 2 S, 2^31 - 1: dropped, as the reference's
+    segment_sum drops them).  Route metres are multiples of 1/8 below 512
+    and times multiples of 0.5 below 2^17, so every partial sum below
+    2^20 is exact in float32 whatever the order.  Returns choice [2, B,
+    T] i32 (slot, backpointer), route [B, T-1, K, K] f32, cand_edge [B,
+    T, K] i32, breaks [B, T] i32, times [B, T] f32 and edge_seg [E] i32
+    with E = 4 S + 8: edge e's segment is e % S below 4 S, -1 for the
+    next four edges, then the four outside [0, S)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    E = 4 * S + 8
+    edge_seg = (np.arange(E) % S).astype(np.int64)
+    edge_seg[4 * S:4 * S + 4] = -1
+    edge_seg[4 * S + 4:] = [S, S + 1, 2 * S, 2 ** 31 - 1]
+    idx = rng.integers(0, K, (B, T))
+    src = rng.integers(0, K, (B, T))
+    src[rng.uniform(size=(B, T)) < 0.1] = -1
+    brk = (rng.uniform(size=(B, T)) < 0.1).astype(np.int32)
+    seg = np.zeros((B, T), np.int64)
+    for b in range(B):
+        k = kind or HIST_KINDS[b % len(HIST_KINDS)]
+        runs = np.repeat(rng.integers(0, S, T), rng.integers(1, 9, T))[:T]
+        if k == "one segment":
+            runs[:] = rng.integers(0, S)
+        elif k == "re-entry":
+            pool = rng.choice(S, min(3, S), replace=False)
+            runs = np.repeat(pool[rng.integers(0, len(pool), T)], rng.integers(1, 4, T))[:T]
+        seg[b] = runs
+        if k == "unmatched":
+            idx[b] = -1
+        elif k == "random":
+            idx[b][rng.uniform(size=T) < 0.1] = -1
+        elif k == "every step broken":
+            brk[b] = 1
+    # an edge of each point's segment at its chosen slot, the other slots random
+    cand_edge = rng.integers(-1, E, (B, T, K))
+    edge = seg + S * rng.integers(0, 4, (B, T))
+    rows = np.array([kind or HIST_KINDS[b % len(HIST_KINDS)] for b in range(B)])
+    outside = (rows == "segment outside")[:, None] & (rng.uniform(size=(B, T)) < 0.5)
+    edge[outside] = 4 * S + rng.integers(0, 8, int(outside.sum()))
+    clamp = (rows == "random")[:, None] & (rng.uniform(size=(B, T)) < 0.05)
+    edge[clamp] = -1  # read as edge 0
+    bb, tt = np.nonzero(idx >= 0)
+    cand_edge[bb, tt, idx[bb, tt]] = edge[bb, tt]
+    route = (rng.integers(0, 4096, (B, max(T - 1, 0), K, K)) / 8.0).astype(np.float32)
+    spec = (rows == "route specials")[:, None] & (idx >= 0) & (src >= 0)
+    spec[:, 0] = False
+    bb, tt = np.nonzero(spec)
+    route[bb, tt - 1, src[bb, tt], idx[bb, tt]] = rng.choice(
+        np.array([np.inf, -np.inf, np.nan, 0.0, -0.0], np.float32), len(bb))
+    gaps = rng.choice([0.0, 0.5, 1.0, 5.0, 30.0], (B, T))
+    gaps[:, 0] = rng.integers(0, 100_000, B)
+    times = np.cumsum(gaps, 1).astype(np.float32)
+    choice = np.stack([idx, src]).astype(np.int32)
+    return dict(choice=choice, route=route, cand_edge=cand_edge.astype(np.int32), breaks=brk,
+                times=times, edge_seg=edge_seg.astype(np.int32))
+
+
+def histogram_edges(device):
+    """Phase 16, row 11b: ``segment_histogram`` against its plain version
+    (counts bit for bit, the time and distance sums within rtol 1e-5) on
+    ``histogram_edge_inputs``: at every T of ``HIST_TS`` and B of
+    ``HIST_BS`` (B = 0: nothing launched, zeros) with every kind of row,
+    at K = 1, 4 and 8; each kind alone over 64 rows at T = 64 and 256;
+    T = 2,048 (the block-a-row branch); 7 rows (a grid that the rows do
+    not fill) and 20,000 rows (more than the persistent grid's warps) at
+    T = 64; and S = 4 at 512 x 64 and 128 x 256, where every row's runs
+    hit four bins (the atomics' contention).  Returns the number of
+    cases."""
+    import torch
+
+    from reporter_tpu_torch.ops import histogram as Hg
+
+    cases = [(B, T, K, 64, None) for T in HIST_TS for B in HIST_BS for K in (1, 4, 8)]
+    cases += [(64, T, 4, 64, k) for T in (64, 256) for k in HIST_KINDS]
+    cases += [(7, 2048, 4, 64, None), (64, 2048, 8, 64, None), (7, 64, 8, 64, None),
+              (20_000, 64, 2, 64, None), (512, 64, 8, 4, None), (128, 256, 8, 4, None)]
+    for n, (B, T, K, S, kind) in enumerate(cases):
+        a = {k: torch.from_numpy(v).to(device) for k, v in histogram_edge_inputs(
+            B, T, K, S, kind, seed=n).items()}
+        hargs = (a["choice"], a["route"], a["cand_edge"], a["breaks"], a["times"],
+                 a["edge_seg"], S)
+        got, want = Hg.segment_histogram(*hargs), Hg.segment_histogram_plain(*hargs)
+        what = "segment_histogram %dx%d K=%d S=%d %s" % (B, T, K, S, kind or "mixed")
+        check(torch.equal(got.point_count, want.point_count)
+              and torch.equal(got.trace_count, want.trace_count), what + ": counts exact")
+        for f in ("time_in_segment", "distance_in_segment"):
+            check(torch.allclose(getattr(got, f), getattr(want, f), rtol=1e-5, atol=0),
+                  "%s: %s within rtol 1e-5" % (what, f))
+    print("histogram edges: %d cases (T = %s and 2048, B = %s, 7, 64 and 20,000, K = 1, 2, 4, "
+          "8, S = 64 and 4, rows %s): segment_histogram equal to its plain version, counts "
+          "bit for bit, sums within rtol 1e-5" % (len(cases), HIST_TS, HIST_BS,
+                                                  ", ".join(HIST_KINDS)))
+    return len(cases)
 
 
 SCATTER_NS = (1, 3, 5, 1023, 1025, 4097, 2_064_383)  # n % 4 = 1, 3, 1, 3, 1, 1, 3
@@ -4353,14 +4574,40 @@ def parent_kernels(parent, tag):
             pk = copy.copy(k)
             pk.library, pk._fn = os.path.join(out_dir, "lib%s.so" % k.base), None
             pk._bind()
+            if k.base == "segment_histogram":  # before PR 13 the wrapper zeroed the output
+                with open(os.path.join(csrc, k.base + ".cu")) as f:
+                    pk.zeroes_output = "zeroed by the caller" not in f.read()
             bound_[name] = pk
     return bound_, out
+
+
+class _DeviceFloats:
+    """``n`` float32 at a device address, for ``torch.as_tensor``."""
+
+    def __init__(self, addr, n):
+        self.__cuda_array_interface__ = {"shape": (n,), "typestr": "<f4",
+                                         "data": (addr, False), "version": 2}
+
+
+def _zeroed_first(fn):
+    """A ``segment_histogram`` launcher of a tree whose wrapper zeroed the
+    [4, S] output with ``torch.zeros``: the output is zeroed as there (a
+    fill on the current stream) before the launch."""
+    import torch
+
+    def launch(*args):
+        S, out = args[9], args[10].value
+        torch.as_tensor(_DeviceFloats(out, 4 * S), device="cuda").zero_()
+        return fn(*args)
+    return launch
 
 
 class design:
     """Within the block, the wrappers launch the given kernels' entry
     points (another build of the same C interface) in place of this
-    tree's; the launch counters stay this tree's."""
+    tree's; the launch counters stay this tree's.  A histogram build
+    whose launcher does not zero its output gets the fill its own
+    wrapper made (``_zeroed_first``)."""
 
     def __init__(self, kernels):
         self.kernels = kernels
@@ -4373,7 +4620,8 @@ class design:
 
         self.saved = {n: (KERNELS[n]._fn, KERNELS[n]._err) for n in self.kernels}
         for n, k in self.kernels.items():
-            KERNELS[n]._fn, KERNELS[n]._err = k._fn, k._err
+            fn = k._fn if getattr(k, "zeroes_output", True) else _zeroed_first(k._fn)
+            KERNELS[n]._fn, KERNELS[n]._err = fn, k._err
         self.ws = V._assoc_ws_floats
         assoc = self.kernels.get("viterbi_assoc")
         if assoc is not None and not hasattr(ctypes.CDLL(assoc.library),
@@ -4639,6 +4887,10 @@ def main(pair=()):
     stats_edge = stats_edges(device)
     shape15 = redesign_shapes(matcher, sm, du_w, cut, xin64, xin256, xin_a, pa_, ka, True)
 
+    # the redesigned segment histogram (row 11b) on edge inputs, against its
+    # plain version (timed at both bucketed shapes in histogram_phases)
+    hist_edge = histogram_edges(device)
+
     # launches over the counted runs of every path but serve's; kernels
     # 1-4's times and bounds at 512 x 64, max_abs_err over both bucketed
     # shapes, the session step's and the sparse cohorts A and B (K = 16),
@@ -4782,7 +5034,8 @@ def main(pair=()):
         "redesign_edges": {"probe": probe_edge, "recursion": rec_edge, "sweep": sweep_edge,
                            "build": build_edge, "shapes": shape_ms, "assoc": assoc_edge,
                            "claim": claim_edge, "slab": slab_edge,
-                           "scatter": scatter_edge, "probe_stats": stats_edge},
+                           "scatter": scatter_edge, "probe_stats": stats_edge,
+                           "histogram": hist_edge},
         "redesign_shapes": shape15,
         "floor_ms": floor_ms,
         "metro_reports": n_reports, "peak_memory_mb": torch.cuda.max_memory_allocated() / 1e6,

@@ -23,12 +23,16 @@ constexpr float kTwoPi = 6.28318530717958647692f;
 
 // jnp.hypot's float32 expansion: max * sqrt(1 + (min/max)^2), 0 when
 // max == 0, inf when either leg is inf, with 1 + r*r fused as XLA
-// compiles it.  hypotf rounds differently.
+// compiles it.  hypotf rounds differently.  The larger leg is a NaN leg
+// where there is one, as XLA's max and torch.maximum propagate NaN: a
+// NaN beside a 0 gives NaN, not the 0 of max == 0 (an inf leg still
+// gives inf).
 __device__ __forceinline__ float hypot_like_jax(float u, float v) {
   const float a = fabsf(u), b = fabsf(v);
   const bool inf = isinf(a) || isinf(b);
-  const float m = a > b ? a : b;
-  const float n = a > b ? b : a;
+  const bool big = a > b || a != a;
+  const float m = big ? a : b;
+  const float n = big ? b : a;
   const float safe = (m == 0.f) ? 1.f : m;
   const float r = __fdiv_rn(n, safe);
   const float x = (m == 0.f)

@@ -13,7 +13,8 @@ graph's ``edge_seg``.
 tensors and runs ``segment_histogram_plain`` (the reference's four
 ``segment_sum``s and its per-row sort with first occurrence) for CPU
 tensors.  The counts are exact; the two float sums are taken in another
-order by the kernel's atomics, so they agree to rounding.
+order by the kernel (each row's runs, then atomics), so they agree to
+rounding.  The kernel's launch zeroes its output itself.
 """
 
 from __future__ import annotations
@@ -65,8 +66,12 @@ def point_segments(choice: torch.Tensor, cand_edge: torch.Tensor,
 
 
 def _segment_sum(values: torch.Tensor, bins: torch.Tensor, S: int):
+    """``jax.ops.segment_sum`` over S + 1 bins, [:S]: a bin outside [0, S]
+    (an ``edge_seg`` entry past the segment count) is dropped, as there."""
+    bins = bins.reshape(-1)
+    bins = torch.where((bins >= 0) & (bins <= S), bins, torch.full_like(bins, S))
     out = torch.zeros(S + 1, dtype=torch.float32, device=values.device)
-    return out.scatter_add_(0, bins.reshape(-1), values.reshape(-1))[:S]
+    return out.scatter_add_(0, bins, values.reshape(-1))[:S]
 
 
 def segment_histogram_plain(choice, route, cand_edge, breaks, times,
@@ -114,9 +119,10 @@ def segment_histogram(choice, route, cand_edge, breaks, times, edge_seg,
     check(breaks, "breaks", torch.int32, dev, (B, T))
     check(times, "times", torch.float32, dev, (B, T))
     check(edge_seg, "edge_seg", torch.int32, dev)
-    out = torch.zeros((4, S), dtype=torch.float32, device=dev)
-    if B and T and S:
-        KERNELS["segment_histogram"].launch(
-            dev, ptr(choice), ptr(route), ptr(cand_edge), ptr(breaks),
-            ptr(times), ptr(edge_seg), B, T, K, S, ptr(out))
+    if not (B and T and S):
+        return SegmentHistogram(*torch.zeros((4, S), dtype=torch.float32, device=dev))
+    out = torch.empty((4, S), dtype=torch.float32, device=dev)  # zeroed by the launch
+    KERNELS["segment_histogram"].launch(
+        dev, ptr(choice), ptr(route), ptr(cand_edge), ptr(breaks),
+        ptr(times), ptr(edge_seg), B, T, K, S, ptr(out))
     return SegmentHistogram(*out)
