@@ -228,6 +228,30 @@ delta 3000 m, cuckoo layout) and moves it to the card, then:
      whose segment is -1 or outside [0, S), and S = 4 (every row's adds
      on four bins): counts bit for bit, sums within rtol 1e-5.
 
+  17. the bench's realistic OSM city (``osm_phases``, after phase 4):
+     ``realistic_city_network(120, 120, spacing_m=150, seed=3)`` through
+     the PBF round trip, cell_size 100, the native cuckoo UBODT at delta
+     3,000 m (14,390 nodes, 49,926 edges, a grid_items cap of 20,
+     10,711,548 rows, 536.9 MB: checked), and bench.py's cohorts from one
+     TraceSynthesizer(seed=7): 512 x 64, 128 x 256, 16 x 1,024.  Kernels
+     1-4 against their plain versions at 512 x 64 (timed) and 128 x 256,
+     kernel 5 at the long window (16 x 256) and the serving slab; the
+     bucketed, long (four windows of 256) and session (16 steps of 4)
+     paths through the launch counters, each held as on the grid city;
+     ``probe_stats`` (kernel 12) against its plain version on the 512 x 64
+     batch, its hits, misses and beyond-delta misses printed beside the
+     grid city's; segment agreement against the truth per cohort; the
+     first 100 short traces on the card, on the CPU baseline
+     (``backend="cpu"``) and on the port with ``device="cpu"``: the card
+     must part from the baseline on exactly the traces where the port on
+     the CPU does (``baseline_phase``); and the city's PBF imported by
+     ``python -m reporter_tpu_torch.tiles.osm --json`` in a process of its
+     own, 8 /report served from that network through
+     ``parse_service_config`` and ``build_matcher`` with the serving
+     defaults, each equal to ``match_many`` on a second matcher of the
+     same config.  Kernels 1-5 carry the city's times, bounds and launches
+     under ``"osm"`` in the kernels line.
+
 Before the phases it times ``torch.cuda._sleep(1)``, a one-thread kernel,
 under ``time_ms`` (``launch_floor``): the least time that timer reads for
 a launch, printed as ``floor_ms`` and written beside the kernels' list.
@@ -4548,6 +4572,237 @@ def redesign_shapes(matcher, sm, du_w, cut, xin64, xin256, xin_a, pa, ka, timed)
     return out
 
 
+# -- the bench's realistic OSM city (phase 17) ---------------------------------
+
+# the bench's default city at 120 x 120, seed 3, 150 m blocks, cell_size
+# 100 and a cuckoo table at delta 3000, as the JAX package's builders
+# make it (the port's must give the same)
+OSM_FIGURES = {"nodes": 14390, "edges": 49926, "cell_rows_cap": 20,
+               "ubodt_rows": 10711548, "ubodt_mb": 536.9}
+
+
+def osm_city(rows, device, seed=3):
+    """The bench's default city (``BENCH_SCENARIO=osm``) from the port's
+    modules, as bench.py builds it: ``realistic_city_network`` through the
+    PBF round trip, ``build_graph_arrays(cell_size=100)``, the native cuckoo
+    UBODT at delta 3,000 m, and a matcher with the confidence aux on.  At
+    120 x 120 its figures must equal ``OSM_FIGURES``."""
+    from reporter_tpu_torch import native
+    from reporter_tpu_torch.matching import MatcherConfig, SegmentMatcher
+    from reporter_tpu_torch.synth.osm_city import realistic_city_network
+    from reporter_tpu_torch.tiles.arrays import build_graph_arrays
+    from reporter_tpu_torch.tiles.ubodt import build_ubodt
+
+    t0 = time.perf_counter()
+    net = realistic_city_network(rows, rows, spacing_m=150.0, seed=seed)
+    t1 = time.perf_counter()
+    arrays = build_graph_arrays(net, cell_size=100.0)
+    t2 = time.perf_counter()
+    lib = native.require_lib() if device.type == "cuda" else None
+    ubodt = build_ubodt(arrays, delta=3000.0, lib=lib)
+    t3 = time.perf_counter()
+    matcher = SegmentMatcher(arrays=arrays, ubodt=ubodt,
+                             config=MatcherConfig(quality_aux=True), device=device)
+    t4 = time.perf_counter()
+    info = {
+        "city": "realistic %dx%d, 150 m, seed %d (PBF round trip)" % (rows, rows, seed),
+        "nodes": arrays.num_nodes, "edges": arrays.num_edges,
+        "cell_rows_cap": int(arrays.grid_items.shape[1]),
+        "ubodt_rows": int(ubodt.num_rows), "ubodt_buckets": int(ubodt.n_buckets),
+        "ubodt_mb": round(ubodt.packed.nbytes / 1e6, 1),
+        "network_s": t1 - t0, "graph_s": t2 - t1, "ubodt_s": t3 - t2, "to_device_s": t4 - t3,
+    }
+    print("osm city: %(city)s, %(nodes)d nodes, %(edges)d edges, grid_items cap "
+          "%(cell_rows_cap)d, UBODT %(ubodt_rows)d rows in %(ubodt_buckets)d buckets = "
+          "%(ubodt_mb).1f MB (network %(network_s).1f s, graph %(graph_s).1f s, ubodt "
+          "%(ubodt_s).1f s, to card %(to_device_s).1f s)" % info)
+    if rows == 120 and seed == 3:
+        got = {k: info[k] for k in OSM_FIGURES}
+        check(got == OSM_FIGURES, "the realistic city's figures %s equal %s"
+              % (got, OSM_FIGURES))
+    return matcher, net, info
+
+
+def osm_cohorts(arrays, scale=1):
+    """The bench's three cohorts as bench.py synthesizes them: one
+    synthesizer (seed 7), then 512 x 64, 128 x 256 and 16 x 1,024 (400
+    tries), every 5 s with 5 m noise (``scale`` divides the counts for a
+    rehearsal); SyntheticTrace lists."""
+    from reporter_tpu_torch.synth import TraceSynthesizer
+
+    t0 = time.perf_counter()
+    synth = TraceSynthesizer(arrays, seed=7)
+    out = [synth.batch(512 // scale, 64, dt=5.0, sigma=5.0),
+           synth.batch(128 // scale, 256, dt=5.0, sigma=5.0),
+           synth.batch(16 // scale, 1024, dt=5.0, sigma=5.0, max_tries=400)]
+    print("osm cohorts %s synthesized in %.1f s" % (
+        ", ".join("%dx%d" % (len(c), len(c[0].trace["trace"])) for c in out),
+        time.perf_counter() - t0))
+    return out
+
+
+def probe_misses(matcher, xin):
+    """Kernel 12's probe outcomes over one packed batch at the matcher's
+    parameters, held against its plain version: pairs probed, hits,
+    misses, costly misses, beyond-delta misses, distinct pairs."""
+    import torch
+
+    from reporter_tpu_torch.ops.diagnostics import ubodt_probe_stats, ubodt_probe_stats_plain
+
+    args = (matcher._dg, matcher._du, xin, matcher._params, matcher.cfg.beam_k,
+            float(matcher.cfg.ubodt_delta))
+    got = ubodt_probe_stats(*args)
+    check(torch.equal(got, ubodt_probe_stats_plain(*args)),
+          "probe_stats equals its plain version")
+    pairs, miss, costly, beyond, distinct = (int(v) for v in got.cpu())
+    return {"pairs": pairs, "hit": pairs - miss, "miss": miss, "costly_miss": costly,
+            "beyond_delta": beyond, "distinct": distinct}
+
+
+def agreement(matcher, straces):
+    """Mean segment agreement of ``match_many``'s per-point edges (the
+    diagnostics block) against the synthesizer's truth."""
+    import numpy as np
+
+    from reporter_tpu_torch.synth.generator import segment_agreement
+
+    res = matcher.match_many([s.trace for s in straces])
+    return float(np.mean([segment_agreement(matcher.arrays, np.asarray(r["_quality"]["edge"]),
+                                            s) for r, s in zip(res, straces)]))
+
+
+def baseline_phase(matcher, traces):
+    """The first traces of a cohort matched three ways: the card's path,
+    the CPU baseline (``backend="cpu"``, same arrays and table) and the
+    port on ``device="cpu"`` (the plain versions).  The card's records
+    must part from the baseline's on exactly the traces where the port on
+    the CPU parts from it."""
+    from reporter_tpu_torch.matching import SegmentMatcher
+
+    def run(m):
+        t0 = time.perf_counter()
+        out = m.match_many(traces)
+        return [r["segments"] for r in out], time.perf_counter() - t0
+
+    base_m = SegmentMatcher(arrays=matcher.arrays, ubodt=matcher.ubodt, config=matcher.cfg,
+                            backend="cpu")
+    host_m = SegmentMatcher(arrays=matcher.arrays, ubodt=matcher.ubodt, config=matcher.cfg,
+                            device="cpu")
+    card, card_s = run(matcher)
+    base, base_s = run(base_m)
+    host, host_s = run(host_m)
+    ids = lambda segs: [s.get("segment_id") for s in segs]  # noqa: E731
+    n = len(traces)
+    parted_card = [i for i in range(n) if card[i] != base[i]]
+    parted_host = [i for i in range(n) if host[i] != base[i]]
+    out = {"traces": n, "identical_records": n - len(parted_card),
+           "identical_segment_ids": sum(ids(c) == ids(b) for c, b in zip(card, base)),
+           "card_equals_port_on_cpu": sum(c == h for c, h in zip(card, host)),
+           "parted": [traces[i]["uuid"] for i in parted_card],
+           "cpu_baseline_s": base_s, "cpu_baseline_traces_per_s": n / base_s,
+           "card_s": card_s, "port_on_cpu_s": host_s}
+    print("osm baseline: card vs CPU baseline %d/%d identical records, %d/%d identical "
+          "segment-id sequences; the card equals the port on the CPU on %d/%d; parted on "
+          "%s (card), %s (port on the CPU); CPU baseline %.1f s (%.2f traces/s), card "
+          "%.2f s, port on the CPU %.1f s"
+          % (out["identical_records"], n, out["identical_segment_ids"], n,
+             out["card_equals_port_on_cpu"], n, out["parted"],
+             [traces[i]["uuid"] for i in parted_host], base_s, n / base_s, card_s, host_s))
+    check(parted_card == parted_host, "the card parts from the CPU baseline on exactly the "
+          "traces where the port on the CPU does")
+    return out
+
+
+def osm_serve_phase(net, rows, traces, device):
+    """The city's PBF written and imported by the OSM CLI in a process of
+    its own (``--json``), then 8 /report requests served from a
+    ``{"network": {"type": "file"}}`` config through
+    ``parse_service_config`` and ``build_matcher`` with the serving
+    defaults, through the launch counters: each answer's segments equal
+    the records ``match_many`` gives on a second matcher built from the
+    same config on the same card."""
+    from reporter_tpu_torch.serve.__main__ import serving_defaults
+    from reporter_tpu_torch.serve.service import build_matcher, parse_service_config
+    from reporter_tpu_torch.synth.osm_city import realistic_city
+    from reporter_tpu_torch.tiles.osm import write_pbf
+
+    d = os.path.join(REPO, "build", "osm_city")
+    os.makedirs(d, exist_ok=True)
+    pbf, net_json, cfg_json = (os.path.join(d, n) for n in
+                               ("city.osm.pbf", "net.json", "config.json"))
+    t0 = time.perf_counter()
+    write_pbf(pbf, *realistic_city(rows, rows, 150.0, 3))
+    r = subprocess.run([sys.executable, "-m", "reporter_tpu_torch.tiles.osm", pbf,
+                        "--json", net_json], cwd=REPO, capture_output=True, text=True,
+                       timeout=600)
+    check(r.returncode == 0, "the OSM CLI: %s" % r.stderr[-2000:])
+    with open(net_json) as f:
+        check(json.load(f) == json.loads(json.dumps(net.to_dict())),
+              "the CLI's network equals the city built in this process")
+    t1 = time.perf_counter()
+    with open(cfg_json, "w") as f:
+        json.dump({"network": {"type": "file", "path": net_json}}, f)
+
+    def served():
+        cfg, conf = parse_service_config(cfg_json)
+        return build_matcher(serving_defaults(cfg), conf, device=device)
+    sv = served()
+    t2 = time.perf_counter()
+    requests = traces[:8]
+    kernels, absent = _path_kernels(sv, BUCKETED)
+    (answers,), dt, launches = _counted(kernels, lambda: _serve(sv, 15, requests), absent)
+    want = served().match_many(requests)
+    for (code, body), w in zip(answers, want):
+        check(code == 200, "osm /report status %s" % code)
+        check(body["segment_matcher"]["segments"] == json.loads(json.dumps(w["segments"])),
+              "osm /report segments equal match_many on a matcher of the same config")
+    print("serve osm: the CLI wrote %s from the city's PBF in %.1f s; the served matcher "
+          "built from it in %.1f s; 8 /report answered 200 in %.2f s, equal to match_many "
+          "on a matcher of the same config, launches %s"
+          % (os.path.relpath(net_json, REPO), t1 - t0, t2 - t1, dt, json.dumps(launches)))
+    return launches
+
+
+def osm_phases(device, rows=120, grid_misses=None, timed=True, scale=1):
+    """Phase 17: the bench's realistic city (``osm_city``) through the main
+    path: its cohorts (``osm_cohorts``); kernels 1-4 against their plain
+    versions at 512 x 64 (timed) and 128 x 256, kernel 5 at the long
+    window (16 x 256) and the serving slab (512 x 4); the bucketed, long
+    (16 x 1,024: four windows of 256) and session (16 steps of 4) paths
+    through the launch counters, each held as on the grid city; kernel
+    12's misses beside the grid's; agreement against the truth; the CPU
+    baseline on the first 100 short traces (``baseline_phase``); serve
+    from the OSM CLI's network (``osm_serve_phase``)."""
+    matcher, net, info = osm_city(rows, device)
+    short, med, long_ = osm_cohorts(matcher.arrays, scale)
+    t64, t256, t1024 = ([s.trace for s in c] for c in (short, med, long_))
+    xin64, xin256 = bucket_rows(matcher, t64, 64), bucket_rows(matcher, t256, 256)
+    rows64 = kernel_phases(matcher, xin64, timed=timed)
+    rows256 = kernel_phases(matcher, xin256, timed=False)
+    chain = chain_phases(matcher, t1024, t64, timed=timed)
+    launches, rates = main_path(matcher, [t64, t256], [xin64, xin256])
+    long_launches, long_rate = long_path(matcher, t1024)
+    _am, sess_launches, sess_rate = session_path(matcher, t64)
+    misses = probe_misses(matcher, xin64)
+    print("osm probe outcomes %dx%d: %s; the grid city's (same shape): %s"
+          % (*xin64.shape[1:], json.dumps(misses), json.dumps(grid_misses)))
+    agree = {name: agreement(matcher, c) for name, c in
+             (("short", short), ("med", med), ("long", long_))}
+    print("osm segment agreement against the truth: %s"
+          % ", ".join("%s %.4f" % kv for kv in agree.items()))
+    base = baseline_phase(matcher, t64[:100 // scale])
+    serve_launches = osm_serve_phase(net, rows, t64, device)
+    strip = lambda d: {k: v for k, v in d.items() if not callable(v)}  # noqa: E731
+    return {"city": info, "kernels": [strip(r) for r in rows64],
+            "kernels_128x256": [strip(r) for r in rows256],
+            "chain": {k: strip(c) for k, c in chain.items()},
+            "launches": {"bucketed": launches, "long": long_launches,
+                         "session": sess_launches, "serve": serve_launches},
+            "main_path": rates, "long_path": long_rate, "session_path": sess_rate,
+            "probe_outcomes": misses, "grid_probe_outcomes": grid_misses,
+            "agreement": agree, "baseline": base}
+
+
 def parent_kernels(parent, tag):
     """Every kernel library of ``KERNELS`` that ``parent`` (a checkout of
     another tree) has, built from its sources as this tree's are, into
@@ -4735,6 +4990,9 @@ def main(pair=()):
     split.append(long_breakdown(matcher, traces2048))
     n_reports, serve_launches, fixtures = serve_phase(arena_matcher, traces64, traces2048[0],
                                                       device)
+    # the bench's realistic city through the same paths (phase 17), kernel
+    # 12's misses there beside the grid city's
+    osm = osm_phases(device, grid_misses=probe_misses(matcher, xin64))
 
     # the sparse-gap model: cohorts A (every 9th point of the 512 x 64
     # cohort: 512 x 8 at 45 s, "45-60", bucket 16) and B (every 12th of the
@@ -4902,14 +5160,25 @@ def main(pair=()):
             mem_sp_launches, *(v for k, v in assoc["launches"].items() if k != "auto"),
             *assoc["launches"]["auto"].values(),
             *(v for k, v in tiered["launches"].items() if k != "serve"),
-            *mesh["launches"].values()]
+            *mesh["launches"].values(), *(v for k, v in osm["launches"].items()
+                                          if k != "serve")]
     total = {k: sum(r[k] for r in runs) for k in launches}
+    # kernels 1-5 on the realistic city: its times, bounds and launches
+    # beside the grid's (phase 17)
+    osm_runs = [v for k, v in osm["launches"].items() if k != "serve"]
+    osm_rows = {r["name"]: r for r in osm["kernels"]}
+    osm_rows["viterbi_chain"] = osm["chain"]["long"]
+
+    def on_osm(name):
+        r = osm_rows[name]
+        return {"launches": sum(x[name] for x in osm_runs), **{
+            k: r.get(k) for k in ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}}
     kernels = [{
         "name": r["name"], "route": r["route"], "source": r["source"],
         "replaces": r["replaces"], "launches": total[r["name"]],
         "max_abs_err": max(x["max_abs_err"] for x in (r, r2, r4, ra, rb, fa, fb)),
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-        "bound_by": r["bound_by"], "library_ms": None,
+        "bound_by": r["bound_by"], "library_ms": None, "osm": on_osm(r["name"]),
     } for r, r2, r4, ra, rb, fa, fb in zip(
         rows, rows256, rows4, *(rs[:2] + rows[2:] for rs in (rows_a, rows_b, *flip_rows)))]
     cl = chain["long"]
@@ -4919,7 +5188,7 @@ def main(pair=()):
         "replaces": "reporter_tpu/ops/viterbi.py:447", "launches": total["viterbi_chain"],
         "max_abs_err": max(c["max_abs_err"] for c in chain.values()), "ms": cl["ms"],
         "plain_ms": cl["plain_ms"], "bound_ms": cl["bound_ms"], "bound_by": cl["bound_by"],
-        "library_ms": None})
+        "library_ms": None, "osm": on_osm("viterbi_chain")})
     kernels.extend({
         "name": r["name"], "route": r["route"], "source": r["source"],
         "replaces": r["replaces"], "launches": total[r["name"]],
@@ -5037,6 +5306,7 @@ def main(pair=()):
                            "scatter": scatter_edge, "probe_stats": stats_edge,
                            "histogram": hist_edge},
         "redesign_shapes": shape15,
+        "osm": osm,
         "floor_ms": floor_ms,
         "metro_reports": n_reports, "peak_memory_mb": torch.cuda.max_memory_allocated() / 1e6,
         "kernels": kernels,

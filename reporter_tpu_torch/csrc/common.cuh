@@ -20,15 +20,21 @@ constexpr float kBig = 1e30f;      // finite miss marker during selection
 constexpr float kNegInf = -1e30f;  // the reference's NEG_INF
 constexpr float kPi = 3.14159265358979323846f;
 constexpr float kTwoPi = 6.28318530717958647692f;
+constexpr float kMinNormal = 1.17549435082228750797e-38f;  // 2^-126
 
 // jnp.hypot's float32 expansion: max * sqrt(1 + (min/max)^2), 0 when
 // max == 0, inf when either leg is inf, with 1 + r*r fused as XLA
 // compiles it.  hypotf rounds differently.  The larger leg is a NaN leg
 // where there is one, as XLA's max and torch.maximum propagate NaN: a
 // NaN beside a 0 gives NaN, not the 0 of max == 0 (an inf leg still
-// gives inf).
+// gives inf).  XLA's CPU backend runs with denormals flushed, so a leg
+// below 2^-126 reads as 0; here only this helper flushes (the kernels are
+// built without -ftz).  With both legs flushed the result is 0 or at least
+// the larger leg, so it needs no flush of its own.
 __device__ __forceinline__ float hypot_like_jax(float u, float v) {
-  const float a = fabsf(u), b = fabsf(v);
+  const float a0 = fabsf(u), b0 = fabsf(v);
+  const float a = a0 < kMinNormal ? 0.f : a0;
+  const float b = b0 < kMinNormal ? 0.f : b0;
   const bool inf = isinf(a) || isinf(b);
   const bool big = a > b || a != a;
   const float m = big ? a : b;

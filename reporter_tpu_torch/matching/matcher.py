@@ -61,6 +61,13 @@ Route-consistent interpolation (``cfg.interpolate``,
 re-times the windowed and long traces' segment boundaries by free-flow
 speed at association (``matching/sparse.py``).
 
+``backend="cpu"`` (asked for by the caller or a service config's
+"backend"; the default "jax" is the device program above) runs the CPU
+baseline, ``baseline.CPUViterbiMatcher``, on the host over the same
+arrays and table, as the reference's CPU backend does: no device, no
+windows for long traces (matched whole, bucketed by powers of two), a
+session step a stateless window over its points, every trace dense.
+
 The device mesh (``devices``, ``graph_devices``; ``$REPORTER_DEVICES`` and
 ``$REPORTER_GRAPH_DEVICES`` read at construction): with more than one
 device the matcher builds a dp x gp ``parallel.mesh.Mesh`` first (of the
@@ -129,6 +136,17 @@ def _join(parts, dim: int) -> torch.Tensor:
     return collectives.all_gather(list(parts), dim)[0]
 
 
+def _bucket_for(buckets, n: int) -> int:
+    """Smallest of ``buckets`` >= n, else the next power of two of the
+    largest that holds n."""
+    b = next((int(b) for b in buckets if n <= b), None)
+    if b is None:
+        b = int(buckets[-1])
+        while b < n:
+            b <<= 1
+    return b
+
+
 def _pad_rows(pad: int, *arrays):
     """Append ``pad`` all-zero (= all-invalid) rows to each [B, ...] array."""
     return tuple(np.concatenate([a, np.zeros((pad,) + a.shape[1:], a.dtype)])
@@ -143,16 +161,26 @@ class SegmentMatcher:
         arrays: Optional[GraphArrays] = None,
         ubodt: Optional[UBODT] = None,
         device="cuda",
+        backend: str = "jax",
     ):
         self.cfg = config or MatcherConfig()
-        # the device mesh first: the table's placement and the session
-        # slab shard against it
-        self._mesh = self._make_mesh(device)
-        self._n_dp = 1 if self._mesh is None else self._mesh.n_dp
-        if isinstance(device, (list, tuple)):
-            (device,) = device[:1]
-        self.device = (self._mesh.dp_devices[0] if self._mesh is not None
-                       else resolve_device(device))
+        if backend not in ("jax", "cpu"):
+            raise ValueError("unknown backend %r (jax or cpu)" % (backend,))
+        # "jax" (the reference's name for its device program): the port's
+        # device program on ``device``; "cpu": the CPU baseline on the
+        # host, only where the caller or the service config asks for it
+        self.backend = backend
+        if backend == "cpu":
+            self._mesh, self._n_dp, self.device = None, 1, torch.device("cpu")
+        else:
+            # the device mesh first: the table's placement and the session
+            # slab shard against it
+            self._mesh = self._make_mesh(device)
+            self._n_dp = 1 if self._mesh is None else self._mesh.n_dp
+            if isinstance(device, (list, tuple)):
+                (device,) = device[:1]
+            self.device = (self._mesh.dp_devices[0] if self._mesh is not None
+                           else resolve_device(device))
         if arrays is None:
             if network is None:
                 raise ValueError("need a network or prebuilt arrays")
@@ -184,14 +212,6 @@ class SegmentMatcher:
         env_ip = os.environ.get("REPORTER_INTERPOLATE", "").strip().lower()
         self._interpolate = (env_ip not in ("0", "false", "off", "no") if env_ip
                              else bool(self.cfg.interpolate))
-        # each dp rank's (graph, table) views; rank 0's are self._dg/_du
-        self._ranks = None
-        if self._mesh is not None:
-            self._ranks = list(zip(place(self._mesh, "dg", arrays.device_graph()),
-                                   place(self._mesh, "du", ubodt.device_ubodt())))
-            self._dg = self._ranks[0][0]
-        else:
-            self._dg = arrays.to_device(self.device)
         # the tiered table: $REPORTER_UBODT_HOT_BYTES (or ubodt_hot_bytes)
         # > 0 keeps only a hot arena of bucket rows on the device, the full
         # table in pinned host memory (tiles/tiering.py; same answers);
@@ -206,6 +226,45 @@ class SegmentMatcher:
         self.ubodt_shard = parse_shard(
             os.environ.get("REPORTER_UBODT_SHARD", "").strip()
             or self.cfg.ubodt_shard or "")
+        self._params = MatchParams.from_config(self.cfg)
+        self._params_cache: Dict[tuple, MatchParams] = {}
+        # the sparse-gap model: off unless cfg.sparse or $REPORTER_SPARSE
+        # (the CPU baseline decodes every trace with the dense model)
+        self.sparse = SparseModel(self.cfg, arrays.cell_size)
+        self._dispatch_count = 0
+        self._probe_pending: List[torch.Tensor] = []
+        self._probe_lock = threading.Lock()
+        self.probe_stats = {"samples": 0, "pairs": 0, "miss": 0,
+                            "costly_miss": 0, "beyond_delta": 0,
+                            "dedup_ratio": None}
+        if backend == "cpu":
+            self._init_cpu()
+        else:
+            self._init_device()
+
+    def _init_cpu(self):
+        """The CPU baseline over the same arrays and table: no device
+        copies, tiering, session slab or sampled diagnostic."""
+        from ..baseline.cpu_matcher import CPUViterbiMatcher
+
+        self._ranks = self._dg = self._du = None
+        self.tiering = self.session_arena = None
+        self._probe_every = 0
+        self._cpu = CPUViterbiMatcher(self.arrays, self.ubodt, self.cfg)
+        self._cpu_params_cache: Dict[tuple, object] = {}
+
+    def _init_device(self):
+        """The graph and table on the device (on each dp rank of a mesh),
+        the tiered table, the session slab and the sampled diagnostic."""
+        arrays, ubodt = self.arrays, self.ubodt
+        # each dp rank's (graph, table) views; rank 0's are self._dg/_du
+        self._ranks = None
+        if self._mesh is not None:
+            self._ranks = list(zip(place(self._mesh, "dg", arrays.device_graph()),
+                                   place(self._mesh, "du", ubodt.device_ubodt())))
+            self._dg = self._ranks[0][0]
+        else:
+            self._dg = arrays.to_device(self.device)
         self.tiering = None
         if self._ubodt_hot_bytes > 0:
             if self._mesh is not None:
@@ -219,10 +278,6 @@ class SegmentMatcher:
             self._du = self._ranks[0][1]
         else:
             self._du = ubodt.to_device(self.device)
-        self._params = MatchParams.from_config(self.cfg)
-        self._params_cache: Dict[tuple, MatchParams] = {}
-        # the sparse-gap model: off unless cfg.sparse or $REPORTER_SPARSE
-        self.sparse = SparseModel(self.cfg, arrays.cell_size)
         # carried session beams in a device slab (matching/arena.py); off
         # by default, the serve entry point turns it on
         self.session_arena = None
@@ -254,12 +309,6 @@ class SegmentMatcher:
             # table split over gp ranks
             log.warning("probe-outcome sampling is off on a gp mesh")
             self._probe_every = 0
-        self._dispatch_count = 0
-        self._probe_pending: List[torch.Tensor] = []
-        self._probe_lock = threading.Lock()
-        self.probe_stats = {"samples": 0, "pairs": 0, "miss": 0,
-                            "costly_miss": 0, "beyond_delta": 0,
-                            "dedup_ratio": None}
 
     def _make_mesh(self, device) -> Optional[Mesh]:
         """The dp x gp mesh of ``cfg.devices`` ranks ($REPORTER_DEVICES,
@@ -390,6 +439,24 @@ class SegmentMatcher:
             return ()
         return key
 
+    def _cpu_for(self, pkey: tuple):
+        """The CPU baseline of a params group: the default one, or a
+        ``CPUViterbiMatcher`` over the same arrays and table with the
+        group's (sigma_z, beta, search_radius) in its config; cached,
+        bounded."""
+        if not pkey:
+            return self._cpu
+        cpu = self._cpu_params_cache.get(pkey)
+        if cpu is None:
+            from ..baseline.cpu_matcher import CPUViterbiMatcher
+
+            if len(self._cpu_params_cache) >= 16:
+                self._cpu_params_cache.clear()
+            cpu = CPUViterbiMatcher(self.arrays, self.ubodt, dataclasses.replace(
+                self.cfg, sigma_z=pkey[0], beta=pkey[1], search_radius=pkey[2]))
+            self._cpu_params_cache[pkey] = cpu
+        return cpu
+
     def _params_for(self, pkey: tuple) -> MatchParams:
         """MatchParams for a params group (() = the shared default); cached,
         bounded."""
@@ -436,8 +503,9 @@ class SegmentMatcher:
         return rung
 
     def _bucket_len(self, n: int) -> int:
-        """Smallest length bucket >= n (n <= max_trace_points)."""
-        return next(b for b in self.cfg.length_buckets if n <= b)
+        """Smallest length bucket >= n; past the largest (the CPU baseline,
+        which does not window long traces) the next power of two."""
+        return _bucket_for(self.cfg.length_buckets, n)
 
     @property
     def max_trace_points(self) -> int:
@@ -484,7 +552,10 @@ class SegmentMatcher:
         """Queue one padded [B, T] batch on the device without blocking;
         returns (packed [3, B, T], aux [B, 4]) device tensors.  ``slabel``
         (a sparse cohort) dispatches the sparse program with the cohort's
-        parameters and K."""
+        parameters and K.  The CPU baseline runs the batch here and returns
+        ("cpu", (edge, offset, breaks))."""
+        if self.backend == "cpu":
+            return "cpu", self._cpu_for(pkey).run_batch(px, py, times, valid)
         xin = pack_inputs(px, py, times, valid)
         p, sp, k = (self.sparse.params_for(slabel, pkey) if slabel
                     else (self._params_for(pkey), None, self.cfg.beam_k))
@@ -542,7 +613,10 @@ class SegmentMatcher:
             self.tiering.drain_stats()
 
     def _collect_batch(self, handle):
-        """Block on a dispatch -> ((edge, offset, breaks), aux) numpy."""
+        """Block on a dispatch -> ((edge, offset, breaks), aux) numpy; aux
+        is None on the CPU baseline."""
+        if isinstance(handle[0], str):
+            return handle[1], None
         packed, aux = handle
         out = unpack_compact(packed.cpu().numpy()), aux.cpu().numpy()
         self._harvest()
@@ -572,8 +646,10 @@ class SegmentMatcher:
                 results[i] = {"segments": []}
                 continue
             pkey = self._params_key(tr)
-            slabel = self.sparse.label_for_trace(tr) or ""
-            if n > self.max_trace_points:
+            # the CPU baseline decodes every trace dense, as the reference's
+            slabel = ((self.sparse.label_for_trace(tr) or "") if self.backend == "jax"
+                      else "")
+            if n > self.max_trace_points and self.backend == "jax":
                 long_map.setdefault((pkey, slabel), []).append(i)
                 continue
             buckets.setdefault((pkey, slabel, self._bucket_len(n)),
@@ -802,8 +878,9 @@ class SegmentMatcher:
     # -- per-vehicle session steps: the carried beam as serving state -------
 
     def _session_bucket(self, n: int) -> int:
-        """Smallest session window bucket >= n (n <= the largest)."""
-        return next(b for b in self.cfg.session_buckets if n <= b)
+        """Smallest session window bucket >= n; past the largest (the CPU
+        baseline's wide steps) the next power of two."""
+        return _bucket_for(self.cfg.session_buckets, n)
 
     def _fill_session_rows(self, items, idxs, W):
         """Pack items[idxs]' points into padded [B, W] arrays.  Times rebase
@@ -875,14 +952,18 @@ class SegmentMatcher:
         Items group by (pkey, sparse cohort label, session window bucket)
         into [B_rung, W] steps; a step over the largest bucket chains
         through windows of that size, as the long-trace path does.  A
-        sparse step keeps K = ``beam_k`` (``_session_label``)."""
+        sparse step keeps K = ``beam_k`` (``_session_label``).
+
+        On the CPU baseline a step is a stateless window over the arriving
+        points, as in the reference: no carry in, none out (carry None),
+        aux None, and a wide step is one wider window."""
         w_max = int(self.cfg.session_buckets[-1])
         groups: Dict[tuple, List[int]] = {}
         handles = []
         for i, it in enumerate(items):
             n = max(1, len(it["points"]))
             slabel = self._session_label(it)
-            if n > w_max:
+            if n > w_max and self.backend == "jax":
                 handles.append(self._dispatch_session_chain(it, i, w_max,
                                                             slabel))
                 continue
@@ -895,6 +976,10 @@ class SegmentMatcher:
             for g in range(0, len(idxs), cap):
                 sub = idxs[g: g + cap]
                 px, py, tm, valid, ns = self._fill_session_rows(items, sub, W)
+                if self.backend == "cpu":
+                    handles.append(("cpu", sub, ns, self._cpu_for(pkey).run_batch(
+                        px, py, tm, valid)))
+                    continue
                 px, py, tm, valid = _pad_rows(
                     self._rung(len(sub)) - len(sub), px, py, tm, valid)
                 b_pad = px.shape[0]
@@ -918,6 +1003,13 @@ class SegmentMatcher:
         def finish():
             out = [None] * len(items)
             for h in handles:
+                if h[0] == "cpu":
+                    _kind, sub, ns, (edge, offset, breaks) = h
+                    for row, i in enumerate(sub):
+                        n = ns[row]
+                        out[i] = ((edge[row, :n], offset[row, :n], breaks[row, :n]),
+                                  None, None)
+                    continue
                 if h[0] in ("chain", "chain_arena"):
                     _kind, i, chunk_outs, carry = h
                     E, O, B, aux_rows = [], [], [], []
@@ -960,8 +1052,9 @@ class SegmentMatcher:
         reads the carried time as ``carry["t"]``, which an ``ArenaRef``
         refuses, and falls back to dense.  So with the slab only a
         session's first step (two points or more) can be sparse; the port
-        copies that rule (ROADMAP.md section 3)."""
-        if not self.sparse.enabled:
+        copies that rule (ROADMAP.md section 3).  The CPU baseline's steps
+        are dense."""
+        if self.backend != "jax" or not self.sparse.enabled:
             return ""
         try:
             times = [float(p["time"]) for p in item["points"]]

@@ -213,6 +213,12 @@ class SparseModel:
         out = self._params[key] = (p, sp, int(vals["k"]))
         return out
 
+    def oracle_values(self, label: str, pkey: tuple = ()) -> dict:
+        """The float values an f64 oracle twin of this cohort needs
+        (``baseline.BruteForceMatcher``'s ``sparse``), resolved as
+        ``params_for`` resolves them."""
+        return self.cohort_values(label, pkey)
+
     def summary(self) -> dict:
         return {
             "enabled": self.enabled,

@@ -98,12 +98,20 @@ def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(fix & (xd > hi * hi), up, y)
 
 
+# the smallest normal float32, 2^-126
+MIN_NORMAL = 2.0 ** -126
+
+
 def hypot_like_jax(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """``jnp.hypot``'s float32 expansion, max * sqrt(1 + (min/max)^2) with 0
     when max == 0 and inf when either leg is inf, with the 1 + r*r fused as
-    XLA compiles it; torch.hypot and libm's hypotf round differently."""
+    XLA compiles it; torch.hypot and libm's hypotf round differently.  As
+    XLA's CPU backend runs with denormals flushed, a leg below 2^-126 reads
+    as 0 (the result is then 0 or at least the larger leg, never subnormal)."""
     a = u.abs()
     b = v.abs()
+    a = torch.where(a < MIN_NORMAL, torch.zeros_like(a), a)
+    b = torch.where(b < MIN_NORMAL, torch.zeros_like(b), b)
     inf = torch.isposinf(a) | torch.isposinf(b)
     m = torch.maximum(a, b)
     n = torch.minimum(a, b)

@@ -2,9 +2,11 @@
 
 Serves /report and /health from the PyTorch/CUDA port.  The config has the
 shape of the reference service's (deploy/config.service.json): "network"
-(grid or file), "matcher" (MatcherConfig fields or meili keys) and "batch"
-(max_batch, max_wait_ms).  The device defaults to cuda and the command
-fails when CUDA is absent unless --device cpu is given.
+(grid or file), "matcher" (MatcherConfig fields or meili keys), "backend"
+and "batch" (max_batch, max_wait_ms).  The device defaults to cuda and the
+command fails when CUDA is absent unless --device cpu is given.  A
+"backend": "cpu" config serves from the CPU baseline on the host instead
+(no device; "jax", the default, is the port's device program).
 
 As in the reference's serve entrypoint, three library defaults are turned
 on here.  Per-trace confidence diagnostics ($REPORTER_QUALITY_AUX=0 turns

@@ -247,6 +247,7 @@ class ReporterService:
         out = {
             "status": "ok",
             "device": str(m.device),
+            "backend": m.backend,
             "mesh": ({"dp": m._mesh.n_dp, "gp": m._mesh.n_gp}
                      if m._mesh is not None else None),
             "max_trace_points": m.max_trace_points,
@@ -360,9 +361,13 @@ def batch_options(conf: dict) -> dict:
 
 def parse_service_config(path: str):
     """(MatcherConfig, conf dict) from a service config JSON of the
-    reference's shape: {"network": {...}, "matcher": {...}, "batch": {...}}.
-    Network types: "grid" (rows, cols, spacing_m, origin) and "file" (a
-    RoadNetwork JSON); the native tile codec ("tiles") is not ported yet."""
+    reference's shape: {"network": {...}, "matcher": {...}, "backend":
+    "jax" | "cpu", "batch": {...}}.  Network types: "grid" (rows, cols,
+    spacing_m, origin) and "file" (a RoadNetwork JSON, as
+    ``python -m reporter_tpu_torch.tiles.osm ... --json`` writes it); the
+    native tile codec ("tiles") is not ported yet.  "backend": "jax" (the
+    reference configs' word, and the default) is the port's device
+    program, "cpu" the CPU baseline."""
     from ..matching import MatcherConfig
 
     with open(path) as f:
@@ -376,6 +381,8 @@ def parse_service_config(path: str):
     if kind not in ("grid", "file"):
         raise ValueError("network type %r is not supported by this port "
                          "(grid or file)" % (kind,))
+    if conf.get("backend", "jax") not in ("jax", "cpu"):
+        raise ValueError("backend %r is not one of jax, cpu" % (conf["backend"],))
     return cfg, conf
 
 
@@ -396,4 +403,5 @@ def build_matcher(cfg, conf: dict, device="cuda") -> SegmentMatcher:
     else:
         with open(netspec["path"]) as f:
             net = RoadNetwork.from_dict(json.load(f))
-    return SegmentMatcher(network=net, config=cfg, device=device)
+    return SegmentMatcher(network=net, config=cfg, device=device,
+                          backend=conf.get("backend", "jax"))

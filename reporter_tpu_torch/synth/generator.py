@@ -5,6 +5,12 @@ by travel time, sample positions every ``dt`` seconds while driving the
 path at edge speed, and add AR(1) Gaussian noise
 (e_t = rho * e_{t-1} + N(0, sigma * sqrt(1 - rho^2))).  The same seed on
 the same graph gives the same traces as the reference's generator.
+
+Also the reference's helpers around it: ``dryrun_scenario`` (a tiny grid
+city's config, arrays and table), ``cohort_xy`` (synthesized traces packed
+into padded [B, T] arrays), ``example_grid_batch`` (jittered drives along
+grid rows) and ``segment_agreement`` (the fraction of samples matched to
+their ground-truth segment).
 """
 
 from __future__ import annotations
@@ -194,3 +200,61 @@ class TraceSynthesizer:
         return [
             self.synthesize(n_points, uuid="synth-%d" % i, **kw) for i in range(n_traces)
         ]
+
+
+def dryrun_scenario(rows: int = 5, cols: int = 5, spacing_m: float = 150.0,
+                    delta: float = 1500.0):
+    """(cfg, arrays, ubodt) for a tiny deterministic grid city."""
+    from ..matching.config import MatcherConfig
+    from ..tiles.arrays import build_graph_arrays
+    from ..tiles.network import grid_city
+    from ..tiles.ubodt import build_ubodt
+
+    cfg = MatcherConfig()
+    city = grid_city(rows=rows, cols=cols, spacing_m=spacing_m)
+    arrays = build_graph_arrays(city, cell_size=100.0)
+    ubodt = build_ubodt(arrays, delta=delta)
+    return cfg, arrays, ubodt
+
+
+def cohort_xy(arrays: GraphArrays, straces: "List[SyntheticTrace]", T: int):
+    """Pack synthesized traces into padded [B, T] arrays (px, py,
+    rebased times, valid).  Times rebase to each trace's start before the
+    float32 cast: epoch seconds have ~2 min float32 resolution."""
+    B = len(straces)
+    px = np.zeros((B, T), np.float32)
+    py = np.zeros((B, T), np.float32)
+    tm = np.zeros((B, T), np.float32)
+    valid = np.ones((B, T), bool)
+    for i, s in enumerate(straces):
+        pts = s.trace["trace"]
+        x, y = arrays.proj.to_xy([p["lat"] for p in pts], [p["lon"] for p in pts])
+        px[i], py[i] = x, y
+        tm[i] = np.asarray([p["time"] for p in pts]) - pts[0]["time"]
+    return px, py, tm, valid
+
+
+def example_grid_batch(arrays: GraphArrays, B: int, T: int, seed: int = 0):
+    """Padded [B, T] batch of jittered straight drives along grid-city rows."""
+    rng = np.random.default_rng(seed)
+    px = np.zeros((B, T), np.float32)
+    py = np.zeros((B, T), np.float32)
+    times = np.tile(np.arange(T, dtype=np.float32)[None] * 15.0, (B, 1))
+    valid = np.ones((B, T), bool)
+    # the grid's column count from x-coordinate uniqueness
+    cols = len(np.unique(np.round(arrays.node_x, 3)))
+    rows = arrays.num_nodes // cols
+    for b in range(B):
+        r = b % min(rows, 5)
+        row_nodes = [r * cols + c for c in range(min(cols, 5))]
+        t = np.linspace(0.05, 0.9, T)
+        px[b] = np.interp(t, np.linspace(0, 1, len(row_nodes)), arrays.node_x[row_nodes]) + rng.normal(0, 3, T)
+        py[b] = np.interp(t, np.linspace(0, 1, len(row_nodes)), arrays.node_y[row_nodes]) + rng.normal(0, 3, T)
+    return px, py, times, valid
+
+
+def segment_agreement(arrays: GraphArrays, matched_edges: np.ndarray, truth: SyntheticTrace) -> float:
+    """Fraction of samples whose matched OSMLR segment equals the
+    ground-truth segment."""
+    matched_seg = np.where(matched_edges >= 0, arrays.edge_seg[np.maximum(matched_edges, 0)], -1)
+    return float((matched_seg == truth.truth_seg).mean())

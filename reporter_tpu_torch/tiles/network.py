@@ -1,18 +1,20 @@
 """Road network model: the host-side graph the matcher runs against.
 
-A copy of the reference's ``RoadNetwork`` and ``grid_city``, trimmed to
-what the serving path uses.  Every edge carries a road level (0 highway,
-1 arterial, 2 local) and an optional OSMLR segment id whose low 3 bits are
-that level; internal edges carry no segment id.
+A copy of the reference's ``RoadNetwork`` and ``grid_city``.  Every edge
+carries a road level (0 highway, 1 arterial, 2 local) and an optional
+OSMLR segment id whose low 3 bits are that level; internal edges carry no
+segment id.  ``to_dict`` / ``from_dict`` are the JSON form the OSM import
+CLI writes (``python -m reporter_tpu_torch.tiles.osm ... --json``) and the
+service's ``{"network": {"type": "file"}}`` reads.
 """
 
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 from .. import geo
+from .hierarchy import TileHierarchy
 from .segment_id import pack_segment_id
 
 
@@ -78,6 +80,40 @@ class RoadNetwork:
         return (min(self.node_lat), min(self.node_lon),
                 max(self.node_lat), max(self.node_lon))
 
+    def edge_length_m(self, ei: int) -> float:
+        e = self.edges[ei]
+        pts = e.shape
+        total = 0.0
+        for i in range(len(pts) - 1):
+            total += float(geo.haversine_m(pts[i][0], pts[i][1], pts[i + 1][0], pts[i + 1][1]))
+        return total
+
+    def segment_lengths(self) -> Dict[int, float]:
+        """Total length of each OSMLR segment (sum over its member edges)."""
+        out: Dict[int, float] = {}
+        for i, e in enumerate(self.edges):
+            if e.segment_id is not None:
+                out[e.segment_id] = out.get(e.segment_id, 0.0) + self.edge_length_m(i)
+        return out
+
+    def to_dict(self) -> dict:
+        return {
+            "nodes": {"lat": list(self.node_lat), "lon": list(self.node_lon)},
+            "edges": [
+                {
+                    "from": e.from_node,
+                    "to": e.to_node,
+                    "shape": e.shape,
+                    "speed_kph": e.speed_kph,
+                    "level": e.level,
+                    "segment_id": e.segment_id,
+                    "internal": e.internal,
+                    "way_id": e.way_id,
+                }
+                for e in self.edges
+            ],
+        }
+
     @classmethod
     def from_dict(cls, d: dict) -> "RoadNetwork":
         net = cls()
@@ -95,24 +131,6 @@ class RoadNetwork:
                 way_id=ed.get("way_id"),
             ))
         return net
-
-
-# world tile grid per level (degrees): 0 highway, 1 arterial, 2 local
-_LEVEL_TILE_DEG = {0: 4.0, 1: 1.0, 2: 0.25}
-
-
-def _tile_index(level: int, lat: float, lon: float) -> int:
-    """Row-major index of the level's world tile containing (lat, lon);
-    the reference tile hierarchy's ``tile_id`` for in-range coordinates."""
-    size = _LEVEL_TILE_DEG[level]
-    ncols = int(math.ceil(360.0 / size))
-    nrows = int(math.ceil(180.0 / size))
-    if not (-90.0 <= lat <= 90.0 and -180.0 <= lon <= 180.0):
-        return -1
-    row = nrows - 1 if lat == 90.0 else int((lat + 90.0) / size)
-    c = (lon + 180.0) / size
-    col = ncols - 1 if lon == 180.0 else int(c)
-    return row * ncols + col
 
 
 def grid_city(
@@ -144,10 +162,11 @@ def grid_city(
     def node(r, c):
         return r * cols + c
 
+    tiles = TileHierarchy()
     seg_counter = [0]
 
     def next_sid(level):
-        sid = pack_segment_id(level, _tile_index(level, lat0, lon0), seg_counter[0])
+        sid = pack_segment_id(level, tiles.tile_id(level, lat0, lon0), seg_counter[0])
         seg_counter[0] += 1
         return sid
 

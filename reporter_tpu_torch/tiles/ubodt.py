@@ -225,6 +225,16 @@ class UBODT:
         e = self.packed.reshape(-1, ROW_W)[i]
         return float(np.int32(e[F_DIST]).view(np.float32)), int(e[F_FE])
 
+    def lookup_full(self, src: int, dst: int) -> Tuple[float, float, int]:
+        """Host-side probe: (dist, time, first_edge), or (inf, inf, -1) on a
+        miss (the CPU baseline's transitions)."""
+        i = self._find(src, dst)
+        if i < 0:
+            return float("inf"), float("inf"), -1
+        e = self.packed.reshape(-1, ROW_W)[i]
+        return (float(np.int32(e[F_DIST]).view(np.float32)),
+                float(np.int32(e[F_TIME]).view(np.float32)), int(e[F_FE]))
+
     def path_edges(self, src: int, dst: int) -> Optional[List[int]]:
         """Edge sequence of the shortest path src -> dst by chaining
         first-edge hops; None if unreachable within delta."""

@@ -377,10 +377,16 @@ def test_lane_map_covers_every_point(B, resident):
         assert set(seen.values()) == {1}
 
 
-# -- rtt::hypot_like_jax on a NaN leg --------------------------------------------
+# -- rtt::hypot_like_jax on a NaN leg and on subnormal legs ------------------
 
-LEGS = {"+0": 0.0, "-0": -0.0, "subnormal": 1e-40, "-subnormal": -3e-42, "finite": 3.5,
-        "-finite": -1234.5678, "+inf": np.inf, "-inf": -np.inf, "nan": np.nan}
+LEGS = {"+0": 0.0, "-0": -0.0, "subnormal": 1e-40, "-subnormal": -3e-42,
+        "3e-39": 3e-39, "2^-126": 2.0 ** -126, "2^-125": 2.0 ** -125, "2^-120": 2.0 ** -120,
+        "finite": 3.5, "-finite": -1234.5678, "+inf": np.inf, "-inf": -np.inf, "nan": np.nan}
+# the classes beside which some other class gives an exact result that
+# XLA's flushed arithmetic does not: a leg of 0 or below 2^-126, or a
+# normal leg small enough that such a leg still moves the result
+SMALL = ("+0", "-0", "subnormal", "-subnormal", "3e-39", "2^-126", "2^-125", "2^-120")
+TINY = F32(2.0 ** -126)
 
 
 def _fma32(a, b, c):
@@ -388,17 +394,20 @@ def _fma32(a, b, c):
     return (a.astype(np.float64) * b.astype(np.float64) + c).astype(F32)
 
 
-def hypot_mirror(u, v, fixed=True):
-    """``rtt::hypot_like_jax`` (csrc/common.cuh) in numpy float32: the
-    larger leg, a NaN leg where there is one (``fixed``) or the old
-    select's ``a > b`` alone; 0 where it is 0; inf where a leg is inf; 1 +
-    r r fused."""
+def hypot_mirror(u, v, fixed=True, flush=True):
+    """``rtt::hypot_like_jax`` (csrc/common.cuh) in numpy float32: legs
+    below 2^-126 read as 0 (``flush``; without it the expression before the
+    repair); the larger leg, a NaN leg where there is one (``fixed``) or the
+    old select's ``a > b`` alone; 0 where it is 0; inf where a leg is inf;
+    1 + r r fused."""
     a, b = np.abs(u).astype(F32), np.abs(v).astype(F32)
+    if flush:
+        a, b = np.where(a < TINY, F32(0), a), np.where(b < TINY, F32(0), b)
     inf = np.isinf(a) | np.isinf(b)
     big = (a > b) | (a != a) if fixed else a > b
     m, n = np.where(big, a, b), np.where(big, b, a)
     safe = np.where(m == 0, F32(1), m)
-    with np.errstate(invalid="ignore", divide="ignore", over="ignore"):
+    with np.errstate(invalid="ignore", divide="ignore", over="ignore", under="ignore"):
         r = (n / safe).astype(F32)
         x = np.where(m == 0, m, (m * np.sqrt(_fma32(r, r, 1.0))).astype(F32))
     return np.where(inf, F32(np.inf), x).astype(F32)
@@ -411,38 +420,44 @@ def _same_or_nan(got, want):
 
 
 def test_device_expression_pinned():
-    """The mirror below is the helper's select: a NaN leg is the larger."""
+    """The mirror below is the helper's expression: legs flushed below
+    2^-126, a NaN leg the larger, the result unflushed."""
     src = (CSRC / "common.cuh").read_text()
+    assert "constexpr float kMinNormal = 1.17549435082228750797e-38f;" in src
+    assert np.float32(1.17549435082228750797e-38) == TINY
+    assert "const float a = a0 < kMinNormal ? 0.f : a0;" in src
+    assert "const float b = b0 < kMinNormal ? 0.f : b0;" in src
     assert "const bool big = a > b || a != a;" in src
     assert "const float m = big ? a : b;" in src and "const float n = big ? b : a;" in src
+    assert "return inf ? INFINITY : x;" in src
 
 
 @pytest.mark.parametrize("x", list(LEGS))
 def test_hypot_nan_leg(x):
     """For an x leg of class ``x`` beside every class of y leg, in both
-    orders: the fixed device expression and the port's plain
-    ``hypot_like_jax`` equal ``jnp.hypot`` as XLA compiles it, bit for bit,
-    but where the exact result is subnormal (both legs +-0 or subnormal,
-    one not 0): XLA's CPU backend flushes it to 0, the mirror and the
-    plain version keep it (as the kernel does: it is built without
-    -ftz).  The old select gives 0 for an x leg of NaN beside a y leg of
-    +-0, where ``jnp.hypot`` gives NaN, and equals the fixed one
-    everywhere else."""
+    orders: the device expression and the port's plain ``hypot_like_jax``
+    equal ``jnp.hypot`` as XLA compiles it, bit for bit, on every class:
+    XLA's CPU backend flushes a subnormal leg to 0, and so do both (with
+    both legs flushed no result is subnormal).  The select before PR 13 gives 0 for an x leg of NaN
+    beside a y leg that reads as 0, where ``jnp.hypot`` gives NaN, and
+    equals the repaired one everywhere else; the expression before the flush gives
+    an exact subnormal or a result moved by a subnormal leg where
+    ``jnp.hypot`` does not, and only beside the small classes."""
     ys = np.array(list(LEGS.values()), F32)
     xs = np.full_like(ys, F32(LEGS[x]))
     u, v = np.concatenate([xs, ys]), np.concatenate([ys, xs])
     want = np.asarray(jax.jit(jnp.hypot)(jnp.asarray(u), jnp.asarray(v)))
-    tiny = F32(2.0 ** -126)
-    flushed = (np.abs(u) < tiny) & (np.abs(v) < tiny) & ((u != 0) | (v != 0))
     new = hypot_mirror(u, v)
     port = hypot_like_jax(torch.from_numpy(u), torch.from_numpy(v)).numpy()
     for got in (new, port):
-        assert _same_or_nan(got[~flushed], want[~flushed]).all()
-        assert (want[flushed] == 0).all() and (got[flushed] > 0).all()
-        assert (got[flushed] < tiny).all()
+        assert _same_or_nan(got, want).all()
     old = hypot_mirror(u, v, fixed=False)
-    fault = np.isnan(u) & (v == 0)
+    fault = np.isnan(u) & (np.abs(v) < TINY)  # a NaN beside a leg that reads as 0
     assert (old[fault] == 0).all() and np.isnan(want[fault]).all() and np.isnan(new[fault]).all()
     assert _same_or_nan(old[~fault], new[~fault]).all()
-    assert fault.any() == (x in ("nan", "+0", "-0"))
-    assert flushed.any() == (x in ("+0", "-0", "subnormal", "-subnormal"))
+    assert fault.any() == (x in ("nan", "+0", "-0", "subnormal", "-subnormal", "3e-39"))
+    unflushed = hypot_mirror(u, v, flush=False)
+    parted = ~_same_or_nan(unflushed, want)
+    sub = lambda w: (w != 0) & (np.abs(w) < TINY)  # noqa: E731
+    assert (sub(u) | sub(v))[parted].all()
+    assert parted.any() == (x in SMALL)

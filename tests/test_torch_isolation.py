@@ -123,6 +123,32 @@ px, py, tm, valid, _t = mm._fill_rows(traces, [0, 1], 32)
 fn = graph_sharded_match_fn(make_mesh2(2, 2, ["cpu"] * 4), 8, len(arrays.seg_ids))
 _r, hist = fn(m._dg, m._du, *(torch.from_numpy(a) for a in (px, py, tm, valid)), m._params)
 assert 0 < float(hist.point_count.sum()) <= 40
+# the bench's realistic city through the PBF codec and the OSM import, the
+# tile hierarchy, the CPU baseline (backend="cpu") and the brute oracle
+import tempfile
+import reporter_tpu_torch.baseline
+import reporter_tpu_torch.tiles.hierarchy
+from reporter_tpu_torch.baseline import BruteForceMatcher
+from reporter_tpu_torch.synth.generator import segment_agreement
+from reporter_tpu_torch.synth.osm_city import realistic_city, realistic_city_network
+from reporter_tpu_torch.tiles import osm
+oa = build_graph_arrays(realistic_city_network(8, 8, seed=3), cell_size=100.0)
+assert oa.grid_items.shape[1] > 0 and oa.num_edges > 100
+nodes, ways = realistic_city(8, 8, seed=3)
+with tempfile.TemporaryDirectory() as d:
+    osm.write_pbf(d + "/c.osm.pbf", nodes, ways)
+    assert osm.main([d + "/c.osm.pbf", "--json", d + "/net.json"]) == 0
+ou = reporter_tpu_torch.tiles.ubodt.build_ubodt(oa, delta=1500.0)
+cm = SegmentMatcher(arrays=oa, ubodt=ou, config=MatcherConfig(length_buckets=[16]),
+                    backend="cpu")
+dm = SegmentMatcher(arrays=oa, ubodt=ou, config=MatcherConfig(length_buckets=[16]),
+                    device="cpu")
+syn = TraceSynthesizer(oa, seed=7).batch(3, 20, dt=5.0)
+ots = [s.trace for s in syn]
+assert len(cm.match_many(ots)) == 3 and all(r["segments"] for r in dm.match_many(ots))
+px, py, tm_, vd, _ = dm._fill_rows(ots, [0], 20)
+edge = BruteForceMatcher(oa, dm.cfg).run_batch(px, py, tm_, vd)[0]
+assert 0.0 <= segment_agreement(oa, edge[0], syn[0]) <= 1.0
 assert not [m for m in sys.modules if blocked(m)]
 print("ISOLATED-OK")
 '''
