@@ -251,6 +251,24 @@ delta 3000 m, cuckoo layout) and moves it to the card, then:
      defaults, each equal to ``match_many`` on a second matcher of the
      same config.  Kernels 1-5 carry the city's times, bounds and launches
      under ``"osm"`` in the kernels line.
+  18. the batch request and its wire on the same city (``wire_phase``):
+     the OSM CLI's one call also writes the RPTT tiles (``-o``), which
+     ``load_network_tiles`` must read back to the ``--json`` network (its
+     edges in the tiles' order); a ``{"network": {"type": "tiles"}}``
+     config through ``parse_service_config``, ``build_matcher`` and the
+     serving defaults to a matcher on the card, served with the default
+     ``max_inflight`` (4 on the card); one /trace_attributes_batch body of
+     64 traces of the 512 x 64 cohort, 8 of the 128 x 256 and one of the
+     16 x 1,024 (the long path) sent as JSON, gzip JSON, binary in and out,
+     and binary in with JSON out, and one binary /report, three rounds of
+     each, every send through the launch counters (kernels 1-5; the
+     /report's 64 points kernels 1-4): every answer a 200, each binary one
+     under the wire's Content-Type, the four decoded result lists equal to
+     each other and to ``report()`` over ``match_many`` on a second matcher
+     of the same config; the same body under ``X-Reporter-Deadline-Ms: 0``
+     answered 504 with no kernel launched.  Each encoding's body bytes and
+     request wall (the median of its three) are printed beside the card's
+     name and power limit.
 
 Before the phases it times ``torch.cuda._sleep(1)``, a one-thread kernel,
 under ``time_ms`` (``launch_floor``): the least time that timer reads for
@@ -1408,6 +1426,20 @@ def breakdown(matcher, traces):
           % (len(traces), T, out["pack_ms"], out["device_ms"], out["assoc_ms"],
              out["report_ms"]))
     return out
+
+
+def _post_raw(port, path, data, headers):
+    """POST ``data`` to the port's server: (status, headers, body bytes),
+    an error status included."""
+    import urllib.error
+
+    req = urllib.request.Request("http://127.0.0.1:%d%s" % (port, path), data=data,
+                                 headers=headers)
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
 
 
 def _post(port, body):
@@ -4715,7 +4747,8 @@ def baseline_phase(matcher, traces):
 
 def osm_serve_phase(net, rows, traces, device):
     """The city's PBF written and imported by the OSM CLI in a process of
-    its own (``--json``), then 8 /report requests served from a
+    its own (``--json``, and the RPTT tiles with ``-o`` in the same call,
+    which phase 18 reads), then 8 /report requests served from a
     ``{"network": {"type": "file"}}`` config through
     ``parse_service_config`` and ``build_matcher`` with the serving
     defaults, through the launch counters: each answer's segments equal
@@ -4732,9 +4765,10 @@ def osm_serve_phase(net, rows, traces, device):
                                ("city.osm.pbf", "net.json", "config.json"))
     t0 = time.perf_counter()
     write_pbf(pbf, *realistic_city(rows, rows, 150.0, 3))
+    tiles = os.path.join(d, "tiles")
     r = subprocess.run([sys.executable, "-m", "reporter_tpu_torch.tiles.osm", pbf,
-                        "--json", net_json], cwd=REPO, capture_output=True, text=True,
-                       timeout=600)
+                        "--json", net_json, "-o", tiles], cwd=REPO, capture_output=True,
+                       text=True, timeout=600)
     check(r.returncode == 0, "the OSM CLI: %s" % r.stderr[-2000:])
     with open(net_json) as f:
         check(json.load(f) == json.loads(json.dumps(net.to_dict())),
@@ -4756,14 +4790,163 @@ def osm_serve_phase(net, rows, traces, device):
         check(code == 200, "osm /report status %s" % code)
         check(body["segment_matcher"]["segments"] == json.loads(json.dumps(w["segments"])),
               "osm /report segments equal match_many on a matcher of the same config")
-    print("serve osm: the CLI wrote %s from the city's PBF in %.1f s; the served matcher "
-          "built from it in %.1f s; 8 /report answered 200 in %.2f s, equal to match_many "
-          "on a matcher of the same config, launches %s"
-          % (os.path.relpath(net_json, REPO), t1 - t0, t2 - t1, dt, json.dumps(launches)))
-    return launches
+    print("serve osm: the CLI wrote %s and %s from the city's PBF in %.1f s; the served "
+          "matcher built from the JSON in %.1f s; 8 /report answered 200 in %.2f s, equal to "
+          "match_many on a matcher of the same config, launches %s"
+          % (os.path.relpath(net_json, REPO), os.path.relpath(tiles, REPO), t1 - t0, t2 - t1,
+             dt, json.dumps(launches)))
+    return launches, net_json, tiles
 
 
-def osm_phases(device, rows=120, grid_misses=None, timed=True, scale=1):
+def tile_order(net_d):
+    """A RoadNetwork JSON as the RPTT tiles hold it: its edges by level,
+    then by the tile of their from-node at that level, then in network
+    order, and speeds at the format's float32."""
+    import numpy as np
+
+    from reporter_tpu_torch.tiles.hierarchy import TileHierarchy
+
+    h = TileHierarchy()
+    lat, lon, edges = net_d["nodes"]["lat"], net_d["nodes"]["lon"], net_d["edges"]
+    order = sorted(range(len(edges)), key=lambda i: (
+        edges[i]["level"], h.tile_id(edges[i]["level"], lat[edges[i]["from"]],
+                                     lon[edges[i]["from"]]), i))
+    return {"nodes": net_d["nodes"],
+            "edges": [dict(edges[i], speed_kph=float(np.float32(edges[i]["speed_kph"])))
+                      for i in order]}
+
+
+ROUNDS_18 = 3  # sends of each encoding in phase 18
+
+
+def wire_phase(net_json, tiles, traces64, traces256, traces1024, device, card=""):
+    """Phase 18: /trace_attributes_batch on the city loaded from the OSM
+    CLI's RPTT tiles, in four encodings and a binary /report, through the
+    launch counters; the deadline's 504 with no launch."""
+    import gzip
+
+    from reporter_tpu_torch.ops import _kernels
+    from reporter_tpu_torch.report import report as report_fn
+    from reporter_tpu_torch.serve import ReporterService, wire
+    from reporter_tpu_torch.serve.__main__ import serving_defaults
+    from reporter_tpu_torch.serve.service import build_matcher, parse_service_config
+    from reporter_tpu_torch.tiles.codec import load_network_tiles
+
+    t0 = time.perf_counter()
+    with open(net_json) as f:
+        want_net = tile_order(json.load(f))
+    got_net = json.loads(json.dumps(load_network_tiles(tiles).to_dict()))
+    check(got_net == want_net, "the RPTT tiles read back to the --json network (%d edges)"
+          % len(want_net["edges"]))
+    t_load = time.perf_counter() - t0
+    cfg_json = os.path.join(os.path.dirname(net_json), "config_tiles.json")
+    with open(cfg_json, "w") as f:
+        json.dump({"network": {"type": "tiles", "path": tiles}}, f)
+
+    def served():
+        cfg, conf = parse_service_config(cfg_json)
+        return build_matcher(serving_defaults(cfg), conf, device=device)
+    sv = served()
+    traces = traces64[:64] + traces256[:8] + traces1024[:1]
+    body = {"traces": traces}
+    js = json.dumps(body).encode()
+    frame = wire.encode_request(json.loads(js))
+    json_h = {"Content-Type": "application/json"}
+    bin_h = {"Content-Type": wire.CONTENT_TYPE, "Accept": wire.CONTENT_TYPE}
+    sends = {
+        "json": ("/trace_attributes_batch", js, json_h),
+        "gzip": ("/trace_attributes_batch", gzip.compress(js),
+                 dict(json_h, **{"Content-Encoding": "gzip"})),
+        "binary": ("/trace_attributes_batch", frame, bin_h),
+        "binary in, json out": ("/trace_attributes_batch", frame,
+                                {"Content-Type": wire.CONTENT_TYPE}),
+        "binary /report": ("/report", wire.encode_request(json.loads(json.dumps(traces[0]))),
+                           bin_h),
+    }
+    # the batch runs both buckets and the long trace's carried windows; the
+    # one /report, a 64-point trace, only the bucketed kernels
+    paths = {how: _path_kernels(sv, BUCKETED if how == "binary /report"
+                                else BUCKETED + CARRIED[-1:]) for how in sends}
+    service = ReporterService(sv, threshold_sec=15, max_batch=128, max_wait_ms=10)
+    if device.type == "cuda":
+        check(service.batcher.max_inflight == 4, "the default max_inflight on the card is 4")
+    server = service.make_server("127.0.0.1", 0)
+    port = server.server_address[1]
+    th = threading.Thread(target=server.serve_forever, daemon=True)
+    th.start()
+    out, launches, walls = {}, {}, {how: [] for how in sends}
+    try:
+        # three rounds of every encoding in turn, each send through the
+        # launch counters; an encoding's wall is its median
+        for rnd in range(ROUNDS_18):
+            for how, (path, data, headers) in sends.items():
+                (code, hdrs, raw), dt, counts = _counted(
+                    (), lambda: _post_raw(port, path, data, headers))
+                check(code == 200, "phase 18 %s: status %s %s" % (how, code, raw[:300]))
+                if device.type == "cuda":
+                    kernels, absent = paths[how]
+                    check(all(counts[k] > 0 for k in kernels)
+                          and not any(counts[k] for k in absent),
+                          "phase 18 %s: kernels %s launched, none of %s: %s"
+                          % (how, kernels, absent, json.dumps(counts)))
+                binary = how in ("binary", "binary /report")
+                check(wire.is_wire(hdrs.get("Content-Type")) == binary,
+                      "phase 18 %s: Content-Type %s" % (how, hdrs.get("Content-Type")))
+                payload = wire.decode_response(raw) if binary else json.loads(raw)
+                if rnd:
+                    check(payload == out[how]["payload"], "phase 18 %s: every round answers "
+                          "alike" % how)
+                    launches[how] = {k: launches[how][k] + v for k, v in counts.items()}
+                else:
+                    out[how] = {"request_bytes": len(data), "response_bytes": len(raw),
+                                "payload": payload}
+                    launches[how] = counts
+                walls[how].append(dt)
+        for how, o in out.items():
+            o["wall_s"] = statistics.median(walls[how])
+            o["walls_s"] = walls[how]
+        (code, _h, raw), _dt, late = _counted(
+            (), lambda: _post_raw(port, "/trace_attributes_batch", js,
+                                  dict(json_h, **{"X-Reporter-Deadline-Ms": "0"})),
+            tuple(_kernels.KERNELS))
+        check(code == 504 and not any(late.values()),
+              "a deadline of 0 ms answers 504 with no launch: %s %s" % (code, raw[:200]))
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.close()
+        th.join(10)
+    second = served()
+    want = []
+    for m, tr in zip(second.match_many(traces), traces):
+        m.pop("_quality", None)
+        mo = tr["match_options"]
+        want.append(report_fn(m, tr, 15, set(mo["report_levels"]), set(mo["transition_levels"]),
+                              mode=mo.get("mode", "auto")))
+    want = json.dumps(want, sort_keys=True)
+    for how in ("json", "gzip", "binary", "binary in, json out"):
+        check(json.dumps(out[how]["payload"]["results"], sort_keys=True) == want,
+              "phase 18 %s: the results equal report() over match_many on a second matcher "
+              "of the same config" % how)
+    check(json.dumps([out["binary /report"]["payload"]], sort_keys=True)
+          == json.dumps(json.loads(want)[:1], sort_keys=True),
+          "phase 18: the binary /report equals its report()")
+    n_reports = sum(len(r["datastore"]["reports"]) for r in out["json"]["payload"]["results"])
+    print("phase 18 wire (%s): /trace_attributes_batch of %d traces (%d points), %d datastore "
+          "reports; %s; the tiles read back in %.1f s; deadline 0 ms: 504, no launch; launches "
+          "of the %d JSON sends %s" % (
+              card, len(traces), sum(len(t["trace"]) for t in traces), n_reports, "; ".join(
+                  "%s: request %d B, response %d B, wall %.3f s (median of %s)" % (
+                      how, o["request_bytes"], o["response_bytes"], o["wall_s"],
+                      ", ".join("%.3f" % w for w in o["walls_s"]))
+                  for how, o in out.items()), t_load, ROUNDS_18, json.dumps(launches["json"])))
+    total = {k: sum(run[k] for run in launches.values()) for k in launches["json"]}
+    return {"encodings": {how: {k: v for k, v in o.items() if k != "payload"}
+                          for how, o in out.items()},
+            "tiles_load_s": t_load, "launches": launches}, total
+
+
+def osm_phases(device, rows=120, grid_misses=None, timed=True, scale=1, card=""):
     """Phase 17: the bench's realistic city (``osm_city``) through the main
     path: its cohorts (``osm_cohorts``); kernels 1-4 against their plain
     versions at 512 x 64 (timed) and 128 x 256, kernel 5 at the long
@@ -4772,7 +4955,8 @@ def osm_phases(device, rows=120, grid_misses=None, timed=True, scale=1):
     through the launch counters, each held as on the grid city; kernel
     12's misses beside the grid's; agreement against the truth; the CPU
     baseline on the first 100 short traces (``baseline_phase``); serve
-    from the OSM CLI's network (``osm_serve_phase``)."""
+    from the OSM CLI's network (``osm_serve_phase``); phase 18's batch
+    request and its wire from the CLI's tiles (``wire_phase``)."""
     matcher, net, info = osm_city(rows, device)
     short, med, long_ = osm_cohorts(matcher.arrays, scale)
     t64, t256, t1024 = ([s.trace for s in c] for c in (short, med, long_))
@@ -4791,14 +4975,16 @@ def osm_phases(device, rows=120, grid_misses=None, timed=True, scale=1):
     print("osm segment agreement against the truth: %s"
           % ", ".join("%s %.4f" % kv for kv in agree.items()))
     base = baseline_phase(matcher, t64[:100 // scale])
-    serve_launches = osm_serve_phase(net, rows, t64, device)
+    serve_launches, net_json, tiles = osm_serve_phase(net, rows, t64, device)
+    wire_info, wire_launches = wire_phase(net_json, tiles, t64, t256, t1024, device, card)
     strip = lambda d: {k: v for k, v in d.items() if not callable(v)}  # noqa: E731
     return {"city": info, "kernels": [strip(r) for r in rows64],
             "kernels_128x256": [strip(r) for r in rows256],
             "chain": {k: strip(c) for k, c in chain.items()},
             "launches": {"bucketed": launches, "long": long_launches,
-                         "session": sess_launches, "serve": serve_launches},
-            "main_path": rates, "long_path": long_rate, "session_path": sess_rate,
+                         "session": sess_launches, "serve": serve_launches,
+                         "batch_wire": wire_launches},
+            "wire": wire_info, "main_path": rates, "long_path": long_rate, "session_path": sess_rate,
             "probe_outcomes": misses, "grid_probe_outcomes": grid_misses,
             "agreement": agree, "baseline": base}
 
@@ -4992,7 +5178,8 @@ def main(pair=()):
                                                       device)
     # the bench's realistic city through the same paths (phase 17), kernel
     # 12's misses there beside the grid city's
-    osm = osm_phases(device, grid_misses=probe_misses(matcher, xin64))
+    osm = osm_phases(device, grid_misses=probe_misses(matcher, xin64),
+                     card=smi.splitlines()[0])
 
     # the sparse-gap model: cohorts A (every 9th point of the 512 x 64
     # cohort: 512 x 8 at 45 s, "45-60", bucket 16) and B (every 12th of the

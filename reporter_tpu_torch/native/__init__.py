@@ -1,14 +1,16 @@
 """ctypes binding for the repository's native core (``native/reporter_native.cc``).
 
-Trimmed to the symbols the serving path calls: the parallel bounded
-Dijkstra UBODT builder (``rn_ubodt_build`` / ``rn_ubodt_fetch``), the
-cuckoo and wide32 packers (``rn_cuckoo_pack``, ``rn_wide_pack``) and batched segment association
-(``rn_associate_batch_mt``).  The shared C++ source at the repository root
-is compiled with ``g++`` into ``build/reporter_tpu_torch/`` on first use.
+Trimmed to the symbols the serving path calls: the RPTT tile codec
+(``rn_tile_write``, ``rn_tile_header``, ``rn_tile_read``), the parallel
+bounded Dijkstra UBODT builder (``rn_ubodt_build`` / ``rn_ubodt_fetch``),
+the cuckoo and wide32 packers (``rn_cuckoo_pack``, ``rn_wide_pack``) and
+batched segment association (``rn_associate_batch_mt``).  The shared C++
+source at the repository root is compiled with ``g++`` into
+``build/reporter_tpu_torch/`` on first use.
 
-``get_lib()`` returns None when no compiler is available: the UBODT
-builder and association then run their Python versions, which produce
-identical output.  ``require_lib()`` raises instead, for callers that
+``get_lib()`` returns None when no compiler is available: the tile codec,
+the UBODT builder and association then run their Python versions, which
+produce identical output.  ``require_lib()`` raises instead, for callers that
 cannot afford the Python UBODT build (a metro-scale table).
 """
 
@@ -34,6 +36,7 @@ _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _error: Optional[str] = None
 
+_u32p = np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS")
 _f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
 _f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
 _u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
@@ -41,6 +44,16 @@ _i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
 _i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
 
 _SYMBOLS = {
+    "rn_tile_write": (ctypes.c_int, [
+        ctypes.c_char_p, ctypes.c_uint32, _f64p, _f64p, ctypes.c_uint32,
+        _u32p, _u32p, _f32p, _u8p, _u8p, _i64p, _i64p, _u32p,
+        ctypes.c_uint32, _f64p, _f64p,
+    ]),
+    "rn_tile_header": (ctypes.c_int, [ctypes.c_char_p, _u32p]),
+    "rn_tile_read": (ctypes.c_int, [
+        ctypes.c_char_p, _f64p, _f64p, _u32p, _u32p, _f32p, _u8p, _u8p,
+        _i64p, _i64p, _u32p, _f64p, _f64p,
+    ]),
     "rn_ubodt_build": (ctypes.c_void_p, [
         ctypes.c_int64, _i32p, _i32p, _i32p, _f32p, _f32p,
         ctypes.c_double, ctypes.c_int32, ctypes.POINTER(ctypes.c_int64),

@@ -1,9 +1,12 @@
 """CLI: python -m reporter_tpu_torch.serve [--device cuda|cpu] <config.json> [host:port]
 
-Serves /report and /health from the PyTorch/CUDA port.  The config has the
-shape of the reference service's (deploy/config.service.json): "network"
-(grid or file), "matcher" (MatcherConfig fields or meili keys), "backend"
-and "batch" (max_batch, max_wait_ms).  The device defaults to cuda and the
+Serves /report, /trace_attributes_batch and /health from the PyTorch/CUDA
+port.  The config has the shape of the reference service's
+(deploy/config.service.json): "network" (grid, file or tiles), "matcher"
+(MatcherConfig fields or meili keys), "backend", "batch" (max_batch,
+max_wait_ms, max_inflight, session_max_batch, session_wait_ms) and
+"robustness" (max_queue, deadline_ms; $REPORTER_MAX_QUEUE and
+$REPORTER_DEADLINE_MS override them).  The device defaults to cuda and the
 command fails when CUDA is absent unless --device cpu is given.  A
 "backend": "cpu" config serves from the CPU baseline on the host instead
 (no device; "jax", the default, is the port's device program).
@@ -67,7 +70,8 @@ def serving_defaults(cfg):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m reporter_tpu_torch.serve",
-        description="Serve /report from the PyTorch/CUDA port, the sparse-gap "
+        description="Serve /report and /trace_attributes_batch from the "
+        "PyTorch/CUDA port, the sparse-gap "
         "model on ($REPORTER_SPARSE=0 turns it off, $REPORTER_CALIBRATION "
         "names per-cohort parameters).  The UBODT table is cuckoo without "
         "probe dedup unless the config's matcher ubodt_layout/probe_dedup or "
@@ -94,9 +98,11 @@ def main(argv=None) -> int:
         host = os.environ.get("MATCHER_BIND_ADDR", "0.0.0.0")
         port = os.environ.get("MATCHER_LISTEN_PORT", "8002")
     matcher = build_matcher(cfg, conf, device=args.device)
-    service = ReporterService(matcher, **batch_options(conf))
+    service = ReporterService(matcher, robustness=conf.get("robustness", {}),
+                              **batch_options(conf))
     server = service.make_server(host, int(port))
-    logging.info("serving /report on %s:%s (device %s)", host, port, matcher.device)
+    logging.info("serving /report and /trace_attributes_batch on %s:%s (device %s)",
+                 host, port, matcher.device)
     try:
         server.serve_forever()
     except KeyboardInterrupt:

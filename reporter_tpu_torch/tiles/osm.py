@@ -20,9 +20,10 @@ segment-id bit layout of tiles/segment_id.py):
   segment id and are reported through the internal path.
 
 CLI:
-  python -m reporter_tpu_torch.tiles.osm city.osm.pbf --json net.json [--bbox ...]
-(``-o`` tile output needs the RPTT tile codec, which the port does not
-have yet: it exits with a usage error.)
+  python -m reporter_tpu_torch.tiles.osm city.osm.pbf -o tiles/ [--json net.json] [--bbox ...]
+``-o`` writes the RPTT tile directory (tiles/codec.py) that a service
+config's {"network": {"type": "tiles"}} reads; ``--json`` the RoadNetwork
+JSON that {"network": {"type": "file"}} reads.
 """
 
 from __future__ import annotations
@@ -570,8 +571,8 @@ def network_from_file(path: str, bbox=None) -> RoadNetwork:
 
 
 # ---------------------------------------------------------------------------
-# CLI: extract -> RoadNetwork JSON (the network a service config's
-# {"network": {"type": "file"}} reads)
+# CLI: extract -> RPTT tile dir and / or RoadNetwork JSON (the networks a
+# service config's {"network": {"type": "tiles"}} / {"type": "file"} read)
 # ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
@@ -581,15 +582,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m reporter_tpu_torch.tiles.osm",
                                  description=__doc__.split("\n\n")[0])
     ap.add_argument("input", help=".osm.pbf, .osm/.osm.xml, or Overpass .json")
-    ap.add_argument("-o", "--output", default=None,
-                    help="RPTT tile output dir (needs the tile codec: not ported yet)")
+    ap.add_argument("-o", "--output", default=None, help="RPTT tile output dir")
     ap.add_argument("--json", default=None, help="also dump RoadNetwork JSON here")
     ap.add_argument("--bbox", default=None,
                     help="min_lat,min_lon,max_lat,max_lon filter")
     args = ap.parse_args(argv)
-    if args.output:
-        ap.error("-o/--output writes RPTT tiles through the tile codec, which this "
-                 "port does not have yet; use --json")
     logging.basicConfig(level=getattr(logging, os.environ.get(
         "REPORTER_LOG_LEVEL", "INFO").upper(), logging.INFO), stream=sys.stderr)
     bbox = None
@@ -606,6 +603,11 @@ def main(argv=None) -> int:
         with open(args.json, "w") as f:
             json.dump(net.to_dict(), f)
         print("wrote %s" % args.json)
+    if args.output:
+        from .codec import save_network_tiles
+
+        manifest = save_network_tiles(net, args.output)
+        print("wrote %d tiles to %s" % (len(manifest["tiles"]), args.output))
     return 0
 
 

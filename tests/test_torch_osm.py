@@ -189,9 +189,28 @@ def test_cli_json(district, tmp_path, capsys):
                                                             -122.3290))
     assert json.loads(out.read_text()) == json.loads(json.dumps(want.to_dict()))
     assert "wrote" in capsys.readouterr().out
-    with pytest.raises(SystemExit) as e:
-        osm.main([district["pbf"], "-o", str(tmp_path / "tiles")])
-    assert e.value.code == 2
+    # -o writes RPTT tiles that the JAX package's codec reads back to the
+    # --json network: its edges in the tiles' order (level, then tile, then
+    # network order) and speeds at the format's float32
+    assert osm.main([district["pbf"], "-o", str(tmp_path / "tiles"),
+                     "--json", str(tmp_path / "both.json")]) == 0
+    from reporter_tpu.tiles.codec import load_network_tiles as ref_load_network_tiles
+
+    net_d = json.loads((tmp_path / "both.json").read_text())
+    back = json.loads(json.dumps(ref_load_network_tiles(str(tmp_path / "tiles")).to_dict()))
+    h = ref_hier.TileHierarchy()
+    lat, lon = net_d["nodes"]["lat"], net_d["nodes"]["lon"]
+    order = sorted(range(len(net_d["edges"])), key=lambda i: (
+        net_d["edges"][i]["level"], h.tile_id(net_d["edges"][i]["level"],
+                                              lat[net_d["edges"][i]["from"]],
+                                              lon[net_d["edges"][i]["from"]]), i))
+    want_edges = [dict(net_d["edges"][i],
+                       speed_kph=float(np.float32(net_d["edges"][i]["speed_kph"])))
+                  for i in order]
+    assert back == {"nodes": net_d["nodes"], "edges": want_edges}
+    with open(tmp_path / "tiles" / "manifest.json") as f:
+        n_tiles = len(json.load(f)["tiles"])
+    assert "wrote %d tiles to %s" % (n_tiles, tmp_path / "tiles") in capsys.readouterr().out
     with pytest.raises(SystemExit):
         osm.main([district["pbf"], "--bbox", "1,2,3"])
     # as a module, the way a service's network file is made

@@ -140,20 +140,21 @@ def test_from_dict_warns_once_per_dropped_reference_key(monkeypatch, caplog):
 
 
 def test_batch_block_warns_once_per_dropped_key(monkeypatch, caplog):
-    """The service config's "batch" block: the keys the port reads become
-    ReporterService arguments; max_inflight (the reference's, not
-    carried) is named in one warning per process."""
+    """The service config's "batch" block: every key of the reference's
+    (max_inflight too) becomes a ReporterService argument; a key the port
+    lacks (here max_queue, which belongs in "robustness") is named in one
+    warning per process."""
     monkeypatch.setattr(config_mod, "_WARNED", set())
     conf = {"batch": {"max_batch": 8, "max_wait_ms": 3.0, "session_max_batch": 32,
-                      "session_wait_ms": 1.5, "max_inflight": 4}}
+                      "session_wait_ms": 1.5, "max_inflight": 4, "max_queue": 16}}
     with caplog.at_level(logging.WARNING, logger=config_mod.__name__):
         opts = batch_options(conf)
         assert batch_options(conf) == opts
-    assert opts == {"max_batch": 8, "max_wait_ms": 3.0, "session_max_batch": 32,
-                    "session_wait_ms": 1.5}
+    assert opts == {"max_batch": 8, "max_wait_ms": 3.0, "max_inflight": 4,
+                    "session_max_batch": 32, "session_wait_ms": 1.5}
     assert [r.getMessage() for r in caplog.records] == [
-        "batch config key 'max_inflight' is not carried by this port; ignored"]
-    assert batch_options({}) == {"max_batch": 64, "max_wait_ms": 10.0,
+        "batch config key 'max_queue' is not carried by this port; ignored"]
+    assert batch_options({}) == {"max_batch": 64, "max_wait_ms": 10.0, "max_inflight": None,
                                  "session_max_batch": 256, "session_wait_ms": 2.0}
     assert np.isfinite(opts["max_wait_ms"])
 
