@@ -269,6 +269,40 @@ delta 3000 m, cuckoo layout) and moves it to the card, then:
      answered 504 with no kernel launched.  Each encoding's body bytes and
      request wall (the median of its three) are printed beside the card's
      name and power limit.
+  19. service recovery on the same city and its tiles config with the
+     serving defaults (``recovery_phase``, after phase 18), every send
+     of this process through the launch counters, the fault variables set
+     and cleared in this process: (1) faults off, 8 /report and one
+     /trace_attributes_batch equal report() over match_many on a second
+     matcher, no fault fired, no trip, nothing degraded; (2)
+     REPORTER_FAULT_DISPATCH=uuid:poison-veh with quarantine_after 2 and
+     150 ms windows: 8 concurrent /report, the poison 500 "failed its
+     device batch alone", the 7 innocents equal the second matcher's with
+     kernels 1-4 launched by the bisect, twice, then the poison refused
+     422 with no launch; the same for streaming submits on the slab; (3)
+     REPORTER_FAULT_DEVICE_HANG=2.5:1 with watchdog_s 0.4 and
+     reattach_probe_s 0.25 (REPORTER_FAULT_DISPATCH=uuid:_warmup holds the
+     re-attach probe off meanwhile): /report and a binary
+     /trace_attributes_batch answer 200 degraded, equal to report() over
+     the CPU baseline, 16 streaming vehicles 200 degraded, /health
+     degraded; cleared, the service re-attaches within 20 s, answers on
+     the card equal to the second matcher, and each session rebuilds once
+     from its replay (equal to the windowed decode, points_total exact);
+     then a finish that queues a 2.5 s ``torch.cuda._sleep`` before its
+     fetch: the watchdog trips while the finisher blocks in the CUDA
+     copy; (4) 512 sessions of the 512 x 64 cohort, 16 steps of 4 on the
+     slab, handed after step 8 from service A to service B on the second
+     matcher by GET /sessions?export=1 + POST /sessions, by POST {"pop"}
+     and by a sync checkpoint directory (``read_checkpoints``): steps 9-16
+     on B equal the uninterrupted run's answers and records bit for bit;
+     (5) ``python -m reporter_tpu_torch.serve`` on the tiles config in a
+     process of its own: SIGTERM with a 16 x 1,024 /trace_attributes_batch
+     inflight, which answers 200 equal to the second matcher, while a new
+     /report and /health answer 503 "draining"; the process exits 0.  It
+     prints each step's wall, the degraded answers' wall beside the card's,
+     the re-attach time, the handoff's bytes and times and the drain's time
+     to exit.  Every other phase is checked to run with no fault fired, no
+     trip and nothing degraded (``quiet``).
 
 Before the phases it times ``torch.cuda._sleep(1)``, a one-thread kernel,
 under ``time_ms`` (``launch_floor``): the least time that timer reads for
@@ -4943,7 +4977,618 @@ def wire_phase(net_json, tiles, traces64, traces256, traces1024, device, card=""
     total = {k: sum(run[k] for run in launches.values()) for k in launches["json"]}
     return {"encodings": {how: {k: v for k, v in o.items() if k != "payload"}
                           for how, o in out.items()},
-            "tiles_load_s": t_load, "launches": launches}, total
+            "tiles_load_s": t_load, "launches": launches}, total, (cfg_json, sv, second)
+
+
+# -- phase 19: service recovery on the card ------------------------------------
+
+_RECOVERY_BASE = []  # the recovery counts phase 19 left behind (empty before it)
+
+
+def recovery_counts():
+    """The faults fired per point and the service's fault-domain events
+    (watchdog trips, degraded entries and answers) in this process."""
+    from reporter_tpu_torch import faults
+    from reporter_tpu_torch.serve import service
+
+    c = service.counts()
+    return {"injected": {p: faults.injected(p) for p in faults.POINTS},
+            **{k: c[k] for k in ("watchdog_trips", "degraded_entries", "degraded_requests")}}
+
+
+def quiet(label):
+    """Every phase but 19 runs with no fault armed: no injected fault, no
+    watchdog trip, no degraded answer (the counts phase 19 left, or none)."""
+    from reporter_tpu_torch import faults
+
+    now = recovery_counts()
+    want = (_RECOVERY_BASE[-1] if _RECOVERY_BASE else
+            {"injected": {p: 0 for p in faults.POINTS}, "watchdog_trips": 0,
+             "degraded_entries": 0, "degraded_requests": 0})
+    armed = [v for v in os.environ if v.startswith("REPORTER_FAULT_")]
+    check(now == want and not armed, "%s ran with no fault injected, no watchdog trip and "
+          "nothing degraded: %s (armed %s)" % (label, json.dumps(now), armed))
+
+
+class _Served:
+    """A ReporterService on its own HTTP server (port 0), closed with it."""
+
+    def __init__(self, matcher, **kw):
+        from reporter_tpu_torch.serve import ReporterService
+
+        self.svc = ReporterService(matcher, threshold_sec=15, **kw)
+        self.server = self.svc.make_server("127.0.0.1", 0)
+        self.port = self.server.server_address[1]
+        self.thread = threading.Thread(target=self.server.serve_forever, daemon=True)
+        self.thread.start()
+
+    def post(self, path, body, headers=None):
+        """(status, headers, parsed body): JSON in and out unless ``body`` is
+        bytes (sent as they are under ``headers``)."""
+        raw = body if isinstance(body, bytes) else json.dumps(body).encode()
+        code, hdrs, out = _post_raw(self.port, path, raw,
+                                    headers or {"Content-Type": "application/json"})
+        from reporter_tpu_torch.serve import wire
+
+        return code, hdrs, (out if wire.is_wire(hdrs.get("Content-Type")) else json.loads(out))
+
+    def get(self, path):
+        import urllib.error
+
+        try:
+            with urllib.request.urlopen("http://127.0.0.1:%d%s" % (self.port, path),
+                                        timeout=300) as r:
+                raw = r.read()
+                return r.status, json.loads(raw), len(raw)
+        except urllib.error.HTTPError as e:
+            raw = e.read()
+            return e.code, json.loads(raw), len(raw)
+
+    def close(self):
+        self.server.shutdown()
+        self.server.server_close()
+        self.svc.close()
+        self.thread.join(10)
+
+
+def _reports(matcher, traces):
+    """report() over ``match_many`` on ``matcher``, as the service renders
+    each trace (JSON round-tripped)."""
+    from reporter_tpu_torch.report import report as report_fn
+
+    out = []
+    for m, tr in zip(matcher.match_many(traces), traces):
+        m.pop("_quality", None)
+        mo = tr["match_options"]
+        out.append(report_fn(m, tr, 15, set(mo["report_levels"]), set(mo["transition_levels"]),
+                             mode=mo.get("mode", "auto")))
+    return json.loads(json.dumps(out))
+
+
+def _parallel(fn, items):
+    """fn(item) for every item on a thread of its own; the answers in order."""
+    out = [None] * len(items)
+    workers = [threading.Thread(target=lambda i=i: out.__setitem__(i, fn(items[i])))
+               for i in range(len(items))]
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join(300)
+    check(not any(w.is_alive() for w in workers), "every request answered")
+    return out
+
+
+def _arm(**points):
+    """Set (a value) or clear (None) REPORTER_FAULT_<POINT> variables in this
+    process, then re-arm every count."""
+    from reporter_tpu_torch import faults
+
+    for point, spec in points.items():
+        var = "REPORTER_FAULT_" + point.upper()
+        if spec is None:
+            os.environ.pop(var, None)
+        else:
+            os.environ[var] = spec
+    faults.reset()
+
+
+def _no_age(body):
+    body = json.loads(json.dumps(body))
+    if isinstance(body.get("session"), dict):
+        body["session"].pop("age_s", None)
+    if isinstance(body.get("_stream"), dict):
+        body["_stream"]["session"].pop("age_s", None)
+    return body
+
+
+def _stream_sub(tr, uuid, j, n=4):
+    return dict(tr, uuid=uuid, stream=True, trace=tr["trace"][j:j + n])
+
+
+def _wait_reattach(svc, timeout=20.0):
+    t0 = time.perf_counter()
+    while svc.degraded and time.perf_counter() - t0 < timeout:
+        time.sleep(0.01)
+    check(not svc.degraded, "re-attached within %.0f s" % timeout)
+    return time.perf_counter() - t0
+
+
+def _sleep_cycles(seconds):
+    """``torch.cuda._sleep`` cycles that spin the card about ``seconds``,
+    from a timed spin of 10^7 cycles."""
+    import torch
+
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(1000)
+    a.record()
+    torch.cuda._sleep(10_000_000)
+    b.record()
+    b.synchronize()
+    return int(10_000_000 * seconds * 1e3 / a.elapsed_time(b))
+
+
+def recovery_faults_off(sv, second, t64, t256, t1024):
+    """19.1: with no fault armed, 8 concurrent /report and one
+    /trace_attributes_batch equal report() over match_many on the second
+    matcher, through the launch counters; nothing fires, nothing trips."""
+    a = _Served(sv, max_batch=128, max_wait_ms=10)
+    body = {"traces": t64[8:24] + t256[:4] + t1024[:1]}
+    kernels, absent = _path_kernels(sv, BUCKETED + CARRIED[-1:])
+    try:
+        t0 = time.perf_counter()
+        (answers, batch), dt, launches = _counted(kernels, lambda: (
+            _parallel(lambda tr: a.post("/report", tr), t64[:8]),
+            a.post("/trace_attributes_batch", body)), absent)
+        t1 = time.perf_counter()
+        one = a.post("/report", t64[0])
+        card_s = time.perf_counter() - t1
+        health = a.get("/health")[1]
+    finally:
+        a.close()
+    check([c for c, _h, _b in answers] == [200] * 8 and batch[0] == 200, "19.1 statuses")
+    check([b for _c, _h, b in answers] == _reports(second, t64[:8]),
+          "19.1 /report answers equal report() over match_many on the second matcher")
+    check(batch[2] == {"results": _reports(second, body["traces"])},
+          "19.1 the batch answer equals report() over match_many on the second matcher")
+    check(one[2] == _reports(second, t64[:1])[0] and health["degraded"] is False,
+          "19.1 one more /report on the card, not degraded")
+    quiet("phase 19.1")
+    print("phase 19.1 faults off: 8 /report + 1 /trace_attributes_batch (%d traces) 200, equal "
+          "to the second matcher, in %.3f s; one /report alone %.3f s; no fault injected, no "
+          "trip; launches %s" % (len(body["traces"]), t1 - t0, card_s, json.dumps(launches)))
+    return {"wall_s": t1 - t0, "card_report_s": card_s}, launches
+
+
+def recovery_poison(sv, second, t64):
+    """19.2: REPORTER_FAULT_DISPATCH=uuid:poison-veh, quarantine_after 2,
+    150 ms windows: 8 concurrent /report, 7 innocent; the poison answers
+    500 "failed its device batch alone", the 7 equal the second matcher's,
+    kernels 1-4 launched by the bisect; round 3's poison is refused 422
+    with no launch; the same for streaming submits on the slab."""
+    from reporter_tpu_torch.ops import _kernels
+
+    innocent = [dict(t64[24 + i], uuid="p19-veh-%d" % i) for i in range(7)]
+    poison = dict(t64[31], uuid="poison-veh")
+    want = _reports(second, innocent)
+    s_inn = [(t64[32 + i], "p19-s-%d" % i) for i in range(5)]
+    s_poi = (t64[37], "poison-veh")
+    ref = _Served(second, max_batch=128, max_wait_ms=1, session_wait_ms=1)
+    _arm(dispatch="uuid:poison-veh")
+    b = _Served(sv, max_batch=128, max_wait_ms=150, session_wait_ms=150,
+                robustness={"quarantine_after": 2})
+    kernels, absent = _path_kernels(sv, BUCKETED)
+    s_path, s_other = _forward(sv, 4, True)
+    s_kernels, s_absent = _path_kernels(sv, s_path)
+    out, launches, walls = {}, {}, []
+    try:
+        for rnd in range(2):
+            t0 = time.perf_counter()
+            ans, _dt, counts = _counted(kernels, lambda: _parallel(
+                lambda tr: b.post("/report", tr), innocent + [poison]), absent)
+            walls.append(time.perf_counter() - t0)
+            check(ans[-1][0] == 500 and "failed its device batch alone" in ans[-1][2]["error"],
+                  "19.2 the poison fails alone: %s %s" % (ans[-1][0], ans[-1][2]))
+            check([a[0] for a in ans[:-1]] == [200] * 7 and [a[2] for a in ans[:-1]] == want,
+                  "19.2 the 7 innocents equal the second matcher's reports (round %d)" % rnd)
+            launches["round %d" % (rnd + 1)] = counts
+        (code, _h, body), _dt, late = _counted((), lambda: b.post("/report", poison),
+                                                tuple(_kernels.KERNELS))
+        check(code == 422 and "quarantined" in body["error"] and not any(late.values()),
+              "19.2 round 3: the poison refused 422 with no launch: %s %s" % (code, body))
+        check((b.svc.batcher.poison_isolations, b.svc.batcher.quarantined()) == (2, 1),
+              "19.2 two isolations, one uuid quarantined")
+        # streaming submits on the slab: 4 points each, two rounds, then the
+        # repeat offender refused
+        for rnd, j in enumerate((0, 4)):
+            subs = [_stream_sub(tr, u, j) for tr, u in s_inn + [s_poi]]
+            ans, _dt, counts = _counted(s_kernels, lambda: _parallel(
+                lambda sub: b.post("/report", sub), subs), s_other + s_absent)
+            check(ans[-1][0] == 500 and "failed its device batch alone" in ans[-1][2]["error"],
+                  "19.2 the streaming poison fails alone")
+            want_s = [_no_age(ref.svc.handle_report(json.loads(json.dumps(s)))[1])
+                      for s in subs[:-1]]
+            check([a[0] for a in ans[:-1]] == [200] * 5
+                  and [_no_age(a[2]) for a in ans[:-1]] == want_s,
+                  "19.2 the 5 streaming innocents equal a service on the second matcher "
+                  "(round %d)" % rnd)
+            launches["stream round %d" % (rnd + 1)] = counts
+        (code, _h, body), _dt, late = _counted(
+            (), lambda: b.post("/report", _stream_sub(s_poi[0], s_poi[1], 8)),
+            tuple(_kernels.KERNELS))
+        check(code == 422 and not any(late.values()), "19.2 the streaming poison refused 422")
+        code, _h, body = b.post("/report", _stream_sub(s_inn[0][0], s_inn[0][1], 8))
+        check(code == 200 and body["session"]["points_total"] == 12,
+              "19.2 an innocent session streams on")
+        isolations = (b.svc.batcher.poison_isolations, b.svc.session_batcher.poison_isolations)
+    finally:
+        _arm(dispatch=None)
+        b.close()
+        ref.close()
+    print("phase 19.2 poison: rounds of 8 concurrent /report %s s, the poison 500 alone, the 7 "
+          "equal to the second matcher; round 3 422, no launch; streaming on the slab the same "
+          "(5 innocents + the poison, 4 points a submit); isolations %s; launches round 1 %s"
+          % (", ".join("%.3f" % w for w in walls), isolations,
+             json.dumps(launches["round 1"])))
+    return {"walls_s": walls, "isolations": isolations}, launches
+
+
+def recovery_watchdog(sv, second, t64, device):
+    """19.3: a hung finish (REPORTER_FAULT_DEVICE_HANG=2.5:1, watchdog 0.4 s,
+    re-attach probe every 0.25 s) trips the watchdog; /report, a binary
+    /trace_attributes_batch and 16 streaming vehicles answer 200 degraded
+    from the CPU baseline (the first two equal report() over it), /health
+    says degraded; REPORTER_FAULT_DISPATCH=uuid:_warmup holds the re-attach
+    probe (its dummy traces' uuid) off until both are cleared; then the
+    service re-attaches, answers on the card equal to the second matcher,
+    and each session rebuilds once from its replay.  Then a real device
+    wait: one finish queues ``torch.cuda._sleep`` for 2.5 s on the stream
+    before its fetch, and the watchdog trips while the finisher blocks in
+    the CUDA copy."""
+    from reporter_tpu_torch.matching import SegmentMatcher
+    from reporter_tpu_torch.serve import wire
+
+    cpu = SegmentMatcher(arrays=sv.arrays, ubodt=sv.ubodt, config=sv.cfg, backend="cpu")
+    tr = dict(t64[40], uuid="w19-veh")
+    batch = {"traces": [dict(t, uuid="w19-b-%d" % i) for i, t in enumerate(t64[41:45])]}
+    vehicles = [(t64[48 + i], "w19-s-%d" % i) for i in range(16)]
+    bin_h = {"Content-Type": wire.CONTENT_TYPE, "Accept": wire.CONTENT_TYPE}
+    rb = {"watchdog_s": 0.4, "reattach_probe_s": 0.25}
+    _arm(device_hang="2.5:1", dispatch="uuid:_warmup")
+    c = _Served(sv, max_batch=128, max_wait_ms=5, session_wait_ms=1, robustness=rb)
+    out, launches = {}, {}
+    try:
+        t0 = time.perf_counter()
+        code, _h, body = c.post("/report", tr)
+        out["degraded_report_s"] = time.perf_counter() - t0
+        want = _reports(cpu, [tr])[0]
+        check(code == 200 and body.pop("degraded", None) is True and body == want,
+              "19.3 the wedged /report answers 200 degraded, equal to report() over the CPU "
+              "baseline")
+        t0 = time.perf_counter()
+        code, hdrs, frame = c.post("/trace_attributes_batch",
+                                   wire.encode_request(json.loads(json.dumps(batch))), bin_h)
+        out["degraded_batch_s"] = time.perf_counter() - t0
+        check(code == 200 and wire.response_degraded(frame)
+              and wire.decode_response(frame) == {"results": _reports(cpu, batch["traces"]),
+                                                  "degraded": True},
+              "19.3 the binary batch answers degraded, equal to the CPU baseline's reports")
+        check(c.get("/health")[1]["degraded"] is True, "19.3 /health says degraded")
+        t0 = time.perf_counter()
+        first = _parallel(lambda v: c.post("/report", _stream_sub(v[0], v[1], 0)), vehicles)
+        out["degraded_stream_s"] = time.perf_counter() - t0
+        check(all(a[0] == 200 and a[2]["degraded"] is True and a[2]["session"]["points_total"]
+                  == 4 for a in first), "19.3 16 streaming vehicles answer 200 degraded")
+        held = c.svc.degraded
+        _arm(device_hang=None, dispatch=None)
+        out["reattach_after_clear_s"] = _wait_reattach(c.svc)
+        out["degraded_window_s"] = c.svc.reattach_s
+        check(held, "19.3 degraded until the faults were cleared")
+        kernels, absent = _path_kernels(sv, BUCKETED)
+        t0 = time.perf_counter()
+        (code, _h, body), _dt, launches["report"] = _counted(
+            kernels, lambda: c.post("/report", tr), absent)
+        out["card_report_s"] = time.perf_counter() - t0
+        check(code == 200 and "degraded" not in body and body == _reports(second, [tr])[0],
+              "19.3 after re-attach /report runs on the card, equal to the second matcher")
+        code, _h, body = c.post("/trace_attributes_batch", batch)
+        check(code == 200 and body == {"results": _reports(second, batch["traces"])},
+              "19.3 after re-attach the batch equals the second matcher")
+        s_path, s_other = _forward(sv, 16, True)
+        s_kernels, s_absent = _path_kernels(sv, s_path)
+        rebuilt, _dt, launches["rebuild"] = _counted(s_kernels, lambda: _parallel(
+            lambda v: c.post("/report", _stream_sub(v[0], v[1], 4)), vehicles),
+            s_other + s_absent)
+        windowed = _reports(second, [dict(v[0], uuid=v[1], trace=v[0]["trace"][:8])
+                                     for v in vehicles])
+        for (code, _h, body), w in zip(rebuilt, windowed):
+            check(code == 200 and "degraded" not in body and body["session"]["rebuilt"] is True
+                  and body["session"]["points_total"] == 8 and body["datastore"] == w["datastore"],
+                  "19.3 each session rebuilds once from its replay, equal to the windowed "
+                  "decode of its 8 points")
+        again = _parallel(lambda v: c.post("/report", _stream_sub(v[0], v[1], 8)), vehicles)
+        check(all(a[0] == 200 and a[2]["session"]["rebuilt"] is False
+                  and a[2]["session"]["points_total"] == 12 for a in again),
+              "19.3 the next step carries the rebuilt beam")
+        trips = sum(b.trips for b in c.svc._retired)
+        check(trips == 1 and c.svc.batcher.trips == 0, "19.3 one watchdog trip")
+    finally:
+        _arm(device_hang=None, dispatch=None)
+        c.close()
+    if device.type == "cuda":
+        out["real_wait"] = recovery_real_wait(sv, second, tr, rb)
+    print("phase 19.3 watchdog: degraded /report %.3f s (after re-attach %.3f s), binary batch of "
+          "%d %.3f s, 16 streaming vehicles %.3f s, all from the CPU baseline; re-attached "
+          "%.3f s after the faults cleared (%.3f s degraded); sessions rebuilt once each; "
+          "launches after re-attach %s%s" % (
+              out["degraded_report_s"], out["card_report_s"], len(batch["traces"]),
+              out["degraded_batch_s"], out["degraded_stream_s"], out["reattach_after_clear_s"],
+              out["degraded_window_s"], json.dumps(launches["report"]),
+              "; real device wait: %s" % json.dumps(out["real_wait"]) if "real_wait" in out
+              else ""))
+    return out, launches
+
+
+def recovery_real_wait(sv, second, tr, rb):
+    """One finish first queues a 2.5 s ``torch.cuda._sleep`` on the current
+    (the matcher's) stream, so its fetch blocks inside CUDA: the watchdog
+    must trip while the finisher is still blocked there."""
+    import torch
+
+    cycles = _sleep_cycles(2.5)
+    state = {"armed": True, "in_fetch": False}
+    orig = sv.match_many_async
+
+    def wedged(traces):
+        finish = orig(traces)
+        if not state.pop("armed", False):
+            return finish
+
+        def spin_then_finish():
+            torch.cuda._sleep(cycles)
+            state["in_fetch"] = True
+            try:
+                return finish()
+            finally:
+                state["in_fetch"] = False
+                state["fetched"] = time.perf_counter()
+        return spin_then_finish
+
+    d = _Served(sv, max_wait_ms=5, robustness=rb)
+    sv.match_many_async = wedged
+    try:
+        t0 = time.perf_counter()
+        code, _h, body = d.post("/report", tr)
+        answered = time.perf_counter()
+        blocked = state["in_fetch"]
+        check(code == 200 and body.get("degraded") is True and blocked,
+              "19.3 the watchdog tripped while the finisher blocked in the CUDA fetch "
+              "(answered %.3f s, still blocked %s)" % (answered - t0, blocked))
+        reattach = _wait_reattach(d.svc)
+        code, _h, body = d.post("/report", tr)
+        check(code == 200 and "degraded" not in body and body == _reports(second, [tr])[0],
+              "19.3 after the real wait the card answers again")
+        check(sum(b.trips for b in d.svc._retired) == 1, "19.3 one trip on the real wait")
+    finally:
+        sv.__dict__.pop("match_many_async", None)
+        d.close()
+    return {"degraded_answer_s": answered - t0, "fetch_returned_s": state["fetched"] - t0,
+            "reattach_s": reattach, "sleep_cycles": cycles}
+
+
+def recovery_handoff(sv, second, t64):
+    """19.4: the 512 x 64 cohort as sessions in 16 steps of 4 on the slab:
+    uninterrupted on service A (the card's matcher); then steps 1-8 on A,
+    the sessions handed to service B on the second matcher by GET
+    /sessions?export=1 + POST /sessions, by POST {"pop"}, and by a sync
+    checkpoint directory read back with ``read_checkpoints``, and steps
+    9-16 on B: records and answers equal A's bit for bit."""
+    from reporter_tpu_torch.matching.session import read_checkpoints
+
+    uuids = ["h19-" + tr["uuid"] for tr in t64]
+    steps = len(t64[0]["trace"]) // 4
+    s_path, s_other = _forward(sv, 4, True)
+    s_kernels, s_absent = _path_kernels(sv, s_path)
+    launches = {}
+
+    def steps_counted(served, js, what):
+        """The sessions' steps ``js`` through the launch counters."""
+        out, _dt, launches[what] = _counted(s_kernels, lambda: [
+            [_no_age(a) for a in served.svc.session_batcher.match_many(
+                [_stream_sub(tr, u, 4 * j) for tr, u in zip(t64, uuids)])] for j in js],
+            s_other + s_absent)
+        return out
+
+    def records(served):
+        return [served.svc.session_store.peek(u).records for u in uuids]
+
+    def drop(served):
+        for u in uuids:
+            served.svc.session_store.drop(u)
+
+    def unimported(answers):
+        for a in answers:
+            a["_stream"]["session"].pop("imported")
+        return answers
+
+    a = _Served(sv, max_batch=128)
+    t0 = time.perf_counter()
+    want = [unimported(x) for x in steps_counted(a, range(steps), "uninterrupted")]
+    step_s = (time.perf_counter() - t0) / steps
+    want_records = records(a)
+    drop(a)
+    a.close()
+    out = {"sessions": len(uuids), "steps": steps, "step_s": step_s}
+    ckpt_root = os.path.join(REPO, "build", "recovery_ckpt")
+    for how in ("export", "pop", "checkpoint"):
+        rb = ({"session_checkpoint_s": 3600, "session_checkpoint_sync": True,
+               "session_checkpoint_dir": ckpt_root} if how == "checkpoint" else {})
+        a = _Served(sv, max_batch=128, robustness=rb)
+        b = _Served(second, max_batch=128)
+        try:
+            t0 = time.perf_counter()
+            head = steps_counted(a, range(steps // 2), how + " head")
+            head_s = time.perf_counter() - t0
+            check([unimported(h) for h in head] == want[: steps // 2],
+                  "19.4 %s: steps 1-%d equal the uninterrupted run" % (how, steps // 2))
+            t0 = time.perf_counter()
+            if how == "export":
+                code, body, n_out = a.get("/sessions?export=1")
+                check(code == 200 and len(body["sessions"]) == len(uuids), "19.4 export")
+                wires = body["sessions"]
+            elif how == "pop":
+                code, _h, body = a.post("/sessions", {"pop": uuids})
+                wires = body["sessions"]
+                n_out = len(json.dumps(body, separators=(",", ":")))
+                check(code == 200 and len(wires) == len(uuids) and len(a.svc.session_store) == 0,
+                      "19.4 pop removes every session")
+            else:
+                d = a.svc.session_checkpointer.dir
+                wires = read_checkpoints(d)
+                n_out = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+                check(len(wires) == len(uuids), "19.4 one checkpoint file a session")
+            out_s = time.perf_counter() - t0
+            data = json.dumps({"sessions": wires})
+            t0 = time.perf_counter()
+            code, _h, res = b.post("/sessions", json.loads(data))
+            in_s = time.perf_counter() - t0
+            check(code == 200 and res["imported"] == len(uuids) and res["rebuild_pending"] == 0,
+                  "19.4 %s: every session imported with its beam" % how)
+            tail = [unimported(x) for x in steps_counted(b, range(steps // 2, steps),
+                                                         how + " tail")]
+            check(tail == want[steps // 2:], "19.4 %s: steps %d-%d on the second matcher equal "
+                  "the uninterrupted run's answers" % (how, steps // 2 + 1, steps))
+            check(records(b) == want_records, "19.4 %s: records equal bit for bit" % how)
+            out[how] = {"head_s": head_s, "out_bytes": n_out, "out_s": out_s,
+                        "import_bytes": len(data), "import_s": in_s}
+        finally:
+            drop(a)
+            drop(b)
+            a.close()
+            b.close()
+    print("phase 19.4 handoff: %d sessions x %d steps of 4, %.3f s a step; %s; steps %d-%d on "
+          "the second matcher equal the uninterrupted run bit for bit each way" % (
+              len(uuids), steps, step_s, "; ".join(
+                  "%s %d B in %.3f s, import %d B in %.3f s (steps 1-%d %.3f s)" % (
+                      how, o["out_bytes"], o["out_s"], o["import_bytes"], o["import_s"],
+                      steps // 2, o["head_s"])
+                  for how, o in out.items() if isinstance(o, dict)), steps // 2 + 1, steps))
+    return out, launches
+
+
+def recovery_drain(cfg_json, second, t1024, device):
+    """19.5: ``python -m reporter_tpu_torch.serve`` on the tiles config in a
+    process of its own (1.5 s batch windows): an inflight 16 x 1,024
+    /trace_attributes_batch, then SIGTERM; the inflight request answers 200
+    equal to the second matcher, a new /report 503 "draining" with
+    Retry-After, /health 503 "draining", and the process exits 0."""
+    import signal
+    import urllib.error
+
+    with open(cfg_json) as f:
+        conf = json.load(f)
+    conf["batch"] = {"max_wait_ms": 1500}
+    path = os.path.join(os.path.dirname(cfg_json), "config_drain.json")
+    with open(path, "w") as f:
+        json.dump(conf, f)
+    argv = [sys.executable, "-m", "reporter_tpu_torch.serve", path, "127.0.0.1:0"]
+    if device.type != "cuda":
+        argv[3:3] = ["--device", "cpu"]
+    env = dict(os.environ, REPORTER_DRAIN_GRACE_S="60", REPORTER_REPLICA_ID="rep-drain")
+    t_boot = time.perf_counter()
+    proc = subprocess.Popen(argv, cwd=REPO, env=env, stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE)
+    log_tail = []
+    try:
+        port = None
+        while port is None and time.perf_counter() - t_boot < 300:
+            line = proc.stderr.readline()
+            if not line:
+                check(proc.poll() is None, "the serve process booted: %s"
+                      % b"".join(log_tail[-20:]).decode(errors="replace"))
+                continue
+            log_tail.append(line)
+            if b"on 127.0.0.1:" in line:
+                port = int(line.split(b"on 127.0.0.1:")[1].split()[0])
+        check(port is not None, "the serve process logged its port")
+        boot_s = time.perf_counter() - t_boot
+        threading.Thread(target=lambda: log_tail.extend(proc.stderr), daemon=True).start()
+
+        def call(path_, body=None):
+            if body is None:
+                try:
+                    with urllib.request.urlopen("http://127.0.0.1:%d%s" % (port, path_),
+                                                timeout=60) as r:
+                        return r.status, dict(r.headers), json.loads(r.read())
+                except urllib.error.HTTPError as e:
+                    return e.code, dict(e.headers), json.loads(e.read())
+            code, hdrs, raw = _post_raw(port, path_, json.dumps(body).encode(),
+                                        {"Content-Type": "application/json"})
+            return code, hdrs, json.loads(raw)
+
+        check(call("/health")[0] == 200, "19.5 the serve process answers /health")
+        body = {"traces": t1024[:16]}
+        inflight = {}
+        th = threading.Thread(target=lambda: inflight.update(
+            r=call("/trace_attributes_batch", body)))
+        th.start()
+        time.sleep(0.6)  # inside its 1.5 s batch window
+        t_sig = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        time.sleep(0.3)
+        code, hdrs, late = call("/report", t1024[0])
+        check(code == 503 and late.get("status") == "draining"
+              and int(hdrs.get("Retry-After", 0)) >= 1,
+              "19.5 a new /report during the drain: 503 draining with Retry-After")
+        code, _h, health = call("/health")
+        check(code == 503 and health["status"] == "draining", "19.5 /health 503 draining")
+        th.join(300)
+        code, hdrs, got = inflight["r"]
+        check(code == 200 and got == {"results": _reports(second, body["traces"])}
+              and hdrs.get("X-Reporter-Replica") == "rep-drain",
+              "19.5 the inflight batch answers 200, equal to the second matcher")
+        rc = proc.wait(timeout=90)
+        exit_s = time.perf_counter() - t_sig
+        check(rc == 0, "19.5 the process exits 0 after the drain: %s"
+              % b"".join(log_tail[-20:]).decode(errors="replace"))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    print("phase 19.5 drain: the serve process booted on the tiles config in %.1f s; SIGTERM "
+          "with a 16 x 1,024 /trace_attributes_batch inflight: it answered 200 equal to the "
+          "second matcher, a new /report 503 draining, /health 503 draining; exit 0 %.2f s "
+          "after the signal" % (boot_s, exit_s))
+    return {"boot_s": boot_s, "exit_after_sigterm_s": exit_s}
+
+
+def recovery_phase(cfg_json, sv, second, t64, t256, t1024, device, card=""):
+    """Phase 19: service recovery on the realistic city's tiles config with
+    the serving defaults (``recovery_faults_off``, ``recovery_poison``,
+    ``recovery_watchdog``, ``recovery_handoff``, ``recovery_drain``), every
+    send through the launch counters; returns (figures, launches)."""
+    from reporter_tpu_torch import faults
+
+    t0 = time.perf_counter()
+    info, runs = {}, []
+    info["faults_off"], launches = recovery_faults_off(sv, second, t64, t256, t1024)
+    runs.append(launches)
+    info["poison"], launches = recovery_poison(sv, second, t64)
+    runs.extend(launches.values())
+    info["watchdog"], launches = recovery_watchdog(sv, second, t64, device)
+    runs.extend(launches.values())
+    info["handoff"], launches = recovery_handoff(sv, second, t64)
+    runs.extend(launches.values())
+    info["drain"] = recovery_drain(cfg_json, second, t1024, device)
+    info["counts"] = recovery_counts()
+    info["wall_s"] = time.perf_counter() - t0
+    _RECOVERY_BASE.append(info["counts"])
+    check(not any(v.startswith("REPORTER_FAULT_") for v in os.environ), "faults cleared")
+    print("phase 19 recovery (%s): %.1f s; faults fired %s" % (
+        card, info["wall_s"], json.dumps({p: n for p, n in info["counts"]["injected"].items()
+                                          if n})))
+    total = {k: sum(r[k] for r in runs) for k in runs[0]}
+    faults.reset()
+    return info, total
 
 
 def osm_phases(device, rows=120, grid_misses=None, timed=True, scale=1, card=""):
@@ -4976,15 +5621,18 @@ def osm_phases(device, rows=120, grid_misses=None, timed=True, scale=1, card="")
           % ", ".join("%s %.4f" % kv for kv in agree.items()))
     base = baseline_phase(matcher, t64[:100 // scale])
     serve_launches, net_json, tiles = osm_serve_phase(net, rows, t64, device)
-    wire_info, wire_launches = wire_phase(net_json, tiles, t64, t256, t1024, device, card)
+    wire_info, wire_launches, served = wire_phase(net_json, tiles, t64, t256, t1024, device,
+                                                  card)
+    quiet("phases 1-4, 17 and 18")
+    recovery, recovery_launches = recovery_phase(*served, t64, t256, t1024, device, card)
     strip = lambda d: {k: v for k, v in d.items() if not callable(v)}  # noqa: E731
     return {"city": info, "kernels": [strip(r) for r in rows64],
             "kernels_128x256": [strip(r) for r in rows256],
             "chain": {k: strip(c) for k, c in chain.items()},
             "launches": {"bucketed": launches, "long": long_launches,
                          "session": sess_launches, "serve": serve_launches,
-                         "batch_wire": wire_launches},
-            "wire": wire_info, "main_path": rates, "long_path": long_rate, "session_path": sess_rate,
+                         "batch_wire": wire_launches, "recovery": recovery_launches},
+            "wire": wire_info, "recovery": recovery, "main_path": rates, "long_path": long_rate, "session_path": sess_rate,
             "probe_outcomes": misses, "grid_probe_outcomes": grid_misses,
             "agreement": agree, "baseline": base}
 
@@ -5176,10 +5824,12 @@ def main(pair=()):
     split.append(long_breakdown(matcher, traces2048))
     n_reports, serve_launches, fixtures = serve_phase(arena_matcher, traces64, traces2048[0],
                                                       device)
+    quiet("phases 1-4")
     # the bench's realistic city through the same paths (phase 17), kernel
     # 12's misses there beside the grid city's
     osm = osm_phases(device, grid_misses=probe_misses(matcher, xin64),
                      card=smi.splitlines()[0])
+    quiet("phases 17-19")
 
     # the sparse-gap model: cohorts A (every 9th point of the 512 x 64
     # cohort: 512 x 8 at 45 s, "45-60", bucket 16) and B (every 12th of the
@@ -5217,6 +5867,7 @@ def main(pair=()):
     sp_long_launches, sp_long_rate = long_path(sm, tr_l, "ge60")
     sp_sess_rate, sp_sess_launches = sparse_session_path(matcher, tr_a, "45-60")
     sp_serve_launches, sp_answers = sparse_serve_phase(matcher, tr_a)
+    quiet("phases 5-6")
 
     # the UBODT memory system: the metro table in the wide32 layout, kernel
     # 2's wide32 instantiation and the dedup kernels at every shape class
@@ -5247,6 +5898,7 @@ def main(pair=()):
                                                      base=sm)
     mem_serve_launches = memory_serve_phase(matcher.arrays, ubodt_w, tr_a, sp_answers,
                                             fixtures, device)
+    quiet("phase 7")
 
     # the log-depth (assoc) forward: its four kernels against their plain
     # versions at every shape class above (the sparse ones also where the
@@ -5267,6 +5919,7 @@ def main(pair=()):
     assoc = assoc_paths(matcher, sm, traces64, traces256, traces2048, tr_a, tr_l,
                         [xin64, xin256], xin_a)
     assoc["serve_launches"] = assoc_serve_phase(matcher, traces64, device)
+    quiet("phase 8")
 
     # the tiered UBODT (kernel row 10): kernel 2's tiered instantiations,
     # the dedup probe and the chain seams at three occupancies in both
@@ -5283,6 +5936,7 @@ def main(pair=()):
     tiered["launches"]["session_cold_tier"] = cold_launches
     tiered["launches"]["serve"] = tier_serve_phase(matcher.arrays, matcher.ubodt, tr_a,
                                                    sp_answers, fixtures, device)
+    quiet("phase 9")
 
     # the device mesh (kernel row 11), every rank on this card: kernel 11a
     # at gp 2, 4, 8 in both layouts, the chain kernels' resolved seam,
@@ -5300,6 +5954,7 @@ def main(pair=()):
     mesh = mesh_paths(matcher, sm, ubodt_w, traces64, traces256, traces2048, tr_a, xin64)
     mesh["serve_launches"] = mesh_serve_phase(matcher.arrays, matcher.ubodt, tr_a,
                                               sp_answers, fixtures, device)
+    quiet("phase 10")
 
     # the redesigned kernels (kernel 2's family, the recursion of kernels 4
     # and 5) on edge inputs, each against its plain version
@@ -5335,6 +5990,7 @@ def main(pair=()):
     # the redesigned segment histogram (row 11b) on edge inputs, against its
     # plain version (timed at both bucketed shapes in histogram_phases)
     hist_edge = histogram_edges(device)
+    quiet("phases 11-16")
 
     # launches over the counted runs of every path but serve's; kernels
     # 1-4's times and bounds at 512 x 64, max_abs_err over both bucketed

@@ -20,10 +20,10 @@ override them), the session arena's byte budgets
 ``$REPORTER_SESSION_ARENA_BYTES`` and ``_COLD_BYTES``) and
 route-consistent interpolation (``interpolate``, ``$REPORTER_INTERPOLATE``)
 and the device mesh (``devices``, ``graph_devices``; ``$REPORTER_DEVICES``
-and ``$REPORTER_GRAPH_DEVICES`` override them).  ``from_dict`` drops the
-keys of the reference's config that belong to paths this port does not
-carry yet (the host packer, warmup, the degraded CPU fallback) with one
-warning per key per process.
+and ``$REPORTER_GRAPH_DEVICES`` override them) and the service's degraded
+CPU fallback (``cpu_fallback``).  ``from_dict`` drops the keys of the
+reference's config that belong to paths this port does not carry yet (the
+host packer, warmup) with one warning per key per process.
 """
 
 from __future__ import annotations
@@ -140,6 +140,11 @@ class MatcherConfig:
     sparse_vmax_mps: float = 45.0
     sparse_plaus_weight: float = 3.0
     calibration: str = ""
+    # the service's degraded mode (serve/service.py): after a device
+    # watchdog trip requests are answered by the CPU baseline over the same
+    # arrays and table with "degraded": true until a re-attach probe finds
+    # the device healthy; False answers a wedge with a retryable 503
+    cpu_fallback: bool = True
     # report() business-logic default
     threshold_sec: int = 15
     mode: str = "auto"

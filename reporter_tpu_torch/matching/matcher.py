@@ -10,6 +10,12 @@ on ``device`` by the match program of ops/viterbi.py; host
 association (native core, or its Python twin) turns the [3, B, T] result
 into wire-format segments.
 
+Fault injection (``faults.py``): the ``dispatch`` seam at
+``match_many_async``'s entry (and ``SessionEngine``'s), ``ubodt_probe`` in
+each per-chunk dispatch of the windowed and session paths, and
+``device_hang`` at the top of both ``finish()`` closures, where the
+reference has them; ``dummy_traces`` is the re-attach probe's input.
+
 Traces longer than the largest bucket stream through fixed windows of that
 length with carried Viterbi state (``_dispatch_long``): kernels 1-3 run
 once over all of a group's windows, then kernel 5 chains the beam window
@@ -98,6 +104,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import faults
 from ..convert import carry_from_numpy
 from ..device import resolve_device, upload
 from ..ops.diagnostics import ubodt_probe_stats
@@ -554,6 +561,8 @@ class SegmentMatcher:
         (a sparse cohort) dispatches the sparse program with the cohort's
         parameters and K.  The CPU baseline runs the batch here and returns
         ("cpu", (edge, offset, breaks))."""
+        # fault seam: a probe-program failure mid-call, per chunk
+        faults.maybe_raise("ubodt_probe")
         if self.backend == "cpu":
             return "cpu", self._cpu_for(pkey).run_batch(px, py, times, valid)
         xin = pack_inputs(px, py, times, valid)
@@ -634,6 +643,10 @@ class SegmentMatcher:
         ``finish()`` that blocks on the device, runs host association and
         returns the results.  At most PIPELINE_DEPTH chunks stay in flight;
         excess chunks are drained inline during dispatch."""
+        # fault seam: the uuid: form fires for any batch holding the poison
+        # trace, which the MicroBatcher's bisect-retry isolates
+        faults.maybe_raise("dispatch", key=",".join(
+            str(t.get("uuid", "")) for t in traces if isinstance(t, dict)))
         results: List[Optional[dict]] = [None] * len(traces)
         # buckets by (params group, sparse cohort label, padded length);
         # the label is "" for dense traces and whenever the model is off
@@ -691,6 +704,9 @@ class SegmentMatcher:
                                                     slabel))
 
         def finish() -> List[dict]:
+            # fault seam: a wedged device step, inside the blocking finish
+            # the finisher thread and the re-attach probe both run through
+            faults.hang("device_hang")
             while pending:
                 drain_one()
             for h in long_handles:
@@ -975,6 +991,8 @@ class SegmentMatcher:
             p, sp = self._session_params(pkey, slabel)
             for g in range(0, len(idxs), cap):
                 sub = idxs[g: g + cap]
+                # the windowed dispatch's fault seam, per session chunk
+                faults.maybe_raise("ubodt_probe")
                 px, py, tm, valid, ns = self._fill_session_rows(items, sub, W)
                 if self.backend == "cpu":
                     handles.append(("cpu", sub, ns, self._cpu_for(pkey).run_batch(
@@ -1001,6 +1019,7 @@ class SegmentMatcher:
                 handles.append(h)
 
         def finish():
+            faults.hang("device_hang")  # the windowed finish's seam
             out = [None] * len(items)
             for h in handles:
                 if h[0] == "cpu":
@@ -1172,6 +1191,24 @@ class SegmentMatcher:
             packed, aux, carry = self._session_step(xin, p, sp, carry)
             chunk_outs.append((packed, aux, nc))
         return ("chain", idx, chunk_outs, carry)
+
+    def dummy_traces(self, n: int, b: int, dt: float = 5.0) -> List[dict]:
+        """``b`` copies of an ``n``-point synthetic trace along the graph's
+        first edge, ``dt`` seconds apart: the re-attach probe's input,
+        through the full dispatch path."""
+        ax, ay, bx, by = self._probe_edge_coords()
+        lat, lon = self.arrays.proj.to_latlon(np.linspace(ax, bx, n),
+                                              np.linspace(ay, by, n))
+        tr = {"uuid": "_warmup",
+              "trace": [{"lat": float(a), "lon": float(o), "time": 1.0 + float(dt) * i}
+                        for i, (a, o) in enumerate(zip(lat, lon))]}
+        return [tr] * b
+
+    def _probe_edge_coords(self):
+        """Endpoints of the graph's first edge (the dummy traces' span)."""
+        a = self.arrays
+        return (float(a.node_x[a.edge_from[0]]), float(a.node_y[a.edge_from[0]]),
+                float(a.node_x[a.edge_to[0]]), float(a.node_y[a.edge_to[0]]))
 
     def Match(self, trace_json: str) -> str:
         """Wire-compatible single-trace entry (valhalla SegmentMatcher.Match)."""

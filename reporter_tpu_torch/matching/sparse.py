@@ -35,6 +35,7 @@ import json
 import logging
 import math
 import os
+import threading
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -42,6 +43,8 @@ import numpy as np
 from .segments import _build_paths, _Pin, _segment_records, _TimeLine
 
 log = logging.getLogger(__name__)
+
+_count_lock = threading.Lock()
 
 # the quality plane's gap buckets (reporter_tpu/obs/quality.py): the
 # reference BatchingProcessor's operating point (>= 45 s) has two of them
@@ -150,7 +153,8 @@ class SparseModel:
         return gap_label(times, self.gap_s)
 
     def count(self, label: str, n: int = 1) -> None:
-        self.dispatch[label] = self.dispatch.get(label, 0) + n
+        with _count_lock:  # dispatches come from several service threads
+            self.dispatch[label] = self.dispatch.get(label, 0) + n
 
     # -- parameters --------------------------------------------------------
 

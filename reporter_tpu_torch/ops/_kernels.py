@@ -88,7 +88,10 @@ class Kernel:
         if rc != 0:
             raise RuntimeError("%s launch failed: %s (cudaError %d)" % (
                 self.name, self._err(rc).decode(errors="replace"), rc))
-        self.launches += 1
+        # the service launches from several threads (dispatch, bisect on
+        # the finisher, the re-attach probe): no count may be lost
+        with _count_lock:
+            self.launches += 1
 
 
 _SPARSE = [_F] * 6  # the sparse model's scalars, after the dense arguments
@@ -249,9 +252,13 @@ def library_function(kernel: str, symbol: str, restype, argtypes):
     return fn
 
 
+_count_lock = threading.Lock()
+
+
 def reset_launches() -> None:
-    for k in KERNELS.values():
-        k.launches = 0
+    with _count_lock:
+        for k in KERNELS.values():
+            k.launches = 0
 
 
 def ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:

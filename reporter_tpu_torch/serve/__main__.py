@@ -5,8 +5,9 @@ port.  The config has the shape of the reference service's
 (deploy/config.service.json): "network" (grid, file or tiles), "matcher"
 (MatcherConfig fields or meili keys), "backend", "batch" (max_batch,
 max_wait_ms, max_inflight, session_max_batch, session_wait_ms) and
-"robustness" (max_queue, deadline_ms; $REPORTER_MAX_QUEUE and
-$REPORTER_DEADLINE_MS override them).  The device defaults to cuda and the
+"robustness" (max_queue, deadline_ms, watchdog_s, quarantine_after,
+quarantine_ttl_s, reattach_probe_s, session_checkpoint_s / _sync / _dir;
+each has a $REPORTER_* variable over it, serve/service.py).  The device defaults to cuda and the
 command fails when CUDA is absent unless --device cpu is given.  A
 "backend": "cpu" config serves from the CPU baseline on the host instead
 (no device; "jax", the default, is the port's device program).
@@ -41,6 +42,15 @@ segment boundaries by free-flow speed.  The matcher's "devices" and
 "graph_devices" (or $REPORTER_DEVICES / $REPORTER_GRAPH_DEVICES) spread
 it over a dp x gp mesh of the visible cards (same answers; more cards
 than are visible raises).
+
+The first SIGTERM or SIGINT drains: new /report and
+/trace_attributes_batch requests answer 503 "draining" with Retry-After,
+/health answers 503 "draining", inflight requests finish (waited for up to
+$REPORTER_DRAIN_GRACE_S, 30), open sessions get up to
+$REPORTER_DRAIN_LINGER_S (1.5) for a handoff through GET
+/sessions?export=1, then the server closes and the process exits 0.  A
+second signal kills.  ``main`` restores the signal handlers it replaced
+before it returns.
 """
 
 from __future__ import annotations
@@ -48,7 +58,10 @@ from __future__ import annotations
 import argparse
 import logging
 import os
+import signal
 import sys
+import threading
+import time
 
 from .service import ReporterService, batch_options, build_matcher, parse_service_config
 
@@ -101,16 +114,71 @@ def main(argv=None) -> int:
     service = ReporterService(matcher, robustness=conf.get("robustness", {}),
                               **batch_options(conf))
     server = service.make_server(host, int(port))
-    logging.info("serving /report and /trace_attributes_batch on %s:%s (device %s)",
-                 host, port, matcher.device)
+    # the drain joins the handler threads when the server closes
+    server.daemon_threads = False
+    server.block_on_close = True
+    # the bound port (port 0 lets the system pick one)
+    logging.info("serving /report and /trace_attributes_batch on %s:%d (device %s)",
+                 host, server.server_address[1], matcher.device)
+    grace = _env_seconds("REPORTER_DRAIN_GRACE_S", 30.0)
+    linger = _env_seconds("REPORTER_DRAIN_LINGER_S", 1.5)
+    signalled = threading.Event()
+
+    def drain_then_stop():
+        service.begin_drain()
+        deadline = time.monotonic() + max(0.0, grace)
+        while not service.idle() and time.monotonic() < deadline:
+            time.sleep(0.05)
+        if not service.idle():
+            logging.warning("drain grace (%.1fs) expired with requests still inflight; "
+                            "closing anyway", grace)
+        # open sessions: linger for the handoff's export before closing
+        if len(service.session_store) > 0 and linger > 0:
+            until = min(time.monotonic() + linger, deadline)
+            while time.monotonic() < until:
+                time.sleep(0.05)
+        server.shutdown()
+        # a request that slipped past the last idle() sample finishes
+        # before the idle keep-alive connections are cut
+        until = time.monotonic() + 2.0
+        while not service.idle() and time.monotonic() < until:
+            time.sleep(0.05)
+        server.close_lingering()
+
+    def on_stop_signal(signum, _frame):
+        # the drain runs on a thread of its own, not in signal context;
+        # disarmed, so a second signal kills
+        signal.signal(signum, signal.SIG_DFL)
+        if not signalled.is_set():
+            signalled.set()
+            threading.Thread(target=drain_then_stop, daemon=True, name="drain").start()
+
+    previous = {}
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        try:
+            previous[sig] = signal.signal(sig, on_stop_signal)
+        except ValueError:  # not the main thread: no drain on signals
+            pass
     try:
         server.serve_forever()
+        if signalled.is_set():
+            logging.info("drained; exiting")
     except KeyboardInterrupt:
         pass
     finally:
         server.server_close()
         service.close()
+        for sig, handler in previous.items():
+            if handler is not None:
+                signal.signal(sig, handler)
     return 0
+
+
+def _env_seconds(name: str, default: float) -> float:
+    try:
+        return float(os.environ.get(name, default))
+    except ValueError:
+        return default
 
 
 if __name__ == "__main__":

@@ -1,4 +1,4 @@
-"""HTTP matching service (lean slice).
+"""HTTP matching service.
 
 Wire-compatible with the reference's reporter service on its main route:
 
@@ -17,6 +17,10 @@ Wire-compatible with the reference's reporter service on its main route:
       -> {"results": [report, ...]} in request order; a bad trace is a
       400 that names its index ("trace %d: ...").
   GET  /health -> {"status": "ok", "capabilities": [...], ...}
+  GET  /sessions[?uuid=U | ?export=1], POST /sessions {"sessions" | "drop"
+      | "pop": [...]}: the session store's summary, one session, every
+      session's wire snapshot (the handoff's export), and its import,
+      drop and atomic pop.
 
 Both matching routes take gzip bodies (Content-Encoding: gzip, inflated
 within $REPORTER_MAX_INFLATE_MB, 256 by default; another encoding than
@@ -26,27 +30,53 @@ Accept: application/x-reporter-columnar gets a frame back on a 200 (every
 error stays JSON).  $REPORTER_WIRE=0 turns the binary wire off (binary
 bodies get a 415).
 
-Admission (docs/robustness.md): the submit queue holds at most max_queue
-traces ($REPORTER_MAX_QUEUE, 1024) and sheds past it with a 429 and a
-Retry-After header; a trace waits at most deadline_ms in the queue
-($REPORTER_DEADLINE_MS, 30000; <= 0 turns the server's default off), or
-the client's X-Reporter-Deadline-Ms from ingestion, and is answered 504
-before dispatch once that has passed.
+Fault domains (the "robustness" config block; each knob's $REPORTER_*
+variable overrides it):
+
+  admission   the submit queue holds at most max_queue traces (1024) and
+              sheds past it with a 429 and a Retry-After header; a trace
+              waits at most deadline_ms in the queue (30000; <= 0 turns
+              the server's default off), or the client's
+              X-Reporter-Deadline-Ms from ingestion, and is answered 504
+              before dispatch once that has passed.
+  poison      a failed batch is bisect-retried, so one bad trace fails
+              alone (500 "failed its device batch alone") while its
+              neighbours are answered; a uuid isolated quarantine_after
+              times (2) is refused 422 for quarantine_ttl_s (300).
+  watchdog    every device-blocking section is bounded by watchdog_s
+              (120; <= 0 off).  A trip wedges the batcher and enters
+              degraded mode: requests are answered by the CPU baseline
+              over the same arrays and table with "degraded": true (in
+              /health too) until a probe every reattach_probe_s (15)
+              finds the device healthy and fresh batchers take over.
+              The matcher config's cpu_fallback false answers a wedge
+              with 503.  Only a trip enters degraded mode: a failed
+              launch is a failed batch.
+  crash       a batcher loop thread that dies fails every pending request
+              (503) and turns /health into 503 "unhealthy".
+  drain       ``begin_drain`` (the serve entry point's SIGTERM) refuses
+              new matching work with 503 "draining" and Retry-After,
+              /health answers 503 "draining", inflight requests finish.
+  sessions    with session_checkpoint_s > 0 and session_checkpoint_dir
+              set, dirty sessions are checkpointed to
+              <dir>/<replica id> (session_checkpoint_sync: at every
+              commit); $REPORTER_REPLICA_ID names the replica.
 
 A single shared matcher owns the device.  One MicroBatcher aggregates
 concurrent windowed requests into padded [B, T] batches; a second one, with
 a much shorter fill window, aggregates streaming submits into session
-steps (matching/session.py).  The watchdog, the degraded CPU fallback,
-poison quarantine, SLO accounting, quality sampling, the /sessions export
+steps (matching/session.py).  SLO accounting, quality sampling, /statusz
 and the router are not part of this slice.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
 import queue
+import socket as _socket
 import threading
 import time as _time
 import zlib
@@ -55,13 +85,15 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import List, Optional, Set, Tuple
 from urllib.parse import parse_qs, urlsplit
 
+from .. import faults
 from ..matching import SegmentMatcher, SessionEngine, SessionStore
+from ..matching.session import SessionCheckpointer
 from ..report import report as report_fn
 from . import wire
 
 log = logging.getLogger(__name__)
 
-ACTIONS = {"report", "trace_attributes_batch", "health"}
+ACTIONS = {"report", "trace_attributes_batch", "health", "sessions"}
 
 # gzip request bodies: bound on the DECOMPRESSED size so a tiny zip bomb
 # cannot balloon a handler thread, refused with a 400 beyond it
@@ -70,6 +102,25 @@ try:
     _MAX_INFLATE = int(float(os.environ["REPORTER_MAX_INFLATE_MB"])) << 20
 except (KeyError, ValueError):
     _MAX_INFLATE = 256 << 20
+
+# the fault domains' events in this process, by name; /metrics (not ported
+# yet) is where they will be exported
+_COUNT_NAMES = ("watchdog_trips", "poison_isolations", "quarantine_rejections",
+                "batcher_crashes", "degraded_entries", "degraded_requests",
+                "reattaches", "drain_refusals")
+_counts = dict.fromkeys(_COUNT_NAMES, 0)
+_counts_lock = threading.Lock()
+
+
+def _count(name: str, n: int = 1) -> None:
+    with _counts_lock:
+        _counts[name] += n
+
+
+def counts() -> dict:
+    """The fault domains' event counts in this process."""
+    with _counts_lock:
+        return dict(_counts)
 
 
 def _gunzip(raw: bytes, limit: int = 0) -> bytes:
@@ -84,7 +135,7 @@ def _gunzip(raw: bytes, limit: int = 0) -> bytes:
 
 
 def _resolve_num(env_name: str, param, default: float) -> float:
-    """An admission knob: the environment's value (a malformed one falls
+    """A fault-domain knob: the environment's value (a malformed one falls
     back to the default) over the config's or constructor's, over the
     default."""
     fallback = float(default if param is None else param)
@@ -114,6 +165,26 @@ class DeadlineExpired(RuntimeError):
     dropped before it could take a device slot."""
 
 
+class TraceQuarantined(RuntimeError):
+    """The uuid is a repeat poison offender: refused at admission with a
+    non-retryable 422."""
+
+
+class PoisonTrace(RuntimeError):
+    """This trace made its device batch fail while its co-batched
+    neighbours succeeded on bisect-retry."""
+
+
+class DeviceWedged(RuntimeError):
+    """The watchdog tripped: the device step is wedged and this batcher
+    takes no more work (the service answers from the CPU baseline)."""
+
+
+class BatcherCrashed(RuntimeError):
+    """A MicroBatcher loop thread died on an unexpected error; the batcher
+    is dead and /health reports unhealthy."""
+
+
 class MicroBatcher:
     """Aggregates traces from concurrent requests into one device batch.
 
@@ -128,17 +199,36 @@ class MicroBatcher:
     default when the matcher computes on the card, 2 when it computes on
     host cores (where it shares them with association), at least 1.
 
-    Admission: the submit queue holds at most ``max_queue`` traces
-    ($REPORTER_MAX_QUEUE, 1024) and ``submit`` sheds past it with
-    Overloaded; every entry carries a deadline (``deadline_ms`` from
-    submit, $REPORTER_DEADLINE_MS, 30000; <= 0 sets none unless the caller
-    gives one), and entries whose deadline has passed are resolved with
-    DeadlineExpired before dispatch, so they never take a device slot.
+    Fault domains.  Admission: the submit queue holds at most
+    ``max_queue`` traces and ``submit`` sheds past it with Overloaded;
+    every entry carries a deadline (``deadline_ms`` from submit, or the
+    server's; <= 0 sets none unless the caller gives one), and entries
+    whose deadline has passed are resolved with DeadlineExpired before
+    dispatch, so they never take a device slot.  Poison: a failed batch is
+    bisect-retried with ``match_many`` on the finisher (at most 2 B + 4
+    retries), so a poison trace fails alone with PoisonTrace while its
+    neighbours get their results; a uuid isolated ``quarantine_after``
+    times is refused with TraceQuarantined for ``quarantine_ttl_s``.  The
+    watchdog: every device-blocking section (the finisher's ``finish()``,
+    bisect's ``match_many``) runs under ``_watched``; one that outlasts
+    ``watchdog_s`` trips it, the batcher wedges (``submit`` raises
+    DeviceWedged), ``on_wedged`` runs first, then the stuck batch and
+    everything queued fail with DeviceWedged (a late finish of a failed
+    batch resolves nothing: resolutions are idempotent).  Crash-loud
+    loops: a loop thread that dies fails every pending future with
+    BatcherCrashed, marks the batcher dead and calls ``on_crashed``; the
+    hand-off ``put`` gives up once the batcher is dead, so no thread waits
+    on a queue nobody drains.  ``trips``, ``poison_isolations`` and
+    ``quarantined()`` count what happened; ``close`` stops every thread.
     """
 
     def __init__(self, matcher, max_batch: int = 64, max_wait_ms: float = 10.0,
                  max_inflight: Optional[int] = None, max_queue: Optional[int] = None,
-                 deadline_ms: Optional[float] = None):
+                 deadline_ms: Optional[float] = None,
+                 watchdog_s: Optional[float] = None,
+                 quarantine_after: Optional[int] = None,
+                 quarantine_ttl_s: Optional[float] = None,
+                 on_wedged=None, on_crashed=None, name: str = "batch"):
         if max_inflight is None:
             max_inflight = 4 if _on_card(matcher) else 2
         # a queue.Queue of maxsize <= 0 is unbounded: clamp a configured 0
@@ -149,22 +239,59 @@ class MicroBatcher:
         self.max_wait = max_wait_ms / 1000.0
         self.max_queue = max(1, int(_resolve_num("REPORTER_MAX_QUEUE", max_queue, 1024)))
         self.deadline_s = _resolve_num("REPORTER_DEADLINE_MS", deadline_ms, 30000.0) / 1000.0
+        self.watchdog_s = _resolve_num("REPORTER_WATCHDOG_S", watchdog_s, 120.0)
+        self.quarantine_after = int(_resolve_num("REPORTER_QUARANTINE_AFTER",
+                                                 quarantine_after, 2))
+        self.quarantine_ttl_s = _resolve_num("REPORTER_QUARANTINE_TTL_S",
+                                             quarantine_ttl_s, 300.0)
+        # wedged: the watchdog tripped; crashed: a loop thread died.  Both
+        # are terminal: the service makes new batchers on re-attach
+        self.wedged = False
+        self._wedge_reason: Optional[str] = None
+        self._crashed = False
+        self._crash_reason: Optional[str] = None
+        self._on_wedged = on_wedged
+        self._on_crashed = on_crashed
+        self.trips = 0
+        self.poison_isolations = 0
+        self._offender_lock = threading.Lock()
+        self._offenders: dict = {}    # uuid -> poison isolations
+        self._quarantine: dict = {}   # uuid -> monotonic expiry
+        # device-blocking sections under watch: thread id -> (t0, batch)
+        self._step_lock = threading.Lock()
+        self._steps: dict = {}
         self._q: "queue.Queue" = queue.Queue(maxsize=self.max_queue)
         self._finish_q: "queue.Queue" = queue.Queue(maxsize=self.max_inflight)
         self._closed = threading.Event()
         self._thread = threading.Thread(target=self._worker, daemon=True,
-                                        name="batch-dispatch")
+                                        name="%s-dispatch" % name)
         self._finisher = threading.Thread(target=self._finish_worker,
-                                          daemon=True, name="batch-finish")
+                                          daemon=True, name="%s-finish" % name)
         self._thread.start()
         self._finisher.start()
+        self._watchdog_thread = None
+        if self.watchdog_s > 0:
+            self._watchdog_thread = threading.Thread(
+                target=self._watchdog, daemon=True, name="%s-watchdog" % name)
+            self._watchdog_thread.start()
 
     def submit(self, trace: dict, deadline: Optional[float] = None) -> Future:
-        """Queue one trace; sheds with Overloaded when the queue is full.
+        """Queue one trace.  Refuses when the batcher is closed, dead
+        (BatcherCrashed), wedged (DeviceWedged) or the uuid quarantined
+        (TraceQuarantined); sheds with Overloaded when the queue is full.
         ``deadline`` is an absolute ``time.monotonic()`` bound; None applies
         the server's default."""
         if self._closed.is_set():
             raise RuntimeError("batcher closed")
+        if self._crashed:
+            raise BatcherCrashed(self._crash_reason or "batcher thread died")
+        if self.wedged:
+            raise DeviceWedged(self._wedge_reason or "device step wedged")
+        uuid = str(trace.get("uuid") or "") if isinstance(trace, dict) else ""
+        if uuid and self._is_quarantined(uuid):
+            _count("quarantine_rejections")
+            raise TraceQuarantined("uuid %r is quarantined after repeated "
+                                   "poison-batch isolation" % uuid)
         now = _time.monotonic()
         if deadline is None and self.deadline_s > 0:
             deadline = now + self.deadline_s
@@ -187,42 +314,95 @@ class MicroBatcher:
         so that clients re-probe within their retry budget."""
         return max(1, min(30, 1 + self._q.qsize() // self.max_batch))
 
+    def quarantined(self) -> int:
+        """uuids in quarantine now."""
+        with self._offender_lock:
+            return len(self._quarantine)
+
     def close(self, timeout: float = 5.0) -> None:
-        """Stop both threads after the work already queued."""
+        """Stop the threads after the work already queued (a wedged
+        finisher stays behind: it cannot be interrupted)."""
         self._closed.set()
         try:
             self._q.put(None, timeout=timeout)
         except queue.Full:
             log.warning("batcher queue still full at close; its threads stay behind")
             return
-        self._thread.join(timeout)
-        self._finisher.join(timeout)
+        for th in (self._thread, self._finisher, self._watchdog_thread):
+            if th is not None:
+                th.join(timeout)
+
+    # -- future resolution: idempotent, since the watchdog may have failed
+    # a future that a stuck thread later resolves ----------------------------
 
     @staticmethod
-    def _fail(batch, e: BaseException) -> None:
+    def _resolve_exc(f: Future, e: BaseException) -> None:
+        try:
+            if not f.done() and f.set_running_or_notify_cancel():
+                f.set_exception(e)
+        except Exception:  # noqa: BLE001 - resolved elsewhere meanwhile
+            pass
+
+    @staticmethod
+    def _resolve_result(f: Future, r) -> None:
+        try:
+            if not f.done() and f.set_running_or_notify_cancel():
+                f.set_result(r)
+        except Exception:  # noqa: BLE001 - resolved elsewhere meanwhile
+            pass
+
+    @classmethod
+    def _fail_batch(cls, batch, e: BaseException) -> None:
         for entry in batch:
-            if not entry[1].done():
-                entry[1].set_exception(e)
+            cls._resolve_exc(entry[1], e)
 
     def _live(self, batch):
         """The entries whose deadline has not passed; the others are
-        answered with DeadlineExpired now."""
+        answered with DeadlineExpired now.  The clock_skew fault seam
+        scales each entry's elapsed time (1.0 when disarmed)."""
         now = _time.monotonic()
+        skew = faults.scale("clock_skew")
         live = []
         for entry in batch:
             dl = entry[3]
-            if dl is not None and now > dl:
-                entry[1].set_exception(DeadlineExpired(
+            eff = now if skew == 1.0 else entry[2] + (now - entry[2]) * skew
+            if dl is not None and eff > dl:
+                self._resolve_exc(entry[1], DeadlineExpired(
                     "deadline expired after %.3fs in queue" % (now - entry[2])))
             else:
                 live.append(entry)
         return live
 
+    # -- loop threads (crash-loud) -------------------------------------------
+
     def _worker(self):
+        try:
+            self._worker_loop()
+        except BaseException as e:  # noqa: BLE001 - crash-loud by design
+            self._crash("dispatch worker", e)
+
+    def _finish_worker(self):
+        try:
+            self._finisher_loop()
+        except BaseException as e:  # noqa: BLE001 - crash-loud by design
+            self._crash("finisher", e)
+
+    def _hand_off(self, item) -> bool:
+        """Put ``item`` on the bounded hand-off queue, blocking while the
+        finisher lags; False once the batcher is dead."""
+        while True:
+            try:
+                self._finish_q.put(item, timeout=0.25)
+                return True
+            except queue.Full:
+                if self.wedged or self._crashed:
+                    return False
+
+    def _worker_loop(self):
         while True:
             entry = self._q.get()
             if entry is None:
-                self._finish_q.put(None)
+                self._hand_off(None)
                 return
             batch = [entry]
             deadline = _time.monotonic() + self.max_wait
@@ -243,39 +423,204 @@ class MicroBatcher:
             if batch:
                 try:
                     finish = self.matcher.match_many_async([e[0] for e in batch])
-                except Exception as e:  # noqa: BLE001 - answered per request
+                except Exception as e:  # noqa: BLE001 - contained per request
                     log.exception("batch dispatch failed")
-                    self._fail(batch, e)
+                    self._contain_failure(batch, e)
                 else:
-                    self._finish_q.put((batch, finish))
+                    if not self._hand_off((batch, finish)):
+                        self._fail_batch(batch, DeviceWedged(
+                            self._wedge_reason or "batcher dead"))
             if stop:
-                self._finish_q.put(None)
+                self._hand_off(None)
                 return
 
-    def _finish_worker(self):
+    def _finisher_loop(self):
         while True:
             item = self._finish_q.get()
             if item is None:
                 return
             batch, finish = item
             try:
-                results = finish()
-            except Exception as e:  # noqa: BLE001 - answered per request
+                with self._watched(batch):
+                    results = finish()
+                for entry, r in zip(batch, results):
+                    self._resolve_result(entry[1], r)
+            except Exception as e:  # noqa: BLE001 - bisect for poison, else fail
                 log.exception("batch match failed")
-                self._fail(batch, e)
-                continue
-            for entry, r in zip(batch, results):
-                entry[1].set_result(r)
+                self._contain_failure(batch, e)
+
+    # -- the device watchdog --------------------------------------------------
+
+    @contextlib.contextmanager
+    def _watched(self, batch):
+        """Register the calling thread's device-blocking section with the
+        watchdog (finish() on the finisher, match_many in bisect-retry)."""
+        tid = threading.get_ident()
+        with self._step_lock:
+            self._steps[tid] = (_time.monotonic(), batch)
+        try:
+            yield
+        finally:
+            with self._step_lock:
+                self._steps.pop(tid, None)
+
+    def _watchdog(self):
+        """Bound every device-blocking section: a wedged step becomes a
+        visible, contained failure, not a silently hung server."""
+        tick = max(0.02, min(1.0, self.watchdog_s / 8.0))
+        while not (self.wedged or self._crashed):
+            if self._closed.wait(tick):
+                return
+            now = _time.monotonic()
+            with self._step_lock:
+                stuck = [b for (t0, b) in self._steps.values()
+                         if now - t0 > self.watchdog_s]
+            if stuck:
+                self._trip("device step exceeded the %.1fs watchdog" % self.watchdog_s,
+                           stuck)
+                return
+
+    def _trip(self, reason: str, stuck_batches=()) -> None:
+        self.trips += 1
+        _count("watchdog_trips")
+        self.wedged = True
+        self._wedge_reason = reason
+        log.error("watchdog trip: %s", reason)
+        exc = DeviceWedged(reason)
+        # the service turns degraded FIRST: handlers whose futures fail
+        # below see it and answer from the CPU baseline instead of a 503
+        if self._on_wedged is not None:
+            try:
+                self._on_wedged(reason)
+            except Exception:  # noqa: BLE001 - never lose the trip itself
+                log.exception("on_wedged callback failed")
+        # the stuck thread cannot be interrupted (it blocks in the device
+        # runtime); its batch's futures fail now, and its late
+        # resolutions are no-ops
+        for b in stuck_batches:
+            self._fail_batch(b, exc)
+        self._drain_fail(exc)
+
+    def _crash(self, who: str, e: BaseException) -> None:
+        if self._crashed:
+            return
+        self._crashed = True
+        self._crash_reason = "%s thread died: %s" % (who, e)
+        _count("batcher_crashes")
+        log.critical("MicroBatcher %s; failing all pending futures",
+                     self._crash_reason, exc_info=True)
+        # the submit queue always fails (its only consumer is gone or the
+        # batcher is dead to new work); the hand-off queue only when the
+        # finisher died, since a live finisher completes what was
+        # dispatched
+        self._drain_fail(BatcherCrashed(self._crash_reason),
+                         include_dispatched=(who == "finisher"))
+        if self._on_crashed is not None:
+            try:
+                self._on_crashed(who, e)
+            except Exception:  # noqa: BLE001
+                log.exception("on_crashed callback failed")
+
+    def _drain_fail(self, exc: Exception, include_dispatched: bool = True) -> None:
+        """Fail everything queued in the batcher: the submit queue, and
+        (unless the finisher lives to complete them) the dispatched
+        batches on the hand-off queue."""
+        while True:
+            try:
+                entry = self._q.get_nowait()
+            except queue.Empty:
+                break
+            if entry is not None:
+                self._resolve_exc(entry[1], exc)
+        if not include_dispatched:
+            return
+        while True:
+            try:
+                item = self._finish_q.get_nowait()
+            except queue.Empty:
+                break
+            if item is not None:
+                self._fail_batch(item[0], exc)
+
+    # -- poison containment ---------------------------------------------------
+
+    def _contain_failure(self, batch, exc: Exception) -> None:
+        """A dispatched batch failed.  One malformed trace must not fail its
+        co-batched neighbours: bisect-retry to isolate the poison, fail
+        only the offender(s) and answer everyone else."""
+        if (self.wedged or self._crashed
+                or isinstance(exc, (DeviceWedged, BatcherCrashed))):
+            self._fail_batch(batch, exc)
+            return
+        if len(batch) == 1:
+            self._fail_poison(batch[0], exc)
+            return
+        log.warning("batch of %d failed (%s); bisecting", len(batch), str(exc)[:200])
+        self._bisect(batch, exc, [2 * len(batch) + 4])
+
+    def _bisect(self, batch, exc: Exception, budget) -> None:
+        if len(batch) == 1:
+            self._fail_poison(batch[0], exc)
+            return
+        if budget[0] <= 0:
+            # a systemic failure (every retry fails): stop paying for
+            # retries and fail the rest with the underlying error
+            self._fail_batch(batch, exc)
+            return
+        mid = len(batch) // 2
+        for half in (batch[:mid], batch[mid:]):
+            budget[0] -= 1
+            try:
+                with self._watched(half):
+                    results = self.matcher.match_many([e[0] for e in half])
+            except Exception as e2:  # noqa: BLE001 - recurse to isolate
+                self._bisect(half, e2, budget)
+            else:
+                for entry, r in zip(half, results):
+                    self._resolve_result(entry[1], r)
+
+    def _fail_poison(self, entry, exc: Exception) -> None:
+        trace, f = entry[0], entry[1]
+        uuid = str(trace.get("uuid") or "") if isinstance(trace, dict) else ""
+        self.poison_isolations += 1
+        _count("poison_isolations")
+        if uuid:
+            self._record_offender(uuid)
+        log.error("poison trace %r isolated: %s", uuid[:64], str(exc)[:200])
+        self._resolve_exc(f, PoisonTrace(
+            "trace %r failed its device batch alone (co-batched requests "
+            "succeeded): %s" % (uuid, exc)))
+
+    def _record_offender(self, uuid: str) -> None:
+        with self._offender_lock:
+            n = self._offenders.get(uuid, 0) + 1
+            self._offenders[uuid] = n
+            if n >= self.quarantine_after:
+                self._quarantine[uuid] = _time.monotonic() + self.quarantine_ttl_s
+
+    def _is_quarantined(self, uuid: str) -> bool:
+        with self._offender_lock:
+            exp = self._quarantine.get(uuid)
+            if exp is None:
+                return False
+            if _time.monotonic() > exp:
+                del self._quarantine[uuid]
+                self._offenders.pop(uuid, None)
+                return False
+            return True
 
 
 class ReporterService:
     """Owns the matcher and the batchers and implements /report,
-    /trace_attributes_batch and /health."""
+    /trace_attributes_batch, /health and /sessions."""
 
-    # the "robustness" keys this port carries; the reference's others
-    # (the watchdog, poison quarantine, session checkpoints, the degraded
-    # mode's re-attach probe) are dropped with one warning per key
-    ROBUSTNESS_KEYS = ("max_queue", "deadline_ms")
+    # the "robustness" keys the reference reads, all carried; any other
+    # key is dropped with one warning per key
+    ROBUSTNESS_KEYS = ("max_queue", "deadline_ms", "watchdog_s", "quarantine_after",
+                       "quarantine_ttl_s", "reattach_probe_s", "session_checkpoint_s",
+                       "session_checkpoint_sync", "session_checkpoint_dir")
+    # the MicroBatcher's share of them
+    BATCHER_KEYS = ROBUSTNESS_KEYS[:5]
 
     def __init__(self, matcher: SegmentMatcher, threshold_sec: Optional[int] = None,
                  max_batch: int = 64, max_wait_ms: float = 10.0,
@@ -292,18 +637,57 @@ class ReporterService:
         for k in rb:
             if k not in self.ROBUSTNESS_KEYS:
                 warn_dropped("robustness config", k)
-        admission = {k: rb[k] for k in self.ROBUSTNESS_KEYS if k in rb}
-        self.batcher = MicroBatcher(matcher, max_batch=max_batch, max_wait_ms=max_wait_ms,
-                                    max_inflight=max_inflight, **admission)
+        self._batch_params = dict(max_batch=max_batch, max_wait_ms=max_wait_ms,
+                                  max_inflight=max_inflight)
+        self._session_params = dict(max_batch=session_max_batch,
+                                    max_wait_ms=session_wait_ms)
+        self._robust_params = {k: rb[k] for k in self.BATCHER_KEYS if k in rb}
+        self._reattach_probe_s = _resolve_num("REPORTER_REATTACH_PROBE_S",
+                                              rb.get("reattach_probe_s"), 15.0)
+        self._ckpt_s = _resolve_num("REPORTER_SESSION_CHECKPOINT_S",
+                                    rb.get("session_checkpoint_s"), 0.0)
+        sync_raw = os.environ.get("REPORTER_SESSION_CHECKPOINT_SYNC", "").strip()
+        self._ckpt_sync = (sync_raw.lower() not in ("0", "off", "false", "no") if sync_raw
+                           else bool(rb.get("session_checkpoint_sync", False)))
+        self._ckpt_dir = (os.environ.get("REPORTER_SESSION_CHECKPOINT_DIR", "").strip()
+                          or rb.get("session_checkpoint_dir"))
+        # the replica's name: the checkpoint directory's, and echoed as
+        # X-Reporter-Replica on every answer
+        self.replica_id = (os.environ.get("REPORTER_REPLICA_ID", "").strip()
+                           or "%s-%d" % (_socket.gethostname()[:32], os.getpid()))
+        # degraded mode: after a watchdog trip requests are answered by the
+        # CPU baseline with "degraded": true until a probe re-attaches
+        self.degraded = False
+        self._degraded_lock = threading.Lock()
+        self._cpu_matcher: Optional[SegmentMatcher] = None
+        self._cpu_lock = threading.Lock()
+        self.unhealthy_reason: Optional[str] = None
+        self.reattach_s: Optional[float] = None  # the last re-attach's time
+        self._t_degraded = 0.0
+        self._closing = threading.Event()
+        self._retired: List[MicroBatcher] = []
+        # graceful drain: new matching work is refused once set; the
+        # inflight handler count is what the drain waits on
+        self.draining = False
+        self._active_lock = threading.Lock()
+        self._n_active = 0
+        self._counter_lock = threading.Lock()
+        self._n_requests = 0
+        self._n_errors = 0
         cfg = matcher.cfg
         self.session_store = SessionStore(cfg.max_sessions, cfg.session_ttl_s)
+        self.session_checkpointer: Optional[SessionCheckpointer] = None
+        if self._ckpt_s > 0 and self._ckpt_dir:
+            self.session_checkpointer = SessionCheckpointer(
+                self.session_store, os.path.join(self._ckpt_dir, self.replica_id),
+                cadence_s=self._ckpt_s, sync=self._ckpt_sync)
+            self.session_checkpointer.start()
         self.session_engine = SessionEngine(matcher, self.session_store,
                                             tail_points=cfg.session_tail_points)
+        self.batcher = self._make_batcher(matcher)
         # streaming submits batch on their own MicroBatcher with a short
         # fill window: a session's point is answered at point latency
-        self.session_batcher = MicroBatcher(
-            self.session_engine, max_batch=session_max_batch,
-            max_wait_ms=session_wait_ms, **admission)
+        self.session_batcher = self._make_session_batcher()
         # the binary columnar wire, accepted and emitted when a client
         # negotiates it; $REPORTER_WIRE=0 turns it off (binary bodies get a
         # 415 and /health stops advertising it)
@@ -311,9 +695,139 @@ class ReporterService:
                              not in ("0", "false", "off", "no"))
         self._t_boot = _time.time()
 
+    def _make_batcher(self, matcher) -> MicroBatcher:
+        return MicroBatcher(matcher, **self._batch_params, **self._robust_params,
+                            on_wedged=self._enter_degraded, on_crashed=self._note_crash)
+
+    def _make_session_batcher(self) -> MicroBatcher:
+        """The streaming twin: the same fault domains over the
+        SessionEngine."""
+        return MicroBatcher(self.session_engine, **self._session_params,
+                            **self._robust_params, name="session",
+                            on_wedged=self._enter_degraded, on_crashed=self._note_crash)
+
     def close(self) -> None:
-        self.batcher.close()
-        self.session_batcher.close()
+        """Stop every thread the service started (a finisher wedged in the
+        device runtime stays behind)."""
+        self._closing.set()
+        for b in [self.batcher, self.session_batcher] + self._retired:
+            b.close()
+        if self.session_checkpointer is not None:
+            self.session_checkpointer.stop()
+
+    # -- drain ----------------------------------------------------------------
+
+    def begin_drain(self) -> None:
+        """Refuse new matching work (503 "draining"), turn /health to 503
+        "draining" and let inflight requests finish (idempotent)."""
+        if self.draining:
+            return
+        self.draining = True
+        log.warning("drain begins (replica %s)", self.replica_id)
+
+    @contextlib.contextmanager
+    def _track_active(self):
+        with self._active_lock:
+            self._n_active += 1
+        try:
+            yield
+        finally:
+            with self._active_lock:
+                self._n_active -= 1
+
+    def idle(self) -> bool:
+        """No /report or /trace_attributes_batch handler is inflight."""
+        with self._active_lock:
+            return self._n_active == 0
+
+    # -- degraded mode and re-attach -------------------------------------------
+
+    def _note_crash(self, who: str, e: BaseException) -> None:
+        """A batcher loop thread died: /health turns unhealthy (a bug, not a
+        device fault: no CPU fallback), and session steps in flight commit
+        nothing when they finish."""
+        self.unhealthy_reason = "batcher %s thread died: %s" % (who, e)
+        self.session_engine.invalidate_inflight()
+
+    def _enter_degraded(self, reason: str) -> None:
+        """A watchdog trip: answer from the CPU baseline with "degraded":
+        true, and probe for re-attach in the background."""
+        with self._degraded_lock:
+            if self.degraded:
+                return
+            self.degraded = True
+            self._t_degraded = _time.monotonic()
+        # a wedged step may wake long after its futures failed: its finish
+        # must commit nothing (the degraded path re-applies the points)
+        self.session_engine.invalidate_inflight()
+        _count("degraded_entries")
+        log.error("degraded mode: %s", reason)
+        if self._reattach_probe_s > 0:
+            threading.Thread(target=self._probe_loop, daemon=True,
+                             name="reattach-probe").start()
+
+    def _cpu_fallback(self) -> SegmentMatcher:
+        """The degraded-mode engine: the CPU baseline over the same graph
+        arrays and table (no rebuild, no device), built on first use."""
+        m = self.matcher
+        if not getattr(m.cfg, "cpu_fallback", True):
+            raise DeviceWedged("device wedged and cpu_fallback disabled")
+        with self._cpu_lock:
+            if self._cpu_matcher is None:
+                self._cpu_matcher = SegmentMatcher(arrays=m.arrays, ubodt=m.ubodt,
+                                                   config=m.cfg, backend="cpu")
+                self._cpu_matcher._quality_aux = m._quality_aux
+            return self._cpu_matcher
+
+    def _probe_loop(self) -> None:
+        """Every ``reattach_probe_s``, probe the device with a dummy
+        dispatch through the real match path; on an answer within the
+        watchdog bound, re-attach."""
+        wd = self.batcher.watchdog_s
+        timeout = max(1.0, wd if wd > 0 else 120.0)
+        while self.degraded and not self.draining:
+            if self._closing.wait(self._reattach_probe_s):
+                return
+            if not self.degraded or self.draining:
+                return
+            if self._probe_device(timeout):
+                self._reattach()
+                return
+
+    def _probe_device(self, timeout_s: float) -> bool:
+        m = self.matcher
+        ok: list = []
+        done = threading.Event()
+
+        def _try():
+            try:
+                m.match_many(m.dummy_traces(4, 1))
+                ok.append(True)
+            except Exception as e:  # noqa: BLE001 - a failed probe stays degraded
+                log.info("re-attach probe failed: %s", e)
+            finally:
+                done.set()
+
+        # the probe may hang as the wedged step did: a disposable daemon
+        # thread, given up at the watchdog bound
+        threading.Thread(target=_try, daemon=True, name="reattach-probe-dispatch").start()
+        done.wait(timeout=timeout_s)
+        return bool(ok)
+
+    def _reattach(self) -> None:
+        """Fresh batchers over the same matcher, engine and store (open
+        sessions kept their replay buffers and rebuild on their next
+        step); the wedged ones close with the service."""
+        self._retired += [self.batcher, self.session_batcher]
+        self.batcher = self._make_batcher(self.matcher)
+        self.session_batcher = self._make_session_batcher()
+        with self._degraded_lock:
+            self.degraded = False
+            self.reattach_s = _time.monotonic() - self._t_degraded
+        _count("reattaches")
+        log.warning("engine re-attached after %.2fs degraded", self.reattach_s)
+
+    # -- requests ---------------------------------------------------------------
 
     @staticmethod
     def validate(trace: dict) -> Tuple[Optional[str], Optional[Set], Optional[Set]]:
@@ -361,53 +875,104 @@ class ReporterService:
                 return "match_options.interpolate must be a boolean", None, None
         return None, rl, tl
 
-    @staticmethod
-    def _admission_error(e: Exception, batcher: MicroBatcher) -> Optional[Tuple[int, dict]]:
-        """The answer to an admission failure, None for any other error."""
+    def _refusal(self, e: Exception, batcher: MicroBatcher) -> Optional[Tuple[int, dict]]:
+        """The answer to a batcher's refusal or a failed request's
+        error."""
         if isinstance(e, Overloaded):
             return 429, {"error": str(e), "retry_after": batcher.retry_after_s()}
         if isinstance(e, DeadlineExpired):
             return 504, {"error": str(e)}
-        return None
+        if isinstance(e, TraceQuarantined):
+            return 422, {"error": str(e)}
+        self._note_request(ok=False)
+        if isinstance(e, (DeviceWedged, BatcherCrashed)):
+            return 503, {"error": str(e), "retry_after": 1}
+        return 500, {"error": str(e)}
+
+    def _drain_refusal(self) -> Tuple[int, dict]:
+        _count("drain_refusals")
+        return 503, {"error": "draining", "status": "draining", "retry_after": 1}
+
+    def _note_request(self, ok: bool) -> None:
+        with self._counter_lock:
+            self._n_requests += 1
+            self._n_errors += not ok
 
     def handle_report(self, trace: dict,
                       deadline: Optional[float] = None) -> Tuple[int, dict]:
         """One trace.  ``deadline`` is the absolute ``time.monotonic()``
         bound parsed from X-Reporter-Deadline-Ms at ingestion (None: the
         server's default)."""
+        stream = isinstance(trace, dict) and bool(trace.get("stream"))
+        if self.draining:
+            return self._drain_refusal()
+        batcher = self.session_batcher if stream else self.batcher
+        # fault seam: an injected admission shed
+        if faults.fire("replica_shed") is not None:
+            return 429, {"error": "injected admission shed", "retry_after": 1}
         err, rl, tl = self.validate(trace)
         if err:
             return 400, {"error": err}
         # transport state of the binary wire (numpy arrays): never matched,
         # rendered or echoed
         trace.pop("_columns", None)
-        batcher = self.session_batcher if trace.get("stream") else self.batcher
+        if self.degraded:
+            return self._finish_report(trace, rl, tl, degraded=True, stream=stream)
         try:
             match = batcher.match(trace, deadline)
+        except (DeviceWedged, BatcherCrashed) as e:
+            if self.degraded:  # raced the watchdog trip: the CPU answers
+                return self._finish_report(trace, rl, tl, degraded=True, stream=stream)
+            return self._refusal(e, batcher)
         except Exception as e:  # noqa: BLE001 - the request gets the error
-            answer = self._admission_error(e, batcher)
-            if answer is not None:
-                return answer
+            if not isinstance(e, (Overloaded, DeadlineExpired, TraceQuarantined)):
+                log.exception("match failed")
+            return self._refusal(e, batcher)
+        return self._finish_report(trace, rl, tl, match=match, stream=stream)
+
+    def _finish_report(self, trace, rl, tl, match: Optional[dict] = None,
+                       degraded: bool = False, stream: bool = False) -> Tuple[int, dict]:
+        """Render the report, matching first on the CPU baseline when
+        degraded (a streaming submit through the session engine's
+        degraded step); a degraded answer carries "degraded": true.  A
+        streaming answer renders over the session window (its rolling tail
+        + the new points) and carries a "session" block."""
+        try:
+            if degraded:
+                m = self._cpu_fallback()
+                with self._cpu_lock:
+                    match = (self.session_engine.degraded_step(m, trace) if stream
+                             else m.match_many([trace])[0])
+            match.pop("_quality", None)  # diagnostics never reach the wire
+            st = match.pop("_stream", None)
+            render = trace if st is None else {
+                "uuid": trace.get("uuid"), "trace": st["trace"],
+                "match_options": trace.get("match_options") or {}}
+            data = report_fn(match, render, self.threshold_sec, rl, tl,
+                             mode=(trace.get("match_options") or {}).get("mode", "auto"))
+        except Exception as e:  # noqa: BLE001 - the request gets the error
             log.exception("match failed")
+            self._note_request(ok=False)
+            if isinstance(e, (DeviceWedged, BatcherCrashed)):
+                return 503, {"error": str(e), "retry_after": 1}
             return 500, {"error": str(e)}
-        match.pop("_quality", None)  # diagnostics never reach the wire
-        # a streaming answer renders over the session window: the rolling
-        # tail + this submit's points
-        st = match.pop("_stream", None)
-        render = trace if st is None else {
-            "uuid": trace.get("uuid"), "trace": st["trace"],
-            "match_options": trace.get("match_options") or {}}
-        data = report_fn(match, render, self.threshold_sec, rl, tl,
-                         mode=(trace.get("match_options") or {}).get("mode", "auto"))
         if st is not None:
             data["session"] = st["session"]
+        if degraded:
+            data["degraded"] = True
+            _count("degraded_requests")
+        self._note_request(ok=True)
         return 200, data
 
     def handle_batch(self, body: dict,
                      deadline: Optional[float] = None) -> Tuple[int, dict]:
         """{"traces": [...]}: every trace validated first (a bad one is a
         400 naming its index), then one ``match_many`` on the windowed
-        batcher and one report per trace, in request order."""
+        batcher (on the CPU baseline when degraded) and one report per
+        trace, in request order."""
+        if self.draining:
+            return self._drain_refusal()
+        batcher = self.batcher
         traces = body.get("traces")
         if not isinstance(traces, list) or not traces:
             return 400, {"error": "traces must be a non-empty array"}
@@ -418,28 +983,58 @@ class ReporterService:
                 return 400, {"error": "trace %d: %s" % (i, err)}
             trace.pop("_columns", None)
             validated.append((trace, rl, tl))
+        degraded = self.degraded
         try:
-            matches = self.batcher.match_many([t for t, _rl, _tl in validated], deadline)
+            if degraded:
+                m = self._cpu_fallback()
+                with self._cpu_lock:
+                    matches = m.match_many([t for t, _rl, _tl in validated])
+            else:
+                matches = batcher.match_many([t for t, _rl, _tl in validated], deadline)
             results = []
-            for m, (t, rl, tl) in zip(matches, validated):
-                m.pop("_quality", None)
-                results.append(report_fn(m, t, self.threshold_sec, rl, tl,
+            for m_, (t, rl, tl) in zip(matches, validated):
+                m_.pop("_quality", None)
+                results.append(report_fn(m_, t, self.threshold_sec, rl, tl,
                                          mode=t.get("match_options", {}).get("mode", "auto")))
         except Exception as e:  # noqa: BLE001 - the request gets the error
-            answer = self._admission_error(e, self.batcher)
-            if answer is not None:
-                return answer
-            log.exception("batch failed")
-            return 500, {"error": str(e)}
-        return 200, {"results": results}
+            if not isinstance(e, (Overloaded, DeadlineExpired, TraceQuarantined,
+                                  DeviceWedged, BatcherCrashed)):
+                log.exception("batch failed")
+            return self._refusal(e, batcher)
+        self._note_request(ok=True)
+        out = {"results": results}
+        if degraded:
+            out["degraded"] = True
+            _count("degraded_requests")
+        return 200, out
 
     def handle_health(self) -> Tuple[int, dict]:
+        """503 "unhealthy" when a batcher thread died (or the health_flap
+        seam fires), 503 "draining" with the inflight count while
+        draining, else 200 "ok" with the matcher's state; degraded mode
+        stays 200 (the service answers) with "degraded": true."""
         m = self.matcher
+        b = self.batcher
+        uptime = round(_time.time() - self._t_boot, 1)
+        if self.unhealthy_reason or b._crashed:
+            return 503, {"status": "unhealthy",
+                         "reason": self.unhealthy_reason or b._crash_reason,
+                         "replica": self.replica_id, "uptime_s": uptime}
+        if faults.fire("health_flap") is not None:
+            return 503, {"status": "unhealthy", "reason": "injected health flap",
+                         "replica": self.replica_id, "uptime_s": uptime}
+        if self.draining:
+            with self._active_lock:
+                inflight = self._n_active
+            return 503, {"status": "draining", "replica": self.replica_id,
+                         "inflight": inflight, "uptime_s": uptime}
         out = {
             "status": "ok",
+            "replica": self.replica_id,
             # wire-level opt-ins a client may negotiate: gzip request bodies
             # always, the binary columnar wire unless $REPORTER_WIRE=0
             "capabilities": ["gzip", "wire-columnar"] if self.wire_enabled else ["gzip"],
+            "degraded": bool(self.degraded),
             "device": str(m.device),
             "backend": m.backend,
             "mesh": ({"dp": m._mesh.n_dp, "gp": m._mesh.n_gp}
@@ -449,7 +1044,9 @@ class ReporterService:
             "ubodt_shard": ("%d/%d" % m.ubodt_shard) if m.ubodt_shard else None,
             "ubodt_tiered": m.tiering is not None,
             "sessions": self.session_store.summary(),
-            "uptime_s": round(_time.time() - self._t_boot, 1),
+            "uptime_s": uptime,
+            "requests": self._n_requests,
+            "errors": self._n_errors,
         }
         if m.tiering is not None:
             out["ubodt_tier"] = m.tiering.summary()
@@ -457,12 +1054,69 @@ class ReporterService:
             out["session_arena"] = m.session_arena.summary()
         return 200, out
 
+    def handle_sessions(self, query: dict,
+                        body: Optional[dict] = None) -> Tuple[int, dict]:
+        """The session store's surface:
+
+          GET  /sessions              the store's summary
+          GET  /sessions?uuid=U       one session's meta (404 if absent)
+          GET  /sessions?export=1     the summary + every live session's
+                                      wire snapshot (the handoff's
+                                      export; while draining, taken once
+                                      the matching handlers are idle)
+          POST /sessions {"sessions": [...]}   import (merging a uuid that
+                                      is live here); {"drop": [...]};
+                                      {"pop": [...]} (remove and
+                                      serialise in one locked sweep)
+        """
+        store = self.session_store
+        if body is not None:
+            drop = body.get("drop")
+            if drop is not None:
+                if not isinstance(drop, list):
+                    return 400, {"error": "drop must be an array of uuids"}
+                dropped = sum(1 for u in drop if store.drop(str(u)))
+                return 200, {"dropped": dropped, "replica": self.replica_id}
+            pop = body.get("pop")
+            if pop is not None:
+                if not isinstance(pop, list):
+                    return 400, {"error": "pop must be an array of uuids"}
+                return 200, {"sessions": store.pop_wire(pop), "replica": self.replica_id}
+            wires = body.get("sessions")
+            if not isinstance(wires, list):
+                return 400, {"error": "sessions must be an array"}
+            return 200, dict(store.import_wire(wires), replica=self.replica_id)
+        uuid = (query.get("uuid") or [None])[0]
+        if uuid:
+            s = store.peek(str(uuid))
+            if s is None:
+                return 404, {"error": "no session for uuid %r" % uuid}
+            return 200, dict(s.meta(), replica=self.replica_id)
+        if query.get("export", ["0"])[0] not in ("", "0", "false"):
+            # fault seam: a crawling drain's export
+            faults.hang("slow_drain")
+            if self.draining:
+                # steps admitted before the drain may still be committing:
+                # snapshot once the handlers are idle (bounded), so the
+                # beams carry every answered point
+                until = _time.monotonic() + 2.0
+                while not self.idle() and _time.monotonic() < until:
+                    _time.sleep(0.02)
+            out = dict(store.summary(), replica=self.replica_id,
+                       draining=bool(self.draining))
+            out["sessions"] = store.export_all()
+            return 200, out
+        return 200, dict(store.summary(), replica=self.replica_id,
+                         draining=bool(self.draining))
+
     def make_server(self, host: str = "0.0.0.0", port: int = 8002) -> ThreadingHTTPServer:
         service = self
 
         class Handler(BaseHTTPRequestHandler):
             protocol_version = "HTTP/1.1"
-            timeout = 30  # idle keep-alive connections time out
+            # idle keep-alive connections time out, so a drain that joins
+            # the handler threads is bounded
+            timeout = 30
 
             def _answer(self, code: int, payload: dict):
                 body = None
@@ -482,7 +1136,7 @@ class ReporterService:
                 self.send_header("Access-Control-Allow-Origin", "*")
                 self.send_header("Content-Type", ctype)
                 self.send_header("Content-Length", str(len(body)))
-                if code == 429:
+                if code in (429, 503):
                     # the backoff hint as a header too (RFC 9110), for
                     # generic clients
                     try:
@@ -490,6 +1144,7 @@ class ReporterService:
                     except (TypeError, ValueError):
                         ra = 1
                     self.send_header("Retry-After", str(ra))
+                self.send_header("X-Reporter-Replica", service.replica_id)
                 self.end_headers()
                 self.wfile.write(body)
 
@@ -522,6 +1177,8 @@ class ReporterService:
                     return None
 
             def _route(self, post: bool):
+                if service.draining:
+                    self.close_connection = True  # answer, then drain out
                 # per-request wire state: the handler lives for the whole
                 # keep-alive connection, so one binary request must not
                 # turn later requests on the socket binary
@@ -536,6 +1193,8 @@ class ReporterService:
                         self.close_connection = True
                         return self._answer(400, {"error": "invalid Content-Length"})
                 try:
+                    # the whole body is read before any answer, so no
+                    # unread byte is parsed as the next request line
                     raw = self.rfile.read(n) if n else b""
                     split = urlsplit(self.path)
                     action = split.path.split("/")[-1]
@@ -545,6 +1204,16 @@ class ReporterService:
                             400, {"error": "Try a valid action: %s" % sorted(ACTIONS)})
                     if action == "health":
                         return self._answer(*service.handle_health())
+                    if action == "sessions":
+                        body = None
+                        if post:
+                            body = json.loads(raw.decode("utf-8"))
+                            if not isinstance(body, dict):
+                                return self._answer(
+                                    400, {"error": "request body must be a json object"})
+                        return self._answer(*service.handle_sessions(query, body))
+                    # fault seam: a slow-accepting replica
+                    faults.hang("replica_slow_accept")
                     if service.wire_enabled and wire.CONTENT_TYPE in (
                             self.headers.get("Accept") or ""):
                         self._accept_wire = True
@@ -570,11 +1239,21 @@ class ReporterService:
                 try:
                     handler = (service.handle_report if action == "report"
                                else service.handle_batch)
-                    code, out = handler(payload, self._deadline())
+                    # the drain waits for this count to reach zero
+                    with service._track_active():
+                        code, out = handler(payload, self._deadline())
                 except Exception as e:  # noqa: BLE001 - never drop the socket
                     log.exception("unhandled request error")
                     code, out = 500, {"error": str(e)}
                 self._answer(code, out)
+
+            def setup(self):
+                super().setup()
+                self.server._track(self.connection)
+
+            def finish(self):
+                self.server._untrack(self.connection)
+                super().finish()
 
             def do_GET(self):
                 self._route(post=False)
@@ -588,6 +1267,31 @@ class ReporterService:
         class Server(ThreadingHTTPServer):
             request_queue_size = 128
             daemon_threads = True
+
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                self._conn_lock = threading.Lock()
+                self._conns: set = set()
+
+            def _track(self, sock) -> None:
+                with self._conn_lock:
+                    self._conns.add(sock)
+
+            def _untrack(self, sock) -> None:
+                with self._conn_lock:
+                    self._conns.discard(sock)
+
+            def close_lingering(self) -> None:
+                """Shut every tracked connection down, so a drain does not
+                wait out idle keep-alive clients' timeout (called once the
+                inflight count is zero: only idle connections are left)."""
+                with self._conn_lock:
+                    conns = list(self._conns)
+                for sock in conns:
+                    try:
+                        sock.shutdown(_socket.SHUT_RDWR)
+                    except OSError:
+                        pass
 
         return Server((host, port), Handler)
 

@@ -149,6 +149,39 @@ assert len(cm.match_many(ots)) == 3 and all(r["segments"] for r in dm.match_many
 px, py, tm_, vd, _ = dm._fill_rows(ots, [0], 20)
 edge = BruteForceMatcher(oa, dm.cfg).run_batch(px, py, tm_, vd)[0]
 assert 0.0 <= segment_agreement(oa, edge[0], syn[0]) <= 1.0
+# service recovery: fault injection, the poison bisect, the watchdog's
+# degraded CPU mode and re-attach, the session wire and the checkpointer
+import threading, time
+import reporter_tpu_torch.faults as faults
+from reporter_tpu_torch.matching.session import SessionCheckpointer, read_checkpoints
+from reporter_tpu_torch.serve.service import ReporterService
+os.environ["REPORTER_FAULT_DISPATCH"] = "uuid:poison"
+svc = ReporterService(m, max_wait_ms=100.0, robustness={"watchdog_s": 0})
+out = {}
+ths = [threading.Thread(target=lambda t=t: out.__setitem__(t["uuid"], svc.handle_report(
+    dict(t, match_options={"report_levels": [0, 1], "transition_levels": [0, 1]}))))
+       for t in traces[:2] + [dict(traces[2], uuid="poison")]]
+[t.start() for t in ths]; [t.join() for t in ths]
+assert out["poison"][0] == 500 and [out[t["uuid"]][0] for t in traces[:2]] == [200, 200]
+del os.environ["REPORTER_FAULT_DISPATCH"]
+svc.close()
+os.environ["REPORTER_FAULT_DEVICE_HANG"] = "1.0:1"
+svc = ReporterService(m, max_wait_ms=1.0, robustness={"watchdog_s": 0.2, "reattach_probe_s": 0.1})
+code, body = svc.handle_report(dict(traces[0], match_options={"report_levels": [0],
+                                                              "transition_levels": [0]}))
+assert code == 200 and body["degraded"] is True and faults.injected("device_hang") == 1
+t0 = time.monotonic()
+while svc.degraded and time.monotonic() - t0 < 20:
+    time.sleep(0.05)
+assert not svc.degraded
+del os.environ["REPORTER_FAULT_DEVICE_HANG"]
+with tempfile.TemporaryDirectory() as d:
+    eng = SessionEngine(m, SessionStore())
+    cp = SessionCheckpointer(eng.store, d, cadence_s=0, sync=True)
+    eng.match_many([dict(traces[0], trace=traces[0]["trace"][:4])])
+    (w,) = read_checkpoints(d)
+    assert w["carry"] is not None and w["points_total"] == 4
+svc.close()
 assert not [m for m in sys.modules if blocked(m)]
 print("ISOLATED-OK")
 '''

@@ -116,8 +116,8 @@ def _dropped_reference_keys():
 def test_from_dict_warns_once_per_dropped_reference_key(monkeypatch, caplog):
     """Every reference field the port drops is named in one warning per
     process; the fields this port carries (interpolate, the tier and
-    session-arena budgets and the device mesh among them) are set, never
-    warned about."""
+    session-arena budgets, the device mesh and the degraded mode's
+    cpu_fallback among them) are set, never warned about."""
     monkeypatch.setattr(config_mod, "_WARNED", set())
     ref = RefConfig()
     dropped = _dropped_reference_keys()
@@ -125,7 +125,7 @@ def test_from_dict_warns_once_per_dropped_reference_key(monkeypatch, caplog):
     full = {k: getattr(ref, k) for k in RefConfig.__dataclass_fields__}
     carried = dict(interpolate=True, ubodt_hot_bytes=4096, ubodt_shard="1/4",
                    session_arena_bytes=1000, session_arena_cold_bytes=2000,
-                   devices=8, graph_devices=4)
+                   devices=8, graph_devices=4, cpu_fallback=False)
     assert set(carried) <= set(MatcherConfig.__dataclass_fields__)
     with caplog.at_level(logging.WARNING, logger=config_mod.__name__):
         cfg = MatcherConfig.from_dict(dict(full, **carried))

@@ -425,22 +425,24 @@ def test_deadline_answers_504_before_dispatch(world):
 def test_admission_knobs(world, monkeypatch, caplog):
     """max_queue and deadline_ms from the robustness block, the
     environment over both, <= 0 turning the server's deadline off; the
-    keys this port lacks named once each; Overloaded and DeadlineExpired
-    from the batcher itself."""
+    fault domains' keys carried to both batchers, a key the reference
+    does not read named once; Overloaded and DeadlineExpired from the
+    batcher itself."""
     m = world["port"]
     monkeypatch.setattr(config_mod, "_WARNED", set())
     with caplog.at_level(logging.WARNING, logger=config_mod.__name__):
         svc = ReporterService(m, robustness={"max_queue": 7, "deadline_ms": 250,
-                                             "watchdog_s": 5, "quarantine_after": 3})
-        ReporterService(m, robustness={"watchdog_s": 9}).close()
+                                             "watchdog_s": 5, "quarantine_after": 3,
+                                             "retry_budget": 2})
+        ReporterService(m, robustness={"watchdog_s": 9, "retry_budget": 1}).close()
     try:
         for b in (svc.batcher, svc.session_batcher):
             assert (b.max_queue, b.deadline_s, b._q.maxsize) == (7, 0.25, 7)
+            assert (b.watchdog_s, b.quarantine_after) == (5, 3)
     finally:
         svc.close()
     assert [r.getMessage() for r in caplog.records] == [
-        "robustness config key 'watchdog_s' is not carried by this port; ignored",
-        "robustness config key 'quarantine_after' is not carried by this port; ignored"]
+        "robustness config key 'retry_budget' is not carried by this port; ignored"]
     monkeypatch.setenv("REPORTER_MAX_QUEUE", "3")
     monkeypatch.setenv("REPORTER_DEADLINE_MS", "0")
     gate = Gate(m)
