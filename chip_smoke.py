@@ -303,6 +303,29 @@ delta 3000 m, cuckoo layout) and moves it to the card, then:
      the re-attach time, the handoff's bytes and times and the drain's time
      to exit.  Every other phase is checked to run with no fault fired, no
      trip and nothing degraded (``quiet``).
+  20. the serving process's observability on the same served matcher
+     (``observability_phase``, after phase 19): (1) 16 /report, one binary
+     /trace_attributes_batch of 24 traces, 8 streaming vehicles x 4
+     submits and one /report poisoned by REPORTER_FAULT_DISPATCH, each
+     with its X-Reporter-Trace, echoed: /metrics parses and holds every
+     family the package registers with its labels, its request, trace,
+     point and dispatch counts equal the traffic and the launch
+     counters' deltas, /statusz has the JAX package's keys,
+     /debug/traces holds every trace id sent (the poisoned one by right),
+     /debug/slo counts the requests, the device memory gauge reads at
+     least the 536.9 MB table; (2) GET /debug/attrib?capture=1&reps=3:
+     the profiler sees every launch of every kernel of its path under its
+     stage label, each label above 0 s; a capture of match_many over the
+     512 x 64 cohort prints each kernel's device time a launch beside
+     phase 17's CUDA-event time and the (unattributed) share; a capture
+     during another answers 409; /debug/profile?seconds=1 over live
+     traffic parses, with every path kernel under its label and nothing
+     unattributed; (3) REPORTER_QUALITY_SAMPLE_EVERY=4 for one service:
+     32 /report, the shadow-oracle agreement per cohort equal to the
+     port's on the CPU; (4) match_many over the 512 x 64 cohort with the
+     stage ranges off and on (``attrib.set_scopes``), bit-identical, eight
+     rounds of off, on, on, off: each side's median wall and quartiles,
+     and a range's own cost times the ranges a call opens.
 
 Before the phases it times ``torch.cuda._sleep(1)``, a one-thread kernel,
 under ``time_ms`` (``launch_floor``): the least time that timer reads for
@@ -5166,6 +5189,7 @@ def recovery_poison(sv, second, t64):
     kernels 1-4 launched by the bisect; round 3's poison is refused 422
     with no launch; the same for streaming submits on the slab."""
     from reporter_tpu_torch.ops import _kernels
+    from reporter_tpu_torch.serve import service as service_mod
 
     innocent = [dict(t64[24 + i], uuid="p19-veh-%d" % i) for i in range(7)]
     poison = dict(t64[31], uuid="poison-veh")
@@ -5180,6 +5204,7 @@ def recovery_poison(sv, second, t64):
     s_path, s_other = _forward(sv, 4, True)
     s_kernels, s_absent = _path_kernels(sv, s_path)
     out, launches, walls = {}, {}, []
+    isolated0 = service_mod.counts()["poison_isolations"]
     try:
         for rnd in range(2):
             t0 = time.perf_counter()
@@ -5195,7 +5220,8 @@ def recovery_poison(sv, second, t64):
                                                 tuple(_kernels.KERNELS))
         check(code == 422 and "quarantined" in body["error"] and not any(late.values()),
               "19.2 round 3: the poison refused 422 with no launch: %s %s" % (code, body))
-        check((b.svc.batcher.poison_isolations, b.svc.batcher.quarantined()) == (2, 1),
+        isolated1 = service_mod.counts()["poison_isolations"]
+        check((isolated1 - isolated0, b.svc.batcher.quarantined()) == (2, 1),
               "19.2 two isolations, one uuid quarantined")
         # streaming submits on the slab: 4 points each, two rounds, then the
         # repeat offender refused
@@ -5219,7 +5245,9 @@ def recovery_poison(sv, second, t64):
         code, _h, body = b.post("/report", _stream_sub(s_inn[0][0], s_inn[0][1], 8))
         check(code == 200 and body["session"]["points_total"] == 12,
               "19.2 an innocent session streams on")
-        isolations = (b.svc.batcher.poison_isolations, b.svc.session_batcher.poison_isolations)
+        # the windowed batcher's, then the session batcher's
+        isolations = (isolated1 - isolated0,
+                      service_mod.counts()["poison_isolations"] - isolated1)
     finally:
         _arm(dispatch=None)
         b.close()
@@ -5591,6 +5619,504 @@ def recovery_phase(cfg_json, sv, second, t64, t256, t1024, device, card=""):
     return info, total
 
 
+# -- phase 20: the serving process's observability on the card ----------------
+
+# the top-level keys of the JAX package's /statusz
+STATUSZ_KEYS = {
+    "uptime_s", "replica", "draining", "warming", "backend", "viterbi_kernel",
+    "threshold_sec", "batch", "degraded", "wedged", "crashed", "robustness",
+    "latency_buckets_s", "batch_fill_buckets", "flight", "attrib", "slo", "quality",
+    "sparse", "sessions", "session_arena", "ubodt_tier", "adaptive", "checkpoint",
+    "economics", "memory", "metrics"}
+# the realistic city's table (phase 17): the device memory gauge reads at least it
+TABLE_BYTES_MIN = 536.9e6
+VITERBI = ("viterbi_scan", "viterbi_chain", "viterbi_assoc", "viterbi_chain_assoc")
+
+
+def _p20(t64, i):
+    """Phase 20's i-th trace of the short cohort, from its second half."""
+    return t64[(len(t64) // 2 + i) % len(t64)]
+
+
+def _get_raw(port, path, headers=None):
+    """GET a path of the port's server: (status, headers, body bytes)."""
+    import urllib.error
+
+    req = urllib.request.Request("http://127.0.0.1:%d%s" % (port, path),
+                                 headers=dict(headers or {}))
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+def _prom(text):
+    """Prometheus text -> ({family: kind}, {(sample name, labels): value}),
+    refusing any line that is not a comment or a sample."""
+    import re
+
+    fams, samples = {}, {}
+    sample_re = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{(.*)\})? (\S+)$')
+    label_re = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"')
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            _h, _t, name, kind = line.split(" ")
+            fams[name] = kind
+            continue
+        if line.startswith("# HELP ") or not line:
+            continue
+        m = sample_re.match(line)
+        check(m is not None, "a Prometheus sample line: %r" % line[:200])
+        labels = tuple(label_re.findall(m.group(3) or ""))
+        samples[(m.group(1), labels)] = float(m.group(4))
+    return fams, samples
+
+
+def _sample_sum(samples, name, **match):
+    return sum(v for (n, labels), v in samples.items() if n == name
+               and all(dict(labels).get(k) == w for k, w in match.items()))
+
+
+def observability_phase(sv, t64, t256, osm_ms, device, card=""):
+    """Phase 20: the serving process's observability on the realistic
+    city's tiles config under the serving defaults (``sv``, phases 18 and
+    19's matcher): 20.1 the metrics, status, trace, SLO and memory
+    surfaces after a fixed mix (``obs_mix``); 20.2 the profiler's stage
+    attribution of the hand-written kernels (``obs_attrib``); 20.3 the
+    shadow-oracle quality windows against the port on the CPU
+    (``obs_quality``); 20.4 ``match_many`` with the stage ranges off and
+    on (``obs_scopes``).  Returns the figures."""
+    t0 = time.perf_counter()
+    info = {"mix": obs_mix(sv, t64, t256, device),
+            "attrib": obs_attrib(sv, t64, osm_ms, device, card),
+            "quality": obs_quality(sv, t64),
+            "scopes": obs_scopes(sv, t64)}
+    info["wall_s"] = time.perf_counter() - t0
+    print("phase 20 observability (%s): %.1f s" % (card, info["wall_s"]))
+    return info
+
+
+def obs_mix(sv, t64, t256, device):
+    """20.1: 16 /report, one binary /trace_attributes_batch of 24 traces, 8
+    streaming vehicles x 4 submits of 4 points, then one /report poisoned
+    by REPORTER_FAULT_DISPATCH, each with its own X-Reporter-Trace, through
+    the launch counters; a fresh SLO engine and a flight recorder that
+    keeps every trace.  /metrics parses and holds every family the port
+    registers (tools/check_metrics.py's scan of the package) with its
+    labels; its request, trace, point and dispatch counts equal the
+    traffic and the launch counters' deltas; /statusz has the JAX
+    package's keys; /debug/traces holds every trace id sent, the poisoned
+    one by right; /debug/slo counts the requests; the device memory gauge
+    reads at least the city's table."""
+    import importlib.util
+
+    import torch
+
+    from reporter_tpu_torch.obs import flight as obs_flight
+    from reporter_tpu_torch.obs import metrics as obs_metrics
+    from reporter_tpu_torch.ops import _kernels
+    from reporter_tpu_torch.serve import wire
+
+    spec = importlib.util.spec_from_file_location(
+        "check_metrics", os.path.join(REPO, "tools", "check_metrics.py"))
+    check_metrics = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(check_metrics)
+    want_fams = check_metrics.registered_labels(os.path.join(REPO, "reporter_tpu_torch"))
+    reports = [dict(_p20(t64, i), uuid="p20-r-%d" % i) for i in range(16)]
+    batch = [dict(t, uuid="p20-b-%d" % i)
+             for i, t in enumerate([_p20(t64, 16 + i) for i in range(20)] + t256[:4])]
+    vehicles = [(_p20(t64, 36 + v), "p20-s-%d" % v) for v in range(8)]
+    poison = dict(_p20(t64, 44), uuid="p20-poison")
+    saved = obs_flight.RECORDER
+    obs_flight.RECORDER = obs_flight.FlightRecorder(capacity=256, slow_ms=250,
+                                                    sample_every=1)
+    b = _Served(sv, max_batch=128, max_wait_ms=2, session_wait_ms=2, slo={})
+    sent, codes = [], {}
+    try:
+        before = obs_metrics.REGISTRY.snapshot()
+        _kernels.reset_launches()
+        t_mix = time.perf_counter()
+        for i, tr in enumerate(reports):
+            tid = "p20-report-%d" % i
+            code, hdrs, _body = b.post("/report", tr, {"Content-Type": "application/json",
+                                                        "X-Reporter-Trace": tid})
+            sent.append(tid)
+            codes[tid] = (code, hdrs.get("X-Reporter-Trace"))
+        code, hdrs, raw = _post_raw(b.port, "/trace_attributes_batch",
+                                    wire.encode_request({"traces": batch}),
+                                    {"Content-Type": wire.CONTENT_TYPE,
+                                     "Accept": wire.CONTENT_TYPE,
+                                     "X-Reporter-Trace": "p20-batch"})
+        sent.append("p20-batch")
+        codes["p20-batch"] = (code, hdrs.get("X-Reporter-Trace"))
+        check(code == 200 and len(wire.decode_response(raw)["results"]) == 24,
+              "20.1 the binary batch of 24 traces: %s" % code)
+        for j in (0, 4, 8, 12):
+            for tr, u in vehicles:
+                tid = "p20-%s-%d" % (u, j)
+                code, hdrs, _body = b.post("/report", _stream_sub(tr, u, j),
+                                           {"Content-Type": "application/json",
+                                            "X-Reporter-Trace": tid})
+                sent.append(tid)
+                codes[tid] = (code, hdrs.get("X-Reporter-Trace"))
+        _arm(dispatch="uuid:p20-poison")
+        try:
+            code, hdrs, _body = b.post("/report", poison,
+                                       {"Content-Type": "application/json",
+                                        "X-Reporter-Trace": "p20-poison"})
+        finally:
+            _arm(dispatch=None)
+        sent.append("p20-poison")
+        codes["p20-poison"] = (code, hdrs.get("X-Reporter-Trace"))
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        launches = {k: kern.launches for k, kern in _kernels.KERNELS.items()}
+        mix_s = time.perf_counter() - t_mix
+        check(all(c == (200 if t != "p20-poison" else 500) and echo == t
+                  for t, (c, echo) in codes.items()),
+              "20.1 every answer 200 (the poison 500) and echoing its X-Reporter-Trace: %s"
+              % json.dumps({t: c for t, c in codes.items() if c[0] != 200}))
+        code, hdrs, raw = _get_raw(b.port, "/metrics", {"X-Reporter-Trace": "p20-scrape"})
+        check(code == 200 and hdrs.get("Content-Type", "").startswith("text/plain")
+              and hdrs.get("X-Reporter-Trace") == "p20-scrape", "20.1 /metrics answers text")
+        fams, samples = _prom(raw.decode())
+        check(set(fams) == set(want_fams), "20.1 /metrics holds every family the port "
+              "registers, and no other: missing %s, extra %s" % (
+                  sorted(set(want_fams) - set(fams)), sorted(set(fams) - set(want_fams))))
+        snap = obs_metrics.REGISTRY.snapshot()
+        check(all(tuple(snap[n]["labelnames"]) == want_fams[n] for n in want_fams),
+              "20.1 every family's labels as registered")
+        for (name, labels), _v in samples.items():
+            base = name
+            for suffix in ("_bucket", "_sum", "_count"):
+                if fams.get(name) is None and name.endswith(suffix):
+                    base = name[: -len(suffix)]
+            names = tuple(k for k, _ in labels if k != "le")
+            check(names == want_fams[base], "20.1 %s's sample labels %s" % (name, names))
+
+        def delta(name, **match):
+            def total(s):
+                return sum(v for lv, v in s[name]["samples"]
+                           if all(dict(zip(s[name]["labelnames"], lv)).get(k) == w
+                                  for k, w in match.items()))
+            return total(snap) - total(before)
+
+        req = {(e, o): delta("reporter_requests_total", endpoint=e, outcome=o)
+               for e, o in (("report", "ok"), ("report", "error"), ("report_stream", "ok"),
+                            ("trace_attributes_batch", "ok"))}
+        check(req == {("report", "ok"): 16, ("report", "error"): 1,
+                      ("report_stream", "ok"): 32, ("trace_attributes_batch", "ok"): 1},
+              "20.1 reporter_requests_total counts the traffic: %s" % req)
+        matched = reports + batch
+        n_pts = sum(len(t["trace"]) for t in matched)
+        check((delta("reporter_traces_matched_total"), delta("reporter_points_matched_total"))
+              == (len(matched), n_pts),
+              "20.1 traces and points matched equal the windowed traffic's %d, %d"
+              % (len(matched), n_pts))
+        viterbi = sum(v for k, v in launches.items() if k.split("[")[0] in VITERBI)
+        dispatched = delta("reporter_dispatch_total")
+        # on host cores the plain versions run: no launch to count
+        check(dispatched == viterbi > 0 if device.type == "cuda" else dispatched > 0,
+              "20.1 reporter_dispatch_total's delta %d equals the Viterbi kernels' launches %d"
+              % (dispatched, viterbi))
+        check(delta("reporter_faults_injected_total", point="dispatch") == 1
+              and delta("reporter_poison_isolated_total") == 1,
+              "20.1 one fault fired, one poison isolated")
+        code, _h, raw = _get_raw(b.port, "/statusz")
+        statusz = json.loads(raw)
+        check(code == 200 and set(statusz) == STATUSZ_KEYS,
+              "20.1 /statusz has the JAX package's keys: %s" % sorted(
+                  set(statusz) ^ STATUSZ_KEYS))
+        code, _h, raw = _get_raw(b.port, "/debug/traces?n=512")
+        kept = {t["trace_id"]: t for t in json.loads(raw)["traces"]}
+        check(code == 200 and set(sent) <= set(kept),
+              "20.1 /debug/traces holds every trace id sent: missing %s"
+              % sorted(set(sent) - set(kept)))
+        check(kept["p20-poison"]["retained"] == "error" and kept["p20-poison"]["poison"],
+              "20.1 the poisoned trace kept by right: %s" % kept["p20-poison"])
+        code, _h, raw = _get_raw(b.port, "/debug/slo")
+        routes = json.loads(raw)["routes"]
+        got = {r: (routes[r]["good"], routes[r]["bad"]) for r in routes}
+        check(got == {"report": (16, 1), "report_stream": (32, 0),
+                      "trace_attributes_batch": (1, 0)},
+              "20.1 /debug/slo counts the requests: %s" % got)
+        mem = _sample_sum(samples, "reporter_device_memory_bytes", space="device",
+                          subsystem="in_use")
+        if device.type == "cuda":
+            check(mem >= TABLE_BYTES_MIN, "20.1 reporter_device_memory_bytes{space="
+                  "\"device\"} in_use %.1f MB >= the table's 536.9 MB" % (mem / 1e6))
+        for path in ("/debug/cost", "/debug/history", "/health"):
+            check(_get_raw(b.port, path)[0] == 200, "20.1 %s answers" % path)
+    finally:
+        b.close()
+        obs_flight.RECORDER = saved
+    print("20.1 mix: %d requests in %.2f s; /metrics %d families, %d samples, %d bytes; "
+          "device memory in_use %.1f MB, limit %.1f MB; dispatches %d = Viterbi launches; "
+          "launches %s" % (
+              len(sent), mix_s, len(fams), len(samples), len(raw),
+              mem / 1e6, _sample_sum(samples, "reporter_device_memory_bytes", space="device",
+                                     subsystem="limit") / 1e6,
+              dispatched, json.dumps({k: v for k, v in launches.items() if v})))
+    return {"requests": len(sent), "wall_s": mix_s, "families": len(fams),
+            "samples": len(samples), "device_in_use_mb": mem / 1e6, "launches": launches}
+
+
+def obs_attrib(sv, t64, osm_ms, device, card=""):
+    """20.2: GET /debug/attrib?capture=1&reps=3: every hand-written kernel
+    of its path is seen by the profiler once per launch of the capture
+    window (the warm call before it is not captured: launches = 3/4 of the
+    counters' delta over the request), under its stage label; every path
+    label reads more than 0 s.  Then a capture of ``match_many`` over the
+    512 x 64 cohort (3 reps after one warm call outside the window), whose
+    per-launch device time is set beside phase 17's CUDA-event time of
+    the same kernel at the same shape, launches equal to the counters'.
+    A capture while another holds the profiler answers 409 naming it;
+    /debug/profile?seconds=1 over live traffic writes a trace directory
+    that ``parse_trace_dir`` reads."""
+    import torch
+
+    from reporter_tpu_torch.obs import attrib, profiler
+    from reporter_tpu_torch.ops import _kernels
+
+    kernels, _absent = _path_kernels(sv, BUCKETED)
+    b = _Served(sv, max_batch=128, max_wait_ms=2)
+    out = {}
+    try:
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        code, _h, raw = _get_raw(b.port, "/debug/attrib?capture=1&reps=3")
+        out["endpoint_wall_s"] = time.perf_counter() - t0
+        check(code == 200, "20.2 /debug/attrib?capture=1 answers: %s %s" % (code, raw[:300]))
+        res = json.loads(raw)["attrib"]
+        labels = {_kernels.KERNELS[k].stage for k in kernels}
+        check(all(res["stages_ms"].get(lb, 0.0) > 0.0 for lb in labels),
+              "20.2 every path label reads more than 0 s: %s" % res["stages_ms"])
+        card_only = device.type == "cuda"  # on host cores no kernel launches
+        if card_only:
+            counts = {k: kern.launches for k, kern in _kernels.KERNELS.items()
+                      if kern.launches}
+            check(set(counts) == set(kernels), "20.2 the capture's path launched %s: %s"
+                  % (kernels, counts))
+            seen = {k: v["launches"] for k, v in res["kernels"].items()}
+            check(seen == {k: n * 3 // 4 for k, n in counts.items()}
+                  and all(n % 4 == 0 for n in counts.values()),
+                  "20.2 the profiler saw every launch of the window: %s against %s"
+                  % (seen, counts))
+            check(all(res["kernels"][k]["stage"] == _kernels.KERNELS[k].stage
+                      for k in kernels), "20.2 each kernel under its stage label")
+        out["endpoint"] = {k: res[k] for k in ("stages_ms", "unattributed_frac", "kernels",
+                                                "attributed_by", "wall_s")}
+        # the main path's shape, set beside phase 17's times
+        rows = t64[:512]
+        sv.match_many(rows)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        cap = attrib.capture(lambda: sv.match_many(rows), reps=3, warm=False)
+        out["window_wall_s"] = time.perf_counter() - t0
+        counts = {k: kern.launches for k, kern in _kernels.KERNELS.items() if kern.launches}
+        seen = {k: v["launches"] for k, v in cap["kernels"].items()}
+        check(seen == counts and (bool(seen) or not card_only),
+              "20.2 512 x 64: the profiler saw every launch: %s against %s"
+              % (seen, counts))
+        table = {}
+        for k, v in sorted(cap["kernels"].items()):
+            per = v["device_ms"] / v["launches"]
+            table[k] = {"stage": v["stage"], "launches": v["launches"],
+                        "device_ms": v["device_ms"], "per_launch_ms": per,
+                        "phase17_ms": osm_ms.get(k),
+                        "ratio": per / osm_ms[k] if osm_ms.get(k) else None}
+        out["main_shape"] = {"stages_ms": cap["stages_ms"],
+                             "unattributed_frac": cap["unattributed_frac"],
+                             "device_total_ms": cap["device_total_ms"],
+                             "attributed_by": cap["attributed_by"], "kernels": table,
+                             "host_frac": cap["host_frac"]}
+        print("20.2 attribution (%s): endpoint window %.2f s, stages %s, unattributed %.4f; "
+              "512 x 64 window %.2f s (3 reps), device %.4f ms, unattributed share %.4f, "
+              "by %s; per label: %s" % (
+                  card, out["endpoint_wall_s"], json.dumps(res["stages_ms"]),
+                  res["unattributed_frac"], out["window_wall_s"], cap["device_total_ms"],
+                  cap["unattributed_frac"], json.dumps(cap["attributed_by"]), "; ".join(
+                      "%s [%s] %d launches, %.4f ms/launch, phase 17 %s ms, ratio %s" % (
+                          k, r["stage"], r["launches"], r["per_launch_ms"],
+                          "%.4f" % r["phase17_ms"] if r["phase17_ms"] else "-",
+                          "%.3f" % r["ratio"] if r["ratio"] else "-")
+                      for k, r in table.items())))
+        # single flight: a capture while another holds the profiler is a 409
+        with profiler.session("attrib", trace_id="p20-owner"):
+            code, _h, raw = _get_raw(b.port, "/debug/attrib?capture=1&reps=1")
+        busy = json.loads(raw)
+        check(code == 409 and busy["inflight"]["trace_id"] == "p20-owner",
+              "20.2 a second capture answers 409 naming the first: %s %s" % (code, busy))
+        # /debug/profile over live traffic
+        stop = threading.Event()
+
+        def traffic():
+            i = 0
+            while not stop.is_set():
+                b.post("/report", dict(_p20(t64, 45 + i % 16), uuid="p20-prof-%d" % i))
+                i += 1
+        th = threading.Thread(target=traffic, daemon=True)
+        th.start()
+        try:
+            code, _h, raw = _get_raw(b.port, "/debug/profile?seconds=1")
+        finally:
+            stop.set()
+            th.join(60)
+        prof = json.loads(raw)
+        check(code == 200, "20.2 /debug/profile answers: %s %s" % (code, prof))
+        parsed = attrib.parse_trace_dir(prof["trace_dir"])
+        check(parsed["platform"] == "cuda" and parsed["device_total_ms"] > 0
+              if card_only else bool(parsed["stages_ms"]),
+              "20.2 the profile's trace directory parses with the traffic's work in it: %s"
+              % parsed["stages_ms"])
+        if card_only:
+            # the batchers' threads launch: every launch under its label,
+            # nothing left unattributed
+            got = {k: (v["stage"], v["launches"] > 0) for k, v in parsed["kernels"].items()}
+            check(parsed["unattributed_frac"] == 0
+                  and got == {k: (_kernels.KERNELS[k].stage, True) for k in kernels},
+                  "20.2 /debug/profile attributes every path kernel under its label and "
+                  "nothing else: unattributed %s, kernels %s, path %s"
+                  % (parsed["unattributed_frac"], got, kernels))
+        out["profile"] = {"stages_ms": parsed["stages_ms"],
+                          "kernels": {k: v["launches"] for k, v in parsed["kernels"].items()}}
+        print("20.2 /debug/profile?seconds=1 over live /report traffic: stages %s"
+              % json.dumps(parsed["stages_ms"]))
+    finally:
+        b.close()
+    return out
+
+
+def obs_quality(sv, t64):
+    """20.3: REPORTER_QUALITY_SAMPLE_EVERY=4 (and REPORTER_QUALITY_PACE=0,
+    no self-throttle) for one service only: 32 /report, the quality engine
+    drained; its agreement per cohort equals, exactly, a QualityEngine on
+    the port on the CPU (the same arrays, table and config) fed the same
+    sampled traces with the CPU's edges."""
+    import dataclasses
+
+    from reporter_tpu_torch.matching import SegmentMatcher
+    from reporter_tpu_torch.obs import quality as obs_quality
+
+    traces = [dict(_p20(t64, 61 + i), uuid="p20-q-%d" % i) for i in range(32)]
+    os.environ["REPORTER_QUALITY_SAMPLE_EVERY"] = "4"
+    os.environ["REPORTER_QUALITY_PACE"] = "0"
+    try:
+        b = _Served(sv, max_batch=128, max_wait_ms=2)
+    finally:
+        del os.environ["REPORTER_QUALITY_SAMPLE_EVERY"]
+        del os.environ["REPORTER_QUALITY_PACE"]
+    t0 = time.perf_counter()
+    try:
+        eng = b.svc.quality
+        check(eng is not None and eng.sample_every == 4, "20.3 the quality engine is on")
+        for tr in traces:
+            code, _h, _body = b.post("/report", tr)
+            check(code == 200, "20.3 /report answers 200")
+        check(eng.drain(120.0), "20.3 the quality engine drained")
+        card = eng.report()
+    finally:
+        b.close()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # windowed traffic only: the CPU matcher needs no session slab
+    cpu = SegmentMatcher(arrays=sv.arrays, ubodt=sv.ubodt, device="cpu",
+                         config=dataclasses.replace(sv.cfg, session_arena=False))
+    ref = obs_quality.QualityEngine(cpu, sample_every=1, window_s=card["window_s"],
+                                    target=card["target"], slo_feed=lambda v, w: None,
+                                    start_worker=False)
+    # the oracle is the same f64 host code on both sides: the CPU engine
+    # reuses the card engine's oracles, whose per-source route memo changes
+    # no result; the production edges are each side's own
+    ref._oracles = eng._oracles
+    build_s = time.perf_counter() - t0
+    sampled = traces[3::4]
+    t0 = time.perf_counter()
+    for tr in sampled:
+        q = cpu.match_many([tr])[0]["_quality"]
+        ref.compare(tr, q["edge"])
+    cpu_s = time.perf_counter() - t0
+    want = ref.report()
+    check(card["samples_compared"] == len(sampled) and card["cohorts"] == want["cohorts"]
+          and card["overall"] == want["overall"],
+          "20.3 the card's agreement per cohort equals the port on the CPU: %s against %s"
+          % (json.dumps(card["cohorts"]), json.dumps(want["cohorts"])))
+    print("20.3 quality: %d of %d /report sampled, agreement %s, cohorts %s; equal to the "
+          "port on the CPU (served and drained %.1f s; the CPU matcher built in %.1f s, "
+          "its %d matches and compares %.1f s)" % (
+              card["samples_compared"], len(traces), card["overall"],
+              json.dumps(card["cohorts"]), card_s, build_s, len(sampled), cpu_s))
+    return {"overall": card["overall"], "cohorts": card["cohorts"], "wall_s": card_s,
+            "cpu_build_s": build_s, "cpu_s": cpu_s}
+
+
+def obs_scopes(sv, t64, pairs=8, n_ranges=20000):
+    """20.4: match_many over the 512 x 64 cohort with the stage ranges off
+    and on (``attrib.set_scopes``; REPORTER_STAGE_SCOPES is read at
+    import), each warmed once, then ``pairs`` rounds of off, on, on, off:
+    bit-identical answers; each side's median wall and quartiles.  The
+    ranges' own cost: ``n_ranges`` enters and exits of a launch's range
+    timed on the host with the ranges on and off, times the ranges one
+    call opens (one a launch on the card), over the median wall."""
+    import statistics
+
+    from reporter_tpu_torch.obs import attrib
+    from reporter_tpu_torch.ops import _kernels
+
+    rows = t64[:512]
+    outs, walls = {}, {False: [], True: []}
+    per_range = {}
+    prev = attrib.scopes_enabled()
+    try:
+        for on in (False, True):
+            attrib.set_scopes(on)
+            outs[on] = json.dumps(sv.match_many(rows), sort_keys=True)
+        n0 = sum(k.launches for k in _kernels.KERNELS.values())
+        sv.match_many(rows)
+        ranges = sum(k.launches for k in _kernels.KERNELS.values()) - n0
+        for _ in range(pairs):
+            for on in (False, True, True, False):
+                attrib.set_scopes(on)
+                t0 = time.perf_counter()
+                out = sv.match_many(rows)
+                walls[on].append(time.perf_counter() - t0)
+                check(json.dumps(out, sort_keys=True) == outs[on],
+                      "20.4 a repeat's answers equal its first")
+        for on in (False, True):
+            attrib.set_scopes(on)
+            t0 = time.perf_counter()
+            for _ in range(n_ranges):
+                with attrib.stage("candidate-sweep", "candidate_sweep"):
+                    pass
+            per_range[on] = (time.perf_counter() - t0) / n_ranges
+    finally:
+        attrib.set_scopes(prev)
+    check(outs[False] == outs[True], "20.4 the answers are bit-identical with the stage "
+          "ranges off and on")
+    res = {"ranges_per_call": ranges,
+           "range_us": {"off": per_range[False] * 1e6, "on": per_range[True] * 1e6}}
+    for on, key in ((False, "off"), (True, "on")):
+        q = statistics.quantiles(walls[on], n=4, method="inclusive")
+        res[key] = {"median_s": statistics.median(walls[on]), "q1_s": q[0], "q3_s": q[2],
+                    "min_s": min(walls[on]), "max_s": max(walls[on]), "walls_s": walls[on]}
+    res["on_over_off"] = res["on"]["median_s"] / res["off"]["median_s"]
+    res["ranges_share"] = (ranges * (per_range[True] - per_range[False])
+                           / res["off"]["median_s"])
+    print("20.4 match_many 512 x 64, %d walls a side (off, on, on, off x %d): scopes off "
+          "median %.4f s (quartiles %.4f, %.4f; %.4f-%.4f), on median %.4f s (quartiles "
+          "%.4f, %.4f; %.4f-%.4f), on / off %.4f; answers identical.  A range %.3f us on, "
+          "%.3f us off, %d a call: %.6f of the off median" % (
+              2 * pairs, pairs, res["off"]["median_s"], res["off"]["q1_s"],
+              res["off"]["q3_s"], res["off"]["min_s"], res["off"]["max_s"],
+              res["on"]["median_s"], res["on"]["q1_s"], res["on"]["q3_s"],
+              res["on"]["min_s"], res["on"]["max_s"], res["on_over_off"],
+              res["range_us"]["on"], res["range_us"]["off"], ranges, res["ranges_share"]))
+    return res
+
+
 def osm_phases(device, rows=120, grid_misses=None, timed=True, scale=1, card=""):
     """Phase 17: the bench's realistic city (``osm_city``) through the main
     path: its cohorts (``osm_cohorts``); kernels 1-4 against their plain
@@ -5625,6 +6151,13 @@ def osm_phases(device, rows=120, grid_misses=None, timed=True, scale=1, card="")
                                                   card)
     quiet("phases 1-4, 17 and 18")
     recovery, recovery_launches = recovery_phase(*served, t64, t256, t1024, device, card)
+    # phase 20 on the matcher phases 18 and 19 serve, beside phase 17's times
+    osm_ms = {r["name"]: r["ms"] for r in rows64 if r.get("ms")}
+    if chain["long"].get("ms"):
+        osm_ms["viterbi_chain"] = chain["long"]["ms"]
+    observability = observability_phase(served[1], t64, t256, osm_ms, device, card)
+    _RECOVERY_BASE.append(recovery_counts())
+    check(not any(v.startswith("REPORTER_FAULT_") for v in os.environ), "faults cleared")
     strip = lambda d: {k: v for k, v in d.items() if not callable(v)}  # noqa: E731
     return {"city": info, "kernels": [strip(r) for r in rows64],
             "kernels_128x256": [strip(r) for r in rows256],
@@ -5632,7 +6165,8 @@ def osm_phases(device, rows=120, grid_misses=None, timed=True, scale=1, card="")
             "launches": {"bucketed": launches, "long": long_launches,
                          "session": sess_launches, "serve": serve_launches,
                          "batch_wire": wire_launches, "recovery": recovery_launches},
-            "wire": wire_info, "recovery": recovery, "main_path": rates, "long_path": long_rate, "session_path": sess_rate,
+            "wire": wire_info, "recovery": recovery, "observability": observability,
+            "main_path": rates, "long_path": long_rate, "session_path": sess_rate,
             "probe_outcomes": misses, "grid_probe_outcomes": grid_misses,
             "agreement": agree, "baseline": base}
 
@@ -5829,7 +6363,7 @@ def main(pair=()):
     # 12's misses there beside the grid city's
     osm = osm_phases(device, grid_misses=probe_misses(matcher, xin64),
                      card=smi.splitlines()[0])
-    quiet("phases 17-19")
+    quiet("phases 17-20")
 
     # the sparse-gap model: cohorts A (every 9th point of the 512 x 64
     # cohort: 512 x 8 at 45 s, "45-60", bucket 16) and B (every 12th of the

@@ -66,6 +66,9 @@ import threading
 import time
 from typing import Optional
 
+from .obs import metrics as obs
+from .obs.economics import counter_total
+
 POINTS = ("dispatch", "device_hang", "ubodt_probe", "store_put",
           "client_post", "router_connect", "replica_slow_accept",
           "health_flap", "replica_shed", "quality_skew", "clock_skew",
@@ -73,7 +76,13 @@ POINTS = ("dispatch", "device_hang", "ubodt_probe", "store_put",
 
 _lock = threading.Lock()
 _consumed: dict = {}  # (point, raw_spec) -> times fired
-_injected: dict = {}  # point -> faults fired in this process
+
+# faults fired by point in this process; ``injected`` reads it
+C_INJECTED = obs.counter(
+    "reporter_faults_injected_total",
+    "Faults fired by injection point (REPORTER_FAULT_* env knobs; "
+    "docs/robustness.md)",
+    ("point",))
 
 
 class InjectedFault(RuntimeError):
@@ -102,8 +111,7 @@ def reset() -> None:
 
 def injected(point: str) -> int:
     """Faults fired at ``point`` in this process."""
-    with _lock:
-        return _injected.get(point, 0)
+    return int(counter_total(C_INJECTED, {"point": point}))
 
 
 def fire(point: str, key: Optional[str] = None) -> Optional[str]:
@@ -146,7 +154,7 @@ def fire(point: str, key: Optional[str] = None) -> Optional[str]:
         if fired >= count:
             return None
         _consumed[k] = fired + 1
-        _injected[point] = _injected.get(point, 0) + 1
+    C_INJECTED.labels(point).inc()
     return mode
 
 

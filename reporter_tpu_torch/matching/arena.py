@@ -54,8 +54,24 @@ import numpy as np
 import torch
 
 from ..convert import carry_from_numpy
+from ..obs import metrics as obs
 from ..ops.viterbi import TraceCarry, initial_carry_batch
 from ..parallel.rules import BATCH_AXIS, spec_for
+
+# the slab's flows, fed by every slab's promotions / evictions / readbacks
+C_ARENA_PROMOTIONS = obs.counter(
+    "reporter_session_arena_promotions_total",
+    "Carried beams promoted into the hot session-arena slab (fresh "
+    "uploads, cold-page promotions, imported handoff beams)")
+C_ARENA_EVICTIONS = obs.counter(
+    "reporter_session_arena_evictions_total",
+    "Carried beams demoted out of the hot session-arena slab (to "
+    "pinned_host cold pages, or spilled to the host wire form)")
+C_ARENA_READBACKS = obs.counter(
+    "reporter_session_arena_readbacks_total",
+    "Device->host beam readbacks from the session arena (checkpoint / "
+    "export / drain / spill reads of touched slots — steady-state "
+    "streaming performs none)")
 
 log = logging.getLogger(__name__)
 
@@ -229,9 +245,11 @@ class SessionArena:
         if ref is not None:
             ref._detached = row
             self.readbacks += 1
+            C_ARENA_READBACKS.inc()
             self._refs.pop(uuid, None)
         self._freq.pop(uuid, None)
         self.evictions += 1
+        C_ARENA_EVICTIONS.inc()
 
     def _spill_cold_locked(self) -> None:
         """Detach the coldest cold page into its ref."""
@@ -262,6 +280,7 @@ class SessionArena:
                     c[page].copy_(h[i], non_blocking=True)
                 self._cold[uuid] = page
                 self.evictions += 1
+                C_ARENA_EVICTIONS.inc()
                 return
         self._detach_locked(uuid, self._dict_of(*self._hot_row(slot)))
 
@@ -317,6 +336,7 @@ class SessionArena:
                         h[i].copy_(r)
                     self._slot_of[uuid] = slot
                     self.promotions += 1
+                    C_ARENA_PROMOTIONS.inc()
                 if slot is None:
                     # a stale ref (its session freed since the step was
                     # built) decodes fresh, like a carry-less step
@@ -335,6 +355,7 @@ class SessionArena:
                 if host is not None:
                     self._set_row(slot, host)
                     self.promotions += 1
+                    C_ARENA_PROMOTIONS.inc()
                 use.append(host is not None)
             self._touch(uuid)
             slots.append(slot)
@@ -355,6 +376,7 @@ class SessionArena:
                 ref = self._refs.get(uuid)
                 return ref._detached if ref is not None else None
             self.readbacks += 1
+            C_ARENA_READBACKS.inc()
             return out
 
     def free_uuid(self, uuid: str) -> None:

@@ -49,7 +49,8 @@ bucketed batches, each long window, every session step.  Kernels 1-3 are
 the same under either forward.
 ``$REPORTER_OBS_PROBE_EVERY`` = N samples the probe-outcome diagnostic
 (ops/diagnostics.py) on every Nth dense bucketed dispatch: dispatched on
-the dispatching thread, harvested at collect into ``probe_stats``.
+the dispatching thread, harvested at collect into
+``reporter_ubodt_probe_total`` (``probe_stats`` reads it).
 
 The tiered UBODT (``ubodt_hot_bytes``, ``ubodt_shard``; overridden by
 ``$REPORTER_UBODT_HOT_BYTES`` and ``$REPORTER_UBODT_SHARD``): with a
@@ -98,6 +99,7 @@ import json
 import logging
 import os
 import threading
+import time
 from collections import deque
 from typing import Dict, List, Optional, Sequence
 
@@ -106,6 +108,9 @@ import torch
 
 from .. import faults
 from ..convert import carry_from_numpy
+from ..obs import attrib as obs_attrib
+from ..obs import log as obs_log
+from ..obs import metrics as obs
 from ..device import resolve_device, upload
 from ..ops.diagnostics import ubodt_probe_stats
 from ..ops.hashtable import DEDUP
@@ -127,6 +132,64 @@ from .config import MatcherConfig
 from .sparse import SparseModel, associate_interpolated, clamp_radius
 
 log = logging.getLogger(__name__)
+
+# the matcher's families (docs/observability.md), counted where the JAX
+# package's matcher counts them.  reporter_compile_total /
+# reporter_compile_seconds_total keep its key, the first dispatch of a
+# (kind, kernel, B, T) shape; their seconds are that first dispatch's wall,
+# which on the card includes building the CUDA kernels at first use
+C_COMPILES = obs.counter(
+    "reporter_compile_total",
+    "First-dispatch (compiling) device calls per padded shape bucket",
+    ("shape", "kernel"))
+C_COMPILE_S = obs.counter(
+    "reporter_compile_seconds_total",
+    "Wall seconds spent blocked in first-dispatch (compiling) calls",
+    ("shape", "kernel"))
+C_DISPATCHES = obs.counter(
+    "reporter_dispatch_total",
+    "Device batch dispatches by viterbi kernel (scan / assoc)",
+    ("kernel",))
+C_DISPATCH_COHORT = obs.counter(
+    "reporter_dispatch_cohort_total",
+    "Device dispatches by trace cohort (bucketed = length-bucket batches, "
+    "long = carry-chain groups, session = per-vehicle incremental steps) "
+    "and program kind (compact / pre / chain / carry / step; "
+    "docs/performance.md)",
+    ("cohort", "kind"))
+C_WARM_SHAPES = obs.counter(
+    "reporter_warmup_shapes_total",
+    "Shapes pre-dispatched by warmup, by viterbi kernel",
+    ("kernel",))
+C_WARM_S = obs.counter(
+    "reporter_warmup_seconds_total",
+    "Wall seconds spent in warmup pre-dispatch passes")
+C_TRACES = obs.counter(
+    "reporter_traces_matched_total", "Traces run through host association")
+C_POINTS = obs.counter(
+    "reporter_points_matched_total", "Valid trace points run through host association")
+C_BREAKS = obs.counter(
+    "reporter_transition_breaks_total",
+    "Points flagged as HMM discontinuities (includes window starts)")
+C_PROBES = obs.counter(
+    "reporter_ubodt_probe_total",
+    "Sampled UBODT transition-probe outcomes (ops/diagnostics.py; enable "
+    "with REPORTER_OBS_PROBE_EVERY=N)",
+    ("outcome",))
+G_DEDUP_RATIO = obs.gauge(
+    "reporter_probe_dedup_ratio",
+    "Sampled in-batch UBODT probe redundancy: probe pairs / distinct "
+    "(src, dst) pairs in the last sampled dispatch — the factor the "
+    "probe-dedup path removes (docs/performance.md; sampled with "
+    "REPORTER_OBS_PROBE_EVERY=N)")
+PROBE_OUTCOMES = ("pairs", "miss", "costly_miss", "beyond_delta")
+
+
+def _probe_totals() -> Dict[str, int]:
+    """reporter_ubodt_probe_total by outcome (an outcome not counted yet
+    reads 0 and is not created)."""
+    got = dict(C_PROBES._items())
+    return {k: int(got[(k,)].value) if (k,) in got else 0 for k in PROBE_OUTCOMES}
 
 # chunks allowed in flight on the device while the host associates
 # earlier ones; each pins its packed input and output
@@ -239,11 +302,14 @@ class SegmentMatcher:
         # (the CPU baseline decodes every trace with the dense model)
         self.sparse = SparseModel(self.cfg, arrays.cell_size)
         self._dispatch_count = 0
+        # (kind, kernel, B, T) shapes that have had their first dispatch
+        self._compiled_shapes: set = set()
+        self._compiled_lock = threading.Lock()
         self._probe_pending: List[torch.Tensor] = []
         self._probe_lock = threading.Lock()
-        self.probe_stats = {"samples": 0, "pairs": 0, "miss": 0,
-                            "costly_miss": 0, "beyond_delta": 0,
-                            "dedup_ratio": None}
+        self._probe_samples = 0
+        self._probe_base = _probe_totals()
+        self._dedup_ratio: Optional[float] = None
         if backend == "cpu":
             self._init_cpu()
         else:
@@ -568,7 +634,9 @@ class SegmentMatcher:
         xin = pack_inputs(px, py, times, valid)
         p, sp, k = (self.sparse.params_for(slabel, pkey) if slabel
                     else (self._params_for(pkey), None, self.cfg.beam_k))
-        args = (p, k, sp, self.probe_dedup, self._kernel_for(px.shape[1]))
+        kernel = self._kernel_for(px.shape[1])
+        args = (p, k, sp, self.probe_dedup, kernel)
+        t0 = time.monotonic()
         if self._mesh is None:
             xin = upload(xin, self.device)
             out = match_batch_compact_packed_aux(self._dg, self._du, xin, *args)
@@ -579,12 +647,35 @@ class SegmentMatcher:
                                                 place(self._mesh, "xin", xin))]
                 out = (_join([pt[0] for pt in parts], 1),
                        _join([pt[1] for pt in parts], 0))
+        C_DISPATCHES.labels(kernel).inc()
+        C_DISPATCH_COHORT.labels("bucketed", "sparse" if slabel else "compact").inc()
+        self._note_dispatch(px.shape, time.monotonic() - t0,
+                            "sparse" if slabel else "", kernel)
         if self._probe_every and not slabel:
             self._dispatch_count += 1
             if self._dispatch_count % self._probe_every == 0:
                 self._record_probe_stats(upload(xin, self.device)
                                          if isinstance(xin, np.ndarray) else xin)
         return out
+
+    def _note_dispatch(self, shape, dt: float, kind: str = "",
+                       kernel: str = "scan") -> None:
+        """Feed the compile counters on a shape's first dispatch: ``shape``
+        is the padded (B, T), ``kind`` the program ("" the bucketed
+        program, "sparse", "pre", "chain", "session", "arena_session" and
+        their sparse_ forms) and ``kernel`` the Viterbi forward ("none"
+        for the precompute).  ``dt`` is the dispatch call's wall; on the
+        card the first one includes building the CUDA kernels."""
+        key = (kind, kernel) + tuple(int(v) for v in shape)
+        with self._compiled_lock:
+            if key in self._compiled_shapes:
+                return
+            self._compiled_shapes.add(key)
+        lbl = kind + "%dx%d" % tuple(int(v) for v in shape)
+        C_COMPILES.labels(lbl, kernel).inc()
+        C_COMPILE_S.labels(lbl, kernel).inc(dt)
+        obs_log.event(log, "compile_stall", shape=lbl, kernel=kernel,
+                      seconds=round(dt, 3))
 
     def _record_probe_stats(self, xin) -> None:
         """Queue the probe-outcome diagnostic over a dispatched batch at the
@@ -601,13 +692,24 @@ class SegmentMatcher:
 
     def _consume_probe(self, res) -> None:
         stats = [int(v) for v in res.cpu()]
-        ps = self.probe_stats
-        ps["samples"] += 1
-        for i, key in enumerate(("pairs", "miss", "costly_miss",
-                                 "beyond_delta")):
-            ps[key] += stats[i]
+        self._probe_samples += 1
+        for i, key in enumerate(PROBE_OUTCOMES):
+            C_PROBES.labels(key).inc(stats[i])
         if stats[4] > 0:  # pairs / distinct: the redundancy dedup removes
-            ps["dedup_ratio"] = stats[0] / stats[4]
+            self._dedup_ratio = stats[0] / stats[4]
+            G_DEDUP_RATIO.set(self._dedup_ratio)
+
+    @property
+    def probe_stats(self) -> dict:
+        """The sampled probe diagnostic since this matcher was built: the
+        samples it read, ``reporter_ubodt_probe_total``'s outcomes counted
+        since (the process's family: another matcher's samples in that
+        time count too) and its last pairs / distinct ratio."""
+        now = _probe_totals()
+        out: dict = {"samples": self._probe_samples}
+        out.update({k: now[k] - self._probe_base[k] for k in PROBE_OUTCOMES})
+        out["dedup_ratio"] = self._dedup_ratio
+        return out
 
     def _harvest(self) -> None:
         """Collect-side reads of what the dispatches left on the device:
@@ -686,11 +788,15 @@ class SegmentMatcher:
                                       interp=interp)
 
         for pkey, slabel, blen, idxs in chunks:
+            t0h = time.monotonic()
             px, py, tm, valid, times = self._fill_rows(traces, idxs, blen)
             px, py, tm, valid = _pad_rows(
                 self._rung(len(idxs)) - len(idxs), px, py, tm, valid)
-            pending.append((idxs, self._dispatch_batch(px, py, tm, valid, pkey,
-                                                       slabel), times))
+            t1h = time.monotonic()
+            handle = self._dispatch_batch(px, py, tm, valid, pkey, slabel)
+            obs_attrib.host_add("pack", t1h - t0h)
+            obs_attrib.host_add("dispatch", time.monotonic() - t1h)
+            pending.append((idxs, handle, times))
             if len(pending) >= PIPELINE_DEPTH:
                 drain_one()
 
@@ -771,11 +877,12 @@ class SegmentMatcher:
             return self._long_group(self._dg, self._du, self.device, xin,
                                     n_chunks, W, p, pkey, slabel)
         with self._mesh.lock:
+            # one dispatch of the whole group counts once (rank 0's)
             parts = [self._long_group(dg, du, dev, x, n_chunks, W, p, pkey,
-                                      slabel)
-                     for (dg, du), dev, x in zip(
+                                      slabel, count=r == 0)
+                     for r, ((dg, du), dev, x) in enumerate(zip(
                          self._ranks, self._mesh.dp_devices,
-                         np.split(xin, self._n_dp, 1))]
+                         np.split(xin, self._n_dp, 1)))]
         host_parts = [tuple(np.concatenate([hp[f] for hp in wave], 0)
                             for f in range(3))
                       for wave in zip(*(pt[0] for pt in parts))]
@@ -783,11 +890,14 @@ class SegmentMatcher:
         return host_parts, outs, _join([pt[2] for pt in parts], 0)
 
     def _long_group(self, dg, du, dev, xin: np.ndarray, n_chunks: int, W: int,
-                    p: MatchParams, pkey: tuple = (), slabel: str = ""):
+                    p: MatchParams, pkey: tuple = (), slabel: str = "",
+                    count: bool = True):
         """``_dispatch_long_group`` on one device's graph ``dg`` and table
-        ``du``."""
+        ``du``; ``count`` feeds the dispatch families (the mesh counts its
+        group once, on rank 0)."""
         B_pad = xin.shape[1]
         k = self.cfg.beam_k
+        kernel = self._kernel_for(W)
         sp = None
         if slabel:
             p, sp, k = self.sparse.params_for(slabel, pkey)
@@ -809,13 +919,26 @@ class SegmentMatcher:
                 seg = np.concatenate(
                     [seg, np.zeros((4, rung - rows, W), np.float32)], 1)
             seg = upload(seg, dev)
+            t0 = time.monotonic()
             pre = precompute_batch_packed(dg, du, seg, p, k, sp,
                                           self.probe_dedup)
+            if count:
+                C_DISPATCH_COHORT.labels("long", "pre").inc()
+                self._note_dispatch((self._ladder_rung(rows * self._n_dp), W),
+                                    time.monotonic() - t0,
+                                    "sparse_pre" if slabel else "pre", "none")
             for i in range(m):
                 lo, hi = i * B_pad, (i + 1) * B_pad
                 win = (dg, du, slice_pre(pre, lo, hi), seg[:, lo:hi])
+                t0 = time.monotonic()
                 packed, aux_c, carry = chain_batch_carry_packed_aux(
-                    *win, p, k, carry, sp, self._kernel_for(W))
+                    *win, p, k, carry, sp, kernel)
+                if count:
+                    C_DISPATCHES.labels(kernel).inc()
+                    C_DISPATCH_COHORT.labels("long", "chain").inc()
+                    self._note_dispatch(
+                        (B_pad * self._n_dp, W), time.monotonic() - t0,
+                        "sparse_chain" if slabel else "chain", kernel)
                 aux = aux_c if aux is None else torch.cat(
                     [torch.minimum(aux[:, :1], aux_c[:, :1]),
                      aux[:, 1:] + aux_c[:, 1:]], 1)
@@ -845,6 +968,7 @@ class SegmentMatcher:
         the service pops before rendering.  The traces whose index is in
         ``interp`` associate through the route-consistent interpolation
         instead (same record shape, speed-weighted boundary times)."""
+        t0h = time.monotonic()
         B = len(idxs)
         T = edge.shape[1]
         abs_tm = np.zeros((B, T), np.float64)
@@ -858,6 +982,10 @@ class SegmentMatcher:
             queue_thresh_mps=self.cfg.queue_speed_threshold_kph / 3.6,
             back_tol=2.0 * self.cfg.sigma_z + 5.0,
         )
+        in_trace = np.arange(T)[None, :] < n_pts[:, None]
+        C_TRACES.inc(B)
+        C_POINTS.inc(int(n_pts.sum()))
+        C_BREAKS.inc(int(np.count_nonzero((breaks[:B] != 0) & in_trace)))
         for row, i in enumerate(idxs):
             results[i] = {"segments": seg_lists[row]}
         if interp:
@@ -872,6 +1000,7 @@ class SegmentMatcher:
                     self.arrays, self.ubodt, mps,
                     queue_thresh_mps=self.cfg.queue_speed_threshold_kph / 3.6,
                     back_tol=2.0 * self.cfg.sigma_z + 5.0)}
+        obs_attrib.host_add("collect", time.monotonic() - t0h)
         if not self._quality_aux:
             return
         for row, i in enumerate(idxs):
@@ -1014,8 +1143,12 @@ class SegmentMatcher:
                         + [None] * (b_pad - len(sub)), b_pad)
                     if slabel:
                         self.sparse.count(slabel, len(sub))
+                    t0 = time.monotonic()
                     h = ("host", sub, ns, *self._session_step(xin, p, sp,
                                                               carry))
+                    self._note_session(b_pad, W, time.monotonic() - t0,
+                                       "sparse_session" if slabel else "session",
+                                       "sparse" if slabel else "step")
                 handles.append(h)
 
         def finish():
@@ -1086,6 +1219,15 @@ class SegmentMatcher:
             return ""
         return self.sparse.label_for_times(times) or ""
 
+    def _note_session(self, b_pad: int, W: int, dt: float, kind: str,
+                      cohort: str) -> None:
+        """Count one session-step dispatch of [b_pad, W] (cohort "step",
+        "sparse" or "chain") and note its shape's first dispatch."""
+        kernel = self._kernel_for(W)
+        C_DISPATCHES.labels(kernel).inc()
+        C_DISPATCH_COHORT.labels("session", cohort).inc()
+        self._note_dispatch((b_pad, W), dt, kind, kernel)
+
     def _session_params(self, pkey: tuple, slabel: str):
         """(MatchParams, SparseParams or None) of a session step group; a
         sparse cohort's K is not used (the beam keeps ``beam_k``)."""
@@ -1144,8 +1286,12 @@ class SegmentMatcher:
             use[: len(sub)] = use_l
             if slabel:
                 self.sparse.count(slabel, len(sub))
+            t0 = time.monotonic()
             packed, aux, _slab = self._session_step(xin, p, sp, arena.hot,
                                                     slots, use)
+        self._note_session(b_pad, xin.shape[2], time.monotonic() - t0,
+                           "sparse_arena_session" if slabel else "arena_session",
+                           "sparse" if slabel else "step")
         return ("arena", sub, ns, packed, aux, refs)
 
     def _dispatch_session_chain(self, item, idx: int, W: int,
@@ -1178,9 +1324,14 @@ class SegmentMatcher:
                     slots[0] = slot
                     for c0 in range(0, len(pts), W):
                         xin, nc = rows(c0)
+                        t0 = time.monotonic()
                         packed, aux, _slab = self._session_step(
                             xin, p, sp, arena.hot, slots,
                             np.arange(n) < (1 if use else 0))
+                        self._note_session(
+                            n, W, time.monotonic() - t0,
+                            "sparse_arena_session" if slabel
+                            else "arena_session", "chain")
                         use = True
                         chunk_outs.append((packed, aux, nc))
                     return ("chain_arena", idx, chunk_outs, ref)
@@ -1188,7 +1339,11 @@ class SegmentMatcher:
                                   + [None] * (n - 1), n)
         for c0 in range(0, len(pts), W):
             xin, nc = rows(c0)
+            t0 = time.monotonic()
             packed, aux, carry = self._session_step(xin, p, sp, carry)
+            self._note_session(n, W, time.monotonic() - t0,
+                               "sparse_session" if slabel else "session",
+                               "chain")
             chunk_outs.append((packed, aux, nc))
         return ("chain", idx, chunk_outs, carry)
 

@@ -44,10 +44,45 @@ from urllib.parse import quote, unquote
 import numpy as np
 
 from .. import faults
+from ..obs import metrics as obs
 from .arena import carry_free, carry_host
 from .assoc_native import associate_segments_batch
 
 log = logging.getLogger(__name__)
+
+# the session plane's families (docs/observability.md "Sessions")
+G_SESSIONS = obs.gauge(
+    "reporter_sessions_active",
+    "Open per-vehicle matching sessions in the pinned-host store")
+C_SESSION_EVENTS = obs.counter(
+    "reporter_sessions_total",
+    "Session lifecycle events (opened / expired / evicted / exported / "
+    "imported / import_merged / rebuilt / reattached)",
+    ("event",))
+C_SESSION_POINTS = obs.counter(
+    "reporter_session_points_total",
+    "Points folded into open sessions by the incremental step")
+H_STEP_SESSIONS = obs.histogram(
+    "reporter_session_step_sessions",
+    "Sessions folded per incremental session-step device dispatch",
+    buckets=obs.BATCH_FILL_BUCKETS)
+C_SESSION_DEDUP = obs.counter(
+    "reporter_session_dedup_points_total",
+    "Streaming points dropped at SessionEngine admission because an "
+    "identical raw point (time, lat, lon) already lives in the "
+    "session's replay buffer — a hedged \"stream\": true request that "
+    "landed on two replicas (or a client retry racing a slow answer) "
+    "commits once; the duplicate still gets a full answer from the "
+    "accumulated tail (docs/serving-fleet.md \"Beam handoff\")")
+C_CKPT = obs.counter(
+    "reporter_session_checkpoints_total",
+    "Session checkpoint events (written / pruned / cleared / error) — "
+    "the preemption-tolerance plane: dirty session wire-state persisted "
+    "to atomic per-uuid files on REPORTER_SESSION_CHECKPOINT_S cadence "
+    "(or synchronously per commit with _SYNC=1), re-homed by the fleet "
+    "supervisor when a replica is SIGKILLed (docs/serving-fleet.md "
+    "\"Self-driving fleet\")",
+    ("event",))
 
 WIRE_VERSION = 1
 
@@ -195,13 +230,18 @@ class SessionStore:
     def _expire_locked(self, now: float) -> None:
         if self.ttl_s <= 0:
             return
-        for u in [u for u, s in self._by_uuid.items()
-                  if now - s.last_used > self.ttl_s]:
+        dead = [u for u, s in self._by_uuid.items()
+                if now - s.last_used > self.ttl_s]
+        for u in dead:
             carry_free(self._by_uuid.pop(u).carry)
+            C_SESSION_EVENTS.labels("expired").inc()
+        if dead:
+            G_SESSIONS.set(len(self._by_uuid))
 
     def _evict_locked(self) -> None:
         while len(self._by_uuid) >= self.max_sessions:
             carry_free(self._by_uuid.popitem(last=False)[1].carry)
+            C_SESSION_EVENTS.labels("evicted").inc()
 
     def get_or_open(self, uuid: str, t0: float,
                     pkey: tuple = ()) -> SessionState:
@@ -222,6 +262,8 @@ class SessionStore:
                 carry_free(s.carry)
             self._evict_locked()
             s = self._by_uuid[uuid] = SessionState(uuid, t0, pkey)
+            C_SESSION_EVENTS.labels("opened").inc()
+            G_SESSIONS.set(len(self._by_uuid))
             return s
 
     def peek(self, uuid: str) -> Optional[SessionState]:
@@ -231,6 +273,7 @@ class SessionStore:
     def drop(self, uuid: str) -> bool:
         with self._lock:
             s = self._by_uuid.pop(uuid, None)
+            G_SESSIONS.set(len(self._by_uuid))
         if s is not None:
             carry_free(s.carry)
             self._notify_removed(uuid)
@@ -249,10 +292,13 @@ class SessionStore:
                 if s is not None:
                     carry_free(s.carry)
                     out.append(s.to_wire())
+            G_SESSIONS.set(len(self._by_uuid))
         for w in out:
             # the popped copy travels: its checkpoint file goes now, not at
             # the next sweep
             self._notify_removed(str(w.get("uuid")))
+        if out:
+            C_SESSION_EVENTS.labels("exported").inc(len(out))
         return out
 
     def finalize(self, sess: SessionState, step_points: int,
@@ -272,12 +318,16 @@ class SessionStore:
             sess.seq = step_subs
             sess.last_used = _time.monotonic()
             self._by_uuid[sess.uuid] = sess
+            C_SESSION_EVENTS.labels("reattached").inc()
+            G_SESSIONS.set(len(self._by_uuid))
 
     def export_all(self) -> List[dict]:
         """Every live session's wire snapshot (non-destructive: the
         importer skips nothing, it merges a uuid that went live there)."""
         with self._lock:
-            return [s.to_wire() for s in self._by_uuid.values()]
+            out = [s.to_wire() for s in self._by_uuid.values()]
+        C_SESSION_EVENTS.labels("exported").inc(len(out))
+        return out
 
     def import_wire(self, wires: List[dict]) -> dict:
         """The importing side of a handoff.  A uuid with no local session
@@ -312,12 +362,15 @@ class SessionStore:
                     live.imported = True
                     merged += 1
                     imported.append(s.uuid)
+                    C_SESSION_EVENTS.labels("import_merged").inc()
                     continue
                 self._evict_locked()
                 s.last_used = now
                 self._by_uuid[s.uuid] = s
                 imported.append(s.uuid)
                 rebuild += s.rebuild_pending
+                C_SESSION_EVENTS.labels("imported").inc()
+            G_SESSIONS.set(len(self._by_uuid))
         # imported sessions are checkpoint-dirty on their new home
         for u in imported:
             self.notify_commit(u)
@@ -428,6 +481,7 @@ class SessionEngine:
                                                         ent["pkey"])
             seen = {_point_key(p) for p in sess.replay}
             subs, points = [], []
+            dups = 0
             for i, pts in ent["raw_subs"]:
                 fresh = []
                 for p in pts:
@@ -435,10 +489,14 @@ class SessionEngine:
                     if key not in seen:
                         seen.add(key)
                         fresh.append(p)
+                    else:
+                        dups += 1
                 subs.append((i, len(points), len(fresh)))
                 points.extend(fresh)
             ent["subs"] = subs
             ent["points"] = points
+            if dups:
+                C_SESSION_DEDUP.inc(dups)
             rebuild = ent["rebuild"] = sess.rebuild_pending and bool(sess.replay)
             ent["noop"] = not points and not rebuild
             if ent["noop"]:
@@ -450,6 +508,7 @@ class SessionEngine:
                           "t0": sess.t0, "pkey": ent["pkey"],
                           "uuid": ent["uuid"]})
         entries = list(order.values())
+        H_STEP_SESSIONS.observe(len(entries))
         gen = self._generation
         finish_dev = m.match_sessions_async(items)
 
@@ -494,6 +553,7 @@ class SessionEngine:
             n_prefix = ent["n_prefix"]
             tail_recs, new_recs = new_recs[:n_prefix], new_recs[n_prefix:]
             sess.rebuild_pending = False
+            C_SESSION_EVENTS.labels("rebuilt").inc()
         else:
             tail_recs = list(sess.records)
         # each answer covers the tail + its own (and earlier same-batch)
@@ -521,6 +581,7 @@ class SessionEngine:
         sess.trim(self.tail_points)
         sess.seq += len(ent["subs"])
         sess.points_total += len(pts)
+        C_SESSION_POINTS.inc(len(pts))
         self.store.finalize(sess, step_points=len(pts),
                             step_subs=len(ent["subs"]))
         self.store.notify_commit(sess.uuid)
@@ -573,7 +634,10 @@ class SessionEngine:
         with self._lock:
             sess = self.store.get_or_open(uuid, t_first, pkey)
             seen = {_point_key(p) for p in sess.replay}
-            pts = [p for p in pts if _point_key(p) not in seen]
+            fresh = [p for p in pts if _point_key(p) not in seen]
+            if len(fresh) < len(pts):
+                C_SESSION_DEDUP.inc(len(pts) - len(fresh))
+            pts = fresh
             win_raw = list(sess.replay) + [
                 {"lat": p["lat"], "lon": p["lon"], "time": p["time"]} for p in pts]
             if len(win_raw) >= 2:
@@ -591,6 +655,7 @@ class SessionEngine:
             sess.trim(self.tail_points)
             sess.seq += 1
             sess.points_total += len(pts)
+            C_SESSION_POINTS.inc(len(pts))
             self.store.finalize(sess, step_points=len(pts), step_subs=1)
             self.store.notify_commit(sess.uuid)
             match["_stream"] = {
@@ -613,8 +678,9 @@ class SessionCheckpointer:
     ``pop`` and ``drop`` remove a file at once (a moved beam must not be
     restored from a stale file); expiry and eviction wait for the sweep.
     ``start`` clears the directory first.  File names are percent-encoded
-    uuids (client data never names a path raw).  ``counts`` holds the
-    written / pruned / cleared / error totals."""
+    uuids (client data never names a path raw).  The written / pruned /
+    cleared / error totals are ``reporter_session_checkpoints_total``'s
+    (by ``event``)."""
 
     def __init__(self, store: SessionStore, dirpath: str,
                  cadence_s: float, sync: bool = False):
@@ -622,7 +688,6 @@ class SessionCheckpointer:
         self.dir = dirpath
         self.cadence_s = float(cadence_s)
         self.sync = bool(sync)
-        self.counts = {"written": 0, "pruned": 0, "cleared": 0, "error": 0}
         self._dirty: set = set()
         self._lock = threading.Lock()
         self._stop = threading.Event()
@@ -643,9 +708,10 @@ class SessionCheckpointer:
             return None
         return unquote(fname[:-5])
 
-    def _count(self, what: str, n: int = 1) -> None:
-        with self._lock:
-            self.counts[what] += n
+    @staticmethod
+    def _count(what: str, n: int = 1) -> None:
+        if n:
+            C_CKPT.labels(what).inc(n)
 
     def start(self) -> None:
         self.clear()

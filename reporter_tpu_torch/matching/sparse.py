@@ -40,9 +40,32 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ..obs import metrics as obs
 from .segments import _build_paths, _Pin, _segment_records, _TimeLine
 
 log = logging.getLogger(__name__)
+
+C_RADIUS_CLAMPED = obs.counter(
+    "reporter_candidates_radius_clamped_total",
+    "search_radius values silently clamped to cell_size/2 (the 2x2 "
+    "quadrant candidate sweep bound, ops/candidates.py) by source: "
+    "request = per-request match_options, sparse = a sparse-cohort / "
+    "calibrated radius, config = the matcher's own configured radius",
+    ("source",))
+C_SPARSE_DISPATCH = obs.counter(
+    "reporter_sparse_dispatch_total",
+    "Traces dispatched through the sparse-gap program variants, by gap "
+    "cohort (docs/match-quality.md \"Sparse gaps\")",
+    ("cohort",))
+G_CALIBRATED = obs.gauge(
+    "reporter_sparse_calibrated",
+    "1 when the sparse model is running per-cohort CALIBRATION.json "
+    "parameters, 0 when enabled on uncalibrated config defaults, -1 when "
+    "the sparse model is disabled")
+C_INTERPOLATED = obs.counter(
+    "reporter_interpolated_traces_total",
+    "Traces associated through the route-consistent interpolation engine "
+    "(match_options.interpolate / cfg.interpolate)")
 
 _count_lock = threading.Lock()
 
@@ -107,10 +130,12 @@ def load_calibration(path: str) -> Optional[dict]:
 def clamp_radius(radius: float, cell_size: float,
                  source: str = "request") -> float:
     """min(radius, cell_size/2): the bound that keeps the 2x2 quadrant
-    candidate sweep exhaustive; a clamp is logged with its source."""
+    candidate sweep exhaustive; a clamp is counted and logged with its
+    source."""
     max_radius = float(cell_size) / 2.0
     if radius <= max_radius:
         return float(radius)
+    C_RADIUS_CLAMPED.labels(source).inc()
     log.warning("search_radius %.3f (%s) clamped to %.3f (the 2x2 quadrant "
                 "sweep requires radius <= cell_size/2)", radius, source,
                 max_radius)
@@ -133,6 +158,8 @@ class SparseModel:
                     or cfg.calibration or "")
             if path:
                 self.calibration = load_calibration(path)
+        G_CALIBRATED.set(
+            (1 if self.calibration else 0) if self.enabled else -1)
         # (label, pkey) -> (MatchParams, SparseParams, k)
         self._params: Dict[tuple, tuple] = {}
         # cohort label -> traces / session steps through the sparse programs
@@ -155,6 +182,7 @@ class SparseModel:
     def count(self, label: str, n: int = 1) -> None:
         with _count_lock:  # dispatches come from several service threads
             self.dispatch[label] = self.dispatch.get(label, 0) + n
+        C_SPARSE_DISPATCH.labels(label).inc(n)
 
     # -- parameters --------------------------------------------------------
 
@@ -300,4 +328,5 @@ def associate_interpolated(arrays, ubodt, match_points: List[dict],
         out.extend(_segment_records(arrays, spans,
                                     _retime_by_speed(arrays, spans, tl),
                                     queue_thresh_mps))
+    C_INTERPOLATED.inc()
     return out

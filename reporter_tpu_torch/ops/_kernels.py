@@ -10,7 +10,10 @@ module is imported: the first launch (or ``build_kernels()``) builds every
 kernel, one ``nvcc`` per source, all started together.
 
 Every kernel has a ``launches`` counter that its wrapper bumps once per
-launch; ``reset_launches()`` zeroes them all.  The SPARSE instantiations
+launch; ``reset_launches()`` zeroes them all.  Each launch call runs inside
+the profiler range ``rs.<stage>/<name>`` of its stage label
+(``Kernel.stage``, one of ``obs.attrib.STAGES``), which attributes its
+device time.  The SPARSE instantiations
 of kernels 3-5 (the sparse-gap model) and the wide32 instantiation of
 kernel 2 are entry points of the same libraries, counted apart under
 ``<name>[sparse]`` and ``ubodt_probe[wide32]``; the dedup claim and
@@ -38,6 +41,7 @@ from typing import Dict, List, Optional
 import torch
 
 from .._build import BUILD_DIR, PKG_DIR, build_all
+from ..obs.attrib import stage
 
 CSRC = os.path.join(PKG_DIR, "csrc")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
@@ -52,10 +56,11 @@ _F = ctypes.c_float
 
 class Kernel:
     """One CUDA kernel entry point: its source, its C function
-    ``<entry>_launch`` and its launch count.  ``source`` defaults to
-    ``name`` and ``entry`` to the source's name."""
+    ``<entry>_launch``, its launch count and its stage label (the JAX
+    package's stages it fuses, joined by ``+``; obs/attrib.py).
+    ``source`` defaults to ``name`` and ``entry`` to the source's name."""
 
-    def __init__(self, name: str, argtypes: List[type],
+    def __init__(self, name: str, stage: str, argtypes: List[type],
                  source: Optional[str] = None, entry: Optional[str] = None):
         self.name = name
         base = source or name
@@ -65,6 +70,7 @@ class Kernel:
         self.library = os.path.join(BUILD_DIR, "lib%s.so" % base)
         self.argtypes = argtypes
         self.launches = 0
+        self.stage = stage
         self._fn = None
         self._err = None
 
@@ -84,7 +90,10 @@ class Kernel:
         if self._fn is None:
             build_kernels()
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = self._fn(*args, stream)
+        # the profiler's range rs.<stage>/<name> around the launch call
+        # (obs/attrib.py); it synchronises nothing
+        with stage(self.stage, self.name):
+            rc = self._fn(*args, stream)
         if rc != 0:
             raise RuntimeError("%s launch failed: %s (cudaError %d)" % (
                 self.name, self._err(rc).decode(errors="replace"), rc))
@@ -107,49 +116,57 @@ _PROBE = [_P, _P, _P, _P, _P, _P, _I32, _P, _P, _P, _P]
 _GRID = [_P, _P, _P, _P, _P]  # src, dst, dims, src strides, dst strides
 _SLAB = [_P] * 8 + [_I64, _I64, _P, _I64, _I32, _P]  # leaves, s_local, lo, slots, B, K, words
 
+_SWEEP = "candidate-sweep"
+_PRB = "ubodt-probe+select"
+_CLAIM = "dedup-sort+dedup-compact"
+_BLD = "emission+transition-build"
+_VIT = "scan-recursion+backtrace+compact-gather"
+_ASSOC = "assoc-recursion"  # its backtrace and gather run in the same launch
+
 KERNELS: Dict[str, Kernel] = {k.name: k for k in (
-    Kernel("candidate_sweep", [
+    Kernel("candidate_sweep", _SWEEP, [
         _P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _F, _F, _F, _I32, _F, _F,
         _P, _P, _P, _P, _P, _P, _P, _P]),
-    Kernel("ubodt_probe", _PROBE),
-    Kernel("ubodt_probe[wide32]", _PROBE, "ubodt_probe", "ubodt_probe_wide32"),
-    Kernel("ubodt_probe[tiered]", _PROBE + _TIER, "ubodt_probe",
+    Kernel("ubodt_probe", _PRB, _PROBE),
+    Kernel("ubodt_probe[wide32]", _PRB, _PROBE, "ubodt_probe", "ubodt_probe_wide32"),
+    Kernel("ubodt_probe[tiered]", _PRB, _PROBE + _TIER, "ubodt_probe",
            "ubodt_probe_tiered"),
-    Kernel("ubodt_probe[wide32,tiered]", _PROBE + _TIER, "ubodt_probe",
+    Kernel("ubodt_probe[wide32,tiered]", _PRB, _PROBE + _TIER, "ubodt_probe",
            "ubodt_probe_wide32_tiered"),
     # a gp rank's bucket range: + lo, L
-    Kernel("ubodt_probe[sharded]", _PROBE + [_I32, _I32], "ubodt_probe",
+    Kernel("ubodt_probe[sharded]", _PRB, _PROBE + [_I32, _I32], "ubodt_probe",
            "ubodt_probe_sharded"),
-    Kernel("ubodt_probe[wide32,sharded]", _PROBE + [_I32, _I32], "ubodt_probe",
+    Kernel("ubodt_probe[wide32,sharded]", _PRB, _PROBE + [_I32, _I32], "ubodt_probe",
            "ubodt_probe_wide32_sharded"),
-    Kernel("ubodt_dedup_claim", _GRID + [_P, _P, _I64, _P, _P, _P, _P, _I64,
-                                         _P], "ubodt_dedup", "ubodt_dedup_claim"),
-    Kernel("ubodt_dedup_scatter", _GRID + [_P, _P, _P, _I64, _P, _P, _P, _P,
-                                           _I32, _I32, _P, _P, _P] + _TIER,
+    Kernel("ubodt_dedup_claim", _CLAIM, _GRID + [_P, _P, _I64, _P, _P, _P, _P, _I64,
+                                                 _P], "ubodt_dedup", "ubodt_dedup_claim"),
+    Kernel("ubodt_dedup_scatter", "dedup-scatter",
+           _GRID + [_P, _P, _P, _I64, _P, _P, _P, _P, _I32, _I32, _P, _P, _P] + _TIER,
            "ubodt_dedup", "ubodt_dedup_scatter"),
-    Kernel("probe_stats", [_P, _P, _P, _P, _P, _I64, _I32, _I32, _F, _F, _P,
-                           _P]),
-    Kernel("transition_build", _BUILD),
-    Kernel("viterbi_scan", _SCAN + [_P]),  # + choice (null: not written)
-    Kernel("viterbi_chain", _CHAIN),
-    Kernel("transition_build[sparse]", _BUILD + _SPARSE,
+    Kernel("probe_stats", "probe-stats", [_P, _P, _P, _P, _P, _I64, _I32, _I32, _F, _F,
+                                          _P, _P]),
+    Kernel("transition_build", _BLD, _BUILD),
+    Kernel("viterbi_scan", _VIT, _SCAN + [_P]),  # + choice (null: not written)
+    Kernel("viterbi_chain", _VIT, _CHAIN),
+    Kernel("transition_build[sparse]", _BLD, _BUILD + _SPARSE,
            "transition_build", "transition_build_sparse"),
-    Kernel("viterbi_scan[sparse]", _SCAN + [_P] + _SPARSE,  # + times
+    Kernel("viterbi_scan[sparse]", _VIT, _SCAN + [_P] + _SPARSE,  # + times
            "viterbi_scan", "viterbi_scan_sparse"),
-    Kernel("viterbi_chain[sparse]", _CHAIN + _SPARSE,
+    Kernel("viterbi_chain[sparse]", _VIT, _CHAIN + _SPARSE,
            "viterbi_chain", "viterbi_chain_sparse"),
     # the log-depth forward: kernel 4's and 5's arguments + the workspace
-    Kernel("viterbi_assoc", _SCAN + [_P]),
-    Kernel("viterbi_assoc[sparse]", _SCAN + [_P, _P] + _SPARSE,  # + times
+    Kernel("viterbi_assoc", _ASSOC, _SCAN + [_P]),
+    Kernel("viterbi_assoc[sparse]", _ASSOC, _SCAN + [_P, _P] + _SPARSE,  # + times
            "viterbi_assoc", "viterbi_assoc_sparse"),
-    Kernel("viterbi_chain_assoc", _CHAIN + [_P], "viterbi_assoc",
+    Kernel("viterbi_chain_assoc", _ASSOC, _CHAIN + [_P], "viterbi_assoc",
            "viterbi_chain_assoc"),
-    Kernel("viterbi_chain_assoc[sparse]", _CHAIN + [_P] + _SPARSE,
+    Kernel("viterbi_chain_assoc[sparse]", _ASSOC, _CHAIN + [_P] + _SPARSE,
            "viterbi_assoc", "viterbi_chain_assoc_sparse"),
     # choice, route, cand_edge, breaks, times, edge_seg, B, T, K, S, out
-    Kernel("segment_histogram", [_P] * 6 + [_I64, _I32, _I32, _I32, _P]),
-    Kernel("slab_gather_owned", _SLAB, "slab_shard", "slab_gather_owned"),
-    Kernel("slab_scatter_owned", _SLAB, "slab_shard", "slab_scatter_owned"),
+    Kernel("segment_histogram", "segment-histogram",
+           [_P] * 6 + [_I64, _I32, _I32, _I32, _P]),
+    Kernel("slab_gather_owned", "slab-shard", _SLAB, "slab_shard", "slab_gather_owned"),
+    Kernel("slab_scatter_owned", "slab-shard", _SLAB, "slab_shard", "slab_scatter_owned"),
 )}
 
 _build_lock = threading.Lock()

@@ -29,6 +29,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..tiles.arrays import DeviceGraph
+from ..obs.attrib import staged
 from ._kernels import KERNELS, check, ptr
 
 # finite stand-in for +inf during selection (the reference's BIG)
@@ -121,6 +122,7 @@ def hypot_like_jax(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return torch.where(inf, torch.full_like(x, float("inf")), x)
 
 
+@staged("candidate-sweep")
 def candidate_sweep_plain(dg: DeviceGraph, px: torch.Tensor, py: torch.Tensor,
                           valid: torch.Tensor, k: int, search_radius,
                           sigma_z, full: bool = True) -> Sweep:

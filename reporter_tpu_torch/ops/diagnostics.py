@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from ..obs.attrib import staged
 from ._kernels import KERNELS, check, ptr
 from .candidates import candidate_sweep, candidate_sweep_plain, hypot_like_jax
 from .hashtable import (
@@ -28,6 +29,7 @@ def _keys(sw):
     return sw.to_node[:, :-1, :, None], sw.from_node[:, 1:, None, :]
 
 
+@staged("probe-stats")
 def probe_outcomes_plain(dist, cand_edge, valid, px, py, breakage_distance,
                          delta: float):
     """Plain version of ``probe_outcomes``: (counts int32 [4], need bool

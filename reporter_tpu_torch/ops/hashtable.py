@@ -63,6 +63,7 @@ from . import collectives
 from ..tiles.ubodt import (
     F_DIST, F_DST, F_FE, F_SRC, F_TIME, ROW_W, DeviceUBODT, ShardedUBODT,
 )
+from ..obs.attrib import staged
 from ._kernels import KERNELS, check, ptr
 
 _M32 = 0xFFFFFFFF
@@ -170,6 +171,7 @@ def ubodt_lookup_plain(u: DeviceUBODT, src: torch.Tensor, dst: torch.Tensor,
     return _probe_plain(u, src, dst, with_first)
 
 
+@staged("ubodt-probe+select")
 def _probe_plain(u, src, dst, with_first):
     """The plain probe of broadcast keys, without recording fetch units."""
     shape = src.shape
@@ -302,6 +304,7 @@ def _pair_keys(s: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     return (s.to(torch.int64) << 32) | (d.to(torch.int64) & _M32)
 
 
+@staged("dedup-sort+dedup-compact")
 def ubodt_lookup_dedup_plain(u: DeviceUBODT, src: torch.Tensor,
                              dst: torch.Tensor, with_first: bool = True):
     """Plain version of the deduplicated probe: the distinct pairs by

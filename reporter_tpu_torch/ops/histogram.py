@@ -23,6 +23,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..obs.attrib import staged
 from ._kernels import KERNELS, check, ptr
 
 
@@ -74,6 +75,7 @@ def _segment_sum(values: torch.Tensor, bins: torch.Tensor, S: int):
     return out.scatter_add_(0, bins, values.reshape(-1))[:S]
 
 
+@staged("segment-histogram")
 def segment_histogram_plain(choice, route, cand_edge, breaks, times,
                             edge_seg, num_segments: int) -> SegmentHistogram:
     """Plain PyTorch version of ``segment_histogram``: the reference's

@@ -75,6 +75,7 @@ from ..device import upload
 from ..tiles.arrays import DeviceGraph
 from ..tiles.ubodt import DeviceUBODT, ShardedUBODT
 from . import collectives
+from ..obs.attrib import stage, staged
 from ._kernels import KERNELS, check, library_function, ptr
 from .candidates import (
     NEG_INF, Candidates, _scalar, candidate_sweep, candidate_sweep_plain, fma,
@@ -244,6 +245,7 @@ def angle_diff(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return r - _PI
 
 
+@staged("emission+transition-build")
 def transition_build_plain(dg: DeviceGraph, cand: Candidates, px, py, times,
                            sp_dist, sp_time, p: MatchParams,
                            with_route: bool = True,
@@ -525,6 +527,13 @@ def _use_assoc(kernel: str, T: int) -> bool:
     return kernel == "assoc" and T >= 2
 
 
+def _decode_stage(kernel: str, T: int) -> str:
+    """The stage label of the plain decode that ``kernel`` selects at T
+    steps (the scan's or the log-depth forward's)."""
+    return KERNELS["viterbi_assoc" if _use_assoc(kernel, T)
+                   else "viterbi_scan"].stage
+
+
 def _decode_plain(kernel, init, first_break, emis, logp, gc, vb, brk):
     """(scores, backpointers, breaks, chosen slots) of the ``kernel``
     forward and its backtrace."""
@@ -611,9 +620,10 @@ def viterbi_scan(emis, logp, gc, valid, cand_edge, cand_offset,
     ``with_choice`` (the dense scan kernel writes it) the [2, B, T] chosen
     slots and backpointers there."""
     if emis.device.type == "cpu":
-        return viterbi_scan_plain(emis, logp, gc, valid, cand_edge,
-                                  cand_offset, breakage_distance, times, sp,
-                                  kernel, with_choice)
+        with stage(_decode_stage(kernel, emis.shape[1])):
+            return viterbi_scan_plain(emis, logp, gc, valid, cand_edge,
+                                      cand_offset, breakage_distance, times,
+                                      sp, kernel, with_choice)
     dev = emis.device
     B, T, K = emis.shape
     kname = "viterbi_assoc" if _use_assoc(kernel, T) else "viterbi_scan"
@@ -803,9 +813,10 @@ def viterbi_chain(dg: DeviceGraph, du: DeviceUBODT, emis, logp, gc, px, py,
     itself, in place.  ``kernel`` "assoc" launches ``viterbi_chain_assoc``
     at T >= 2."""
     if emis.device.type == "cpu":
-        return viterbi_chain_plain(dg, du, emis, logp, gc, px, py, times,
-                                   valid, cand_edge, cand_offset, p, carry,
-                                   slots, use_carry, sp, kernel)
+        with stage(_decode_stage(kernel, emis.shape[1])):
+            return viterbi_chain_plain(dg, du, emis, logp, gc, px, py, times,
+                                       valid, cand_edge, cand_offset, p,
+                                       carry, slots, use_carry, sp, kernel)
     dev = emis.device
     B, T, K = emis.shape
     kname = "viterbi_chain_assoc" if _use_assoc(kernel, T) else "viterbi_chain"
@@ -1120,6 +1131,7 @@ def _owned(slots: torch.Tensor, lo: int, s_local: int):
     return loc, (loc >= 0) & (loc < s_local)
 
 
+@staged("slab-shard")
 def slab_gather_owned_plain(shard: TraceCarry, slots: torch.Tensor,
                             lo: int) -> torch.Tensor:
     """Plain version of ``slab_gather_owned``."""
@@ -1130,6 +1142,7 @@ def slab_gather_owned_plain(shard: TraceCarry, slots: torch.Tensor,
     return torch.where(owned[:, None], rows, torch.zeros_like(rows))
 
 
+@staged("slab-shard")
 def slab_scatter_owned_plain(shard: TraceCarry, words: torch.Tensor,
                              slots: torch.Tensor, lo: int) -> TraceCarry:
     """Plain version of ``slab_scatter_owned``."""

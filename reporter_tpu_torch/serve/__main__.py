@@ -7,7 +7,15 @@ port.  The config has the shape of the reference service's
 max_wait_ms, max_inflight, session_max_batch, session_wait_ms) and
 "robustness" (max_queue, deadline_ms, watchdog_s, quarantine_after,
 quarantine_ttl_s, reattach_probe_s, session_checkpoint_s / _sync / _dir;
-each has a $REPORTER_* variable over it, serve/service.py).  The device defaults to cuda and the
+each has a $REPORTER_* variable over it, serve/service.py), "slo" (the
+SLO engine's objectives; $REPORTER_SLO_* tune the defaults), "quality"
+(the shadow-oracle sampler: sample_every, queue_max, window_s, target,
+margin_keep; $REPORTER_QUALITY_* over them, off unless sample_every > 0)
+and "economics" (price_per_chip_hour, history_dir and the capacity
+window; $REPORTER_COST_PER_CHIP_HOUR, $REPORTER_HISTORY_* over them).
+$REPORTER_LOG_FORMAT=json|text and $REPORTER_LOG_LEVEL set the log
+format, and $REPORTER_FLIGHT_DUMP names where the flight recorder's
+traces are written when the drain ends.  The device defaults to cuda and the
 command fails when CUDA is absent unless --device cpu is given.  A
 "backend": "cpu" config serves from the CPU baseline on the host instead
 (no device; "jax", the default, is the port's device program).
@@ -63,6 +71,8 @@ import sys
 import threading
 import time
 
+from ..obs import flight as obs_flight
+from ..obs import log as obs_log
 from .service import ReporterService, batch_options, build_matcher, parse_service_config
 
 
@@ -97,7 +107,10 @@ def main(argv=None) -> int:
                          "or 0.0.0.0:8002)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    logging.basicConfig(level=os.environ.get("REPORTER_LOG_LEVEL", "INFO"))
+    # the shared log switch ($REPORTER_LOG_FORMAT, $REPORTER_LOG_LEVEL) and
+    # the flight recorder's dump when the drain ends
+    obs_log.configure()
+    obs_flight.install_shutdown_dump()
     try:
         cfg, conf = parse_service_config(args.config)
     except Exception as e:  # noqa: BLE001 - reported, exit 1
@@ -112,6 +125,8 @@ def main(argv=None) -> int:
         port = os.environ.get("MATCHER_LISTEN_PORT", "8002")
     matcher = build_matcher(cfg, conf, device=args.device)
     service = ReporterService(matcher, robustness=conf.get("robustness", {}),
+                              slo=conf.get("slo"), quality=conf.get("quality"),
+                              economics=conf.get("economics"),
                               **batch_options(conf))
     server = service.make_server(host, int(port))
     # the drain joins the handler threads when the server closes
@@ -168,6 +183,8 @@ def main(argv=None) -> int:
     finally:
         server.server_close()
         service.close()
+        # the flight recorder's retained traces, once nothing records
+        obs_flight.shutdown_dump()
         for sig, handler in previous.items():
             if handler is not None:
                 signal.signal(sig, handler)

@@ -22,6 +22,31 @@ Wire-compatible with the reference's reporter service on its main route:
       session's wire snapshot (the handoff's export), and its import,
       drop and atomic pop.
 
+Observability, as the JAX package's service has it (docs/observability.md):
+
+  GET  /metrics          Prometheus text of every registered family
+  GET  /statusz          JSON ops snapshot: config, fault-domain state,
+                         flight / attrib / slo / quality / sparse /
+                         sessions / slab / tier / adaptive / checkpoint /
+                         economics / memory blocks, and every family
+  GET  /debug/traces?n=K | ?id=T   the flight recorder's retained traces
+  GET  /debug/slo[?window=S]       the SLO engine's verdict (+ quality)
+  GET  /debug/profile?seconds=N    a torch.profiler capture's directory
+  GET  /debug/attrib[?capture=1&reps=N]   the per-stage device-time table
+  GET  /debug/cost, /debug/history[?window=S]   the cost ledger and the
+                         demand-history ring
+
+Every response echoes X-Reporter-Trace (the client's id, or one minted at
+ingestion); every /report and /trace_attributes_batch request carries a
+span stamped at each stage, offered to the flight recorder and the SLO
+engine, and put on the response under ``?debug=1``.  The config's "slo",
+"quality" and "economics" blocks (and their $REPORTER_* knobs) tune the
+SLO engine, the shadow-oracle sampler (off unless sample_every or
+$REPORTER_QUALITY_SAMPLE_EVERY is set) and the cost ledger.  Both
+batchers steer their fill window and width by the live queue-wait and
+device-step p95s ($REPORTER_ADAPTIVE=0 holds them at the configured
+values).
+
 Both matching routes take gzip bodies (Content-Encoding: gzip, inflated
 within $REPORTER_MAX_INFLATE_MB, 256 by default; another encoding than
 identity is a 415) and the binary columnar wire (serve/wire.py):
@@ -65,8 +90,7 @@ variable overrides it):
 A single shared matcher owns the device.  One MicroBatcher aggregates
 concurrent windowed requests into padded [B, T] batches; a second one, with
 a much shorter fill window, aggregates streaming submits into session
-steps (matching/session.py).  SLO accounting, quality sampling, /statusz
-and the router are not part of this slice.
+steps (matching/session.py).
 """
 
 from __future__ import annotations
@@ -87,13 +111,26 @@ from urllib.parse import parse_qs, urlsplit
 
 from .. import faults
 from ..matching import SegmentMatcher, SessionEngine, SessionStore
+from ..matching.matcher import C_POINTS as C_POINTS_MATCHED
 from ..matching.session import SessionCheckpointer
+from ..obs import adaptive as obs_adaptive
+from ..obs import attrib as obs_attrib
+from ..obs import economics as obs_econ
+from ..obs import flight as obs_flight
+from ..obs import log as obs_log
+from ..obs import metrics as obs
+from ..obs import quality as obs_quality
+from ..obs import slo as obs_slo
+from ..obs import trace as obs_trace
+from ..obs.trace import Span
 from ..report import report as report_fn
 from . import wire
 
 log = logging.getLogger(__name__)
 
-ACTIONS = {"report", "trace_attributes_batch", "health", "sessions"}
+ACTIONS = {"report", "trace_attributes_batch", "health", "sessions",
+           "metrics", "statusz", "profile", "traces", "attrib", "slo",
+           "cost", "history"}
 
 # gzip request bodies: bound on the DECOMPRESSED size so a tiny zip bomb
 # cannot balloon a handler thread, refused with a 400 beyond it
@@ -103,24 +140,107 @@ try:
 except (KeyError, ValueError):
     _MAX_INFLATE = 256 << 20
 
-# the fault domains' events in this process, by name; /metrics (not ported
-# yet) is where they will be exported
+# metric families (docs/observability.md): the batch-fill/wait tradeoff and
+# the device-step tail are the operating signals of a batched-device
+# service — aggregate throughput alone cannot show a queue-wait regression
+M_QUEUE_WAIT = obs.histogram(
+    "reporter_microbatch_queue_wait_seconds",
+    "Per-trace wait from submit to micro-batch formation")
+M_BATCH_FILL = obs.histogram(
+    "reporter_microbatch_batch_fill",
+    "Traces per dispatched device micro-batch",
+    buckets=obs.BATCH_FILL_BUCKETS)
+M_DEVICE_STEP = obs.histogram(
+    "reporter_microbatch_device_step_seconds",
+    "Per-batch finish() wall: device wait + host segment association")
+G_INFLIGHT = obs.gauge(
+    "reporter_microbatch_inflight",
+    "Micro-batches dispatched to the device and not yet finished")
+G_QDEPTH = obs.gauge(
+    "reporter_microbatch_queue_depth",
+    "Submit-queue depth sampled at each batch formation")
+C_BATCHES = obs.counter(
+    "reporter_microbatch_batches_total",
+    "Device micro-batches dispatched")
+C_REQUESTS = obs.counter(
+    "reporter_requests_total",
+    "Requests by endpoint and outcome (ok / invalid / error / shed / "
+    "expired / quarantined / degraded)",
+    ("endpoint", "outcome"))
+# the fault domains (docs/robustness.md): shedding, queue expiry, poison
+# isolation, the watchdog and the degraded CPU fallback each have a family
+C_SHED = obs.counter(
+    "reporter_requests_shed_total",
+    "Requests rejected 429 at admission (submit queue full)")
+C_EXPIRED = obs.counter(
+    "reporter_requests_expired_total",
+    "Requests whose deadline expired in the queue, dropped before "
+    "dispatch (504)")
+C_POISON = obs.counter(
+    "reporter_poison_isolated_total",
+    "Traces isolated as batch poison by the bisect-retry quarantine")
+C_QUAR_REJ = obs.counter(
+    "reporter_quarantine_rejected_total",
+    "Requests rejected at admission because their uuid is quarantined "
+    "as a repeat poison offender")
+C_WD_TRIPS = obs.counter(
+    "reporter_watchdog_trips_total",
+    "Device-step watchdog trips (a finish() exceeded the bound; the "
+    "batcher is wedged and the service degrades to the CPU fallback)")
+C_CRASHES = obs.counter(
+    "reporter_batcher_crashes_total",
+    "MicroBatcher loop-thread crashes (dispatch worker or finisher died "
+    "on an unexpected error; pending futures failed, /health unhealthy)")
+G_DEGRADED = obs.gauge(
+    "reporter_degraded_mode",
+    "1 while the service answers from the CPU fallback after a device "
+    "watchdog trip, 0 when the accelerator engine is attached")
+C_DEGRADED_REQ = obs.counter(
+    "reporter_degraded_requests_total",
+    "Requests answered by the CPU fallback (responses carry "
+    "degraded: true)")
+C_REATTACH = obs.counter(
+    "reporter_engine_reattach_total",
+    "Successful engine re-attach events after degraded-mode probes found "
+    "the device healthy again")
+# the drain's lifecycle (docs/serving-fleet.md)
+G_DRAINING = obs.gauge(
+    "reporter_draining",
+    "1 from SIGTERM (drain start) until the process exits: new work is "
+    "refused 503 \"draining\" while inflight requests finish")
+C_DRAIN_REFUSED = obs.counter(
+    "reporter_drain_refused_total",
+    "Requests refused 503 \"draining\" after drain start (retryable: the "
+    "router re-dispatches them to a live replica)")
+
+# the fault domains' events in this process, by name: each is read from its
+# family, but degraded-mode entries, which have none
+_COUNT_FAMILIES = {"watchdog_trips": C_WD_TRIPS, "poison_isolations": C_POISON,
+                   "quarantine_rejections": C_QUAR_REJ,
+                   "batcher_crashes": C_CRASHES,
+                   "degraded_requests": C_DEGRADED_REQ,
+                   "reattaches": C_REATTACH, "drain_refusals": C_DRAIN_REFUSED}
 _COUNT_NAMES = ("watchdog_trips", "poison_isolations", "quarantine_rejections",
                 "batcher_crashes", "degraded_entries", "degraded_requests",
                 "reattaches", "drain_refusals")
-_counts = dict.fromkeys(_COUNT_NAMES, 0)
+_degraded_entries = [0]
 _counts_lock = threading.Lock()
 
 
 def _count(name: str, n: int = 1) -> None:
+    if name != "degraded_entries":
+        _COUNT_FAMILIES[name].inc(n)
+        return
     with _counts_lock:
-        _counts[name] += n
+        _degraded_entries[0] += n
 
 
 def counts() -> dict:
     """The fault domains' event counts in this process."""
+    out = {name: int(fam.value) for name, fam in _COUNT_FAMILIES.items()}
     with _counts_lock:
-        return dict(_counts)
+        out["degraded_entries"] = _degraded_entries[0]
+    return {name: out[name] for name in _COUNT_NAMES}
 
 
 def _gunzip(raw: bytes, limit: int = 0) -> bytes:
@@ -218,12 +338,21 @@ class MicroBatcher:
     loops: a loop thread that dies fails every pending future with
     BatcherCrashed, marks the batcher dead and calls ``on_crashed``; the
     hand-off ``put`` gives up once the batcher is dead, so no thread waits
-    on a queue nobody drains.  ``trips``, ``poison_isolations`` and
-    ``quarantined()`` count what happened; ``close`` stops every thread.
+    on a queue nobody drains.  ``trips`` (1 once the watchdog tripped)
+    and ``quarantined()`` say what happened here, the module's ``counts()``
+    what happened in the process; ``close`` stops every thread.
+
+    Observability: each entry may carry its request's Span, stamped with
+    its queue wait, batch size, dispatch and device-step walls; the
+    batches feed the reporter_microbatch_* families.  The adaptive
+    controls (obs/adaptive.py, on unless $REPORTER_ADAPTIVE=0): the live windowed p95s of queue wait and device
+    step steer ``max_wait`` within [0.2x, 4x] the configured window and
+    ``max_batch`` within [max_batch / 4, max_batch].
     """
 
     def __init__(self, matcher, max_batch: int = 64, max_wait_ms: float = 10.0,
-                 max_inflight: Optional[int] = None, max_queue: Optional[int] = None,
+                 max_inflight: Optional[int] = None,
+                 max_queue: Optional[int] = None,
                  deadline_ms: Optional[float] = None,
                  watchdog_s: Optional[float] = None,
                  quarantine_after: Optional[int] = None,
@@ -237,6 +366,24 @@ class MicroBatcher:
         self.matcher = matcher
         self.max_batch = max(1, int(max_batch))
         self.max_wait = max_wait_ms / 1000.0
+        # the adaptive fill window and batch width: absent (the static
+        # knobs, bit for bit) with REPORTER_ADAPTIVE=0
+        self._wait_ctl = self._batch_ctl = None
+        self._h_qwait = self._h_dstep = None
+        self._static_max_batch = self.max_batch
+        if obs_adaptive.enabled() and self.max_wait > 0:
+            static = self.max_wait
+            self._wait_ctl = obs_adaptive.Controller(
+                "%s_wait_s" % name, static,
+                lo=max(0.0005, 0.2 * static), hi=4.0 * static,
+                cooldown_s=1.0)
+            self._h_qwait = obs_adaptive.WindowedQuantile(window_s=30.0)
+            self._h_dstep = obs_adaptive.WindowedQuantile(window_s=60.0)
+            if self.max_batch > 1:
+                self._batch_ctl = obs_adaptive.Controller(
+                    "%s_max_batch" % name, float(self.max_batch),
+                    lo=max(1.0, self.max_batch / 4.0), hi=float(self.max_batch),
+                    cooldown_s=1.0)
         self.max_queue = max(1, int(_resolve_num("REPORTER_MAX_QUEUE", max_queue, 1024)))
         self.deadline_s = _resolve_num("REPORTER_DEADLINE_MS", deadline_ms, 30000.0) / 1000.0
         self.watchdog_s = _resolve_num("REPORTER_WATCHDOG_S", watchdog_s, 120.0)
@@ -252,8 +399,6 @@ class MicroBatcher:
         self._crash_reason: Optional[str] = None
         self._on_wedged = on_wedged
         self._on_crashed = on_crashed
-        self.trips = 0
-        self.poison_isolations = 0
         self._offender_lock = threading.Lock()
         self._offenders: dict = {}    # uuid -> poison isolations
         self._quarantine: dict = {}   # uuid -> monotonic expiry
@@ -275,12 +420,14 @@ class MicroBatcher:
                 target=self._watchdog, daemon=True, name="%s-watchdog" % name)
             self._watchdog_thread.start()
 
-    def submit(self, trace: dict, deadline: Optional[float] = None) -> Future:
+    def submit(self, trace: dict, deadline: Optional[float] = None,
+               span: Optional[Span] = None) -> Future:
         """Queue one trace.  Refuses when the batcher is closed, dead
         (BatcherCrashed), wedged (DeviceWedged) or the uuid quarantined
         (TraceQuarantined); sheds with Overloaded when the queue is full.
         ``deadline`` is an absolute ``time.monotonic()`` bound; None applies
-        the server's default."""
+        the server's default.  ``span`` (the request's) gets the entry's
+        stage marks."""
         if self._closed.is_set():
             raise RuntimeError("batcher closed")
         if self._crashed:
@@ -297,17 +444,58 @@ class MicroBatcher:
             deadline = now + self.deadline_s
         f: Future = Future()
         try:
-            self._q.put_nowait((trace, f, now, deadline))
+            self._q.put_nowait((trace, f, now, deadline, span))
         except queue.Full:
+            C_SHED.inc()
             raise Overloaded("submit queue full (%d waiting)" % self._q.qsize()) from None
         return f
 
-    def match(self, trace: dict, deadline: Optional[float] = None) -> dict:
-        return self.submit(trace, deadline).result()
+    def match(self, trace: dict, deadline: Optional[float] = None,
+              span: Optional[Span] = None) -> dict:
+        return self.submit(trace, deadline, span).result()
 
     def match_many(self, traces: List[dict], deadline: Optional[float] = None) -> List[dict]:
         futures = [self.submit(t, deadline) for t in traces]
         return [f.result() for f in futures]
+
+    def _adapt_wait(self, fill: int) -> None:
+        """One adaptive tick for the fill window (no-op with
+        REPORTER_ADAPTIVE=0): queue wait dominating the device step means
+        holding the window open is the tail — shrink it; a device step
+        that dwarfs the wait on batches that fill means amortisation wins
+        — grow it.  The Controller clamps, ignores in-deadband noise and
+        rate-limits moves."""
+        ctl = self._wait_ctl
+        if ctl is None:
+            return
+        if self._h_qwait.count() < 32 or self._h_dstep.count() < 8:
+            return  # not enough live signal to steer by
+        q95 = self._h_qwait.quantile(0.95)
+        d95 = self._h_dstep.quantile(0.95)
+        if q95 is None or d95 is None:
+            return
+        if q95 > 2.0 * d95 and q95 > self.max_wait:
+            self.max_wait = ctl.propose(0.7 * self.max_wait)
+        elif d95 > 4.0 * max(q95, self.max_wait) \
+                and fill >= max(2, self.max_batch // 2):
+            self.max_wait = ctl.propose(1.3 * self.max_wait)
+        self._adapt_batch(fill, q95, d95)
+
+    def _adapt_batch(self, fill: int, q95: float, d95: float) -> None:
+        """One adaptive tick for the batch width: a device-step p95 that
+        dominates the queue tail on batches that fill to the cap narrows
+        it; once the step stops dominating it glides back to the
+        configured cap, never past it."""
+        ctl = self._batch_ctl
+        if ctl is None:
+            return
+        if d95 > 4.0 * max(q95, 1e-4) and fill >= self.max_batch:
+            self.max_batch = max(1, int(round(
+                ctl.propose(0.7 * ctl.value))))
+        elif d95 < 2.0 * max(q95, 1e-4) \
+                and ctl.value < self._static_max_batch:
+            self.max_batch = max(1, int(round(
+                ctl.propose(1.3 * ctl.value))))
 
     def retry_after_s(self) -> int:
         """Backoff hint of a 429: the deeper the queue, the longer, capped
@@ -367,6 +555,7 @@ class MicroBatcher:
             dl = entry[3]
             eff = now if skew == 1.0 else entry[2] + (now - entry[2]) * skew
             if dl is not None and eff > dl:
+                C_EXPIRED.inc()
                 self._resolve_exc(entry[1], DeadlineExpired(
                     "deadline expired after %.3fs in queue" % (now - entry[2])))
             else:
@@ -421,18 +610,48 @@ class MicroBatcher:
                 batch.append(nxt)
             batch = self._live(batch)
             if batch:
-                try:
-                    finish = self.matcher.match_many_async([e[0] for e in batch])
-                except Exception as e:  # noqa: BLE001 - contained per request
-                    log.exception("batch dispatch failed")
-                    self._contain_failure(batch, e)
-                else:
-                    if not self._hand_off((batch, finish)):
-                        self._fail_batch(batch, DeviceWedged(
-                            self._wedge_reason or "batcher dead"))
+                self._dispatch(batch)
             if stop:
                 self._hand_off(None)
                 return
+
+    def _dispatch(self, batch) -> None:
+        """Stamp and count a formed batch, queue its device work and hand
+        it to the finisher."""
+        now = _time.monotonic()
+        # the batch's lead span: its trace_id is the exemplar of the
+        # batch-level observations, and the dispatch binds it so a first
+        # dispatch's log line names a real request
+        lead = next((e[4] for e in batch if e[4] is not None), None)
+        G_QDEPTH.set(self._q.qsize())
+        M_BATCH_FILL.observe(len(batch),
+                             exemplar=lead.trace_id if lead else None)
+        C_BATCHES.inc()
+        for _t, _f, t_enq, _dl, sp in batch:
+            wait = now - t_enq
+            M_QUEUE_WAIT.observe(wait, exemplar=sp.trace_id if sp else None)
+            if self._h_qwait is not None:
+                self._h_qwait.observe(wait)
+            if sp is not None:
+                sp.mark("queue_wait_s", wait)
+                sp.meta["batch_size"] = len(batch)
+        self._adapt_wait(len(batch))
+        try:
+            t_d0 = _time.monotonic()
+            with obs_trace.bind(lead):
+                finish = self.matcher.match_many_async([e[0] for e in batch])
+            dispatch_s = _time.monotonic() - t_d0
+        except Exception as e:  # noqa: BLE001 - contained per request
+            log.exception("batch dispatch failed")
+            self._contain_failure(batch, e)
+            return
+        for entry in batch:
+            if entry[4] is not None:
+                entry[4].mark("dispatch_s", dispatch_s)
+        G_INFLIGHT.inc()
+        if not self._hand_off((batch, finish)):
+            self._fail_batch(batch, DeviceWedged(self._wedge_reason or "batcher dead"))
+            G_INFLIGHT.dec()
 
     def _finisher_loop(self):
         while True:
@@ -441,13 +660,24 @@ class MicroBatcher:
                 return
             batch, finish = item
             try:
+                t0 = _time.monotonic()
                 with self._watched(batch):
                     results = finish()
+                step_s = _time.monotonic() - t0
+                if self._h_dstep is not None:
+                    self._h_dstep.observe(step_s)
+                lead = next((e[4] for e in batch if e[4] is not None), None)
+                M_DEVICE_STEP.observe(step_s,
+                                      exemplar=lead.trace_id if lead else None)
                 for entry, r in zip(batch, results):
+                    if entry[4] is not None:
+                        entry[4].mark("device_step_s", step_s)
                     self._resolve_result(entry[1], r)
             except Exception as e:  # noqa: BLE001 - bisect for poison, else fail
                 log.exception("batch match failed")
                 self._contain_failure(batch, e)
+            finally:
+                G_INFLIGHT.dec()
 
     # -- the device watchdog --------------------------------------------------
 
@@ -480,12 +710,17 @@ class MicroBatcher:
                            stuck)
                 return
 
+    @property
+    def trips(self) -> int:
+        """1 once the watchdog tripped this batcher (it trips at most
+        once: a wedged batcher is terminal)."""
+        return int(self.wedged)
+
     def _trip(self, reason: str, stuck_batches=()) -> None:
-        self.trips += 1
         _count("watchdog_trips")
         self.wedged = True
         self._wedge_reason = reason
-        log.error("watchdog trip: %s", reason)
+        obs_log.event(log, "watchdog_trip", level=logging.ERROR, reason=reason)
         exc = DeviceWedged(reason)
         # the service turns degraded FIRST: handlers whose futures fail
         # below see it and answer from the CPU baseline instead of a 503
@@ -509,6 +744,8 @@ class MicroBatcher:
         _count("batcher_crashes")
         log.critical("MicroBatcher %s; failing all pending futures",
                      self._crash_reason, exc_info=True)
+        obs_log.event(log, "batcher_crash", level=logging.CRITICAL,
+                      thread=who, error=str(e)[:200])
         # the submit queue always fails (its only consumer is gone or the
         # batcher is dead to new work); the hand-off queue only when the
         # finisher died, since a live finisher completes what was
@@ -541,6 +778,7 @@ class MicroBatcher:
                 break
             if item is not None:
                 self._fail_batch(item[0], exc)
+                G_INFLIGHT.dec()
 
     # -- poison containment ---------------------------------------------------
 
@@ -555,7 +793,8 @@ class MicroBatcher:
         if len(batch) == 1:
             self._fail_poison(batch[0], exc)
             return
-        log.warning("batch of %d failed (%s); bisecting", len(batch), str(exc)[:200])
+        obs_log.event(log, "poison_bisect", level=logging.WARNING,
+                      batch_size=len(batch), error=str(exc)[:200])
         self._bisect(batch, exc, [2 * len(batch) + 4])
 
     def _bisect(self, batch, exc: Exception, budget) -> None:
@@ -580,13 +819,15 @@ class MicroBatcher:
                     self._resolve_result(entry[1], r)
 
     def _fail_poison(self, entry, exc: Exception) -> None:
-        trace, f = entry[0], entry[1]
+        trace, f, sp = entry[0], entry[1], entry[4]
         uuid = str(trace.get("uuid") or "") if isinstance(trace, dict) else ""
-        self.poison_isolations += 1
         _count("poison_isolations")
         if uuid:
             self._record_offender(uuid)
-        log.error("poison trace %r isolated: %s", uuid[:64], str(exc)[:200])
+        if sp is not None:
+            sp.meta["poison"] = True
+        obs_log.event(log, "poison_trace", level=logging.ERROR, uuid=uuid[:64],
+                      trace_id=sp.trace_id if sp else None, error=str(exc)[:200])
         self._resolve_exc(f, PoisonTrace(
             "trace %r failed its device batch alone (co-batched requests "
             "succeeded): %s" % (uuid, exc)))
@@ -597,6 +838,9 @@ class MicroBatcher:
             self._offenders[uuid] = n
             if n >= self.quarantine_after:
                 self._quarantine[uuid] = _time.monotonic() + self.quarantine_ttl_s
+                obs_log.event(log, "uuid_quarantined", level=logging.WARNING,
+                              uuid=uuid[:64], offences=n,
+                              ttl_s=self.quarantine_ttl_s)
 
     def _is_quarantined(self, uuid: str) -> bool:
         with self._offender_lock:
@@ -612,7 +856,17 @@ class MicroBatcher:
 
 class ReporterService:
     """Owns the matcher and the batchers and implements /report,
-    /trace_attributes_batch, /health and /sessions."""
+    /trace_attributes_batch, /health, /sessions and the observability
+    endpoints.
+
+    ``slo`` (the config's "slo" block) declares the serving objectives the
+    SLO engine measures every terminal outcome against (None keeps the
+    $REPORTER_SLO_* defaults without touching an engine another embedder
+    configured); ``quality`` (the "quality" block) tunes the shadow-oracle
+    sampler, off unless its sample_every or $REPORTER_QUALITY_SAMPLE_EVERY
+    is above 0; ``economics`` (the "economics" block) prices the cost
+    ledger and places the demand history ($REPORTER_HISTORY_DIR over its
+    history_dir)."""
 
     # the "robustness" keys the reference reads, all carried; any other
     # key is dropped with one warning per key
@@ -625,7 +879,9 @@ class ReporterService:
     def __init__(self, matcher: SegmentMatcher, threshold_sec: Optional[int] = None,
                  max_batch: int = 64, max_wait_ms: float = 10.0,
                  max_inflight: Optional[int] = None, robustness: Optional[dict] = None,
-                 session_max_batch: int = 256, session_wait_ms: float = 2.0):
+                 session_max_batch: int = 256, session_wait_ms: float = 2.0,
+                 slo: Optional[dict] = None, quality: Optional[dict] = None,
+                 economics: Optional[dict] = None):
         from ..matching.config import warn_dropped
 
         if threshold_sec is None:
@@ -655,6 +911,25 @@ class ReporterService:
         # X-Reporter-Replica on every answer
         self.replica_id = (os.environ.get("REPORTER_REPLICA_ID", "").strip()
                            or "%s-%d" % (_socket.gethostname()[:32], os.getpid()))
+        if slo is not None:
+            obs_slo.configure(slo)
+        self._quality_spec = dict(quality or {})
+        self.quality: "Optional[obs_quality.QualityEngine]" = None
+        self._margin_keep = _resolve_num("REPORTER_QUALITY_MARGIN_KEEP",
+                                         self._quality_spec.get("margin_keep"), 1.0)
+        # the cost ledger, demand history and capacity estimator behind
+        # /debug/cost and /debug/history; its tick thread and scrape-time
+        # collectors arm in make_server()
+        econ_spec = dict(economics or {})
+        hist_dir = (os.environ.get("REPORTER_HISTORY_DIR", "").strip()
+                    or econ_spec.get("history_dir"))
+        self.economics = obs_econ.EconomicsEngine(
+            self.replica_id, chips=1, spec=econ_spec,
+            history_path=(os.path.join(hist_dir, "%s.jsonl" % self.replica_id)
+                          if hist_dir else None))
+        # chip-seconds accrue for every card of the matcher's mesh
+        self.economics.ledger.set_chips(max(1, int(getattr(matcher.cfg, "devices", 1)
+                                                   or 1)))
         # degraded mode: after a watchdog trip requests are answered by the
         # CPU baseline with "degraded": true until a probe re-attaches
         self.degraded = False
@@ -693,7 +968,13 @@ class ReporterService:
         # 415 and /health stops advertising it)
         self.wire_enabled = (os.environ.get("REPORTER_WIRE", "").strip().lower()
                              not in ("0", "false", "off", "no"))
+        try:
+            self.quality = obs_quality.configure(matcher, self._quality_spec)
+        except Exception:  # noqa: BLE001 - diagnostics must not block boot
+            log.exception("quality engine configure failed; sampling off")
+            self.quality = None
         self._t_boot = _time.time()
+        self._collect = None
 
     def _make_batcher(self, matcher) -> MicroBatcher:
         return MicroBatcher(matcher, **self._batch_params, **self._robust_params,
@@ -714,6 +995,10 @@ class ReporterService:
             b.close()
         if self.session_checkpointer is not None:
             self.session_checkpointer.stop()
+        self.economics.stop()
+        if self._collect is not None:
+            obs.REGISTRY.unregister_collect(self._collect)
+            self._collect = None
 
     # -- drain ----------------------------------------------------------------
 
@@ -723,15 +1008,22 @@ class ReporterService:
         if self.draining:
             return
         self.draining = True
-        log.warning("drain begins (replica %s)", self.replica_id)
+        G_DRAINING.set(1)
+        self.economics.ledger.set_draining(True)
+        obs_log.event(log, "drain_begin", level=logging.WARNING,
+                      replica=self.replica_id)
 
     @contextlib.contextmanager
     def _track_active(self):
         with self._active_lock:
             self._n_active += 1
+        # the cost ledger bills chip-seconds as "serving" while a matching
+        # handler is inflight
+        self.economics.ledger.note_active(True)
         try:
             yield
         finally:
+            self.economics.ledger.note_active(False)
             with self._active_lock:
                 self._n_active -= 1
 
@@ -761,7 +1053,9 @@ class ReporterService:
         # must commit nothing (the degraded path re-applies the points)
         self.session_engine.invalidate_inflight()
         _count("degraded_entries")
-        log.error("degraded mode: %s", reason)
+        G_DEGRADED.set(1)
+        self.economics.ledger.set_degraded(True)
+        obs_log.event(log, "degraded_enter", level=logging.ERROR, reason=reason)
         if self._reattach_probe_s > 0:
             threading.Thread(target=self._probe_loop, daemon=True,
                              name="reattach-probe").start()
@@ -824,8 +1118,12 @@ class ReporterService:
         with self._degraded_lock:
             self.degraded = False
             self.reattach_s = _time.monotonic() - self._t_degraded
+        G_DEGRADED.set(0)
+        self.economics.ledger.set_degraded(False)
         _count("reattaches")
-        log.warning("engine re-attached after %.2fs degraded", self.reattach_s)
+        obs_log.event(log, "engine_reattach", level=logging.WARNING,
+                      backend=self.matcher.backend,
+                      degraded_s=round(self.reattach_s, 3))
 
     # -- requests ---------------------------------------------------------------
 
@@ -875,22 +1173,49 @@ class ReporterService:
                 return "match_options.interpolate must be a boolean", None, None
         return None, rl, tl
 
-    def _refusal(self, e: Exception, batcher: MicroBatcher) -> Optional[Tuple[int, dict]]:
-        """The answer to a batcher's refusal or a failed request's
-        error."""
-        if isinstance(e, Overloaded):
-            return 429, {"error": str(e), "retry_after": batcher.retry_after_s()}
-        if isinstance(e, DeadlineExpired):
-            return 504, {"error": str(e)}
-        if isinstance(e, TraceQuarantined):
-            return 422, {"error": str(e)}
-        self._note_request(ok=False)
-        if isinstance(e, (DeviceWedged, BatcherCrashed)):
-            return 503, {"error": str(e), "retry_after": 1}
-        return 500, {"error": str(e)}
+    # -- requests: every terminal outcome is counted, offered to the SLO
+    # engine and recorded in the flight recorder ---------------------------
 
-    def _drain_refusal(self) -> Tuple[int, dict]:
+    @staticmethod
+    def _terminal(route: str, code: int, span: Span, degraded: bool = False) -> None:
+        """A request's terminal outcome: the SLO engine classifies it, the
+        objectives it violates mark the span (so a 200 that blew the
+        latency objective is retained like an error), and the flight
+        recorder gets it."""
+        if "total_s" not in span.timings:
+            span.finish()
+        violated = obs_slo.observe(route, code, span.timings.get("total_s"),
+                                   degraded=degraded, trace_id=span.trace_id)
+        if violated:
+            span.meta["slo_violation"] = violated
+        obs_flight.record(span)
+
+    def _refusal(self, e: Exception, batcher: MicroBatcher, route: str,
+                 span: Span) -> Tuple[int, dict]:
+        """The answer to a batcher's refusal or a failed request's error,
+        counted and terminal."""
+        if isinstance(e, Overloaded):
+            code, out, status = 429, {"error": str(e),
+                                      "retry_after": batcher.retry_after_s()}, "shed"
+        elif isinstance(e, DeadlineExpired):
+            code, out, status = 504, {"error": str(e)}, "expired"
+        elif isinstance(e, TraceQuarantined):
+            code, out, status = 422, {"error": str(e)}, "quarantined"
+        elif isinstance(e, (DeviceWedged, BatcherCrashed)):
+            code, out, status = 503, {"error": str(e), "retry_after": 1}, "unavailable"
+        else:
+            code, out, status = 500, {"error": str(e)}, "error"
+        span.fail(e, status=status)
+        self._terminal(route, code, span)
+        if code in (503, 500):
+            self._note_request(ok=False)
+        C_REQUESTS.labels(route, "error" if code in (503, 500) else status).inc()
+        return code, out
+
+    def _drain_refusal(self, route: str, span: Span) -> Tuple[int, dict]:
         _count("drain_refusals")
+        span.fail("draining", status="draining")
+        self._terminal(route, 503, span)
         return 503, {"error": "draining", "status": "draining", "retry_after": 1}
 
     def _note_request(self, ok: bool) -> None:
@@ -898,70 +1223,127 @@ class ReporterService:
             self._n_requests += 1
             self._n_errors += not ok
 
-    def handle_report(self, trace: dict,
-                      deadline: Optional[float] = None) -> Tuple[int, dict]:
+    def _note_quality(self, trace, match, span: Span) -> Optional[dict]:
+        """Pop the matcher's "_quality" block off a match dict (it never
+        reaches the wire), feed the confidence metrics, mark a low-margin
+        span for the flight recorder, and offer the request to the
+        shadow-oracle sampler (one non-blocking enqueue at most)."""
+        if not isinstance(match, dict):
+            return None
+        q = match.pop("_quality", None)
+        if not isinstance(q, dict):
+            return None
+        mm = q.get("margin_mean")
+        if mm is not None:
+            obs_quality.H_MARGIN.observe(mm, exemplar=span.trace_id)
+            # the mean margin: the minimum is routinely 0 on two-way
+            # streets, while a low mean means the whole decode was ambiguous
+            if mm < self._margin_keep:
+                obs_quality.C_LOW_MARGIN.inc()
+                span.meta["low_margin"] = round(float(mm), 4)
+        if self.quality is not None:
+            self.quality.maybe_sample(trace, q)
+        return q
+
+    def handle_report(self, trace: dict, deadline: Optional[float] = None,
+                      debug: bool = False) -> Tuple[int, dict]:
         """One trace.  ``deadline`` is the absolute ``time.monotonic()``
         bound parsed from X-Reporter-Deadline-Ms at ingestion (None: the
-        server's default)."""
+        server's default); ``debug`` puts the span's breakdown (and the
+        quality block and effective match options) on the answer.  A
+        streaming submit is its own route, "report_stream", for the SLO
+        engine and the request counts."""
         stream = isinstance(trace, dict) and bool(trace.get("stream"))
+        route = "report_stream" if stream else "report"
+        span = obs_trace.current_span() or Span(route)
+        span.meta.setdefault("endpoint", route)
+        if isinstance(trace, dict) and trace.get("uuid") is not None:
+            span.meta.setdefault("uuid", str(trace["uuid"])[:64])
         if self.draining:
-            return self._drain_refusal()
+            return self._drain_refusal(route, span)
         batcher = self.session_batcher if stream else self.batcher
         # fault seam: an injected admission shed
         if faults.fire("replica_shed") is not None:
+            span.fail("injected admission shed", status="shed")
+            self._terminal(route, 429, span)
+            C_REQUESTS.labels(route, "shed").inc()
             return 429, {"error": "injected admission shed", "retry_after": 1}
         err, rl, tl = self.validate(trace)
         if err:
+            C_REQUESTS.labels(route, "invalid").inc()
+            span.fail(err, status="invalid")
+            self._terminal(route, 400, span)
             return 400, {"error": err}
         # transport state of the binary wire (numpy arrays): never matched,
         # rendered or echoed
         trace.pop("_columns", None)
         if self.degraded:
-            return self._finish_report(trace, rl, tl, degraded=True, stream=stream)
+            return self._finish_report(trace, rl, tl, span, debug, degraded=True,
+                                       route=route)
         try:
-            match = batcher.match(trace, deadline)
+            with obs_trace.bind(span):
+                match = batcher.match(trace, deadline, span)
         except (DeviceWedged, BatcherCrashed) as e:
             if self.degraded:  # raced the watchdog trip: the CPU answers
-                return self._finish_report(trace, rl, tl, degraded=True, stream=stream)
-            return self._refusal(e, batcher)
+                return self._finish_report(trace, rl, tl, span, debug,
+                                           degraded=True, route=route)
+            return self._refusal(e, batcher, route, span)
         except Exception as e:  # noqa: BLE001 - the request gets the error
             if not isinstance(e, (Overloaded, DeadlineExpired, TraceQuarantined)):
                 log.exception("match failed")
-            return self._refusal(e, batcher)
-        return self._finish_report(trace, rl, tl, match=match, stream=stream)
+            return self._refusal(e, batcher, route, span)
+        return self._finish_report(trace, rl, tl, span, debug, match=match,
+                                   route=route)
 
-    def _finish_report(self, trace, rl, tl, match: Optional[dict] = None,
-                       degraded: bool = False, stream: bool = False) -> Tuple[int, dict]:
+    def _finish_report(self, trace, rl, tl, span: Span, debug: bool = False,
+                       match: Optional[dict] = None, degraded: bool = False,
+                       route: str = "report") -> Tuple[int, dict]:
         """Render the report, matching first on the CPU baseline when
         degraded (a streaming submit through the session engine's
         degraded step); a degraded answer carries "degraded": true.  A
         streaming answer renders over the session window (its rolling tail
         + the new points) and carries a "session" block."""
+        stream = route == "report_stream"
         try:
-            if degraded:
-                m = self._cpu_fallback()
-                with self._cpu_lock:
-                    match = (self.session_engine.degraded_step(m, trace) if stream
-                             else m.match_many([trace])[0])
-            match.pop("_quality", None)  # diagnostics never reach the wire
-            st = match.pop("_stream", None)
-            render = trace if st is None else {
-                "uuid": trace.get("uuid"), "trace": st["trace"],
-                "match_options": trace.get("match_options") or {}}
-            data = report_fn(match, render, self.threshold_sec, rl, tl,
-                             mode=(trace.get("match_options") or {}).get("mode", "auto"))
+            with obs_trace.bind(span):
+                if degraded:
+                    m = self._cpu_fallback()
+                    t_m = _time.monotonic()
+                    with self._cpu_lock:
+                        match = (self.session_engine.degraded_step(m, trace) if stream
+                                 else m.match_many([trace])[0])
+                    span.mark("cpu_fallback_s", _time.monotonic() - t_m)
+                st = match.pop("_stream", None)
+                render = trace if st is None else {
+                    "uuid": trace.get("uuid"), "trace": st["trace"],
+                    "match_options": trace.get("match_options") or {}}
+                quality = self._note_quality(render, match, span)
+                t_rep = _time.monotonic()
+                data = report_fn(match, render, self.threshold_sec, rl, tl,
+                                 mode=(trace.get("match_options") or {}).get("mode", "auto"))
+            span.mark("report_fn_s", _time.monotonic() - t_rep)
+            span.finish()
         except Exception as e:  # noqa: BLE001 - the request gets the error
             log.exception("match failed")
-            self._note_request(ok=False)
-            if isinstance(e, (DeviceWedged, BatcherCrashed)):
-                return 503, {"error": str(e), "retry_after": 1}
-            return 500, {"error": str(e)}
+            return self._refusal(e, self.batcher, route, span)
         if st is not None:
             data["session"] = st["session"]
         if degraded:
             data["degraded"] = True
+            span.meta["degraded"] = True
             _count("degraded_requests")
+        if debug:
+            data["debug"] = span.breakdown()
+            if quality is not None:
+                data["debug"]["quality"] = {k: v for k, v in quality.items()
+                                            if k != "edge"}
+            # the HMM parameters this request ran with (its match_options
+            # applied and clamped)
+            data["debug"]["match_options"] = self.matcher.effective_match_options(
+                trace.get("match_options") or {})
+        self._terminal(route, 200, span, degraded=degraded)
         self._note_request(ok=True)
+        C_REQUESTS.labels(route, "degraded" if degraded else "ok").inc()
         return 200, data
 
     def handle_batch(self, body: dict,
@@ -969,43 +1351,61 @@ class ReporterService:
         """{"traces": [...]}: every trace validated first (a bad one is a
         400 naming its index), then one ``match_many`` on the windowed
         batcher (on the CPU baseline when degraded) and one report per
-        trace, in request order."""
+        trace, in request order.  One span covers the whole request."""
+        route = "trace_attributes_batch"
+        span = obs_trace.current_span() or Span(route)
+        span.meta.setdefault("endpoint", route)
         if self.draining:
-            return self._drain_refusal()
+            return self._drain_refusal(route, span)
         batcher = self.batcher
         traces = body.get("traces")
         if not isinstance(traces, list) or not traces:
+            span.fail("traces must be a non-empty array", status="invalid")
+            self._terminal(route, 400, span)
             return 400, {"error": "traces must be a non-empty array"}
+        span.meta["n_traces"] = len(traces)
         validated = []
         for i, trace in enumerate(traces):
             err, rl, tl = self.validate(trace)
             if err:
+                C_REQUESTS.labels(route, "invalid").inc()
+                span.fail("trace %d: %s" % (i, err), status="invalid")
+                self._terminal(route, 400, span)
                 return 400, {"error": "trace %d: %s" % (i, err)}
             trace.pop("_columns", None)
             validated.append((trace, rl, tl))
         degraded = self.degraded
         try:
-            if degraded:
-                m = self._cpu_fallback()
-                with self._cpu_lock:
-                    matches = m.match_many([t for t, _rl, _tl in validated])
-            else:
-                matches = batcher.match_many([t for t, _rl, _tl in validated], deadline)
-            results = []
-            for m_, (t, rl, tl) in zip(matches, validated):
-                m_.pop("_quality", None)
-                results.append(report_fn(m_, t, self.threshold_sec, rl, tl,
-                                         mode=t.get("match_options", {}).get("mode", "auto")))
+            with obs_trace.bind(span):
+                t0 = _time.monotonic()
+                if degraded:
+                    m = self._cpu_fallback()
+                    with self._cpu_lock:
+                        matches = m.match_many([t for t, _rl, _tl in validated])
+                    span.meta["degraded"] = True
+                else:
+                    matches = batcher.match_many([t for t, _rl, _tl in validated],
+                                                 deadline)
+                span.mark("match_s", _time.monotonic() - t0)
+                for m_, (t, _rl, _tl) in zip(matches, validated):
+                    self._note_quality(t, m_, span)
+                t0 = _time.monotonic()
+                results = [report_fn(m_, t, self.threshold_sec, rl, tl,
+                                     mode=t.get("match_options", {}).get("mode", "auto"))
+                           for m_, (t, rl, tl) in zip(matches, validated)]
+                span.mark("report_fn_s", _time.monotonic() - t0)
         except Exception as e:  # noqa: BLE001 - the request gets the error
             if not isinstance(e, (Overloaded, DeadlineExpired, TraceQuarantined,
                                   DeviceWedged, BatcherCrashed)):
                 log.exception("batch failed")
-            return self._refusal(e, batcher)
+            return self._refusal(e, batcher, route, span)
+        self._terminal(route, 200, span, degraded=degraded)
         self._note_request(ok=True)
         out = {"results": results}
         if degraded:
             out["degraded"] = True
             _count("degraded_requests")
+        C_REQUESTS.labels(route, "degraded" if degraded else "ok").inc()
         return 200, out
 
     def handle_health(self) -> Tuple[int, dict]:
@@ -1109,8 +1509,223 @@ class ReporterService:
         return 200, dict(store.summary(), replica=self.replica_id,
                          draining=bool(self.draining))
 
+    # -- observability endpoints ----------------------------------------------
+
+    def _econ_sample(self) -> dict:
+        """The economics tick's signal read: live registry and state reads
+        only (the engine differences the cumulative counters itself).
+        Admitted = terminal ok + degraded, shed = terminal 429s; the
+        device-step histogram feeds the capacity ceiling's windowed p95."""
+        b = self.batcher
+        step = None
+        try:
+            samp = M_DEVICE_STEP._default()._sample()
+            step = (samp["buckets"], samp["counts"])
+        except Exception:  # noqa: BLE001 - a sensor read must never raise
+            pass
+        burn = max_burn = None
+        try:
+            burn = {}
+            for name, st in obs_slo.engine().summary()["objectives"].items():
+                rates = [float(v) for v in (st.get("burn") or {}).values()
+                         if isinstance(v, (int, float))]
+                burn[name] = round(max(rates), 4) if rates else None
+            rates = [v for v in burn.values() if v is not None]
+            max_burn = max(rates) if rates else None
+        except Exception:  # noqa: BLE001
+            pass
+        return {
+            "queue_depth": b._q.qsize(),
+            "admitted_total": obs_econ.counter_total(
+                C_REQUESTS, {"outcome": ("ok", "degraded")}),
+            "shed_total": obs_econ.counter_total(C_REQUESTS, {"outcome": "shed"}),
+            "points_total": C_POINTS_MATCHED.value,
+            "device_step": step,
+            "max_batch": float(b.max_batch),
+            "burn": burn,
+            "max_burn": max_burn,
+            "sessions": self.session_store.summary()["sessions"],
+            "session_tiers": self._session_tiers(),
+        }
+
+    def _session_tiers(self) -> dict:
+        """Resident sessions by tier for the economics tick: hot / cold
+        from the slab's maps, host = every other session the store holds."""
+        total = self.session_store.summary()["sessions"]
+        arena = getattr(self.matcher, "session_arena", None)
+        if arena is None:
+            return {"hot": 0, "cold": 0, "host": total}
+        t = arena.tier_counts()
+        return {"hot": t["hot"], "cold": t["cold"],
+                "host": max(0, total - t["hot"] - t["cold"])}
+
+    def handle_cost(self, query: dict) -> Tuple[int, dict]:
+        """GET /debug/cost: chip-seconds by lifecycle state, accrued
+        dollars, $ per million matched points, the measured capacity and
+        the demand-history ring's place and size."""
+        return 200, self.economics.cost_report()
+
+    def handle_history(self, query: dict) -> Tuple[int, dict]:
+        """GET /debug/history[?window=S]: the demand-history ring's records
+        (oldest first), optionally the last ``window`` seconds only; an
+        empty series with its reason when the history is off."""
+        window = None
+        raw = query.get("window", [None])[0]
+        if raw is not None:
+            try:
+                window = max(1.0, float(raw))
+            except (TypeError, ValueError):
+                return 400, {"error": "window must be a number (seconds)"}
+        return 200, self.economics.history_report(window_s=window)
+
+    def handle_statusz(self) -> Tuple[int, dict]:
+        """GET /statusz: uptime, configuration, fault-domain state, every
+        plane's summary and every metric family (the dict form of
+        /metrics)."""
+        m = self.matcher
+        b = self.batcher
+        sb = self.session_batcher
+        return 200, {
+            "uptime_s": round(_time.time() - self._t_boot, 1),
+            "replica": self.replica_id,
+            "draining": bool(self.draining),
+            "warming": False,
+            "backend": m.backend,
+            "viterbi_kernel": getattr(m, "_kernel_mode", None),
+            "threshold_sec": self.threshold_sec,
+            "batch": dict(self._batch_params),
+            "degraded": bool(self.degraded),
+            "wedged": bool(b.wedged),
+            "crashed": bool(b._crashed),
+            "robustness": {
+                "max_queue": b.max_queue,
+                "deadline_ms": round(b.deadline_s * 1000.0, 1),
+                "watchdog_s": b.watchdog_s,
+                "quarantine_after": b.quarantine_after,
+                "quarantine_ttl_s": b.quarantine_ttl_s,
+                "reattach_probe_s": self._reattach_probe_s,
+                "quarantined_uuids": b.quarantined(),
+            },
+            "latency_buckets_s": list(obs.LATENCY_BUCKETS_S),
+            "batch_fill_buckets": list(obs.BATCH_FILL_BUCKETS),
+            "flight": obs_flight.RECORDER.summary(),
+            "attrib": obs_attrib.summary(),
+            "slo": obs_slo.engine().summary(),
+            "quality": self.quality.summary() if self.quality is not None else None,
+            "sparse": (m.sparse.summary()
+                       if getattr(m, "sparse", None) is not None else None),
+            "sessions": self.session_store.summary(),
+            "session_arena": (m.session_arena.summary()
+                              if getattr(m, "session_arena", None) is not None
+                              else None),
+            "ubodt_tier": (m.tiering.summary()
+                           if getattr(m, "tiering", None) is not None else None),
+            "adaptive": {
+                "enabled": obs_adaptive.enabled(),
+                "batch_wait_s": round(b.max_wait, 5),
+                "session_wait_s": round(sb.max_wait, 5),
+                "max_batch": b.max_batch,
+                "session_max_batch": sb.max_batch,
+            },
+            "checkpoint": (self.session_checkpointer.summary()
+                           if self.session_checkpointer is not None else None),
+            "economics": self.economics.summary(),
+            "memory": obs_econ.memory_summary(m, self.session_store),
+            "metrics": obs.REGISTRY.snapshot(),
+        }
+
+    def handle_traces(self, query: dict) -> Tuple[int, dict]:
+        """GET /debug/traces?n=K: the flight recorder's newest retained
+        traces (errors and slow ones always, plus the sample), newest
+        first; ``?id=<trace_id>`` every retained entry of that trace (404
+        with an empty list when none was kept)."""
+        rec = obs_flight.RECORDER
+        tid = obs_trace.accept_trace_id(query.get("id", [None])[0])
+        if tid:
+            entries = rec.find(tid)
+            out = {"trace_id": tid, "replica": self.replica_id, "traces": entries}
+            if not entries:
+                out["error"] = "trace %r not retained" % tid
+            return (200 if entries else 404), out
+        try:
+            n = int(query.get("n", ["50"])[0])
+        except (TypeError, ValueError):
+            return 400, {"error": "n must be an integer"}
+        n = max(1, min(n, 2 * rec.capacity))
+        return 200, {"summary": rec.summary(), "traces": rec.snapshot(n)}
+
+    def handle_slo(self, query: dict) -> Tuple[int, dict]:
+        """GET /debug/slo[?window=S]: every objective's value against its
+        target, multi-window burn rates, remaining budget, per-route
+        traffic and quantiles, the retained violating trace_ids, and the
+        quality section when sampling is on."""
+        window = None
+        raw = query.get("window", [None])[0]
+        if raw is not None:
+            try:
+                window = max(1.0, float(raw))
+            except (TypeError, ValueError):
+                return 400, {"error": "window must be a number (seconds)"}
+        out = obs_slo.engine().report(window_s=window)
+        if self.quality is not None:
+            out["quality"] = self.quality.report()
+        return 200, out
+
+    def handle_profile(self, query: dict) -> Tuple[int, dict]:
+        """GET /debug/profile?seconds=N: a torch.profiler capture of the
+        live process for N seconds; answers its trace directory (409 while
+        another capture runs)."""
+        from ..obs import profiler
+
+        try:
+            seconds = float(query.get("seconds", ["2"])[0])
+        except (TypeError, ValueError):
+            return 400, {"error": "seconds must be a number"}
+        if self.matcher.backend != "jax":
+            return 501, {"error": "profiling needs the device backend (got %r)"
+                                  % self.matcher.backend}
+        try:
+            trace_dir, recorded = profiler.capture(seconds)
+        except profiler.ProfilerBusy as e:
+            return 409, {"error": str(e), "inflight": e.inflight}
+        except Exception as e:  # noqa: BLE001 - surfaced to the caller
+            log.exception("profiler capture failed")
+            return 500, {"error": str(e)}
+        return 200, {"trace_dir": trace_dir, "seconds": recorded}
+
+    def handle_attrib(self, query: dict) -> Tuple[int, dict]:
+        """GET /debug/attrib: the last parsed per-stage attribution and its
+        age; with ``?capture=1[&reps=N]`` a capture now: N dummy dispatches
+        through the real dispatch path under a profiler window, parsed and
+        published to the gauges (409 while another capture runs)."""
+        from ..obs import profiler
+
+        if query.get("capture", ["0"])[0] in ("", "0", "false"):
+            return 200, {"attrib": obs_attrib.last(), "summary": obs_attrib.summary()}
+        if self.matcher.backend != "jax":
+            return 501, {"error": "attribution needs the device backend (got %r)"
+                                  % self.matcher.backend}
+        try:
+            reps = int(query.get("reps", ["3"])[0])
+        except (TypeError, ValueError):
+            return 400, {"error": "reps must be an integer"}
+        try:
+            res = obs_attrib.capture_matcher(self.matcher, reps=max(1, min(reps, 20)))
+        except profiler.ProfilerBusy as e:
+            return 409, {"error": str(e), "inflight": e.inflight}
+        except Exception as e:  # noqa: BLE001 - surfaced to the caller
+            log.exception("attribution capture failed")
+            return 500, {"error": str(e)}
+        return 200, {"attrib": res, "summary": obs_attrib.summary()}
+
     def make_server(self, host: str = "0.0.0.0", port: int = 8002) -> ThreadingHTTPServer:
         service = self
+        # the economics sensors arm with the server: the tick thread and
+        # the scrape-time memory collector (``close`` removes both)
+        if self._collect is None:
+            self._collect = lambda: obs_econ.publish_memory(self.matcher,
+                                                            self.session_store)
+            self.economics.start(self._econ_sample, collect=(self._collect,))
 
         class Handler(BaseHTTPRequestHandler):
             protocol_version = "HTTP/1.1"
@@ -1119,6 +1734,7 @@ class ReporterService:
             timeout = 30
 
             def _answer(self, code: int, payload: dict):
+                t0s = _time.monotonic()
                 body = None
                 ctype = "application/json;charset=utf-8"
                 if code == 200 and self._accept_wire:
@@ -1132,6 +1748,8 @@ class ReporterService:
                                     exc_info=True)
                 if body is None:
                     body = json.dumps(payload, separators=(",", ":")).encode("utf-8")
+                if self._timed_route:
+                    obs_attrib.host_add("serialize", _time.monotonic() - t0s)
                 self.send_response(code)
                 self.send_header("Access-Control-Allow-Origin", "*")
                 self.send_header("Content-Type", ctype)
@@ -1144,9 +1762,27 @@ class ReporterService:
                     except (TypeError, ValueError):
                         ra = 1
                     self.send_header("Retry-After", str(ra))
-                self.send_header("X-Reporter-Replica", service.replica_id)
+                self._echo_headers()
                 self.end_headers()
                 self.wfile.write(body)
+
+            def _answer_text(self, code: int, text: str):
+                """Prometheus exposition is text, not JSON."""
+                body = text.encode("utf-8")
+                self.send_response(code)
+                self.send_header("Content-Type",
+                                 "text/plain; version=0.0.4; charset=utf-8")
+                self.send_header("Content-Length", str(len(body)))
+                self._echo_headers()
+                self.end_headers()
+                self.wfile.write(body)
+
+            def _echo_headers(self):
+                """Every response echoes the request's trace id (accepted
+                from X-Reporter-Trace, or minted at ingestion) and names
+                the replica."""
+                self.send_header("X-Reporter-Trace", self._trace_id)
+                self.send_header("X-Reporter-Replica", service.replica_id)
 
             def _decode(self, raw: bytes):
                 """A POST body: gzip inflated (bounded), then a binary
@@ -1179,10 +1815,14 @@ class ReporterService:
             def _route(self, post: bool):
                 if service.draining:
                     self.close_connection = True  # answer, then drain out
+                # the trace id: the client's, or one minted here; echoed on
+                # every response
+                self._trace_id = (obs_trace.accept_trace_id(
+                    self.headers.get("X-Reporter-Trace")) or obs_trace.new_trace_id())
                 # per-request wire state: the handler lives for the whole
                 # keep-alive connection, so one binary request must not
                 # turn later requests on the socket binary
-                self._accept_wire = self._wire_single = False
+                self._accept_wire = self._wire_single = self._timed_route = False
                 n = 0
                 if post:
                     try:
@@ -1204,6 +1844,23 @@ class ReporterService:
                             400, {"error": "Try a valid action: %s" % sorted(ACTIONS)})
                     if action == "health":
                         return self._answer(*service.handle_health())
+                    if action == "metrics":
+                        return self._answer_text(200, obs.REGISTRY.render())
+                    if action == "statusz":
+                        return self._answer(*service.handle_statusz())
+                    if action in ("profile", "attrib"):
+                        # bound to a span, so a concurrent capture's 409
+                        # names this request's trace_id
+                        with obs_trace.bind(Span(action, trace_id=self._trace_id)):
+                            handler = (service.handle_profile if action == "profile"
+                                       else service.handle_attrib)
+                            return self._answer(*handler(query))
+                    handler = {"traces": service.handle_traces,
+                               "slo": service.handle_slo,
+                               "cost": service.handle_cost,
+                               "history": service.handle_history}.get(action)
+                    if handler is not None:
+                        return self._answer(*handler(query))
                     if action == "sessions":
                         body = None
                         if post:
@@ -1214,14 +1871,17 @@ class ReporterService:
                         return self._answer(*service.handle_sessions(query, body))
                     # fault seam: a slow-accepting replica
                     faults.hang("replica_slow_accept")
+                    self._timed_route = True
                     if service.wire_enabled and wire.CONTENT_TYPE in (
                             self.headers.get("Accept") or ""):
                         self._accept_wire = True
                         self._wire_single = action == "report"
                     if post:
+                        t0p = _time.monotonic()
                         payload, answer = self._decode(raw)
                         if answer is not None:
                             return self._answer(*answer)
+                        obs_attrib.host_add("parse", _time.monotonic() - t0p)
                     else:
                         if "json" not in query:
                             return self._answer(400, {"error": "No json provided"})
@@ -1236,12 +1896,22 @@ class ReporterService:
                     return self._answer(400, {"error": str(e)})
                 if not isinstance(payload, dict):
                     return self._answer(400, {"error": "request body must be a json object"})
+                # the request's span, picked up by the handlers from the
+                # context; X-Reporter-Flight-Keep (validated like a trace
+                # id) pins it in the flight recorder
+                span = Span(action, trace_id=self._trace_id)
+                keep = obs_trace.accept_trace_id(self.headers.get("X-Reporter-Flight-Keep"))
+                if keep:
+                    span.meta["flight_keep"] = keep
                 try:
-                    handler = (service.handle_report if action == "report"
-                               else service.handle_batch)
                     # the drain waits for this count to reach zero
-                    with service._track_active():
-                        code, out = handler(payload, self._deadline())
+                    with service._track_active(), obs_trace.bind(span):
+                        if action == "report":
+                            debug = query.get("debug", ["0"])[0] not in ("", "0", "false")
+                            code, out = service.handle_report(payload, self._deadline(),
+                                                              debug)
+                        else:
+                            code, out = service.handle_batch(payload, self._deadline())
                 except Exception as e:  # noqa: BLE001 - never drop the socket
                     log.exception("unhandled request error")
                     code, out = 500, {"error": str(e)}

@@ -59,9 +59,32 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..obs import metrics as obs
+from ..obs.attrib import stage
 from .ubodt import ROW_W, UBODT, bucket_entries
 
 log = logging.getLogger(__name__)
+
+# the tiers' flows and residency, fed by every table's counts
+C_TIER_HITS = obs.counter(
+    "reporter_ubodt_tier_hits_total",
+    "UBODT probes answered from the device-resident hot-bucket arena "
+    "(docs/performance.md \"Continent-scale data plane\")")
+C_TIER_MISSES = obs.counter(
+    "reporter_ubodt_tier_misses_total",
+    "UBODT probes whose bucket was cold — served bit-identically through "
+    "the host-paged full-width fallback")
+C_TIER_EVICTIONS = obs.counter(
+    "reporter_ubodt_tier_evictions_total",
+    "Hot-arena bucket rows evicted by the probe-frequency EWMA "
+    "maintenance pass")
+G_TIER_ROWS = obs.gauge(
+    "reporter_ubodt_tier_resident_rows",
+    "Bucket rows currently resident in the device hot arena")
+G_TIER_FRAC = obs.gauge(
+    "reporter_ubodt_tier_residency_frac",
+    "Fraction of the table's buckets resident in the device hot arena "
+    "(resident rows / n_buckets)")
 
 EWMA_DECAY = 0.8  # the reference's decay of the probe-frequency EWMA
 
@@ -142,7 +165,7 @@ class TieredTable:
         self._dispatches_since_maintain = 0
         self._misses_since_maintain = 0
         self._units = 0  # fetch units launched since the last drain
-        self.hits = self.misses = self.evictions = 0
+        self.evictions = 0
         self.maintenance_passes = 0
         self._hot_set = np.zeros(0, np.int64)
         if self.capacity > 0 and shard is not None:
@@ -179,6 +202,7 @@ class TieredTable:
         self._free = np.arange(max(0, self.capacity), dtype=np.int32)
         seed, self._hot_set = self._hot_set, np.zeros(0, np.int64)
         self._swap(seed)
+        self._publish_gauges()
         log.info("ubodt tiering: %d/%d bucket rows hot (%d B budget, %d B "
                  "row, table %d B, %d B pinned)%s", len(self._hot_set),
                  self.n_buckets, self.hot_bytes, row_bytes, self.table_bytes,
@@ -208,6 +232,10 @@ class TieredTable:
         except Exception:  # noqa: BLE001 - interpreter teardown
             pass
 
+    def _publish_gauges(self) -> None:
+        G_TIER_ROWS.set(len(self._hot_set))
+        G_TIER_FRAC.set(len(self._hot_set) / max(1, self.n_buckets))
+
     def _swap(self, new_set: np.ndarray) -> None:
         """Make ``new_set`` the hot set: the evicted buckets' slots freed,
         each admitted bucket's page copied into a free slot, the slot map
@@ -221,10 +249,10 @@ class TieredTable:
         self._slot_host[gone] = -1
         self._slot_host[came] = slots
         # host tensors page-locked for an asynchronous copy on the card
-        stage = (lambda x: x.pin_memory()) if self.dev.type == "cuda" else (
+        pin = (lambda x: x.pin_memory()) if self.dev.type == "cuda" else (
             lambda x: x)
-        rows = stage(torch.from_numpy(self.pages[came]))
-        idx = stage(torch.from_numpy(np.concatenate([gone, came,
+        rows = pin(torch.from_numpy(self.pages[came]))
+        idx = pin(torch.from_numpy(np.concatenate([gone, came,
                                                      slots.astype(np.int64)])))
         with self.launch_lock:
             arena, slot_map = self._hot
@@ -257,10 +285,12 @@ class TieredTable:
             arena, slot_map = self._hot
             slot = slot_map[b]
             hot = slot >= 0
-            rows = arena[slot.clamp(min=0).long()]
+            with stage("tier-arena"):
+                rows = arena[slot.clamp(min=0).long()]
             cold = ~hot
             if bool(cold.any()):  # the pages live on the host
-                rows[cold] = self.pages_t[b[cold].cpu()].to(b.device)
+                with stage("tier-page"):
+                    rows[cold] = self.pages_t[b[cold].cpu()].to(b.device)
             self.counts.index_add_(0, b, torch.ones_like(b, dtype=torch.int32))
             n_hot = hot.sum()
             self.totals += torch.stack([n_hot, hot.numel() - n_hot])
@@ -279,8 +309,8 @@ class TieredTable:
         with self._lock:
             n_hit, n_miss = tot[0] - self._seen[0], tot[1] - self._seen[1]
             self._seen = (tot[0], tot[1])
-            self.hits += n_hit
-            self.misses += n_miss
+            C_TIER_HITS.inc(n_hit)
+            C_TIER_MISSES.inc(n_miss)
             self._dispatches_since_maintain += units
             self._misses_since_maintain += n_miss
             due = (self._misses_since_maintain > 0
@@ -319,6 +349,8 @@ class TieredTable:
             if admitted or evicted:
                 self._swap(new_set)
             self.evictions += evicted
+            C_TIER_EVICTIONS.inc(evicted)
+            self._publish_gauges()
             return {"hot_rows": int(len(self._hot_set)),
                     "admitted": admitted, "evicted": evicted}
 
@@ -345,6 +377,16 @@ class TieredTable:
         return new_set
 
     # -- introspection ------------------------------------------------------
+
+    @property
+    def hits(self) -> int:
+        """Fetches answered from the hot arena, read at collect."""
+        return self._seen[0]
+
+    @property
+    def misses(self) -> int:
+        """Fetches of cold buckets, read at collect."""
+        return self._seen[1]
 
     @property
     def resident_rows(self) -> int:

@@ -33,8 +33,20 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..obs import metrics as obs
 
 log = logging.getLogger(__name__)
+
+# the distributed builder's work units; the port builds its tables in one
+# process, so the family is registered (as the JAX package's is) and stays
+# empty
+C_DIST_UNITS = obs.counter(
+    "reporter_ubodt_dist_units_total",
+    "Distributed-builder source-range work units by outcome (built = "
+    "journalled complete by a worker, requeued = a dead worker's "
+    "unfinished remainder re-run once on the parent; "
+    "docs/performance.md \"Continent-scale data plane\")",
+    ("outcome",))
 
 # uint32 multiplicative mixing constants; two independent mixes give the
 # two cuckoo bucket choices

@@ -245,13 +245,14 @@ def test_poison_trace_fails_alone_then_quarantines(engines, pair, monkeypatch):
     s = pair(max_wait_ms=150.0, robustness=dict(watchdog_s=0, quarantine_after=2,
                                                 quarantine_ttl_s=300.0))
     b = s["port"].svc.batcher
+    isolated = service_mod.counts()["poison_isolations"]
     for rnd in range(2):
         got, want = _poison_round(s["port"], pa), _poison_round(s["ref"], pa)
         assert got == want, rnd
         code, body = got["poison-veh"]
         assert code == 500 and "failed its device batch alone" in body["error"]
         assert all(got[u][0] == 200 and got[u][1]["datastore"]["reports"] for u in INNOCENT)
-    assert b.poison_isolations == 2 and b.quarantined() == 1
+    assert service_mod.counts()["poison_isolations"] - isolated == 2 and b.quarantined() == 1
     # round 3: refused at admission, nothing dispatched; innocents fly
     n = faults.injected("dispatch")
     for name in ("port", "ref"):
@@ -310,6 +311,7 @@ def test_transient_device_fault_absorbed_by_bisect(engines, pair, monkeypatch):
     monkeypatch.setenv("REPORTER_FAULT_UBODT_PROBE", "1")
     s = pair(max_wait_ms=300.0, robustness=dict(watchdog_s=0))
     n = faults.injected("ubodt_probe")
+    isolated = service_mod.counts()["poison_isolations"]
     out = {}
     for name in ("port", "ref"):
         out[name] = _concurrent(
@@ -318,7 +320,7 @@ def test_transient_device_fault_absorbed_by_bisect(engines, pair, monkeypatch):
     assert out["port"] == out["ref"]
     assert all(c == 200 and b["datastore"]["reports"] for c, b in out["port"].values())
     assert faults.injected("ubodt_probe") == n + 1
-    assert s["port"].svc.batcher.poison_isolations == 0
+    assert service_mod.counts()["poison_isolations"] == isolated
 
 
 def test_failing_launches_are_batch_failures_not_degraded(engines, pair, monkeypatch):

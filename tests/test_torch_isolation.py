@@ -239,3 +239,57 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     # asked for explicitly, the CPU runs the plain versions
     assert SegmentMatcher(arrays=arrays, ubodt=ubodt, config=MatcherConfig(),
                           device="cpu").device.type == "cpu"
+
+
+_BLOCKED_OBS = _BLOCKED_RUN[:_BLOCKED_RUN.index("import reporter_tpu_torch\n")] + r'''
+import json, os, pkgutil, tempfile, threading, urllib.request
+import reporter_tpu_torch.obs as obs_pkg
+names = sorted(m.name for m in pkgutil.iter_modules(obs_pkg.__path__))
+assert names == ["adaptive", "attrib", "economics", "flight", "log", "metrics",
+                 "profiler", "quality", "quantile", "slo", "trace"], names
+for n in names:
+    __import__("reporter_tpu_torch.obs." + n)
+from reporter_tpu_torch.matching import MatcherConfig, SegmentMatcher
+from reporter_tpu_torch.obs import attrib
+from reporter_tpu_torch.serve.service import ReporterService
+from reporter_tpu_torch.synth import TraceSynthesizer
+from reporter_tpu_torch.tiles.arrays import build_graph_arrays
+from reporter_tpu_torch.tiles.network import grid_city
+os.environ["REPORTER_QUALITY_SAMPLE_EVERY"] = "1"
+arrays = build_graph_arrays(grid_city(5, 5, 150.0))
+m = SegmentMatcher(arrays=arrays, device="cpu",
+                   config=MatcherConfig(ubodt_delta=1500.0, length_buckets=[16]))
+svc = ReporterService(m, max_wait_ms=1.0, robustness={"watchdog_s": 0})
+server = svc.make_server("127.0.0.1", 0)
+threading.Thread(target=server.serve_forever, daemon=True).start()
+url = "http://127.0.0.1:%d" % server.server_address[1]
+tr = TraceSynthesizer(arrays, seed=1).batch(1, 12, dt=5.0)[0].trace
+tr["match_options"] = {"report_levels": [0, 1], "transition_levels": [0, 1]}
+req = urllib.request.Request(url + "/report?debug=1", json.dumps(tr).encode(),
+                             {"Content-Type": "application/json", "X-Reporter-Trace": "iso-1"})
+with urllib.request.urlopen(req, timeout=60) as r:
+    assert r.headers["X-Reporter-Trace"] == "iso-1"
+    assert json.loads(r.read())["debug"]["trace_id"] == "iso-1"
+assert svc.quality is not None and svc.quality.drain(30.0)
+for path in ("/metrics", "/statusz", "/debug/slo", "/debug/traces", "/debug/cost",
+             "/debug/history", "/debug/attrib?capture=1&reps=1"):
+    with urllib.request.urlopen(url + path, timeout=120) as r:
+        assert r.status == 200, path
+res = attrib.last()
+assert res["platform"] == "cpu" and res["stages_ms"]["candidate-sweep"] > 0
+server.shutdown()
+server.server_close()
+svc.close()
+assert not [m for m in sys.modules if blocked(m)]
+print("OBS-ISOLATED-OK")
+'''
+
+
+def test_obs_modules_serve_with_jax_and_reference_blocked():
+    """Every module of reporter_tpu_torch/obs imports with ``jax`` and
+    ``reporter_tpu`` blocked, and the service answers the observability
+    endpoints (an attribution capture and a quality sample included)."""
+    r = subprocess.run([sys.executable, "-c", _BLOCKED_OBS], cwd=REPO,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "OBS-ISOLATED-OK" in r.stdout
