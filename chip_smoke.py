@@ -327,6 +327,29 @@ delta 3000 m, cuckoo layout) and moves it to the card, then:
      rounds of off, on, on, off: each side's median wall and quartiles,
      and a range's own cost times the ranges a call opens.
 
+  21. the batched and streaming modes on the same city (``modes_phase``,
+     after phase 20), on phase 17's matcher: (1) the batch pipeline in
+     process, ``run_pipeline`` over an archive of the 512 x 64 and 16 x
+     1,024 cohorts (4 source files; vehicles 0-63 pause 300 s after their
+     32nd point: 592 windows at the 120 s inactivity), phases 1 and 3 on two
+     spawned workers, micro-batches of 256, privacy 2, hourly tiles: 0
+     failures, every window matched, kernels 1-5 launched, its tiles equal
+     by path and sorted rows to the same pipeline's on the port on the CPU
+     (resumed from the card run's shards), the CPU baseline's share of
+     equal rows printed; (2) ``python -m reporter_tpu_torch.batch --device
+     cuda --warmup --metrics`` in a process of its own on the city's
+     ``file`` config: exit 0, the same tiles, its metrics line counting the
+     592 windows; (3) the 512 x 64 cohort as SV lines in time order through
+     the stream topology (micro-batches of 16, privacy 2, hourly tiles,
+     every line stamped with one arrival instant): ``LocalMatcherClient``
+     on the card, equal to it on the port on the CPU, ``HttpMatcherClient``
+     against a ReporterService on the card matcher, ``python -m
+     reporter_tpu_torch.stream`` fed the lines on stdin against that
+     server, and a checkpoint after half of the lines restored into a
+     fresh pipeline fed the rest, each with the card's tiles.  It prints
+     each run's wall and points/s, the batch's three phase walls and the
+     launches.
+
 Before the phases it times ``torch.cuda._sleep(1)``, a one-thread kernel,
 under ``time_ms`` (``launch_floor``): the least time that timer reads for
 a launch, printed as ``floor_ms`` and written beside the kernels' list.
@@ -5703,8 +5726,8 @@ def obs_mix(sv, t64, t256, device):
     by REPORTER_FAULT_DISPATCH, each with its own X-Reporter-Trace, through
     the launch counters; a fresh SLO engine and a flight recorder that
     keeps every trace.  /metrics parses and holds every family the port
-    registers (tools/check_metrics.py's scan of the package) with its
-    labels; its request, trace, point and dispatch counts equal the
+    registers (tools/check_metrics.py's scan of the package, the batch and
+    stream modules' too) with its labels; its request, trace, point and dispatch counts equal the
     traffic and the launch counters' deltas; /statusz has the JAX
     package's keys; /debug/traces holds every trace id sent, the poisoned
     one by right; /debug/slo counts the requests; the device memory gauge
@@ -5713,6 +5736,10 @@ def obs_mix(sv, t64, t256, device):
 
     import torch
 
+    # the batch and stream modules' families register at import
+    import reporter_tpu_torch.batch.pipeline  # noqa: F401
+    import reporter_tpu_torch.stream.checkpoint  # noqa: F401
+    import reporter_tpu_torch.stream.topology  # noqa: F401
     from reporter_tpu_torch.obs import flight as obs_flight
     from reporter_tpu_torch.obs import metrics as obs_metrics
     from reporter_tpu_torch.ops import _kernels
@@ -6117,6 +6144,377 @@ def obs_scopes(sv, t64, pairs=8, n_ranges=20000):
     return res
 
 
+# -- phase 21: the batched and streaming modes on the card --------------------
+
+SV_21 = ",sv,\\|,0,2,3,1,4"  # uuid|epoch|lat|lon|accuracy
+T_ARRIVE_21 = 1_460_000_000_000  # every stream line's arrival stamp (ms)
+STREAM_21 = dict(privacy=2, quantisation=3600, source="P21S", report_levels=(0, 1),
+                 transition_levels=(0, 1), flush_interval_sec=300, microbatch_size=16)
+BATCH_21 = dict(valuer='lambda l: tuple(l.split("|"))', time_pattern=None, microbatch=256,
+                inactivity=120, privacy=2, quantisation=3600, report_levels={0, 1},
+                transition_levels={0, 1}, source="P21")
+
+
+def _sv_line(uuid, p, t=None):
+    """One ``uuid|epoch|lat|lon|accuracy`` row, lat / lon at float32 (the
+    stream's point serde keeps float32, so a restored point is the fed
+    one)."""
+    import numpy as np
+
+    return "%s|%d|%r|%r|%d" % (uuid, int(round(p["time"])) if t is None else t,
+                               float(np.float32(p["lat"])), float(np.float32(p["lon"])),
+                               p["accuracy"])
+
+
+def modes_archive(d, t64, t1024, gap_vehicles=64):
+    """The batch archive: both cohorts as SV rows over 4 source files
+    (round robin), uuids distinct across the cohorts; vehicles 0 to
+    ``gap_vehicles`` - 1 of the 64-point cohort pause 300 s after their
+    32nd point, so the 120 s inactivity cuts their drives in two.  Returns
+    (rows, windows)."""
+    os.makedirs(d, exist_ok=True)
+    rows = []
+    for tag, cohort in (("c64", t64), ("c1024", t1024)):
+        for v, tr in enumerate(cohort):
+            for j, p in enumerate(tr["trace"]):
+                gap = 300 if tag == "c64" and v < gap_vehicles and j >= 32 else 0
+                rows.append(_sv_line("%s-%d" % (tag, v), p, int(round(p["time"])) + gap))
+    files = [open(os.path.join(d, "part-%d.sv" % i), "w") for i in range(4)]
+    try:
+        for i, row in enumerate(rows):
+            files[i % 4].write(row + "\n")
+    finally:
+        for f in files:
+            f.close()
+    return len(rows), len(t64) + min(gap_vehicles, len(t64)) + len(t1024)
+
+
+def modes_tiles(*dirs):
+    """{tile path: sorted CSV rows} of every tile file under ``dirs`` (file
+    names carry a uuid4: only the tile path and the rows compare)."""
+    tiles = {}
+    for d in dirs:
+        for root, _dirs, files in os.walk(d):
+            for name in files:
+                with open(os.path.join(root, name)) as f:
+                    lines = f.read().strip().split("\n")
+                check(lines[0].startswith("segment_id,next_segment_id,"),
+                      "a tile file opens with the CSV header")
+                tiles.setdefault(os.path.relpath(root, d), []).extend(lines[1:])
+    return {k: sorted(v) for k, v in tiles.items()}
+
+
+def _tile_count(tiles):
+    return sum(len(v) for v in tiles.values())
+
+
+def _fam_sum(name):
+    from reporter_tpu_torch.obs import metrics as obs
+
+    fam = obs.REGISTRY.snapshot().get(name, {"samples": []})
+    return sum(v for _lv, v in fam["samples"])
+
+
+class _Watched:
+    """A matcher client that counts its requests and its None answers."""
+
+    def __init__(self, client):
+        self.client, self.requests, self.none = client, 0, 0
+
+    def report_many(self, requests):
+        out = self.client.report_many(requests)
+        self.requests += len(requests)
+        self.none += sum(r is None for r in out)
+        return out
+
+
+def _phase_walls(walls):
+    """Time run_pipeline's three phases: the module's phase functions
+    wrapped in place (run_pipeline calls them by name); returns the
+    restore function."""
+    from reporter_tpu_torch.batch import pipeline
+
+    saved = {n: getattr(pipeline, n) for n in ("get_traces", "make_matches", "report_tiles")}
+
+    def wrap(name, fn):
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                walls[name] = time.perf_counter() - t0
+        return timed
+    for n, fn in saved.items():
+        setattr(pipeline, n, wrap(n, fn))
+    return lambda: [setattr(pipeline, n, fn) for n, fn in saved.items()]
+
+
+def modes_batch(matcher, cpu, base, d, n_points, n_windows):
+    """21.1: ``run_pipeline`` over the archive on the card (phases 1 and 3
+    on two spawned workers), through the launch counters; then the same
+    pipeline resumed from the card run's shards (phases 2 and 3) on the
+    port on the CPU (``cpu``) and on the CPU baseline (``base``), each on
+    a thread of its own beside 21.2's CLI process (``side``: 21.2 runs
+    while they do).  Returns (figures, the card's tiles, the side runs'
+    figures and tiles once joined)."""
+    from reporter_tpu_torch.batch import run_pipeline
+
+    kernels = BUCKETED + ("viterbi_chain",)
+    fails, wins, requeues = (_fam_sum("reporter_batch_report_failures_total"),
+                             _fam_sum("reporter_batch_windows_matched_total"),
+                             _fam_sum("reporter_batch_shard_requeues_total"))
+    walls = {}
+    restore = _phase_walls(walls)
+    try:
+        (trace_dir, match_dir), dt, launches = _counted(kernels, lambda: run_pipeline(
+            matcher, archive_spec=os.path.join(d, "archive"), dest_store="dir:" + os.path.join(
+                d, "card"), cleanup=False, concurrency=2, **BATCH_21))
+    finally:
+        restore()
+    d_fail = _fam_sum("reporter_batch_report_failures_total") - fails
+    d_win = _fam_sum("reporter_batch_windows_matched_total") - wins
+    d_req = _fam_sum("reporter_batch_shard_requeues_total") - requeues
+    check(d_fail == 0 and d_win == n_windows and d_req == 0, "21.1 the batch on the card: %d "
+          "failures, %d windows matched of %d built, %d work units requeued from dead "
+          "workers" % (d_fail, d_win, n_windows, d_req))
+    card = modes_tiles(os.path.join(d, "card"))
+    check(card, "21.1 the card's batch wrote tiles")
+    out = {"wall_s": dt, "points_per_s": n_points / dt, "phase_walls_s": dict(walls),
+           "windows": d_win, "tiles": len(card), "rows": _tile_count(card),
+           "launches": launches}
+
+    def resumed(name, m):
+        t0 = time.perf_counter()
+        run_pipeline(m, trace_dir=trace_dir, dest_store="dir:" + os.path.join(d, name),
+                     cleanup=False, concurrency=1, **BATCH_21)
+        return time.perf_counter() - t0, modes_tiles(os.path.join(d, name))
+    side = _Beside({"cpu": lambda: resumed("cpu", cpu),
+                    "baseline": lambda: resumed("baseline", base)})
+
+    def joined():
+        res = side.join()
+        out["cpu_wall_s"], cpu_tiles = res["cpu"]
+        out["baseline_wall_s"], base_tiles = res["baseline"]
+        check(cpu_tiles == card, "21.1 the card's batch tiles equal, by path and sorted rows, "
+              "the same pipeline's on the port on the CPU")
+        import collections
+        import shutil
+
+        got, base_rows = collections.Counter(), collections.Counter()
+        for k, rows in card.items():
+            got.update((k, r) for r in rows)
+        for k, rows in base_tiles.items():
+            base_rows.update((k, r) for r in rows)
+        out["baseline_shared_rows"] = sum((got & base_rows).values()) / max(
+            1, sum(got.values()))
+        shutil.rmtree(trace_dir, ignore_errors=True)
+        shutil.rmtree(match_dir, ignore_errors=True)
+    return out, card, joined
+
+
+class _Beside:
+    """Callables run each on a thread of their own; ``join`` returns their
+    results by name, or raises the first one's exception."""
+
+    def __init__(self, fns):
+        self.results, self.errors = {}, []
+
+        def run(name, fn):
+            try:
+                self.results[name] = fn()
+            except BaseException as e:  # noqa: BLE001 - raised again in join
+                self.errors.append(e)
+        self.threads = [threading.Thread(target=run, args=kv, daemon=True)
+                        for kv in fns.items()]
+        for t in self.threads:
+            t.start()
+
+    def join(self, timeout=900):
+        for t in self.threads:
+            t.join(timeout)
+        check(not any(t.is_alive() for t in self.threads), "the side runs ended")
+        if self.errors:
+            raise self.errors[0]
+        return self.results
+
+
+def modes_batch_cli(cfg_json, d, device, n_windows, want):
+    """21.2: ``python -m reporter_tpu_torch.batch --device ... --warmup
+    --metrics`` in a process of its own on the city's ``file`` config:
+    exit 0, 21.1's tiles, a metrics line that counts every window."""
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "reporter_tpu_torch.batch", "--device", device.type,
+         "--src", os.path.join(d, "archive"), "--match-config", cfg_json,
+         "--src-valuer", BATCH_21["valuer"], "--src-time-pattern", "",
+         "--dest", "dir:" + os.path.join(d, "cli"), "--privacy", "2", "--quantisation",
+         "3600", "--inactivity", "120", "--microbatch", "256", "--concurrency", "2",
+         "--report-levels", "0,1", "--transition-levels", "0,1", "--source-id", "P21",
+         "--warmup", "--metrics"], cwd=REPO, capture_output=True, text=True, timeout=600)
+    dt = time.perf_counter() - t0
+    check(r.returncode == 0, "21.2 the batch CLI exits 0: %s" % r.stderr[-3000:])
+    snap = json.loads(r.stdout.strip().splitlines()[-1])
+    total = lambda n: sum(v for _lv, v in snap.get(n, {"samples": []})["samples"])  # noqa: E731
+    wins, fails = (total("reporter_batch_windows_matched_total"),
+                   total("reporter_batch_report_failures_total"))
+    check(wins == n_windows and fails == 0, "21.2 the CLI's --metrics line counts %d windows "
+          "(%d failures), want %d" % (wins, fails, n_windows))
+    check(modes_tiles(os.path.join(d, "cli")) == want,
+          "21.2 the batch CLI's tiles equal 21.1's")
+    return {"wall_s": dt, "windows": wins, "warmup_shapes": total("reporter_warmup_shapes_total"),
+            "warmup_s": total("reporter_warmup_seconds_total"),
+            "dispatches": total("reporter_dispatch_total")}
+
+
+def _stream_run(client, lines, out, lo=0, hi=None, ckpt_in=None, ckpt_out=None):
+    """``lines[lo:hi]`` through ``build_pipeline`` with ``client``, every
+    line stamped with one arrival instant (the CLI's clock on a fast stdin)
+    and closed at it, or checkpointed to ``ckpt_out`` instead of closed."""
+    from reporter_tpu_torch.stream.checkpoint import load_file, save_file
+    from reporter_tpu_torch.stream.topology import build_pipeline
+
+    p = build_pipeline(format_config=SV_21, client=client, output=out, **STREAM_21)
+    if ckpt_in:
+        check(load_file(p, ckpt_in), "21.3 the checkpoint loads")
+    for line in lines[lo:hi]:
+        p.feed(line, T_ARRIVE_21)
+    if ckpt_out:
+        save_file(p, ckpt_out)
+    else:
+        p.close(T_ARRIVE_21)
+    check(p.dropped == 0, "21.3 every line formatted")
+    return p
+
+
+def modes_stream(matcher, cpu, t64, d):
+    """21.3: the 64-point cohort as SV lines in time order through the
+    stream topology: ``LocalMatcherClient`` on the card (through the launch
+    counters) and on the port on the CPU; ``HttpMatcherClient`` against a
+    ReporterService on the card matcher's own HTTP server; the stream CLI
+    fed the lines on stdin against it; a checkpoint after half of the
+    lines restored into a fresh pipeline fed the rest.  Every run's tiles
+    equal the card's."""
+    from reporter_tpu_torch.stream.client import HttpMatcherClient, LocalMatcherClient
+    from reporter_tpu_torch.utils.httppool import POOL
+
+    rows = sorted((int(round(p["time"])), v, _sv_line("s64-%d" % v, p))
+                  for v, tr in enumerate(t64) for p in tr["trace"])
+    lines = [r[2] for r in rows]
+    out = {"lines": len(lines)}
+    runs = {}
+
+    def timed(name, fn, dirs=None):
+        t0 = time.perf_counter()
+        res = fn()
+        dt = time.perf_counter() - t0
+        out[name] = {"wall_s": dt, "points_per_s": len(lines) / dt}
+        runs[name] = modes_tiles(*(dirs or [os.path.join(d, name)]))
+        return res
+    local = _Watched(LocalMatcherClient(matcher, threshold_sec=15))
+    _p, _dt, launches = timed("local", lambda: _counted(
+        BUCKETED, lambda: _stream_run(local, lines, os.path.join(d, "local"))))
+    check(local.none == 0 and local.requests > 0, "21.3 the card answered all %d requests "
+          "(%d None)" % (local.requests, local.none))
+    want = runs["local"]
+    check(want, "21.3 the card's stream wrote tiles")
+    out["local"].update(requests=local.requests, tiles=len(want), rows=_tile_count(want),
+                        launches=launches)
+    on_cpu = _Watched(LocalMatcherClient(cpu, threshold_sec=15))
+    timed("cpu", lambda: _stream_run(on_cpu, lines, os.path.join(d, "cpu")))
+    check(on_cpu.none == 0, "21.3 the port on the CPU answered every request")
+    served = _Served(matcher, max_batch=64, max_wait_ms=2)
+    url = "http://127.0.0.1:%d/report" % served.port
+    try:
+        http = _Watched(HttpMatcherClient(url))
+        _p, _dt, out["http_launches"] = timed("http", lambda: _counted(
+            BUCKETED, lambda: _stream_run(http, lines, os.path.join(d, "http"))))
+        check(http.none == 0, "21.3 the server answered every request (%d None)" % http.none)
+
+        def cli():
+            r = subprocess.run(
+                [sys.executable, "-m", "reporter_tpu_torch.stream", "--format", SV_21,
+                 "--reporter-url", url, "--privacy", "2", "--quantisation", "3600",
+                 "--flush-interval", "300", "--source", STREAM_21["source"], "--output",
+                 os.path.join(d, "cli"), "--reports", "0,1", "--transitions", "0,1",
+                 "--microbatch", "16"], cwd=REPO, input="\n".join(lines) + "\n",
+                capture_output=True, text=True, timeout=300)
+            check(r.returncode == 0, "21.3 the stream CLI exits 0: %s" % r.stderr[-3000:])
+        _r, _dt, out["cli_launches"] = timed("cli", lambda: _counted(BUCKETED, cli))
+    finally:
+        served.close()
+        POOL.close()
+    ck = os.path.join(d, "half.ckpt")
+    half = len(lines) // 2
+    first = _Watched(LocalMatcherClient(matcher, threshold_sec=15))
+    second = _Watched(LocalMatcherClient(matcher, threshold_sec=15))
+
+    def restart():
+        _stream_run(first, lines, os.path.join(d, "restart", "a"), hi=half, ckpt_out=ck)
+        _stream_run(second, lines, os.path.join(d, "restart", "b"), lo=half, ckpt_in=ck)
+    timed("restart", restart, [os.path.join(d, "restart", n) for n in "ab"])
+    check(first.none == second.none == 0, "21.3 the restarted run answered every request")
+    for name in ("cpu", "http", "cli", "restart"):
+        check(runs[name] == want, "21.3 the %s run's tiles equal the card's local run's"
+              % name)
+    out["checkpoint_bytes"] = os.path.getsize(ck)
+    return out
+
+
+def modes_phase(matcher, t64, t1024, cfg_json, device, card="", gap_vehicles=64):
+    """Phase 21: the batched and streaming modes on the city (phase 17's
+    matcher, its 64- and 1,024-point cohorts): 21.1 the batch pipeline in
+    process (``modes_batch``), 21.2 its CLI in a process of its own
+    (``modes_batch_cli``), 21.3 the stream topology with its clients, CLI
+    and checkpoint (``modes_stream``).  The CPU side is the port on the CPU
+    over the same arrays, table and config."""
+    import shutil
+
+    from reporter_tpu_torch.matching import SegmentMatcher
+
+    t0 = time.perf_counter()
+    d = os.path.join(REPO, "build", "modes")
+    shutil.rmtree(d, ignore_errors=True)
+    n_points, n_windows = modes_archive(os.path.join(d, "archive"), t64, t1024, gap_vehicles)
+    cpu = SegmentMatcher(arrays=matcher.arrays, ubodt=matcher.ubodt, config=matcher.cfg,
+                         device="cpu")
+    base = SegmentMatcher(arrays=matcher.arrays, ubodt=matcher.ubodt, config=matcher.cfg,
+                          backend="cpu")
+    batch, tiles, joined = modes_batch(matcher, cpu, base, d, n_points, n_windows)
+    try:
+        cli = modes_batch_cli(cfg_json, d, device, n_windows, tiles)
+    finally:
+        joined()
+    stream = modes_stream(matcher, cpu, t64, os.path.join(d, "stream"))
+    info = {"points": n_points, "windows": n_windows, "batch": batch, "batch_cli": cli,
+            "stream": stream, "wall_s": time.perf_counter() - t0}
+    print("21.1 batch (%s): %d windows (%d points) matched on the card, 0 failures, in %.2f s "
+          "(%.0f points/s; gather %.2f s, match %.2f s, report %.2f s), %d tiles / %d rows "
+          "equal to the port on the CPU (%.2f s); the CPU baseline (%.2f s) shares %.4f of "
+          "the card's rows (both resumed from the card run's shards, on threads beside "
+          "21.2); launches %s" % (
+              card, batch["windows"], n_points, batch["wall_s"], batch["points_per_s"],
+              batch["phase_walls_s"].get("get_traces", 0.0),
+              batch["phase_walls_s"].get("make_matches", 0.0),
+              batch["phase_walls_s"].get("report_tiles", 0.0), batch["tiles"], batch["rows"],
+              batch["cpu_wall_s"], batch["baseline_wall_s"], batch["baseline_shared_rows"],
+              json.dumps(batch["launches"])))
+    print("21.2 batch CLI (%s): exit 0 in %.1f s, %.0f points/s (its own process: the city's "
+          "table built, warmup %d shapes in %.2f s), %d windows, tiles equal to 21.1's" % (
+              card, cli["wall_s"], n_points / cli["wall_s"], cli["warmup_shapes"],
+              cli["warmup_s"], cli["windows"]))
+    print("21.3 stream (%s): %d lines; %s; tiles equal to the card's local run; local "
+          "launches %s" % (card, stream["lines"], "; ".join(
+              "%s %.2f s (%.0f points/s)" % (k, stream[k]["wall_s"], stream[k]["points_per_s"])
+              for k in ("local", "cpu", "http", "cli", "restart")),
+              json.dumps(stream["local"]["launches"])))
+    print("phase 21 modes (%s): %.1f s" % (card, info["wall_s"]))
+    shutil.rmtree(d, ignore_errors=True)
+    return info, {"batch": batch.pop("launches"),
+                  "stream": stream["local"].pop("launches"),
+                  "stream_http": stream.pop("http_launches"),
+                  "stream_cli": stream.pop("cli_launches")}
+
+
 def osm_phases(device, rows=120, grid_misses=None, timed=True, scale=1, card=""):
     """Phase 17: the bench's realistic city (``osm_city``) through the main
     path: its cohorts (``osm_cohorts``); kernels 1-4 against their plain
@@ -6127,7 +6525,9 @@ def osm_phases(device, rows=120, grid_misses=None, timed=True, scale=1, card="")
     12's misses beside the grid's; agreement against the truth; the CPU
     baseline on the first 100 short traces (``baseline_phase``); serve
     from the OSM CLI's network (``osm_serve_phase``); phase 18's batch
-    request and its wire from the CLI's tiles (``wire_phase``)."""
+    request and its wire from the CLI's tiles (``wire_phase``); phases 19
+    and 20 on its served matcher; phase 21's batched and streaming modes
+    (``modes_phase``) on this phase's matcher and cohorts."""
     matcher, net, info = osm_city(rows, device)
     short, med, long_ = osm_cohorts(matcher.arrays, scale)
     t64, t256, t1024 = ([s.trace for s in c] for c in (short, med, long_))
@@ -6158,14 +6558,20 @@ def osm_phases(device, rows=120, grid_misses=None, timed=True, scale=1, card="")
     observability = observability_phase(served[1], t64, t256, osm_ms, device, card)
     _RECOVERY_BASE.append(recovery_counts())
     check(not any(v.startswith("REPORTER_FAULT_") for v in os.environ), "faults cleared")
+    modes, modes_launches = modes_phase(matcher, t64, t1024,
+                                        os.path.join(os.path.dirname(net_json), "config.json"),
+                                        device, card, gap_vehicles=64 // scale)
+    quiet("phase 21")
     strip = lambda d: {k: v for k, v in d.items() if not callable(v)}  # noqa: E731
     return {"city": info, "kernels": [strip(r) for r in rows64],
             "kernels_128x256": [strip(r) for r in rows256],
             "chain": {k: strip(c) for k, c in chain.items()},
             "launches": {"bucketed": launches, "long": long_launches,
                          "session": sess_launches, "serve": serve_launches,
-                         "batch_wire": wire_launches, "recovery": recovery_launches},
+                         "batch_wire": wire_launches, "recovery": recovery_launches,
+                         **{"modes_" + k: v for k, v in modes_launches.items()}},
             "wire": wire_info, "recovery": recovery, "observability": observability,
+            "modes": modes,
             "main_path": rates, "long_path": long_rate, "session_path": sess_rate,
             "probe_outcomes": misses, "grid_probe_outcomes": grid_misses,
             "agreement": agree, "baseline": base}
@@ -6363,7 +6769,7 @@ def main(pair=()):
     # 12's misses there beside the grid city's
     osm = osm_phases(device, grid_misses=probe_misses(matcher, xin64),
                      card=smi.splitlines()[0])
-    quiet("phases 17-20")
+    quiet("phases 17-21")
 
     # the sparse-gap model: cohorts A (every 9th point of the 512 x 64
     # cohort: 512 x 8 at 45 s, "45-60", bucket 16) and B (every 12th of the

@@ -379,13 +379,14 @@ class SessionArena:
             C_ARENA_READBACKS.inc()
             return out
 
-    def free_uuid(self, uuid: str) -> None:
+    def free_uuid(self, uuid: str, detach: bool = True) -> None:
         """Release a uuid's slot or page.  The beam detaches into the live
         ref first (one readback), so handles captured before the free
-        still resolve to the exact bytes."""
+        still resolve to the exact bytes.  ``detach=False`` skips that
+        (warmup's throwaway slots)."""
         with self.lock:
             ref = self._refs.get(uuid)
-            if ref is not None and ref._detached is None:
+            if detach and ref is not None and ref._detached is None:
                 detached = self.read_uuid(uuid)
                 if detached is not None:
                     ref._detached = detached

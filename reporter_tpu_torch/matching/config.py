@@ -23,7 +23,9 @@ and the device mesh (``devices``, ``graph_devices``; ``$REPORTER_DEVICES``
 and ``$REPORTER_GRAPH_DEVICES`` override them) and the service's degraded
 CPU fallback (``cpu_fallback``).  ``from_dict`` drops the keys of the
 reference's config that belong to paths this port does not carry yet (the
-host packer, warmup) with one warning per key per process.
+host packer, the legacy fused long program) with one warning per key per
+process; ``warmup_batch_sizes`` sets the rungs ``SegmentMatcher.warmup``
+dispatches.
 """
 
 from __future__ import annotations
@@ -82,6 +84,10 @@ class MatcherConfig:
     # exhaustion) that the service pops before rendering; the serve
     # entrypoint turns it on unless $REPORTER_QUALITY_AUX=0
     quality_aux: bool = False
+    # batch rungs pre-dispatched per length bucket by warmup passes
+    # (batch --warmup, LocalMatcherClient.warmup); each snaps up to a
+    # ladder rung
+    warmup_batch_sizes: List[int] = field(default_factory=lambda: [1])
     # padded trace-length buckets for batched matching; longer traces
     # stream through windows of the largest with carried Viterbi state
     length_buckets: List[int] = field(default_factory=lambda: [16, 32, 64, 128, 256])

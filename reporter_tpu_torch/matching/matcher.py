@@ -1347,6 +1347,114 @@ class SegmentMatcher:
             chunk_outs.append((packed, aux, nc))
         return ("chain", idx, chunk_outs, carry)
 
+    def warmup(self, lengths: "Sequence[int] | None" = None,
+               batch_sizes: "Sequence[int] | None" = None,
+               kernels: "Sequence[str] | None" = None,
+               carry_chain: bool = False,
+               session_step: bool = False) -> float:
+        """Pre-dispatch the hot shapes so the first real request pays
+        neither the kernels' build nor a shape's first launch (the first
+        launch of a shape also grows the caching allocator's pools).
+
+        Dispatches one batch per (batch rung, length bucket, viterbi
+        kernel) of dummy traces along the graph's first edge -- the full
+        dispatch path, so the launch counters and the dispatch families
+        see exactly what a real request would.
+
+          lengths      length buckets to warm (default: cfg.length_buckets)
+          batch_sizes  batch rungs to warm per bucket (default:
+                       cfg.warmup_batch_sizes, i.e. [1]); each entry snaps
+                       UP to its _BATCH_LADDER rung like real traffic
+          kernels      viterbi kernels to warm (default: whatever
+                       _kernel_for resolves per bucket -- exactly the
+                       kernels live traffic will launch)
+          carry_chain  also warm the long-trace programs (one trace of 2x
+                       the largest bucket): the chunk-batched "pre"
+                       dispatch (kernels 1-3 over the windows) and the
+                       carried chain (kernel 5) at [1, W]; on a dp mesh a
+                       4-window trace too, whose pre rows land on a higher
+                       ladder rung
+          session_step also warm the per-vehicle session steps: one (batch
+                       rung, session bucket) grid through match_sessions
+                       (on the slab when the arena is on; the throwaway
+                       slots are freed without a readback)
+
+        Counts each shape into reporter_warmup_shapes_total by kernel and
+        the wall into reporter_warmup_seconds_total, as the reference does.
+        The CPU baseline has nothing to warm: 0.0.  Returns seconds spent."""
+        if self.backend != "jax":
+            return 0.0
+        t0 = time.time()
+        if lengths is None:
+            lengths = list(self.cfg.length_buckets)
+        if batch_sizes is None:
+            batch_sizes = list(self.cfg.warmup_batch_sizes or (1,))
+        _dummy_traces = self.dummy_traces
+        n_shapes = 0
+        for n in lengths:
+            n = max(2, int(n))
+            want = kernels if kernels is not None else [
+                self._kernel_for(self._bucket_len(n))]
+            for kern in want:
+                prev_mode = self._kernel_mode
+                self._kernel_mode = kern
+                try:
+                    for b in batch_sizes:
+                        b = self._ladder_rung(max(1, int(b)))
+                        self.match_many(_dummy_traces(n, b))
+                        n_shapes += 1
+                        C_WARM_SHAPES.labels(kern).inc()
+                        if self.sparse.enabled:
+                            # the sparse cohort's kernels for the same
+                            # shape: a dummy trace at the sparse operating
+                            # gap takes the "sparse" dispatch
+                            self.match_many(_dummy_traces(
+                                n, b, dt=max(60.0, self.sparse.gap_s)))
+                            n_shapes += 1
+                            C_WARM_SHAPES.labels(kern).inc()
+                finally:
+                    self._kernel_mode = prev_mode
+        if carry_chain and self.cfg.length_buckets:
+            w = int(self.cfg.length_buckets[-1])
+            self.match_many(_dummy_traces(2 * w, 1))
+            # two programs: the chain above and the kernel-independent
+            # chunk-batched pre dispatch
+            n_shapes += 2
+            C_WARM_SHAPES.labels(self._kernel_for(w)).inc()
+            C_WARM_SHAPES.labels("none").inc()
+            if self._n_dp > 1:
+                self.match_many(_dummy_traces(4 * w, 1))
+                n_shapes += 1
+                C_WARM_SHAPES.labels("none").inc()
+        if session_step:
+            for w in (self.cfg.session_buckets or (4, 16)):
+                w = max(1, int(w))
+                kern = self._kernel_for(w)
+                pts = _dummy_traces(max(2, w), 1)[0]["trace"][:w]
+                for b in batch_sizes:
+                    b = self._ladder_rung(max(1, int(b)))
+                    warm_items = [
+                        {"points": pts, "carry": None,
+                         "t0": float(pts[0]["time"]), "pkey": ()}
+                        for _ in range(b)
+                    ]
+                    if self.session_arena is not None:
+                        # distinct uuids take the slab's step (the serving
+                        # path); their slots are freed without a readback
+                        for j, it in enumerate(warm_items):
+                            it["uuid"] = "_warmup%d" % j
+                    self.match_sessions(warm_items)
+                    if self.session_arena is not None:
+                        for j in range(b):
+                            self.session_arena.free_uuid(
+                                "_warmup%d" % j, detach=False)
+                    n_shapes += 1
+                    C_WARM_SHAPES.labels(kern).inc()
+        dt = time.time() - t0
+        C_WARM_S.inc(dt)
+        log.info("matcher warmup: %d shapes in %.1fs", n_shapes, dt)
+        return dt
+
     def dummy_traces(self, n: int, b: int, dt: float = 5.0) -> List[dict]:
         """``b`` copies of an ``n``-point synthetic trace along the graph's
         first edge, ``dt`` seconds apart: the re-attach probe's input,

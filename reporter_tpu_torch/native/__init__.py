@@ -1,16 +1,17 @@
 """ctypes binding for the repository's native core (``native/reporter_native.cc``).
 
-Trimmed to the symbols the serving path calls: the RPTT tile codec
-(``rn_tile_write``, ``rn_tile_header``, ``rn_tile_read``), the parallel
-bounded Dijkstra UBODT builder (``rn_ubodt_build`` / ``rn_ubodt_fetch``),
-the cuckoo and wide32 packers (``rn_cuckoo_pack``, ``rn_wide_pack``) and
-batched segment association (``rn_associate_batch_mt``).  The shared C++
+Trimmed to the symbols the serving and batch paths call: the RPTT tile
+codec (``rn_tile_write``, ``rn_tile_header``, ``rn_tile_read``), the
+parallel bounded Dijkstra UBODT build (``rn_ubodt_build`` /
+``rn_ubodt_fetch``), the cuckoo and wide32 packers (``rn_cuckoo_pack``,
+``rn_wide_pack``), batched segment association (``rn_associate_batch_mt``)
+and the batch pipeline's shard-row parser (``rn_parse_shard``).  The shared C++
 source at the repository root is compiled with ``g++`` into
 ``build/reporter_tpu_torch/`` on first use.
 
 ``get_lib()`` returns None when no compiler is available: the tile codec,
-the UBODT builder and association then run their Python versions, which
-produce identical output.  ``require_lib()`` raises instead, for callers that
+the UBODT build, association and the shard parser then run their Python
+versions, which produce identical output.  ``require_lib()`` raises instead, for callers that
 cannot afford the Python UBODT build (a metro-scale table).
 """
 
@@ -50,6 +51,10 @@ _SYMBOLS = {
         ctypes.c_uint32, _f64p, _f64p,
     ]),
     "rn_tile_header": (ctypes.c_int, [ctypes.c_char_p, _u32p]),
+    "rn_parse_shard": (ctypes.c_int64, [
+        ctypes.c_char_p, ctypes.c_int64, _f64p, _f64p, _i64p, _i32p,
+        _i64p, _i32p, ctypes.c_int64,
+    ]),
     "rn_tile_read": (ctypes.c_int, [
         ctypes.c_char_p, _f64p, _f64p, _u32p, _u32p, _f32p, _u8p, _u8p,
         _i64p, _i64p, _u32p, _f64p, _f64p,
@@ -126,3 +131,48 @@ def require_lib() -> ctypes.CDLL:
     if lib is None:
         raise RuntimeError("native core could not be built: %s" % _error)
     return lib
+
+
+def parse_shard_bytes(data: bytes, lib=None):
+    """Parse shard rows 'uuid,epoch,lat,lon,acc' -> (uuids, time, lat, lon,
+    acc).  Native when available, numpy/python otherwise; both skip torn
+    and malformed rows alike."""
+    if lib is None:
+        lib = get_lib()
+    n_lines = data.count(b"\n") + 1
+    if lib is not None:
+        lat = np.empty(n_lines, np.float64)
+        lon = np.empty(n_lines, np.float64)
+        tm = np.empty(n_lines, np.int64)
+        acc = np.empty(n_lines, np.int32)
+        uoff = np.empty(n_lines, np.int64)
+        ulen = np.empty(n_lines, np.int32)
+        n = lib.rn_parse_shard(data, len(data), lat, lon, tm, acc, uoff, ulen, n_lines)
+        # "replace": a torn multi-byte character must not abort the batch
+        uuids = [
+            data[uoff[i] : uoff[i] + ulen[i]].decode(errors="replace") for i in range(n)
+        ]
+        return uuids, tm[:n].copy(), lat[:n].copy(), lon[:n].copy(), acc[:n].copy()
+    uuids, tms, lats, lons, accs = [], [], [], [], []
+    for line in data.decode(errors="replace").splitlines():
+        # parse the whole row before appending anything, so a row that fails
+        # on a late field can't leave the columns misaligned
+        try:
+            uuid, tm_, lat_, lon_, acc_ = line.strip().split(",")
+            if not uuid:
+                continue
+            row = (int(tm_), float(lat_), float(lon_), int(acc_))
+        except ValueError:
+            continue
+        uuids.append(uuid)
+        tms.append(row[0])
+        lats.append(row[1])
+        lons.append(row[2])
+        accs.append(row[3])
+    return (
+        uuids,
+        np.asarray(tms, np.int64),
+        np.asarray(lats, np.float64),
+        np.asarray(lons, np.float64),
+        np.asarray(accs, np.int32),
+    )

@@ -236,6 +236,16 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     cfg.write_text('{"network": {"type": "grid", "rows": 4, "cols": 4}}')
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main([str(cfg), "127.0.0.1:0"])
+    # the batch CLI: no card and no --device cpu is an error, not a CPU run
+    from reporter_tpu_torch.batch.__main__ import main as batch_main
+
+    (tmp_path / "arch").mkdir()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        batch_main(["--src", str(tmp_path / "arch"), "--match-config", str(cfg),
+                    "--concurrency", "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        batch_main(["--src", str(tmp_path / "arch"), "--match-config", str(cfg),
+                    "--concurrency", "1", "--device", "cuda", "--backend", "jax"])
     # asked for explicitly, the CPU runs the plain versions
     assert SegmentMatcher(arrays=arrays, ubodt=ubodt, config=MatcherConfig(),
                           device="cpu").device.type == "cpu"
@@ -293,3 +303,67 @@ def test_obs_modules_serve_with_jax_and_reference_blocked():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
     assert "OBS-ISOLATED-OK" in r.stdout
+
+
+_BLOCKED_MODES = _BLOCKED_RUN[:_BLOCKED_RUN.index("import reporter_tpu_torch\n")] + r'''
+import glob, os, pkgutil, tempfile
+import reporter_tpu_torch.utils as utils_pkg
+names = sorted(m.name for m in pkgutil.iter_modules(utils_pkg.__path__))
+assert names == ["httppool", "journal", "retry", "shutdown"], names
+import reporter_tpu_torch.anonymise
+import reporter_tpu_torch.batch.__main__
+import reporter_tpu_torch.stream.__main__
+import reporter_tpu_torch.stream.kafka_io
+from reporter_tpu_torch.batch import run_pipeline
+from reporter_tpu_torch.matching import MatcherConfig, SegmentMatcher
+from reporter_tpu_torch.native import parse_shard_bytes
+from reporter_tpu_torch.stream import LocalMatcherClient
+from reporter_tpu_torch.stream.checkpoint import load_file, save_file
+from reporter_tpu_torch.stream.topology import build_pipeline
+from reporter_tpu_torch.synth import TraceSynthesizer
+from reporter_tpu_torch.tiles.network import grid_city
+m = SegmentMatcher(network=grid_city(5, 5, 150.0), device="cpu",
+                   config=MatcherConfig(length_buckets=[16, 32]))
+assert m.warmup(carry_chain=True) > 0
+syn = TraceSynthesizer(m.arrays, seed=7)
+lines = []
+for v in range(3):
+    for p in syn.synthesize(24, dt=15.0, sigma=3.0).trace["trace"]:
+        lines.append((p["time"], "veh-%d|%d|%r|%r|%d" % (v, p["time"], p["lat"], p["lon"],
+                                                          p["accuracy"])))
+lines = [l for _t, l in sorted(lines)]
+with tempfile.TemporaryDirectory() as d:
+    pipe = build_pipeline(",sv,\\|,0,2,3,1,4", LocalMatcherClient(m), privacy=1,
+                          quantisation=3600, output=d + "/stream", source="ISO",
+                          microbatch_size=2)
+    pipe.batcher.report_dist = 200
+    for l in lines[:40]:
+        pipe.feed(l, int(l.split("|")[1]) * 1000)
+    save_file(pipe, d + "/s.ckpt")
+    assert load_file(pipe, d + "/s.ckpt")
+    for l in lines[40:]:
+        pipe.feed(l, int(l.split("|")[1]) * 1000)
+    pipe.close()
+    assert glob.glob(d + "/stream/*/*/*/*")
+    os.makedirs(d + "/arch")
+    with open(d + "/arch/day0", "w") as f:
+        f.write("\n".join(lines) + "\n")
+    run_pipeline(m, archive_spec=d + "/arch", dest_store="dir:" + d + "/batch",
+                 valuer='lambda l: tuple(l.split("|"))', time_pattern=None, privacy=1)
+    assert glob.glob(d + "/batch/*/*/*/*")
+    uu, *_ = parse_shard_bytes(b"a,1,2.0,3.0,4\nb,torn")
+    assert uu == ["a"]
+assert not [m for m in sys.modules if blocked(m)]
+print("MODES-ISOLATED-OK")
+'''
+
+
+def test_stream_batch_anonymise_utils_run_with_jax_and_reference_blocked():
+    """``stream``, ``batch``, ``anonymise`` and ``utils`` import with
+    ``jax`` and ``reporter_tpu`` blocked, and a small stream pipeline (with a
+    checkpoint round trip), a batch run and the matcher's warmup complete
+    on the CPU."""
+    r = subprocess.run([sys.executable, "-c", _BLOCKED_MODES], cwd=REPO,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "MODES-ISOLATED-OK" in r.stdout
