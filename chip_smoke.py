@@ -296,7 +296,8 @@ delta 3000 m, cuckoo layout) and moves it to the card, then:
      and by a sync checkpoint directory (``read_checkpoints``): steps 9-16
      on B equal the uninterrupted run's answers and records bit for bit;
      (5) ``python -m reporter_tpu_torch.serve`` on the tiles config in a
-     process of its own: SIGTERM with a 16 x 1,024 /trace_attributes_batch
+     process of its own, once its deferred engine has attached (/health
+     names the backend): SIGTERM with a 16 x 1,024 /trace_attributes_batch
      inflight, which answers 200 equal to the second matcher, while a new
      /report and /health answer 503 "draining"; the process exits 0.  It
      prints each step's wall, the degraded answers' wall beside the card's,
@@ -310,7 +311,7 @@ delta 3000 m, cuckoo layout) and moves it to the card, then:
      with its X-Reporter-Trace, echoed: /metrics parses and holds every
      family the package registers with its labels, its request, trace,
      point and dispatch counts equal the traffic and the launch
-     counters' deltas, /statusz has the JAX package's keys,
+     counters' deltas (``reporter_kernel_launches_total`` each kernel's), /statusz has the JAX package's keys,
      /debug/traces holds every trace id sent (the poisoned one by right),
      /debug/slo counts the requests, the device memory gauge reads at
      least the 536.9 MB table; (2) GET /debug/attrib?capture=1&reps=3:
@@ -329,9 +330,10 @@ delta 3000 m, cuckoo layout) and moves it to the card, then:
 
   21. the batched and streaming modes on the same city (``modes_phase``,
      after phase 20), on phase 17's matcher: (1) the batch pipeline in
-     process, ``run_pipeline`` over an archive of the 512 x 64 and 16 x
-     1,024 cohorts (4 source files; vehicles 0-63 pause 300 s after their
-     32nd point: 592 windows at the 120 s inactivity), phases 1 and 3 on two
+     process, ``run_pipeline`` over an archive of the first halves of the
+     512 x 64 and 16 x 1,024 cohorts (256 x 64 and 8 x 1,024, 4 source
+     files; vehicles 0-31 pause 300 s after their 32nd point: 296 windows at
+     the 120 s inactivity; ``MODES_BATCH_DEPTH``), phases 1 and 3 on two
      spawned workers, micro-batches of 256, privacy 2, hourly tiles: 0
      failures, every window matched, kernels 1-5 launched, its tiles equal
      by path and sorted rows to the same pipeline's on the port on the CPU
@@ -339,7 +341,7 @@ delta 3000 m, cuckoo layout) and moves it to the card, then:
      equal rows printed; (2) ``python -m reporter_tpu_torch.batch --device
      cuda --warmup --metrics`` in a process of its own on the city's
      ``file`` config: exit 0, the same tiles, its metrics line counting the
-     592 windows; (3) the 512 x 64 cohort as SV lines in time order through
+     296 windows; (3) the 512 x 64 cohort as SV lines in time order through
      the stream topology (micro-batches of 16, privacy 2, hourly tiles,
      every line stamped with one arrival instant): ``LocalMatcherClient``
      on the card, equal to it on the port on the CPU, ``HttpMatcherClient``
@@ -349,6 +351,35 @@ delta 3000 m, cuckoo layout) and moves it to the card, then:
      fresh pipeline fed the rest, each with the card's tiles.  It prints
      each run's wall and points/s, the batch's three phase walls and the
      launches.
+  22. the serving fleet on the same city (``fleet_phase``, after phase
+     21): ``python -m reporter_tpu_torch.tools.fleet --replicas 2 --warmup
+     --session-checkpoint 0.5 --session-checkpoint-sync --device cuda`` on
+     phase 18's tiles config, its own workdir (build/fleet) and free
+     ports, up once the router's /fleet shows both replicas healthy and
+     each /health attached and warmed; (1) the 512 x 64 cohort as /report
+     through the router (32 threads) and one binary
+     /trace_attributes_batch of 73 traces, each answer equal to the same
+     request to phase 18's second matcher behind a ReporterService in this
+     process (the frame byte for byte), every uuid on its rendezvous
+     primary with a stable X-Reporter-Replica, both replicas serving; 64
+     /report timed through the router and direct; (2) 128 streaming
+     vehicles x 4 submits of 4 points, every answer (here and after) equal
+     to an uninterrupted in-process session's; (3) SIGKILL of the replica
+     holding the most sessions under a windowed load: no client error but
+     a shed, the supervisor's ``rehome`` line in scale_events.jsonl, the
+     router's GET /sessions back to the exact answered-point total, the
+     re-homed vehicles' next answers from the survivor, one respawn (the
+     victim's), the rebalance moving them back; (4) SIGUSR1: one rolling
+     restart under load, zero non-shed errors, one restart a replica; (5)
+     SIGTTIN: a --warmup replica held out of the ring until its /health
+     reports it attached, admitted, serving; SIGTTOU: it drains away (exit
+     0); (6) SIGTERM: the supervisor and every child exit 0.  Kernels 1-5
+     must launch on every replica that served, read as deltas of
+     ``reporter_kernel_launches_total`` on the router's federated
+     /metrics; no replica degraded or off the card.  It prints each
+     replica's boot-to-healthy and warm walls and device bytes, the
+     router and direct /report walls, the failover, re-home, respawn,
+     rolling-restart and scale walls.
 
 Before the phases it times ``torch.cuda._sleep(1)``, a one-thread kernel,
 under ``time_ms`` (``launch_floor``): the least time that timer reads for
@@ -5577,6 +5608,10 @@ def recovery_drain(cfg_json, second, t1024, device):
             return code, hdrs, json.loads(raw)
 
         check(call("/health")[0] == 200, "19.5 the serve process answers /health")
+        # the boot is deferred: /health answers "warming" from the bind and
+        # names the backend once the engine is attached
+        _v, attach_s = _until(lambda: call("/health")[2].get("backend"),
+                              "19.5 the engine attached", 300, 0.05)
         body = {"traces": t1024[:16]}
         inflight = {}
         th = threading.Thread(target=lambda: inflight.update(
@@ -5605,11 +5640,12 @@ def recovery_drain(cfg_json, second, t1024, device):
         if proc.poll() is None:
             proc.kill()
             proc.wait()
-    print("phase 19.5 drain: the serve process booted on the tiles config in %.1f s; SIGTERM "
-          "with a 16 x 1,024 /trace_attributes_batch inflight: it answered 200 equal to the "
-          "second matcher, a new /report 503 draining, /health 503 draining; exit 0 %.2f s "
-          "after the signal" % (boot_s, exit_s))
-    return {"boot_s": boot_s, "exit_after_sigterm_s": exit_s}
+    print("phase 19.5 drain: the serve process bound on the tiles config in %.1f s and "
+          "attached its engine %.1f s later; SIGTERM with a 16 x 1,024 "
+          "/trace_attributes_batch inflight: it answered 200 equal to the second matcher, a "
+          "new /report 503 draining, /health 503 draining; exit 0 %.2f s after the signal"
+          % (boot_s, attach_s, exit_s))
+    return {"boot_s": boot_s, "attach_s": attach_s, "exit_after_sigterm_s": exit_s}
 
 
 def recovery_phase(cfg_json, sv, second, t64, t256, t1024, device, card=""):
@@ -5736,8 +5772,11 @@ def obs_mix(sv, t64, t256, device):
 
     import torch
 
-    # the batch and stream modules' families register at import
+    # the batch, stream and fleet modules' families register at import
     import reporter_tpu_torch.batch.pipeline  # noqa: F401
+    import reporter_tpu_torch.obs.federation  # noqa: F401
+    import reporter_tpu_torch.serve.autoscale  # noqa: F401
+    import reporter_tpu_torch.serve.router  # noqa: F401
     import reporter_tpu_torch.stream.checkpoint  # noqa: F401
     import reporter_tpu_torch.stream.topology  # noqa: F401
     from reporter_tpu_torch.obs import flight as obs_flight
@@ -5847,6 +5886,10 @@ def obs_mix(sv, t64, t256, device):
         check(dispatched == viterbi > 0 if device.type == "cuda" else dispatched > 0,
               "20.1 reporter_dispatch_total's delta %d equals the Viterbi kernels' launches %d"
               % (dispatched, viterbi))
+        counted = {k: delta("reporter_kernel_launches_total", kernel=k) for k in launches}
+        check(counted == launches, "20.1 reporter_kernel_launches_total's deltas equal the "
+              "launch counters: %s" % json.dumps({k: (v, launches[k]) for k, v in
+                                                  counted.items() if v != launches[k]}))
         check(delta("reporter_faults_injected_total", point="dispatch") == 1
               and delta("reporter_poison_isolated_total") == 1,
               "20.1 one fault fired, one poison isolated")
@@ -6166,6 +6209,9 @@ def _sv_line(uuid, p, t=None):
                                p["accuracy"])
 
 
+MODES_BATCH_DEPTH = 2  # phase 21's batch archive holds the cohorts' first 1/2
+
+
 def modes_archive(d, t64, t1024, gap_vehicles=64):
     """The batch archive: both cohorts as SV rows over 4 source files
     (round robin), uuids distinct across the cohorts; vehicles 0 to
@@ -6474,7 +6520,11 @@ def modes_phase(matcher, t64, t1024, cfg_json, device, card="", gap_vehicles=64)
     t0 = time.perf_counter()
     d = os.path.join(REPO, "build", "modes")
     shutil.rmtree(d, ignore_errors=True)
-    n_points, n_windows = modes_archive(os.path.join(d, "archive"), t64, t1024, gap_vehicles)
+    # the batch archive at half the cohorts' depth (phase 22's time: the
+    # three batch runs beside the CLI were phase 21's longest path)
+    half = MODES_BATCH_DEPTH
+    n_points, n_windows = modes_archive(os.path.join(d, "archive"), t64[:len(t64) // half],
+                                        t1024[:len(t1024) // half], gap_vehicles // half)
     cpu = SegmentMatcher(arrays=matcher.arrays, ubodt=matcher.ubodt, config=matcher.cfg,
                          device="cpu")
     base = SegmentMatcher(arrays=matcher.arrays, ubodt=matcher.ubodt, config=matcher.cfg,
@@ -6515,6 +6565,570 @@ def modes_phase(matcher, t64, t1024, cfg_json, device, card="", gap_vehicles=64)
                   "stream_cli": stream.pop("cli_launches")}
 
 
+# -- phase 22: the serving fleet on the card -----------------------------------
+
+FLEET_STREAM = 128  # streaming vehicles of phase 22
+FLEET_KERNELS = BUCKETED + ("viterbi_chain",)  # kernels 1-4 and 5
+
+
+def _free_ports(n):
+    """(base, router): ``n`` consecutive free ports from ``base`` and one
+    more free port for the router (bound and released, so a race with
+    another process is possible but harmless here: nothing else binds)."""
+    import socket
+
+    def free(p=0):
+        s = socket.socket()
+        try:
+            s.bind(("127.0.0.1", p))
+            return s.getsockname()[1]
+        except OSError:
+            return None
+        finally:
+            s.close()
+    while True:
+        base = free()
+        if base and base + n < 65536 and all(free(base + i) for i in range(1, n)):
+            return base, free()
+
+
+def _http(url, body=None, headers=None, timeout=120):
+    """(status, headers, body bytes) of a GET (``body`` None) or POST; a
+    transport error raises."""
+    import urllib.error
+
+    data = body if body is None or isinstance(body, bytes) else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, headers=dict(
+        headers or ({"Content-Type": "application/json"} if data is not None else {})))
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+def _jget(url, timeout=30):
+    code, _h, raw = _http(url, timeout=timeout)
+    return code, json.loads(raw)
+
+
+def _pool(fn, items, workers=32):
+    """fn(item) for every item on ``workers`` threads; the answers in order."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(workers) as ex:
+        return list(ex.map(fn, items))
+
+
+def _until(cond, what, timeout=300.0, step=0.1):
+    """Poll ``cond`` until it answers truthy; its answer and the seconds it
+    took.  A timeout fails the run."""
+    t0 = time.perf_counter()
+    while True:
+        got = cond()
+        if got:
+            return got, time.perf_counter() - t0
+        check(time.perf_counter() - t0 < timeout, "%s within %.0f s" % (what, timeout))
+        time.sleep(step)
+
+
+class _Load:
+    """Windowed /report requests through the router on ``threads`` threads
+    until ``stop``: every answer counted by status (a 429 is a shed; any
+    other non-200, or a transport error, is an error)."""
+
+    def __init__(self, url, traces, threads=4):
+        self.codes, self.errors = {}, []
+        self._stop = threading.Event()
+        self._lock = threading.Lock()
+        self._url, self._traces = url, traces
+        self._threads = [threading.Thread(target=self._run, args=(i, threads), daemon=True)
+                         for i in range(threads)]
+        for t in self._threads:
+            t.start()
+
+    def _run(self, i, n):
+        k = i
+        while not self._stop.is_set():
+            tr = self._traces[k % len(self._traces)]
+            k += n
+            try:
+                code = _http(self._url + "/report", tr, timeout=60)[0]
+            except Exception as e:  # noqa: BLE001 - a transport error is counted
+                code = "error"
+                with self._lock:
+                    self.errors.append(str(e)[:200])
+            with self._lock:
+                self.codes[code] = self.codes.get(code, 0) + 1
+
+    def stop(self):
+        self._stop.set()
+        for t in self._threads:
+            t.join(120)
+        bad = {c: n for c, n in self.codes.items() if c not in (200, 429)}
+        return {"answers": sum(self.codes.values()), "shed": self.codes.get(429, 0),
+                "errors": sum(bad.values()), "codes": {str(c): n for c, n in self.codes.items()},
+                "transport": self.errors[:3]}
+
+
+class _Fleet22:
+    """``python -m reporter_tpu_torch.tools.fleet`` in a process of its own
+    and what phase 22 reads of it: the router's surfaces, fleet.json, the
+    scale events and the supervisor's log."""
+
+    def __init__(self, cfg_json, device, d):
+        base, rport = _free_ports(3)
+        self.wd = os.path.join(d, "wd")
+        self.url = "http://127.0.0.1:%d" % rport
+        argv = [sys.executable, "-m", "reporter_tpu_torch.tools.fleet", "--config", cfg_json,
+                "--replicas", "2", "--base-port", str(base), "--router-port", str(rport),
+                "--workdir", self.wd, "--warmup", "--session-checkpoint", "0.5",
+                "--session-checkpoint-sync", "--device", device.type,
+                "--federate-every", "1", "--up-timeout", "300"]
+        env = dict(os.environ, REPORTER_ROUTER_PROBE_S="0.25", REPORTER_FEDERATION_PULL_S="0.5")
+        self.log_path = os.path.join(d, "supervisor.log")
+        self.t0 = time.perf_counter()
+        with open(self.log_path, "wb") as log:
+            self.proc = subprocess.Popen(argv, cwd=REPO, env=env, stdout=log,
+                                         stderr=subprocess.STDOUT)
+
+    def state(self):
+        try:
+            with open(os.path.join(self.wd, "fleet.json")) as f:
+                return json.load(f)
+        except (OSError, ValueError):
+            return None
+
+    def replicas(self):
+        """rid -> (url, pid, restarts) from fleet.json."""
+        st = self.state() or {"replicas": []}
+        return {r["id"]: (r["url"], r["pid"], r["restarts"]) for r in st["replicas"]}
+
+    def events(self):
+        try:
+            with open(os.path.join(self.wd, "scale_events.jsonl")) as f:
+                return [json.loads(line) for line in f if line.strip()]
+        except OSError:
+            return []
+
+    def log(self):
+        with open(self.log_path, errors="replace") as f:
+            return f.read()
+
+    def fleet(self):
+        """rid (or url) -> the router's view of the replica."""
+        try:
+            code, body = _jget(self.url + "/fleet", timeout=10)
+        except Exception:  # noqa: BLE001 - the router is booting
+            return {}
+        return {(r["id"] or r["url"]): r for r in body["replicas"]} if code == 200 else {}
+
+    def healthy(self, rids):
+        """Every replica in ``rids`` attached, warmed and in the router's ring."""
+        view = self.fleet()
+        if set(view) != set(rids) or not all(view[r]["state"] == "healthy" for r in rids):
+            return False
+        for rid, (url, _pid, _n) in self.replicas().items():
+            try:
+                code, h = _jget(url + "/health", timeout=5)
+            except Exception:  # noqa: BLE001
+                return False
+            if code != 200 or h.get("warming") or not h.get("backend"):
+                return False
+        return True
+
+    def metrics(self):
+        return _prom(_http(self.url + "/metrics?pull=1")[2].decode())[1]
+
+    def launches(self):
+        """rid -> {kernel: launches} from the federated /metrics."""
+        out = {}
+        for (name, labels), v in self.metrics().items():
+            if name == "reporter_kernel_launches_total":
+                lab = dict(labels)
+                if "replica" in lab:
+                    out.setdefault(lab["replica"], {})[lab["kernel"]] = v
+        return out
+
+    def sessions(self):
+        return _jget(self.url + "/sessions")[1]
+
+    def settled(self, vehicles, rids, points):
+        """The router's /sessions holds ``points`` points, and each replica
+        of ``rids`` exactly the vehicles whose rendezvous primary it is
+        (a handoff or rebalance has finished moving them)."""
+        from reporter_tpu_torch.serve.router import rendezvous_score
+
+        urls = {r: v[0] for r, v in self.replicas().items()}
+        if set(urls) != set(rids):
+            return False
+        want = {r: 0 for r in rids}
+        for u in vehicles:
+            want[max(rids, key=lambda r: rendezvous_score(u, urls[r]))] += 1
+        fs = self.sessions()
+        got = {r: (fs["replicas"].get(r) or {}).get("sessions") for r in rids}
+        return fs["points_total"] == points and got == want
+
+    def check_replicas(self, device, what):
+        """No replica degraded, none off the card (its /health)."""
+        for rid, (url, _pid, _n) in self.replicas().items():
+            code, h = _jget(url + "/health", timeout=10)
+            check(code == 200 and h["degraded"] is False, "phase 22 %s: %s not degraded: %s"
+                  % (what, rid, json.dumps(h)[:300]))
+            check(str(h["device"]).startswith(device.type), "phase 22 %s: %s on %s, not %s"
+                  % (what, rid, h["device"], device.type))
+
+    def close(self):
+        """Stop every process the supervisor started, whatever state it is in."""
+        import signal
+
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+            try:
+                self.proc.wait(120)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+        st = self.state() or {"replicas": [], "router": {}}
+        for pid in [r["pid"] for r in st["replicas"]] + [st["router"].get("pid")]:
+            if pid:
+                try:
+                    os.kill(pid, signal.SIGKILL)
+                except OSError:
+                    pass
+
+
+def _strip_session(body):
+    """A streaming answer without the session block's per-process fields."""
+    body = _no_age(json.loads(body) if isinstance(body, bytes) else body)
+    if isinstance(body.get("session"), dict):
+        body["session"].pop("imported", None)
+    return body
+
+
+def _first_diff(a, b, path=""):
+    """Where two JSON values first differ (for a failed check's message)."""
+    if isinstance(a, dict) and isinstance(b, dict):
+        for k in sorted(set(a) | set(b)):
+            if a.get(k) != b.get(k):
+                return _first_diff(a.get(k), b.get(k), path + "/" + str(k))
+    elif isinstance(a, list) and isinstance(b, list) and len(a) == len(b):
+        for i, (x, y) in enumerate(zip(a, b)):
+            if x != y:
+                return _first_diff(x, y, "%s[%d]" % (path, i))
+    return "%s: %s != %s" % (path, json.dumps(a)[:200], json.dumps(b)[:200])
+
+
+def _launch_delta(before, after, rids, kernels, device, what):
+    """Each replica's launches of ``kernels`` between two reads of the
+    federated /metrics; on the card each must be above 0."""
+    out = {r: {k: after.get(r, {}).get(k, 0) - before.get(r, {}).get(k, 0) for k in kernels}
+           for r in rids}
+    if device.type == "cuda":
+        check(all(v > 0 for r in rids for v in out[r].values()),
+              "phase 22 %s: kernels 1-5 launched on every replica that served: %s"
+              % (what, json.dumps(out)))
+    return out
+
+
+def fleet_phase(cfg_json, second, t64, t256, t1024, device, card=""):
+    """Phase 22: the serving fleet on the card: the supervisor
+    (``python -m reporter_tpu_torch.tools.fleet --replicas 2 --warmup
+    --session-checkpoint 0.5 --session-checkpoint-sync --device ...``) on
+    phase 18's tiles config, the router in front; 22.1 the 512 x 64
+    cohort as /report and one binary /trace_attributes_batch through the
+    router, equal to ``second`` behind a ReporterService in this process;
+    22.2 streaming vehicles; 22.3 SIGKILL of the replica holding the most
+    sessions under load, the checkpoint re-home and the respawn; 22.4
+    SIGUSR1's rolling restart under load; 22.5 a scale-up (SIGTTIN) held
+    out of the ring until attached, then a scale-down (SIGTTOU); 22.6
+    SIGTERM.  Returns the figures."""
+    import shutil
+    import signal
+
+    from reporter_tpu_torch.serve import wire
+    from reporter_tpu_torch.serve.router import rendezvous_score
+
+    t_phase = time.perf_counter()
+    d = os.path.join(REPO, "build", "fleet")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    ref = _Served(second)  # the same requests, uninterrupted, in this process
+    fleet = _Fleet22(cfg_json, device, d)
+    info = {}
+    try:
+        # -- boot: both replicas attached and warmed, in the router's ring --
+        seen_at = {}
+
+        def up():
+            for rid, (url, _pid, _n) in fleet.replicas().items():
+                if rid not in seen_at:
+                    try:
+                        code, h = _jget(url + "/health", timeout=2)
+                        if code == 200 and h.get("backend") and not h.get("warming"):
+                            seen_at[rid] = time.perf_counter() - fleet.t0
+                    except Exception:  # noqa: BLE001 - still booting
+                        pass
+            return fleet.healthy(["rep-0", "rep-1"])
+        _until(up, "the fleet up", timeout=400, step=0.1)
+        rids = ["rep-0", "rep-1"]
+        m0 = fleet.metrics()
+        info["boot_to_healthy_s"] = seen_at
+        info["warm_s"] = {r: _sample_sum(m0, "reporter_warmup_seconds_total", replica=r)
+                          for r in rids}
+        info["device_bytes"] = {r: {s: _sample_sum(m0, "reporter_device_memory_bytes",
+                                                   replica=r, space="device", subsystem=s)
+                                    for s in ("in_use", "reserved", "limit")} for r in rids}
+        fleet.check_replicas(device, "boot")
+        l0 = fleet.launches()
+        urls = {r: v[0] for r, v in fleet.replicas().items()}
+
+        # -- 22.1 windowed /report and one binary batch through the router --
+        t0 = time.perf_counter()
+        got = _pool(lambda tr: _http(fleet.url + "/report", tr), t64)
+        report_s = time.perf_counter() - t0
+        want = _pool(lambda tr: ref.post("/report", tr), t64)
+        by_uuid = {}
+        for tr, (code, hdrs, raw), (wcode, _wh, wbody) in zip(t64, got, want):
+            check(code == wcode == 200 and json.loads(raw) == wbody,
+                  "22.1 /report %s through the router equals the in-process service's"
+                  % tr["uuid"])
+            by_uuid[tr["uuid"]] = hdrs.get("X-Reporter-Replica")
+        primary = {u: max(rids, key=lambda r: rendezvous_score(u, urls[r])) for u in by_uuid}
+        check(by_uuid == primary, "22.1 every uuid on its rendezvous primary")
+        check(set(by_uuid.values()) == set(rids), "22.1 both replicas took traffic: %s"
+              % json.dumps({r: list(by_uuid.values()).count(r) for r in rids}))
+        again = _pool(lambda tr: _http(fleet.url + "/report", tr)[1].get("X-Reporter-Replica"),
+                      t64[:64])
+        check(again == [by_uuid[tr["uuid"]] for tr in t64[:64]],
+              "22.1 X-Reporter-Replica stable per uuid")
+        batch = {"traces": t64[:64] + t256[:8] + t1024[:1]}
+        frame = wire.encode_request(json.loads(json.dumps(batch)))
+        bin_h = {"Content-Type": wire.CONTENT_TYPE, "Accept": wire.CONTENT_TYPE}
+        t0 = time.perf_counter()
+        code, hdrs, raw = _http(fleet.url + "/trace_attributes_batch", frame, bin_h)
+        batch_s = time.perf_counter() - t0
+        rcode, _rh, rraw = ref.post("/trace_attributes_batch", frame, bin_h)
+        check(code == rcode == 200 and raw == rraw and wire.is_wire(hdrs.get("Content-Type")),
+              "22.1 the binary batch of %d traces through the router equals the in-process "
+              "service's frame byte for byte" % len(batch["traces"]))
+        check(hdrs.get("X-Reporter-Replica") == primary.get(t64[0]["uuid"]),
+              "22.1 the batch routes by its first trace's uuid")
+
+        # router-added wall: the same request through the router and direct
+        walls = {"router": [], "direct": []}
+        for tr in t64[:64]:
+            for how, base in (("router", fleet.url), ("direct", urls[by_uuid[tr["uuid"]]])):
+                t0 = time.perf_counter()
+                check(_http(base + "/report", tr)[0] == 200, "22.1 a timed /report")
+                walls[how].append(time.perf_counter() - t0)
+        info["walls_s"] = {k: {"median": statistics.median(v),
+                               "quartiles": statistics.quantiles(v, n=4),
+                               "min": min(v), "max": max(v)} for k, v in walls.items()}
+
+        # -- 22.2 streaming vehicles through the router ---------------------
+        vehicles = [("f22-%03d" % i, tr) for i, tr in enumerate(t64[:FLEET_STREAM])]
+        home, answered = {}, [0]
+
+        def submit(j):
+            subs = [_stream_sub(tr, u, 4 * j) for u, tr in vehicles]
+            got = _pool(lambda s: _http(fleet.url + "/report", s), subs)
+            want = _pool(lambda s: ref.post("/report", s), subs)
+            for (u, _tr), (code, hdrs, raw), (wcode, _wh, wbody) in zip(vehicles, got, want):
+                a, b = _strip_session(raw), _strip_session(wbody)
+                check(code == wcode == 200 and a == b,
+                      "22 submit %d of %s through the router equals the uninterrupted "
+                      "in-process session's: %s %s %s" % (j + 1, u, code, wcode,
+                                                          _first_diff(a, b)))
+            answered[0] += 4 * len(vehicles)
+            return {u: h.get("X-Reporter-Replica") for (u, _t), (_c, h, _r) in zip(vehicles, got)}
+        t0 = time.perf_counter()
+        for j in range(4):
+            at = submit(j)
+            for u, r in at.items():
+                check(home.setdefault(u, r) == r, "22.2 a vehicle stays on its replica")
+        stream_s = time.perf_counter() - t0
+        fs = fleet.sessions()
+        check(fs["points_total"] == answered[0] and fs["sessions"] == len(vehicles),
+              "22.2 the router's /sessions counts %d sessions, %d points: %s"
+              % (len(vehicles), answered[0], json.dumps(fs)[:300]))
+        info["launches_served"] = _launch_delta(l0, fleet.launches(), rids, FLEET_KERNELS,
+                                                device, "22.1-22.2")
+        info["report"] = {"requests": len(t64), "wall_s": report_s, "batch_wall_s": batch_s,
+                          "stream_wall_s": stream_s,
+                          "by_replica": {r: list(by_uuid.values()).count(r) for r in rids}}
+
+        # -- 22.3 SIGKILL under load: failover, re-home, respawn ------------
+        per = {r: (fs["replicas"].get(r) or {}).get("sessions") or 0 for r in rids}
+        victim = max(rids, key=lambda r: per[r])
+        moved = [u for u, r in home.items() if r == victim]
+        load = _Load(fleet.url, t64[-128:])
+        _until(lambda: load.codes.get(200, 0) >= 8, "the load running", 60, 0.05)
+        t_kill, t_kill_unix = time.perf_counter(), time.time()
+        os.kill(fleet.replicas()[victim][1], signal.SIGKILL)
+        _v, failover_s = _until(lambda: fleet.fleet().get(victim, {}).get("state")
+                                not in ("healthy", None), "22.3 the router sees the death",
+                                60, 0.02)
+        ev, _dt = _until(lambda: [e for e in fleet.events() if e.get("event") == "rehome"
+                                  and e.get("replica") == victim], "22.3 the re-home", 60, 0.05)
+        rehome_s = ev[0]["t_unix"] - t_kill_unix
+        check(ev[0]["rehomed"] == len(moved) and ev[0]["no_target"] == 0,
+              "22.3 the supervisor re-homed the victim's %d sessions: %s"
+              % (len(moved), json.dumps(ev[0])))
+        _until(lambda: fleet.sessions()["points_total"] == answered[0],
+               "22.3 the router's /sessions back to %d points" % answered[0], 60, 0.05)
+        converge_s = time.perf_counter() - t_kill
+        at = submit(4)  # each re-homed vehicle's next answer
+        check(all(at[u] != victim for u in moved), "22.3 the re-homed vehicles answered by "
+              "the survivor")
+        restarts = {r: v[2] for r, v in fleet.replicas().items()}
+        check(restarts == {victim: 1, **{r: 0 for r in rids if r != victim}},
+              "22.3 one respawn, the victim's: %s" % restarts)
+        _until(lambda: fleet.healthy(rids), "22.3 the respawned replica back", 400, 0.1)
+        respawn_s = time.perf_counter() - t_kill
+        killed = load.stop()
+        check(killed["errors"] == 0, "22.3 no client error but a shed under the SIGKILL: %s"
+              % json.dumps(killed))
+        uuids = [u for u, _tr in vehicles]
+        _until(lambda: fleet.settled(uuids, rids, answered[0]),
+               "22.3 the rebalance settled, /sessions exact", 60, 0.05)
+        at = submit(5)
+        check(all(at[u] == home[u] for u in moved), "22.3 the rebalance brought every "
+              "re-homed vehicle back to the respawned replica")
+        fleet.check_replicas(device, "after the SIGKILL")
+        info["kill"] = {"victim": victim, "sessions": len(moved), "failover_s": failover_s,
+                        "rehome_s": rehome_s, "sessions_exact_s": converge_s,
+                        "respawn_s": respawn_s, "load": killed}
+
+        # -- 22.4 the rolling restart under load ----------------------------
+        load = _Load(fleet.url, t64[-128:])
+        _until(lambda: load.codes.get(200, 0) >= 8, "the load running", 60, 0.05)
+        t_roll = time.perf_counter()
+        os.kill(fleet.proc.pid, signal.SIGUSR1)
+        _until(lambda: "rolling restart complete" in fleet.log()
+               or "rolling restart FAILED" in fleet.log(), "22.4 the rolling restart", 600, 0.2)
+        check("rolling restart FAILED" not in fleet.log(), "22.4 the rolling restart")
+        _until(lambda: fleet.healthy(rids), "22.4 the fleet healthy", 120, 0.1)
+        rolling_s = time.perf_counter() - t_roll
+        rolled = load.stop()
+        check(rolled["errors"] == 0, "22.4 zero non-shed errors through the rolling restart: %s"
+              % json.dumps(rolled))
+        restarts = {r: v[2] for r, v in fleet.replicas().items()}
+        check(restarts == {victim: 2, **{r: 1 for r in rids if r != victim}},
+              "22.4 one restart each, no respawn unasked: %s" % restarts)
+        _until(lambda: fleet.settled(uuids, rids, answered[0]),
+               "22.4 the handoffs settled, /sessions exact", 60, 0.05)
+        l1 = fleet.launches()
+        _pool(lambda tr: check(_http(fleet.url + "/report", tr)[0] == 200, "22.4 /report"),
+              t64[:64])
+        submit(6)
+        info["launches_after_restart"] = _launch_delta(l1, fleet.launches(), rids,
+                                                       FLEET_KERNELS, device, "22.4")
+        fleet.check_replicas(device, "after the rolling restart")
+        info["rolling"] = {"wall_s": rolling_s, "load": rolled}
+
+        # -- 22.5 scale up (held out until attached), then down -------------
+        t_up = time.perf_counter()
+        os.kill(fleet.proc.pid, signal.SIGTTIN)
+        (new,), _dt = _until(lambda: [r for r in fleet.replicas() if r not in rids],
+                             "22.5 the scale-up spawned", 30, 0.05)
+        held = []
+
+        def admitted():
+            url = fleet.replicas()[new][0]
+            try:
+                code, h = _jget(url + "/health", timeout=2)
+            except Exception:  # noqa: BLE001 - not bound yet
+                return False
+            view = fleet.fleet().get(new) or fleet.fleet().get(url) or {}
+            if not h.get("backend"):
+                held.append(not view.get("available"))
+            return any(e.get("event") == "admitted" and e.get("replica") == new
+                       for e in fleet.events())
+        _until(admitted, "22.5 the scale-up admitted", 400, 0.05)
+        scale_up_s = time.perf_counter() - t_up
+        check(held and all(held), "22.5 the warming replica held out of the ring "
+              "(%d reads before attach, %d routable)" % (len(held), held.count(False)))
+        _until(lambda: fleet.healthy(rids + [new]), "22.5 three replicas healthy", 60, 0.1)
+        urls = {r: v[0] for r, v in fleet.replicas().items()}
+        _until(lambda: fleet.settled(uuids, rids + [new], answered[0]),
+               "22.5 the rebalance settled, /sessions exact", 60, 0.05)
+        l2 = fleet.launches()
+        got = _pool(lambda tr: _http(fleet.url + "/report", tr), t64[:128])
+        check(all(c == 200 for c, _h, _r in got), "22.5 /report with three replicas")
+        at = submit(7)
+        info["launches_scaled"] = _launch_delta(l2, fleet.launches(), [new], FLEET_KERNELS,
+                                                device, "22.5")
+        check(new in at.values(), "22.5 the added replica took streaming vehicles")
+        fleet.check_replicas(device, "scaled up")
+        t_down = time.perf_counter()
+        os.kill(fleet.proc.pid, signal.SIGTTOU)
+        ev, _dt = _until(lambda: [e for e in fleet.events() if e.get("event") == "removed"
+                                  and e.get("replica") == new], "22.5 the scale-down", 120, 0.05)
+        scale_down_s = time.perf_counter() - t_down
+        check(ev[0]["exit_rc"] == 0 and set(fleet.replicas()) == set(rids),
+              "22.5 the scale-down drained %s, exit 0" % new)
+        _until(lambda: fleet.settled(uuids, rids, answered[0]),
+               "22.5 the drain's handoff settled, /sessions exact", 60, 0.05)
+        submit(8)
+        info["scale"] = {"replica": new, "up_s": scale_up_s, "down_s": scale_down_s,
+                         "held_reads": len(held)}
+
+        # -- 22.6 SIGTERM: every child exits 0 -------------------------------
+        pids = [v[1] for v in fleet.replicas().values()] + [fleet.state()["router"]["pid"]]
+        t_term = time.perf_counter()
+        fleet.proc.send_signal(signal.SIGTERM)
+        rc = fleet.proc.wait(180)
+        check(rc == 0, "22.6 the supervisor and every child exit 0 on SIGTERM: %s"
+              % fleet.log()[-2000:])
+
+        def gone(pid):
+            try:
+                os.kill(pid, 0)
+            except ProcessLookupError:
+                return True
+            except OSError:
+                return False
+            return False
+        check(all(gone(p) for p in pids), "22.6 no child left")
+        info["sigterm_s"] = time.perf_counter() - t_term
+        info["stream"] = {"vehicles": len(vehicles), "points": answered[0]}
+    finally:
+        fleet.close()
+        ref.close()
+    info["wall_s"] = time.perf_counter() - t_phase
+    ks = info["kill"]
+    print("phase 22 fleet (%s): 2 replicas --warmup on the tiles config; boot to healthy %s s, "
+          "warm %s s; device bytes in use %s" % (
+              card, json.dumps({r: round(v, 2) for r, v in info["boot_to_healthy_s"].items()}),
+              json.dumps({r: round(v, 2) for r, v in info["warm_s"].items()}),
+              json.dumps({r: int(v["in_use"]) for r, v in info["device_bytes"].items()})))
+    w = info["walls_s"]
+    print("22.1 %d /report through the router in %.2f s (32 threads), equal to the in-process "
+          "service, %s; the 73-trace binary batch %.3f s, its frame equal byte for byte; "
+          "/report wall router %.4f s (quartiles %s, %.4f-%.4f), direct %.4f s (quartiles %s, "
+          "%.4f-%.4f)" % (
+              info["report"]["requests"], info["report"]["wall_s"],
+              json.dumps(info["report"]["by_replica"]), info["report"]["batch_wall_s"],
+              w["router"]["median"], ", ".join("%.4f" % q for q in w["router"]["quartiles"]),
+              w["router"]["min"], w["router"]["max"], w["direct"]["median"],
+              ", ".join("%.4f" % q for q in w["direct"]["quartiles"]), w["direct"]["min"],
+              w["direct"]["max"]))
+    print("22.2-22.3 %d vehicles x 9 submits of 4, every answer equal to the uninterrupted "
+          "in-process session's; SIGKILL %s (%d sessions) under load: the router saw it in "
+          "%.2f s, the re-home at %.2f s, /sessions exact at %.2f s, the respawn healthy at "
+          "%.1f s; load %s" % (
+              FLEET_STREAM, ks["victim"], ks["sessions"], ks["failover_s"], ks["rehome_s"],
+              ks["sessions_exact_s"], ks["respawn_s"], json.dumps(ks["load"]["codes"])))
+    print("22.4 rolling restart %.1f s, load %s; 22.5 scale-up admitted in %.1f s (held out "
+          "for %d reads), scale-down %.1f s; 22.6 SIGTERM: every child exit 0 in %.1f s; "
+          "launches on the replicas %s; phase 22 %.1f s" % (
+              info["rolling"]["wall_s"], json.dumps(info["rolling"]["load"]["codes"]),
+              info["scale"]["up_s"], info["scale"]["held_reads"], info["scale"]["down_s"],
+              info["sigterm_s"], json.dumps(info["launches_served"]), info["wall_s"]))
+    return info
+
+
 def osm_phases(device, rows=120, grid_misses=None, timed=True, scale=1, card=""):
     """Phase 17: the bench's realistic city (``osm_city``) through the main
     path: its cohorts (``osm_cohorts``); kernels 1-4 against their plain
@@ -6527,7 +7141,8 @@ def osm_phases(device, rows=120, grid_misses=None, timed=True, scale=1, card="")
     from the OSM CLI's network (``osm_serve_phase``); phase 18's batch
     request and its wire from the CLI's tiles (``wire_phase``); phases 19
     and 20 on its served matcher; phase 21's batched and streaming modes
-    (``modes_phase``) on this phase's matcher and cohorts."""
+    (``modes_phase``) on this phase's matcher and cohorts; phase 22's fleet
+    (``fleet_phase``) on phase 18's tiles config."""
     matcher, net, info = osm_city(rows, device)
     short, med, long_ = osm_cohorts(matcher.arrays, scale)
     t64, t256, t1024 = ([s.trace for s in c] for c in (short, med, long_))
@@ -6562,6 +7177,8 @@ def osm_phases(device, rows=120, grid_misses=None, timed=True, scale=1, card="")
                                         os.path.join(os.path.dirname(net_json), "config.json"),
                                         device, card, gap_vehicles=64 // scale)
     quiet("phase 21")
+    fleet = fleet_phase(served[0], served[2], t64, t256, t1024, device, card)
+    quiet("phase 22")
     strip = lambda d: {k: v for k, v in d.items() if not callable(v)}  # noqa: E731
     return {"city": info, "kernels": [strip(r) for r in rows64],
             "kernels_128x256": [strip(r) for r in rows256],
@@ -6571,7 +7188,7 @@ def osm_phases(device, rows=120, grid_misses=None, timed=True, scale=1, card="")
                          "batch_wire": wire_launches, "recovery": recovery_launches,
                          **{"modes_" + k: v for k, v in modes_launches.items()}},
             "wire": wire_info, "recovery": recovery, "observability": observability,
-            "modes": modes,
+            "modes": modes, "fleet": fleet,
             "main_path": rates, "long_path": long_rate, "session_path": sess_rate,
             "probe_outcomes": misses, "grid_probe_outcomes": grid_misses,
             "agreement": agree, "baseline": base}
@@ -6769,7 +7386,7 @@ def main(pair=()):
     # 12's misses there beside the grid city's
     osm = osm_phases(device, grid_misses=probe_misses(matcher, xin64),
                      card=smi.splitlines()[0])
-    quiet("phases 17-21")
+    quiet("phases 17-22")
 
     # the sparse-gap model: cohorts A (every 9th point of the 512 x 64
     # cohort: 512 x 8 at 45 s, "45-60", bucket 16) and B (every 12th of the

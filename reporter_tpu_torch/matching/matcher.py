@@ -586,6 +586,32 @@ class SegmentMatcher:
         through windows of this length with carried state."""
         return int(self.cfg.length_buckets[-1])
 
+    def capacity_summary(self) -> dict:
+        """The replica's capacity plane (/health "capacity"), as the
+        reference's: the dp x gp mesh, the per-card admission budgets
+        scaled by dp, and the byte budgets of the device-resident state
+        (the tiered table's hot arena, the session slab) where they
+        exist.  The router's capacity-weighted ranking and the
+        supervisor's autoscaler read it.  The CPU baseline (``backend``
+        "cpu", no device) answers the reference's short form, as the
+        reference's non-device backends do."""
+        if self.backend != "jax":
+            return {"devices": 1, "mesh": {"dp": 1, "gp": 1},
+                    "max_device_batch": int(self.cfg.max_device_batch),
+                    "max_device_points": int(self.cfg.max_device_points)}
+        n_gp = 1 if self._mesh is None else self._mesh.n_gp
+        out = {
+            "devices": self._n_dp * n_gp,
+            "mesh": {"dp": self._n_dp, "gp": n_gp},
+            "max_device_batch": int(self.cfg.max_device_batch) * self._n_dp,
+            "max_device_points": int(self.cfg.max_device_points) * self._n_dp,
+        }
+        if self.tiering is not None:
+            out["ubodt"] = self.tiering.summary()
+        if self.session_arena is not None:
+            out["session_arena"] = self.session_arena.summary()
+        return out
+
     def _fill_rows(self, traces, idxs, T):
         """Pack traces[idxs] into padded [B, T] arrays + per-row times (the
         reference's per-row loop; times rebase to the trace start before

@@ -32,8 +32,11 @@ how close it is to its ceiling.  It is the sensor half — three instruments, no
                       the demand slope.
 
 EconomicsEngine owns all three plus the sampling tick; the service
-exposes it at GET /debug/cost and /debug/history?window=S.  Everything here is pure stdlib and
-injectable-clock testable (the SLOEngine/Autoscaler idiom).
+exposes it at GET /debug/cost and /debug/history?window=S and the
+router federates a fleet roll-up.  FleetCostLedger is the fleet
+supervisor's ledger across replica incarnations.  Everything here is
+pure stdlib and injectable-clock testable (the SLOEngine/Autoscaler
+idiom).
 """
 
 from __future__ import annotations
@@ -776,6 +779,142 @@ def memory_summary(matcher=None, session_store=None) -> dict:
     if session_store is not None:
         out["sessions_resident"] = sum(
             child.value for _lv, child in G_SESS_PER_CHIP._items())
+    return out
+
+
+class FleetCostLedger:
+    """Supervisor-side chip-second accounting that survives replica
+    incarnations (the port's copy of the JAX package's class).
+
+    A replica's in-process ledger dies with its process: a SIGKILLed,
+    respawned replica restarts ``reporter_cost_chip_seconds_total`` from
+    zero, so naively summing the last-observed per-replica totals loses
+    every earlier incarnation's spend.  The supervisor fixes that with
+    high-water accumulation — an observation that goes BACKWARD is a
+    counter reset (a respawn), and the dead incarnation's final total is
+    banked into a base before the new one starts counting.
+
+    ``observe(rid, ...)`` on every federation tick; ``report(expected)``
+    renders the ``<workdir>/cost_ledger.json`` payload, judging the
+    accumulated ledger against the supervisor's own supervised-uptime ×
+    chips expectation, which must hold across a SIGKILL + respawn.
+    ``expected`` maps rid → supervised WALL seconds; chips scaling
+    happens here.  Consistency
+    allows ``tolerance`` relative error plus a flat per-incarnation
+    boot-latency slack (the supervisor's clock starts at fork; the
+    child's ledger starts after imports).
+    """
+
+    BOOT_SLACK_S = 5.0  # per incarnation per chip, fork-to-ledger latency
+
+    def __init__(self, tolerance: float = 0.15):
+        self.tolerance = _env_num("REPORTER_COST_LEDGER_TOL", tolerance)
+        self._r: Dict[str, dict] = {}
+
+    def observe(self, rid: str, chip_seconds, usd=None, points=None,
+                chips=1) -> None:
+        e = self._r.setdefault(rid, {
+            "base_cs": 0.0, "last_cs": 0.0, "base_usd": 0.0,
+            "last_usd": 0.0, "base_pts": 0.0, "last_pts": 0.0,
+            "incarnations": 1, "chips": int(chips or 1)})
+        cs = float(chip_seconds or 0.0)
+        if cs + 1e-9 < e["last_cs"]:
+            # the counter went backward: a respawn — bank the dead
+            # incarnation before the watch restarts from zero
+            e["base_cs"] += e["last_cs"]
+            e["base_usd"] += e["last_usd"]
+            e["base_pts"] += e["last_pts"]
+            e["incarnations"] += 1
+        e["last_cs"] = cs
+        e["last_usd"] = float(usd or 0.0)
+        e["last_pts"] = float(points or 0.0)
+        e["chips"] = int(chips or e["chips"] or 1)
+
+    def report(self, expected_uptime: Optional[dict] = None,
+               price: Optional[float] = None) -> dict:
+        expected_uptime = expected_uptime or {}
+        per = {}
+        tot_cs = tot_usd = tot_pts = tot_exp = 0.0
+        incarnations = 0
+        for rid in sorted(self._r):
+            e = self._r[rid]
+            cs = e["base_cs"] + e["last_cs"]
+            usd = e["base_usd"] + e["last_usd"]
+            pts = e["base_pts"] + e["last_pts"]
+            up = expected_uptime.get(rid)
+            exp = None if up is None else float(up) * e["chips"]
+            per[rid] = {
+                "chip_seconds": round(cs, 3),
+                "usd": round(usd, 6),
+                "points": int(pts),
+                "incarnations": e["incarnations"],
+                "chips": e["chips"],
+                "expected_chip_seconds": (None if exp is None
+                                          else round(exp, 3)),
+            }
+            tot_cs += cs
+            tot_usd += usd
+            tot_pts += pts
+            tot_exp += exp or 0.0
+            incarnations += e["incarnations"]
+        err = abs(tot_cs - tot_exp)
+        slack = self.tolerance * tot_exp + self.BOOT_SLACK_S * incarnations
+        return {
+            "replicas": per,
+            "totals": {
+                "chip_seconds": round(tot_cs, 3),
+                "usd": round(tot_usd, 6),
+                "points": int(tot_pts),
+                "usd_per_million_points": (
+                    round(tot_usd / tot_pts * 1e6, 6)
+                    if tot_pts > 0 else None),
+            },
+            "price_per_chip_hour": price,
+            "expected_chip_seconds": round(tot_exp, 3),
+            "abs_err": round(err, 3),
+            "rel_err": (round(err / tot_exp, 4) if tot_exp > 0 else 0.0),
+            "tolerance": self.tolerance,
+            "incarnations": incarnations,
+            "consistent": bool(tot_exp <= 0.0 or err <= slack),
+        }
+
+
+def memory_summary(matcher=None, session_store=None) -> dict:
+    """The memory plane as one flat dict ("space.subsystem" -> bytes):
+    publish_memory refreshed, then the G_MEMORY family folded — the
+    /statusz and bench-artifact rendering of
+    reporter_device_memory_bytes."""
+    publish_memory(matcher, session_store)
+    out = {}
+    for lv, child in G_MEMORY._items():
+        out[".".join(lv)] = child.value
+    if session_store is not None:
+        out["sessions_resident"] = sum(
+            child.value for _lv, child in G_SESS_PER_CHIP._items())
+    return out
+
+
+def read_ring(path: str, window_s: Optional[float] = None,
+              now: Optional[float] = None) -> List[dict]:
+    """Read a demand-history ring WITHOUT owning it: rotated epoch then
+    live file, torn-tail tolerant — the tools/demand_export.py reader
+    for a ring another process (or a dead one) wrote."""
+    out: List[dict] = []
+    for p in (path + ".1", path):
+        try:
+            with open(p, encoding="utf-8") as f:
+                for line in f:
+                    try:
+                        rec = json.loads(line)
+                    except (json.JSONDecodeError, ValueError):
+                        continue
+                    if isinstance(rec, dict):
+                        out.append(rec)
+        except OSError:
+            continue
+    if window_s is not None:
+        cut = (time.time() if now is None else now) - float(window_s)
+        out = [r for r in out if float(r.get("t", 0.0)) >= cut]
     return out
 
 

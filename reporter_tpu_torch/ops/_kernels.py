@@ -10,7 +10,10 @@ module is imported: the first launch (or ``build_kernels()``) builds every
 kernel, one ``nvcc`` per source, all started together.
 
 Every kernel has a ``launches`` counter that its wrapper bumps once per
-launch; ``reset_launches()`` zeroes them all.  Each launch call runs inside
+launch; ``reset_launches()`` zeroes them all.  The same launch also adds
+one to ``reporter_kernel_launches_total{kernel}`` on /metrics, which is
+never reset (the port's own family: the JAX package has no hand-written
+kernels), so a fleet's federated /metrics shows each replica's launches.  Each launch call runs inside
 the profiler range ``rs.<stage>/<name>`` of its stage label
 (``Kernel.stage``, one of ``obs.attrib.STAGES``), which attributes its
 device time.  The SPARSE instantiations
@@ -41,12 +44,19 @@ from typing import Dict, List, Optional
 import torch
 
 from .._build import BUILD_DIR, PKG_DIR, build_all
+from ..obs import metrics as obs
 from ..obs.attrib import stage
 
 CSRC = os.path.join(PKG_DIR, "csrc")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "--fmad=false", "-std=c++17", "-shared", "-Xcompiler",
               "-fPIC", "-Xptxas", "-v"]
+
+C_LAUNCHES = obs.counter(
+    "reporter_kernel_launches_total",
+    "Hand-written CUDA kernel launches by entry point, counted where each "
+    "wrapper launches its kernel (never reset)",
+    ("kernel",))
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -70,6 +80,7 @@ class Kernel:
         self.library = os.path.join(BUILD_DIR, "lib%s.so" % base)
         self.argtypes = argtypes
         self.launches = 0
+        self._counted = C_LAUNCHES.labels(name)
         self.stage = stage
         self._fn = None
         self._err = None
@@ -101,6 +112,7 @@ class Kernel:
         # the finisher, the re-attach probe): no count may be lost
         with _count_lock:
             self.launches += 1
+        self._counted.inc()
 
 
 _SPARSE = [_F] * 6  # the sparse model's scalars, after the dense arguments

@@ -859,6 +859,12 @@ class ReporterService:
     /trace_attributes_batch, /health, /sessions and the observability
     endpoints.
 
+    ``matcher`` None defers the engine, as the reference's does: the
+    socket can bind and /health answer (200, "warming": true, "backend":
+    null) before the matcher is built; /report, /trace_attributes_batch
+    and /sessions answer 503 "service initialising" until
+    ``attach_matcher`` runs.
+
     ``slo`` (the config's "slo" block) declares the serving objectives the
     SLO engine measures every terminal outcome against (None keeps the
     $REPORTER_SLO_* defaults without touching an engine another embedder
@@ -876,7 +882,8 @@ class ReporterService:
     # the MicroBatcher's share of them
     BATCHER_KEYS = ROBUSTNESS_KEYS[:5]
 
-    def __init__(self, matcher: SegmentMatcher, threshold_sec: Optional[int] = None,
+    def __init__(self, matcher: Optional[SegmentMatcher],
+                 threshold_sec: Optional[int] = None,
                  max_batch: int = 64, max_wait_ms: float = 10.0,
                  max_inflight: Optional[int] = None, robustness: Optional[dict] = None,
                  session_max_batch: int = 256, session_wait_ms: float = 2.0,
@@ -884,11 +891,8 @@ class ReporterService:
                  economics: Optional[dict] = None):
         from ..matching.config import warn_dropped
 
-        if threshold_sec is None:
-            threshold_sec = int(os.environ.get("THRESHOLD_SEC",
-                                               matcher.cfg.threshold_sec))
-        self.threshold_sec = int(threshold_sec)
-        self.matcher = matcher
+        self._threshold_arg = threshold_sec
+        self.threshold_sec: Optional[int] = None
         rb = dict(robustness or {})
         for k in rb:
             if k not in self.ROBUSTNESS_KEYS:
@@ -927,9 +931,6 @@ class ReporterService:
             self.replica_id, chips=1, spec=econ_spec,
             history_path=(os.path.join(hist_dir, "%s.jsonl" % self.replica_id)
                           if hist_dir else None))
-        # chip-seconds accrue for every card of the matcher's mesh
-        self.economics.ledger.set_chips(max(1, int(getattr(matcher.cfg, "devices", 1)
-                                                   or 1)))
         # degraded mode: after a watchdog trip requests are answered by the
         # CPU baseline with "degraded": true until a probe re-attaches
         self.degraded = False
@@ -949,32 +950,65 @@ class ReporterService:
         self._counter_lock = threading.Lock()
         self._n_requests = 0
         self._n_errors = 0
-        cfg = matcher.cfg
-        self.session_store = SessionStore(cfg.max_sessions, cfg.session_ttl_s)
-        self.session_checkpointer: Optional[SessionCheckpointer] = None
-        if self._ckpt_s > 0 and self._ckpt_dir:
-            self.session_checkpointer = SessionCheckpointer(
-                self.session_store, os.path.join(self._ckpt_dir, self.replica_id),
-                cadence_s=self._ckpt_s, sync=self._ckpt_sync)
-            self.session_checkpointer.start()
-        self.session_engine = SessionEngine(matcher, self.session_store,
-                                            tail_points=cfg.session_tail_points)
-        self.batcher = self._make_batcher(matcher)
-        # streaming submits batch on their own MicroBatcher with a short
-        # fill window: a session's point is answered at point latency
-        self.session_batcher = self._make_session_batcher()
         # the binary columnar wire, accepted and emitted when a client
         # negotiates it; $REPORTER_WIRE=0 turns it off (binary bodies get a
         # 415 and /health stops advertising it)
         self.wire_enabled = (os.environ.get("REPORTER_WIRE", "").strip().lower()
                              not in ("0", "false", "off", "no"))
+        # the engine's half: built by attach_matcher (``batcher`` last)
+        self.matcher: Optional[SegmentMatcher] = None
+        self.batcher: Optional[MicroBatcher] = None
+        self.session_store: Optional[SessionStore] = None
+        self.session_checkpointer: Optional[SessionCheckpointer] = None
+        self.session_engine: Optional[SessionEngine] = None
+        self.session_batcher: Optional[MicroBatcher] = None
+        # boot-time work in flight (the engine build, a warmup pass): the
+        # serve entry point sets it; /health and /statusz report it
+        self.warming = False
+        self._t_boot = _time.time()
+        self._collect = None
+        if matcher is not None:
+            self.attach_matcher(matcher)
+
+    def attach_matcher(self, matcher: SegmentMatcher) -> None:
+        """Bring a deferred service live: resolve the report threshold,
+        build the session store (its checkpointer), the session engine
+        and both batchers over ``matcher``.  ``matcher`` and ``batcher``
+        are assigned last: handlers read the batcher once, so a request
+        races either to 503 or to a fully wired engine, never halfway,
+        and /health names a backend only once requests are taken."""
+        threshold = self._threshold_arg
+        if threshold is None:
+            threshold = int(os.environ.get("THRESHOLD_SEC", matcher.cfg.threshold_sec))
+        self.threshold_sec = int(threshold)
+        # chip-seconds accrue for every card of the matcher's mesh
+        try:
+            chips = int(matcher.capacity_summary().get("devices", 1))
+        except AttributeError:  # a stand-in engine without the summary
+            chips = int(getattr(matcher.cfg, "devices", 1) or 1)
+        self.economics.ledger.set_chips(max(1, chips))
+        cfg = matcher.cfg
+        if self.session_store is None:
+            self.session_store = SessionStore(cfg.max_sessions, cfg.session_ttl_s)
+            if self._ckpt_s > 0 and self._ckpt_dir:
+                self.session_checkpointer = SessionCheckpointer(
+                    self.session_store, os.path.join(self._ckpt_dir, self.replica_id),
+                    cadence_s=self._ckpt_s, sync=self._ckpt_sync)
+                self.session_checkpointer.start()
+        self.session_engine = SessionEngine(matcher, self.session_store,
+                                            tail_points=cfg.session_tail_points)
+        # streaming submits batch on their own MicroBatcher with a short
+        # fill window: a session's point is answered at point latency
+        self.session_batcher = self._make_session_batcher()
         try:
             self.quality = obs_quality.configure(matcher, self._quality_spec)
         except Exception:  # noqa: BLE001 - diagnostics must not block boot
             log.exception("quality engine configure failed; sampling off")
             self.quality = None
-        self._t_boot = _time.time()
-        self._collect = None
+        # /health names the backend once the windowed batcher can take work
+        batcher = self._make_batcher(matcher)
+        self.matcher = matcher
+        self.batcher = batcher
 
     def _make_batcher(self, matcher) -> MicroBatcher:
         return MicroBatcher(matcher, **self._batch_params, **self._robust_params,
@@ -992,7 +1026,8 @@ class ReporterService:
         device runtime stays behind)."""
         self._closing.set()
         for b in [self.batcher, self.session_batcher] + self._retired:
-            b.close()
+            if b is not None:
+                b.close()
         if self.session_checkpointer is not None:
             self.session_checkpointer.stop()
         self.economics.stop()
@@ -1218,6 +1253,12 @@ class ReporterService:
         self._terminal(route, 503, span)
         return 503, {"error": "draining", "status": "draining", "retry_after": 1}
 
+    def _init_refusal(self, route: str, span: Span) -> Tuple[int, dict]:
+        """Before ``attach_matcher``: a retryable 503."""
+        span.fail("service initialising", status="unavailable")
+        self._terminal(route, 503, span)
+        return 503, {"error": "service initialising", "retry_after": 1}
+
     def _note_request(self, ok: bool) -> None:
         with self._counter_lock:
             self._n_requests += 1
@@ -1262,6 +1303,8 @@ class ReporterService:
         if self.draining:
             return self._drain_refusal(route, span)
         batcher = self.session_batcher if stream else self.batcher
+        if batcher is None:
+            return self._init_refusal(route, span)
         # fault seam: an injected admission shed
         if faults.fire("replica_shed") is not None:
             span.fail("injected admission shed", status="shed")
@@ -1358,6 +1401,8 @@ class ReporterService:
         if self.draining:
             return self._drain_refusal(route, span)
         batcher = self.batcher
+        if batcher is None:
+            return self._init_refusal(route, span)
         traces = body.get("traces")
         if not isinstance(traces, list) or not traces:
             span.fail("traces must be a non-empty array", status="invalid")
@@ -1412,13 +1457,21 @@ class ReporterService:
         """503 "unhealthy" when a batcher thread died (or the health_flap
         seam fires), 503 "draining" with the inflight count while
         draining, else 200 "ok" with the matcher's state; degraded mode
-        stays 200 (the service answers) with "degraded": true."""
+        stays 200 (the service answers) with "degraded": true.  Before
+        ``attach_matcher`` the answer is 200 "ok" with "warming": true and
+        the matcher's fields null (the router holds such a replica out of
+        its ring); "warming" also stays true while a warmup pass runs.
+        "capacity" is ``SegmentMatcher.capacity_summary()``.  The keys are
+        the reference's, plus "device", "mesh", "max_trace_points",
+        "sessions" and, where they exist, "ubodt_tier" and
+        "session_arena"."""
         m = self.matcher
         b = self.batcher
         uptime = round(_time.time() - self._t_boot, 1)
-        if self.unhealthy_reason or b._crashed:
+        if self.unhealthy_reason or (b is not None and b._crashed):
             return 503, {"status": "unhealthy",
-                         "reason": self.unhealthy_reason or b._crash_reason,
+                         "reason": self.unhealthy_reason or (
+                             b._crash_reason if b is not None else None),
                          "replica": self.replica_id, "uptime_s": uptime}
         if faults.fire("health_flap") is not None:
             return 503, {"status": "unhealthy", "reason": "injected health flap",
@@ -1435,22 +1488,30 @@ class ReporterService:
             # always, the binary columnar wire unless $REPORTER_WIRE=0
             "capabilities": ["gzip", "wire-columnar"] if self.wire_enabled else ["gzip"],
             "degraded": bool(self.degraded),
-            "device": str(m.device),
-            "backend": m.backend,
+            "warming": bool(self.warming) or m is None,
+            "device": str(m.device) if m else None,
+            "backend": m.backend if m else None,
             "mesh": ({"dp": m._mesh.n_dp, "gp": m._mesh.n_gp}
-                     if m._mesh is not None else None),
-            "max_trace_points": m.max_trace_points,
-            "viterbi_kernel": m._kernel_mode,
-            "ubodt_shard": ("%d/%d" % m.ubodt_shard) if m.ubodt_shard else None,
-            "ubodt_tiered": m.tiering is not None,
-            "sessions": self.session_store.summary(),
+                     if m is not None and m._mesh is not None else None),
+            "max_trace_points": m.max_trace_points if m else None,
+            "viterbi_kernel": m._kernel_mode if m else None,
+            "devices": int(m.cfg.devices) if m else None,
+            "graph_devices": int(m.cfg.graph_devices) if m else None,
+            "capacity": (m.capacity_summary()
+                         if m is not None and hasattr(m, "capacity_summary") else None),
+            "edges": int(m.arrays.num_edges) if m else None,
+            "ubodt_rows": int(m.ubodt.num_rows) if m else None,
+            "ubodt_shard": ("%d/%d" % m.ubodt_shard) if m and m.ubodt_shard else None,
+            "ubodt_tiered": (m.tiering is not None) if m else None,
+            "sessions": (self.session_store.summary()
+                         if self.session_store is not None else None),
             "uptime_s": uptime,
             "requests": self._n_requests,
             "errors": self._n_errors,
         }
-        if m.tiering is not None:
+        if m is not None and m.tiering is not None:
             out["ubodt_tier"] = m.tiering.summary()
-        if m.session_arena is not None:
+        if m is not None and m.session_arena is not None:
             out["session_arena"] = m.session_arena.summary()
         return 200, out
 
@@ -1470,6 +1531,8 @@ class ReporterService:
                                       serialise in one locked sweep)
         """
         store = self.session_store
+        if store is None:
+            return 503, {"error": "service initialising", "retry_after": 1}
         if body is not None:
             drop = body.get("drop")
             if drop is not None:
@@ -1520,7 +1583,8 @@ class ReporterService:
         step = None
         try:
             samp = M_DEVICE_STEP._default()._sample()
-            step = (samp["buckets"], samp["counts"])
+            if samp["count"] or b is not None:
+                step = (samp["buckets"], samp["counts"])
         except Exception:  # noqa: BLE001 - a sensor read must never raise
             pass
         burn = max_burn = None
@@ -1535,22 +1599,26 @@ class ReporterService:
         except Exception:  # noqa: BLE001
             pass
         return {
-            "queue_depth": b._q.qsize(),
+            "queue_depth": b._q.qsize() if b is not None else 0,
             "admitted_total": obs_econ.counter_total(
                 C_REQUESTS, {"outcome": ("ok", "degraded")}),
             "shed_total": obs_econ.counter_total(C_REQUESTS, {"outcome": "shed"}),
             "points_total": C_POINTS_MATCHED.value,
             "device_step": step,
-            "max_batch": float(b.max_batch),
+            "max_batch": float(b.max_batch) if b is not None else None,
             "burn": burn,
             "max_burn": max_burn,
-            "sessions": self.session_store.summary()["sessions"],
+            "sessions": (self.session_store.summary()["sessions"]
+                         if self.session_store is not None else None),
             "session_tiers": self._session_tiers(),
         }
 
-    def _session_tiers(self) -> dict:
+    def _session_tiers(self) -> Optional[dict]:
         """Resident sessions by tier for the economics tick: hot / cold
-        from the slab's maps, host = every other session the store holds."""
+        from the slab's maps, host = every other session the store holds;
+        None before the engine attaches."""
+        if self.session_store is None:
+            return None
         total = self.session_store.summary()["sessions"]
         arena = getattr(self.matcher, "session_arena", None)
         if arena is None:
@@ -1589,14 +1657,14 @@ class ReporterService:
             "uptime_s": round(_time.time() - self._t_boot, 1),
             "replica": self.replica_id,
             "draining": bool(self.draining),
-            "warming": False,
-            "backend": m.backend,
-            "viterbi_kernel": getattr(m, "_kernel_mode", None),
+            "warming": bool(self.warming) or m is None,
+            "backend": m.backend if m else None,
+            "viterbi_kernel": getattr(m, "_kernel_mode", None) if m else None,
             "threshold_sec": self.threshold_sec,
             "batch": dict(self._batch_params),
             "degraded": bool(self.degraded),
-            "wedged": bool(b.wedged),
-            "crashed": bool(b._crashed),
+            "wedged": bool(b.wedged) if b is not None else None,
+            "crashed": bool(b._crashed) if b is not None else None,
             "robustness": {
                 "max_queue": b.max_queue,
                 "deadline_ms": round(b.deadline_s * 1000.0, 1),
@@ -1605,7 +1673,7 @@ class ReporterService:
                 "quarantine_ttl_s": b.quarantine_ttl_s,
                 "reattach_probe_s": self._reattach_probe_s,
                 "quarantined_uuids": b.quarantined(),
-            },
+            } if b is not None else None,
             "latency_buckets_s": list(obs.LATENCY_BUCKETS_S),
             "batch_fill_buckets": list(obs.BATCH_FILL_BUCKETS),
             "flight": obs_flight.RECORDER.summary(),
@@ -1614,7 +1682,8 @@ class ReporterService:
             "quality": self.quality.summary() if self.quality is not None else None,
             "sparse": (m.sparse.summary()
                        if getattr(m, "sparse", None) is not None else None),
-            "sessions": self.session_store.summary(),
+            "sessions": (self.session_store.summary()
+                         if self.session_store is not None else None),
             "session_arena": (m.session_arena.summary()
                               if getattr(m, "session_arena", None) is not None
                               else None),
@@ -1622,10 +1691,10 @@ class ReporterService:
                            if getattr(m, "tiering", None) is not None else None),
             "adaptive": {
                 "enabled": obs_adaptive.enabled(),
-                "batch_wait_s": round(b.max_wait, 5),
-                "session_wait_s": round(sb.max_wait, 5),
-                "max_batch": b.max_batch,
-                "session_max_batch": sb.max_batch,
+                "batch_wait_s": round(b.max_wait, 5) if b is not None else None,
+                "session_wait_s": round(sb.max_wait, 5) if sb is not None else None,
+                "max_batch": b.max_batch if b is not None else None,
+                "session_max_batch": sb.max_batch if sb is not None else None,
             },
             "checkpoint": (self.session_checkpointer.summary()
                            if self.session_checkpointer is not None else None),
@@ -1681,6 +1750,8 @@ class ReporterService:
             seconds = float(query.get("seconds", ["2"])[0])
         except (TypeError, ValueError):
             return 400, {"error": "seconds must be a number"}
+        if self.matcher is None:
+            return 503, {"error": "service initialising"}
         if self.matcher.backend != "jax":
             return 501, {"error": "profiling needs the device backend (got %r)"
                                   % self.matcher.backend}
@@ -1702,6 +1773,8 @@ class ReporterService:
 
         if query.get("capture", ["0"])[0] in ("", "0", "false"):
             return 200, {"attrib": obs_attrib.last(), "summary": obs_attrib.summary()}
+        if self.matcher is None:
+            return 503, {"error": "service initialising"}
         if self.matcher.backend != "jax":
             return 501, {"error": "attribution needs the device backend (got %r)"
                                   % self.matcher.backend}

@@ -56,11 +56,13 @@ class HttpPool:
         self._lock = threading.Lock()
         self._idle: Dict[Tuple[str, int], List[http.client.HTTPConnection]] = {}
 
-    def _checkout(self, host: str, port: int, timeout: float,
-                  target: str) -> Tuple[http.client.HTTPConnection, bool]:
-        with self._lock:
-            stack = self._idle.get((host, port))
-            conn = stack.pop() if stack else None
+    def _checkout(self, host: str, port: int, timeout: float, target: str,
+                  fresh: bool = False) -> Tuple[http.client.HTTPConnection, bool]:
+        conn = None
+        if not fresh:
+            with self._lock:
+                stack = self._idle.get((host, port))
+                conn = stack.pop() if stack else None
         if conn is not None:
             conn.timeout = timeout
             if conn.sock is not None:
@@ -103,7 +105,9 @@ class HttpPool:
             path += "?" + parsed.query
         hdrs = dict(headers or {})
         for attempt in (0, 1):
-            conn, reused = self._checkout(host, port, timeout, target)
+            # the retry opens a new connection: the other idle sockets to
+            # this host went quiet as long and may be closed too
+            conn, reused = self._checkout(host, port, timeout, target, fresh=attempt == 1)
             try:
                 conn.request(method, path, body=body, headers=hdrs)
                 resp = conn.getresponse()

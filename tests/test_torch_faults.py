@@ -241,7 +241,13 @@ def test_sigterm_drain_finishes_inflight_then_exits_zero(services, tmp_path):
         # the log pipe is drained from here on, so the child never blocks
         threading.Thread(target=proc.stderr.read, daemon=True).start()
         url = "http://127.0.0.1:%d" % port_no
+        # the boot is deferred: /health answers 200 "warming" from the bind,
+        # and names the backend once the engine is attached
         assert _get(url + "/health")[0] == 200
+        deadline = time.monotonic() + 60
+        while _get(url + "/health")[1]["backend"] is None:
+            assert time.monotonic() < deadline
+            time.sleep(0.05)
         inflight = {}
         tr = _street_trace(port.arrays, "veh-inflight")
         t = threading.Thread(target=lambda: inflight.update(r=_post(url + "/report", tr)))

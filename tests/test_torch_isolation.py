@@ -255,8 +255,8 @@ _BLOCKED_OBS = _BLOCKED_RUN[:_BLOCKED_RUN.index("import reporter_tpu_torch\n")] 
 import json, os, pkgutil, tempfile, threading, urllib.request
 import reporter_tpu_torch.obs as obs_pkg
 names = sorted(m.name for m in pkgutil.iter_modules(obs_pkg.__path__))
-assert names == ["adaptive", "attrib", "economics", "flight", "log", "metrics",
-                 "profiler", "quality", "quantile", "slo", "trace"], names
+assert names == ["adaptive", "attrib", "economics", "federation", "flight", "log",
+                 "metrics", "profiler", "quality", "quantile", "slo", "trace"], names
 for n in names:
     __import__("reporter_tpu_torch.obs." + n)
 from reporter_tpu_torch.matching import MatcherConfig, SegmentMatcher
@@ -367,3 +367,84 @@ def test_stream_batch_anonymise_utils_run_with_jax_and_reference_blocked():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
     assert "MODES-ISOLATED-OK" in r.stdout
+
+
+_BLOCKED_FLEET = _BLOCKED_RUN[:_BLOCKED_RUN.index("import reporter_tpu_torch\n")] + r'''
+import json, os, pkgutil, signal, subprocess, tempfile, threading, time, urllib.request
+import reporter_tpu_torch.serve as serve_pkg
+import reporter_tpu_torch.tools as tools_pkg
+names = sorted(m.name for m in pkgutil.iter_modules(serve_pkg.__path__))
+assert names == ["__main__", "autoscale", "router", "service", "wire"], names
+assert sorted(m.name for m in pkgutil.iter_modules(tools_pkg.__path__)) == ["fleet"]
+import reporter_tpu_torch.obs.federation
+import reporter_tpu_torch.serve.autoscale
+import reporter_tpu_torch.serve.router
+import reporter_tpu_torch.tools.fleet
+from reporter_tpu_torch.obs.economics import FleetCostLedger
+from reporter_tpu_torch.matching import SegmentMatcher
+assert hasattr(SegmentMatcher, "capacity_summary")
+# the supervisor, as an operator runs it: two replicas on the CPU behind
+# the router, one /report through the router, SIGTERM drains every child
+with tempfile.TemporaryDirectory() as d:
+    with open(d + "/cfg.json", "w") as f:
+        json.dump({"network": {"type": "grid", "rows": 5, "cols": 5, "spacing_m": 150.0},
+                   "matcher": {"ubodt_delta": 2000.0, "length_buckets": [16]},
+                   "warmup": False}, f)
+    import socket
+    def free_port():
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        p = s.getsockname()[1]
+        s.close()
+        return p
+    rport, bport = free_port(), free_port()
+    env = dict(os.environ, PYTHONPATH=os.getcwd())
+    # the supervisor itself runs under the same import block
+    proc = subprocess.Popen([sys.executable, "-c", BLOCK_SRC + "\nimport runpy, sys\n"
+                             "sys.argv = ['fleet'] + sys.argv[1:]\n"
+                             "runpy.run_module('reporter_tpu_torch.tools.fleet', "
+                             "run_name='__main__')",
+                             "--config", d + "/cfg.json", "--replicas", "2",
+                             "--base-port", str(bport), "--router-port", str(rport),
+                             "--workdir", d + "/wd", "--device", "cpu",
+                             "--federate-every", "0.5"], env=env)
+    url = "http://127.0.0.1:%d" % rport
+    deadline = time.monotonic() + 120
+    states = None
+    while time.monotonic() < deadline:
+        try:
+            with urllib.request.urlopen(url + "/fleet", timeout=2) as r:
+                states = [x["state"] for x in json.loads(r.read())["replicas"]]
+            if states == ["healthy", "healthy"]:
+                break
+        except Exception:
+            pass
+        time.sleep(0.2)
+    assert states == ["healthy", "healthy"], states
+    tr = {"uuid": "iso", "trace": [{"lat": 37.75 + 0.0001 * i, "lon": -122.45 + 0.0001 * i,
+                                    "time": 1000 + 15 * i} for i in range(6)],
+          "match_options": {"report_levels": [0, 1], "transition_levels": [0, 1]}}
+    req = urllib.request.Request(url + "/report", json.dumps(tr).encode(),
+                                 {"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=60) as r:
+        assert r.status == 200 and r.headers["X-Reporter-Replica"] in ("rep-0", "rep-1")
+    proc.send_signal(signal.SIGTERM)
+    assert proc.wait(60) == 0
+    assert os.path.exists(d + "/wd/fleet.json")
+assert not [m for m in sys.modules if blocked(m)]
+print("FLEET-ISOLATED-OK")
+'''
+
+
+def test_fleet_runs_with_jax_and_reference_blocked():
+    """The router, autoscaler, federation and the fleet supervisor import
+    with ``jax`` and ``reporter_tpu`` blocked, and the supervisor (itself
+    with both blocked) serves a /report through its router over two CPU
+    replicas and drains on SIGTERM."""
+    block = _BLOCKED_RUN[:_BLOCKED_RUN.index("import reporter_tpu_torch\n")]
+    src = "BLOCK_SRC = %r\n" % block + _BLOCKED_FLEET
+    r = subprocess.run([sys.executable, "-c", src], cwd=REPO, capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "FLEET-ISOLATED-OK" in r.stdout
+
