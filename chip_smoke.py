@@ -322,7 +322,8 @@ delta 3000 m, cuckoo layout) and moves it to the card, then:
      during another answers 409; /debug/profile?seconds=1 over live
      traffic parses, with every path kernel under its label and nothing
      unattributed; (3) REPORTER_QUALITY_SAMPLE_EVERY=4 for one service:
-     32 /report, the shadow-oracle agreement per cohort equal to the
+     16 /report (``QUALITY_REQUESTS``), the shadow-oracle agreement per
+     cohort equal to the
      port's on the CPU; (4) match_many over the 512 x 64 cohort with the
      stage ranges off and on (``attrib.set_scopes``), bit-identical, eight
      rounds of off, on, on, off: each side's median wall and quartiles,
@@ -330,9 +331,9 @@ delta 3000 m, cuckoo layout) and moves it to the card, then:
 
   21. the batched and streaming modes on the same city (``modes_phase``,
      after phase 20), on phase 17's matcher: (1) the batch pipeline in
-     process, ``run_pipeline`` over an archive of the first halves of the
-     512 x 64 and 16 x 1,024 cohorts (256 x 64 and 8 x 1,024, 4 source
-     files; vehicles 0-31 pause 300 s after their 32nd point: 296 windows at
+     process, ``run_pipeline`` over an archive of the first quarters of the
+     512 x 64 and 16 x 1,024 cohorts (128 x 64 and 4 x 1,024, 4 source
+     files; vehicles 0-15 pause 300 s after their 32nd point: 148 windows at
      the 120 s inactivity; ``MODES_BATCH_DEPTH``), phases 1 and 3 on two
      spawned workers, micro-batches of 256, privacy 2, hourly tiles: 0
      failures, every window matched, kernels 1-5 launched, its tiles equal
@@ -341,7 +342,7 @@ delta 3000 m, cuckoo layout) and moves it to the card, then:
      equal rows printed; (2) ``python -m reporter_tpu_torch.batch --device
      cuda --warmup --metrics`` in a process of its own on the city's
      ``file`` config: exit 0, the same tiles, its metrics line counting the
-     296 windows; (3) the 512 x 64 cohort as SV lines in time order through
+     148 windows; (3) the 512 x 64 cohort as SV lines in time order through
      the stream topology (micro-batches of 16, privacy 2, hourly tiles,
      every line stamped with one arrival instant): ``LocalMatcherClient``
      on the card, equal to it on the port on the CPU, ``HttpMatcherClient``
@@ -381,9 +382,36 @@ delta 3000 m, cuckoo layout) and moves it to the card, then:
      router and direct /report walls, the failover, re-home, respawn,
      rolling-restart and scale walls.
 
+  23. the tiered UBODT on a gp mesh (kernel rows 10 x 11a,
+     ``mesh_tier_kernels``, ``mesh_tier_paths``): kernel 2's
+     ``[tiered,sharded]`` and ``[wide32,tiered,sharded]`` instantiations at
+     gp 2 and 4, at 1 byte, 64 MiB (as seeded, and after one maintenance
+     pass) and a whole range a rank, on the 512 x 64 cohort's keys: every
+     rank against its plain version with its own fetch counts, the ranks'
+     pmin / pmax against the untiered kernel 2, bit for bit, the pages
+     registered with CUDA once; rank 0 of gp 4 timed; then a dp2 x gp4
+     tiered matcher (64 MiB a rank, every rank on this card) over the
+     bucketed, long, session-slab and sparse A paths (and wide32 at 512 x
+     64), each answer equal to the untiered card's, before and after a
+     maintenance pass.
+  24. the multi-controller entry point (``multihost_phase``): ``python -m
+     reporter_tpu_torch.parallel.multihost --device cuda`` under NCCL at
+     world size 1 (gp 1 and 2) and in two processes under gloo (gp 1 and
+     2), each config's line byte-identical across its processes and equal
+     to the in-process mesh's on the same global batch, kernels 1-4
+     launched in every process; two NCCL processes on the one card exit 2
+     with the one-rank-a-GPU message.
+
+Phase 0 builds the kernels and the cities; the cohorts are synthesized
+meanwhile in worker processes (``prefetch_cohorts``: the same seeds and
+code, so the same traces, each checked to come from the same city).
 Before the phases it times ``torch.cuda._sleep(1)``, a one-thread kernel,
 under ``time_ms`` (``launch_floor``): the least time that timer reads for
 a launch, printed as ``floor_ms`` and written beside the kernels' list.
+Each phase prints ``phase <n>: <wall> s`` when it ends; an exception in a
+phase prints ``chip_smoke: failed in phase <n> after <s> s: <message>``
+on stdout, writes what build/chip_smoke.json has so far (the finished
+phases' walls, the failure and its traceback) and exits non-zero.
 
     python3 chip_smoke.py --pair PARENT [TREE ...]
 
@@ -401,6 +429,7 @@ without CUDA it exits non-zero before printing any result.  Details go to
 build/chip_smoke.json.
 """
 
+import contextlib
 import json
 import os
 import statistics
@@ -421,6 +450,49 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 def check(cond, msg):
     if not cond:
         raise RuntimeError("check failed: " + msg)
+
+
+# the run so far: each finished phase's wall, and a failure (``phase``)
+_RUN = {"t0": time.perf_counter(), "phases": {}, "failed": None}
+
+
+def _write_report(report):
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with open(os.path.join(REPO, "build", "chip_smoke.json"), "w") as f:
+        json.dump(report, f, indent=1, default=str)
+
+
+@contextlib.contextmanager
+def phase(label):
+    """Run one phase: print ``phase <label>: <wall> s`` when it ends.  An
+    exception in it prints ``chip_smoke: failed in phase <label> after <s>
+    s: <message>`` on stdout (once: an enclosing phase passes it on),
+    writes what build/chip_smoke.json has so far (every finished phase's
+    wall, the failure and its traceback) and propagates: the run still
+    exits non-zero."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    except BaseException as e:
+        if not getattr(e, "_chip_smoke_phase", None):
+            import traceback
+
+            dt = time.perf_counter() - t0
+            msg = " ".join(("%s: %s" % (type(e).__name__, e)).split())
+            _RUN["failed"] = {"phase": label, "after_s": dt, "message": msg,
+                              "traceback": traceback.format_exc()}
+            print("chip_smoke: failed in phase %s after %.1f s: %s" % (label, dt, msg),
+                  flush=True)
+            _write_report({"phases": _RUN["phases"], "failed": _RUN["failed"],
+                           "wall_s": time.perf_counter() - _RUN["t0"]})
+            try:
+                e._chip_smoke_phase = label
+            except AttributeError:
+                pass
+        raise
+    dt = time.perf_counter() - t0
+    _RUN["phases"][label] = dt
+    print("phase %s: %.1f s" % (label, dt), flush=True)
 
 
 _FLUSH = []
@@ -644,14 +716,96 @@ def metro_city(rows, device):
     return matcher, info
 
 
-def cohort(matcher, seed, n, T, dt=5.0):
+# the cohorts the run synthesizes: (city, seed, n, T, dt), the osm city's
+# three from one synthesizer as one job
+COHORTS = (("grid", 9, 64, 2048, 5.0), ("grid", 7, 512, 64, 5.0),
+           ("osm", 7, 0, 0, 5.0), ("grid", 12, 16, 512, 60.0), ("grid", 8, 128, 256, 5.0))
+_COHORT_JOBS = {}  # key -> Future of (arrays digest, cohort, seconds)
+
+
+def _digest(arrays):
+    """A digest of the graph arrays a synthesizer walks."""
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha256()
+    for name in ("node_x", "node_y", "edge_from", "edge_to", "edge_len", "edge_speed",
+                 "out_start", "out_edges", "edge_seg"):
+        h.update(np.ascontiguousarray(getattr(arrays, name)).tobytes())
+    return h.hexdigest()
+
+
+def _city_arrays(kind):
+    """The graph arrays of the metro grid city or the osm city, built as
+    ``metro_city`` and ``osm_city`` build them."""
+    from reporter_tpu_torch.tiles.arrays import build_graph_arrays
+
+    if kind == "grid":
+        from reporter_tpu_torch.tiles.network import grid_city
+
+        return build_graph_arrays(grid_city(120, 120, spacing_m=150.0), cell_size=100.0)
+    from reporter_tpu_torch.synth.osm_city import realistic_city_network
+
+    return build_graph_arrays(realistic_city_network(120, 120, spacing_m=150.0, seed=3),
+                              cell_size=100.0)
+
+
+def _synth(arrays, key):
+    """One cohort of ``COHORTS``: trace dicts (the grid's), or the osm
+    city's three SyntheticTrace lists (``osm_cohorts``)."""
     from reporter_tpu_torch.synth import TraceSynthesizer
 
-    t0 = time.perf_counter()
-    traces = [s.trace for s in TraceSynthesizer(matcher.arrays, seed=seed).batch(
+    kind, seed, n, T, dt = key
+    if kind == "osm":
+        synth = TraceSynthesizer(arrays, seed=seed)
+        return [synth.batch(512, 64, dt=5.0, sigma=5.0),
+                synth.batch(128, 256, dt=5.0, sigma=5.0),
+                synth.batch(16, 1024, dt=5.0, sigma=5.0, max_tries=400)]
+    return [s.trace for s in TraceSynthesizer(arrays, seed=seed).batch(
         n, T, dt=dt, sigma=5.0, max_tries=100)]
-    print("cohort %dx%d at %g s synthesized in %.1f s"
-          % (n, T, dt, time.perf_counter() - t0))
+
+
+def _synth_job(key):
+    """A worker process's cohort: (its city's arrays digest, the cohort,
+    seconds)."""
+    t0 = time.perf_counter()
+    arrays = _city_arrays(key[0])
+    return _digest(arrays), _synth(arrays, key), time.perf_counter() - t0
+
+
+def prefetch_cohorts():
+    """Synthesize every cohort of ``COHORTS`` in worker processes (one each,
+    started together, before the kernels build), so that the host's route
+    searches overlap the build and the phases; ``cohort`` and
+    ``osm_cohorts`` take them, each checked to come from the same city.
+    The same seeds and code give the same traces as synthesizing inline.
+    Returns the pool (shut down at the end of the run)."""
+    import concurrent.futures
+    import multiprocessing
+
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=len(COHORTS), mp_context=multiprocessing.get_context("spawn"))
+    for key in COHORTS:
+        _COHORT_JOBS[key] = pool.submit(_synth_job, key)
+    return pool
+
+
+def _take(arrays, key):
+    """A cohort of ``COHORTS``: from its worker when one was started (its
+    city's digest must equal ``arrays``'), else synthesized here."""
+    t0 = time.perf_counter()
+    job = _COHORT_JOBS.pop(key, None)
+    if job is None:
+        return _synth(arrays, key), time.perf_counter() - t0, "here"
+    digest, out, secs = job.result(timeout=900)
+    check(digest == _digest(arrays), "cohort %s synthesized on the same city" % (key,))
+    return out, secs, "in a worker process, waited %.1f s" % (time.perf_counter() - t0)
+
+
+def cohort(matcher, seed, n, T, dt=5.0):
+    traces, secs, where = _take(matcher.arrays, ("grid", seed, n, T, dt))
+    print("cohort %dx%d at %g s synthesized in %.1f s (%s)" % (n, T, dt, secs, where))
     return traces
 
 
@@ -1198,8 +1352,9 @@ def _counted(path_kernels, drive, absent=()):
 
 PROBE_FAMILY = ("ubodt_probe", "ubodt_probe[wide32]", "ubodt_probe[tiered]",
                 "ubodt_probe[wide32,tiered]", "ubodt_probe[sharded]",
-                "ubodt_probe[wide32,sharded]", "ubodt_dedup_claim", "ubodt_dedup_scatter",
-                "probe_stats")
+                "ubodt_probe[wide32,sharded]", "ubodt_probe[tiered,sharded]",
+                "ubodt_probe[wide32,tiered,sharded]", "ubodt_dedup_claim",
+                "ubodt_dedup_scatter", "probe_stats")
 
 
 def _path_kernels(matcher, kernels, sampled=False):
@@ -4774,13 +4929,16 @@ def osm_cohorts(arrays, scale=1):
     from reporter_tpu_torch.synth import TraceSynthesizer
 
     t0 = time.perf_counter()
-    synth = TraceSynthesizer(arrays, seed=7)
-    out = [synth.batch(512 // scale, 64, dt=5.0, sigma=5.0),
-           synth.batch(128 // scale, 256, dt=5.0, sigma=5.0),
-           synth.batch(16 // scale, 1024, dt=5.0, sigma=5.0, max_tries=400)]
-    print("osm cohorts %s synthesized in %.1f s" % (
-        ", ".join("%dx%d" % (len(c), len(c[0].trace["trace"])) for c in out),
-        time.perf_counter() - t0))
+    if scale == 1:
+        out, secs, where = _take(arrays, ("osm", 7, 0, 0, 5.0))
+    else:
+        synth = TraceSynthesizer(arrays, seed=7)
+        out = [synth.batch(512 // scale, 64, dt=5.0, sigma=5.0),
+               synth.batch(128 // scale, 256, dt=5.0, sigma=5.0),
+               synth.batch(16 // scale, 1024, dt=5.0, sigma=5.0, max_tries=400)]
+        secs, where = time.perf_counter() - t0, "here"
+    print("osm cohorts %s synthesized in %.1f s (%s)" % (
+        ", ".join("%dx%d" % (len(c), len(c[0].trace["trace"])) for c in out), secs, where))
     return out
 
 
@@ -6060,9 +6218,12 @@ def obs_attrib(sv, t64, osm_ms, device, card=""):
     return out
 
 
+QUALITY_REQUESTS = 16  # phase 20.3's /report: every 4th is held against the oracle
+
+
 def obs_quality(sv, t64):
     """20.3: REPORTER_QUALITY_SAMPLE_EVERY=4 (and REPORTER_QUALITY_PACE=0,
-    no self-throttle) for one service only: 32 /report, the quality engine
+    no self-throttle) for one service only: 16 /report, the quality engine
     drained; its agreement per cohort equals, exactly, a QualityEngine on
     the port on the CPU (the same arrays, table and config) fed the same
     sampled traces with the CPU's edges."""
@@ -6071,7 +6232,7 @@ def obs_quality(sv, t64):
     from reporter_tpu_torch.matching import SegmentMatcher
     from reporter_tpu_torch.obs import quality as obs_quality
 
-    traces = [dict(_p20(t64, 61 + i), uuid="p20-q-%d" % i) for i in range(32)]
+    traces = [dict(_p20(t64, 61 + i), uuid="p20-q-%d" % i) for i in range(QUALITY_REQUESTS)]
     os.environ["REPORTER_QUALITY_SAMPLE_EVERY"] = "4"
     os.environ["REPORTER_QUALITY_PACE"] = "0"
     try:
@@ -6209,7 +6370,7 @@ def _sv_line(uuid, p, t=None):
                                p["accuracy"])
 
 
-MODES_BATCH_DEPTH = 2  # phase 21's batch archive holds the cohorts' first 1/2
+MODES_BATCH_DEPTH = 4  # phase 21's batch archive holds the cohorts' first 1/4
 
 
 def modes_archive(d, t64, t1024, gap_vehicles=64):
@@ -6520,8 +6681,8 @@ def modes_phase(matcher, t64, t1024, cfg_json, device, card="", gap_vehicles=64)
     t0 = time.perf_counter()
     d = os.path.join(REPO, "build", "modes")
     shutil.rmtree(d, ignore_errors=True)
-    # the batch archive at half the cohorts' depth (phase 22's time: the
-    # three batch runs beside the CLI were phase 21's longest path)
+    # the batch archive at a quarter of the cohorts' depth (the run's time:
+    # the three batch runs beside the CLI are phase 21's longest path)
     half = MODES_BATCH_DEPTH
     n_points, n_windows = modes_archive(os.path.join(d, "archive"), t64[:len(t64) // half],
                                         t1024[:len(t1024) // half], gap_vehicles // half)
@@ -7129,6 +7290,353 @@ def fleet_phase(cfg_json, second, t64, t256, t1024, device, card=""):
     return info
 
 
+MESH_TIER_GP = (2, 4)  # gp ranks of phase 23's tiered checks
+
+
+def _rank_delta(rank, fn):
+    """(fn(), (the fetch counts [n], [hits, misses]) the call added to one
+    gp rank of a tiered table)."""
+    import torch
+
+    torch.cuda.synchronize(rank.dev)
+    c0, t0 = rank.counts.clone(), rank.totals.clone()
+    out = fn()
+    torch.cuda.synchronize(rank.dev)
+    return out, ((rank.counts - c0).cpu(), (rank.totals - t0).cpu().tolist())
+
+
+def mesh_tier_kernels(matcher, ubodt_w, du_w, xin, link, timed):
+    """Kernel 2's ``[tiered,sharded]`` and ``[wide32,tiered,sharded]``
+    instantiations (row 10 x 11a): for each layout, at gp 2 and 4, at a
+    1-byte budget a rank (every row cold), 64 MiB a rank as seeded (the
+    prefix of each rank's range: hot and cold rows mixed) and after one
+    maintenance pass on the cohort's own probes (a rank's capacity holds
+    its range's probed rows: every fetch hot), and each rank's whole
+    range (every row hot), on the 512 x 64 cohort's keys: each rank's
+    kernel equals its plain version bit for bit with equal per-rank fetch
+    counts and hit/miss totals, each rank counts exactly the fetches of
+    its own range (the bincount of the keys' home buckets), the ranks'
+    totals sum to the untiered count of rows read, and the ranks' pmin /
+    pmax equals the untiered kernel 2 bit for bit.  The pages are
+    registered with CUDA once for all ranks: one registered buffer holds
+    them, each rank's first page is page-locked host memory (type 1).
+    Times rank 0 of gp 4 at 64 MiB, seeded and after the pass, beside its
+    plain version and bound: the rank's hot side over HBM's peak plus its
+    distinct cold rows over the host link's peak."""
+    import torch
+
+    from reporter_tpu_torch.ops import _kernels, collectives
+    from reporter_tpu_torch.ops import hashtable as H
+    from reporter_tpu_torch.ops import viterbi as V
+    from reporter_tpu_torch.ops.candidates import candidate_sweep
+    from reporter_tpu_torch.parallel import make_mesh2
+    from reporter_tpu_torch.tiles.tiering import TieredTable
+
+    dev, K, p = matcher.device, matcher.cfg.beam_k, matcher._params
+    x, y, _t, v = V.unpack_inputs(xin)
+    sw = candidate_sweep(matcher._dg, x, y, v, K, p.search_radius, p.sigma_z, False)
+    a, b = sw.to_node[:, :-1, :, None], sw.from_node[:, 1:, None, :]
+    ka, kb = (t.reshape(-1) for t in torch.broadcast_tensors(a, b))
+    N, P = ka.numel(), x.numel()
+    rows, info = {}, []
+    for ubodt, du in ((matcher.ubodt, matcher._du), (ubodt_w, du_w)):
+        want = H.ubodt_lookup(du, a, b)
+        hashes = [H.device_pair_hash(ka, kb, du.bmask)]
+        if not du.wide:
+            hashes.append(H.device_pair_hash2(ka, kb, du.bmask))
+        home = sum(torch.bincount(h, minlength=du.bmask + 1) for h in hashes).cpu()
+        row_bytes = 4 * ubodt.bucket_entries * 8
+        for gp in MESH_TIER_GP:
+            shard = (du.bmask + 1) // gp
+            for occ, budget in (("cold", 1), ("seeded", TIER_PARTIAL),
+                                ("partial", TIER_PARTIAL), ("hot", shard * row_bytes)):
+                torch.cuda.synchronize(dev)
+                m0 = torch.cuda.memory_allocated(dev)
+                tier = TieredTable(ubodt, budget, mesh=make_mesh2(1, gp, [dev] * gp))
+                sharded = tier.device()
+                name = H.probe_kernel_name(sharded)
+                maintain_ms = None
+                if occ == "partial":
+                    H.ubodt_lookup(sharded, a, b, False)
+                    tier.drain_stats()
+                    torch.cuda.synchronize(dev)
+                    t0 = time.perf_counter()
+                    tier.maintain()
+                    torch.cuda.synchronize(dev)
+                    maintain_ms = (time.perf_counter() - t0) * 1e3
+                torch.cuda.synchronize(dev)
+                used = torch.cuda.memory_allocated(dev) - m0
+                host = tier.pages_t.data_ptr()
+                regs = [(s, e[2]) for s, e in _kernels._HOST.items()
+                        if s <= host < s + e[2]]
+                check(regs == [(host, tier.pages.nbytes)],
+                      "the pages registered once, whole: %s" % regs)
+                check(all(_kernels.memory_type(host + r.lo * tier.lanes * 4) == 1
+                          for r in tier._ranks.values()),
+                      "every rank's first page is page-locked host memory")
+                outs, totals = [], [0, 0]
+                for view in sharded.shards:
+                    r = view.rank
+                    got, dk = _rank_delta(r, lambda: H.ubodt_lookup(view, a, b))
+                    plain, dp = _rank_delta(r, lambda: H.ubodt_lookup_plain(view, a, b))
+                    check(all(torch.equal(g, w) for g, w in zip(got, plain)),
+                          "%s rank %d/%d (%s) equals its plain version" % (name, r.g, gp, occ))
+                    check(torch.equal(dk[0], dp[0]) and dk[1] == dp[1],
+                          "%s rank %d/%d (%s): fetch counts and totals %s equal the plain "
+                          "version's %s" % (name, r.g, gp, occ, dk[1], dp[1]))
+                    check(torch.equal(dk[0].to(torch.int64), home[r.lo:r.lo + r.n]),
+                          "%s rank %d/%d (%s) counts exactly its range's fetches"
+                          % (name, r.g, gp, occ))
+                    totals = [totals[0] + dk[1][0], totals[1] + dk[1][1]]
+                    outs.append(got)
+                merged = (collectives.pmin([o[0] for o in outs])[0],
+                          collectives.pmin([o[1] for o in outs])[0],
+                          collectives.pmax([o[2] for o in outs])[0])
+                check(all(torch.equal(g, w) for g, w in zip(merged, want)),
+                      "%s pmin/pmax over gp=%d (%s) equals the untiered kernel 2" % (
+                          name, gp, occ))
+                check(sum(totals) == N * len(hashes), "the ranks' fetches %d sum to the "
+                      "untiered rows read %d" % (sum(totals), N * len(hashes)))
+                if occ == "cold":
+                    check(totals[0] == 0, "every fetch cold at a 1-byte budget")
+                if occ == "hot":
+                    check(totals[1] == 0, "every fetch hot at a rank's whole range")
+                if occ == "seeded":
+                    check(totals[0] > 0 and totals[1] > 0,
+                          "hits and misses at 64 MiB a rank, as seeded")
+                if occ == "partial":
+                    check(totals[0] > 0, "hits at 64 MiB a rank after a pass")
+                per_rank = [{"g": r.g, "hot_rows": len(tier._hot_g[r.g]),
+                             "hot_bytes": len(tier._hot_g[r.g]) * row_bytes}
+                            for r in (vw.rank for vw in sharded.shards)]
+                rec = {"layout": ubodt.layout, "gp": gp, "occupancy": occ, "budget": budget,
+                       "hits": totals[0], "misses": totals[1], "device_bytes": used,
+                       "maintain_ms": maintain_ms, "ranks": per_rank}
+                info.append(rec)
+                print("%s gp %d %s: %d hits, %d misses over %d keys; ranks' hot bytes %s, "
+                      "device bytes in use %d, maintain %s ms; each rank equals its plain "
+                      "version with its own fetch counts, pmin/pmax equals kernel 2"
+                      % (name, gp, occ, totals[0], totals[1], N,
+                         [x_["hot_bytes"] for x_ in per_rank], used,
+                         "%.1f" % maintain_ms if maintain_ms is not None else "-"))
+                if gp == 4 and occ in ("seeded", "partial"):
+                    r0 = sharded.shards[0]
+                    bk = torch.unique(probe_buckets(du, a, b, r0.lo, r0.local_buckets))
+                    n_hot = int((r0.rank.slot_map[(bk - r0.lo).to(dev)] >= 0).sum())
+                    n_cold = int(bk.numel()) - n_hot
+                    # HBM: the keys, each distinct bucket's slot-map entry,
+                    # the hot rows, dist and time out; the link: cold rows
+                    hbm = 8 * P * K + 4 * int(bk.numel()) + row_bytes * n_hot + 8 * N
+                    row = dict(name=name, route="cuda",
+                               source="reporter_tpu_torch/csrc/ubodt_probe.cu",
+                               replaces="reporter_tpu/tiles/tiering.py:538",
+                               max_abs_err=0.0, library_ms=None, gp=4, probes=N,
+                               rank_hot_rows=n_hot, rank_cold_rows=n_cold,
+                               bound_ms=(hbm / PEAK_BYTES_S
+                                         + row_bytes * n_cold / link["peak_bytes_per_s"])
+                               * 1e3, bound_by="bytes")
+                    if timed:
+                        row["ms"] = time_ms(lambda: H.ubodt_lookup(r0, a, b, False),
+                                            cold_l2=True, label="%s gp4 rank 0 %d probes %s"
+                                            % (name, N, occ))
+                        row["plain_ms"] = time_ms(
+                            lambda: H.ubodt_lookup_plain(r0, a, b, False), reps=3,
+                            warmup=1, cold_l2=True, queued=False)
+                    print("kernel %-34s rank 0 of gp 4 at 64 MiB (%s), %d probes, %d hot and "
+                          "%d cold distinct rows: kernel_ms=%s plain_ms=%s bound_ms=%.4f (bytes)"
+                          % (name, occ, N, n_hot, n_cold, "%.4f" % row["ms"] if "ms" in row
+                             else "-", "%.4f" % row["plain_ms"] if "plain_ms" in row
+                             else "-", row["bound_ms"]))
+                    # the kernels line: the seeded state, hot and cold rows mixed
+                    rows.setdefault(name, {})[occ] = row
+                tier.close()
+    return [dict(rows[n]["seeded"], after_maintain={
+        k: rows[n]["partial"].get(k) for k in ("ms", "plain_ms", "bound_ms", "rank_hot_rows",
+                                                "rank_cold_rows")})
+            for n in ("ubodt_probe[tiered,sharded]", "ubodt_probe[wide32,tiered,sharded]")], info
+
+
+def mesh_tier_paths(matcher, ubodt_w, traces64, traces256, traces2048, tr_a):
+    """A dp2 x gp4 tiered matcher (64 MiB a rank, every rank on this card)
+    through the launch counters over the bucketed (512 x 64, 128 x 256),
+    long (64 x 2,048), session-slab (512 sessions x 4 steps) and sparse A
+    paths, each answer wire-identical to the untiered single-card
+    matcher's; after a maintenance pass the bucketed and sparse answers
+    again; and a wide32 one over 512 x 64.  Returns ({path: launches},
+    {path: s}, {tier summaries})."""
+    import numpy as np
+
+    from reporter_tpu_torch.matching import SessionEngine, SessionStore
+    from reporter_tpu_torch.matching.arena import carry_host
+
+    sm = sparse_matcher(matcher)
+    base = {key: _wire(m.match_many(trs)) for key, m, trs in (
+        ("64", matcher, traces64), ("256", matcher, traces256),
+        ("long", matcher, traces2048), ("A", sm, tr_a))}
+    cfg = matcher.cfg
+    slot_b = 12 * cfg.beam_k + 17
+    n = len(traces64)
+    hot, cold = n // 2, n
+    kw = dict(ubodt_hot_bytes=TIER_PARTIAL)
+    mt = mesh_matcher(matcher, 8, 4, **kw)
+    smt = mesh_matcher(matcher, 8, 4, sparse=True, **kw)
+    wmt = mesh_matcher(matcher, 8, 4, ubodt=ubodt_w, **kw)
+    for m in (mt, smt, wmt):
+        check(m.tiering is not None and m.tiering.n_gp == 4
+              and m.tiering.summary()["hot_bytes_total"] == 4 * TIER_PARTIAL,
+              "a tier a gp rank, %d B each" % TIER_PARTIAL)
+    launches, walls = {}, {}
+    cases = [("64", mt, traces64, BUCKETED, 64), ("256", mt, traces256, BUCKETED, 256),
+             ("long", mt, traces2048, CARRIED, 256), ("A", smt, tr_a, SPARSE_BUCKETED, 16),
+             ("64", wmt, traces64, BUCKETED, 64)]
+    for rnd in ("", "_maintained"):
+        for key, m, trs, path, T in cases:
+            if rnd and key in ("256", "long"):
+                continue
+            if not rnd:
+                m.match_many(trs[:2])  # first-call set-up outside the count
+            fwd, other = _forward(m, T, key == "long", key == "A", path)
+            kernels, absent = _path_kernels(m, fwd)
+            res, dt, ln = _counted(kernels, lambda: m.match_many(trs), absent + other)
+            name = "tiered_dp2xgp4_%s%s%s" % (key, "_wide32" if m.ubodt.layout == "wide32"
+                                              else "", rnd)
+            check(_wire(res) == base[key], "%s is wire-identical to the untiered card" % name)
+            launches[name], walls[name] = ln, dt
+        if not rnd:
+            for m in (mt, smt, wmt):
+                m.tiering.maintain()
+    am = mesh_matcher(matcher, 8, 4, session_arena=True,
+                      session_arena_bytes=hot * slot_b // 8,
+                      session_arena_cold_bytes=cold * slot_b, **kw)
+    fwd, other = _forward(am, 4, True)
+    kernels, absent = _path_kernels(am, fwd)
+    kernels += ("slab_gather_owned", "slab_scatter_owned")
+
+    def stream(m):  # groups of a quarter: the slab holds each at once
+        eng = SessionEngine(m, SessionStore(cfg.max_sessions, cfg.session_ttl_s),
+                            tail_points=cfg.session_tail_points)
+        for j in range(0, 16, 4):
+            for g in range(0, n, n // 4):
+                eng.match_many([dict(tr, trace=tr["trace"][j:j + 4])
+                                for tr in traces64[g:g + n // 4]])
+        return eng
+    host = stream(matcher)
+    eng, dt, ln = _counted(kernels, lambda: stream(am), other + absent)
+    for tr in traces64:
+        u = tr["uuid"]
+        s, hs = eng.store.peek(u), host.store.peek(u)
+        check(s.records == hs.records, "tiered mesh slab records equal one card's (%s)" % u)
+        a_, b_ = carry_host(s.carry), carry_host(hs.carry)
+        check(all(np.asarray(a_[k]).tobytes() == np.asarray(b_[k]).tobytes() for k in a_),
+              "tiered mesh slab beam equals one card's (%s)" % u)
+    launches["tiered_dp2xgp4_session"], walls["tiered_dp2xgp4_session"] = ln, dt
+    summaries = {"cuckoo": mt.tiering.summary(), "wide32": wmt.tiering.summary()}
+    print("tiered dp2 x gp4 (64 MiB a rank): match_many over 512x64, 128x256, 64x2048, "
+          "sparse A and wide32 512x64 wire-identical to the untiered card, again after a "
+          "maintenance pass; 512 sessions x 4 steps on the slot-sharded slab equal one "
+          "card's; walls %s; tier %s"
+          % (", ".join("%s %.3f s" % kv for kv in walls.items()),
+             json.dumps(summaries["cuckoo"])))
+    for m in (mt, smt, wmt, am):
+        m.tiering.close()
+    return launches, walls, summaries
+
+
+MULTIHOST = (  # name, processes, backend, local devices, gp
+    ("nccl_gp1", 1, "nccl", 1, 1), ("nccl_gp2", 1, "nccl", 2, 2),
+    ("gloo_gp1", 2, "gloo", 1, 1), ("gloo_gp2", 2, "gloo", 1, 2))
+
+
+def multihost_phase(device):
+    """``python -m reporter_tpu_torch.parallel.multihost --device cuda`` on
+    this card (the kernels already built): NCCL at world size 1 (gp 1, and
+    gp 2 over 2 local ranks), two processes under gloo (gp 1, and gp 2,
+    where every probe's pmin / pmax crosses the processes), all at once on
+    free ports; each config's lines are byte-identical across its
+    processes and equal to the in-process ``sharded_match_fn`` /
+    ``graph_sharded_match_fn`` over [cuda:0] * n on the same global batch;
+    each child's kernel-launch deltas show kernels 1-4 (and at gp 2
+    ``ubodt_probe[sharded]``).  Two processes under NCCL on one card exit
+    2 with the one-rank-a-GPU message."""
+    import torch
+
+    from reporter_tpu_torch.ops.viterbi import MatchParams
+    from reporter_tpu_torch.parallel import (
+        graph_sharded_match_fn, make_mesh, make_mesh2, sharded_match_fn,
+    )
+    from reporter_tpu_torch.synth.generator import dryrun_scenario, example_grid_batch
+
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               GLOO_LOG_LEVEL="ERROR")
+    runs = list(MULTIHOST) + [("nccl_refused", 2, "nccl", 1, 1)]
+    base_port, _spare = _free_ports(len(runs))
+    ports = range(base_port, base_port + len(runs))
+    t0 = time.perf_counter()
+    procs = {}
+    for (name, n, backend, local, gp), port in zip(runs, ports):
+        procs[name] = [subprocess.Popen(
+            [sys.executable, "-m", "reporter_tpu_torch.parallel.multihost",
+             "--coordinator", "127.0.0.1:%d" % port, "--processes", str(n),
+             "--process-id", str(i), "--device", "cuda", "--backend", backend,
+             "--local-devices", str(local), "--graph-devices", str(gp)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, env=env, cwd=REPO)
+            for i in range(n)]
+    outs = {}
+    try:
+        for name, ps in procs.items():
+            outs[name] = [(p.communicate(timeout=240)[0].decode(errors="replace"),
+                           p.returncode) for p in ps]
+    finally:
+        for ps in procs.values():
+            for p in ps:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate(timeout=30)
+    wall = time.perf_counter() - t0
+    rc_refused = [rc for _o, rc in outs["nccl_refused"]]
+    check(rc_refused == [2, 2] and all("one rank a GPU" in o for o, _rc in
+                                       outs["nccl_refused"]),
+          "two NCCL processes on one card refused: %s" % outs["nccl_refused"])
+    cfg, arrays, ubodt = dryrun_scenario()
+    S = len(arrays.seg_ids)
+    result = {"wall_s": wall, "runs": {}}
+    for name, n, backend, local, gp in MULTIHOST:
+        for o, rc in outs[name]:
+            check(rc == 0, "multihost %s exit 0: %s" % (name, o[-2000:]))
+        lines = [[ln for ln in o.splitlines() if ln.startswith("multihost dryrun ok")]
+                 for o, _rc in outs[name]]
+        check(all(len(ls) == 1 for ls in lines) and len({ls[0] for ls in lines}) == 1,
+              "multihost %s: one line, byte-identical across processes: %s" % (name, lines))
+        n_dev = n * local
+        devs = [device] * n_dev
+        fn = (graph_sharded_match_fn(make_mesh2(n_dev // gp, gp, devs), cfg.beam_k, S)
+              if gp > 1 else sharded_match_fn(make_mesh(n_dev, devs), cfg.beam_k, S))
+        px, py, tm, vd = (torch.from_numpy(x_).to(device)
+                          for x_ in example_grid_batch(arrays, 2 * n_dev, 16, seed=3))
+        res, hist = fn(arrays.device_graph(), ubodt.device_ubodt(), px, py, tm, vd,
+                       MatchParams.from_config(cfg))
+        want = ("multihost dryrun ok: %d devices (%d local, gp %d), batch %d, %d matched "
+                "points, hist_total %.1f" % (n_dev, local, gp, 2 * n_dev,
+                                             int((res.idx >= 0).sum()),
+                                             float(hist.point_count.sum())))
+        check(lines[0][0] == want, "multihost %s: %r equals the in-process mesh's %r"
+              % (name, lines[0][0], want))
+        probe = "ubodt_probe[sharded]" if gp > 1 else "ubodt_probe"
+        deltas = []
+        for o, _rc in outs[name]:
+            ln = [x_ for x_ in o.splitlines() if x_.startswith("multihost kernel launches: ")]
+            d = json.loads(ln[0].split(": ", 1)[1]) if ln else {}
+            check(all(d.get(k, 0) > 0 for k in ("candidate_sweep", probe, "transition_build",
+                                                "viterbi_scan")),
+                  "multihost %s: kernels 1-4 launched in every process: %s" % (name, d))
+            deltas.append(d)
+        result["runs"][name] = {"line": lines[0][0], "launches": deltas}
+        print("multihost %-9s %d process(es) x %d local, %s: %s; launches %s"
+              % (name, n, local, backend, lines[0][0], json.dumps(deltas)))
+    print("multihost: 4 configs and the refused NCCL pair in %.1f s (all at once)" % wall)
+    return result
+
+
 def osm_phases(device, rows=120, grid_misses=None, timed=True, scale=1, card=""):
     """Phase 17: the bench's realistic city (``osm_city``) through the main
     path: its cohorts (``osm_cohorts``); kernels 1-4 against their plain
@@ -7143,42 +7651,49 @@ def osm_phases(device, rows=120, grid_misses=None, timed=True, scale=1, card="")
     and 20 on its served matcher; phase 21's batched and streaming modes
     (``modes_phase``) on this phase's matcher and cohorts; phase 22's fleet
     (``fleet_phase``) on phase 18's tiles config."""
-    matcher, net, info = osm_city(rows, device)
-    short, med, long_ = osm_cohorts(matcher.arrays, scale)
-    t64, t256, t1024 = ([s.trace for s in c] for c in (short, med, long_))
-    xin64, xin256 = bucket_rows(matcher, t64, 64), bucket_rows(matcher, t256, 256)
-    rows64 = kernel_phases(matcher, xin64, timed=timed)
-    rows256 = kernel_phases(matcher, xin256, timed=False)
-    chain = chain_phases(matcher, t1024, t64, timed=timed)
-    launches, rates = main_path(matcher, [t64, t256], [xin64, xin256])
-    long_launches, long_rate = long_path(matcher, t1024)
-    _am, sess_launches, sess_rate = session_path(matcher, t64)
-    misses = probe_misses(matcher, xin64)
-    print("osm probe outcomes %dx%d: %s; the grid city's (same shape): %s"
-          % (*xin64.shape[1:], json.dumps(misses), json.dumps(grid_misses)))
-    agree = {name: agreement(matcher, c) for name, c in
-             (("short", short), ("med", med), ("long", long_))}
-    print("osm segment agreement against the truth: %s"
-          % ", ".join("%s %.4f" % kv for kv in agree.items()))
-    base = baseline_phase(matcher, t64[:100 // scale])
-    serve_launches, net_json, tiles = osm_serve_phase(net, rows, t64, device)
-    wire_info, wire_launches, served = wire_phase(net_json, tiles, t64, t256, t1024, device,
-                                                  card)
-    quiet("phases 1-4, 17 and 18")
-    recovery, recovery_launches = recovery_phase(*served, t64, t256, t1024, device, card)
-    # phase 20 on the matcher phases 18 and 19 serve, beside phase 17's times
-    osm_ms = {r["name"]: r["ms"] for r in rows64 if r.get("ms")}
-    if chain["long"].get("ms"):
-        osm_ms["viterbi_chain"] = chain["long"]["ms"]
-    observability = observability_phase(served[1], t64, t256, osm_ms, device, card)
-    _RECOVERY_BASE.append(recovery_counts())
-    check(not any(v.startswith("REPORTER_FAULT_") for v in os.environ), "faults cleared")
-    modes, modes_launches = modes_phase(matcher, t64, t1024,
-                                        os.path.join(os.path.dirname(net_json), "config.json"),
-                                        device, card, gap_vehicles=64 // scale)
-    quiet("phase 21")
-    fleet = fleet_phase(served[0], served[2], t64, t256, t1024, device, card)
-    quiet("phase 22")
+    with phase(17):
+        matcher, net, info = osm_city(rows, device)
+        short, med, long_ = osm_cohorts(matcher.arrays, scale)
+        t64, t256, t1024 = ([s.trace for s in c] for c in (short, med, long_))
+        xin64, xin256 = bucket_rows(matcher, t64, 64), bucket_rows(matcher, t256, 256)
+        rows64 = kernel_phases(matcher, xin64, timed=timed)
+        rows256 = kernel_phases(matcher, xin256, timed=False)
+        chain = chain_phases(matcher, t1024, t64, timed=timed)
+        launches, rates = main_path(matcher, [t64, t256], [xin64, xin256])
+        long_launches, long_rate = long_path(matcher, t1024)
+        _am, sess_launches, sess_rate = session_path(matcher, t64)
+        misses = probe_misses(matcher, xin64)
+        print("osm probe outcomes %dx%d: %s; the grid city's (same shape): %s"
+              % (*xin64.shape[1:], json.dumps(misses), json.dumps(grid_misses)))
+        agree = {name: agreement(matcher, c) for name, c in
+                 (("short", short), ("med", med), ("long", long_))}
+        print("osm segment agreement against the truth: %s"
+              % ", ".join("%s %.4f" % kv for kv in agree.items()))
+        base = baseline_phase(matcher, t64[:100 // scale])
+        serve_launches, net_json, tiles = osm_serve_phase(net, rows, t64, device)
+    with phase(18):
+        wire_info, wire_launches, served = wire_phase(net_json, tiles, t64, t256, t1024,
+                                                      device, card)
+        quiet("phases 1-4, 17 and 18")
+    with phase(19):
+        recovery, recovery_launches = recovery_phase(*served, t64, t256, t1024, device, card)
+    with phase(20):
+        # phase 20 on the matcher phases 18 and 19 serve, beside phase 17's times
+        osm_ms = {r["name"]: r["ms"] for r in rows64 if r.get("ms")}
+        if chain["long"].get("ms"):
+            osm_ms["viterbi_chain"] = chain["long"]["ms"]
+        observability = observability_phase(served[1], t64, t256, osm_ms, device, card)
+        _RECOVERY_BASE.append(recovery_counts())
+        check(not any(v.startswith("REPORTER_FAULT_") for v in os.environ), "faults cleared")
+    with phase(21):
+        modes, modes_launches = modes_phase(matcher, t64, t1024,
+                                            os.path.join(os.path.dirname(net_json),
+                                                         "config.json"),
+                                            device, card, gap_vehicles=64 // scale)
+        quiet("phase 21")
+    with phase(22):
+        fleet = fleet_phase(served[0], served[2], t64, t256, t1024, device, card)
+        quiet("phase 22")
     strip = lambda d: {k: v for k, v in d.items() if not callable(v)}  # noqa: E731
     return {"city": info, "kernels": [strip(r) for r in rows64],
             "kernels_128x256": [strip(r) for r in rows256],
@@ -7358,32 +7873,38 @@ def main(pair=()):
     print(smi.splitlines()[0])
     print("python %s, torch %s, cuda %s" % (sys.version.split()[0], torch.__version__,
                                             torch.version.cuda))
-    t_start = time.perf_counter()
+    t_start = _RUN["t0"] = time.perf_counter()
     device = torch.device("cuda", torch.cuda.current_device())
-    build_s = build()
-    if pair:
-        pair_setup(pair)
-    floor_ms = launch_floor(smi.splitlines()[0])
-    matcher, city = metro_city(120, device)
-    traces64 = cohort(matcher, 7, 512, 64)
-    traces256 = cohort(matcher, 8, 128, 256)
-    traces2048 = cohort(matcher, 9, 64, 2048)
-    xin64, xin256 = bucket_rows(matcher, traces64, 64), bucket_rows(matcher, traces256, 256)
-    rows = kernel_phases(matcher, xin64, timed=True)
-    rows256 = kernel_phases(matcher, xin256, timed=False)
-    # the session steps' shape: 496 sessions' 4 new points and 16 padding rows
-    rows4 = kernel_phases(matcher, session_rows(matcher, traces64[:-16], 4), timed=False)
-    chain = chain_phases(matcher, traces2048, traces64, timed=True)
-    launches, rates = main_path(matcher, [traces64, traces256], [xin64, xin256])
-    long_launches, long_rate = long_path(matcher, traces2048)
-    arena_matcher, sess_launches, sess_rate = session_path(matcher, traces64)
-    split = [breakdown(matcher, trs) for trs in (traces64, traces256)]
-    split.append(long_breakdown(matcher, traces2048))
-    n_reports, serve_launches, fixtures = serve_phase(arena_matcher, traces64, traces2048[0],
-                                                      device)
-    quiet("phases 1-4")
+    with phase(0):
+        pool = prefetch_cohorts()
+        build_s = build()
+        if pair:
+            pair_setup(pair)
+        floor_ms = launch_floor(smi.splitlines()[0])
+        matcher, city = metro_city(120, device)
+        traces64 = cohort(matcher, 7, 512, 64)
+        traces256 = cohort(matcher, 8, 128, 256)
+        traces2048 = cohort(matcher, 9, 64, 2048)
+        xin64, xin256 = bucket_rows(matcher, traces64, 64), bucket_rows(matcher, traces256, 256)
+    with phase(1):
+        rows = kernel_phases(matcher, xin64, timed=True)
+        rows256 = kernel_phases(matcher, xin256, timed=False)
+        # the session steps' shape: 496 sessions' 4 new points and 16 padding rows
+        rows4 = kernel_phases(matcher, session_rows(matcher, traces64[:-16], 4), timed=False)
+    with phase(2):
+        chain = chain_phases(matcher, traces2048, traces64, timed=True)
+    with phase(3):
+        launches, rates = main_path(matcher, [traces64, traces256], [xin64, xin256])
+        long_launches, long_rate = long_path(matcher, traces2048)
+        arena_matcher, sess_launches, sess_rate = session_path(matcher, traces64)
+        split = [breakdown(matcher, trs) for trs in (traces64, traces256)]
+        split.append(long_breakdown(matcher, traces2048))
+    with phase(4):
+        n_reports, serve_launches, fixtures = serve_phase(arena_matcher, traces64,
+                                                          traces2048[0], device)
+        quiet("phases 1-4")
     # the bench's realistic city through the same paths (phase 17), kernel
-    # 12's misses there beside the grid city's
+    # 12's misses there beside the grid city's; phases 18-22 on it
     osm = osm_phases(device, grid_misses=probe_misses(matcher, xin64),
                      card=smi.splitlines()[0])
     quiet("phases 17-22")
@@ -7392,162 +7913,191 @@ def main(pair=()):
     # cohort: 512 x 8 at 45 s, "45-60", bucket 16) and B (every 12th of the
     # 64 x 2,048 one: 64 x 171 at 60 s, "ge60", bucket 256), uncalibrated
     # at K = 16; L, 16 x 512 at 60 s (two windows of 256)
-    tr_a, tr_b = subsample(traces64, 9), subsample(traces2048, 12)
-    tr_l = cohort(matcher, 12, 16, 512, dt=60.0)
-    sm = sparse_matcher(matcher)
-    xin_a, xin_b = bucket_rows(sm, tr_a, 16), bucket_rows(sm, tr_b, 256)
-    pa_, spa, ka = sm.sparse.params_for("45-60")
-    pb_, spb, kb = sm.sparse.params_for("ge60")
-    check(ka == kb == 16, "uncalibrated sparse cohorts at K = 16")
-    rows_a = kernel_phases(sm, xin_a, timed=True, p=pa_, K=ka, sp=spa)
-    rows_b = kernel_phases(sm, xin_b, timed=False, p=pb_, K=kb, sp=spb)
-    chain_sp = chain_phases(sm, tr_l, tr_a, timed=True, sp=spb, long_pk=(pb_, kb),
-                            sess_pk=(pa_, matcher.cfg.beam_k))
-    # the same shapes on inputs where the gap-conditioned breakage decides
-    # (gap_flip): kernels 1-4 on A and B, kernel 5 on L's window and the slab
-    flip_rows, flips = [], []
-    for seed, (x_s, p_s, sp_s, k_s) in enumerate(((xin_a, pa_, spa, ka),
-                                                  (xin_b, pb_, spb, kb)), 21):
-        (x_f,), p_f, sp_f = gap_flip([x_s], p_s, sp_s, seed)
-        flips.append((x_f, p_f, k_s, sp_f))
-        flip_rows.append(kernel_phases(sm, x_f, False, p_f, k_s, sp_f, flip=True))
-    chain_flip = chain_phases(sm, tr_l, tr_a, timed=False, sp=spb, long_pk=(pb_, kb),
-                              sess_pk=(pa_, matcher.cfg.beam_k), flip=31)
-    sp_launches, sp_rates = sparse_main_path(sm, [tr_a, tr_b], [xin_a, xin_b],
-                                             "uncalibrated")
-    cm = sparse_matcher(matcher, calibration=os.path.join(REPO, "CALIBRATION.json"))
-    check([cm.sparse.params_for(c)[2] for c in ("45-60", "ge60")] == [8, 8],
-          "calibrated cohorts at K = 8")
-    cal_launches, cal_rates = sparse_main_path(
-        cm, [tr_a, tr_b], [bucket_rows(cm, tr_a, 16), bucket_rows(cm, tr_b, 256)],
-        "calibrated")
-    sp_long_launches, sp_long_rate = long_path(sm, tr_l, "ge60")
-    sp_sess_rate, sp_sess_launches = sparse_session_path(matcher, tr_a, "45-60")
-    sp_serve_launches, sp_answers = sparse_serve_phase(matcher, tr_a)
-    quiet("phases 5-6")
+    with phase(5):
+        tr_a, tr_b = subsample(traces64, 9), subsample(traces2048, 12)
+        tr_l = cohort(matcher, 12, 16, 512, dt=60.0)
+        sm = sparse_matcher(matcher)
+        xin_a, xin_b = bucket_rows(sm, tr_a, 16), bucket_rows(sm, tr_b, 256)
+        pa_, spa, ka = sm.sparse.params_for("45-60")
+        pb_, spb, kb = sm.sparse.params_for("ge60")
+        check(ka == kb == 16, "uncalibrated sparse cohorts at K = 16")
+        rows_a = kernel_phases(sm, xin_a, timed=True, p=pa_, K=ka, sp=spa)
+        rows_b = kernel_phases(sm, xin_b, timed=False, p=pb_, K=kb, sp=spb)
+        chain_sp = chain_phases(sm, tr_l, tr_a, timed=True, sp=spb, long_pk=(pb_, kb),
+                                sess_pk=(pa_, matcher.cfg.beam_k))
+        sp_launches, sp_rates = sparse_main_path(sm, [tr_a, tr_b], [xin_a, xin_b],
+                                                 "uncalibrated")
+        cm = sparse_matcher(matcher, calibration=os.path.join(REPO, "CALIBRATION.json"))
+        check([cm.sparse.params_for(c)[2] for c in ("45-60", "ge60")] == [8, 8],
+              "calibrated cohorts at K = 8")
+        cal_launches, cal_rates = sparse_main_path(
+            cm, [tr_a, tr_b], [bucket_rows(cm, tr_a, 16), bucket_rows(cm, tr_b, 256)],
+            "calibrated")
+        sp_long_launches, sp_long_rate = long_path(sm, tr_l, "ge60")
+        sp_sess_rate, sp_sess_launches = sparse_session_path(matcher, tr_a, "45-60")
+        sp_serve_launches, sp_answers = sparse_serve_phase(matcher, tr_a)
+    with phase(6):
+        # the same shapes on inputs where the gap-conditioned breakage
+        # decides (gap_flip): kernels 1-4 on A and B, kernel 5 on L's
+        # window and the slab
+        flip_rows, flips = [], []
+        for seed, (x_s, p_s, sp_s, k_s) in enumerate(((xin_a, pa_, spa, ka),
+                                                      (xin_b, pb_, spb, kb)), 21):
+            (x_f,), p_f, sp_f = gap_flip([x_s], p_s, sp_s, seed)
+            flips.append((x_f, p_f, k_s, sp_f))
+            flip_rows.append(kernel_phases(sm, x_f, False, p_f, k_s, sp_f, flip=True))
+        chain_flip = chain_phases(sm, tr_l, tr_a, timed=False, sp=spb, long_pk=(pb_, kb),
+                                  sess_pk=(pa_, matcher.cfg.beam_k), flip=31)
+        quiet("phases 5-6")
 
     # the UBODT memory system: the metro table in the wide32 layout, kernel
     # 2's wide32 instantiation and the dedup kernels at every shape class
     # of kernel 2 (both layouts), the forced fallback, kernel 5's wide32
     # seam, the probe diagnostic, then the paths on a wide32 + dedup
     # matcher that samples the diagnostic on every dense dispatch
-    ubodt_w, wide_info = wide_table(matcher)
-    mw = memory_matcher(matcher, ubodt_w, probe_every=1)
-    du_w = mw._du
-    mem, mem_rows = memory_phases(matcher, du_w, xin64, True, what="bucketed")
-    mem_shapes = [mem] + [memory_phases(matcher, du_w, x, False, what=w)[0] for x, w in (
-        (xin256, "bucketed"), (session_rows(matcher, traces64[:-16], 4), "session step"),
-        (long_pre_rows(matcher, traces2048), "long pre"))]
-    mem_shapes.append(memory_phases(sm, du_w, xin_a, False, p=pa_, K=ka, what="sparse A")[0])
-    fallback = dedup_fallback(matcher, du_w, mem["n"])
-    chain_w = chain_phases(mw, traces2048, traces64, timed=False)
-    smw = sparse_matcher(mw)
-    chain_w_sp = chain_phases(smw, tr_l, tr_a, timed=False, sp=spb, long_pk=(pb_, kb),
-                              sess_pk=(pa_, matcher.cfg.beam_k))
-    stats, stats_row, cut = stats_phases(matcher, du_w, xin64, xin_a, timed=True)
-    mem_launches, mem_rates = main_path(mw, [traces64, traces256], [xin64, xin256], base=matcher)
-    check(mw.probe_stats["samples"] > 0 and mw.probe_stats["pairs"] > 0,
-          "the sampled probe diagnostic: %s" % mw.probe_stats)
-    print("probe diagnostic sampled on the wide32 + dedup main path: %s"
-          % json.dumps(mw.probe_stats))
-    mem_long_launches, mem_long_rate = long_path(mw, traces2048, base=matcher)
-    mem_sp_launches, mem_sp_rates = sparse_main_path(smw, [tr_a], [xin_a], "wide32 + dedup",
-                                                     base=sm)
-    mem_serve_launches = memory_serve_phase(matcher.arrays, ubodt_w, tr_a, sp_answers,
-                                            fixtures, device)
-    quiet("phase 7")
+    with phase(7):
+        ubodt_w, wide_info = wide_table(matcher)
+        mw = memory_matcher(matcher, ubodt_w, probe_every=1)
+        du_w = mw._du
+        mem, mem_rows = memory_phases(matcher, du_w, xin64, True, what="bucketed")
+        mem_shapes = [mem] + [memory_phases(matcher, du_w, x, False, what=w)[0] for x, w in (
+            (xin256, "bucketed"), (session_rows(matcher, traces64[:-16], 4), "session step"),
+            (long_pre_rows(matcher, traces2048), "long pre"))]
+        mem_shapes.append(memory_phases(sm, du_w, xin_a, False, p=pa_, K=ka, what="sparse A")[0])
+        fallback = dedup_fallback(matcher, du_w, mem["n"])
+        chain_w = chain_phases(mw, traces2048, traces64, timed=False)
+        smw = sparse_matcher(mw)
+        chain_w_sp = chain_phases(smw, tr_l, tr_a, timed=False, sp=spb, long_pk=(pb_, kb),
+                                  sess_pk=(pa_, matcher.cfg.beam_k))
+        stats, stats_row, cut = stats_phases(matcher, du_w, xin64, xin_a, timed=True)
+        mem_launches, mem_rates = main_path(mw, [traces64, traces256], [xin64, xin256], base=matcher)
+        check(mw.probe_stats["samples"] > 0 and mw.probe_stats["pairs"] > 0,
+              "the sampled probe diagnostic: %s" % mw.probe_stats)
+        print("probe diagnostic sampled on the wide32 + dedup main path: %s"
+              % json.dumps(mw.probe_stats))
+        mem_long_launches, mem_long_rate = long_path(mw, traces2048, base=matcher)
+        mem_sp_launches, mem_sp_rates = sparse_main_path(smw, [tr_a], [xin_a], "wide32 + dedup",
+                                                         base=sm)
+        mem_serve_launches = memory_serve_phase(matcher.arrays, ubodt_w, tr_a, sp_answers,
+                                                fixtures, device)
+        quiet("phase 7")
 
     # the log-depth (assoc) forward: its four kernels against their plain
     # versions at every shape class above (the sparse ones also where the
     # gap-conditioned breakage decides), the crossover against the scan
     # kernel, every path through an assoc matcher and an auto one, serve
     # under REPORTER_VITERBI=assoc
-    as_rows = [assoc_phases(matcher, xin64, True), assoc_phases(matcher, xin256, False),
-               assoc_phases(matcher, session_rows(matcher, traces64[:-16], 4), False)]
-    as_sp = [assoc_phases(sm, xin_a, True, pa_, ka, spa),
-             assoc_phases(sm, xin_b, False, pb_, kb, spb)]
-    as_sp += [assoc_phases(sm, x_f, False, p_f, k_f, sp_f, flip=True)
-              for x_f, p_f, k_f, sp_f in flips]
-    chain_as = chain_phases(matcher, traces2048, traces64, timed=True, kernel="assoc")
-    sp_kw = dict(sp=spb, long_pk=(pb_, kb), sess_pk=(pa_, matcher.cfg.beam_k), kernel="assoc")
-    chain_as_sp = chain_phases(sm, tr_l, tr_a, timed=True, **sp_kw)
-    chain_as_flip = chain_phases(sm, tr_l, tr_a, timed=False, flip=31, **sp_kw)
-    cross = crossover(matcher, traces64, traces256)
-    assoc = assoc_paths(matcher, sm, traces64, traces256, traces2048, tr_a, tr_l,
-                        [xin64, xin256], xin_a)
-    assoc["serve_launches"] = assoc_serve_phase(matcher, traces64, device)
-    quiet("phase 8")
+    with phase(8):
+        as_rows = [assoc_phases(matcher, xin64, True), assoc_phases(matcher, xin256, False),
+                   assoc_phases(matcher, session_rows(matcher, traces64[:-16], 4), False)]
+        as_sp = [assoc_phases(sm, xin_a, True, pa_, ka, spa),
+                 assoc_phases(sm, xin_b, False, pb_, kb, spb)]
+        as_sp += [assoc_phases(sm, x_f, False, p_f, k_f, sp_f, flip=True)
+                  for x_f, p_f, k_f, sp_f in flips]
+        chain_as = chain_phases(matcher, traces2048, traces64, timed=True, kernel="assoc")
+        sp_kw = dict(sp=spb, long_pk=(pb_, kb), sess_pk=(pa_, matcher.cfg.beam_k), kernel="assoc")
+        chain_as_sp = chain_phases(sm, tr_l, tr_a, timed=True, **sp_kw)
+        chain_as_flip = chain_phases(sm, tr_l, tr_a, timed=False, flip=31, **sp_kw)
+        cross = crossover(matcher, traces64, traces256)
+        assoc = assoc_paths(matcher, sm, traces64, traces256, traces2048, tr_a, tr_l,
+                            [xin64, xin256], xin_a)
+        assoc["serve_launches"] = assoc_serve_phase(matcher, traces64, device)
+        quiet("phase 8")
 
     # the tiered UBODT (kernel row 10): kernel 2's tiered instantiations,
     # the dedup probe and the chain seams at three occupancies in both
     # layouts, every path through tiered matchers, the session arena's
     # cold tier, serve under REPORTER_UBODT_HOT_BYTES
-    link = host_link(device)
-    tier_k = {u.layout: tier_kernel_phases(
-        matcher, u, xin64, link, sm, tr_l, tr_a,
-        dict(sp=spb, long_pk=(pb_, kb), sess_pk=(pa_, matcher.cfg.beam_k)),
-        traces2048, traces64) for u in (matcher.ubodt, ubodt_w)}
-    tiered = tier_paths(matcher, ubodt_w, sm, traces64, traces256, traces2048, tr_a, tr_l,
-                        [xin64, xin256], xin_a)
-    cold_launches, cold_tier = session_cold_tier(matcher, traces64)
-    tiered["launches"]["session_cold_tier"] = cold_launches
-    tiered["launches"]["serve"] = tier_serve_phase(matcher.arrays, matcher.ubodt, tr_a,
-                                                   sp_answers, fixtures, device)
-    quiet("phase 9")
+    with phase(9):
+        link = host_link(device)
+        tier_k = {u.layout: tier_kernel_phases(
+            matcher, u, xin64, link, sm, tr_l, tr_a,
+            dict(sp=spb, long_pk=(pb_, kb), sess_pk=(pa_, matcher.cfg.beam_k)),
+            traces2048, traces64) for u in (matcher.ubodt, ubodt_w)}
+        tiered = tier_paths(matcher, ubodt_w, sm, traces64, traces256, traces2048, tr_a, tr_l,
+                            [xin64, xin256], xin_a)
+        cold_launches, cold_tier = session_cold_tier(matcher, traces64)
+        tiered["launches"]["session_cold_tier"] = cold_launches
+        tiered["launches"]["serve"] = tier_serve_phase(matcher.arrays, matcher.ubodt, tr_a,
+                                                       sp_answers, fixtures, device)
+        quiet("phase 9")
 
     # the device mesh (kernel row 11), every rank on this card: kernel 11a
     # at gp 2, 4, 8 in both layouts, the chain kernels' resolved seam,
     # kernel 11b with kernel 4's chosen slots, kernel 11c at dp 2 and 4,
     # then every path on dp2 and dp2 x gp4 matchers, the histogram
     # program on the 2-D mesh, serve and the fixtures on a dp2 x gp4 mesh
-    mesh_probe = mesh_probe_phases(matcher, du_w, xin64, timed=True)
-    mesh_seam = mesh_seam_phases(matcher, sm, traces2048, traces64, tr_l, tr_a,
-                                 dict(sp=spb, long_pk=(pb_, kb),
-                                      sess_pk=(pa_, matcher.cfg.beam_k)), timed=True)
-    hist_row = histogram_phases(matcher, [xin64, xin256], timed=True)
-    slab_rows, slab_ms = slab_phases(device, matcher.cfg.beam_k, timed=True)
-    slab_ms.update(slab_phases(device, 16, True, timed_dps=(2,))[1])
-    slab_ms.update(slab_phases(device, matcher.cfg.beam_k, True, B=4096, timed_dps=(2,))[1])
-    mesh = mesh_paths(matcher, sm, ubodt_w, traces64, traces256, traces2048, tr_a, xin64)
-    mesh["serve_launches"] = mesh_serve_phase(matcher.arrays, matcher.ubodt, tr_a,
-                                              sp_answers, fixtures, device)
-    quiet("phase 10")
+    with phase(10):
+        mesh_probe = mesh_probe_phases(matcher, du_w, xin64, timed=True)
+        mesh_seam = mesh_seam_phases(matcher, sm, traces2048, traces64, tr_l, tr_a,
+                                     dict(sp=spb, long_pk=(pb_, kb),
+                                          sess_pk=(pa_, matcher.cfg.beam_k)), timed=True)
+        hist_row = histogram_phases(matcher, [xin64, xin256], timed=True)
+        slab_rows, slab_ms = slab_phases(device, matcher.cfg.beam_k, timed=True)
+        slab_ms.update(slab_phases(device, 16, True, timed_dps=(2,))[1])
+        slab_ms.update(slab_phases(device, matcher.cfg.beam_k, True, B=4096, timed_dps=(2,))[1])
+        mesh = mesh_paths(matcher, sm, ubodt_w, traces64, traces256, traces2048, tr_a, xin64)
+        mesh["serve_launches"] = mesh_serve_phase(matcher.arrays, matcher.ubodt, tr_a,
+                                                  sp_answers, fixtures, device)
+        quiet("phase 10")
 
     # the redesigned kernels (kernel 2's family, the recursion of kernels 4
     # and 5) on edge inputs, each against its plain version
-    probe_edge = probe_edges(matcher, ubodt_w, du_w, xin64)
-    rec_edge = recursion_edges(matcher, xin64, xin_a, pa_, ka, spa)
+    with phase(11):
+        probe_edge = probe_edges(matcher, ubodt_w, du_w, xin64)
+        rec_edge = recursion_edges(matcher, xin64, xin_a, pa_, ka, spa)
 
     # the redesigned sweep and transition build (kernels 1 and 3) on edge
     # inputs, each against its plain version, and timed at the main path's
     # shapes (the long cohort's 64 x 2,048 too)
-    sweep_edge = sweep_edges(matcher, xin64, timed=True)
-    build_edge = build_edges(matcher, pa_, spa)
-    shape_ms = design_shapes(matcher, [(xin64, 8), (xin256, 8),
-                                       (bucket_rows(matcher, traces2048, 2048), 8),
-                                       (xin_a, ka)], pa_, spa)
+    with phase(12):
+        sweep_edge = sweep_edges(matcher, xin64, timed=True)
+        build_edge = build_edges(matcher, pa_, spa)
+        shape_ms = design_shapes(matcher, [(xin64, 8), (xin256, 8),
+                                           (bucket_rows(matcher, traces2048, 2048), 8),
+                                           (xin_a, ka)], pa_, spa)
 
     # the redesigned log-depth forward (row 9) and dedup claim (row 8b) on
     # edge inputs, each against its plain version
-    assoc_edge = assoc_edges(matcher, sm, matcher.ubodt, traces2048)
-    claim_edge = claim_edges(matcher, du_w)
+    with phase(13):
+        assoc_edge = assoc_edges(matcher, sm, matcher.ubodt, traces2048)
+        claim_edge = claim_edges(matcher, du_w)
 
     # the redesigned slab kernels (row 11c) on edge inputs, each against its
     # plain version, and the mesh session step's time split into its parts
-    slab_edge = slab_edges(device)
-    mesh_step = mesh_step_split(matcher, traces64, timed=True)
+    with phase(14):
+        slab_edge = slab_edges(device)
+        mesh_step = mesh_step_split(matcher, traces64, timed=True)
 
     # the redesigned dedup scatter (row 8b) and probe-outcome counters (row
     # 12) on edge inputs and at the main path's shapes, each against its
     # plain version
-    scatter_edge = scatter_edges(matcher, du_w)
-    stats_edge = stats_edges(device)
-    shape15 = redesign_shapes(matcher, sm, du_w, cut, xin64, xin256, xin_a, pa_, ka, True)
+    with phase(15):
+        scatter_edge = scatter_edges(matcher, du_w)
+        stats_edge = stats_edges(device)
+        shape15 = redesign_shapes(matcher, sm, du_w, cut, xin64, xin256, xin_a, pa_, ka, True)
 
     # the redesigned segment histogram (row 11b) on edge inputs, against its
     # plain version (timed at both bucketed shapes in histogram_phases)
-    hist_edge = histogram_edges(device)
-    quiet("phases 11-16")
+    with phase(16):
+        hist_edge = histogram_edges(device)
+        quiet("phases 11-16")
+
+    # the tiered UBODT on a gp mesh (rows 10 x 11a): kernel 2's tiered and
+    # sharded instantiations a rank at three occupancies in both layouts,
+    # then every path on a tiered dp2 x gp4 matcher
+    with phase(23):
+        mesh_tier_rows, mesh_tier_info = mesh_tier_kernels(matcher, ubodt_w, du_w, xin64,
+                                                           link, timed=True)
+        mt_launches, mt_walls, mt_summ = mesh_tier_paths(matcher, ubodt_w, traces64,
+                                                         traces256, traces2048, tr_a)
+        quiet("phase 23")
+
+    # the multi-controller entry point on this card: NCCL at world size 1,
+    # two processes under gloo
+    with phase(24):
+        multihost = multihost_phase(device)
+        quiet("phase 24")
 
     # launches over the counted runs of every path but serve's; kernels
     # 1-4's times and bounds at 512 x 64, max_abs_err over both bucketed
@@ -7560,8 +8110,8 @@ def main(pair=()):
             mem_sp_launches, *(v for k, v in assoc["launches"].items() if k != "auto"),
             *assoc["launches"]["auto"].values(),
             *(v for k, v in tiered["launches"].items() if k != "serve"),
-            *mesh["launches"].values(), *(v for k, v in osm["launches"].items()
-                                          if k != "serve")]
+            *mesh["launches"].values(), *mt_launches.values(),
+            *(v for k, v in osm["launches"].items() if k != "serve")]
     total = {k: sum(r[k] for r in runs) for k in launches}
     # kernels 1-5 on the realistic city: its times, bounds and launches
     # beside the grid's (phase 17)
@@ -7660,6 +8210,13 @@ def main(pair=()):
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"]})
+    # the tiered instantiations on a gp mesh (row 10 x 11a): rank 0 of gp 4
+    # at 64 MiB; errors over every rank, gp and occupancy (exact, so 0)
+    for r in mesh_tier_rows:
+        kernels.append({k: r[k] for k in (
+            "name", "route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")})
+        kernels[-1]["launches"] = total[r["name"]]
     strip = lambda d: {k: v for k, v in d.items() if not callable(v)}  # noqa: E731
     report = {
         "card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -7706,6 +8263,9 @@ def main(pair=()):
                            "scatter": scatter_edge, "probe_stats": stats_edge,
                            "histogram": hist_edge},
         "redesign_shapes": shape15,
+        "mesh_tiering": {"kernels": mesh_tier_rows, "ranks": mesh_tier_info,
+                         "launches": mt_launches, "s": mt_walls, "summary": mt_summ},
+        "multihost": multihost,
         "osm": osm,
         "floor_ms": floor_ms,
         "metro_reports": n_reports, "peak_memory_mb": torch.cuda.max_memory_allocated() / 1e6,
@@ -7714,11 +8274,11 @@ def main(pair=()):
             "probes", "distinct_rows", "hit_rate", "max_abs_err", "aux_max_abs_err")}
             for T, rs in ((64, rows), (256, rows256), (4, rows4)) for r in rs},
             **{"viterbi_chain_" + name: strip(c) for name, c in chain.items()}),
+        "phases": _RUN["phases"],
         "wall_s": time.perf_counter() - t_start,
     }
-    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
-    with open(os.path.join(REPO, "build", "chip_smoke.json"), "w") as f:
-        json.dump(report, f, indent=1)
+    _write_report(report)
+    pool.shutdown()
     print("wall %.1f s, peak device memory %.0f MB"
           % (report["wall_s"], report["peak_memory_mb"]))
     if pair:

@@ -101,9 +101,11 @@ __device__ __forceinline__ void add_totals(const RowSource& src,
 }
 
 // A gp rank's bucket range [lo, lo + n) of the table (SHARDED probes):
-// packed then holds only those n rows, and a bucket outside the range
-// contributes a row of -2 lanes, which matches no key (node ids are never
-// negative), as the reference's sharded probe masks it.
+// packed then holds only those n rows (a tiered rank: its range of the
+// pages, with a slot map and counts of n entries and an arena of its
+// own), and a bucket outside the range contributes a row of -2 lanes,
+// which matches no key (node ids are never negative), as the reference's
+// sharded probe masks it.
 struct BucketRange {
   uint32_t lo;
   uint32_t n;
@@ -207,7 +209,11 @@ __device__ __forceinline__ void grid_keys(const int32_t* __restrict__ src,
 // second: a unique key is not there, and the empty marker's second row
 // could only add equal hits.  Its fetch still counts (the reference reads
 // both rows).  Returns how many of the owner's rows were hot (TIERED; 0
-// otherwise).
+// otherwise); ``fetched`` (TIERED) receives how many rows it fetched: its
+// home buckets, or on a SHARDED rank only those inside the range.  A
+// TIERED and SHARDED rank reads its range through its own slot map,
+// arena, counts and page range, all indexed by the bucket's offset in
+// the range.
 template <bool WIDE, bool TIERED, bool SHARDED = false>
 __device__ __forceinline__ int warp_probe(const int4* __restrict__ packed,
                                           const RowSource& src,
@@ -215,7 +221,8 @@ __device__ __forceinline__ int warp_probe(const int4* __restrict__ packed,
                                           int32_t s, int32_t d, int lane,
                                           float* dist, float* time,
                                           int32_t* first,
-                                          BucketRange range = BucketRange{}) {
+                                          BucketRange range = BucketRange{},
+                                          int* fetched = nullptr) {
   constexpr unsigned kAll = 0xffffffffu;
   constexpr int kRows = WIDE ? 1 : 2;      // home buckets
   constexpr int kHalves = WIDE ? 2 : 1;    // 512-byte halves per row
@@ -223,27 +230,32 @@ __device__ __forceinline__ int warp_probe(const int4* __restrict__ packed,
   constexpr int kBatch = WIDE ? 4 : 8;     // rows in flight, 4 KB a warp
   const int4* row[kRows];
   unsigned visit[kRows];
-  int n_hot = 0;
+  int n_hot = 0, n_fetch = 0;
 #pragma unroll
   for (int w = 0; w < kRows; ++w) {
     const uint32_t h = (w == 0 ? pair_hash1((uint32_t)s, (uint32_t)d)
                                : pair_hash2((uint32_t)s, (uint32_t)d)) & bmask;
     bool mine = active;
     row[w] = packed;
+    // the row's index in ``packed`` and the tier: the bucket, or on a
+    // SHARDED rank its offset in the range (wraps past n below lo)
+    uint32_t b = h;
     if constexpr (SHARDED) {
-      const uint32_t loc = h - range.lo;  // wraps past n below lo
-      mine = mine && loc < range.n;
-      if (mine) row[w] = packed + (int64_t)loc * kRowInt4;
-    } else if (mine) {
+      b = h - range.lo;
+      mine = mine && b < range.n;
+    }
+    if (mine) {
       bool hot;
-      row[w] = bucket_row<TIERED>(packed, src, h, kRowInt4, &hot);
+      row[w] = bucket_row<TIERED>(packed, src, b, kRowInt4, &hot);
       if constexpr (TIERED) {
         n_hot += hot;
-        count_fetch(src, h);
+        n_fetch += 1;
+        count_fetch(src, b);
       }
     }
     visit[w] = __ballot_sync(kAll, mine);
   }
+  if (fetched) *fetched = n_fetch;
   float bd = INFINITY, bt = INFINITY;
   int32_t bf = -1;
   bool found = false;
@@ -325,14 +337,16 @@ __device__ __forceinline__ void probe_loop(
     if (active) grid_keys(src, dst, g, probe, &s, &d);
     float dist, time;
     int32_t first;
+    int fetched = 0;
     const int hot = warp_probe<WIDE, TIERED, SHARDED>(
-        packed, tier, bmask, active, s, d, lane, &dist, &time, &first, range);
+        packed, tier, bmask, active, s, d, lane, &dist, &time, &first, range,
+        TIERED ? &fetched : nullptr);
     if (active) {
       out_dist[probe] = dist;
       out_time[probe] = time;
       if (out_first) out_first[probe] = first;
       hits += hot;
-      fetches += WIDE ? 1 : 2;
+      fetches += fetched;
     }
   }
   if constexpr (TIERED) {

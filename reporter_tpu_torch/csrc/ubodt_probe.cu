@@ -58,9 +58,23 @@
 // the keys and its outputs.  Same design as kernel 2: the owning lane
 // tests the range, and the warp visits only the in-range rows.
 //
+// The TIERED and SHARDED instantiations
+// (ubodt_probe_tiered_sharded_launch and
+// ubodt_probe_wide32_tiered_sharded_launch, counted apart as
+// ubodt_probe[tiered,sharded] and ubodt_probe[wide32,tiered,sharded])
+// replace tiered_bucket_rows under the reference's gp mesh
+// (reporter_tpu/tiles/tiering.py:201-286, :538): one gp rank of a tiered
+// table probes its range [lo, lo + L) through its own slot map [L] (local
+// arena slots), hot arena and counts [L], and reads a cold row of its
+// range in place from the one page-locked table, at the offset lo into
+// it; a bucket outside the range answers a miss, as [sharded] does, and
+// the pmin / pmax merge gives the untiered table's answer.  The rank
+// counts only its in-range fetches, so the ranks' counts and totals sum
+// to the untiered tier's.
+//
 // ubodt_host_register pins a host buffer and maps it into the card's
 // address space (cudaHostRegister + cudaHostGetDevicePointer): the tiered
-// table's pages.
+// table's pages, once for every rank.
 
 #include "ubodt.cuh"
 
@@ -179,6 +193,38 @@ extern "C" int ubodt_probe_wide32_sharded_launch(
   return launch<true, false, true>(
       src, dst, dims, src_strides, dst_strides, packed, bmask, n_live,
       out_dist, out_time, out_first, rtt::RowSource{}, stream,
+      rtt::BucketRange{(uint32_t)lo, (uint32_t)L});
+}
+
+// The tiered and sharded instantiations: the tiered arguments with packed
+// the rank's first page (the pages' device address plus lo rows), slot_map
+// and counts [L], arena the rank's hot rows, totals the rank's [2]; then
+// lo and L.
+extern "C" int ubodt_probe_tiered_sharded_launch(
+    const int32_t* src, const int32_t* dst, const int64_t* dims,
+    const int64_t* src_strides, const int64_t* dst_strides,
+    const int32_t* packed, int32_t bmask, const int32_t* n_live,
+    float* out_dist, float* out_time, int32_t* out_first,
+    const int32_t* slot_map, const int32_t* arena, int32_t* counts,
+    int64_t* totals, int32_t lo, int32_t L, void* stream) {
+  return launch<false, true, true>(
+      src, dst, dims, src_strides, dst_strides, packed, bmask, n_live,
+      out_dist, out_time, out_first,
+      row_source(slot_map, arena, counts, totals), stream,
+      rtt::BucketRange{(uint32_t)lo, (uint32_t)L});
+}
+
+extern "C" int ubodt_probe_wide32_tiered_sharded_launch(
+    const int32_t* src, const int32_t* dst, const int64_t* dims,
+    const int64_t* src_strides, const int64_t* dst_strides,
+    const int32_t* packed, int32_t bmask, const int32_t* n_live,
+    float* out_dist, float* out_time, int32_t* out_first,
+    const int32_t* slot_map, const int32_t* arena, int32_t* counts,
+    int64_t* totals, int32_t lo, int32_t L, void* stream) {
+  return launch<true, true, true>(
+      src, dst, dims, src_strides, dst_strides, packed, bmask, n_live,
+      out_dist, out_time, out_first,
+      row_source(slot_map, arena, counts, totals), stream,
       rtt::BucketRange{(uint32_t)lo, (uint32_t)L});
 }
 

@@ -59,7 +59,13 @@ a hot arena on the device over the table in pinned host memory, which
 every probe of every path reads through (kernel 2's ``[tiered]``
 instantiations, the dedup scatter, the chain kernels' seams); the fetch
 totals are read at collect, where a maintenance pass may re-pick the hot
-set.  The session slab's byte budget and pinned host cold tier
+set.  On a device mesh the tier splits as the table does: each gp rank
+holds a hot arena of the budget over its own bucket range, probed by the
+``[tiered,sharded]`` instantiations (the seams through the resolved
+probe), and ``capacity_summary`` reports the per-rank budget and its total
+over the gp ranks.  An armed ``quality_skew`` fault perturbs the packed
+coordinates the device sees (``_skew_rows``), as in the reference.  The
+session slab's byte budget and pinned host cold tier
 (``session_arena_bytes``, ``session_arena_cold_bytes``) are
 ``matching/arena.py``'s.
 
@@ -330,27 +336,26 @@ class SegmentMatcher:
         """The graph and table on the device (on each dp rank of a mesh),
         the tiered table, the session slab and the sampled diagnostic."""
         arrays, ubodt = self.arrays, self.ubodt
+        # the tiered table: on a gp mesh the arena, slot map and counters
+        # split by the gp probe's bucket ranges, so hot_bytes is a per-chip
+        # budget and the gp ranks multiply the resident set
+        self.tiering = None
+        if self._ubodt_hot_bytes > 0:
+            self.tiering = TieredTable(ubodt, self._ubodt_hot_bytes,
+                                       shard=self.ubodt_shard,
+                                       device=self.device, mesh=self._mesh)
         # each dp rank's (graph, table) views; rank 0's are self._dg/_du
         self._ranks = None
         if self._mesh is not None:
+            table = (ubodt.device_ubodt() if self.tiering is None
+                     else self.tiering)
             self._ranks = list(zip(place(self._mesh, "dg", arrays.device_graph()),
-                                   place(self._mesh, "du", ubodt.device_ubodt())))
-            self._dg = self._ranks[0][0]
+                                   place(self._mesh, "du", table)))
+            self._dg, self._du = self._ranks[0]
         else:
             self._dg = arrays.to_device(self.device)
-        self.tiering = None
-        if self._ubodt_hot_bytes > 0:
-            if self._mesh is not None:
-                raise ValueError("a tiered UBODT (ubodt_hot_bytes) on a device "
-                                 "mesh is not carried by this port yet")
-            self.tiering = TieredTable(ubodt, self._ubodt_hot_bytes,
-                                       shard=self.ubodt_shard,
-                                       device=self.device)
-            self._du = self.tiering.device()
-        elif self._mesh is not None:
-            self._du = self._ranks[0][1]
-        else:
-            self._du = ubodt.to_device(self.device)
+            self._du = (ubodt.to_device(self.device) if self.tiering is None
+                        else self.tiering.device())
         # carried session beams in a device slab (matching/arena.py); off
         # by default, the serve entry point turns it on
         self.session_arena = None
@@ -634,6 +639,23 @@ class SegmentMatcher:
             tm[row, : len(pts)] = np.asarray(ts) - ts[0]
             valid[row, : len(pts)] = True
             times.append(ts)
+        return self._skew_rows(px, py, tm, valid, times)
+
+    @staticmethod
+    def _skew_rows(px, py, tm, valid, times):
+        """The quality_skew seam: an armed fault perturbs the projected
+        coordinates the device sees (every emission score with them) by
+        seeded noise of its magnitude in metres, while the shadow oracle
+        re-matches the original trace; unarmed, one lookup."""
+        tok = faults.fire("quality_skew")
+        if tok is not None:
+            try:
+                mag = float(tok)
+            except ValueError:
+                mag = 25.0  # integer specs parse as the raise-N grammar
+            rng = np.random.default_rng(12345)
+            px = px + rng.normal(0.0, mag, px.shape).astype(np.float32)
+            py = py + rng.normal(0.0, mag, py.shape).astype(np.float32)
         return px, py, tm, valid, times
 
     def _sparse_row_factor(self, slabel: str, pkey: tuple = ()) -> int:

@@ -28,9 +28,10 @@ a hot arena or pinned host pages) are counted apart as
 ``host_register`` maps a tiered table's host pages into the card's
 address space.  The device mesh's kernels: kernel 2's bucket-range
 instantiations for a gp rank, ``ubodt_probe[sharded]`` and
-``ubodt_probe[wide32,sharded]``, the ``segment_histogram`` and the
-slot-sharded slab's ``slab_gather_owned`` and ``slab_scatter_owned`` (one
-library).
+``ubodt_probe[wide32,sharded]``, and for a gp rank of a tiered table
+``ubodt_probe[tiered,sharded]`` and ``ubodt_probe[wide32,tiered,sharded]``,
+the ``segment_histogram`` and the slot-sharded slab's
+``slab_gather_owned`` and ``slab_scatter_owned`` (one library).
 """
 
 from __future__ import annotations
@@ -150,6 +151,11 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
            "ubodt_probe_sharded"),
     Kernel("ubodt_probe[wide32,sharded]", _PRB, _PROBE + [_I32, _I32], "ubodt_probe",
            "ubodt_probe_wide32_sharded"),
+    # a gp rank of a tiered table: its tier, then lo, L
+    Kernel("ubodt_probe[tiered,sharded]", _PRB, _PROBE + _TIER + [_I32, _I32],
+           "ubodt_probe", "ubodt_probe_tiered_sharded"),
+    Kernel("ubodt_probe[wide32,tiered,sharded]", _PRB, _PROBE + _TIER + [_I32, _I32],
+           "ubodt_probe", "ubodt_probe_wide32_tiered_sharded"),
     Kernel("ubodt_dedup_claim", _CLAIM, _GRID + [_P, _P, _I64, _P, _P, _P, _P, _I64,
                                                  _P], "ubodt_dedup", "ubodt_dedup_claim"),
     Kernel("ubodt_dedup_scatter", "dedup-scatter",
@@ -214,8 +220,24 @@ def build_kernels() -> Dict[str, str]:
 
 
 _host_lock = threading.Lock()
-# registered host buffers: address -> [device address, references]
+# registered host buffers: start address -> [device address, references,
+# bytes]
 _HOST: Dict[int, list] = {}
+
+
+def _registered(addr: int, nbytes: int):
+    """The start of the registered buffer that holds [addr, addr + nbytes),
+    None when none overlaps it; raises on a partial overlap, which CUDA
+    would refuse (cudaErrorHostMemoryAlreadyRegistered)."""
+    for start, (_dev, _refs, size) in _HOST.items():
+        if start <= addr and addr + nbytes <= start + size:
+            return start
+        if addr < start + size and start < addr + nbytes:
+            raise ValueError(
+                "host range [%#x, %#x) overlaps the registered buffer "
+                "[%#x, %#x) without lying inside it" % (
+                    addr, addr + nbytes, start, start + size))
+    return None
 
 
 def _probe_lib():
@@ -234,11 +256,13 @@ def _probe_lib():
 
 def host_register(addr: int, nbytes: int) -> int:
     """Page-lock ``nbytes`` of host memory at ``addr`` and map it into the
-    card's address space (once per buffer, counted); returns the address
-    kernels read it by.  Raises when CUDA refuses."""
+    card's address space; returns the address kernels read it by.  A range
+    inside a buffer already registered is not registered again: it takes
+    a reference to that buffer and its address at the same offset.
+    Raises when CUDA refuses or the range straddles a registered buffer."""
     with _host_lock:
-        ent = _HOST.get(addr)
-        if ent is None:
+        start = _registered(addr, nbytes)
+        if start is None:
             lib = _probe_lib()
             dev = _P()
             rc = lib.ubodt_host_register(_P(addr), nbytes, ctypes.byref(dev))
@@ -246,22 +270,25 @@ def host_register(addr: int, nbytes: int) -> int:
                 raise RuntimeError("cudaHostRegister of %d bytes failed: %s "
                                    "(cudaError %d)" % (nbytes, KERNELS[
                                        "ubodt_probe"]._err(rc).decode(), rc))
-            ent = _HOST[addr] = [int(dev.value), 0]
+            start = addr
+            _HOST[addr] = [int(dev.value), 0, int(nbytes)]
+        ent = _HOST[start]
         ent[1] += 1
-        return ent[0]
+        return ent[0] + (addr - start)
 
 
 def host_unregister(addr: int) -> None:
-    """Drop one reference to a buffer ``host_register`` mapped; the last
-    one unregisters it."""
+    """Drop one reference that ``host_register`` gave for ``addr``; the
+    buffer's last one unregisters it."""
     with _host_lock:
-        ent = _HOST.get(addr)
-        if ent is None:
+        start = _registered(addr, 1)
+        if start is None:
             return
+        ent = _HOST[start]
         ent[1] -= 1
         if ent[1] == 0:
-            del _HOST[addr]
-            _probe_lib().ubodt_host_unregister(_P(addr))
+            del _HOST[start]
+            _probe_lib().ubodt_host_unregister(_P(start))
 
 
 def memory_type(addr: int) -> int:

@@ -13,6 +13,10 @@ dispatching threads never interleave one collective's pieces.
 
 The sums are exact where the callers need them to be: the slab gather's
 int32 bit patterns add one nonzero block to zeros.
+
+``all_reduce`` continues a reduction across processes (a mesh that spans
+controllers, ``parallel/multihost.py``): ``torch.distributed.all_reduce``
+over a process group, in place on a contiguous copy.
 """
 
 from __future__ import annotations
@@ -55,3 +59,15 @@ def all_gather(parts: Sequence[torch.Tensor], dim: int = 0) -> List[torch.Tensor
     reference's ``all_gather(tiled=True)``)."""
     root = parts[0].device
     return _hand(torch.cat([p.to(root) for p in parts], dim), parts)
+
+
+def all_reduce(t: torch.Tensor, op: str, group) -> torch.Tensor:
+    """``t`` reduced elementwise ("min", "max" or "sum") over the processes
+    of ``group`` (``torch.distributed``); every process gets the result."""
+    import torch.distributed as dist
+
+    ops = {"min": dist.ReduceOp.MIN, "max": dist.ReduceOp.MAX,
+           "sum": dist.ReduceOp.SUM}
+    out = t.contiguous().clone()
+    dist.all_reduce(out, op=ops[op], group=group)
+    return out

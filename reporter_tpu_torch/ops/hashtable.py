@@ -40,7 +40,10 @@ kernel 2's ``[sharded]`` instantiations, a bucket outside the range
 reading as -2 lanes that match nothing; the ranks' answers merge by pmin
 of dist and time and pmax of the first edge over the gp axis
 (``ops/collectives.py``), exactly the whole table's answer (the
-reference's ``_ubodt_lookup_sharded``).  Dedup is skipped there, as in the
+reference's ``_ubodt_lookup_sharded``).  A gp rank of a tiered table
+(``TieredDeviceUBODT`` with ``sharded``) is probed by the
+``[tiered,sharded]`` instantiations: its range through its own slot map,
+arena, counts and page range.  Dedup is skipped there, as in the
 reference.
 
 Each wrapper launches its CUDA kernel for CUDA tensors and runs its plain
@@ -136,14 +139,17 @@ def _rows(u, b: torch.Tensor) -> torch.Tensor:
     """Bucket rows [N, 128 or 256] of buckets ``b``: the plain version of
     the kernels' row fetch (``_bucket_rows``), through the tier when the
     table has one; a bucket-range view's rows outside its range are -2
-    lanes."""
+    lanes (a tiered rank fetches and counts only its range's)."""
     t = _tier(u)
-    if t is not None:
-        return t.rows_plain(b)
     if not getattr(u, "sharded", False):
-        return u.packed[b]
+        return u.packed[b] if t is None else t.rows_plain(b, u.rank)
     loc = b - u.lo
     mine = (loc >= 0) & (loc < u.local_buckets)
+    if t is not None:
+        rows = torch.full((b.shape[0], t.lanes), -2, dtype=torch.int32,
+                          device=b.device)
+        rows[mine] = t.rows_plain(loc[mine], u.rank)
+        return rows
     rows = u.packed[torch.where(mine, loc, 0)]
     return torch.where(mine[:, None], rows, torch.full_like(rows, -2))
 
@@ -226,8 +232,8 @@ def check_table(u, dev: torch.device) -> None:
     (int32, on ``dev``, 16-byte aligned), or a tier on ``dev``."""
     t = _tier(u)
     if t is not None:
-        if t.dev != dev:
-            raise ValueError("tiered table is on %s, not %s" % (t.dev, dev))
+        if u.device != dev:
+            raise ValueError("tiered table is on %s, not %s" % (u.device, dev))
         return
     check(u.packed, "packed", torch.int32, dev)
     if u.packed.data_ptr() % 16:
@@ -243,10 +249,12 @@ def _check_keys(u: DeviceUBODT, src, dst) -> None:
 
 
 def probe_kernel_name(u) -> str:
-    """The kernel 2 instantiation that probes table ``u``."""
+    """The kernel 2 instantiation that probes table ``u`` (a gp mesh's:
+    its ranks')."""
+    if isinstance(u, ShardedUBODT):
+        return probe_kernel_name(u.shards[0])
     tags = [t for t, on in (("wide32", u.wide), ("tiered", _tier(u) is not None),
-                            ("sharded", isinstance(u, ShardedUBODT)
-                             or getattr(u, "sharded", False))) if on]
+                            ("sharded", getattr(u, "sharded", False))) if on]
     return "ubodt_probe" + ("[%s]" % ",".join(tags) if tags else "")
 
 
@@ -260,7 +268,7 @@ def table_args(u):
         yield ptr(u.packed), [ptr(None)] * 4
         return
     with t.launch_lock:
-        arena, slot_map, pages, counts, totals = t.source()
+        arena, slot_map, pages, counts, totals = t.source(u.rank)
         yield (ctypes.c_void_p(pages),
                [ptr(slot_map), ptr(arena), ptr(counts), ptr(totals)])
 
@@ -281,7 +289,7 @@ def _probe(u: DeviceUBODT, src, dst, with_first, n_live=None):
             KERNELS[probe_kernel_name(u)].launch(
                 src.device, ptr(src), ptr(dst), ptr(dims), ptr(s_str),
                 ptr(d_str), table, u.bmask, ptr(n_live), ptr(dist),
-                ptr(time), ptr(first), *(tier if tiered else extra))
+                ptr(time), ptr(first), *(tier if tiered else []), *extra)
     return dist, time, first
 
 
@@ -494,12 +502,17 @@ def ubodt_lookup_sharded(u: ShardedUBODT, src: torch.Tensor,
               else ubodt_lookup)
     parts = []
     for sh in u.shards:
-        dev = sh.packed.device
+        dev = sh.device
         parts.append(lookup(sh, src.to(dev), dst.to(dev), with_first))
     dist = collectives.pmin([p[0] for p in parts])[0]
     time = collectives.pmin([p[1] for p in parts])[0]
     first = (collectives.pmax([p[2] for p in parts])[0] if with_first
              else None)
+    if u.group is not None:  # the row's other processes' ranks
+        dist, time = (collectives.all_reduce(x, "min", u.group)
+                      for x in (dist, time))
+        if first is not None:
+            first = collectives.all_reduce(first, "max", u.group)
     return dist, time, first
 
 

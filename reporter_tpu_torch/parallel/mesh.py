@@ -40,6 +40,7 @@ from ..ops.histogram import (
 )
 from ..ops.viterbi import match_batch_full
 from ..tiles.arrays import DeviceGraph
+from ..tiles.tiering import TieredTable
 from ..tiles.ubodt import ShardedUBODT
 from .rules import BATCH_AXIS, GRAPH_AXIS, spec_for
 
@@ -149,13 +150,21 @@ def place(mesh: Mesh, name: str, value) -> list:
     table (``rules.spec_for``; an unmatched name raises): blocks of rows
     over dp, a table split into gp bucket ranges (a ``ShardedUBODT`` per
     dp rank), or the value replicated on each rank's device, one copy per
-    device.  Parameter bundles ("p", "sp") are host scalars every rank
+    device.  A tiered table (``TieredTable`` built on this mesh) splits
+    into its ranks' ``TieredDeviceUBODT`` views over the one manager, the
+    same way.  Parameter bundles ("p", "sp") are host scalars every rank
     reads as they are."""
     spec = spec_for(name, mesh)
     if BATCH_AXIS in spec:
         return split_rows(mesh, value, spec.index(BATCH_AXIS))
     if name in ("p", "sp"):
         return [value] * mesh.n_dp
+    if isinstance(value, TieredTable):
+        # the tier's views: each (gp rank, device) pair's copy of its rank
+        if GRAPH_AXIS in spec:
+            return [ShardedUBODT(value.view(g, dev) for g, dev in enumerate(row))
+                    for row in mesh.devices]
+        return [value.view(0, d) for d in mesh.dp_devices]
     # ranks that share a device share one read-only copy
     copies: dict = {}
     if GRAPH_AXIS in spec:

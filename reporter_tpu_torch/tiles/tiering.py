@@ -35,6 +35,16 @@ one per wide32), the reference's one ``_bucket_rows`` call.  A shard
 assignment (``parse_shard``, ``$REPORTER_UBODT_SHARD=i/N``) seeds the hot
 set with that bucket range.
 
+On a device mesh with a gp axis the tier splits as the table does: each
+gp rank owns a contiguous bucket range and holds, on its device, an
+arena of ``capacity`` rows of its range (``hot_bytes`` is a per-chip
+budget), a slot map, counts and totals of its own, indexed by the
+bucket's offset in the range; it is seeded with its range's prefix and
+maintained over its range alone.  Kernel 2's ``[tiered,sharded]``
+instantiations probe a rank; the ranks' answers merge by pmin / pmax
+into the untiered table's.  The pages are page-locked once, whole, and
+each rank reads its range at an offset into that one mapping.
+
 The arena holds ``capacity`` rows from the start.  A maintenance pass
 moves only what changed: each admitted bucket's page goes into a slot an
 evicted bucket freed (or one never used), and the slot map follows.  The
@@ -61,7 +71,7 @@ import torch
 from ..device import resolve_device
 from ..obs import metrics as obs
 from ..obs.attrib import stage
-from .ubodt import ROW_W, UBODT, bucket_entries
+from .ubodt import ROW_W, UBODT, ShardedUBODT, bucket_entries
 
 log = logging.getLogger(__name__)
 
@@ -117,17 +127,30 @@ def shard_bucket_range(idx: int, n_shards: int,
 
 class TieredDeviceUBODT:
     """What the probes take in place of a ``DeviceUBODT``: the bucket
-    mask, the layout and the manager (``tier``), whose current hot pair,
-    pages and counters every launch reads."""
+    mask, the layout, the manager (``tier``) and one of its ranks
+    (``rank``), whose hot pair, page range and counters every launch
+    reads.  On a gp mesh the view is the rank's bucket range [lo, lo +
+    local_buckets) (``sharded``), as ``DeviceUBODT.shard`` gives one."""
 
-    def __init__(self, tier: "TieredTable"):
+    def __init__(self, tier: "TieredTable", rank: "_Rank"):
         self.tier = tier
+        self.rank = rank
         self.bmask = int(tier.ubodt.bmask)
         self.layout = tier.ubodt.layout
+        self.lo = rank.lo
+        self.sharded = tier.n_gp > 1
 
     @property
     def wide(self) -> bool:
         return self.layout == "wide32"
+
+    @property
+    def device(self) -> torch.device:
+        return self.rank.dev
+
+    @property
+    def local_buckets(self) -> int:
+        return self.rank.n
 
     @property
     def max_probes(self) -> int:
@@ -135,31 +158,86 @@ class TieredDeviceUBODT:
         return 1 if self.wide else 2
 
 
+class _Rank:
+    """One gp rank's tier on one device: its bucket range [lo, lo + n) of
+    the table, an arena of ``capacity`` rows, the slot map [n] (local arena
+    slots, -1 cold) with its host mirror and the unused slots, the
+    window's counts [n] and the (hits, misses) totals, all indexed by the
+    bucket's offset in the range; the device address of its first page
+    (0 on the CPU); the resident buckets (table ids)."""
+
+    def __init__(self, tier: "TieredTable", g: int, dev: torch.device):
+        self.g, self.dev = g, dev
+        self.n = tier.shard_len
+        self.lo = g * self.n
+        self.arena = torch.zeros((max(1, tier.capacity), tier.lanes),
+                                 dtype=torch.int32, device=dev)
+        self.slot_map = torch.full((self.n,), -1, dtype=torch.int32,
+                                   device=dev)
+        self.counts = torch.zeros(self.n, dtype=torch.int32, device=dev)
+        self.totals = torch.zeros(2, dtype=torch.int64, device=dev)
+        self.slot_host = np.full(self.n, -1, np.int32)
+        self.free = np.arange(max(0, tier.capacity), dtype=np.int32)
+        self.hot = np.zeros(0, np.int64)
+        self.pages_ptr = (tier._pages_dev_ptr + self.lo * tier.lanes * 4
+                          if tier._pages_dev_ptr else 0)
+
+
 class TieredTable:
     """The manager of one tiered table: the pinned host pages, the EWMA,
-    the device arena and slot map, and the device counters.  ``device``
-    is where the hot tier lives (the CPU for the plain versions)."""
+    the device arenas and slot maps, and the device counters.  ``device``
+    is where the hot tier lives (the CPU for the plain versions); on a
+    ``mesh``, its devices.
+
+    On a device mesh (``mesh``, the matcher's ``parallel.mesh.Mesh``) with
+    a gp axis of n_gp ranks, the reference's composition
+    (``reporter_tpu/tiles/tiering.py:201-286``): the table splits into
+    n_gp contiguous bucket ranges of ``shard_len``, ``hot_bytes`` is a
+    per-chip budget (each rank holds ``capacity`` rows of its own range,
+    its own slot map with local slot ids), each rank is seeded with the
+    prefix of its range (intersected with ``shard`` when both are set)
+    and ``maintain`` admits and evicts per range.  Every (rank, device)
+    pair of the mesh holds one copy of its rank's tier; ranks that share
+    a device share it.  The cold pages are page-locked once, whole: each
+    rank reads its range at an offset into that one mapping."""
 
     def __init__(self, ubodt: UBODT, hot_bytes: int,
                  shard: Optional[Tuple[int, int]] = None,
-                 maintain_every: int = 8, device="cuda"):
-        self.dev = resolve_device(device)
+                 maintain_every: int = 8, device="cuda", mesh=None):
         self.ubodt = ubodt
         self.hot_bytes = int(hot_bytes)
         self.shard = shard
         self.maintain_every = max(1, int(maintain_every))
         self.lanes = bucket_entries(ubodt.layout) * ROW_W
         self.n_buckets = ubodt.n_buckets
+        self.mesh = mesh
+        self.n_gp = 1 if mesh is None else mesh.n_gp
+        if self.n_buckets % self.n_gp:
+            raise ValueError(
+                "UBODT bucket count %d not divisible by gp=%d (use a "
+                "power-of-two gp axis)" % (self.n_buckets, self.n_gp))
+        self.shard_len = self.n_buckets // self.n_gp
+        # each rank's devices: the mesh's column of that rank, or ``device``
+        if mesh is None:
+            rank_devs = [[resolve_device(device)]]
+        else:
+            rank_devs = [list(dict.fromkeys(row[g] for row in mesh.devices))
+                         for g in range(self.n_gp)]
+        self.dev = rank_devs[0][0]
+        if len({d.type for devs in rank_devs for d in devs}) != 1:
+            raise ValueError("a tiered table's ranks are all on cards or all "
+                             "on the CPU")
         # the pages: the table's own buffer, [n_buckets, lanes]
         self.pages = np.ascontiguousarray(
             ubodt.packed.reshape(self.n_buckets, self.lanes), np.int32)
         self.pages_t = torch.from_numpy(self.pages)
         row_bytes = self.lanes * 4
-        # a budget below one row is legal: everything cold
-        self.capacity = min(self.n_buckets, self.hot_bytes // row_bytes)
+        # rows a rank holds; a budget below one row is legal: all cold
+        self.capacity = min(self.shard_len, self.hot_bytes // row_bytes)
         self._lock = threading.RLock()
-        # held by each launch while it captures the hot pair and counters
-        # (never while taking _lock: maintain takes _lock, then this one)
+        # held by each launch while it captures a rank's hot pair and
+        # counters (never while taking _lock: maintain takes _lock, then
+        # this one)
         self.launch_lock = threading.Lock()
         self._ewma = np.zeros(self.n_buckets, np.float64)
         self._dispatches_since_maintain = 0
@@ -167,13 +245,20 @@ class TieredTable:
         self._units = 0  # fetch units launched since the last drain
         self.evictions = 0
         self.maintenance_passes = 0
-        self._hot_set = np.zeros(0, np.int64)
-        if self.capacity > 0 and shard is not None:
-            lo, hi = shard_bucket_range(shard[0], shard[1], self.n_buckets)
-            self._hot_set = np.arange(lo, min(hi, lo + self.capacity),
-                                      dtype=np.int64)
+        # the seed: the prefix of each rank's range, within the shard
+        seed = [np.zeros(0, np.int64)] * self.n_gp
+        if self.capacity > 0 and (shard is not None or self.n_gp > 1):
+            s_lo, s_hi = ((0, self.n_buckets) if shard is None else
+                          shard_bucket_range(shard[0], shard[1],
+                                             self.n_buckets))
+            for g in range(self.n_gp):
+                lo = max(s_lo, g * self.shard_len)
+                hi = min(s_hi, (g + 1) * self.shard_len)
+                if lo < hi:
+                    seed[g] = np.arange(lo, min(hi, lo + self.capacity),
+                                        dtype=np.int64)
         # the cold tier: on the card, the pages page-locked and mapped in
-        # place; on the CPU the tensor itself
+        # place, once for every rank; on the CPU the tensor itself
         self._pages_dev_ptr = 0
         if self.dev.type == "cuda":
             from ..ops._kernels import host_register
@@ -186,43 +271,64 @@ class TieredTable:
         else:
             self.cold_memory_kind = "host"
         self.pinned_bytes = self.pages.nbytes if self._pages_dev_ptr else 0
-        # this window's fetches per bucket, and (hits, misses) since boot
-        self.counts = torch.zeros(self.n_buckets, dtype=torch.int32,
-                                  device=self.dev)
-        self.totals = torch.zeros(2, dtype=torch.int64, device=self.dev)
+        self._ranks = {(g, d): _Rank(self, g, d)
+                       for g, devs in enumerate(rank_devs) for d in devs}
+        self._hot_g = [np.zeros(0, np.int64)] * self.n_gp  # each rank's
         self._seen = (0, 0)
-        # the hot pair: an arena of capacity rows (at least one, so a
-        # clamped index stays in bounds) and the slot map, with the slot
-        # map's host mirror and the arena's unused slots
-        self._hot = (torch.zeros((max(1, self.capacity), self.lanes),
-                                 dtype=torch.int32, device=self.dev),
-                     torch.full((self.n_buckets,), -1, dtype=torch.int32,
-                                device=self.dev))
-        self._slot_host = np.full(self.n_buckets, -1, np.int32)
-        self._free = np.arange(max(0, self.capacity), dtype=np.int32)
-        seed, self._hot_set = self._hot_set, np.zeros(0, np.int64)
-        self._swap(seed)
+        with self._lock:
+            for g in range(self.n_gp):
+                self._swap(g, seed[g])
         self._publish_gauges()
-        log.info("ubodt tiering: %d/%d bucket rows hot (%d B budget, %d B "
-                 "row, table %d B, %d B pinned)%s", len(self._hot_set),
-                 self.n_buckets, self.hot_bytes, row_bytes, self.table_bytes,
-                 self.pinned_bytes,
+        log.info("ubodt tiering: %d/%d bucket rows hot (%d B budget a rank, "
+                 "%d rank(s), %d B row, table %d B, %d B pinned)%s",
+                 self.resident_rows, self.n_buckets, self.hot_bytes,
+                 self.n_gp, row_bytes, self.table_bytes, self.pinned_bytes,
                  " shard %d/%d seeded" % shard if shard else "")
 
     @property
     def table_bytes(self) -> int:
         return self.n_buckets * self.lanes * 4
 
-    def device(self) -> TieredDeviceUBODT:
-        """The probes' view of this table (the matcher's ``_du``)."""
-        return TieredDeviceUBODT(self)
+    def rank(self, g: int = 0, dev=None) -> _Rank:
+        """Rank ``g``'s tier on ``dev`` (default: the table's device)."""
+        return self._ranks[g, self.dev if dev is None else resolve_device(dev)]
+
+    def view(self, g: int = 0, dev=None) -> TieredDeviceUBODT:
+        """The probes' view of rank ``g`` on ``dev``."""
+        return TieredDeviceUBODT(self, self.rank(g, dev))
+
+    def device(self, dev=None):
+        """The probes' view of the whole table on ``dev`` (the matcher's
+        ``_du``): one view, or on a gp mesh a ``ShardedUBODT`` of the
+        ranks' views."""
+        if self.n_gp == 1:
+            return self.view(0, dev)
+        return ShardedUBODT(self.view(g, dev) for g in range(self.n_gp))
+
+    @property
+    def counts(self) -> torch.Tensor:
+        """Rank 0's window counts on the table's device (the whole table's
+        on one rank)."""
+        return self.rank().counts
+
+    @counts.setter
+    def counts(self, value: torch.Tensor) -> None:
+        # ``tier.counts += x`` adds in place, then assigns the same tensor
+        if value is not self.rank().counts:
+            self.rank().counts.copy_(value)
+
+    @property
+    def totals(self) -> torch.Tensor:
+        """Rank 0's (hits, misses) totals on the table's device."""
+        return self.rank().totals
 
     def close(self) -> None:
         """Unregister the pages (the table stays usable on the CPU only)."""
         if self._pages_dev_ptr:
             from ..ops._kernels import host_unregister
 
-            torch.cuda.synchronize(self.dev)
+            for d in {d for _g, d in self._ranks}:
+                torch.cuda.synchronize(d)
             host_unregister(self.pages_t.data_ptr())
             self._pages_dev_ptr = 0
 
@@ -233,79 +339,93 @@ class TieredTable:
             pass
 
     def _publish_gauges(self) -> None:
-        G_TIER_ROWS.set(len(self._hot_set))
-        G_TIER_FRAC.set(len(self._hot_set) / max(1, self.n_buckets))
+        G_TIER_ROWS.set(self.resident_rows)
+        G_TIER_FRAC.set(self.resident_rows / max(1, self.n_buckets))
 
-    def _swap(self, new_set: np.ndarray) -> None:
-        """Make ``new_set`` the hot set: the evicted buckets' slots freed,
-        each admitted bucket's page copied into a free slot, the slot map
-        updated, all queued on the current stream under ``launch_lock``
-        (call under ``_lock``)."""
-        old = self._hot_set
+    def _swap(self, g: int, new_set: np.ndarray) -> None:
+        """Make ``new_set`` (table ids in rank ``g``'s range) the rank's hot
+        set on each of its devices: the evicted buckets' slots freed, each
+        admitted bucket's page copied into a free slot, the slot map
+        updated, all queued on the device's current stream under
+        ``launch_lock`` (call under ``_lock``)."""
+        for (rg, _d), r in self._ranks.items():
+            if rg == g:
+                self._swap_rank(r, new_set)
+        self._hot_g[g] = new_set
+
+    def _swap_rank(self, r: _Rank, new_set: np.ndarray) -> None:
+        old = r.hot
         gone = old[~np.isin(old, new_set, assume_unique=True)]
         came = new_set[~np.isin(new_set, old, assume_unique=True)]
-        self._free = np.concatenate([self._slot_host[gone], self._free])
-        slots, self._free = self._free[: len(came)], self._free[len(came):]
-        self._slot_host[gone] = -1
-        self._slot_host[came] = slots
+        r.free = np.concatenate([r.slot_host[gone - r.lo], r.free])
+        slots, r.free = r.free[: len(came)], r.free[len(came):]
+        r.slot_host[gone - r.lo] = -1
+        r.slot_host[came - r.lo] = slots
         # host tensors page-locked for an asynchronous copy on the card
-        pin = (lambda x: x.pin_memory()) if self.dev.type == "cuda" else (
+        pin = (lambda x: x.pin_memory()) if r.dev.type == "cuda" else (
             lambda x: x)
         rows = pin(torch.from_numpy(self.pages[came]))
-        idx = pin(torch.from_numpy(np.concatenate([gone, came,
-                                                     slots.astype(np.int64)])))
+        idx = pin(torch.from_numpy(np.concatenate(
+            [gone - r.lo, came - r.lo, slots.astype(np.int64)])))
         with self.launch_lock:
-            arena, slot_map = self._hot
-            idx = idx.to(self.dev, non_blocking=True)
+            idx = idx.to(r.dev, non_blocking=True)
             g, c, sl = idx.split([len(gone), len(came), len(came)])
-            slot_map.index_fill_(0, g, -1)
-            arena.index_copy_(0, sl, rows.to(self.dev, non_blocking=True))
-            slot_map.index_copy_(0, c, sl.to(torch.int32))
-            self._hot_set = new_set
+            r.slot_map.index_fill_(0, g, -1)
+            r.arena.index_copy_(0, sl, rows.to(r.dev, non_blocking=True))
+            r.slot_map.index_copy_(0, c, sl.to(torch.int32))
+            r.hot = new_set
 
     # -- what a launch reads ------------------------------------------------
 
-    def source(self):
-        """(arena, slot_map, pages device address, counts, totals): call
-        under ``launch_lock`` and launch before releasing it."""
-        arena, slot_map = self._hot
-        return arena, slot_map, self._pages_dev_ptr, self.counts, self.totals
+    def source(self, rank: Optional[_Rank] = None):
+        """(arena, slot_map, first page's device address, counts, totals)
+        of ``rank`` (default: rank 0 on the table's device): call under
+        ``launch_lock`` and launch before releasing it."""
+        r = self.rank() if rank is None else rank
+        return r.arena, r.slot_map, r.pages_ptr, r.counts, r.totals
 
     def note_units(self, n: int) -> None:
         """Record ``n`` fetch units launched (the maintenance cadence)."""
         with self.launch_lock:
             self._units += int(n)
 
-    def rows_plain(self, b: torch.Tensor) -> torch.Tensor:
+    def rows_plain(self, b: torch.Tensor,
+                   rank: Optional[_Rank] = None) -> torch.Tensor:
         """Plain version of the tiered row fetch: [N, lanes] rows of the
-        int64 buckets ``b`` (on the tier's device), the arena's where the
-        slot map names one, else the page's, each fetch counted and
-        totalled."""
+        int64 buckets ``b`` of ``rank``'s range (offsets in it, on its
+        device; default rank 0, the whole table on one rank), the arena's
+        where the slot map names one, else the page's, each fetch counted
+        and totalled."""
+        r = self.rank() if rank is None else rank
         with self.launch_lock:
-            arena, slot_map = self._hot
-            slot = slot_map[b]
+            slot = r.slot_map[b]
             hot = slot >= 0
             with stage("tier-arena"):
-                rows = arena[slot.clamp(min=0).long()]
+                rows = r.arena[slot.clamp(min=0).long()]
             cold = ~hot
             if bool(cold.any()):  # the pages live on the host
                 with stage("tier-page"):
-                    rows[cold] = self.pages_t[b[cold].cpu()].to(b.device)
-            self.counts.index_add_(0, b, torch.ones_like(b, dtype=torch.int32))
+                    rows[cold] = self.pages_t[(b[cold] + r.lo).cpu()].to(
+                        b.device)
+            r.counts.index_add_(0, b, torch.ones_like(b, dtype=torch.int32))
             n_hot = hot.sum()
-            self.totals += torch.stack([n_hot, hot.numel() - n_hot])
+            r.totals += torch.stack([n_hot, hot.numel() - n_hot])
         return rows
 
     # -- the counters (device -> host at collect) ---------------------------
 
+    def _total(self):
+        return [sum(x) for x in zip(*(r.totals.cpu().tolist()
+                                      for r in self._ranks.values()))]
+
     def drain_stats(self) -> None:
-        """Read the fetch totals the launches left on the device and run a
+        """Read the fetch totals the launches left on the devices and run a
         maintenance pass when one is due (misses since the last pass and
         at least ``maintain_every`` fetch units): the reference's
         ``drain_stats`` at the granularity of a collect."""
         with self.launch_lock:
             units, self._units = self._units, 0
-        tot = self.totals.cpu().tolist()
+        tot = self._total()
         with self._lock:
             n_hit, n_miss = tot[0] - self._seen[0], tot[1] - self._seen[1]
             self._seen = (tot[0], tot[1])
@@ -319,39 +439,52 @@ class TieredTable:
             self.maintain()
 
     def window_counts(self) -> np.ndarray:
-        """This window's per-bucket fetch counts (int64), without taking
-        them."""
-        return self.counts.cpu().numpy().astype(np.int64)
+        """This window's per-bucket fetch counts (int64) over every rank,
+        without taking them."""
+        out = np.zeros(self.n_buckets, np.int64)
+        for r in self._ranks.values():
+            out[r.lo:r.lo + r.n] += r.counts.cpu().numpy()
+        return out
 
     # -- maintenance --------------------------------------------------------
 
     def maintain(self) -> dict:
         """One admission/eviction pass: fold the window's counts into the
-        EWMA, take the top-``capacity`` buckets, move the admitted rows
-        into the evicted ones' slots.  Returns {hot_rows, admitted,
-        evicted}."""
+        EWMA, take each rank's top-``capacity`` buckets of its range, move
+        the admitted rows into the evicted ones' slots.  Returns
+        {hot_rows, admitted, evicted}."""
         with self._lock:
+            snap = np.zeros(self.n_buckets, np.int64)
             with self.launch_lock:
                 # taken in stream order: every earlier launch's fetches,
                 # none of a later one's
-                snap = self.counts.clone()
-                self.counts.zero_()
+                taken = [(r, r.counts.clone()) for r in self._ranks.values()]
+                for r, _c in taken:
+                    r.counts.zero_()
+            for r, c in taken:
+                snap[r.lo:r.lo + r.n] += c.cpu().numpy()
             self._ewma *= EWMA_DECAY
-            self._ewma += snap.cpu().numpy()
+            self._ewma += snap
             self._dispatches_since_maintain = 0
             self._misses_since_maintain = 0
             self.maintenance_passes += 1
             if self.capacity <= 0:
                 return {"hot_rows": 0, "admitted": 0, "evicted": 0}
-            new_set = self._select_range(0, self.n_buckets, self._hot_set)
-            evicted = int(np.count_nonzero(~np.isin(self._hot_set, new_set)))
-            admitted = int(np.count_nonzero(~np.isin(new_set, self._hot_set)))
-            if admitted or evicted:
-                self._swap(new_set)
+            admitted = evicted = 0
+            for g in range(self.n_gp):
+                old = self._hot_g[g]
+                lo = g * self.shard_len
+                new_set = self._select_range(lo, lo + self.shard_len, old)
+                ev = int(np.count_nonzero(~np.isin(old, new_set)))
+                ad = int(np.count_nonzero(~np.isin(new_set, old)))
+                if ad or ev:
+                    self._swap(g, new_set)
+                admitted += ad
+                evicted += ev
             self.evictions += evicted
             C_TIER_EVICTIONS.inc(evicted)
             self._publish_gauges()
-            return {"hot_rows": int(len(self._hot_set)),
+            return {"hot_rows": self.resident_rows,
                     "admitted": admitted, "evicted": evicted}
 
     def _select_range(self, lo: int, hi: int,
@@ -380,7 +513,7 @@ class TieredTable:
 
     @property
     def hits(self) -> int:
-        """Fetches answered from the hot arena, read at collect."""
+        """Fetches answered from the hot arenas, read at collect."""
         return self._seen[0]
 
     @property
@@ -390,25 +523,28 @@ class TieredTable:
 
     @property
     def resident_rows(self) -> int:
-        return int(len(self._hot_set))
+        """Hot rows over the ranks."""
+        return int(sum(len(h) for h in self._hot_g))
 
     def hot_buckets(self) -> np.ndarray:
+        """Every rank's hot buckets (table ids), in bucket order."""
         with self._lock:
-            return self._hot_set.copy()
+            return np.concatenate(self._hot_g).astype(np.int64)
 
     def summary(self) -> dict:
-        """The reference's tier block, for one device."""
+        """The reference's tier block: ``hot_bytes`` and ``capacity_rows``
+        a rank, their totals over the gp ranks."""
         with self._lock:
-            hot_rows = int(len(self._hot_set))
+            hot_rows = self.resident_rows
         return {
             "hot_bytes": self.hot_bytes,
-            "hot_bytes_total": self.hot_bytes,
+            "hot_bytes_total": self.hot_bytes * self.n_gp,
             "table_bytes": self.table_bytes,
             "n_buckets": self.n_buckets,
             "hot_rows": hot_rows,
             "capacity_rows": self.capacity,
-            "capacity_rows_total": self.capacity,
-            "devices": 1,
+            "capacity_rows_total": self.capacity * self.n_gp,
+            "devices": self.n_gp,
             "residency_frac": round(hot_rows / max(1, self.n_buckets), 4),
             "layout": self.ubodt.layout,
             "cold_memory_kind": self.cold_memory_kind,

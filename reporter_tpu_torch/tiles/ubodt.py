@@ -144,6 +144,10 @@ class DeviceUBODT:
         """Buckets this view holds: the whole table, or a rank's range."""
         return self.packed.shape[0]
 
+    @property
+    def device(self) -> torch.device:
+        return self.packed.device
+
     def to_device(self, device="cuda") -> "DeviceUBODT":
         return DeviceUBODT(self.packed.to(resolve_device(device)), self.bmask,
                            self.layout, self.lo, self.sharded)
@@ -171,18 +175,24 @@ class ShardedUBODT:
     reference's ``DeviceUBODT.with_shard_axis``): the gp ranks' bucket-range
     views in rank order, each on its rank's device, together the whole
     table.  A probe fans out over them and merges by min / max
-    (``ops/hashtable.ubodt_lookup``)."""
+    (``ops/hashtable.ubodt_lookup``).
 
-    def __init__(self, shards):
+    With ``group`` (a ``torch.distributed`` process group: a dp row that
+    spans processes) the views are this process's contiguous run of the
+    row's gp ranks, and every probe's merge continues over the group's
+    processes (``parallel/multihost.py``)."""
+
+    def __init__(self, shards, group=None):
         self.shards = list(shards)
+        self.group = group
         first = self.shards[0]
         self.bmask, self.layout = first.bmask, first.layout
-        at = 0
+        at = first.lo if group is not None else 0
         for sh in self.shards:
             if (sh.lo, sh.bmask, sh.layout) != (at, self.bmask, self.layout):
                 raise ValueError("gp shards must cover the table in rank order")
             at += sh.local_buckets
-        if at != self.bmask + 1:
+        if group is None and at != self.bmask + 1:
             raise ValueError("gp shards cover %d of %d buckets"
                              % (at, self.bmask + 1))
 

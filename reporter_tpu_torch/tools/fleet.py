@@ -87,6 +87,7 @@ import os
 import signal
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -122,6 +123,23 @@ def wait_healthy(url: str, timeout_s: float, want_status: str = "ok",
         except Exception:  # noqa: BLE001 - not up yet
             pass
         time.sleep(0.5)
+    return False
+
+
+def wait_routed(router_url: str, url: str, timeout_s: float) -> bool:
+    """Poll the router's GET /fleet until its own probe has the replica at
+    ``url`` available (back in the rendezvous ring), or the timeout
+    lapses."""
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        try:
+            fleet = _get_json(router_url + "/fleet", timeout=2.0)
+            if any(r.get("url") == url.rstrip("/") and r.get("available")
+                   for r in fleet.get("replicas", [])):
+                return True
+        except Exception:  # noqa: BLE001 - the router is busy or restarting
+            pass
+        time.sleep(0.1)
     return False
 
 
@@ -330,8 +348,11 @@ class Fleet:
     def rolling_restart(self) -> bool:
         """Restart every replica one at a time, gracefully: drain (the
         router rotates traffic off via the 503-draining /health), wait
-        exit 0, respawn, wait healthy, move on.  The fleet never has
-        more than one replica out at once."""
+        exit 0, respawn, wait healthy and routed, move on.  The fleet
+        never has more than one replica out at once: the next drain waits
+        for the router's own probe to readmit the respawned replica (its
+        /health answering is not enough; the reference moves on there,
+        and a request in between finds no replica to take it)."""
         ok = True
         with self._lock:
             replicas = list(self.replicas)
@@ -350,6 +371,11 @@ class Fleet:
                 self.write_state()
             if not wait_healthy(c.url, self.args.up_timeout):
                 log.error("%s did not come back healthy", c.name)
+                ok = False
+                break
+            if not wait_routed(self.router.url, c.url, self.args.up_timeout):
+                log.error("%s came back but the router did not readmit it",
+                          c.name)
                 ok = False
                 break
         log.info("rolling restart %s", "complete" if ok else "FAILED")
@@ -767,10 +793,12 @@ class Fleet:
             self._rolling.clear()
 
 
-def main(argv=None) -> int:
-    logging.basicConfig(
-        level=logging.INFO,
-        format="%(asctime)s fleet %(levelname)s %(message)s")
+# the reference's default working directory, under the temporary directory
+DEFAULT_WORKDIR = os.path.join(tempfile.gettempdir(), "reporter-fleet")
+
+
+def parser() -> argparse.ArgumentParser:
+    """The supervisor's command line."""
     ap = argparse.ArgumentParser(
         description=__doc__.splitlines()[0],
         formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -779,7 +807,7 @@ def main(argv=None) -> int:
     ap.add_argument("--base-port", type=int, default=19010)
     ap.add_argument("--router-port", type=int, default=19009)
     ap.add_argument("--host", default="127.0.0.1")
-    ap.add_argument("--workdir", default="reporter-fleet")
+    ap.add_argument("--workdir", default=DEFAULT_WORKDIR)
     ap.add_argument("--warmup", action="store_true",
                     help="boot each replica with --warmup (every shape "
                          "warmed before its engine attaches)")
@@ -832,8 +860,14 @@ def main(argv=None) -> int:
     ap.add_argument("--session-checkpoint-sync", action="store_true",
                     help="checkpoint each session commit synchronously "
                          "(zero lost answered points under SIGKILL)")
-    args = ap.parse_args(argv)
-    return Fleet(args).run()
+    return ap
+
+
+def main(argv=None) -> int:
+    logging.basicConfig(
+        level=logging.INFO,
+        format="%(asctime)s fleet %(levelname)s %(message)s")
+    return Fleet(parser().parse_args(argv)).run()
 
 
 if __name__ == "__main__":

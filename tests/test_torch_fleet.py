@@ -706,3 +706,80 @@ def test_geo_on_prefers_shard_owner(monkeypatch):
         assert router._geo_pref(junk, cell) == 0
     finally:
         router.stop()
+
+
+def test_wait_routed_waits_for_the_routers_probe():
+    """``wait_routed`` returns once the router's GET /fleet has the
+    replica available, not before; False when it never does."""
+    import http.server
+    import types
+
+    from reporter_tpu_torch.tools import fleet as fleet_mod
+
+    polls = {"n": 0}
+
+    class H(http.server.BaseHTTPRequestHandler):
+        def do_GET(self):  # noqa: N802 - http.server's name
+            polls["n"] += 1
+            body = json.dumps({"replicas": [
+                {"url": "http://127.0.0.1:1", "available": True},
+                {"url": "http://127.0.0.1:2", "available": polls["n"] > 3}]}).encode()
+            self.send_response(200)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, *a):
+            pass
+
+    srv = http.server.ThreadingHTTPServer(("127.0.0.1", 0), H)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    try:
+        url = "http://127.0.0.1:%d" % srv.server_address[1]
+        assert fleet_mod.wait_routed(url, "http://127.0.0.1:2/", 10.0)
+        assert polls["n"] >= 4
+        t0 = time.monotonic()
+        assert not fleet_mod.wait_routed(url, "http://127.0.0.1:3", 0.5)
+        assert time.monotonic() - t0 < 5.0
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(10)
+    assert not th.is_alive()
+
+    # the rolling restart drains the next replica only once the router has
+    # readmitted the last one, and stops when it does not
+    for routed in (True, False):
+        events = []
+
+        class Child:
+            def __init__(self, name):
+                self.name, self.url, self.restarts = name, "http://%s" % name, 0
+
+            def drain(self, grace_s):
+                events.append(("drain", self.name))
+                return 0
+
+            def spawn(self):
+                events.append(("spawn", self.name))
+
+        f = fleet_mod.Fleet.__new__(fleet_mod.Fleet)
+        f._lock, f._stop = threading.RLock(), threading.Event()
+        f.replicas = [Child("a"), Child("b")]
+        f.args = types.SimpleNamespace(drain_grace=1.0, up_timeout=1.0)
+        f.router = types.SimpleNamespace(url="http://router")
+        f._bank_uptime = f.write_state = lambda *a: None
+        mp = pytest.MonkeyPatch()
+        try:
+            mp.setattr(fleet_mod, "wait_healthy",
+                       lambda url, t: events.append(("healthy", url)) or True)
+            mp.setattr(fleet_mod, "wait_routed",
+                       lambda r, url, t: events.append(("routed", url)) or routed)
+            assert f.rolling_restart() is routed
+        finally:
+            mp.undo()
+        first = [("drain", "a"), ("spawn", "a"), ("healthy", "http://a"),
+                 ("routed", "http://a")]
+        assert events == (first + [("drain", "b"), ("spawn", "b"), ("healthy", "http://b"),
+                                   ("routed", "http://b")] if routed else first)

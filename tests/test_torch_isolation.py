@@ -123,6 +123,19 @@ px, py, tm, valid, _t = mm._fill_rows(traces, [0, 1], 32)
 fn = graph_sharded_match_fn(make_mesh2(2, 2, ["cpu"] * 4), 8, len(arrays.seg_ids))
 _r, hist = fn(m._dg, m._du, *(torch.from_numpy(a) for a in (px, py, tm, valid)), m._params)
 assert 0 < float(hist.point_count.sum()) <= 40
+# a tiered table on the gp mesh (a 2 KB arena a rank), and the
+# multi-controller dryrun in this one process under gloo
+tmm = SegmentMatcher(arrays=arrays, ubodt=m.ubodt, device=["cpu"] * 4,
+                     config=MatcherConfig(ubodt_delta=1500.0, length_buckets=[16], devices=4,
+                                          graph_devices=2, ubodt_hot_bytes=2048))
+assert tmm.match_many(traces) == m.match_many(traces)
+assert tmm.tiering.summary()["hot_bytes_total"] == 4096
+import socket
+from reporter_tpu_torch.parallel import multihost
+sock = socket.socket(); sock.bind(("127.0.0.1", 0)); port = sock.getsockname()[1]; sock.close()
+mh = multihost.run_dryrun("127.0.0.1:%d" % port, 1, 0, "gloo", device="cpu",
+                          local_devices=2, graph_devices=2)
+assert mh["devices"] == 2 and mh["matched"] > 0 and mh["hist_total"] > 0
 # the bench's realistic city through the PBF codec and the OSM import, the
 # tile hierarchy, the CPU baseline (backend="cpu") and the brute oracle
 import tempfile

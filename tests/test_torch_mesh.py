@@ -463,8 +463,12 @@ def test_mesh_config_rules(monkeypatch):
             build(one, devices=2)
     with pytest.raises(ValueError, match="only 2 device"):
         build(_cpu(2), devices=8, graph_devices=4)
-    with pytest.raises(ValueError, match="tiered UBODT"):
-        build(_cpu(2), devices=2, ubodt_hot_bytes=4096)
+    # a tiered table composes with the mesh: a tier a gp rank
+    tm = build(_cpu(8), devices=8, graph_devices=4, ubodt_hot_bytes=4096)
+    assert tm.tiering is not None and tm.tiering.n_gp == 4
+    assert isinstance(tm._du, ShardedUBODT)
+    assert [sh.rank.g for sh in tm._du.shards] == [0, 1, 2, 3]
+    assert tm.tiering.summary()["hot_bytes_total"] == 4 * 4096
     cfg = MatcherConfig(**KW)
     monkeypatch.setenv("REPORTER_DEVICES", "8")
     monkeypatch.setenv("REPORTER_GRAPH_DEVICES", "4")
