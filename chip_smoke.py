@@ -401,9 +401,35 @@ delta 3000 m, cuckoo layout) and moves it to the card, then:
      to the in-process mesh's on the same global batch, kernels 1-4
      launched in every process; two NCCL processes on the one card exit 2
      with the one-rank-a-GPU message.
+  25. the reference's default host plane and the per-window carry
+     program (``host_plane_phase``), on the grid and phase 17's realistic
+     city: the columnar pack (``extract_columns`` + ``_fill_rows(cols=)``)
+     equal to the legacy loop bit for bit, times included, at 512 x 64,
+     128 x 256, 64 x 2,048 and on 256 traces cut to lengths 1-16 with
+     int, float and mixed times, both timed; ``match_many`` with
+     host_pack on and off, equal wire on the bucketed and long paths, and
+     a 512-session x 4-point slab step through ``match_sessions``, equal
+     output, aux and beams; ``build_records`` against the Python loop on
+     the 512 x 64 and 128 x 256 association columns, byte for byte
+     through json.dumps, both timed; 64 of the realistic city's 512 x 64
+     as one RPTC /trace_attributes_batch and as JSON through the port's
+     server, equal answers, the binary one packed from the side channel
+     with no point dict walked, no ``_columns`` in any body or
+     /debug/traces; the 64 x 2,048 and realistic 16 x 1,024 cohorts
+     through ``long_precompute=False`` matchers under scan and assoc,
+     through the launch counters: wire and compact output (every seam
+     column) equal to the hoisted path's, kernels 1-3 and the chain
+     kernel once a window, no pre dispatch.  Every association call of
+     the phase must take the records extension.  It prints each wall
+     beside the card's name and power limit.
 
-Phase 0 builds the kernels and the cities; the cohorts are synthesized
-meanwhile in worker processes (``prefetch_cohorts``: the same seeds and
+Phase 0 builds the kernels, the native core and the records extension
+(``native/records_ext.c`` with gcc against the interpreter's headers: a
+machine without them fails here with the compiler's message) and the
+cities; the breakdowns of phase 3 time the columnar pack beside the
+legacy loop (equal bit for bit) and check that association took the
+records extension.  The cohorts are synthesized
+during the build in worker processes (``prefetch_cohorts``: the same seeds and
 code, so the same traces, each checked to come from the same city).
 Before the phases it times ``torch.cuda._sleep(1)``, a one-thread kernel,
 under ``time_ms`` (``launch_floor``): the least time that timer reads for
@@ -641,8 +667,11 @@ def build():
     out = build_all({**_kernels.build_jobs(), **native.build_jobs()})
     _kernels.build_kernels()  # binds (nothing stale left to build)
     native.require_lib()
+    # the records extension: a machine without the interpreter's headers
+    # fails here with the compiler's message, never runs on in Python
+    native.require_records_ext()
     dt = time.perf_counter() - t0
-    print("build: %d libraries in %.1f s (nvcc sm_90a + g++, in parallel)"
+    print("build: %d libraries in %.1f s (nvcc sm_90a + g++ + gcc, in parallel)"
           % (len(out), dt))
     for lib, text in sorted(out.items()):
         regs = ptxas_report(text)
@@ -1501,8 +1530,9 @@ def long_breakdown(matcher, traces):
     n_chunks = -(-max(len(t["trace"]) for t in traces) // W)
     if matcher.device.type == "cuda":
         torch.cuda.synchronize(matcher.device)
+    (px, py, tm, valid, times), _l, pack_ms, legacy_ms = _pack_both(matcher, traces,
+                                                                     n_chunks * W)
     t0 = time.perf_counter()
-    px, py, tm, valid, times = matcher._fill_rows(traces, idxs, n_chunks * W)
     xin = V.pack_inputs(px, py, tm, valid)
     t1 = time.perf_counter()
     handle = (idxs, *matcher._dispatch_long_group(xin, n_chunks, W, matcher._params))
@@ -1511,18 +1541,21 @@ def long_breakdown(matcher, traces):
     _g, res, _t, aux = matcher._fetch_long_aux((group, host_parts, tail, times, aux))
     t2 = time.perf_counter()
     results = [None] * len(traces)
-    matcher._associate_and_store(idxs, *res, times, results, aux=aux)
+    _r, n_ext, n_py = _records_delta(lambda: matcher._associate_and_store(
+        idxs, *res, times, results, aux=aux))
     t3 = time.perf_counter()
+    check(n_ext == 1 and n_py == 0, "association through the records extension")
     for tr, r in zip(traces, results):
         r.pop("_quality", None)
         report_fn(r, tr, 15, {0, 1, 2}, {0, 1, 2})
     t4 = time.perf_counter()
-    out = {"pack_ms": (t1 - t0) * 1e3, "device_ms": (t2 - t1) * 1e3,
-           "assoc_ms": (t3 - t2) * 1e3, "report_ms": (t4 - t3) * 1e3}
-    print("breakdown %dx%d (long): pack %.1f ms, device program incl. transfers %.2f ms, "
-          "association %.1f ms, report() %.1f ms"
-          % (len(traces), n_chunks * W, out["pack_ms"], out["device_ms"], out["assoc_ms"],
-             out["report_ms"]))
+    out = {"pack_ms": pack_ms + (t1 - t0) * 1e3, "pack_legacy_ms": legacy_ms + (t1 - t0) * 1e3,
+           "device_ms": (t2 - t1) * 1e3, "assoc_ms": (t3 - t2) * 1e3,
+           "report_ms": (t4 - t3) * 1e3}
+    print("breakdown %dx%d (long): pack %.1f ms (legacy loop %.1f ms), device program incl. "
+          "transfers %.2f ms, association %.1f ms (records extension), report() %.1f ms"
+          % (len(traces), n_chunks * W, out["pack_ms"], out["pack_legacy_ms"],
+             out["device_ms"], out["assoc_ms"], out["report_ms"]))
     return out
 
 
@@ -1663,8 +1696,10 @@ def main_path(matcher, cohorts, xins, base=None, plain=True):
 
 def breakdown(matcher, traces):
     """Host-clock split of one bucketed batch through the matcher's own
-    steps: packing, the device program (upload, kernels 1-4, fetch),
-    association, and report()."""
+    steps: packing (the columnar pack, the default, and the legacy loop
+    beside it, equal bit for bit), the device program (upload, kernels
+    1-4, fetch), association (through the records extension, checked)
+    and report()."""
     import torch
 
     from reporter_tpu_torch.report import report as report_fn
@@ -1673,24 +1708,25 @@ def breakdown(matcher, traces):
     T = matcher._bucket_len(len(traces[0]["trace"]))
     if matcher.device.type == "cuda":
         torch.cuda.synchronize(matcher.device)
-    t0 = time.perf_counter()
-    px, py, tm, valid, times = matcher._fill_rows(traces, idxs, T)
+    (px, py, tm, valid, times), _l, pack_ms, legacy_ms = _pack_both(matcher, traces, T)
     t1 = time.perf_counter()
     res, aux = matcher._collect_batch(matcher._dispatch_batch(px, py, tm, valid))
     t2 = time.perf_counter()
     results = [None] * len(traces)
-    matcher._associate_and_store(idxs, *res, times, results, aux=aux)
+    _r, n_ext, n_py = _records_delta(lambda: matcher._associate_and_store(
+        idxs, *res, times, results, aux=aux))
     t3 = time.perf_counter()
+    check(n_ext == 1 and n_py == 0, "association through the records extension")
     for tr, r in zip(traces, results):
         r.pop("_quality", None)
         report_fn(r, tr, 15, {0, 1, 2}, {0, 1, 2})
     t4 = time.perf_counter()
-    out = {"pack_ms": (t1 - t0) * 1e3, "device_ms": (t2 - t1) * 1e3,
+    out = {"pack_ms": pack_ms, "pack_legacy_ms": legacy_ms, "device_ms": (t2 - t1) * 1e3,
            "assoc_ms": (t3 - t2) * 1e3, "report_ms": (t4 - t3) * 1e3}
-    print("breakdown %dx%d: pack %.1f ms, device program incl. transfers %.2f ms, "
-          "association %.1f ms, report() %.1f ms"
-          % (len(traces), T, out["pack_ms"], out["device_ms"], out["assoc_ms"],
-             out["report_ms"]))
+    print("breakdown %dx%d: pack %.1f ms (legacy loop %.1f ms), device program incl. "
+          "transfers %.2f ms, association %.1f ms (records extension), report() %.1f ms"
+          % (len(traces), T, out["pack_ms"], out["pack_legacy_ms"], out["device_ms"],
+             out["assoc_ms"], out["report_ms"]))
     return out
 
 
@@ -7706,7 +7742,315 @@ def osm_phases(device, rows=120, grid_misses=None, timed=True, scale=1, card="")
             "modes": modes, "fleet": fleet,
             "main_path": rates, "long_path": long_rate, "session_path": sess_rate,
             "probe_outcomes": misses, "grid_probe_outcomes": grid_misses,
-            "agreement": agree, "baseline": base}
+            "agreement": agree, "baseline": base,
+            # phase 25's inputs on this city (taken out before the report)
+            "_ctx": (matcher, t64, t1024)}
+
+
+def _packs_equal(a, b):
+    """Two ``_fill_rows`` results equal bit for bit, times included."""
+    return (all(x.dtype == y.dtype and x.shape == y.shape and x.tobytes() == y.tobytes()
+                for x, y in zip(a[:4], b[:4]))
+            and len(a[4]) == len(b[4])
+            and all(list(a[4][r]) == list(b[4][r]) for r in range(len(a[4]))))
+
+
+def _host_ms(fn):
+    """(fn(), its host wall in ms)."""
+    t0 = time.perf_counter()
+    out = fn()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _pack_both(matcher, traces, T, reps=1):
+    """(columnar pack, legacy pack, columnar ms, legacy ms) of ``traces``
+    at T: ``extract_columns`` + ``_fill_rows(cols=...)`` against
+    ``_fill_rows(cols=None)``, held equal bit for bit; each wall the
+    median of ``reps``, taken in turns."""
+    from reporter_tpu_torch.matching.columnar import extract_columns
+
+    idxs = list(range(len(traces)))
+    walls = ([], [])
+    for _ in range(reps):
+        got, ms = _host_ms(lambda: matcher._fill_rows(traces, idxs, T,
+                                                      extract_columns(traces)))
+        legacy, legacy_ms = _host_ms(lambda: matcher._fill_rows(traces, idxs, T))
+        walls[0].append(ms)
+        walls[1].append(legacy_ms)
+    check(_packs_equal(got, legacy), "the columnar pack of %dx%d equals the legacy loop's "
+          "bit for bit" % (len(traces), T))
+    return got, legacy, statistics.median(walls[0]), statistics.median(walls[1])
+
+
+def _records_delta(fn):
+    """``fn()`` and how many association calls it made through the
+    records extension and through the Python loop."""
+    from reporter_tpu_torch.matching import assoc_native as A
+
+    e0, p0 = A.records_ext_calls, A.records_py_calls
+    out = fn()
+    return out, A.records_ext_calls - e0, A.records_py_calls - p0
+
+
+def ragged_traces(traces, seed=25):
+    """Copies of ``traces`` cut to seeded lengths 1-16, their times int on
+    every third trace, mixed int and float on the next, float on the
+    rest."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for i, tr in enumerate(traces):
+        pts = [dict(p) for p in tr["trace"][:int(rng.integers(1, 17))]]
+        for j, p in enumerate(pts):
+            if i % 3 == 0 or (i % 3 == 1 and j % 2 == 0):
+                p["time"] = int(p["time"])
+        out.append(dict(tr, uuid="%s/r" % tr["uuid"], trace=pts))
+    return out
+
+
+def host_pack_paths(matcher, traces64, traces256, traces2048):
+    """Phase 25 (1): ``match_many`` on the card with host_pack on and off,
+    equal wire on the bucketed and long paths, and one 512-session x
+    4-point slab step through ``match_sessions``, equal packed output, aux
+    and beams."""
+    from dataclasses import replace
+
+    import numpy as np
+
+    from reporter_tpu_torch.matching import SegmentMatcher
+    from reporter_tpu_torch.matching.arena import carry_host
+
+    def mk(hp, **kw):
+        m = SegmentMatcher(arrays=matcher.arrays, ubodt=matcher.ubodt, device=matcher.device,
+                           config=replace(matcher.cfg, host_pack=hp, **kw))
+        check(m._host_pack is hp, "host_pack %s" % hp)
+        return m
+
+    off = mk(False)
+    walls = {}
+    for name, trs in (("bucketed", traces64 + traces256), ("long", traces2048)):
+        t0 = time.perf_counter()
+        a = matcher.match_many(trs)
+        t1 = time.perf_counter()
+        b = off.match_many(trs)
+        walls[name] = {"host_pack_s": t1 - t0, "legacy_s": time.perf_counter() - t1}
+        check(_wire(a) == _wire(b), "%s match_many: host_pack on and off give equal wire"
+              % name)
+    items = [{"points": tr["trace"][:4], "carry": None, "t0": float(tr["trace"][0]["time"]),
+              "pkey": (), "uuid": "hp-%d" % i} for i, tr in enumerate(traces64)]
+    outs = []
+    for hp in (True, False):
+        m = mk(hp, session_arena=True)
+        t0 = time.perf_counter()
+        res = m.match_sessions(items)
+        walls["session_%s" % ("host_pack" if hp else "legacy")] = time.perf_counter() - t0
+        outs.append([(r[0], r[1], carry_host(r[2])) for r in res])
+    for (ra, xa, ca), (rb, xb, cb) in zip(*outs):
+        check(all(np.asarray(u).tobytes() == np.asarray(v).tobytes() for u, v in zip(ra, rb))
+              and np.asarray(xa).tobytes() == np.asarray(xb).tobytes()
+              and all(np.asarray(ca[k]).tobytes() == np.asarray(cb[k]).tobytes() for k in ca),
+              "the slab step's output, aux and beam equal with host_pack on and off")
+    print("host_pack on and off: equal wire on the bucketed (%d traces) and long (%dx%d) "
+          "paths and equal slab steps (%d sessions x 4 points): %s"
+          % (len(traces64) + len(traces256), len(traces2048), len(traces2048[0]["trace"]),
+             len(items), json.dumps(walls)))
+    return walls
+
+
+def records_phase(matcher, traces, T):
+    """Phase 25 (2): the association output of one bucketed batch; the
+    records extension's ``build_records`` against the port's Python loop
+    on the same columns, byte for byte through json.dumps, both timed."""
+    import numpy as np
+
+    from reporter_tpu_torch import native
+    from reporter_tpu_torch.matching import assoc_native as A
+    from reporter_tpu_torch.matching.columnar import extract_columns
+
+    B = len(traces)
+    px, py, tm, valid, times = matcher._fill_rows(traces, list(range(B)), T,
+                                                  extract_columns(traces))
+    (edge, offset, breaks), _aux = matcher._collect_batch(
+        matcher._dispatch_batch(px, py, tm, valid))
+    abs_tm, n_pts = np.zeros((B, T)), np.zeros(B, np.int32)
+    times.fill_abs(abs_tm, n_pts)
+    cols = A.association_columns(
+        matcher.arrays, matcher.ubodt, edge[:B], offset[:B], breaks[:B], abs_tm, n_pts,
+        matcher.cfg.queue_speed_threshold_kph / 3.6, 2.0 * matcher.cfg.sigma_z + 5.0,
+        native.require_lib())
+    ext = native.require_records_ext()
+    ext_ms, py_ms = [], []
+    for _ in range(5):  # in turns
+        got, ms = _host_ms(lambda: ext.build_records(B, *cols))
+        want, ms2 = _host_ms(lambda: A.records_py(B, *cols))
+        ext_ms.append(ms)
+        py_ms.append(ms2)
+    check(json.dumps(got) == json.dumps(want), "build_records equals the Python loop at "
+          "%dx%d" % (B, T))
+    out = {"records": sum(len(r) for r in got), "ext_ms": statistics.median(ext_ms),
+           "python_ms": statistics.median(py_ms), "ext_ms_all": ext_ms,
+           "python_ms_all": py_ms}
+    print("records %dx%d: %d records, build_records %.2f ms, the Python loop %.2f ms "
+          "(medians of 5 in turns: %s / %s), equal through json.dumps"
+          % (B, T, out["records"], out["ext_ms"], out["python_ms"],
+             ", ".join("%.2f" % v for v in ext_ms), ", ".join("%.2f" % v for v in py_ms)))
+    return out
+
+
+def binary_ingress(matcher, traces):
+    """Phase 25 (3): ``traces`` as one binary (RPTC)
+    /trace_attributes_batch and as JSON through the port's server: equal
+    answers, the binary request packed from the side channel with no
+    point dict walked, no ``_columns`` in any body."""
+    from reporter_tpu_torch.matching import columnar
+    from reporter_tpu_torch.serve import wire
+
+    body = {"traces": traces}
+    served = _Served(matcher)
+    try:
+        t0 = time.perf_counter()
+        code, _h, js = _post_raw(served.port, "/trace_attributes_batch",
+                                 json.dumps(body).encode(),
+                                 {"Content-Type": "application/json"})
+        t1 = time.perf_counter()
+        check(code == 200, "JSON /trace_attributes_batch status %s" % code)
+        frame = wire.encode_request(body)
+        before = dict(columnar.COUNTS)
+        t2 = time.perf_counter()
+        code, _h, raw = _post_raw(served.port, "/trace_attributes_batch", frame,
+                                  {"Content-Type": wire.CONTENT_TYPE})
+        t3 = time.perf_counter()
+        delta = {k: columnar.COUNTS[k] - before[k] for k in before}
+        check(code == 200, "binary /trace_attributes_batch status %s" % code)
+        _c, _h, traced = _post_raw(served.port, "/debug/traces?n=512", None, {})
+    finally:
+        served.close()
+    check(delta == {"side_channel": len(traces), "walked": 0},
+          "the binary batch packed from the side channel, no dict walked: %s" % delta)
+    check(json.loads(raw) == json.loads(js), "the binary batch answers as its JSON twin")
+    check(b"_columns" not in raw and b"_columns" not in js and b"_columns" not in traced,
+          "no response or /debug/traces entry holds _columns")
+    out = {"traces": len(traces), "json_s": t1 - t0, "binary_s": t3 - t2,
+           "json_bytes": len(json.dumps(body)), "binary_bytes": len(frame), **delta}
+    print("binary ingress: %d traces, JSON %d bytes in %.3f s, RPTC %d bytes in %.3f s, "
+          "equal answers; extract_columns took %d traces from the side channel, walked %d"
+          % (len(traces), out["json_bytes"], out["json_s"], out["binary_bytes"],
+             out["binary_s"], delta["side_channel"], delta["walked"]))
+    return out
+
+
+def carry_window_paths(hoisted, traces, what):
+    """Phase 25 (4): ``traces`` (longer than the top bucket) through
+    ``long_precompute=False`` matchers under scan and assoc, through the
+    launch counters: wire equal to the hoisted matcher's of the same
+    forward, the compact [3, B, T] output equal at every column (every
+    seam column included), kernels 1-3 and the chain kernel once a window
+    of the one group, no pre dispatch.  Returns the launch counts by
+    forward."""
+    from dataclasses import replace
+
+    import numpy as np
+
+    from reporter_tpu_torch.matching import SegmentMatcher
+    from reporter_tpu_torch.matching import matcher as M
+
+    W = hoisted.max_trace_points
+    n_win = -(-max(len(t["trace"]) for t in traces) // W)
+    idxs = list(range(len(traces)))
+    launches, walls = {}, {}
+    for kernel in ("scan", "assoc"):
+        def mk(pre):
+            return SegmentMatcher(arrays=hoisted.arrays, ubodt=hoisted.ubodt,
+                                  device=hoisted.device,
+                                  config=replace(hoisted.cfg, long_precompute=pre,
+                                                 viterbi_kernel=kernel))
+        ref = hoisted if kernel == hoisted._kernel_mode else mk(True)
+        leg = mk(False)
+        check(ref._long_pre and not leg._long_pre, "the two long programs")
+        leg.match_many(traces[:1])  # first-call set-up outside the count
+        path, other = _forward(leg, W, True)
+        kernels, absent = _path_kernels(leg, path)
+        fam = M.C_DISPATCH_COHORT
+        d0 = {k: fam.labels("long", k).value for k in ("carry", "pre", "chain")}
+        got, dt, counts = _counted(kernels, lambda: leg.match_many(traces), absent + other)
+        d = {k: fam.labels("long", k).value - d0[k] for k in d0}
+        check(d == {"carry": n_win, "pre": 0, "chain": 0},
+              "one carry dispatch a window, no pre or chain dispatch: %s" % d)
+        if hoisted.device.type == "cuda":
+            check(all(counts[k] == n_win for k in kernels),
+                  "kernels 1-3 and the chain kernel once a window: %s"
+                  % json.dumps({k: counts[k] for k in kernels}))
+        t0 = time.perf_counter()
+        want = ref.match_many(traces)
+        walls[kernel] = {"legacy_s": dt, "hoisted_s": time.perf_counter() - t0}
+        # the legacy program has no aux: its quality blocks carry no margins
+        qg, qw = ([r.pop("_quality", None) for r in rs] for rs in (got, want))
+        check(_wire(got) == _wire(want), "%s %s: the per-window program's wire equals the "
+              "hoisted path's" % (what, kernel))
+        check([q and {k: q[k] for k in ("edge", "n_points", "breaks")} for q in qg]
+              == [q and {k: q[k] for k in ("edge", "n_points", "breaks")} for q in qw],
+              "%s %s: the quality blocks' edges and breaks equal" % (what, kernel))
+        comp = []
+        for m in (ref, leg):
+            (h,) = m._dispatch_long(traces, idxs)
+            group, (edge, offset, breaks), _t, _a = m._fetch_long_aux(h)
+            comp.append((group, edge, offset.view(np.int32), breaks))
+        (ga, *a), (gb, *b) = comp
+        check(ga == gb and all(np.array_equal(x, y) for x, y in zip(a, b)),
+              "%s %s: compact output equal at every column" % (what, kernel))
+        check(all(np.array_equal(x[:, c], y[:, c]) for x, y in zip(a, b)
+                  for c in range(W, a[0].shape[1], W)),
+              "%s %s: compact output equal at every seam column" % (what, kernel))
+        launches[kernel] = counts
+        print("per-window carry %s %dx%d (%d windows of %d, %s): equal to the hoisted "
+              "path, wire and compact; launches %s; legacy %.3f s, hoisted %.3f s"
+              % (what, len(traces), len(traces[0]["trace"]), n_win, W, kernel,
+                 json.dumps({k: counts[k] for k in kernels}), dt, walls[kernel]["hoisted_s"]))
+    return launches, walls
+
+
+def host_plane_phase(matcher, traces64, traces256, traces2048, osm, card=""):
+    """Phase 25: the reference's default host plane and the per-window
+    carry program on the grid city and on phase 17's realistic city
+    (``osm``: its matcher and its 512 x 64 and 16 x 1,024 cohorts)."""
+    t_start = time.perf_counter()
+    om, o64, o1024 = osm
+    # (1) the packer at the path's shapes and on ragged lengths 1-16
+    packs = {}
+    for trs, T in ((traces64, 64), (traces256, 256), (traces2048, 2048),
+                   (ragged_traces(traces64[:256]), 16)):
+        _g, _l, ms, legacy_ms = _pack_both(matcher, trs, T, reps=5)
+        packs["%dx%d" % (len(trs), T)] = {"pack_ms": ms, "pack_legacy_ms": legacy_ms}
+    print("columnar pack equals the legacy loop bit for bit (medians of 5 in turns): %s"
+          % json.dumps(packs))
+    (paths, n_ext, n_py) = _records_delta(
+        lambda: host_pack_paths(matcher, traces64, traces256, traces2048))
+    # (2) the records extension against the Python loop
+    records = {"%dx%d" % (len(t), T): records_phase(matcher, t, T)
+               for t, T in ((traces64, 64), (traces256, 256))}
+    # (3) binary ingress on the realistic city
+    (ingress, e2, p2) = _records_delta(lambda: binary_ingress(om, o64[:64]))
+    # (4) the per-window carry program
+    (carry, e3, p3) = _records_delta(lambda: (
+        carry_window_paths(matcher, traces2048, "grid"),
+        carry_window_paths(om, o1024, "osm")))
+    counts = {"records_ext_calls": n_ext + e2 + e3, "records_py_calls": n_py + p2 + p3}
+    check(counts["records_ext_calls"] > 0 and counts["records_py_calls"] == 0,
+          "every association call of phase 25 took the records extension: %s" % counts)
+    out = {"pack": packs, "paths": paths, "records": records, "ingress": ingress,
+           "carry_launches": {"grid": carry[0][0], "osm": carry[1][0]},
+           "carry_walls": {"grid": carry[0][1], "osm": carry[1][1]}, **counts,
+           "wall_s": time.perf_counter() - t_start, "card": card}
+    walls = {"pack_ms": packs, "paths_s": paths,
+             "records_ms": {k: {f: r[f] for f in ("ext_ms", "python_ms")}
+                            for k, r in records.items()},
+             "ingress_s": {f: ingress[f] for f in ("json_s", "binary_s")},
+             "carry_s": out["carry_walls"]}
+    print("phase 25 walls on %s: %s" % (card, json.dumps(walls)))
+    print("phase 25 counters: %s; wall %.1f s on %s" % (json.dumps(counts), out["wall_s"],
+                                                       card))
+    return out
 
 
 def parent_kernels(parent, tag):
@@ -7907,6 +8251,7 @@ def main(pair=()):
     # 12's misses there beside the grid city's; phases 18-22 on it
     osm = osm_phases(device, grid_misses=probe_misses(matcher, xin64),
                      card=smi.splitlines()[0])
+    osm_ctx = osm.pop("_ctx")
     quiet("phases 17-22")
 
     # the sparse-gap model: cohorts A (every 9th point of the 512 x 64
@@ -8099,6 +8444,15 @@ def main(pair=()):
         multihost = multihost_phase(device)
         quiet("phase 24")
 
+    # the reference's default host plane (the columnar packer, binary
+    # ingress into it, the records extension) and the per-window carry
+    # program, on the grid and the realistic city
+    with phase(25):
+        host_plane = host_plane_phase(matcher, traces64, traces256, traces2048, osm_ctx,
+                                      smi.splitlines()[0])
+        del osm_ctx
+        quiet("phase 25")
+
     # launches over the counted runs of every path but serve's; kernels
     # 1-4's times and bounds at 512 x 64, max_abs_err over both bucketed
     # shapes, the session step's and the sparse cohorts A and B (K = 16),
@@ -8111,7 +8465,8 @@ def main(pair=()):
             *assoc["launches"]["auto"].values(),
             *(v for k, v in tiered["launches"].items() if k != "serve"),
             *mesh["launches"].values(), *mt_launches.values(),
-            *(v for k, v in osm["launches"].items() if k != "serve")]
+            *(v for k, v in osm["launches"].items() if k != "serve"),
+            *(v for c in host_plane["carry_launches"].values() for v in c.values())]
     total = {k: sum(r[k] for r in runs) for k in launches}
     # kernels 1-5 on the realistic city: its times, bounds and launches
     # beside the grid's (phase 17)
@@ -8266,6 +8621,7 @@ def main(pair=()):
         "mesh_tiering": {"kernels": mesh_tier_rows, "ranks": mesh_tier_info,
                          "launches": mt_launches, "s": mt_walls, "summary": mt_summ},
         "multihost": multihost,
+        "host_plane": host_plane,
         "osm": osm,
         "floor_ms": floor_ms,
         "metro_reports": n_reports, "peak_memory_mb": torch.cuda.max_memory_allocated() / 1e6,

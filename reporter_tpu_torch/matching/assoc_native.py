@@ -4,19 +4,34 @@ wire-format segment records, for a whole device batch.
 One call of the native core (``rn_associate_batch_mt``, rows fanned over
 C++ threads with the GIL released), falling back to the Python walk in
 matching/segments.py point for point when the native library is not
-available.  Both produce identical records; rounding happens here, after
-the raw doubles come back, so the wire format is the same either way.
+available.  The native core returns columns; the records extension
+(``native/records_ext.c``'s ``build_records``) turns them into the
+wire-format list of record dicts in C, and where it is unavailable, or
+rejects its buffers (logged), the Python loop ``records_py`` does.  All
+produce identical records: the same key order, rounding by the builtin
+round() on the raw doubles.  ``records_ext_calls`` and
+``records_py_calls`` count the two ways.
 """
 
 from __future__ import annotations
 
 import ctypes
+import logging
+import threading
 from typing import List, Sequence
 
 import numpy as np
 
-from ..native import get_lib
+from ..native import get_lib, get_records_ext
 from .segments import associate_segments
+
+log = logging.getLogger(__name__)
+
+# association calls whose records the extension built / the Python loop
+# built (read by the smoke run and the tests)
+records_ext_calls = 0
+records_py_calls = 0
+_count_lock = threading.Lock()
 
 
 def _fallback(arrays, ubodt, edge, offset, breaks, times, n_points,
@@ -54,14 +69,45 @@ def associate_segments_batch(
     lib=None,
 ) -> List[List[dict]]:
     """One wire-format segments list per batch row."""
-    B, T = edge.shape
     n_pts = np.ascontiguousarray(n_points, np.int32)
     if lib is None:
         lib = get_lib()
     if lib is None:
         return _fallback(arrays, ubodt, edge, offset, breaks, times, n_pts,
                          queue_thresh_mps, back_tol)
+    cols = association_columns(arrays, ubodt, edge, offset, breaks, times,
+                               n_pts, queue_thresh_mps, back_tol, lib)
+    return build_records(edge.shape[0], *cols)
 
+
+def build_records(B: int, *cols) -> List[List[dict]]:
+    """The records of ``association_columns``' columns: through the
+    records extension, else (unavailable, or its buffer checks refuse the
+    columns: logged) the Python loop; each way counted."""
+    global records_ext_calls, records_py_calls
+    ext = get_records_ext()
+    if ext is not None:
+        try:
+            out = ext.build_records(B, *cols)
+        except (TypeError, ValueError):
+            log.warning("records extension rejected its inputs; using the "
+                        "Python loop", exc_info=True)
+        else:
+            with _count_lock:
+                records_ext_calls += 1
+            return out
+    with _count_lock:
+        records_py_calls += 1
+    return records_py(B, *cols)
+
+
+def association_columns(arrays, ubodt, edge, offset, breaks, times, n_pts,
+                        queue_thresh_mps: float, back_tol: float, lib):
+    """One ``rn_associate_batch_mt`` call -> the record columns
+    (rec_start [B+1], has_seg, seg_id, t0, t1, length, internal, qlen,
+    bshape, eshape [n_rec], way_start [n_rec+1], way_ids), the argument
+    order of ``build_records``."""
+    B, T = edge.shape
     m_edge = np.ascontiguousarray(edge, np.int32)
     m_off = np.ascontiguousarray(offset, np.float32)
     m_brk = np.ascontiguousarray(breaks, np.uint8)
@@ -118,8 +164,17 @@ def associate_segments_batch(
         out_cap = max(out_cap * 2, int(need_rec.value))
         way_cap = max(way_cap * 2, int(need_way.value))
 
-    # bulk-convert columns to Python scalars once; rounding is the builtin
-    # round() on Python floats, as in the Python walk
+    n_rec = int(rec_start[B])
+    return (rec_start, has_seg[:n_rec], seg_id[:n_rec], t0[:n_rec], t1[:n_rec],
+            length[:n_rec], internal[:n_rec], qlen[:n_rec], bshape[:n_rec],
+            eshape[:n_rec], way_start[: n_rec + 1], way_ids)
+
+
+def records_py(B: int, rec_start, has_seg, seg_id, t0, t1, length, internal,
+               qlen, bshape, eshape, way_start, way_ids) -> List[List[dict]]:
+    """``build_records`` in Python: the columns bulk-converted to Python
+    scalars once, rounding by the builtin round() on Python floats, as in
+    the Python walk."""
     n_rec = int(rec_start[B])
     rsl = rec_start.tolist()
     wsl = way_start[: n_rec + 1].tolist()

@@ -21,11 +21,12 @@ override them), the session arena's byte budgets
 route-consistent interpolation (``interpolate``, ``$REPORTER_INTERPOLATE``)
 and the device mesh (``devices``, ``graph_devices``; ``$REPORTER_DEVICES``
 and ``$REPORTER_GRAPH_DEVICES`` override them) and the service's degraded
-CPU fallback (``cpu_fallback``).  ``from_dict`` drops the keys of the
-reference's config that belong to paths this port does not carry yet (the
-host packer, the legacy fused long program) with one warning per key per
-process; ``warmup_batch_sizes`` sets the rungs ``SegmentMatcher.warmup``
-dispatches.
+CPU fallback (``cpu_fallback``), the columnar host packer (``host_pack``,
+``$REPORTER_HOST_PACK``) and the long-trace program (``long_precompute``,
+``$REPORTER_LONG_PRECOMPUTE``).  Every field of the reference's config is
+one of these; ``from_dict`` drops any other key with one warning per key
+per process.  ``warmup_batch_sizes`` sets the rungs
+``SegmentMatcher.warmup`` dispatches.
 """
 
 from __future__ import annotations
@@ -79,6 +80,14 @@ class MatcherConfig:
     # answers up to float ties
     viterbi_kernel: str = "scan"
     viterbi_assoc_threshold: int = 256
+    # long-trace carry chain: True = hoist the carry-independent work
+    # (candidate sweep, emissions, the [W-1, K, K] transition build) out of
+    # the per-window carry loop and dispatch it batched across all windows
+    # of a trace group, leaving only the score recursion to chain; False =
+    # the legacy per-window program, kernels 1-3 and the chain kernel once
+    # a window.  $REPORTER_LONG_PRECOMPUTE=0|1 overrides it at matcher
+    # construction
+    long_precompute: bool = True
     # per-trace confidence diagnostics: match results carry a "_quality"
     # block (per-point edges, winner-vs-runner-up margins, pool
     # exhaustion) that the service pops before rendering; the serve
@@ -121,6 +130,12 @@ class MatcherConfig:
     # route-consistent interpolation (matching/sparse.py): boundary times
     # by free-flow speed; match_options.interpolate overrides per trace
     interpolate: bool = False
+    # columnar host packing (matching/columnar.py): pack the padded device
+    # batches with one vectorized scatter over flat per-point columns
+    # instead of the legacy per-trace Python loop.  Bit-identical output,
+    # so it defaults on; False (or $REPORTER_HOST_PACK=0) keeps the legacy
+    # loop as the differential reference
+    host_pack: bool = True
     # the device mesh (parallel/mesh.py): ``devices`` ranks in all, the
     # trace batch split over devices // graph_devices dp ranks and the
     # UBODT's bucket ranges over graph_devices gp ranks; both powers of

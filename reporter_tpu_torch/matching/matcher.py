@@ -16,11 +16,20 @@ each per-chunk dispatch of the windowed and session paths, and
 ``device_hang`` at the top of both ``finish()`` closures, where the
 reference has them; ``dummy_traces`` is the re-attach probe's input.
 
+Packing is columnar (``host_pack``, ``$REPORTER_HOST_PACK`` read at
+construction; ``matching/columnar.py``): each call walks its point dicts
+once, or not at all for traces the binary wire decoded, and every group
+packs with one scatter a column; with it off the per-row loop packs, bit
+for bit the same.
+
 Traces longer than the largest bucket stream through fixed windows of that
 length with carried Viterbi state (``_dispatch_long``): kernels 1-3 run
 once over all of a group's windows, then kernel 5 chains the beam window
-to window.  ``match_sessions[_async]`` folds the newly arrived points of
-many per-vehicle sessions into fixed [B, W] session steps, the carried
+to window.  With ``long_precompute`` off (``$REPORTER_LONG_PRECOMPUTE=0``)
+a dense group runs the reference's legacy per-window program instead,
+kernels 1-3 and the chain kernel once a window, with the same answers.
+``match_sessions[_async]`` folds the newly arrived points of many
+per-vehicle sessions into fixed [B, W] session steps, the carried
 beams on the host or, with ``session_arena``, in a device slab updated in
 place (``matching/arena.py``).
 
@@ -122,9 +131,10 @@ from ..ops.diagnostics import ubodt_probe_stats
 from ..ops.hashtable import DEDUP
 from ..ops.viterbi import (
     NEG_INF, MatchParams, TraceCarry, chain_batch_carry_packed_aux,
-    initial_carry_batch, match_batch_compact_packed_aux, pack_inputs,
-    precompute_batch_packed, session_step_arena, session_step_arena_mesh,
-    session_step_packed, slice_pre, unpack_compact,
+    initial_carry_batch, match_batch_carry_packed,
+    match_batch_compact_packed_aux, pack_inputs, precompute_batch_packed,
+    session_step_arena, session_step_arena_mesh, session_step_packed,
+    slice_pre, unpack_compact,
 )
 from ..ops import collectives
 from ..parallel.mesh import Mesh, make_mesh, make_mesh2, place
@@ -134,6 +144,7 @@ from ..tiles.tiering import TieredTable, parse_shard
 from ..tiles.ubodt import LAYOUTS, UBODT, build_ubodt
 from .arena import SessionArena, carry_host
 from .assoc_native import associate_segments_batch
+from .columnar import PackedTimes, extract_columns
 from .config import MatcherConfig
 from .sparse import SparseModel, associate_interpolated, clamp_radius
 
@@ -223,6 +234,13 @@ def _bucket_for(buckets, n: int) -> int:
     return b
 
 
+def _env_flag(name: str, default) -> bool:
+    """$name read as a switch (0 / false / off / no = off), else
+    ``default``."""
+    env = os.environ.get(name, "").strip().lower()
+    return env not in ("0", "false", "off", "no") if env else bool(default)
+
+
 def _pad_rows(pad: int, *arrays):
     """Append ``pad`` all-zero (= all-invalid) rows to each [B, ...] array."""
     return tuple(np.concatenate([a, np.zeros((pad,) + a.shape[1:], a.dtype)])
@@ -285,9 +303,13 @@ class SegmentMatcher:
         self._quality_aux = bool(self.cfg.quality_aux)
         # route-consistent interpolation default; a request's
         # match_options.interpolate overrides it either way
-        env_ip = os.environ.get("REPORTER_INTERPOLATE", "").strip().lower()
-        self._interpolate = (env_ip not in ("0", "false", "off", "no") if env_ip
-                             else bool(self.cfg.interpolate))
+        self._interpolate = _env_flag("REPORTER_INTERPOLATE", self.cfg.interpolate)
+        # the columnar host packer (matching/columnar.py; bit-identical to
+        # the legacy per-row loop) and the long-trace program (hoisted
+        # precompute, or the legacy per-window carry program)
+        self._host_pack = _env_flag("REPORTER_HOST_PACK", self.cfg.host_pack)
+        self._long_pre = _env_flag("REPORTER_LONG_PRECOMPUTE",
+                                   self.cfg.long_precompute)
         # the tiered table: $REPORTER_UBODT_HOT_BYTES (or ubodt_hot_bytes)
         # > 0 keeps only a hot arena of bucket rows on the device, the full
         # table in pinned host memory (tiles/tiering.py; same answers);
@@ -445,10 +467,7 @@ class SegmentMatcher:
         if layout not in LAYOUTS:
             raise ValueError("REPORTER_UBODT_LAYOUT/ubodt_layout must be "
                              "cuckoo|wide32, got %r" % (layout,))
-        env = os.environ.get("REPORTER_PROBE_DEDUP", "").strip().lower()
-        dedup = (env not in ("0", "false", "off", "no") if env
-                 else bool(self.cfg.probe_dedup))
-        return layout, dedup
+        return layout, _env_flag("REPORTER_PROBE_DEDUP", self.cfg.probe_dedup)
 
     def _kernel_for(self, T: int) -> str:
         """The Viterbi forward for padded window length T: the configured
@@ -617,11 +636,15 @@ class SegmentMatcher:
             out["session_arena"] = self.session_arena.summary()
         return out
 
-    def _fill_rows(self, traces, idxs, T):
-        """Pack traces[idxs] into padded [B, T] arrays + per-row times (the
-        reference's per-row loop; times rebase to the trace start before
-        the float32 cast, since epoch seconds have ~2 min float32
-        resolution)."""
+    def _fill_rows(self, traces, idxs, T, cols=None):
+        """Pack traces[idxs] into padded [B, T] arrays + per-row times.
+        With ``cols`` (the call's ``TraceColumns``) one scatter per column,
+        times a ``PackedTimes``; without, the reference's per-row loop, the
+        differential reference.  Bit-identical either way: times rebase to
+        the trace start before the float32 cast, since epoch seconds have
+        ~2 min float32 resolution."""
+        if cols is not None:
+            return self._skew_rows(*cols.pack(self.arrays.proj, idxs, T))
         B = len(idxs)
         px = np.zeros((B, T), np.float32)
         py = np.zeros((B, T), np.float32)
@@ -803,6 +826,14 @@ class SegmentMatcher:
         buckets: Dict[tuple, List[int]] = {}
         long_map: Dict[tuple, List[int]] = {}
         interp = self._interp_indices(traces)
+        # the columnar host plane: every point dict walked once here (not
+        # at all for a trace the binary wire decoded), each group below
+        # packed with one scatter
+        cols = None
+        if self._host_pack:
+            t0h = time.monotonic()
+            cols = extract_columns(traces)
+            obs_attrib.host_add("pack", time.monotonic() - t0h)
         for i, tr in enumerate(traces):
             n = len(tr["trace"])
             if n == 0:
@@ -837,7 +868,7 @@ class SegmentMatcher:
 
         for pkey, slabel, blen, idxs in chunks:
             t0h = time.monotonic()
-            px, py, tm, valid, times = self._fill_rows(traces, idxs, blen)
+            px, py, tm, valid, times = self._fill_rows(traces, idxs, blen, cols)
             px, py, tm, valid = _pad_rows(
                 self._rung(len(idxs)) - len(idxs), px, py, tm, valid)
             t1h = time.monotonic()
@@ -855,7 +886,7 @@ class SegmentMatcher:
             if slabel:
                 self.sparse.count(slabel, len(lidx))
             long_handles.extend(self._dispatch_long(traces, lidx, pkey,
-                                                    slabel))
+                                                    slabel, cols))
 
         def finish() -> List[dict]:
             # fault seam: a wedged device step, inside the blocking finish
@@ -873,14 +904,15 @@ class SegmentMatcher:
 
     # -- long traces: fixed windows with carried Viterbi state ---------------
 
-    def _dispatch_long(self, traces, idxs, pkey: tuple = (), slabel: str = ""):
+    def _dispatch_long(self, traces, idxs, pkey: tuple = (), slabel: str = "",
+                       cols=None):
         """Queue the carry chains of traces longer than the largest bucket,
         in groups of up to ``_device_cap(W)`` traces (longest first, so a
         group's rows need similar window counts; a sparse cohort's cap
         shrinks by its K), and return one handle per group for
         ``_fetch_long_aux``.  Nothing blocks except the bound on what waits
         on the device: before group k is queued, group k-2's deferred
-        outputs are fetched."""
+        outputs are fetched.  ``cols``: the call's ``TraceColumns``."""
         W = self.max_trace_points
         cap = self._device_cap(W * self._sparse_row_factor(slabel, pkey))
         order = sorted(idxs, key=lambda i: -len(traces[i]["trace"]))
@@ -893,8 +925,10 @@ class SegmentMatcher:
                     handles[-2] = (grp, parts, None, tms, aux)
             group = order[g: g + cap]
             n_chunks = -(-max(len(traces[i]["trace"]) for i in group) // W)
+            t0h = time.monotonic()
             px, py, tm, valid, times = self._fill_rows(traces, group,
-                                                       n_chunks * W)
+                                                       n_chunks * W, cols)
+            obs_attrib.host_add("pack", time.monotonic() - t0h)
             px, py, tm, valid = _pad_rows(
                 self._rung(len(group)) - len(group), px, py, tm, valid)
             host_parts, outs, aux = self._dispatch_long_group(
@@ -919,8 +953,12 @@ class SegmentMatcher:
         device in window order, and the group's [B_pad, 4] aux folded
         across seams (min / + / + / +).  A sparse cohort (``slabel``) runs
         the sparse pre and chain programs with its own parameters and K
-        in place of ``p``.  On a mesh each dp rank runs its block of rows'
-        windows and the outputs join on rank 0's device."""
+        in place of ``p``.  With ``long_precompute`` off a dense group
+        runs the legacy per-window program instead
+        (``match_batch_carry_packed``: kernels 1-3 and the chain kernel
+        once a window) and its aux is None.  On a mesh each dp rank runs
+        its block of rows' windows and the outputs join on rank 0's
+        device."""
         if self._mesh is None:
             return self._long_group(self._dg, self._du, self.device, xin,
                                     n_chunks, W, p, pkey, slabel)
@@ -935,7 +973,9 @@ class SegmentMatcher:
                             for f in range(3))
                       for wave in zip(*(pt[0] for pt in parts))]
         outs = [_join(win, 1) for win in zip(*(pt[1] for pt in parts))]
-        return host_parts, outs, _join([pt[2] for pt in parts], 0)
+        aux = (None if parts[0][2] is None
+               else _join([pt[2] for pt in parts], 0))
+        return host_parts, outs, aux
 
     def _long_group(self, dg, du, dev, xin: np.ndarray, n_chunks: int, W: int,
                     p: MatchParams, pkey: tuple = (), slabel: str = "",
@@ -953,6 +993,29 @@ class SegmentMatcher:
         outs: list = []
         host_parts: list = []
         aux = None
+
+        def bank(packed):
+            outs.append(packed)
+            if len(outs) >= MAX_DEFERRED_CHUNKS:
+                host_parts.append(unpack_compact(torch.cat(outs, 2).cpu().numpy()))
+                outs.clear()
+
+        if not self._long_pre and not slabel:
+            # the legacy per-window program: kernels 1-3 and the chain
+            # kernel once a window, no aux (a sparse cohort always takes
+            # the hoisted path, as in the reference)
+            for c in range(n_chunks):
+                seg = upload(xin[:, :, c * W:(c + 1) * W], dev)
+                t0 = time.monotonic()
+                packed, carry = match_batch_carry_packed(dg, du, seg, p, k, carry,
+                                                         kernel)
+                if count:
+                    C_DISPATCHES.labels(kernel).inc()
+                    C_DISPATCH_COHORT.labels("long", "carry").inc()
+                    self._note_dispatch((B_pad * self._n_dp, W),
+                                        time.monotonic() - t0, "carry", kernel)
+                bank(packed)
+            return host_parts, outs, None
         rows_all = np.ascontiguousarray(
             xin.reshape(4, B_pad, n_chunks, W).transpose(0, 2, 1, 3)
             .reshape(4, n_chunks * B_pad, W))
@@ -990,11 +1053,7 @@ class SegmentMatcher:
                 aux = aux_c if aux is None else torch.cat(
                     [torch.minimum(aux[:, :1], aux_c[:, :1]),
                      aux[:, 1:] + aux_c[:, 1:]], 1)
-                outs.append(packed)
-                if len(outs) >= MAX_DEFERRED_CHUNKS:
-                    host_parts.append(unpack_compact(
-                        torch.cat(outs, 2).cpu().numpy()))
-                    outs.clear()
+                bank(packed)
         return host_parts, outs, aux
 
     def _fetch_long_aux(self, handle):
@@ -1007,7 +1066,8 @@ class SegmentMatcher:
         res = tuple(np.concatenate([p[f] for p in parts], axis=1)
                     for f in range(3))
         self._harvest()
-        return group, res, times, aux.cpu().numpy()[: len(group)]
+        return group, res, times, (None if aux is None
+                                   else aux.cpu().numpy()[: len(group)])
 
     def _associate_and_store(self, idxs, edge, offset, breaks, times, results,
                              aux=None, interp=None):
@@ -1021,9 +1081,12 @@ class SegmentMatcher:
         T = edge.shape[1]
         abs_tm = np.zeros((B, T), np.float64)
         n_pts = np.zeros(B, np.int32)
-        for row in range(B):
-            n_pts[row] = len(times[row])
-            abs_tm[row, : n_pts[row]] = times[row]
+        if isinstance(times, PackedTimes):
+            times.fill_abs(abs_tm, n_pts)
+        else:
+            for row in range(B):
+                n_pts[row] = len(times[row])
+                abs_tm[row, : n_pts[row]] = times[row]
         seg_lists = associate_segments_batch(
             self.arrays, self.ubodt,
             edge[:B], offset[:B], breaks[:B], abs_tm, n_pts,
@@ -1075,11 +1138,16 @@ class SegmentMatcher:
         baseline's wide steps) the next power of two."""
         return _bucket_for(self.cfg.session_buckets, n)
 
-    def _fill_session_rows(self, items, idxs, W):
+    def _fill_session_rows(self, items, idxs, W, cols=None):
         """Pack items[idxs]' points into padded [B, W] arrays.  Times rebase
         against each session's own t0 (not the step's first point), so the
         carried beam's float32 time frame stays coherent across the
-        session."""
+        session.  With ``cols`` (the call's ``TraceColumns`` over the
+        items' points) one scatter per column, else the per-row loop."""
+        if cols is not None:
+            t0 = np.array([float(items[i]["t0"]) for i in idxs], np.float64)
+            px, py, tm, valid, times = cols.pack(self.arrays.proj, idxs, W, t0=t0)
+            return px, py, tm, valid, [int(n) for n in times.lens]
         B = len(idxs)
         px, py, tm = (np.zeros((B, W), np.float32) for _ in range(3))
         valid = np.zeros((B, W), bool)
@@ -1151,6 +1219,11 @@ class SegmentMatcher:
         points, as in the reference: no carry in, none out (carry None),
         aux None, and a wide step is one wider window."""
         w_max = int(self.cfg.session_buckets[-1])
+        scols = None
+        if self._host_pack:
+            t0h = time.monotonic()
+            scols = extract_columns(items, key="points")
+            obs_attrib.host_add("pack", time.monotonic() - t0h)
         groups: Dict[tuple, List[int]] = {}
         handles = []
         for i, it in enumerate(items):
@@ -1170,7 +1243,9 @@ class SegmentMatcher:
                 sub = idxs[g: g + cap]
                 # the windowed dispatch's fault seam, per session chunk
                 faults.maybe_raise("ubodt_probe")
-                px, py, tm, valid, ns = self._fill_session_rows(items, sub, W)
+                t0h = time.monotonic()
+                px, py, tm, valid, ns = self._fill_session_rows(items, sub, W, scols)
+                obs_attrib.host_add("pack", time.monotonic() - t0h)
                 if self.backend == "cpu":
                     handles.append(("cpu", sub, ns, self._cpu_for(pkey).run_batch(
                         px, py, tm, valid)))
@@ -1421,7 +1496,8 @@ class SegmentMatcher:
                        dispatch (kernels 1-3 over the windows) and the
                        carried chain (kernel 5) at [1, W]; on a dp mesh a
                        4-window trace too, whose pre rows land on a higher
-                       ladder rung
+                       ladder rung.  With ``long_precompute`` off, the one
+                       per-window carry program at [1, W]
           session_step also warm the per-vehicle session steps: one (batch
                        rung, session bucket) grid through match_sessions
                        (on the slab when the arena is on; the throwaway
@@ -1465,15 +1541,18 @@ class SegmentMatcher:
         if carry_chain and self.cfg.length_buckets:
             w = int(self.cfg.length_buckets[-1])
             self.match_many(_dummy_traces(2 * w, 1))
-            # two programs: the chain above and the kernel-independent
-            # chunk-batched pre dispatch
-            n_shapes += 2
+            n_shapes += 1
             C_WARM_SHAPES.labels(self._kernel_for(w)).inc()
-            C_WARM_SHAPES.labels("none").inc()
-            if self._n_dp > 1:
-                self.match_many(_dummy_traces(4 * w, 1))
+            if self._long_pre:
+                # the hoisted path dispatched a second program: the
+                # kernel-independent chunk-batched pre dispatch; on a dp
+                # mesh a 4-window trace's pre rows land on a higher rung
                 n_shapes += 1
                 C_WARM_SHAPES.labels("none").inc()
+                if self._n_dp > 1:
+                    self.match_many(_dummy_traces(4 * w, 1))
+                    n_shapes += 1
+                    C_WARM_SHAPES.labels("none").inc()
         if session_step:
             for w in (self.cfg.session_buckets or (4, 16)):
                 w = max(1, int(w))

@@ -13,6 +13,15 @@ source at the repository root is compiled with ``g++`` into
 the UBODT build, association and the shard parser then run their Python
 versions, which produce identical output.  ``require_lib()`` raises instead, for callers that
 cannot afford the Python UBODT build (a metro-scale table).
+
+The records extension (``native/records_ext.c``, a CPython extension:
+``build_records`` turns association's columns into the wire-format list of
+record dicts) is compiled with ``gcc`` against the interpreter's headers
+into ``build/reporter_tpu_torch/_records<EXT_SUFFIX>`` and loaded from
+there by file location, never from ``native/``.  ``get_records_ext()``
+returns None (once logged) when it cannot be built or loaded, and
+association then runs its Python loop, with identical records;
+``require_records_ext()`` raises with the compiler's output instead.
 """
 
 from __future__ import annotations
@@ -21,6 +30,7 @@ import ctypes
 import logging
 import os
 import shutil
+import sysconfig
 import threading
 from typing import Optional
 
@@ -32,6 +42,9 @@ log = logging.getLogger(__name__)
 
 SRC = os.path.join(REPO_ROOT, "native", "reporter_native.cc")
 LIB = os.path.join(BUILD_DIR, "libreporter_native.so")
+RECORDS_SRC = os.path.join(REPO_ROOT, "native", "records_ext.c")
+RECORDS_EXT = os.path.join(
+    BUILD_DIR, "_records" + (sysconfig.get_config_var("EXT_SUFFIX") or ".so"))
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -92,7 +105,13 @@ _SYMBOLS = {
 
 
 def build_jobs() -> dict:
-    """{library: (g++ argv, sources)} (``_build.build_all`` input)."""
+    """{library: (compiler argv, sources)} (``_build.build_all`` input):
+    the native core and the records extension."""
+    return {**core_job(), **records_job(RECORDS_SRC, RECORDS_EXT)}
+
+
+def core_job() -> dict:
+    """{native core: (g++ argv, sources)}."""
     cxx = shutil.which("g++")
     if cxx is None:
         raise BuildError("g++ not found")
@@ -100,8 +119,20 @@ def build_jobs() -> dict:
                    SRC], [SRC])}
 
 
+def records_job(src: str, out: str) -> dict:
+    """{extension: (gcc argv, sources)}: ``src`` compiled against the
+    interpreter's headers.  Raises BuildError without gcc or Python.h."""
+    cc = shutil.which("gcc")
+    if cc is None:
+        raise BuildError("gcc not found")
+    inc = sysconfig.get_paths()["include"]
+    if not os.path.exists(os.path.join(inc, "Python.h")):
+        raise BuildError("Python.h not found in %s" % inc)
+    return {out: ([cc, "-O2", "-fPIC", "-shared", "-I", inc, src], [src])}
+
+
 def _load() -> ctypes.CDLL:
-    build_all(build_jobs())
+    build_all(core_job())
     lib = ctypes.CDLL(LIB)
     for name, (restype, argtypes) in _SYMBOLS.items():
         fn = getattr(lib, name)
@@ -131,6 +162,50 @@ def require_lib() -> ctypes.CDLL:
     if lib is None:
         raise RuntimeError("native core could not be built: %s" % _error)
     return lib
+
+
+_ext_lock = threading.Lock()
+_ext = None
+_ext_error: Optional[str] = None
+
+
+def load_records_ext():
+    """Build (if stale) ``RECORDS_SRC`` into ``RECORDS_EXT`` and load it as
+    the module ``_records`` (its init function is ``PyInit__records``)
+    without entering it in ``sys.modules``.  Raises BuildError with the
+    compiler's output when it does not build."""
+    import importlib.util
+
+    out = RECORDS_EXT
+    build_all(records_job(RECORDS_SRC, out))
+    spec = importlib.util.spec_from_file_location("_records", out)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def get_records_ext():
+    """The records extension, built on first use; None (once logged) when
+    it cannot be built or loaded."""
+    global _ext, _ext_error
+    with _ext_lock:
+        if _ext is None and _ext_error is None:
+            try:
+                _ext = load_records_ext()
+            except (BuildError, OSError, ImportError) as e:
+                _ext_error = str(e)
+                log.warning("records extension unavailable, using the Python "
+                            "loop: %s", e)
+        return _ext
+
+
+def require_records_ext():
+    """``get_records_ext()`` that raises (with the compiler's output) when
+    the extension cannot be built or loaded."""
+    ext = get_records_ext()
+    if ext is None:
+        raise RuntimeError("records extension could not be built: %s" % _ext_error)
+    return ext
 
 
 def parse_shard_bytes(data: bytes, lib=None):

@@ -40,7 +40,9 @@ connects, restart the HMM at that point and record a break.
 Long traces run in fixed windows: ``precompute_batch_packed`` (kernels
 1-3) over all of a group's windows at once, then one
 ``chain_batch_carry_packed_aux`` (kernel 5) per window, the carry chaining
-them.  A session step runs both over one small window, the carry in
+them; the legacy ``match_batch_carry_packed`` runs kernels 1-3 and the
+chain kernel once a window instead.  A session step runs both over one
+small window, the carry in
 [B]-leading tensors (``session_step_packed``) or in the device slab
 (``session_step_arena``).
 
@@ -1050,6 +1052,26 @@ def chain_batch_carry_packed_aux_plain(dg, du, pre: TracePre, xin,
                                        sp: Optional[SparseParams] = None,
                                        kernel: str = "scan"):
     return _chain(_PLAIN, dg, du, pre, xin, p, carry, sp=sp, kernel=kernel)
+
+
+def match_batch_carry_packed(dg: DeviceGraph, du: DeviceUBODT, xin,
+                             p: MatchParams, k: int, carry: TraceCarry,
+                             kernel: str = "scan"):
+    """The legacy per-window long-trace program (the reference's
+    ``match_batch_carry_packed``): kernels 1-3 over one window's packed
+    [4, B, W] rows, then the chain kernel of ``kernel`` (kernel 5 for
+    "scan", ``viterbi_chain_assoc`` for "assoc") continuing ``carry``
+    (leading [B]).  Returns (packed [3, B, W], carry').  The same
+    operations as ``precompute_batch_packed`` + ``chain_batch_carry_packed_aux``
+    over one window."""
+    packed, _aux, carry = _step(_KERNELS, dg, du, xin, p, k, carry, kernel=kernel)
+    return packed, carry
+
+
+def match_batch_carry_packed_plain(dg, du, xin, p: MatchParams, k: int,
+                                   carry: TraceCarry, kernel: str = "scan"):
+    packed, _aux, carry = _step(_PLAIN, dg, du, xin, p, k, carry, kernel=kernel)
+    return packed, carry
 
 
 def session_step_packed(dg: DeviceGraph, du: DeviceUBODT, xin,

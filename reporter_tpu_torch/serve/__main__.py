@@ -48,7 +48,11 @@ CALIBRATION.json that $REPORTER_CALIBRATION (or the matcher config's
 ($REPORTER_SPARSE=0 reverts every trace to the dense model).  And the
 device-resident session arena: streaming sessions keep their carried
 beams in a device slab between submits ($REPORTER_SESSION_ARENA=0 keeps
-them on the host, with the same answers).
+them on the host, with the same answers).  $REPORTER_WIRE and
+$REPORTER_HOST_PACK default to "1" for the serving process (the binary
+wire and the columnar packer; ``main`` removes the defaults it set when it
+returns): $REPORTER_WIRE=0 refuses binary bodies, $REPORTER_HOST_PACK=0
+packs through the per-row loop, with the same answers.
 
 The UBODT memory system keeps the library defaults, as in the reference:
 the cuckoo layout and no probe dedup.  The config's matcher
@@ -117,6 +121,22 @@ def _parses_as_addr(a: str) -> bool:
 
 
 def main(argv=None) -> int:
+    """The serving process.  $REPORTER_WIRE and $REPORTER_HOST_PACK default
+    to "1" here (the binary wire and the columnar packer, each also the
+    library's default), and the ones this call set are removed when it
+    returns, so an in-process caller keeps its library defaults."""
+    defaulted = [k for k in ("REPORTER_WIRE", "REPORTER_HOST_PACK")
+                 if k not in os.environ]
+    for k in defaulted:
+        os.environ[k] = "1"
+    try:
+        return _main(argv)
+    finally:
+        for k in defaulted:
+            os.environ.pop(k, None)
+
+
+def _main(argv) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m reporter_tpu_torch.serve",
         description="Serve /report and /trace_attributes_batch from the "

@@ -53,7 +53,10 @@ identity is a 415) and the binary columnar wire (serve/wire.py):
 Content-Type application/x-reporter-columnar bodies decode as frames, and
 Accept: application/x-reporter-columnar gets a frame back on a 200 (every
 error stays JSON).  $REPORTER_WIRE=0 turns the binary wire off (binary
-bodies get a 415).
+bodies get a 415).  A decoded trace keeps the frame's float64 columns
+(``"_columns"``) through the match, whose columnar packer reads them in
+place of the point dicts; they are dropped before anything renders,
+echoes, records or samples the trace.
 
 Fault domains (the "robustness" config block; each knob's $REPORTER_*
 variable overrides it):
@@ -1268,7 +1271,11 @@ class ReporterService:
         """Pop the matcher's "_quality" block off a match dict (it never
         reaches the wire), feed the confidence metrics, mark a low-margin
         span for the flight recorder, and offer the request to the
-        shadow-oracle sampler (one non-blocking enqueue at most)."""
+        shadow-oracle sampler (one non-blocking enqueue at most).  The
+        trace's binary-wire "_columns", which the match packed from, goes
+        first: it never reaches a serializer."""
+        if isinstance(trace, dict):
+            trace.pop("_columns", None)
         if not isinstance(match, dict):
             return None
         q = match.pop("_quality", None)
@@ -1317,9 +1324,9 @@ class ReporterService:
             span.fail(err, status="invalid")
             self._terminal(route, 400, span)
             return 400, {"error": err}
-        # transport state of the binary wire (numpy arrays): never matched,
-        # rendered or echoed
-        trace.pop("_columns", None)
+        # the binary wire's "_columns" (numpy arrays) stays on the trace
+        # through the match, which packs from it; _finish_report pops it
+        # before anything renders, echoes, records or samples the trace
         if self.degraded:
             return self._finish_report(trace, rl, tl, span, debug, degraded=True,
                                        route=route)
@@ -1332,6 +1339,7 @@ class ReporterService:
                                            degraded=True, route=route)
             return self._refusal(e, batcher, route, span)
         except Exception as e:  # noqa: BLE001 - the request gets the error
+            trace.pop("_columns", None)
             if not isinstance(e, (Overloaded, DeadlineExpired, TraceQuarantined)):
                 log.exception("match failed")
             return self._refusal(e, batcher, route, span)
@@ -1356,6 +1364,8 @@ class ReporterService:
                         match = (self.session_engine.degraded_step(m, trace) if stream
                                  else m.match_many([trace])[0])
                     span.mark("cpu_fallback_s", _time.monotonic() - t_m)
+                # matched: the binary wire's transport state goes
+                trace.pop("_columns", None)
                 st = match.pop("_stream", None)
                 render = trace if st is None else {
                     "uuid": trace.get("uuid"), "trace": st["trace"],
@@ -1417,7 +1427,6 @@ class ReporterService:
                 span.fail("trace %d: %s" % (i, err), status="invalid")
                 self._terminal(route, 400, span)
                 return 400, {"error": "trace %d: %s" % (i, err)}
-            trace.pop("_columns", None)
             validated.append((trace, rl, tl))
         degraded = self.degraded
         try:
@@ -1440,6 +1449,8 @@ class ReporterService:
                            for m_, (t, rl, tl) in zip(matches, validated)]
                 span.mark("report_fn_s", _time.monotonic() - t0)
         except Exception as e:  # noqa: BLE001 - the request gets the error
+            for t, _rl, _tl in validated:
+                t.pop("_columns", None)
             if not isinstance(e, (Overloaded, DeadlineExpired, TraceQuarantined,
                                   DeviceWedged, BatcherCrashed)):
                 log.exception("batch failed")
@@ -1976,19 +1987,22 @@ class ReporterService:
                 keep = obs_trace.accept_trace_id(self.headers.get("X-Reporter-Flight-Keep"))
                 if keep:
                     span.meta["flight_keep"] = keep
-                try:
-                    # the drain waits for this count to reach zero
-                    with service._track_active(), obs_trace.bind(span):
-                        if action == "report":
-                            debug = query.get("debug", ["0"])[0] not in ("", "0", "false")
-                            code, out = service.handle_report(payload, self._deadline(),
-                                                              debug)
-                        else:
-                            code, out = service.handle_batch(payload, self._deadline())
-                except Exception as e:  # noqa: BLE001 - never drop the socket
-                    log.exception("unhandled request error")
-                    code, out = 500, {"error": str(e)}
-                self._answer(code, out)
+                # the drain waits for this count to reach zero, so it spans
+                # the answer's write too: a drain never cuts a body short
+                with service._track_active():
+                    try:
+                        with obs_trace.bind(span):
+                            if action == "report":
+                                debug = query.get("debug", ["0"])[0] not in ("", "0",
+                                                                             "false")
+                                code, out = service.handle_report(payload,
+                                                                  self._deadline(), debug)
+                            else:
+                                code, out = service.handle_batch(payload, self._deadline())
+                    except Exception as e:  # noqa: BLE001 - never drop the socket
+                        log.exception("unhandled request error")
+                        code, out = 500, {"error": str(e)}
+                    self._answer(code, out)
 
             def setup(self):
                 super().setup()

@@ -37,10 +37,10 @@ therefore DICT-IDENTICAL to the JSON wire: the same values with the same
 int/float types.
 
 Request decode attaches a ``"_columns"`` side channel (f64 lat/lon/time
-arrays) to every trace dict, the reference's columnar packer's input.
-The port's packer reads the point dicts, so the service strips the key
-before matching and before any echo (it is transport state, not
-payload).
+arrays) to every trace dict, the columnar packer's input
+(matching/columnar.py): a decoded trace packs with no walk of its point
+dicts.  The service drops the key after the match, before any echo (it is
+transport state, not payload).
 
 Dependency-free: stdlib ``struct``/``json`` + numpy.  Every length field
 is bounds-checked against the buffer before use; a malformed frame raises

@@ -276,6 +276,40 @@ def test_sigterm_drain_finishes_inflight_then_exits_zero(services, tmp_path):
             proc.wait()
 
 
+def test_answer_is_written_before_the_drain_sees_idle(services, monkeypatch):
+    """The inflight count the drain waits on covers the answer's write: a
+    handler still writing its body is not idle, so the drain's cut of the
+    lingering connections cannot truncate it."""
+    port, _ref = services
+    svc = ReporterService(port, max_wait_ms=5)
+    server = svc.make_server("127.0.0.1", 0)
+    handler = server.RequestHandlerClass
+    seen = []
+    write = handler._answer
+
+    def answer(self, code, payload):
+        seen.append((code, svc.idle()))
+        return write(self, code, payload)
+
+    monkeypatch.setattr(handler, "_answer", answer)
+    t = threading.Thread(target=server.serve_forever, daemon=True)
+    t.start()
+    try:
+        url = "http://127.0.0.1:%d" % server.server_address[1]
+        tr = _street_trace(port.arrays, "veh-answer")
+        assert _post(url + "/report", tr)[0] == 200
+        assert _post(url + "/trace_attributes_batch", {"traces": [tr]})[0] == 200
+        assert seen == [(200, False), (200, False)]
+        deadline = time.monotonic() + 5
+        while not svc.idle():  # the count drops once the handler returns
+            assert time.monotonic() < deadline
+            time.sleep(0.01)
+    finally:
+        server.shutdown()
+        server.server_close()
+        svc.close()
+
+
 def test_main_restores_the_signal_handlers(tmp_path, monkeypatch):
     """An in-process caller keeps its own SIGTERM/SIGINT handlers once
     ``main`` returns (here main returns at once: a server shut down from

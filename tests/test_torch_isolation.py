@@ -54,6 +54,18 @@ for j in range(0, 20, 4):
     res = eng.match_many([dict(t, trace=t["trace"][j:j + 4]) for t in traces])
 assert all(r["_stream"]["session"]["points_total"] == 20 for r in res)
 assert m.session_arena.summary()["hot_used"] == 3
+# the columnar packer (traces carrying the binary wire's "_columns" too),
+# the records extension and the legacy per-window long program
+import numpy as np
+from reporter_tpu_torch.matching import assoc_native, columnar
+sc = [dict(t, _columns={f: np.array([p[f] for p in t["trace"]], np.float64)
+                        for f in ("lat", "lon", "time")}) for t in traces]
+assert m.match_many(sc) == out and columnar.COUNTS["side_channel"] == 3
+lm = SegmentMatcher(arrays=arrays, ubodt=m.ubodt, device="cpu",
+                    config=MatcherConfig(ubodt_delta=1500.0, length_buckets=[16],
+                                         host_pack=False, long_precompute=False))
+assert lm.match_many(traces) == out
+assert assoc_native.records_ext_calls + assoc_native.records_py_calls > 0
 # the sparse model, calibrated: windowed, long and streaming 60 s traffic
 sm = SegmentMatcher(arrays=arrays, ubodt=m.ubodt, device="cpu",
                     config=MatcherConfig(length_buckets=[16], sparse=True,

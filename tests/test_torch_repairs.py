@@ -114,29 +114,29 @@ def _dropped_reference_keys():
 
 
 def test_from_dict_warns_once_per_dropped_reference_key(monkeypatch, caplog):
-    """Every reference field the port drops is named in one warning per
-    process; the fields this port carries (interpolate, the tier and
-    session-arena budgets, the device mesh and the degraded mode's
-    cpu_fallback among them) are set, never warned about."""
+    """The port carries every field of the reference's config (the
+    columnar packer's host_pack and the legacy long program's
+    long_precompute were the last two), so the whole reference config
+    loads with no warning and every carried field set; a key that neither
+    config has is named in one warning per process."""
     monkeypatch.setattr(config_mod, "_WARNED", set())
     ref = RefConfig()
-    dropped = _dropped_reference_keys()
-    assert dropped  # the reference still has paths the port lacks
+    assert _dropped_reference_keys() == []
     full = {k: getattr(ref, k) for k in RefConfig.__dataclass_fields__}
     carried = dict(interpolate=True, ubodt_hot_bytes=4096, ubodt_shard="1/4",
                    session_arena_bytes=1000, session_arena_cold_bytes=2000,
-                   devices=8, graph_devices=4, cpu_fallback=False)
+                   devices=8, graph_devices=4, cpu_fallback=False, host_pack=False,
+                   long_precompute=False)
     assert set(carried) <= set(MatcherConfig.__dataclass_fields__)
     with caplog.at_level(logging.WARNING, logger=config_mod.__name__):
         cfg = MatcherConfig.from_dict(dict(full, **carried))
-        MatcherConfig.from_dict(dict(full, **carried))
+        assert caplog.records == []
+        MatcherConfig.from_dict(dict(full, not_a_reference_key=1))
+        MatcherConfig.from_dict(dict(full, not_a_reference_key=2))
     for k, v in carried.items():
         assert getattr(cfg, k) == v
-    named = [r.getMessage() for r in caplog.records]
-    assert len(named) == len(dropped)
-    for k in dropped:
-        assert sum(repr(k) in m for m in named) == 1, k
-    assert not any(repr(k) in m for m in named for k in carried)
+    assert [r.getMessage() for r in caplog.records] == [
+        "matcher config key 'not_a_reference_key' is not carried by this port; ignored"]
 
 
 def test_batch_block_warns_once_per_dropped_key(monkeypatch, caplog):

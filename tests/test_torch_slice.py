@@ -154,7 +154,10 @@ def test_http_server_answers_report(recorded, fixture_matcher):
     t = threading.Thread(target=server.serve_forever, daemon=True)
     t.start()
     try:
-        assert _http(port, "/health") == (200, _http(port, "/health")[1])
+        first, second = _http(port, "/health"), _http(port, "/health")
+        # uptime_s is a wall clock rounded to 0.1 s: two reads may straddle a step
+        assert abs(first[1].pop("uptime_s") - second[1].pop("uptime_s")) <= 0.5
+        assert first == (200, second[1])
         assert _http(port, "/health")[1]["status"] == "ok"
         fx0, fx1 = recorded["fixtures"][:2]
         code, out = _http(port, "/report?json=" + urllib.parse.quote(json.dumps(fx0["request"])))
