@@ -107,9 +107,13 @@ delta 3000 m, cuckoo layout) and moves it to the card, then:
      pages page-locked host memory), kernel 2's ``[tiered]``
      instantiation, the dedup probe and its forced fallback against their
      plain versions and the untiered probe, bit for bit, with equal
-     per-bucket fetch counts and hit/miss totals, the chain kernels'
-     seams (scan and assoc, dense and sparse, long window and slab) the
-     same way, and the tiered kernel timed beside the untiered one (with
+     per-bucket fetch counts and hit/miss totals, the probe's staging of
+     cold rows (``ubodt_cold_mark``, ``ubodt_cold_gather``) against the
+     plain twin ``stage_plain``: its staged set in the twin's, its staged
+     rows equal to their pages, its staged plus in-place rows (the
+     overflow, printed) equal to the distinct cold rows the probe reads,
+     the chain kernels' seams (scan and assoc, dense and sparse, long
+     window and slab) the same way, and the tiered kernel timed beside the untiered one (with
      every row cold, the dedup probe too, and kernel 2 on two more key
      sets of the cohort's size, one that repeats no row within reach of
      a cache and one that repeats 256 keys: what caches serve of cold
@@ -387,9 +391,10 @@ delta 3000 m, cuckoo layout) and moves it to the card, then:
      ``[tiered,sharded]`` and ``[wide32,tiered,sharded]`` instantiations at
      gp 2 and 4, at 1 byte, 64 MiB (as seeded, and after one maintenance
      pass) and a whole range a rank, on the 512 x 64 cohort's keys: every
-     rank against its plain version with its own fetch counts, the ranks'
-     pmin / pmax against the untiered kernel 2, bit for bit, the pages
-     registered with CUDA once; rank 0 of gp 4 timed; then a dp2 x gp4
+     rank against its plain version with its own fetch counts and its
+     staging checked as in phase 9, the ranks' pmin / pmax against the
+     untiered kernel 2, bit for bit, the pages registered with CUDA once;
+     rank 0 of gp 4 timed, and its mark and gather alone; then a dp2 x gp4
      tiered matcher (64 MiB a rank, every rank on this card) over the
      bucketed, long, session-slab and sparse A paths (and wide32 at 512 x
      64), each answer equal to the untiered card's, before and after a
@@ -447,6 +452,11 @@ process: each build's SASS instruction counts (``cuobjdump``), then each
 call timed in turns (the trees, this tree twice, the trees in reverse),
 its outputs and a tiered table's fetch counts equal across the builds bit
 for bit; writes chiprun_out/pair.json (``pair_setup``, ``_paired``).
+
+    python3 chip_smoke.py --tier [--pair PARENT ...]
+
+runs only phase 0's build and city and the kernel checks and times of
+phases 9 and 23 (``tier_focus``; chiprun_out/tier_focus.json).
 
 Prints the card's name and power limit, one line per phase, a
 ``{"kernels": [...], "floor_ms": ...}`` line, and as its last line
@@ -676,6 +686,7 @@ def build():
     for lib, text in sorted(out.items()):
         regs = ptxas_report(text)
         if regs:
+            _RUN.setdefault("ptxas", {})[os.path.basename(lib)] = regs
             print("  %s: %s" % (os.path.basename(lib), regs))
     return dt
 
@@ -1382,19 +1393,23 @@ def _counted(path_kernels, drive, absent=()):
 PROBE_FAMILY = ("ubodt_probe", "ubodt_probe[wide32]", "ubodt_probe[tiered]",
                 "ubodt_probe[wide32,tiered]", "ubodt_probe[sharded]",
                 "ubodt_probe[wide32,sharded]", "ubodt_probe[tiered,sharded]",
-                "ubodt_probe[wide32,tiered,sharded]", "ubodt_dedup_claim",
-                "ubodt_dedup_scatter", "probe_stats")
+                "ubodt_probe[wide32,tiered,sharded]", "ubodt_cold_mark",
+                "ubodt_cold_gather", "ubodt_dedup_claim", "ubodt_dedup_scatter",
+                "probe_stats")
 
 
 def _path_kernels(matcher, kernels, sampled=False):
     """(kernels, absent): the kernels a path of ``matcher`` must launch,
-    its table's probe (the instantiation for its layout and tiering; and
+    its table's probe (the instantiation for its layout and tiering, a
+    tiered one with its staging's mark and gather; and
     the dedup kernels with probe dedup, the
     diagnostic's when ``sampled`` and the sampler is on) in place of
     ``ubodt_probe``, and the probe-family kernels it must not launch."""
     from reporter_tpu_torch.ops.hashtable import probe_kernel_name
 
     probe = (probe_kernel_name(matcher._du),)
+    if "tiered" in probe[0]:
+        probe += ("ubodt_cold_mark", "ubodt_cold_gather")
     if matcher.probe_dedup:
         probe += ("ubodt_dedup_claim", "ubodt_dedup_scatter")
     if sampled and matcher._probe_every:
@@ -2704,9 +2719,10 @@ def tier_table(ubodt, budget, dev, keys=None):
         used = torch.cuda.memory_allocated(dev) - m0
         arena, slot_map, _p, counts, totals = tier.source()
         allowed = (4 * (arena.numel() + slot_map.numel() + counts.numel())
-                   + 8 * totals.numel() + (1 << 20))
+                   + 8 * totals.numel() + tier.stage_bytes() + (1 << 20))
         check(used <= allowed, "tiered table's device memory %d B <= arena + slot map + "
-              "counters + 1 MiB = %d B" % (used, allowed))
+              "counters + staging (%d B) + 1 MiB = %d B" % (used, tier.stage_bytes(),
+                                                            allowed))
         kind = _kernels.memory_type(tier.pages_t.data_ptr())
         check(tier.pages_t.device.type == "cpu" and kind == 1,
               "the pages are host memory, page-locked (memory type %d)" % kind)
@@ -2730,6 +2746,126 @@ def _distinct_split(tier, du, a, b):
     hot = tier.source()[1][buckets.to(tier.dev)] >= 0
     n_hot = int(hot.sum())
     return n_hot, int(buckets.numel()) - n_hot, int(buckets.numel())
+
+
+def _stage_delta(rank, fn):
+    """(fn(), [staged rows, in-place cold rows] that the call added to one
+    rank's staging counts)."""
+    import torch
+
+    if rank.dev.type == "cuda":
+        torch.cuda.synchronize(rank.dev)
+    s0 = rank.stage_stats.clone()
+    out = fn()
+    if rank.dev.type == "cuda":
+        torch.cuda.synchronize(rank.dev)
+    return out, (rank.stage_stats - s0).cpu().tolist()
+
+
+def staged_check(tier, rank, du, a, b, ds, what):
+    """The staging of one tiered probe of the keys (a, b) on ``rank``, whose
+    staging counts grew by ``ds``: the plain twin's bucket set
+    (``stage_plain``) is the distinct cold rows the probe reads
+    (``probe_buckets`` on ``du``, the untiered table, over the rank's
+    range, cold under its slot map); the staged and in-place rows sum to
+    them, the staged ones the first ``stage_cap``, so that the link
+    carries each distinct cold row once; on the card the kernel's staged
+    set (its list, in claim order) lies in the twin's, equals it when none
+    is past the capacity, and its staged rows are their pages' bit for
+    bit.  Returns (staged, in place, distinct cold rows)."""
+    import numpy as np
+    import torch
+
+    read = torch.unique(probe_buckets(du, a, b, rank.lo, rank.n)) - rank.lo
+    cold = read[rank.slot_map[read.to(rank.dev)].to(read.device) < 0].cpu()
+    twin = tier.stage_plain(a, b, rank).cpu()
+    check(torch.equal(twin, cold), "%s: the plain twin's staging list is the %d distinct "
+          "cold rows the probe reads (%d)" % (what, cold.numel(), twin.numel()))
+    n_cold = int(cold.numel())
+    check(ds[0] + ds[1] == n_cold and ds[0] == min(n_cold, rank.stage_cap),
+          "%s: staged %d and in place %d rows of %d distinct cold rows (capacity %d)"
+          % (what, ds[0], ds[1], n_cold, rank.stage_cap))
+    if rank.dev.type == "cuda":
+        got = tier.staged_list(rank)
+        check(len(got) == ds[0] and len(np.unique(got)) == len(got)
+              and bool(np.isin(got, twin.numpy()).all()),
+              "%s: the kernel's %d staged buckets are distinct and in the twin's set"
+              % (what, len(got)))
+        check(torch.equal(rank.stage.rows[:len(got)].cpu(),
+                          tier.pages_t[torch.from_numpy(got + rank.lo)]),
+              "%s: the staged rows equal their pages bit for bit" % what)
+    return ds[0], ds[1], n_cold
+
+
+def stage_kernel_rows(view, du, a, b, link, P, K):
+    """The staging kernels of tiered view ``view`` alone on the keys (a,
+    b), each call after an L2 flush: ``ubodt_cold_mark`` (a new
+    dispatch's claims of the keys' cold first rows in the view's range)
+    and ``ubodt_cold_gather`` (those rows over the host link),
+    the list held against the distinct cold first-hash rows and the
+    staged rows against their pages; beside the plain versions
+    (``stage_plain``; the rows gathered from the pages on the host and
+    copied to the card) and their bounds.  Returns their kernels-line
+    rows."""
+    import numpy as np
+    import torch
+
+    from reporter_tpu_torch.ops import hashtable as H
+
+    sa, sb = torch.broadcast_tensors(a, b)
+    dims, s_str, d_str = H._grid(sa, sb)
+    keys = tuple(H.ptr(t) for t in (sa, sb, dims, s_str, d_str))
+    tier, r, dev = view.tier, view.rank, sa.device
+
+    def mark():
+        with H.table_args(view) as (_table, targs):
+            H._cold_mark(view, dev, keys, targs[0], None)
+
+    def gather():
+        with H.table_args(view) as (table, _targs):
+            H._cold_gather(view, dev, table)
+    mark()
+    gather()
+    torch.cuda.synchronize(dev)
+    first = tier.staged_list(r)
+    h1 = H.device_pair_hash(sa.reshape(-1), sb.reshape(-1), du.bmask) - r.lo
+    b1 = torch.unique(h1[(h1 >= 0) & (h1 < r.n)])
+    cold1 = b1[r.slot_map[b1] < 0].cpu().numpy()
+    check(len(first) == min(len(cold1), r.stage_cap) and bool(np.isin(first, cold1).all())
+          and len(np.unique(first)) == len(first),
+          "the mark claims each distinct cold first row once (%d of %d)"
+          % (len(first), len(cold1)))
+    check(torch.equal(r.stage.rows[:len(first)].cpu(),
+                      tier.pages_t[torch.from_numpy(first + r.lo)]),
+          "the gather's rows equal their pages bit for bit")
+    idx = torch.from_numpy(first + r.lo)
+    row_bytes = tier.lanes * 4
+    n0 = len(first)
+    src = "reporter_tpu_torch/csrc/ubodt_probe.cu"
+    rep = "reporter_tpu/tiles/tiering.py:586"  # the pages' bulk gather of a dispatch
+    # the mark: the two [B, T, K] key arrays, each distinct in-range first
+    # bucket's slot-map entry, each claim's stage-map entry read and
+    # written and its list entry
+    mark_b = bound(8 * P * K + 4 * int(b1.numel()) + 20 * n0, 0)
+    gather_ms_bound = (row_bytes * n0 / link["peak_bytes_per_s"]
+                       + (row_bytes + 4) * n0 / PEAK_BYTES_S) * 1e3
+    rows = [dict(name="ubodt_cold_mark", route="cuda", source=src, replaces=rep,
+                 max_abs_err=0.0, library_ms=None, claimed=n0,
+                 ms=time_ms(mark, cold_l2=True),
+                 plain_ms=time_ms(lambda: tier.stage_plain(a, b, r), reps=3, warmup=1,
+                                  cold_l2=True, queued=False),
+                 bound_ms=mark_b[0], bound_by=mark_b[1]),
+            dict(name="ubodt_cold_gather", route="cuda", source=src, replaces=rep,
+                 max_abs_err=0.0, library_ms=None, rows=n0,
+                 ms=time_ms(gather, cold_l2=True, prep=mark),
+                 plain_ms=time_ms(lambda: tier.pages_t[idx].to(dev), reps=3, warmup=1,
+                                  cold_l2=True, queued=False),
+                 bound_ms=gather_ms_bound, bound_by="bytes")]
+    for x in rows:
+        print("kernel %-34s %s alone: %d cold first rows, kernel_ms=%.4f plain_ms=%.4f "
+              "bound_ms=%.4f (%s)" % (x["name"], H.probe_kernel_name(view), n0, x["ms"],
+                                      x["plain_ms"], x["bound_ms"], x["bound_by"]))
+    return rows
 
 
 def cold_cache_probe(tier, du, a, b):
@@ -2815,11 +2951,17 @@ def tier_kernel_phases(matcher, ubodt, xin, link, sm=None, tr_l=None, tr_a=None,
         tier, info = tier_table(ubodt, budget, dev, (a, b))
         tdu = tier.device()
         name = H.probe_kernel_name(tdu)
-        got, dk = _tier_delta(tier, lambda: H.ubodt_lookup(tdu, a, b))
-        plain, dp = _tier_delta(tier, lambda: H.ubodt_lookup_plain(tdu, a, b))
+        r0 = tier.rank()
+        (got, ds), dk = _tier_delta(tier, lambda: _stage_delta(
+            r0, lambda: H.ubodt_lookup(tdu, a, b)))
+        (plain, dsp), dp = _tier_delta(tier, lambda: _stage_delta(
+            r0, lambda: H.ubodt_lookup_plain(tdu, a, b)))
         check(_same(got, want) and _same(plain, want), "%s (%s) equals the untiered probe"
               % (name, occ))
         _same_fetches(dk, dp, "%s (%s)" % (name, occ))
+        check(ds == dsp, "%s (%s): staged and in-place rows %s equal the plain version's %s"
+              % (name, occ, ds, dsp))
+        staged, inplace, _n = staged_check(tier, r0, du, a, b, ds, "%s (%s)" % (name, occ))
         n_hot, n_cold, n_b = _distinct_split(tier, du, a, b)
         if occ == "cold":
             check(dk[1][0] == 0 and n_hot == 0, "every fetch cold at a 1-byte budget")
@@ -2840,11 +2982,16 @@ def tier_kernel_phases(matcher, ubodt, xin, link, sm=None, tr_l=None, tr_a=None,
         _same_fetches(fbk, fbp_d, "dedup fallback (%s)" % occ)
         r = dict(info, shape="%dx%d K=%d" % (B, T, K), hits=dk[1][0], misses=dk[1][1],
                  distinct_hot_rows=n_hot, distinct_cold_rows=n_cold, distinct_buckets=n_b,
+                 staged_rows=staged, inplace_cold_rows=inplace,
+                 stage_rows_cap=r0.stage_cap, stage_bytes=tier.stage_bytes(r0),
                  max_abs_err=max_abs_err(zip(got, plain)))
         print("%s %s at %s occupancy: %d hits, %d misses (%d/%d distinct rows hot); kernel, "
               "plain, dedup and fallback equal the untiered probe, fetch counts and totals "
-              "equal the plain versions'" % (name, r["shape"], occ, dk[1][0], dk[1][1],
-                                             n_hot, n_b))
+              "equal the plain versions'; staged %d rows x %d B over the link, %d past the "
+              "capacity of %d read in place (overflow), = the %d distinct cold rows read, "
+              "the kernel's staged set in the plain twin's"
+              % (name, r["shape"], occ, dk[1][0], dk[1][1], n_hot, n_b, staged, row_bytes,
+                 inplace, r0.stage_cap, n_cold))
         mt = copy.copy(matcher)
         mt._du = tdu
         seams = {}
@@ -3841,20 +3988,12 @@ def _probe_into(u, s, d, n_live):
     import torch
 
     from reporter_tpu_torch.ops import hashtable as H
-    from reporter_tpu_torch.ops._kernels import KERNELS, ptr
 
     n, dev = s.numel(), s.device
-    dims, s_str, d_str = H._grid(s, d)
     dist = torch.full((n,), 0x7FC0DEAD, dtype=torch.int32, device=dev).view(torch.float32)
     time_ = dist.clone()
     first = torch.full((n,), -7, dtype=torch.int32, device=dev)
-    tiered = H._tier(u) is not None
-    extra = (u.lo, u.local_buckets) if getattr(u, "sharded", False) else ()
-    with H.table_args(u) as (table, tier):
-        KERNELS[H.probe_kernel_name(u)].launch(
-            dev, ptr(s), ptr(d), ptr(dims), ptr(s_str), ptr(d_str), table, u.bmask,
-            ptr(n_live), ptr(dist), ptr(time_), ptr(first), *(tier if tiered else extra))
-    return dist, time_, first
+    return H._probe(u, s, d, True, n_live=n_live, out=(dist, time_, first))
 
 
 def _bits_equal(a, b):
@@ -7410,16 +7549,22 @@ def mesh_tier_kernels(matcher, ubodt_w, du_w, xin, link, timed):
                 check(all(_kernels.memory_type(host + r.lo * tier.lanes * 4) == 1
                           for r in tier._ranks.values()),
                       "every rank's first page is page-locked host memory")
-                outs, totals = [], [0, 0]
+                outs, totals, staging = [], [0, 0], [0, 0, 0]
                 for view in sharded.shards:
                     r = view.rank
-                    got, dk = _rank_delta(r, lambda: H.ubodt_lookup(view, a, b))
-                    plain, dp = _rank_delta(r, lambda: H.ubodt_lookup_plain(view, a, b))
+                    (got, ds), dk = _rank_delta(r, lambda: _stage_delta(
+                        r, lambda: H.ubodt_lookup(view, a, b)))
+                    (plain, dsp), dp = _rank_delta(r, lambda: _stage_delta(
+                        r, lambda: H.ubodt_lookup_plain(view, a, b)))
                     check(all(torch.equal(g, w) for g, w in zip(got, plain)),
                           "%s rank %d/%d (%s) equals its plain version" % (name, r.g, gp, occ))
                     check(torch.equal(dk[0], dp[0]) and dk[1] == dp[1],
                           "%s rank %d/%d (%s): fetch counts and totals %s equal the plain "
                           "version's %s" % (name, r.g, gp, occ, dk[1], dp[1]))
+                    check(ds == dsp, "%s rank %d/%d (%s): staged and in-place rows %s equal "
+                          "the plain version's %s" % (name, r.g, gp, occ, ds, dsp))
+                    staging = [x + y for x, y in zip(staging, staged_check(
+                        tier, r, du, a, b, ds, "%s rank %d/%d (%s)" % (name, r.g, gp, occ)))]
                     check(torch.equal(dk[0].to(torch.int64), home[r.lo:r.lo + r.n]),
                           "%s rank %d/%d (%s) counts exactly its range's fetches"
                           % (name, r.g, gp, occ))
@@ -7445,16 +7590,22 @@ def mesh_tier_kernels(matcher, ubodt_w, du_w, xin, link, timed):
                 per_rank = [{"g": r.g, "hot_rows": len(tier._hot_g[r.g]),
                              "hot_bytes": len(tier._hot_g[r.g]) * row_bytes}
                             for r in (vw.rank for vw in sharded.shards)]
+                stage_bytes = sum(tier.stage_bytes(vw.rank) for vw in sharded.shards)
                 rec = {"layout": ubodt.layout, "gp": gp, "occupancy": occ, "budget": budget,
                        "hits": totals[0], "misses": totals[1], "device_bytes": used,
+                       "stage_bytes": stage_bytes, "staged_rows": staging[0],
+                       "inplace_cold_rows": staging[1], "distinct_cold_rows": staging[2],
                        "maintain_ms": maintain_ms, "ranks": per_rank}
                 info.append(rec)
                 print("%s gp %d %s: %d hits, %d misses over %d keys; ranks' hot bytes %s, "
-                      "device bytes in use %d, maintain %s ms; each rank equals its plain "
-                      "version with its own fetch counts, pmin/pmax equals kernel 2"
-                      % (name, gp, occ, totals[0], totals[1], N,
-                         [x_["hot_bytes"] for x_ in per_rank], used,
-                         "%.1f" % maintain_ms if maintain_ms is not None else "-"))
+                      "device bytes in use %d before the probes (staging %d B after), "
+                      "maintain %s ms; each rank equals its plain version with its own fetch "
+                      "counts, pmin/pmax equals kernel 2; the ranks staged %d rows x %d B, %d "
+                      "read in place past the capacity (overflow), = their %d distinct cold "
+                      "rows read" % (name, gp, occ, totals[0], totals[1], N,
+                                     [x_["hot_bytes"] for x_ in per_rank], used, stage_bytes,
+                                     "%.1f" % maintain_ms if maintain_ms is not None else "-",
+                                     staging[0], row_bytes, staging[1], staging[2]))
                 if gp == 4 and occ in ("seeded", "partial"):
                     r0 = sharded.shards[0]
                     bk = torch.unique(probe_buckets(du, a, b, r0.lo, r0.local_buckets))
@@ -7483,13 +7634,22 @@ def mesh_tier_kernels(matcher, ubodt_w, du_w, xin, link, timed):
                           % (name, occ, N, n_hot, n_cold, "%.4f" % row["ms"] if "ms" in row
                              else "-", "%.4f" % row["plain_ms"] if "plain_ms" in row
                              else "-", row["bound_ms"]))
+                    if timed:
+                        row["stage_kernels"] = stage_kernel_rows(r0, du, a, b, link, P, K)
                     # the kernels line: the seeded state, hot and cold rows mixed
                     rows.setdefault(name, {})[occ] = row
                 tier.close()
-    return [dict(rows[n]["seeded"], after_maintain={
+    out = [dict(rows[n]["seeded"], after_maintain={
         k: rows[n]["partial"].get(k) for k in ("ms", "plain_ms", "bound_ms", "rank_hot_rows",
                                                 "rank_cold_rows")})
-            for n in ("ubodt_probe[tiered,sharded]", "ubodt_probe[wide32,tiered,sharded]")], info
+           for n in ("ubodt_probe[tiered,sharded]", "ubodt_probe[wide32,tiered,sharded]")]
+    # the staging kernels' rows: the cuckoo rank's, seeded (its cold rows),
+    # with the wide32 rank's beside them
+    if timed:
+        wide = {x["name"]: x for x in out[1]["stage_kernels"]}
+        out += [dict(x, wide32={k: wide[x["name"]][k] for k in ("ms", "plain_ms", "bound_ms")})
+                for x in out[0]["stage_kernels"]]
+    return out, info
 
 
 def mesh_tier_paths(matcher, ubodt_w, traces64, traces256, traces2048, tr_a):
@@ -8059,6 +8219,7 @@ def parent_kernels(parent, tag):
     build/pair/<tag>/, and bound: ({name: Kernel}, {library: nvcc
     output})."""
     import copy
+    import ctypes
 
     from reporter_tpu_torch._build import build_all
     from reporter_tpu_torch.ops import _kernels
@@ -8078,12 +8239,35 @@ def parent_kernels(parent, tag):
         if k.base in bases:
             pk = copy.copy(k)
             pk.library, pk._fn = os.path.join(out_dir, "lib%s.so" % k.base), None
+            lib = ctypes.CDLL(pk.library)
+            if k.base == "ubodt_probe" and not hasattr(lib, "ubodt_cold_mark_launch"):
+                # a tree from before the staged tiered probe: no staging, and
+                # its tiered probe reads cold rows in place (_unstaged)
+                if name in ("ubodt_cold_mark", "ubodt_cold_gather"):
+                    pk._fn = pk._err = lambda *a: 0  # noqa: E731
+                    bound_[name] = pk
+                    continue
+                if "tiered" in name:
+                    pk.argtypes = k.argtypes[:-len(_kernels._STAGE)]
+                    pk._bind()
+                    pk._fn = _unstaged(pk._fn, len(_kernels._STAGE))
+                    bound_[name] = pk
+                    continue
             pk._bind()
             if k.base == "segment_histogram":  # before PR 13 the wrapper zeroed the output
                 with open(os.path.join(csrc, k.base + ".cu")) as f:
                     pk.zeroes_output = "zeroed by the caller" not in f.read()
             bound_[name] = pk
     return bound_, out
+
+
+def _unstaged(fn, n_stage):
+    """A tiered probe's launcher of a tree from before the staged probe
+    (``parent_kernels``): the ``n_stage`` staging arguments dropped, the
+    stream kept."""
+    def launch(*args):
+        return fn(*args[:-1 - n_stage], args[-1])
+    return launch
 
 
 class _DeviceFloats:
@@ -8193,7 +8377,9 @@ def pair_setup(trees):
         tag = "%d_%s" % (i, os.path.basename(os.path.abspath(tree)))
         _PAIR[tag], nvcc_out = parent_kernels(tree, tag)
         for lib, text in sorted(nvcc_out.items()):
-            print("  %s %s: %s" % (tag, os.path.basename(lib), ptxas_report(text)))
+            regs = ptxas_report(text)
+            _PAIRED.setdefault("ptxas", {}).setdefault(tag, {})[os.path.basename(lib)] = regs
+            print("  %s %s: %s" % (tag, os.path.basename(lib), regs))
     builds = dict({t: ks.values() for t, ks in _PAIR.items()},
                   change=_kernels.KERNELS.values())
     sass = {tag: sass_counts(sorted({k.library for k in ks})) for tag, ks in builds.items()}
@@ -8650,6 +8836,57 @@ def main(pair=()):
     return 0
 
 
+def tier_focus(pair=()):
+    """``--tier``: phase 0's build and the grid city with its 512 x 64
+    cohort, then only the kernel checks and times of phases 9 and 23
+    (kernel rows 10 and 10 x 11a: ``tier_kernel_phases`` in both layouts
+    without the seams, ``cold_cache_probe`` among them, and
+    ``mesh_tier_kernels``), no path: the short check of a change to kernel
+    2's tiered instantiations, paired with ``--pair``.  Writes
+    chiprun_out/tier_focus.json; prints no ``ok`` line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.stderr.write("chip_smoke: CUDA is not available\n")
+        return 2
+    import reporter_tpu_torch  # noqa: F401 - fails outside a checkout
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout.strip()
+    print(smi.splitlines()[0])
+    device = torch.device("cuda", torch.cuda.current_device())
+    with phase(0):
+        build()
+        if pair:
+            pair_setup(pair)
+        floor_ms = launch_floor(smi.splitlines()[0])
+        matcher, _city = metro_city(120, device)
+        xin64 = bucket_rows(matcher, cohort(matcher, 7, 512, 64), 64)
+        ubodt_w, _info = wide_table(matcher)
+        du_w = ubodt_w.to_device(device)
+    with phase(9):
+        link = host_link(device)
+        tier_k = {u.layout: tier_kernel_phases(matcher, u, xin64, link)
+                  for u in (matcher.ubodt, ubodt_w)}
+    with phase(23):
+        mesh_rows, mesh_info = mesh_tier_kernels(matcher, ubodt_w, du_w, xin64, link,
+                                                 timed=True)
+    out = {"card": smi, "floor_ms": floor_ms, "host_link": link, "tiering": tier_k,
+           "mesh_tiering": {"kernels": mesh_rows, "ranks": mesh_info},
+           "ptxas": _RUN.get("ptxas"), "phases": _RUN["phases"],
+           "wall_s": time.perf_counter() - _RUN["t0"]}
+    if pair:
+        _PAIRED.update(card=smi, trees=[os.path.abspath(t) for t in pair])
+        out["pair"] = _PAIRED
+        print(json.dumps({"pair": {k: v["ratio"] for k, v in _PAIRED["cases"].items()}}))
+    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(REPO, "chiprun_out", "tier_focus.json"), "w") as f:
+        json.dump(out, f, indent=1, default=str)
+    print("tier focus: %.1f s on %s" % (out["wall_s"], smi))
+    return 0
+
+
 if __name__ == "__main__":
     import argparse
 
@@ -8657,5 +8894,8 @@ if __name__ == "__main__":
     ap.add_argument("--pair", metavar="TREE", nargs="+", default=(),
                     help="also time every kernel call against the kernels built from each "
                     "TREE, a checkout (the parent first): pair_setup, _paired")
+    ap.add_argument("--tier", action="store_true",
+                    help="only phase 0's build and city, then the kernel checks and times "
+                    "of phases 9 and 23 (tier_focus)")
     args = ap.parse_args()
-    sys.exit(main(args.pair))
+    sys.exit(tier_focus(args.pair) if args.tier else main(args.pair))

@@ -29,8 +29,10 @@ a hot arena or pinned host pages) are counted apart as
 address space.  The device mesh's kernels: kernel 2's bucket-range
 instantiations for a gp rank, ``ubodt_probe[sharded]`` and
 ``ubodt_probe[wide32,sharded]``, and for a gp rank of a tiered table
-``ubodt_probe[tiered,sharded]`` and ``ubodt_probe[wide32,tiered,sharded]``,
-the ``segment_histogram`` and the slot-sharded slab's
+``ubodt_probe[tiered,sharded]`` and ``ubodt_probe[wide32,tiered,sharded]``;
+every tiered probe first launches ``ubodt_cold_mark`` and
+``ubodt_cold_gather`` (the staging of its cold rows, entry points of
+kernel 2's library); the ``segment_histogram`` and the slot-sharded slab's
 ``slab_gather_owned`` and ``slab_scatter_owned`` (one library).
 """
 
@@ -121,6 +123,9 @@ _BUILD = [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I32,
           _F, _F, _F, _F, _F, _F, _P, _P, _P]
 _SCAN = [_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _F, _P, _P]
 _TIER = [_P] * 4  # slot_map, arena, counts, totals (all null: untiered)
+# a tiered probe's staging: stage map, rows, list, state, stats, the
+# dispatch's gen, the capacity
+_STAGE = [_P] * 5 + [_I64, _I32]
 # + seam_dist, seam_time (null: the seam probes the table itself)
 _CHAIN = ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32] + _TIER
           + [_P, _P] + [_I64, _I32, _I32, _F, _F, _F, _F, _F, _F, _F] + [_P] * 16
@@ -142,20 +147,28 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
         _P, _P, _P, _P, _P, _P, _P, _P]),
     Kernel("ubodt_probe", _PRB, _PROBE),
     Kernel("ubodt_probe[wide32]", _PRB, _PROBE, "ubodt_probe", "ubodt_probe_wide32"),
-    Kernel("ubodt_probe[tiered]", _PRB, _PROBE + _TIER, "ubodt_probe",
+    Kernel("ubodt_probe[tiered]", _PRB, _PROBE + _TIER + _STAGE, "ubodt_probe",
            "ubodt_probe_tiered"),
-    Kernel("ubodt_probe[wide32,tiered]", _PRB, _PROBE + _TIER, "ubodt_probe",
+    Kernel("ubodt_probe[wide32,tiered]", _PRB, _PROBE + _TIER + _STAGE, "ubodt_probe",
            "ubodt_probe_wide32_tiered"),
     # a gp rank's bucket range: + lo, L
     Kernel("ubodt_probe[sharded]", _PRB, _PROBE + [_I32, _I32], "ubodt_probe",
            "ubodt_probe_sharded"),
     Kernel("ubodt_probe[wide32,sharded]", _PRB, _PROBE + [_I32, _I32], "ubodt_probe",
            "ubodt_probe_wide32_sharded"),
-    # a gp rank of a tiered table: its tier, then lo, L
-    Kernel("ubodt_probe[tiered,sharded]", _PRB, _PROBE + _TIER + [_I32, _I32],
+    # a gp rank of a tiered table: its tier, then lo, L, then the staging
+    Kernel("ubodt_probe[tiered,sharded]", _PRB, _PROBE + _TIER + [_I32, _I32] + _STAGE,
            "ubodt_probe", "ubodt_probe_tiered_sharded"),
-    Kernel("ubodt_probe[wide32,tiered,sharded]", _PRB, _PROBE + _TIER + [_I32, _I32],
-           "ubodt_probe", "ubodt_probe_wide32_tiered_sharded"),
+    Kernel("ubodt_probe[wide32,tiered,sharded]", _PRB,
+           _PROBE + _TIER + [_I32, _I32] + _STAGE, "ubodt_probe",
+           "ubodt_probe_wide32_tiered_sharded"),
+    # a tiered probe's staging of cold rows: the mark (kernel 2's keys,
+    # bmask, n_live, slot_map, then stage map, list, state, stats, gen, cap,
+    # lo, L) and the gather (pages, wide, rows, list, state, stats, gen, cap)
+    Kernel("ubodt_cold_mark", _PRB, _GRID + [_I32, _P, _P, _P, _P, _P, _P, _I64, _I32,
+                                             _I32, _I32], "ubodt_probe", "ubodt_cold_mark"),
+    Kernel("ubodt_cold_gather", _PRB, [_P, _I32, _P, _P, _P, _P, _I64, _I32],
+           "ubodt_probe", "ubodt_cold_gather"),
     Kernel("ubodt_dedup_claim", _CLAIM, _GRID + [_P, _P, _I64, _P, _P, _P, _P, _I64,
                                                  _P], "ubodt_dedup", "ubodt_dedup_claim"),
     Kernel("ubodt_dedup_scatter", "dedup-scatter",

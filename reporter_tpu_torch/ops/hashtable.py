@@ -28,11 +28,19 @@ the budget, probes its keys itself.  The claim kernel in count mode is
 the caller's collect (``DEDUP.harvest``).
 
 A tiered table (``tiles/tiering.TieredDeviceUBODT``) is probed the same
-way: kernel 2's ``[tiered]`` instantiations and the scatter read each row
-from the hot arena or the pinned host pages and count the fetches; the
-plain versions fetch through ``TieredTable.rows_plain``, which counts the
-same.  Each top-level lookup records its fetch units (one per hash) for
-the maintenance cadence.  The answers are the untiered table's.
+way: kernel 2's ``[tiered]`` instantiations read each row from the hot
+arena or a staging buffer on the card and count the fetches.  Before the
+probe, ``ubodt_cold_mark`` claims each distinct cold first-hash row of
+the dispatch and ``ubodt_cold_gather`` copies the claimed rows from the
+pinned host pages into the staging buffer; on a cuckoo table the probe
+itself claims and copies the cold second rows of keys their first row
+does not hold.  So each distinct cold row crosses the host link once a
+dispatch (rows past the staging capacity are read in place).  The
+scatter's fallback reads cold rows in place.  The plain versions fetch
+through ``TieredTable.rows_plain``, which counts the same, and count the
+staging of ``TieredTable.stage_plain``'s rows as the card does.  Each
+top-level lookup records its fetch units (one per hash) for the
+maintenance cadence.  The answers are the untiered table's.
 
 A table split over a device mesh's gp axis (``tiles/ubodt.ShardedUBODT``,
 one dp rank's view) is probed by every gp rank over its bucket range,
@@ -178,9 +186,16 @@ def ubodt_lookup_plain(u: DeviceUBODT, src: torch.Tensor, dst: torch.Tensor,
 
 
 @staged("ubodt-probe+select")
-def _probe_plain(u, src, dst, with_first):
-    """The plain probe of broadcast keys, without recording fetch units."""
+def _probe_plain(u, src, dst, with_first, live=None):
+    """The plain probe of broadcast keys, without recording fetch units.
+    On a tiered table the staging of the first ``live`` keys' cold rows
+    (all keys by default; 0: none, as the card's scatter fallback reads
+    in place) is counted as the card's staged probe counts it."""
     shape = src.shape
+    t = _tier(u)
+    if t is not None and live != 0:
+        ks, kd = (x.reshape(-1)[:live] for x in (src, dst))
+        t.note_staged(t.stage_plain(ks, kd, u.rank).numel(), u.rank)
     s = src.reshape(-1)
     d = dst.reshape(-1)
     outs = ([], [], [])
@@ -273,24 +288,70 @@ def table_args(u):
                [ptr(slot_map), ptr(arena), ptr(counts), ptr(totals)])
 
 
-def _probe(u: DeviceUBODT, src, dst, with_first, n_live=None):
+def _probe(u: DeviceUBODT, src, dst, with_first, n_live=None, out=None):
     """Launch kernel 2 (its wide32 and tiered instantiations as the table
-    asks) over broadcast keys.  ``n_live`` (device int32 [1]): probe only
-    the first n_live keys, none when n_live exceeds the key count (the
-    dedup scatter then probes them itself)."""
+    asks) over broadcast keys, into ``out`` (dist, time, first) when
+    given.  ``n_live`` (device int32 [1]): probe only the first n_live
+    keys, none when n_live exceeds the key count (the dedup scatter then
+    probes them itself).  A tiered table's probe is staged
+    (``_staged_probe``)."""
     dims, s_str, d_str = _grid(src, dst)
-    dist, time, first = _empty_result(tuple(src.shape), src.device,
-                                      with_first)
+    dist, time, first = out or _empty_result(tuple(src.shape), src.device,
+                                             with_first)
     if dist.numel():
-        tiered = _tier(u) is not None
+        keys = (ptr(src), ptr(dst), ptr(dims), ptr(s_str), ptr(d_str))
+        outs = (ptr(dist), ptr(time), ptr(first))
         extra = ((u.lo, u.local_buckets) if getattr(u, "sharded", False)
                  else ())
         with table_args(u) as (table, tier):
-            KERNELS[probe_kernel_name(u)].launch(
-                src.device, ptr(src), ptr(dst), ptr(dims), ptr(s_str),
-                ptr(d_str), table, u.bmask, ptr(n_live), ptr(dist),
-                ptr(time), ptr(first), *(tier if tiered else []), *extra)
+            if _tier(u) is None:
+                KERNELS[probe_kernel_name(u)].launch(
+                    src.device, *keys, table, u.bmask, ptr(n_live), *outs,
+                    *extra)
+            else:
+                _staged_probe(u, src.device, keys, outs, table, tier, n_live,
+                              extra)
     return dist, time, first
+
+
+def _staged_probe(u, dev, keys, outs, table, tier, n_live, extra):
+    """Kernel 2's tiered probe, queued under the tier's ``launch_lock``
+    (``table_args`` holds it): ``ubodt_cold_mark`` claims the keys' cold
+    first rows in the rank's stage map, ``ubodt_cold_gather`` copies them
+    to the staging buffer, and the probe reads arena and staged rows,
+    claiming and copying the cold second rows it needs (cuckoo).  A
+    refused launch raises: nothing falls back to reading in place."""
+    st, gen, cap = _cold_mark(u, dev, keys, tier[0], n_live)
+    _cold_gather(u, dev, table)
+    KERNELS[probe_kernel_name(u)].launch(
+        dev, *keys, table, u.bmask, ptr(n_live), *outs, *tier, *extra,
+        ptr(st.map), ptr(st.rows), ptr(st.list), ptr(st.state),
+        ptr(u.rank.stage_stats), gen, cap)
+
+
+def _cold_mark(u, dev, keys, slot_map, n_live):
+    """Launch ``ubodt_cold_mark`` for a new dispatch of tiered view ``u``
+    over kernel 2's key arguments (``keys``: the grid's five addresses)
+    and ``n_live``; returns the rank's (stage, gen, cap).  Call under the
+    tier's ``launch_lock``."""
+    t, r = u.tier, u.rank
+    st, gen, cap = t.stage_args(r)
+    lo, n_range = ((u.lo, u.local_buckets) if getattr(u, "sharded", False)
+                   else (0, t.n_buckets))
+    KERNELS["ubodt_cold_mark"].launch(
+        dev, *keys, u.bmask, ptr(n_live), slot_map, ptr(st.map), ptr(st.list),
+        ptr(st.state), ptr(r.stage_stats), gen, cap, lo, n_range)
+    return st, gen, cap
+
+
+def _cold_gather(u, dev, pages):
+    """Launch ``ubodt_cold_gather`` of the newest dispatch of tiered view
+    ``u``, from ``pages`` (its first page's address).  Call under the
+    tier's ``launch_lock``, after ``_cold_mark``."""
+    r = u.rank
+    KERNELS["ubodt_cold_gather"].launch(
+        dev, pages, int(u.wide), ptr(r.stage.rows), ptr(r.stage.list),
+        ptr(r.stage.state), ptr(r.stage_stats), r.gen, r.stage_cap)
 
 
 class DedupProbe(NamedTuple):
@@ -329,15 +390,17 @@ def ubodt_lookup_dedup_plain(u: DeviceUBODT, src: torch.Tensor,
                              return_inverse=True)
     U = uniq.numel()
     n_unique = torch.tensor([U], dtype=torch.int32, device=src.device)
-    if U > m:
-        return DedupProbe(*_probe_plain(u, src, dst, with_first), n_unique, m)
+    if U > m:  # on the card the scatter probes every key, in place
+        return DedupProbe(*_probe_plain(u, src, dst, with_first, live=0),
+                          n_unique, m)
     hi = (uniq >> 32).to(torch.int32)
     lo = (((uniq & _M32) ^ 0x80000000) - 0x80000000).to(torch.int32)
     if _tier(u) is not None:
         # the reference probes its whole compact buffer: the distinct keys
-        # and m - U keys (0, 0), all fetched and counted
+        # and m - U keys (0, 0), all fetched and counted (on the card the
+        # scatter counts the tail, which no probe reads or stages)
         hi, lo = (torch.cat([x, x.new_zeros(m - U)]) for x in (hi, lo))
-    r = _probe_plain(u, hi, lo, with_first)
+    r = _probe_plain(u, hi, lo, with_first, live=U)
     out = [None if x is None else x[:U][inv].reshape(shape) for x in r]
     return DedupProbe(*out, n_unique, m)
 

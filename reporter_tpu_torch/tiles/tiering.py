@@ -14,13 +14,25 @@ The port of ``reporter_tpu/tiles/tiering.py``:
               reads its row in place over the host link.  The table is
               never copied to the card.
 
-Every probe of the port fetches its bucket rows through one device
-function, ``bucket_row`` (``csrc/ubodt.cuh``): the arena's row when the
-slot map names one, else the host page.  Each probe decides alone (the
-reference's ``lax.cond`` falls back to the pages for every probe of a
-dispatch when one is cold; the bytes are the same either way).  Every
-arena row is a copy of its page, so the answers are bit for bit the
-untiered table's at every occupancy.
+Kernel 2's tiered probe stages a dispatch's cold rows before it probes
+(``csrc/ubodt_probe.cu``): a mark pass claims each distinct cold row the
+probe will read in a rank's stage map, a gather copies the claimed rows
+from the pages into a staging buffer on the card (each row crosses the
+host link once a dispatch), and the probe reads arena rows and staged
+rows; a cuckoo key whose first row does not hold it and whose second row
+is cold has that row claimed and copied by the probe itself, so that no
+second row the probe skips is copied.  The reference gathers the pages
+of a dispatch's whole bucket set in bulk too (its ``lax.cond`` falls
+back to the pages for every probe of a dispatch when one is cold).  The
+staging buffer holds ``STAGE_BYTES`` of rows a rank, allocated at the
+rank's first staged probe; rows past it are read in place and counted
+(``stage_summary``: ``inplace_cold_rows`` beside ``staged_rows``).  The
+other readers of a tier (the dedup scatter's fallback, the chain
+kernels' seams) read cold rows in place (``bucket_row``).  Every arena
+and staged row is a copy of its page, so the answers are bit for bit the
+untiered table's at every occupancy.  ``stage_plain`` is the plain twin
+of the staging list: the distinct cold buckets a probe of given keys
+reads.
 
 Admission and eviction follow the reference exactly: each fetch adds one
 to a per-bucket count on the device (``counts``, this maintenance
@@ -63,7 +75,7 @@ from __future__ import annotations
 
 import logging
 import threading
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -97,6 +109,12 @@ G_TIER_FRAC = obs.gauge(
     "(resident rows / n_buckets)")
 
 EWMA_DECAY = 0.8  # the reference's decay of the probe-frequency EWMA
+
+# the bytes of staged cold rows a rank holds on the card: 262,144 cuckoo
+# or 131,072 wide32 rows, so that a dispatch of the metro table's 512 x 64
+# cohort at a 64 MiB budget stages whole in either layout (69,231 or
+# 76,576 distinct cold rows)
+STAGE_BYTES = 128 << 20
 
 
 def parse_shard(spec: str) -> Optional[Tuple[int, int]]:
@@ -158,13 +176,28 @@ class TieredDeviceUBODT:
         return 1 if self.wide else 2
 
 
+class _Stage(NamedTuple):
+    """A rank's staging on the card (``csrc/ubodt.cuh`` ``Stage``): the
+    stage map [n] int64 ((gen << 32) | slot, zeros: unclaimed), the staged
+    rows [cap, lanes], their buckets [cap] and the newest dispatch's
+    counts [claimed, gathered] int64, each (gen << 32) | count."""
+
+    map: torch.Tensor
+    rows: torch.Tensor
+    list: torch.Tensor
+    state: torch.Tensor
+
+
 class _Rank:
     """One gp rank's tier on one device: its bucket range [lo, lo + n) of
     the table, an arena of ``capacity`` rows, the slot map [n] (local arena
     slots, -1 cold) with its host mirror and the unused slots, the
     window's counts [n] and the (hits, misses) totals, all indexed by the
     bucket's offset in the range; the device address of its first page
-    (0 on the CPU); the resident buckets (table ids)."""
+    (0 on the CPU); the resident buckets (table ids); the staging of its
+    probes' cold rows (``stage``, made at the first staged probe, and
+    ``gen``, the newest dispatch's) with ``stage_stats``, the (staged,
+    in-place) cold rows, cumulative."""
 
     def __init__(self, tier: "TieredTable", g: int, dev: torch.device):
         self.g, self.dev = g, dev
@@ -181,6 +214,10 @@ class _Rank:
         self.hot = np.zeros(0, np.int64)
         self.pages_ptr = (tier._pages_dev_ptr + self.lo * tier.lanes * 4
                           if tier._pages_dev_ptr else 0)
+        self.stage_cap = min(self.n, STAGE_BYTES // (tier.lanes * 4))
+        self.stage: Optional[_Stage] = None
+        self.gen = 0
+        self.stage_stats = torch.zeros(2, dtype=torch.int64, device=dev)
 
 
 class TieredTable:
@@ -384,6 +421,88 @@ class TieredTable:
         r = self.rank() if rank is None else rank
         return r.arena, r.slot_map, r.pages_ptr, r.counts, r.totals
 
+    def stage_args(self, rank: Optional[_Rank] = None):
+        """(stage, gen, cap) for one staged probe of ``rank`` (default rank
+        0): its staging, allocated at the first call, and a new dispatch
+        gen.  Call under ``launch_lock`` and launch before releasing it."""
+        r = self.rank() if rank is None else rank
+        if r.stage is None:
+            i32 = dict(dtype=torch.int32, device=r.dev)
+            r.stage = _Stage(torch.zeros(r.n, dtype=torch.int64, device=r.dev),
+                             torch.empty((max(1, r.stage_cap), self.lanes), **i32),
+                             torch.empty(max(1, r.stage_cap), **i32),
+                             torch.zeros(2, dtype=torch.int64, device=r.dev))
+        r.gen += 1
+        if r.gen >= 1 << 32:  # a stamp would repeat: clear the stamps
+            r.stage.map.zero_()
+            r.stage.state.zero_()
+            r.gen = 1
+        return r.stage, r.gen, r.stage_cap
+
+    def stage_bytes(self, rank: Optional[_Rank] = None) -> int:
+        """Device bytes of ``rank``'s staging (0 before its first staged
+        probe), its stats included."""
+        r = self.rank() if rank is None else rank
+        sized = [] if r.stage is None else list(r.stage)
+        return sum(t.numel() * t.element_size() for t in sized + [r.stage_stats])
+
+    def staged_list(self, rank: Optional[_Rank] = None) -> np.ndarray:
+        """The buckets (offsets in ``rank``'s range) the newest staged probe
+        of ``rank`` copied, in slot order (read back from the card)."""
+        r = self.rank() if rank is None else rank
+        if r.stage is None or r.gen == 0:
+            return np.zeros(0, np.int64)
+        stamp = int(r.stage.state[0])
+        claimed = stamp & 0xFFFFFFFF if stamp >> 32 == r.gen else 0
+        return r.stage.list[:min(claimed, r.stage_cap)].cpu().numpy().astype(np.int64)
+
+    def stage_plain(self, src: torch.Tensor, dst: torch.Tensor,
+                    rank: Optional[_Rank] = None) -> torch.Tensor:
+        """Plain twin of the staging list: the distinct cold buckets
+        (offsets in ``rank``'s range, sorted) that kernel 2's probe of the
+        keys (src, dst) reads from ``rank``'s range under its slot map:
+        each key's first-hash row and, on a cuckoo table, its second-hash
+        row except where the first row is in the range and holds the key
+        (the probe skips it).  On the card the staged set is these
+        buckets, the first ``stage_cap`` of them in claim order; the rest
+        are read in place."""
+        from ..ops.hashtable import device_pair_hash, device_pair_hash2
+        from .ubodt import F_DST, F_SRC
+
+        r = self.rank() if rank is None else rank
+        s, d = (t.reshape(-1).to(torch.int64)
+                for t in torch.broadcast_tensors(src, dst))
+        # the set depends on the distinct keys alone
+        keys = torch.unique((s << 32) | (d & 0xFFFFFFFF))
+        s = (keys >> 32).to(torch.int32)
+        d = (((keys & 0xFFFFFFFF) ^ 0x80000000) - 0x80000000).to(torch.int32)
+        bmask = int(self.ubodt.bmask)
+        h1 = device_pair_hash(s, d, bmask) - r.lo
+        in1 = (h1 >= 0) & (h1 < r.n)
+        read = [h1[in1]]
+        if self.ubodt.layout != "wide32":
+            held = torch.zeros_like(in1)
+            idx = torch.nonzero(in1).reshape(-1)
+            for i in range(0, idx.numel(), 1 << 16):
+                j = idx[i:i + (1 << 16)]
+                rows = self.pages_t[(h1[j] + r.lo).cpu()].to(s.device).reshape(
+                    -1, self.lanes // ROW_W, ROW_W)
+                held[j] = ((rows[:, :, F_SRC] == s[j, None])
+                           & (rows[:, :, F_DST] == d[j, None])).any(1)
+            h2 = device_pair_hash2(s, d, bmask) - r.lo
+            read.append(h2[(h2 >= 0) & (h2 < r.n) & ~held])
+        b = torch.unique(torch.cat(read))
+        return b[r.slot_map[b.to(r.dev)].to(b.device) < 0]
+
+    def note_staged(self, n_cold: int, rank: Optional[_Rank] = None) -> None:
+        """Count a plain probe's staging of ``n_cold`` distinct cold rows
+        as the card's staging counts it: the first ``stage_cap`` staged,
+        the rest read in place."""
+        r = self.rank() if rank is None else rank
+        staged = min(int(n_cold), r.stage_cap)
+        r.stage_stats += torch.tensor([staged, int(n_cold) - staged],
+                                      dtype=torch.int64, device=r.dev)
+
     def note_units(self, n: int) -> None:
         """Record ``n`` fetch units launched (the maintenance cadence)."""
         with self.launch_lock:
@@ -520,6 +639,18 @@ class TieredTable:
     def misses(self) -> int:
         """Fetches of cold buckets, read at collect."""
         return self._seen[1]
+
+    def stage_summary(self) -> dict:
+        """The staging of the probes' cold rows, beside ``summary`` (which
+        stays the reference's block): ``staged_rows`` and
+        ``inplace_cold_rows`` (read in place past the capacity) over every
+        rank's probes so far, ``stage_rows_cap`` a rank and the staging's
+        device bytes over the ranks."""
+        tot = [sum(x) for x in zip(*(r.stage_stats.cpu().tolist()
+                                     for r in self._ranks.values()))]
+        return {"staged_rows": tot[0], "inplace_cold_rows": tot[1],
+                "stage_rows_cap": self.rank().stage_cap,
+                "stage_bytes": sum(self.stage_bytes(r) for r in self._ranks.values())}
 
     @property
     def resident_rows(self) -> int:
